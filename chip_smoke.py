@@ -18,10 +18,32 @@ non-zero):
   5. launch counts: the main path ran each kernel the expected number of
      times per frame;
   6. times: ms per frame for both backends and ms per call for each kernel
-     and its twin, from CUDA events after a warmup.
-It ends with a JSON line describing the kernels, the nvidia-smi name and
-power limit, and a last JSON line {"ok": true, "device": {...}}. Without a
-CUDA device it exits with code 1 and prints no result.
+     and its twin, from CUDA events after a warmup;
+  7. batched kernels: at batch 8, on the segmentation images of eight
+     different 1080p frames (other tag ids, other noise seeds) and on random
+     frames that differ, each kernel is bit-exact against its batched twin
+     and against itself run on each frame alone (frames are isolated), and
+     the two-phase CCL of the batch equals the twins' on both;
+  8. batched main path: pipeline.batched_detect_fn (backend "cuda") on the
+     eight frames finds 6/6 ids in each with corners within 1 px of ground
+     truth, equals Detector.detect_with_stats on each frame (FrameStats,
+     valid and ids exact; on valid rows hamming exact, corners within 1e-3
+     px, translation and quaternion within 1e-4),
+     equals backend "torch" on every field, launches 1 / 14 / 14 kernels for
+     the batch, and prints its peak device memory;
+  9. graph: GraphPipeline on a batch of 8 distorted 3840x2160 frames (the
+     reference's calibration scaled 3x, two different scenes), rectified,
+     downscaled 2x and detected at 1080p: 6/6 ids per frame with corners
+     within 1 px of the truth projected with the detection camera, "cuda"
+     equal to "torch", and the separable rectify and the gather giving the
+     same ids with corners within 0.05 px; launches 1 / 14 / 14 for the batch;
+ 10. times: ms per frame of both backends at batch 1 and batch 8, of the
+     graph at batch 8 with the separable rectify and with the gather, and ms
+     per call of each kernel and its twin at batch 8.
+It ends with a JSON line describing the kernels (launches of every path),
+the nvidia-smi name and power limit, and a last JSON line {"ok": true,
+"device": {...}}. Without a CUDA device it exits with code 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -43,6 +65,14 @@ TAG_SIZE = 0.3
 SEEDS = (0, 1, 2)
 CORNER_TOL_PX = 1.0
 SCAN_ROUNDS = 8 + 6           # phase-1 + phase-2 CCL rounds per frame
+BATCH = 8
+# Batched against single-frame detections (phase 8), on valid rows.
+BATCH_TOL = {"corners": 1e-3, "translation": 1e-4, "quaternion": 1e-4}
+# The reference's shipped usb_cam calibration (1280x720), scaled 3x to the
+# 8 MP graph input as bench.py does.
+REF_K = dict(fx=942.53242, fy=946.21221, cx=642.81122, cy=346.71313)
+REF_D = [0.065725, -0.096954, 0.002318, 0.004110, 0.0]
+GRAPH_TOL_PX = 0.05           # separable rectify against the gather
 
 
 def _gpu_info() -> str:
@@ -52,22 +82,30 @@ def _gpu_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _scene(seed: int):
-    """bench.py's noisy 1080p scene: six tags at 2.5 m, in-plane turns."""
+def _scene(seed: int, id_shift: int = 0, cam=None, size=(H, W)):
+    """bench.py's noisy 1080p scene: six tags at 2.5 m, in-plane turns, ids
+    TAG_IDS + id_shift; `cam` and `size` render it for another camera."""
     from isaac_ros_apriltag_tpu_torch import CameraModel, get_family
     from isaac_ros_apriltag_tpu_torch.utils.render import render_tags, upright_pose
 
-    cam = CameraModel.create(fx=900.0 * W / 1920, fy=900.0 * W / 1920,
-                             cx=W / 2, cy=H / 2, width=W, height=H)
+    if cam is None:
+        cam = CameraModel.create(fx=900.0 * W / 1920, fy=900.0 * W / 1920,
+                                 cx=W / 2, cy=H / 2, width=W, height=H)
     fam = get_family("tag36h11")
     tags = []
     for i, (x, y) in enumerate([(-0.8, -0.45), (0.0, -0.45), (0.8, -0.45),
                                 (-0.8, 0.45), (0.0, 0.45), (0.8, 0.45)]):
         t = np.array([x, y, 2.5])
-        tags.append(dict(family=fam, id=TAG_IDS[i], R=upright_pose(t, 0.1 * i), t=t,
-                         tag_size=TAG_SIZE))
-    frame = render_tags(cam.K.numpy(), (H, W), tags, noise=2.0, seed=seed)
+        tags.append(dict(family=fam, id=TAG_IDS[i] + id_shift, R=upright_pose(t, 0.1 * i),
+                         t=t, tag_size=TAG_SIZE))
+    frame = render_tags(cam.K.numpy(), size, tags, noise=2.0, seed=seed)
     return cam, tags, frame
+
+
+def batch_scenes(n: int):
+    """n different frames of the scene: frame b has ids TAG_IDS + b and
+    noise seed b."""
+    return [_scene(b, id_shift=b) for b in range(n)]
 
 
 def _same(a, b) -> bool:
@@ -83,6 +121,41 @@ def _same(a, b) -> bool:
 
 def _max_abs_err(a, b) -> float:
     return float((a.to(float) - b.to(float)).abs().max())
+
+
+def _truth_error(det, tags, K) -> float:
+    """Worst corner error (px) of one frame's detections against the tags'
+    projected corners; raises unless exactly the tags' ids were found, with
+    finite corners and pose."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.utils.render import project_corners
+
+    rows = {r["id"]: r for r in det.to_list()}
+    want = sorted(t["id"] for t in tags)
+    if sorted(rows) != want:
+        raise AssertionError(f"ids {sorted(rows)} != {want}")
+    for name in ("corners", "translation", "quaternion"):
+        if not bool(torch.isfinite(getattr(det, name)[det.valid]).all()):
+            raise AssertionError(f"non-finite {name} on a valid detection")
+    worst = 0.0
+    for tag in tags:
+        gt = project_corners(K, tag["R"], tag["t"], tag["tag_size"])
+        worst = max(worst, float(np.linalg.norm(np.asarray(rows[tag["id"]]["corners"]) - gt,
+                                                axis=-1).max()))
+    if worst > CORNER_TOL_PX:
+        raise AssertionError(f"corner error {worst:.3f} px > {CORNER_TOL_PX} px")
+    return worst
+
+
+def _all_same(a, b, what: str) -> None:
+    """Every field of two (Detections, FrameStats) pairs equal (_same)."""
+    import dataclasses
+
+    for x, y in zip(a, b):
+        for fld in dataclasses.fields(x):
+            if not _same(getattr(x, fld.name), getattr(y, fld.name)):
+                raise AssertionError(f"{what} differ in {type(x).__name__}.{fld.name}")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -119,7 +192,7 @@ def main() -> int:
     from isaac_ros_apriltag_tpu_torch.ops.grayscale import grayscale
     from isaac_ros_apriltag_tpu_torch.ops.resolve import resolve_roots_rank
     from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
-    from isaac_ros_apriltag_tpu_torch.utils.render import project_corners
+    from isaac_ros_apriltag_tpu_torch.pipeline import GraphPipeline, batched_detect_fn
 
     dev = torch.device("cuda")
 
@@ -205,30 +278,10 @@ def main() -> int:
     if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise AssertionError("TF32 is on after the main path ran")
-    worst = 0.0
     K = cam.K.numpy()
-    for (det, stats), (_, tg, _) in zip(results, scenes):
-        rows = {r["id"]: r for r in det.to_list()}
-        if sorted(rows) != sorted(TAG_IDS):
-            raise AssertionError(f"ids {sorted(rows)} != {sorted(TAG_IDS)}")
-        for tag in tg:
-            gt = project_corners(K, tag["R"], tag["t"], TAG_SIZE)
-            err = float(np.linalg.norm(np.asarray(rows[tag["id"]]["corners"]) - gt, axis=-1).max())
-            worst = max(worst, err)
-        for name, v in [("corners", det.corners), ("translation", det.translation),
-                        ("quaternion", det.quaternion)]:
-            if not bool(torch.isfinite(v[det.valid]).all()):
-                raise AssertionError(f"non-finite {name} on a valid detection")
-    if worst > CORNER_TOL_PX:
-        raise AssertionError(f"corner error {worst:.3f} px > {CORNER_TOL_PX} px")
-    for (dc, sc), f in zip(results, frames):
-        dt, st = det_torch.detect_with_stats(f, "mono8")
-        for fld in dataclasses.fields(dc):
-            if not _same(getattr(dc, fld.name), getattr(dt, fld.name)):
-                raise AssertionError(f"backends differ in Detections.{fld.name}")
-        for fld in dataclasses.fields(sc):
-            if not _same(getattr(sc, fld.name), getattr(st, fld.name)):
-                raise AssertionError(f"backends differ in FrameStats.{fld.name}")
+    worst = max(_truth_error(det, tg, K) for (det, _), (_, tg, _) in zip(results, scenes))
+    for res, f in zip(results, frames):
+        _all_same(res, det_torch.detect_with_stats(f, "mono8"), "backends")
     stats0 = {f.name: getattr(results[0][1], f.name).item()
               for f in dataclasses.fields(results[0][1])}
     print(f"[4 main path] {len(frames)} frames {H}x{W}: 6/6 ids each, worst corner error "
@@ -266,6 +319,172 @@ def main() -> int:
           + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f}" for k, (a, b) in kernel_ms.items()),
           flush=True)
 
+    # --- 7. batched kernels, frames isolated --------------------------------
+    bscenes = batch_scenes(BATCH)
+    frames8 = torch.from_numpy(np.stack([f for _, _, f in bscenes])).to(dev)
+    gray8 = grayscale(frames8, "mono8", batched=True)
+    seg8 = _pad_to_tiles(_decimate(gray8, cfg.quad_decimate), ts).contiguous()
+    tri8 = thr_ops.adaptive_threshold(seg8, ts, md)
+    check("threshold", tri8, adaptive_threshold(seg8, ts, md), f"batch {BATCH} threshold")
+    for b in range(BATCH):
+        check("threshold", tri8[b], thr_ops.adaptive_threshold(seg8[b].contiguous(), ts, md),
+              f"batched threshold against frame {b} alone")
+    for tsz in thr_ops.TILE_SIZES:
+        g = rng.uniform(0, 255, (BATCH, rh, rw)).astype(np.float32)
+        g[1] = 100.0 + 0.01 * g[1]        # a flat frame between two noisy ones
+        g = torch.from_numpy(g).to(dev)
+        got = thr_ops.adaptive_threshold(g, tsz, 5)
+        check("threshold", got, adaptive_threshold(g, tsz, 5), f"batched threshold random ts={tsz}")
+        for b in range(BATCH):
+            check("threshold", got[b], thr_ops.adaptive_threshold(g[b].contiguous(), tsz, 5),
+                  f"batched threshold random ts={tsz} against frame {b} alone")
+    rtri8 = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8),
+                                        size=(BATCH, sh, sw), p=[0.3, 0.2, 0.5])).to(dev)
+    rlab8 = torch.from_numpy(np.stack([rng.permutation(sh * sw).astype(np.int32).reshape(sh, sw)
+                                       for _ in range(BATCH)])).to(dev)
+    for name, kern, twin in (("row", ccl_ops.row_scan, ccl_ops.row_scan_plain),
+                             ("col", ccl_ops.col_diag_scan, ccl_ops.col_diag_scan_plain)):
+        got = kern(rtri8, rlab8)
+        check(name, got, twin(rtri8, rlab8), f"batched {name} scan, random frames")
+        for b in range(BATCH):
+            check(name, got[b], kern(rtri8[b].contiguous(), rlab8[b].contiguous()),
+                  f"batched {name} scan against frame {b} alone")
+    outs8 = {}
+    for backend in ("cuda", "torch"):
+        lab1, conv1 = ccl_ops.ccl_scan(tri8, cfg.ccl_scan_rounds, backend=backend)
+        rank_img, table, ovf = resolve_roots_rank(lab1, tri8 != 127, max_components=R_eff,
+                                                  chain_steps=cfg.ccl_contraction_steps)
+        lab2, conv2 = ccl_ops.ccl_scan(tri8, cfg.ccl_phase2_rounds, backend=backend,
+                                       label0=rank_img)
+        outs8[backend] = dict(label1=lab1, converged1=conv1, rank_img=rank_img,
+                              rank_table=table, overflow=ovf, label2=lab2, converged2=conv2)
+    for k, v in outs8["cuda"].items():
+        if not _same(v, outs8["torch"][k]):
+            raise AssertionError(f"batched two-phase CCL: {k} differs between kernels and twins")
+    for b in range(BATCH):
+        lab1, conv1 = ccl_ops.ccl_scan(tri8[b], cfg.ccl_scan_rounds, backend="cuda")
+        if not (_same(lab1, outs8["cuda"]["label1"][b])
+                and _same(conv1, outs8["cuda"]["converged1"][b])):
+            raise AssertionError(f"batched CCL differs from frame {b} alone")
+    torch.cuda.synchronize()
+    print(f"[7 batched kernels] batch {BATCH} of different frames ({bscenes[0][2].shape[0]}x"
+          f"{bscenes[0][2].shape[1]}, segmentation {sh}x{sw}): threshold, row and column "
+          f"scans bit-exact vs their batched twins and vs each frame alone (scene, and random "
+          f"frames that differ, threshold at ts={list(thr_ops.TILE_SIZES)}); two-phase CCL of "
+          f"the batch equal to the twins'; max abs err {errs}", flush=True)
+
+    # --- 8. batched main path -----------------------------------------------
+    cam_dev = cam.to(dev)
+    bfn = {b: batched_detect_fn(dataclasses.replace(cfg, backend=b), cam_dev, "mono8")
+           for b in ("cuda", "torch")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    det8, st8 = bfn["cuda"](frames8)
+    torch.cuda.synchronize()
+    counts8 = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
+               "col": ccl_ops.col_diag_launches}
+    peak8 = torch.cuda.max_memory_allocated()
+    want1 = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
+    if counts8 != want1:
+        raise AssertionError(f"batched launch counts {counts8} != expected {want1}")
+    worst8 = max(_truth_error(det8.frame(b), tg, K) for b, (_, tg, _) in enumerate(bscenes))
+    _all_same(bfn["torch"](frames8), (det8, st8), "batched cuda and torch")
+    gap = {k: 0.0 for k in BATCH_TOL}
+    for b in range(BATCH):
+        d1, s1 = det_cuda.detect_with_stats(frames8[b], "mono8")
+        db, sb = det8.frame(b), st8.frame(b)
+        for fld in dataclasses.fields(s1):
+            if not _same(getattr(sb, fld.name), getattr(s1, fld.name)):
+                raise AssertionError(f"frame {b}: batched FrameStats.{fld.name} differs")
+        # Rows past the valid ones are masked lanes: don't-care.
+        for fld in ("valid", "id"):
+            if not _same(getattr(db, fld), getattr(d1, fld)):
+                raise AssertionError(f"frame {b}: batched Detections.{fld} differs")
+        if not _same(db.hamming[d1.valid], d1.hamming[d1.valid]):
+            raise AssertionError(f"frame {b}: batched Detections.hamming differs")
+        for fld, tol in BATCH_TOL.items():
+            err = _max_abs_err(getattr(db, fld)[d1.valid], getattr(d1, fld)[d1.valid])
+            gap[fld] = max(gap[fld], err)
+            if err > tol:
+                raise AssertionError(f"frame {b}: batched {fld} differs by {err} > {tol}")
+    print(f"[8 batched main path] batch {BATCH} of different {H}x{W} frames: 6/6 ids each "
+          f"(ids shifted by the frame index), worst corner error {worst8:.4f} px (limit "
+          f"{CORNER_TOL_PX}); equal to Detector.detect_with_stats per frame (integer fields "
+          f"exact, valid rows' float gaps {gap}, limits {BATCH_TOL}); cuda == torch on every "
+          f"field; "
+          f"launches {counts8} for the batch; peak device memory {peak8 / 2**30:.3f} GiB",
+          flush=True)
+
+    # --- 9. graph: 8 MP distorted -> rectify -> 2x downscale -> detect -----
+    from isaac_ros_apriltag_tpu_torch import CameraModel
+    from isaac_ros_apriltag_tpu_torch.utils.render import distort_image
+
+    cam8 = CameraModel.create(fx=REF_K["fx"] * 3, fy=REF_K["fy"] * 3, cx=REF_K["cx"] * 3,
+                              cy=REF_K["cy"] * 3, width=3840, height=2160, dist=REF_D)
+    gscenes = [_scene(s, id_shift=s, cam=cam8, size=(2160, 3840)) for s in (0, 1)]
+    distorted = [distort_image(f, cam8) for _, _, f in gscenes]
+    gbatch = torch.from_numpy(np.stack([distorted[b % 2] for b in range(BATCH)])).to(dev)
+    gp = {"cuda": GraphPipeline(cfg, cam8, downscale=2, encoding="mono8", device=dev),
+          "torch": GraphPipeline(dataclasses.replace(cfg, backend="torch"), cam8, downscale=2,
+                                 encoding="mono8", device=dev),
+          "gather": GraphPipeline(cfg, cam8, downscale=2, encoding="mono8", exact_remap=True,
+                                  device=dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    gdet, gst = gp["cuda"].batched(gbatch)
+    torch.cuda.synchronize()
+    counts_g = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
+                "col": ccl_ops.col_diag_launches}
+    peak_g = torch.cuda.max_memory_allocated()
+    if counts_g != want1:
+        raise AssertionError(f"graph launch counts {counts_g} != expected {want1}")
+    K_lo = gp["cuda"].detect_camera.K.cpu().numpy()
+    worst_g = max(_truth_error(gdet.frame(b), gscenes[b % 2][1], K_lo) for b in range(BATCH))
+    _all_same(gp["torch"].batched(gbatch), (gdet, gst), "graph cuda and torch")
+    xdet, _ = gp["gather"].batched(gbatch)
+    if not (_same(xdet.valid, gdet.valid) and _same(xdet.id, gdet.id)):
+        raise AssertionError("graph: separable rectify and gather give other ids")
+    rect_gap = _max_abs_err(xdet.corners[gdet.valid], gdet.corners[gdet.valid])
+    if rect_gap > GRAPH_TOL_PX:
+        raise AssertionError(f"graph: separable and gather corners differ by {rect_gap} px")
+    plan = gp["cuda"]._rectify
+    print(f"[9 graph] batch {BATCH} (2 different scenes) of 2160x3840 plumb_bob frames -> "
+          f"separable rectify (bands {plan.dx_range} x {plan.dy_range}) -> 2x area -> detect at "
+          f"1080x1920: 6/6 ids each, worst corner error {worst_g:.4f} px against the truth "
+          f"projected with the detection camera (limit {CORNER_TOL_PX}); cuda == torch on every "
+          f"field; separable vs gather: same ids, corners within {rect_gap:.4f} px (limit "
+          f"{GRAPH_TOL_PX}); launches {counts_g} for the batch; peak device memory "
+          f"{peak_g / 2**30:.3f} GiB", flush=True)
+
+    # --- 10. times at batch 8 -------------------------------------------------
+    batch_ms = {}
+    for backend in ("cuda", "torch", "torch", "cuda"):
+        batch_ms.setdefault(backend, []).append(_time_ms(lambda: bfn[backend](frames8), 5) / BATCH)
+    graph_ms = {}
+    for rectify in ("cuda", "gather", "gather", "cuda"):
+        graph_ms.setdefault(rectify, []).append(
+            _time_ms(lambda: gp[rectify].batched(gbatch), 3) / BATCH)
+    lab8 = outs8["cuda"]["label1"]
+    pairs8 = {
+        "threshold": (lambda: thr_ops.adaptive_threshold(seg8, ts, md),
+                      lambda: adaptive_threshold(seg8, ts, md)),
+        "row": (lambda: ccl_ops.row_scan(tri8, lab8), lambda: ccl_ops.row_scan_plain(tri8, lab8)),
+        "col": (lambda: ccl_ops.col_diag_scan(tri8, lab8),
+                lambda: ccl_ops.col_diag_scan_plain(tri8, lab8)),
+    }
+    kernel_ms8 = {k: (_time_ms(a, 20), _time_ms(b, 20)) for k, (a, b) in pairs8.items()}
+    mean8 = {b: sum(v) / len(v) for b, v in batch_ms.items()}
+    graph8 = {b: sum(v) / len(v) for b, v in graph_ms.items()}
+    print(f"[10 times] on {gpu}: ms/frame at {H}x{W}, batch 1 cuda {per_frame['cuda']:.3f} "
+          f"torch {per_frame['torch']:.3f}; batch {BATCH} cuda {mean8['cuda']:.3f} torch "
+          f"{mean8['torch']:.3f} (runs {batch_ms}); graph batch {BATCH} separable "
+          f"{graph8['cuda']:.3f} gather {graph8['gather']:.3f} (runs {graph_ms}); ms/call at "
+          f"batch {BATCH} x {sh}x{sw} "
+          + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f}" for k, (a, b) in kernel_ms8.items()),
+          flush=True)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -276,10 +495,14 @@ def main() -> int:
     }
     names = {"threshold": "adaptive_threshold", "row": "ccl_row_scan",
              "col": "ccl_col_diag_scan"}
+    paths = {"frame": counts, f"batch{BATCH}": counts8, f"graph{BATCH}": counts_g}
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
-         "launches": counts[k], "max_abs_err": errs[k], "ms": kernel_ms[k][0],
-         "plain_ms": kernel_ms[k][1]} for k in names]}))
+         "launches": sum(c[k] for c in paths.values()),
+         "launches_by_path": {p: c[k] for p, c in paths.items()},
+         "max_abs_err": errs[k], "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1],
+         f"ms_batch{BATCH}": kernel_ms8[k][0], f"plain_ms_batch{BATCH}": kernel_ms8[k][1]}
+        for k in names]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
-"""Camera model: pinhole intrinsics + plumb_bob distortion coefficients.
+"""Camera model: pinhole intrinsics + plumb_bob distortion + rectify maps.
 
 The port's counterpart of ``isaac_ros_apriltag_tpu/camera/model.py``. K and
 the distortion coefficients are float32 tensors; width and height are plain
-ints. The rectify map and ``scaled`` are not ported yet.
+ints. The rectification map is computed once, in numpy, exactly as the
+reference computes it; the per-frame remap is in ops/remap.py.
 """
 
 from __future__ import annotations
@@ -61,3 +62,55 @@ class CameraModel:
 
     def has_distortion(self) -> bool:
         return bool((self.dist != 0.0).any())
+
+    def distort_normalized(self, xy: torch.Tensor) -> torch.Tensor:
+        """Apply plumb_bob distortion to normalized coords (..., 2)."""
+        k1, k2, p1, p2, k3 = [self.dist[i] for i in range(5)]
+        x, y = xy[..., 0], xy[..., 1]
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        return torch.stack([xd, yd], -1)
+
+    def project(self, pts_cam: torch.Tensor) -> torch.Tensor:
+        """Project camera-frame 3D points (..., 3) to pixels (..., 2)."""
+        xy = pts_cam[..., :2] / pts_cam[..., 2:3]
+        xyd = self.distort_normalized(xy)
+        return torch.stack([self.fx * xyd[..., 0] + self.cx,
+                            self.fy * xyd[..., 1] + self.cy], -1)
+
+    def rectify_map(self, scale: float = 1.0) -> np.ndarray:
+        """Precompute the undistortion remap grid.
+
+        Returns (H', W', 2) float32 of source pixel coords (x, y) for every
+        rectified output pixel, where (H', W') = scale * (height, width).
+        Rectified pixels reuse this camera's K (scaled); forward distortion
+        is applied per output pixel (the initUndistortRectifyMap recipe), in
+        numpy f64, once at setup.
+        """
+        H = int(round(self.height * scale))
+        W = int(round(self.width * scale))
+        K = self.K.detach().cpu().numpy().astype(np.float64)
+        fx, fy = K[0, 0] * scale, K[1, 1] * scale
+        cx, cy = K[0, 2] * scale, K[1, 2] * scale
+        u, v = np.meshgrid(np.arange(W, dtype=np.float64),
+                           np.arange(H, dtype=np.float64))
+        x = (u - cx) / fx
+        y = (v - cy) / fy
+        k1, k2, p1, p2, k3 = self.dist.detach().cpu().numpy().astype(np.float64)
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        src_u = K[0, 0] * xd + K[0, 2]
+        src_v = K[1, 1] * yd + K[1, 2]
+        return np.stack([src_u, src_v], -1).astype(np.float32)
+
+    def scaled(self, scale: float) -> "CameraModel":
+        """Camera for a resized image (intrinsics scaled, distortion kept)."""
+        K = self.K * torch.tensor([[scale], [scale], [1.0]], dtype=torch.float32,
+                                  device=self.K.device)
+        return CameraModel(K=K, dist=self.dist,
+                           width=int(round(self.width * scale)),
+                           height=int(round(self.height * scale)))

@@ -1,8 +1,9 @@
 """Carry the reference package's parameters across to this one.
 
 The detector has no learned weights: its parameters are the camera, the tag
-family and the config. These functions build the port's objects from plain
-values and numpy arrays, so a caller holding the reference package's objects
+family and the config, and the graph pipeline's rectification plan. These
+functions build the port's objects from plain values and numpy arrays, so a
+caller holding the reference package's objects
 (``np.asarray(cam.K)``, ``dataclasses.asdict(cfg)``, a ``TagFamily``'s fields)
 runs both packages on exactly the same parameters. Nothing here imports jax.
 """
@@ -17,6 +18,7 @@ import torch
 from .camera.model import CameraModel
 from .config import DetectorConfig
 from .models.families import TagFamily
+from .ops.remap import SeparableRectify
 
 
 def camera_from_reference(K, dist, width: int, height: int) -> CameraModel:
@@ -47,3 +49,12 @@ def config_from_reference(fields: dict, backend: str = "cuda") -> DetectorConfig
     if unknown:
         raise ValueError(f"fields unknown to this package's DetectorConfig: {sorted(unknown)}")
     return DetectorConfig(**{**fields, "backend": backend})
+
+
+def rectify_from_reference(sx2, sy2, dx_range, dy_range) -> SeparableRectify:
+    """A reference SeparableRectify plan's arrays and band ranges ->
+    SeparableRectify, so both packages resample with the same plan."""
+    return SeparableRectify(sx2=torch.from_numpy(np.array(sx2, np.float32)),
+                            sy2=torch.from_numpy(np.array(sy2, np.float32)),
+                            dx_range=tuple(int(d) for d in dx_range),
+                            dy_range=tuple(int(d) for d in dy_range))

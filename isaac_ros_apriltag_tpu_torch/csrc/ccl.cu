@@ -6,16 +6,22 @@
 // bit-exact with the plain versions in
 // isaac_ros_apriltag_tpu_torch/ops/cuda/ccl.py.
 //
-// Semantics (tri is the u8 trinary image {0, 127, 255}, labels are int32):
+// Semantics (tri is a batch of u8 trinary images {0, 127, 255}, (B, H, W),
+// labels are int32 of the same shape; frames never touch):
 //   K2: a forward then a backward segmented min-scan along each row. A
 //       segment breaks where tri changes or tri == 127, so every maximal run
 //       of equal non-127 values ends up holding the run's minimum label and
 //       127 pixels keep their own.
 //   K3: a white-only diagonal hop (a 255 pixel takes the min of its own
 //       label and the labels of its diagonal neighbours that are also 255,
-//       all read from the INPUT labels; out-of-image neighbours never
+//       all read from the INPUT labels; neighbours outside the frame never
 //       connect), then the same forward/backward segmented min-scan down each
 //       column. Input and output are separate buffers.
+//
+// Batching: a row never crosses a frame, so K2 runs a (B, H, W) batch as B*H
+// independent rows. K3's grid is (W, B): block (x, b) owns column x of frame
+// b, offset by b*H*W, and the hop's row bounds are that frame's, so row 0 of
+// frame b never reads the last row of frame b - 1.
 //
 // What bounds them on an H100: latency and the number of dependent steps,
 // not bytes. At 540x960 a round moves ~4 MB (labels in and out of each kernel
@@ -110,6 +116,10 @@ __global__ void col_diag_kernel(const uint8_t* __restrict__ tri,
     uint8_t *fa, *fb, *t;
     carve(smem, H, la, lb, fa, fb, t);
     const int x = blockIdx.x;
+    const size_t frame = (size_t)blockIdx.y * H * W;
+    tri += frame;
+    lab_in += frame;
+    lab_out += frame;
     // Load the column, doing the diagonal hop on the way in: every pixel
     // reads its neighbours from lab_in, so all four are pre-hop values.
     for (int y = threadIdx.x; y < H; y += blockDim.x) {
@@ -146,15 +156,15 @@ int line_threads(int n) {
 }  // namespace
 
 extern "C" int apriltag_ccl_row(const void* tri, const void* lab_in, void* lab_out,
-                                int H, int W, void* stream) {
-    row_scan_kernel<<<H, line_threads(W), line_smem(W), (cudaStream_t)stream>>>(
+                                int B, int H, int W, void* stream) {
+    row_scan_kernel<<<B * H, line_threads(W), line_smem(W), (cudaStream_t)stream>>>(
         (const uint8_t*)tri, (const int32_t*)lab_in, (int32_t*)lab_out, W);
     return (int)cudaGetLastError();
 }
 
 extern "C" int apriltag_ccl_col_diag(const void* tri, const void* lab_in, void* lab_out,
-                                     int H, int W, void* stream) {
-    col_diag_kernel<<<W, line_threads(H), line_smem(H), (cudaStream_t)stream>>>(
+                                     int B, int H, int W, void* stream) {
+    col_diag_kernel<<<dim3(W, B), line_threads(H), line_smem(H), (cudaStream_t)stream>>>(
         (const uint8_t*)tri, (const int32_t*)lab_in, (int32_t*)lab_out, H, W);
     return (int)cudaGetLastError();
 }

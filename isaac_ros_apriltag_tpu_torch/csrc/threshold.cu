@@ -1,4 +1,5 @@
-// Adaptive threshold: (H, W) f32 grayscale -> (H, W) u8 trinary {0, 127, 255}.
+// Adaptive threshold: (B, H, W) f32 grayscale -> (B, H, W) u8 trinary
+// {0, 127, 255}, each frame on its own.
 //
 // Replaces: isaac_ros_apriltag_tpu/ops/pallas/threshold.py, `_kernel`
 // (entry point `adaptive_threshold_pallas`). Bit-exact with the plain
@@ -12,7 +13,10 @@
 // segmentation image one call reads ~2 MB of f32 and writes ~0.5 MB of u8;
 // the arithmetic is a handful of compares per pixel.
 //
-// Design: one launch. A block owns an 8x8-tile output region. Its threads
+// Design: one launch for the whole batch; blockIdx.z is the frame, whose
+// base pointer is b*H*W, and the halo's tile indices clamp to that frame's
+// edges, so no frame reads another's pixels. A block owns an 8x8-tile output
+// region of its frame. Its threads
 // first reduce the 10x10 tiles of that region plus a one-tile halo into
 // shared memory (the halo tiles are recomputed by the neighbouring blocks;
 // ~1.6x re-read of the input, served mostly from L2), then each thread
@@ -38,6 +42,9 @@ __global__ void threshold_kernel(const float* __restrict__ gray,
     __shared__ float smax[kHalo][kHalo];
     const int Ht = H / ts, Wt = W / ts;
     const int ty0 = blockIdx.y * kTiles, tx0 = blockIdx.x * kTiles;
+    const size_t frame = (size_t)blockIdx.z * H * W;
+    gray += frame;
+    out += frame;
 
     for (int k = threadIdx.x; k < kHalo * kHalo; k += blockDim.x) {
         const int ly = k / kHalo, lx = k % kHalo;
@@ -80,9 +87,9 @@ __global__ void threshold_kernel(const float* __restrict__ gray,
 
 }  // namespace
 
-extern "C" int apriltag_threshold(const void* gray, void* out, int H, int W,
+extern "C" int apriltag_threshold(const void* gray, void* out, int B, int H, int W,
                                   int ts, int min_diff, void* stream) {
-    const dim3 grid((W / ts + kTiles - 1) / kTiles, (H / ts + kTiles - 1) / kTiles);
+    const dim3 grid((W / ts + kTiles - 1) / kTiles, (H / ts + kTiles - 1) / kTiles, B);
     threshold_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
         (const float*)gray, (uint8_t*)out, H, W, ts, min_diff);
     return (int)cudaGetLastError();

@@ -27,9 +27,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # (name, number of pointer args, number of int args); every entry point ends
 # with the stream pointer and returns cudaGetLastError().
-_ENTRY_POINTS = (("apriltag_threshold", 2, 4),
-                 ("apriltag_ccl_row", 3, 2),
-                 ("apriltag_ccl_col_diag", 3, 2))
+# Each takes the batch B first among its ints.
+_ENTRY_POINTS = (("apriltag_threshold", 2, 5),
+                 ("apriltag_ccl_row", 3, 3),
+                 ("apriltag_ccl_col_diag", 3, 3))
+
+MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame
 
 build_seconds: float | None = None   # wall time of the last build (None = loaded from cache)
 

@@ -6,6 +6,9 @@ reference rings, per-quad linear gray models (a + b*u + c*v) for a spatially
 varying threshold, optional sharpening, and a codebook match under all four
 rotations. Codes stay below 2^52, so the reference's pair of uint32 halves
 becomes one int64 word, and popcount is a SWAR bit count on int64.
+
+Decodes one frame's quads, (C, 4, 2) against an (H, W) image, or a batch,
+(B, C, 4, 2) against (B, H, W), each quad sampling its own frame.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ _SQUARE = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]], np.floa
 
 
 class DecodeResult(NamedTuple):
-    valid: torch.Tensor      # (C,) bool — codeword matched within max_hamming
+    valid: torch.Tensor      # ([B,] C) bool — codeword matched within max_hamming
     id: torch.Tensor         # (C,) int32
     hamming: torch.Tensor    # (C,) int32
     margin: torch.Tensor     # (C,) float32
@@ -79,9 +82,10 @@ def _popcount64(x: torch.Tensor) -> torch.Tensor:
 def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *,
                  max_hamming: int = 2, decode_sharpening: float = 0.25,
                  ) -> DecodeResult:
-    """gray: (H, W) float32; corners: (C, 4, 2) cyclic quad corners."""
+    """gray: (H, W) float32 and corners: (C, 4, 2) cyclic quad corners, or
+    a batch of each, (B, H, W) and (B, C, 4, 2)."""
     dev = corners.device
-    C = corners.shape[0]
+    lead = corners.shape[:-2]
     wb = family.width_at_border
     nbits = family.nbits
 
@@ -93,17 +97,17 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *
     uv_border = t(_cell_uv(_ring_cells(0, wb - 1), wb))
     uv_outer = t(_cell_uv(_ring_cells(-1, wb), wb))
 
-    H = homography_from_correspondences(t(_SQUARE).expand(C, 4, 2), corners)
+    H = homography_from_correspondences(t(_SQUARE).expand(*lead, 4, 2), corners)
 
     def sample(uv):
-        return _bilinear(gray, apply_homography(H, uv.expand((C,) + uv.shape)))
+        return _bilinear(gray, apply_homography(H, uv.expand(lead + uv.shape)))
 
     v_border = sample(uv_border)
     v_outer = sample(uv_outer)
     v_bits = sample(uv_bits)
 
-    model_in = _fit_gray_model(uv_border.expand((C,) + uv_border.shape), v_border)
-    model_out = _fit_gray_model(uv_outer.expand((C,) + uv_outer.shape), v_outer)
+    model_in = _fit_gray_model(uv_border.expand(lead + uv_border.shape), v_border)
+    model_out = _fit_gray_model(uv_outer.expand(lead + uv_outer.shape), v_outer)
     thresh = 0.5 * (_eval_gray_model(model_in, uv_bits)
                     + _eval_gray_model(model_out, uv_bits))
 
@@ -112,14 +116,14 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *
         off = (tw - wb) // 2
         lin = t((family.bit_y + off).astype(np.int64) * tw
                 + (family.bit_x + off).astype(np.int64))
-        grid = torch.zeros((C, tw * tw), dtype=v_bits.dtype, device=dev)
-        grid[:, lin] = v_bits
-        grid = grid.reshape(C, tw, tw)
+        grid = torch.zeros((*lead, tw * tw), dtype=v_bits.dtype, device=dev)
+        grid[..., lin] = v_bits
+        grid = grid.reshape(*lead, tw, tw)
         lap = (4.0 * grid
-               - torch.roll(grid, 1, 1) - torch.roll(grid, -1, 1)
-               - torch.roll(grid, 1, 2) - torch.roll(grid, -1, 2))
+               - torch.roll(grid, 1, -2) - torch.roll(grid, -1, -2)
+               - torch.roll(grid, 1, -1) - torch.roll(grid, -1, -1))
         grid = grid + decode_sharpening * lap
-        v_bits = grid.reshape(C, tw * tw)[:, lin]
+        v_bits = grid.reshape(*lead, tw * tw)[..., lin]
 
     deviation = v_bits - thresh
     bits = deviation > 0
@@ -136,21 +140,21 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *
 
     # --- codebook match under 4 rotations ---------------------------------
     perms = t(family.rotation_perm.astype(np.int64))          # (4, nbits)
-    rbits = bits[:, perms].to(torch.int64)                     # (C, 4, nbits)
+    rbits = bits[..., perms].to(torch.int64)                   # (..., 4, nbits)
     weights = t(np.left_shift(np.int64(1), nbits - 1 - np.arange(nbits, dtype=np.int64)))
-    code = (rbits * weights).sum(-1)                           # (C, 4)
+    code = (rbits * weights).sum(-1)                           # (..., 4)
     table = t(family.codes.astype(np.int64))                   # (ncodes,)
-    ham = _popcount64(code[..., None] ^ table)                 # (C, 4, ncodes)
+    ham = _popcount64(code[..., None] ^ table)                 # (..., 4, ncodes)
     ham_min = ham.amin(-1)
     id_min = torch.argmin(ham, -1)       # first minimum, as jnp.argmin
     best_r = torch.argmin(ham_min, -1)
-    best_h = torch.gather(ham_min, 1, best_r[:, None])[:, 0].to(torch.int32)
-    best_id = torch.gather(id_min, 1, best_r[:, None])[:, 0].to(torch.int32)
+    best_h = torch.gather(ham_min, -1, best_r[..., None])[..., 0].to(torch.int32)
+    best_id = torch.gather(id_min, -1, best_r[..., None])[..., 0].to(torch.int32)
     valid = best_h <= max_hamming
 
     # --- rotation-corrected corner order ----------------------------------
     roll = torch.remainder(2 - best_r, 4)
-    idx = torch.remainder(torch.arange(4, device=dev)[None, :] + roll[:, None], 4)
-    corr = torch.gather(corners, 1, idx[..., None].expand(C, 4, 2))
+    idx = torch.remainder(torch.arange(4, device=dev) + roll[..., None], 4)
+    corr = torch.gather(corners, -2, idx[..., None].expand(*lead, 4, 2))
     return DecodeResult(valid=valid, id=best_id, hamming=best_h, margin=margin,
                         rotation=best_r.to(torch.int32), corners=corr)

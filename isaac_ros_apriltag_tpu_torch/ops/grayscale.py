@@ -16,12 +16,14 @@ ENCODINGS = ("rgb8", "bgr8", "rgba8", "bgra8", "mono8")
 _BT601 = (0.299, 0.587, 0.114)
 
 
-def grayscale(image: torch.Tensor, encoding: str = "rgb8") -> torch.Tensor:
-    """(H, W, C) or (H, W) uint8 -> (H, W) float32 grayscale in [0, 255]."""
+def grayscale(image: torch.Tensor, encoding: str = "rgb8", *,
+              batched: bool = False) -> torch.Tensor:
+    """(H, W, C) or (H, W) uint8 -> (H, W) float32 grayscale in [0, 255];
+    with `batched`, (B, H, W, C) or (B, H, W) -> (B, H, W)."""
     if encoding not in ENCODINGS:
         raise ValueError(f"Unsupported image encoding {encoding!r}; expected {ENCODINGS}")
     if encoding == "mono8":
-        if image.ndim == 3:
+        if image.ndim == 3 + batched:
             image = image[..., 0]
         return image.to(torch.float32)
     r, g, b = _BT601

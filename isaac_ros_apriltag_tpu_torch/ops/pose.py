@@ -18,18 +18,18 @@ from ..utils.render import TAG_CORNERS
 
 
 class Poses(NamedTuple):
-    rotation: torch.Tensor      # (C, 3, 3) R_camera_tag
+    rotation: torch.Tensor      # (..., C, 3, 3) R_camera_tag
     translation: torch.Tensor   # (C, 3) meters
     quaternion: torch.Tensor    # (C, 4) (w, x, y, z)
 
 
 def estimate_poses(corners: torch.Tensor, K: torch.Tensor, tag_size: float) -> Poses:
-    """corners: (C, 4, 2) rotation-corrected detection corners (pixels)."""
-    C = corners.shape[0]
+    """corners: (..., C, 4, 2) rotation-corrected detection corners
+    (pixels); one K for all of them."""
     obj = torch.as_tensor(TAG_CORNERS, device=corners.device) * (tag_size * 0.5)
-    H = homography_from_correspondences(obj.expand(C, 4, 2), corners)
+    H = homography_from_correspondences(obj.expand(corners.shape), corners)
     Kinv = inverse3x3(K.to(torch.float32))
-    M = torch.einsum("ij,cjk->cik", Kinv, H)
+    M = torch.einsum("ij,...jk->...ik", Kinv, H)
     m1, m2, m3 = M[..., 0], M[..., 1], M[..., 2]
     n1 = torch.linalg.vector_norm(m1, dim=-1)
     n2 = torch.linalg.vector_norm(m2, dim=-1)

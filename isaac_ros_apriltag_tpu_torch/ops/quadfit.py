@@ -5,6 +5,8 @@ sums over K=64 angular bins, a +-2-bin line-fit error per bin, the top-10
 circular local maxima as corner candidates, an exhaustive search over the
 C(10,4) cyclic 4-subsets, re-fit lines -> corners, and geometric gates.
 ``lax.top_k`` (ties to the lower index) becomes a stable descending sort.
+Every step works per cluster, so a batch of frames' clusters, (B, C, ...),
+is fitted as one (B*C, ...) set of clusters.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ _COMBOS = np.array(list(itertools.combinations(range(_MAXIMA), 4)), np.int64)
 
 
 class Quads(NamedTuple):
-    corners: torch.Tensor    # (C, 4, 2) float32 — pixel coords, cyclic order
+    corners: torch.Tensor    # ([B,] C, 4, 2) float32 — pixel coords, cyclic order
     valid: torch.Tensor      # (C,) bool
     dark_inside: torch.Tensor  # (C,) bool
     fit_err: torch.Tensor    # (C,) float32 — total arc MSE of winning combo
@@ -83,16 +85,19 @@ def _line_dir(cxx, cxy, cyy):
 def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
                            critical_cos: float = 0.985,
                            min_area: float = 64.0) -> Quads:
-    """Consumes ops.cluster_moments.ClusterMoments."""
-    B = [m.bw, m.bx, m.by, m.bxx, m.bxy, m.byy]
-    centroid, n, cluster_valid = m.centroid, m.count, m.valid
-    C, K = B[0].shape
+    """Consumes ops.cluster_moments.ClusterMoments, of one frame (C, ...)
+    or of a batch (B, C, ...); the quads have the same leading dims."""
+    lead, K = m.bw.shape[:-1], m.bw.shape[-1]
     if K != _NBINS:
         raise ValueError(f"expected {_NBINS} bins, got {K}")
+    B = [b.reshape(-1, K) for b in (m.bw, m.bx, m.by, m.bxx, m.bxy, m.byy)]
+    centroid = m.centroid.reshape(-1, 2)
+    n, cluster_valid = m.count.reshape(-1), m.valid.reshape(-1)
+    C = centroid.shape[0]
     dev = centroid.device
     cx = centroid[:, 0:1]
     cy = centroid[:, 1:2]
-    scale = torch.clamp(m.scale[:, None], min=1e-6)           # (C, 1)
+    scale = torch.clamp(m.scale.reshape(C, 1), min=1e-6)     # (C, 1)
     zero = torch.zeros((C, 1), dtype=torch.float32, device=dev)
     S = [torch.cat([zero, torch.cumsum(b, -1)], -1) for b in B]
     Sw, Sx, Sy, Sxx, Sxy, Syy = S
@@ -163,5 +168,6 @@ def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
     # Normalize winding: positive signed area (y-down CCW); reverse 1<->3.
     flip = corners[:, [0, 3, 2, 1]]
     corners = torch.where((area2 < 0)[:, None, None], flip, corners)
-    return Quads(corners=corners, valid=valid, dark_inside=m.dark_inside,
-                 fit_err=best_err * scale2, gates=gates)
+    return Quads(corners=corners.reshape(*lead, 4, 2), valid=valid.reshape(lead),
+                 dark_inside=m.dark_inside, fit_err=(best_err * scale2).reshape(lead),
+                 gates=gates.reshape(*lead, -1))

@@ -1,7 +1,9 @@
 """Result containers: fixed-capacity detection tensors.
 
 Same fields and conventions as ``isaac_ros_apriltag_tpu/types.py``: every
-tensor has a leading dim of max_tags and ``valid`` masks the real rows.
+tensor has a leading dim of max_tags and ``valid`` masks the real rows. A
+batch of frames puts a batch dim B in front of every field, as ``jax.vmap``
+does in the reference; ``frame(b)`` takes frame b out of it.
 Corner k corresponds to tag-frame point ((-,-), (+,-), (+,+), (-,+)) *
 tag_size/2; pose is T_camera_tag with quaternion (w, x, y, z).
 """
@@ -30,7 +32,12 @@ class Detections:
 
     @property
     def count(self) -> torch.Tensor:
-        return self.valid.to(torch.int32).sum()
+        """Valid detections: 0-dim for one frame, (B,) for a batch."""
+        return self.valid.to(torch.int32).sum(-1)
+
+    def frame(self, b: int) -> "Detections":
+        """Frame b of a batch (the counterpart of tree.map(lambda x: x[b]))."""
+        return _frame(self, b)
 
     @staticmethod
     def empty(max_tags: int, device: torch.device | str = "cpu") -> "Detections":
@@ -70,7 +77,7 @@ class Detections:
 
 @dataclasses.dataclass(frozen=True)
 class FrameStats:
-    """Per-frame pipeline statistics (0-dim tensors)."""
+    """Per-frame pipeline statistics (0-dim tensors; (B,) for a batch)."""
 
     num_edge_points: torch.Tensor   # int32 — boundary points before capacity cap
     num_clusters: torch.Tensor      # int32 — candidate clusters before cap
@@ -79,3 +86,12 @@ class FrameStats:
     edge_stride: torch.Tensor       # int32 — boundary decimation applied (1 = none)
     ccl_converged: torch.Tensor     # bool — the last CCL round changed nothing
     overflow: torch.Tensor          # bool — a capacity was exceeded
+
+    def frame(self, b: int) -> "FrameStats":
+        """Frame b of a batch."""
+        return _frame(self, b)
+
+
+def _frame(obj, b: int):
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name)[b]
+                                       for f in dataclasses.fields(obj)})

@@ -1,7 +1,7 @@
 """Synthetic tag-scene renderer (numpy; tests, smoke runs and benchmarks).
 
 A copy of ``isaac_ros_apriltag_tpu/utils/render.py`` that takes this
-package's ``TagFamily``, so scenes can be rendered where jax is absent. Given
+package's ``TagFamily`` and ``CameraModel``, so scenes can be rendered where jax is absent. Given
 the same arguments it produces the same uint8 image. The only randomness is
 the sensor noise, drawn from ``numpy.random.default_rng(seed)``.
 
@@ -120,3 +120,38 @@ def upright_pose(t: np.ndarray, inplane: float = 0.0) -> np.ndarray:
     """R_camera_tag for an upright fronto-parallel tag, optionally rotated
     in-plane by `inplane` radians. inplane=0 gives diag(-1,-1,1)."""
     return rotz(np.pi + inplane)
+
+
+def distort_image(ideal: np.ndarray, camera) -> np.ndarray:
+    """Synthesize the DISTORTED sensor image from an ideal pinhole render.
+
+    Distorted pixel (ud, vd) images the ray the ideal camera sees at
+    K @ undistort(K^-1 (ud, vd)); undistort inverts the plumb_bob forward
+    model by fixed-point iteration (coefficients are small). The inverse of
+    camera.rectify_map()'s forward model; `camera` is this package's
+    CameraModel.
+    """
+    K = camera.K.detach().cpu().numpy().astype(np.float64)
+    k1, k2, p1, p2, k3 = camera.dist.detach().cpu().numpy().astype(np.float64)
+    H, W = ideal.shape
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64),
+                       np.arange(H, dtype=np.float64))
+    xd = (u - K[0, 2]) / K[0, 0]
+    yd = (v - K[1, 2]) / K[1, 1]
+    x, y = xd.copy(), yd.copy()
+    for _ in range(12):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    su = np.clip(K[0, 0] * x + K[0, 2], 0, W - 1.001)
+    sv = np.clip(K[1, 1] * y + K[1, 2], 0, H - 1.001)
+    u0 = np.floor(su).astype(np.int64)
+    v0 = np.floor(sv).astype(np.int64)
+    fu, fv = su - u0, sv - v0
+    im = ideal.astype(np.float64)
+    out = (im[v0, u0] * (1 - fu) * (1 - fv) + im[v0, u0 + 1] * fu * (1 - fv)
+           + im[v0 + 1, u0] * (1 - fu) * fv + im[v0 + 1, u0 + 1] * fu * fv)
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -14,7 +14,7 @@ import torch
 
 import isaac_ros_apriltag_tpu as J
 from isaac_ros_apriltag_tpu.utils.render import project_corners, render_tags, upright_pose
-from isaac_ros_apriltag_tpu_torch import Detections, Detector, DetectorConfig
+from isaac_ros_apriltag_tpu_torch import Detections, Detector, DetectorConfig, batched_detect_fn
 from isaac_ros_apriltag_tpu_torch.convert import camera_from_reference, config_from_reference
 
 TAG_SIZE = 0.16
@@ -100,6 +100,41 @@ def test_detections_match_ground_truth(results, cams, scene):
     for tag in tags:
         gt = project_corners(np.asarray(cam_j.K), tag["R"], tag["t"], TAG_SIZE)
         assert np.linalg.norm(np.asarray(rows[tag["id"]]["corners"]) - gt, axis=-1).max() < 0.7
+
+
+def test_batched_detect_matches_reference_and_frames(cams, detectors, results):
+    """The three scenes as one batch of 3 (batched_detect_fn): each frame
+    against the reference's result on that frame (the gates above) and
+    against the port's own single-frame result (FrameStats, valid and ids
+    exact; on valid rows hamming exact, corners within 1e-3 px, translation
+    and quaternion within 1e-4)."""
+    cam_j, _ = cams
+    _, det_t = detectors
+    imgs = np.stack([render_tags(np.asarray(cam_j.K), (480, 640), make(), noise=noise)
+                     for make, noise in SCENES.values()])
+    det, stats = batched_detect_fn(det_t.config, det_t.camera, "mono8")(torch.from_numpy(imgs))
+    assert det.valid.shape == (3, det_t.config.max_tags) and stats.num_detections.shape == (3,)
+    for b, scene in enumerate(SCENES):
+        tags, (dj, sj), (dt, st) = results[scene]
+        db, sb = det.frame(b), stats.frame(b)
+        rj = {r["id"]: r for r in dj.to_list()}
+        rb = {r["id"]: r for r in db.to_list()}
+        assert sorted(rb) == sorted(rj) == sorted(t["id"] for t in tags)
+        for i in rj:
+            np.testing.assert_allclose(rb[i]["corners"], rj[i]["corners"], atol=0.1)
+            np.testing.assert_allclose(rb[i]["translation"], rj[i]["translation"], atol=0.01)
+            np.testing.assert_allclose(rb[i]["quaternion"], rj[i]["quaternion"], atol=0.01)
+        for f in EXACT_STATS:
+            assert int(getattr(sj, f)) == int(getattr(sb, f)), f
+        for f in dataclasses.fields(st):
+            assert torch.equal(getattr(sb, f.name), getattr(st, f.name)), f.name
+        v = dt.valid
+        assert torch.equal(db.valid, v) and torch.equal(db.id, dt.id)
+        assert torch.equal(db.hamming[v], dt.hamming[v])
+        for f, tol in (("corners", 1e-3), ("translation", 1e-4), ("quaternion", 1e-4)):
+            np.testing.assert_allclose(getattr(db, f)[v].numpy(), getattr(dt, f)[v].numpy(),
+                                       atol=tol, err_msg=f)
+    assert det.count.tolist() == [len(make()) for make, _ in SCENES.values()]
 
 
 def test_empty_scene(detectors):

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of one frame goes, for the PyTorch + CUDA detector on one
-NVIDIA GPU, on chip_smoke.py's 1080x1920 six-tag scene (seed 0).
+"""Where the time of a batch of frames goes, for the PyTorch + CUDA detector
+on one NVIDIA GPU, on chip_smoke.py's 1080x1920 six-tag scene (frame b: ids
+shifted by b, noise seed b).
 
-    python3 torch_stage_profile.py [--frames 10] [--out stage_profile.json]
+    python3 torch_stage_profile.py [--batch 1] [--frames 10] [--out stage_profile.json]
 
-Two measurements, each for backend "cuda" (the hand-written kernels) and
-"torch" (their plain twins):
+Two measurements of pipeline.batched_detect_fn on a batch of --batch
+frames, each for backend "cuda" (the hand-written kernels) and "torch"
+(their plain twins):
   1. stages: CUDA events between the detector's stages, called one by one in
-     the order build_detect_fn calls them, mean ms over --frames frames after
-     a warmup (the host synchronises after each frame, not between stages);
-  2. device: torch.profiler over 5 frames of Detector.detect_with_stats:
-     device busy ms per frame (sum of kernel durations; one stream), wall ms
-     per frame with and without the profiler, the idle share against both
-     walls, kernels per frame, and the 15 kernels with the most device time.
-Prints one JSON object; --out also writes it to a file.
+     the order build_batched_detect_fn calls them, mean ms per batch over
+     --frames batches after a warmup (the host synchronises after each
+     batch, not between stages);
+  2. device: torch.profiler over 5 batches: device busy ms per batch (sum of
+     kernel durations; one stream), wall ms per batch with and without the
+     profiler, the idle share against both walls, kernels per batch, and the
+     15 kernels with the most device time.
+Every figure is per batch; divide by the batch for per frame. Prints one
+JSON object; --out also writes it to a file.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ STAGES = ("grayscale + decimate", "threshold", "ccl phase 1", "contraction",
           "ccl phase 2", "resolve_components", "cluster_moments", "quadfit .. pose")
 
 
-def _stage_ms(cfg, cam, image, frames: int) -> dict:
+def _stage_ms(cfg, cam, images, frames: int) -> dict:
     import numpy as np
     import torch
 
@@ -47,15 +51,15 @@ def _stage_ms(cfg, cam, image, frames: int) -> dict:
     family = get_family(cfg.tag_family)
     threshold = thr_kernel.adaptive_threshold if cfg.backend == "cuda" else adaptive_threshold
 
-    def frame(ev):
+    def batch(ev):
         ev[0].record()
-        gray = grayscale(image, "mono8").contiguous()
+        gray = grayscale(images, "mono8", batched=True).contiguous()
         seg = D._pad_to_tiles(D._decimate(gray, cfg.quad_decimate), cfg.tile_size).contiguous()
         ev[1].record()
         tri = threshold(seg, cfg.tile_size, cfg.min_white_black_diff)
         valid = tri != 127
         ev[2].record()
-        E, R = cfg.effective_capacities(*tri.shape)
+        E, R = cfg.effective_capacities(*tri.shape[-2:])
         lab, _ = ccl_ops.ccl_scan(tri, cfg.ccl_scan_rounds, backend=cfg.backend)
         ev[3].record()
         rank_img, table, ovf = resolve_roots_rank(lab, valid, max_components=R,
@@ -80,35 +84,35 @@ def _stage_ms(cfg, cam, image, frames: int) -> dict:
         return [torch.cuda.Event(enable_timing=True) for _ in range(len(STAGES) + 1)]
 
     for _ in range(3):
-        frame(events())
+        batch(events())
     torch.cuda.synchronize()
     acc = np.zeros(len(STAGES))
     for _ in range(frames):
         ev = events()
-        frame(ev)
+        batch(ev)
         torch.cuda.synchronize()
         acc += [ev[i].elapsed_time(ev[i + 1]) for i in range(len(STAGES))]
     ms = acc / frames
     return dict(zip(STAGES, ms.tolist()), sum=float(ms.sum()))
 
 
-def _device_ms(det, image, frames: int) -> dict:
+def _device_ms(detect, images, frames: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        det.detect_with_stats(image, "mono8")
+        detect(images)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(frames):
-        det.detect_with_stats(image, "mono8")
+        detect(images)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / frames * 1e3
     n = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            det.detect_with_stats(image, "mono8")
+            detect(images)
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t0) / n * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -121,15 +125,16 @@ def _device_ms(det, image, frames: int) -> dict:
     top = sorted(([k, v[0], v[1] // n] for k, v in by_name.items()), key=lambda r: -r[1])[:15]
     return dict(wall_ms=wall, wall_ms_profiled=wall_prof, device_busy_ms=busy,
                 idle_share=1 - busy / wall, idle_share_profiled=1 - busy / wall_prof,
-                kernels_per_frame=len(kernels) // n,
-                top_kernels_ms_per_frame_and_calls=top)
+                kernels=len(kernels) // n,
+                top_kernels_ms_and_calls=top)
 
 
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=1, help="frames per batch")
+    ap.add_argument("--frames", type=int, default=10, help="timed batches")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -138,19 +143,23 @@ def main() -> int:
 
     import dataclasses
 
-    from chip_smoke import TAG_SIZE, _gpu_info, _scene
-    from isaac_ros_apriltag_tpu_torch import Detector, DetectorConfig
+    import numpy as np
 
-    cam, _, frame = _scene(0)
-    cam = cam.to("cuda")
-    image = torch.from_numpy(frame).cuda()
-    out = {"gpu": _gpu_info(), "stages_ms": {}, "device": {}}
+    from chip_smoke import TAG_SIZE, _gpu_info, batch_scenes
+    from isaac_ros_apriltag_tpu_torch import DetectorConfig, batched_detect_fn
+    from isaac_ros_apriltag_tpu_torch.detector import device_for
+
+    scenes = batch_scenes(args.batch)
+    cam = scenes[0][0].to("cuda")
+    images = torch.from_numpy(np.stack([f for _, _, f in scenes])).cuda()
+    out = {"gpu": _gpu_info(), "batch": args.batch, "stages_ms": {}, "device": {}}
     for backend in ("cuda", "torch", "torch", "cuda"):
         cfg = dataclasses.replace(DetectorConfig(tag_size=TAG_SIZE), backend=backend)
-        det = Detector(cfg, cam, device="cuda")     # also turns TF32 off
+        device_for(cfg, "cuda")          # builds the kernels and turns TF32 off
         out["stages_ms"].setdefault(backend, []).append(
-            _stage_ms(cfg, det.camera, image, args.frames))
-        out["device"].setdefault(backend, []).append(_device_ms(det, image, args.frames))
+            _stage_ms(cfg, cam, images, args.frames))
+        out["device"].setdefault(backend, []).append(
+            _device_ms(batched_detect_fn(cfg, cam, "mono8"), images, args.frames))
     text = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
