@@ -10,15 +10,20 @@ non-zero):
   3. kernels: each kernel is bit-exact (torch.equal) against its plain
      PyTorch twin on the card, at the detector's 540x960 segmentation shape
      (threshold for every tile size; one CCL round on random input; the
-     full 8 + 6 round two-phase CCL on a rendered scene);
+     full 8 + 6 round two-phase CCL on a rendered scene), and the two scan
+     kernels on SCAN_CASES, lines built to break a chunked scan (see
+     scan_case), and on a batch whose frames differ only in their first
+     and last rows;
   4. main path: Detector(backend="cuda") on three rendered 1080x1920 frames
      with six tag36h11 tags and noise 2 must find all six ids with corners
      within 1 px of ground truth, backend "torch" on the same card must
      give identical results, and TF32 must be off after the run;
   5. launch counts: the main path ran each kernel the expected number of
      times per frame;
-  6. times: ms per frame for both backends and ms per call for each kernel
-     and its twin, from CUDA events after a warmup;
+  6. times: ms per frame for both backends (CUDA events after a warmup) and
+     device ms per call for each kernel and its twin (CUDA events around
+     launches queued behind a spin kernel, so the host's issue rate does
+     not pace them);
   7. batched kernels: at batch 8, on the segmentation images of eight
      different 1080p frames (other tag ids, other noise seeds) and on random
      frames that differ, each kernel is bit-exact against its batched twin
@@ -38,12 +43,13 @@ non-zero):
      equal to "torch", and the separable rectify and the gather giving the
      same ids with corners within 0.05 px; launches 1 / 14 / 14 for the batch;
  10. times: ms per frame of both backends at batch 1 and batch 8, of the
-     graph at batch 8 with the separable rectify and with the gather, and ms
-     per call of each kernel and its twin at batch 8.
-It ends with a JSON line describing the kernels (launches of every path),
-the nvidia-smi name and power limit, and a last JSON line {"ok": true,
-"device": {...}}. Without a CUDA device it exits with code 1 and prints no
-result.
+     graph at batch 8 with the separable rectify and with the gather, and
+     device ms per call of each kernel and its twin at batch 8.
+It ends with a JSON line describing the kernels (launches of every path;
+times beside the least time the card could take, from the bytes each call
+must move), the nvidia-smi name and power limit, and a last JSON line
+{"ok": true, "device": {...}}. Without a CUDA device it exits with code 1
+and prints no result.
 """
 
 from __future__ import annotations
@@ -73,6 +79,82 @@ BATCH_TOL = {"corners": 1e-3, "translation": 1e-4, "quaternion": 1e-4}
 REF_K = dict(fx=942.53242, fy=946.21221, cx=642.81122, cy=346.71313)
 REF_D = [0.065725, -0.096954, 0.002318, 0.004110, 0.0]
 GRAPH_TOL_PX = 0.05           # separable rectify against the gather
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+
+# Scan-kernel inputs that break a chunked scan: widths and heights around
+# a warp's 32 lanes and at the 4096-pixel limit, each with fills and labels
+# from scan_case.
+SCAN_SHAPES = ((1, 1), (31, 32), (32, 33), (33, 31), (1023, 1025), (1025, 1023),
+               (33, 4096), (4096, 33))
+SCAN_FILLS = (("random", "perm"), ("random", "top"), ("all0", "asc"), ("all127", "perm"),
+              ("all255", "desc"), ("all255", "asc"), ("checker", "desc"),
+              ("stripes32", "desc"), ("stripes31", "high"), ("stripes33", "perm"),
+              ("lone127", "desc"))
+SCAN_CASES = tuple((shape, fill, labels) for shape in SCAN_SHAPES
+                   for fill, labels in SCAN_FILLS)
+K3_CHUNKS = 16                # csrc/ccl.cu's COL_WARPS: K3 cuts a column into this many chunks
+
+
+def scan_case(shape, fill: str, labels: str, seed: int = 0):
+    """(uint8 trinary, int32 labels) numpy arrays of `shape` for one scan case.
+
+    fill: "random"; "all0" / "all127" / "all255"; "checker" (every pixel its
+    own run along both axes, joined only by the white diagonal hop, also
+    across K3's 32-column bands); "stripesK": blocks K columns wide and K3's
+    chunk height + K - 32 rows high, so runs start and end on (K = 32) or
+    next to (31, 33) lane groups, K2's 256-pixel load batches, K3's bands
+    and its row chunks; "lone127": all white but 127 pixels at those
+    boundaries and on the frame's edges.
+    labels: "perm" (a permutation of the flat indices), "asc" / "desc" (flat
+    index order, so a run's minimum sits at its first or last pixel and the
+    carry crosses every chunk), "high" (around 2**30, as rank seeds), "top"
+    (up to INT32_MAX, the scans' identity)."""
+    H, W = shape
+    rng = np.random.default_rng(seed)
+    y, x = np.indices(shape)
+    chunk = -(-H // K3_CHUNKS)
+    if fill == "random":
+        tri = rng.choice(np.array([0, 127, 255]), size=shape, p=[0.3, 0.2, 0.5])
+    elif fill.startswith("all"):
+        tri = np.full(shape, int(fill[3:]))
+    elif fill == "checker":
+        tri = np.where((x + y) % 2, 255, 0)
+    elif fill.startswith("stripes"):
+        k = int(fill[7:])
+        tri = np.where((x // k + y // max(1, chunk + k - 32)) % 2, 255, 0)
+    elif fill == "lone127":
+        tri = np.full(shape, 255)
+        tri[np.ix_([r for r in (0, chunk - 1, chunk, H - 1) if r < H],
+                   [c for c in (0, 31, 32, 255, 256, W - 1) if c < W])] = 127
+    else:
+        raise ValueError(f"unknown fill {fill!r}")
+    n = H * W
+    flat = np.arange(n)
+    lab = {"perm": lambda: rng.permutation(n), "asc": lambda: flat,
+           "desc": lambda: n - 1 - flat, "high": lambda: 2**30 - n // 2 + rng.permutation(n),
+           "top": lambda: 2**31 - 1 - rng.permutation(n)}[labels]()
+    return tri.astype(np.uint8), lab.astype(np.int32).reshape(shape)
+
+
+def scan_case_id(case) -> str:
+    """'HxW-fill-labels' of one SCAN_CASES entry."""
+    (h, w), fill, labels = case
+    return f"{h}x{w}-{fill}-{labels}"
+
+
+def edge_batch(H: int, W: int, n: int = 3, seed: int = 0):
+    """n frames that differ only in their first and last rows, as (uint8
+    trinary, int32 flat-index labels) of shape (n, H, W): a scan that let
+    one frame's last row reach the next frame's first would differ."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(np.array([0, 127, 255], np.uint8), size=(H, W), p=[0.2, 0.1, 0.7])
+    tri = np.stack([base] * n)
+    pal = np.array([255, 0, 127], np.uint8)
+    for b in range(n):
+        tri[b, 0] = pal[b % 3]
+        tri[b, -1] = pal[(b + 1) % 3]
+    lab = np.broadcast_to(np.arange(H * W, dtype=np.int32).reshape(H, W), (n, H, W))
+    return tri, np.ascontiguousarray(lab)
 
 
 def _gpu_info() -> str:
@@ -175,6 +257,39 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int) -> float:
+    """Mean device ms per call over `iters` calls. The calls are queued
+    behind a spin kernel that outlasts their issue on the host, so a small
+    kernel is timed back to back on the card, not at the host's pace."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    issue_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * 2 * issue_s) + 1000)   # cycles at ~2 GHz: twice the issue time
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound_ms(*tensors) -> float:
+    """The least time the card could take to read each input once and write
+    each output once, at HBM_BYTES_PER_S. The kernels do a few integer
+    operations a pixel, far under the card's rate for them, so bytes bound
+    them."""
+    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -242,6 +357,20 @@ def main() -> int:
           "row scan, one round, random input")
     check("col", ccl_ops.col_diag_scan(rtri, rlab), ccl_ops.col_diag_scan_plain(rtri, rlab),
           "diagonal hop + column scan, one round, random input")
+    for case in SCAN_CASES:
+        ct, cl = (torch.from_numpy(a).to(dev) for a in scan_case(*case))
+        check("row", ccl_ops.row_scan(ct, cl), ccl_ops.row_scan_plain(ct, cl),
+              f"row scan {scan_case_id(case)}")
+        check("col", ccl_ops.col_diag_scan(ct, cl), ccl_ops.col_diag_scan_plain(ct, cl),
+              f"column scan {scan_case_id(case)}")
+    et, el = (torch.from_numpy(a).to(dev) for a in edge_batch(sh, sw))
+    for name, kern, twin in (("row", ccl_ops.row_scan, ccl_ops.row_scan_plain),
+                             ("col", ccl_ops.col_diag_scan, ccl_ops.col_diag_scan_plain)):
+        got = kern(et, el)
+        check(name, got, twin(et, el), f"{name} scan, frames that differ in their edge rows")
+        for b in range(et.shape[0]):
+            check(name, got[b], kern(et[b].contiguous(), el[b].contiguous()),
+                  f"{name} scan, edge-row frame {b} alone")
 
     valid = tri != 127
     _, R_eff = cfg.effective_capacities(sh, sw)
@@ -259,7 +388,9 @@ def main() -> int:
             raise AssertionError(f"two-phase CCL on the scene: {k} differs")
     torch.cuda.synchronize()
     print(f"[3 kernels] bit-exact vs twins: threshold at {sh}x{sw} (scene ts=4) and "
-          f"{rh}x{rw} (random, ts={list(thr_ops.TILE_SIZES)}), row and column scans (one round, random), "
+          f"{rh}x{rw} (random, ts={list(thr_ops.TILE_SIZES)}), row and column scans (one round, random; "
+          f"{len(SCAN_CASES)} adversarial cases, shapes {list(SCAN_SHAPES)}; a batch of "
+          f"{et.shape[0]} {sh}x{sw} frames that differ only in their edge rows, also each alone), "
           f"two-phase CCL {cfg.ccl_scan_rounds}+{cfg.ccl_phase2_rounds} on the scene "
           f"(labels, converged, rank_img, rank_table, overflow); max abs err {errs}",
           flush=True)
@@ -312,11 +443,14 @@ def main() -> int:
         "col": (lambda: ccl_ops.col_diag_scan(tri, lab1),
                 lambda: ccl_ops.col_diag_scan_plain(tri, lab1)),
     }
-    kernel_ms = {k: (_time_ms(a, 50), _time_ms(b, 50)) for k, (a, b) in pairs.items()}
+    kernel_ms = {k: (_device_ms(a, 50), _device_ms(b, 50)) for k, (a, b) in pairs.items()}
+    bound = {"threshold": _bound_ms(seg, tri), "row": _bound_ms(tri, lab1, lab1),
+             "col": _bound_ms(tri, lab1, lab1)}
     per_frame = {b: sum(v) / len(v) for b, v in frame_ms.items()}
     print(f"[6 times] on {gpu}: ms/frame at {H}x{W} cuda {per_frame['cuda']:.3f} "
-          f"torch {per_frame['torch']:.3f} (runs {frame_ms}); ms/call at {sh}x{sw} "
-          + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f}" for k, (a, b) in kernel_ms.items()),
+          f"torch {per_frame['torch']:.3f} (runs {frame_ms}); device ms/call at {sh}x{sw} "
+          + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f} bound {bound[k]:.4f}"
+                      for k, (a, b) in kernel_ms.items()),
           flush=True)
 
     # --- 7. batched kernels, frames isolated --------------------------------
@@ -474,15 +608,18 @@ def main() -> int:
         "col": (lambda: ccl_ops.col_diag_scan(tri8, lab8),
                 lambda: ccl_ops.col_diag_scan_plain(tri8, lab8)),
     }
-    kernel_ms8 = {k: (_time_ms(a, 20), _time_ms(b, 20)) for k, (a, b) in pairs8.items()}
+    kernel_ms8 = {k: (_device_ms(a, 20), _device_ms(b, 20)) for k, (a, b) in pairs8.items()}
+    bound8 = {"threshold": _bound_ms(seg8, tri8), "row": _bound_ms(tri8, lab8, lab8),
+              "col": _bound_ms(tri8, lab8, lab8)}
     mean8 = {b: sum(v) / len(v) for b, v in batch_ms.items()}
     graph8 = {b: sum(v) / len(v) for b, v in graph_ms.items()}
     print(f"[10 times] on {gpu}: ms/frame at {H}x{W}, batch 1 cuda {per_frame['cuda']:.3f} "
           f"torch {per_frame['torch']:.3f}; batch {BATCH} cuda {mean8['cuda']:.3f} torch "
           f"{mean8['torch']:.3f} (runs {batch_ms}); graph batch {BATCH} separable "
-          f"{graph8['cuda']:.3f} gather {graph8['gather']:.3f} (runs {graph_ms}); ms/call at "
+          f"{graph8['cuda']:.3f} gather {graph8['gather']:.3f} (runs {graph_ms}); device ms/call at "
           f"batch {BATCH} x {sh}x{sw} "
-          + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f}" for k, (a, b) in kernel_ms8.items()),
+          + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f} bound {bound8[k]:.4f} "
+                      f"({bound8[k] / a:.1%} of bound)" for k, (a, b) in kernel_ms8.items()),
           flush=True)
 
     meta = {
@@ -501,7 +638,9 @@ def main() -> int:
          "launches": sum(c[k] for c in paths.values()),
          "launches_by_path": {p: c[k] for p, c in paths.items()},
          "max_abs_err": errs[k], "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1],
-         f"ms_batch{BATCH}": kernel_ms8[k][0], f"plain_ms_batch{BATCH}": kernel_ms8[k][1]}
+         "bound_ms": bound[k], "bound_by": "bytes", "library_ms": None,
+         f"ms_batch{BATCH}": kernel_ms8[k][0], f"plain_ms_batch{BATCH}": kernel_ms8[k][1],
+         f"bound_ms_batch{BATCH}": bound8[k], f"share_batch{BATCH}": bound8[k] / kernel_ms8[k][0]}
         for k in names]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

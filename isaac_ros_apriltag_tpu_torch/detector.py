@@ -245,16 +245,14 @@ def build_detect_fn(config: DetectorConfig, camera: CameraModel,
 
 
 def device_for(config: DetectorConfig, device: torch.device | str | None) -> torch.device:
-    """The device a detector or pipeline runs on (default: 'cuda' for
-    backend 'cuda', else 'cpu'). Backend 'cuda' raises unless it is a CUDA
-    device and the kernels build or load. On a CUDA device TF32 is turned
-    off for the whole process (torch.backends.cuda.matmul.allow_tf32 and
-    torch.backends.cudnn.allow_tf32 = False): the quad fit's arc sums, the
-    decoder's least squares and the pose take f32 matmuls, which TF32 would
-    round to 10 mantissa bits."""
-    if device is None:
-        device = "cuda" if config.backend == "cuda" else "cpu"
-    device = torch.device(device)
+    """The device a detector or pipeline runs on (default: 'cuda', for both
+    backends; pass device='cpu' to run backend 'torch' on the CPU). Backend
+    'cuda' raises unless it is a CUDA device and the kernels build or load.
+    On a CUDA device TF32 is turned off for the whole process
+    (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    = False): the quad fit's arc sums, the decoder's least squares and the
+    pose take f32 matmuls, which TF32 would round to 10 mantissa bits."""
+    device = torch.device("cuda" if device is None else device)
     if config.backend == "cuda":
         if device.type != "cuda":
             raise ValueError(f"backend 'cuda' needs a CUDA device, got {device}")

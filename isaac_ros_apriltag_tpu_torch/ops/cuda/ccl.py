@@ -24,7 +24,7 @@ import torch
 
 from . import _lib
 
-MAX_LINE = 4096   # each kernel keeps one row or column in shared memory
+MAX_LINE = 4096   # the longest row or column the kernels take (K2 keeps a row in shared memory)
 
 row_launches = 0        # K2 launches made by row_scan
 col_diag_launches = 0   # K3 launches made by col_diag_scan

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SCAN_CASES, scan_case, scan_case_id
 from isaac_ros_apriltag_tpu.models.families import get_family
 from isaac_ros_apriltag_tpu.ops.pallas.ccl_fused import ccl_scan_pallas
 from isaac_ros_apriltag_tpu.ops.resolve import resolve_roots, resolve_roots_rank
@@ -153,6 +154,17 @@ def test_twins_match_sequential_round(seed):
     rng = np.random.default_rng(seed)
     tri = rng.choice(np.array([0, 127, 255], np.uint8), size=(17, 23), p=[0.35, 0.3, 0.35])
     lab = rng.permutation(17 * 23).astype(np.int32).reshape(17, 23)
+    t, l = torch.from_numpy(tri), torch.from_numpy(lab)
+    got = ccl.col_diag_scan_plain(t, ccl.row_scan_plain(t, l)).numpy()
+    np.testing.assert_array_equal(got, _naive_round(tri, lab))
+
+
+@pytest.mark.parametrize("case", [c for c in SCAN_CASES if max(c[0]) <= 33], ids=scan_case_id)
+def test_twins_match_sequential_round_adversarial(case):
+    """chip_smoke's lines that break a chunked scan, at the small shapes:
+    the twins the CUDA kernels are held to on the card equal the naive
+    round, labels up to INT32_MAX included."""
+    tri, lab = scan_case(*case)
     t, l = torch.from_numpy(tri), torch.from_numpy(lab)
     got = ccl.col_diag_scan_plain(t, ccl.row_scan_plain(t, l)).numpy()
     np.testing.assert_array_equal(got, _naive_round(tri, lab))

@@ -4,8 +4,9 @@ different frames (where it must also equal itself run on each frame alone),
 and the two backends against each other end to end: one frame, a batch, and
 the rectify -> resize -> detect graph. They skip without a card.
 
-This file imports neither jax nor the JAX package, so it runs where jax is
-not installed:
+The scan kernels' adversarial inputs are chip_smoke.py's, so the smoke run
+and these tests hold the kernels to the same lines. This file imports
+neither jax nor the JAX package, so it runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SCAN_CASES, edge_batch, scan_case, scan_case_id
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           batched_detect_fn, get_family)
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl
@@ -43,13 +45,14 @@ def test_threshold_kernel_bit_exact(cuda, ts, shape):
     assert torch.equal(thr_kernel.adaptive_threshold(g, ts, 5), adaptive_threshold(g, ts, 5))
 
 
-@pytest.mark.parametrize("shape", [(540, 960), (37, 2047), (300, 1), (1, 4096), (4096, 3)])
-def test_scan_kernels_bit_exact(cuda, shape):
-    rng = np.random.default_rng(5)
-    tri = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8), size=shape,
-                                      p=[0.4, 0.2, 0.4])).to(cuda)
-    lab = torch.from_numpy(rng.permutation(tri.numel()).astype(np.int32)
-                           .reshape(shape)).to(cuda)
+_RANDOM_SCANS = tuple((shape, "random", "perm")
+                      for shape in [(540, 960), (37, 2047), (300, 1), (1, 4096), (4096, 3)])
+
+
+@pytest.mark.parametrize("case", _RANDOM_SCANS + SCAN_CASES, ids=scan_case_id)
+def test_scan_kernels_bit_exact(cuda, case):
+    """Random lines, and chip_smoke's lines built to break a chunked scan."""
+    tri, lab = (torch.from_numpy(a).to(cuda) for a in scan_case(*case))
     assert torch.equal(ccl.row_scan(tri, lab), ccl.row_scan_plain(tri, lab))
     assert torch.equal(ccl.col_diag_scan(tri, lab), ccl.col_diag_scan_plain(tri, lab))
     a = ccl.ccl_scan(tri, 8, backend="cuda")
@@ -146,6 +149,17 @@ def test_batched_scan_kernels_bit_exact(cuda):
     assert torch.equal(a, t) and torch.equal(ca, ct) and ca.shape == (3,)
     for b in range(3):
         assert torch.equal(a[b], ccl.ccl_scan(tri[b], 8, backend="cuda")[0])
+
+
+@pytest.mark.parametrize("shape", [(1, 33), (33, 31), (540, 960)])
+def test_scan_kernels_frames_differ_in_edge_rows(cuda, shape):
+    tri, lab = (torch.from_numpy(a).to(cuda) for a in edge_batch(*shape))
+    for kern, twin in ((ccl.row_scan, ccl.row_scan_plain),
+                       (ccl.col_diag_scan, ccl.col_diag_scan_plain)):
+        out = kern(tri, lab)
+        assert torch.equal(out, twin(tri, lab))
+        for b in range(tri.shape[0]):
+            assert torch.equal(out[b], kern(tri[b].contiguous(), lab[b].contiguous()))
 
 
 def test_batched_detect_backends_identical(cuda):

@@ -48,6 +48,15 @@ def test_default_backend_is_cuda():
     assert DetectorConfig().backend == "cuda"
 
 
+def test_default_device_is_the_card_for_both_backends():
+    """Only an explicit device='cpu' runs the port on the CPU."""
+    from isaac_ros_apriltag_tpu_torch import DetectorConfig
+    from isaac_ros_apriltag_tpu_torch.detector import device_for
+
+    assert device_for(DetectorConfig(backend="torch"), None).type == "cuda"
+    assert device_for(DetectorConfig(backend="torch"), "cpu").type == "cpu"
+
+
 def test_wrappers_reject_other_devices():
     from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl, threshold
 
