@@ -9,10 +9,14 @@ non-zero):
   2. build: nvcc builds the CUDA kernels of isaac_ros_apriltag_tpu_torch/csrc;
   3. kernels: each kernel is bit-exact (torch.equal) against its plain
      PyTorch twin on the card, at the detector's 540x960 segmentation shape
-     (threshold for every tile size; one CCL round on random input; the
-     full 8 + 6 round two-phase CCL on a rendered scene), and the two scan
-     kernels on SCAN_CASES, lines built to break a chunked scan (see
-     scan_case), and on a batch whose frames differ only in their first
+     (threshold on the scene; one CCL round on random input; the full
+     8 + 6 round two-phase CCL on a rendered scene), the threshold on
+     THRESH_CASES (see thresh_case: every tile size, shapes on and one tile
+     over the kernel's block edges, one tile high or wide, flat frames,
+     pixels at the threshold, misaligned frame views and W = 2 mod 4
+     through its scalar path, batches also against each frame alone), and
+     the two scan kernels on SCAN_CASES, lines built to break a chunked scan
+     (see scan_case), and on a batch whose frames differ only in their first
      and last rows;
   4. main path: Detector(backend="cuda") on three rendered 1080x1920 frames
      with six tag36h11 tags and noise 2 must find all six ids with corners
@@ -157,6 +161,93 @@ def edge_batch(H: int, W: int, n: int = 3, seed: int = 0):
     return tri, np.ascontiguousarray(lab)
 
 
+# Threshold-kernel inputs, (tile size, shape, fill, offset); see thresh_case.
+# csrc/threshold.cu's blocks write 32 px rows by 128 px columns at every tile
+# size, so the shapes sit on one block, one tile over it, one tile high or
+# wide, and at the detector's segmentation size. W = 2 mod 4 (ts = 2) and
+# frame views that start `offset` floats past a 16-byte boundary take the
+# kernel's scalar path.
+THRESH_TILES = (2, 4, 8, 16, 32)
+THRESH_MIN_DIFF = 5           # min_white_black_diff of every case ("at_thresh" is built on it)
+THRESH_CASES = tuple(
+    [(ts, shape, "random", 0) for ts in THRESH_TILES
+     for shape in ((ts, ts), (ts, 256), (256, ts), (32, 128), (32 + ts, 128 + ts),
+                   (544, 960))]
+    + [(ts, (64 + ts, 256 + ts), fill, 0) for ts in THRESH_TILES
+       for fill in ("flat", "at_thresh")]
+    + [(ts, (5, 64 + ts, 128 + 2 * ts), "edges", 0) for ts in THRESH_TILES]
+    + [(ts, (3, 64, 256), "random", ts % 3 + 1) for ts in THRESH_TILES]
+    + [(4, (540, 960), "random", 0), (2, (540, 960), "random", 0),
+       (2, (540, 962), "random", 0), (2, (34, 66), "random", 0),
+       (4, (540, 960), "random", 1), (4, (8, 540, 960), "random", 2),
+       (2, (3, 34, 130), "edges", 0)])
+
+
+def thresh_case(case, seed: int = 0):
+    """float32 grayscale (numpy) of one THRESH_CASES entry, (H, W) or (B, H, W).
+
+    fill: "random" (uniform 0-255 with a flat 16x16 patch); "flat" (all
+    127); "at_thresh": every tile holds its band's min and max at its first
+    two pixels, the other pixels are the band's threshold, one float either
+    side of it, the min or the max, and the bands (of tile columns) have
+    contrast exactly min_diff = 5, one float under it, and two contrasts
+    whose threshold rounds; "edges": frames that differ only in their first
+    or last row or column of tiles (frame 0 is the base; 1, 2 change the
+    first and last tile row, 3, 4 the first and last tile column), so a halo
+    that reached past its frame's edge would differ from the frame alone."""
+    ts, shape, fill, _ = case
+    rng = np.random.default_rng(seed)
+    H, W = shape[-2:]
+    f32 = np.float32
+    if fill == "random":
+        g = rng.uniform(0, 255, shape).astype(f32)
+        g[..., :16, :16] = 100.0
+    elif fill == "flat":
+        g = np.full(shape, 127.0, f32)
+    elif fill == "at_thresh":
+        bands = [(f32(100.0), f32(105.0)), (f32(100.0), np.nextafter(f32(105.0), f32(0))),
+                 (f32(0.1), f32(5.1)), (f32(37.7), f32(200.3))]
+        band = (np.arange(W) // ts * len(bands)) // (W // ts)
+        mn = np.array([b[0] for b in bands], f32)[band]
+        mx = np.array([b[1] for b in bands], f32)[band]
+        t = mn + (mx - mn) * f32(0.5)
+        choices = np.stack([t, np.nextafter(t, f32(-np.inf)), np.nextafter(t, f32(np.inf)),
+                            mn, mx])
+        g = choices[rng.integers(0, 5, (H, W)), np.arange(W)]
+        y, x = np.indices((H, W))
+        g = np.where((y % ts == 0) & (x % ts == 0), mn, g)
+        g = np.where((y % ts == 0) & (x % ts == 1), mx, g).astype(f32)
+        g = np.broadcast_to(g, shape).copy()
+    elif fill == "edges":
+        g = np.stack([rng.uniform(0, 255, (H, W)).astype(f32)] * shape[0])
+        for b, (rows, cols) in enumerate([(slice(0), slice(0)), (slice(0, ts), slice(None)),
+                                          (slice(H - ts, H), slice(None)),
+                                          (slice(None), slice(0, ts)),
+                                          (slice(None), slice(W - ts, W))][:shape[0]]):
+            g[b, rows, cols] = 255.0 if b % 2 else 0.0
+    else:
+        raise ValueError(f"unknown fill {fill!r}")
+    return g
+
+
+def thresh_case_id(case) -> str:
+    """'tsN-[Bx]HxW-fill[-offK]' of one THRESH_CASES entry."""
+    ts, shape, fill, offset = case
+    return f"ts{ts}-{'x'.join(map(str, shape))}-{fill}" + (f"-off{offset}" if offset else "")
+
+
+def thresh_input(case, device):
+    """The case's frames as a contiguous float32 tensor on `device` that
+    starts `offset` floats into its allocation (off a 16-byte boundary
+    when offset % 4 != 0)."""
+    import torch
+
+    offset = case[3]
+    g = torch.from_numpy(thresh_case(case))
+    view = torch.empty(offset + g.numel(), dtype=torch.float32, device=device)[offset:]
+    return view.view(g.shape).copy_(g)
+
+
 def _gpu_info() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -290,6 +381,27 @@ def _bound_ms(*tensors) -> float:
     return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
 
 
+def ptxas_usage(log: str) -> dict:
+    """{kernel or kernel<template args>: (registers, spill bytes stored and
+    loaded, static shared memory bytes)} from the -Xptxas -v lines of a
+    build's log."""
+    import re
+
+    usage, name, spill = {}, None, 0
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            k = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            name, spill = m.group(1), 0
+            if k:
+                args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)) and name:
+            usage[name] = (int(m.group(1)), spill, int(m.group(2) or 0))
+    return usage
+
+
 def main() -> int:
     import torch
 
@@ -322,7 +434,11 @@ def main() -> int:
     _lib.library()
     built = (f"built by nvcc in {_lib.build_seconds:.1f} s" if _lib.build_seconds is not None
              else "loaded from the build cache")
-    print(f"[2 build] kernels {built}; load took {time.perf_counter() - t0:.1f} s", flush=True)
+    usage = ptxas_usage(_lib.build_log or "")
+    print(f"[2 build] kernels {built}; load took {time.perf_counter() - t0:.1f} s; ptxas "
+          "(registers, spill bytes, shared bytes): "
+          + (", ".join(f"{k} {v}" for k, v in usage.items()) or "no report (cached build)"),
+          flush=True)
 
     # --- 3. kernels against their twins, on the card -----------------------
     scenes = [_scene(s) for s in SEEDS]
@@ -344,12 +460,14 @@ def main() -> int:
           f"threshold on the scene {sh}x{sw} ts={cfg.tile_size}")
     rng = np.random.default_rng(7)
     rh, rw = -(-sh // 32) * 32, -(-sw // 32) * 32      # divisible by every tile size
-    for ts in thr_ops.TILE_SIZES:
-        g = rng.uniform(0, 255, (rh, rw)).astype(np.float32)
-        g[10:40, 20:90] = 100.0          # a flat low-contrast patch
-        g = torch.from_numpy(g).to(dev)
-        check("threshold", thr_ops.adaptive_threshold(g, ts, 5), adaptive_threshold(g, ts, 5),
-              f"threshold random {rh}x{rw} ts={ts}")
+    for case in THRESH_CASES:
+        g = thresh_input(case, dev)
+        got = thr_ops.adaptive_threshold(g, case[0], THRESH_MIN_DIFF)
+        check("threshold", got, adaptive_threshold(g, case[0], THRESH_MIN_DIFF),
+              f"threshold {thresh_case_id(case)}")
+        for b in range(g.shape[0] if g.ndim == 3 else 0):
+            check("threshold", got[b], thr_ops.adaptive_threshold(g[b], case[0], THRESH_MIN_DIFF),
+                  f"threshold {thresh_case_id(case)}, frame {b} alone")
     rtri = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8), size=(sh, sw),
                                        p=[0.4, 0.2, 0.4])).to(dev)
     rlab = torch.from_numpy(rng.permutation(sh * sw).astype(np.int32).reshape(sh, sw)).to(dev)
@@ -387,8 +505,11 @@ def main() -> int:
         if not _same(v, outs["torch"][k]):
             raise AssertionError(f"two-phase CCL on the scene: {k} differs")
     torch.cuda.synchronize()
-    print(f"[3 kernels] bit-exact vs twins: threshold at {sh}x{sw} (scene ts=4) and "
-          f"{rh}x{rw} (random, ts={list(thr_ops.TILE_SIZES)}), row and column scans (one round, random; "
+    print(f"[3 kernels] bit-exact vs twins: threshold at {sh}x{sw} (scene ts=4) and on "
+          f"{len(THRESH_CASES)} adversarial cases (ts={list(THRESH_TILES)}; batches also frame "
+          f"by frame alone; "
+          f"{sum(c[3] % 4 != 0 or c[1][-1] % 4 != 0 for c in THRESH_CASES)} through the scalar "
+          f"path), row and column scans (one round, random; "
           f"{len(SCAN_CASES)} adversarial cases, shapes {list(SCAN_SHAPES)}; a batch of "
           f"{et.shape[0]} {sh}x{sw} frames that differ only in their edge rows, also each alone), "
           f"two-phase CCL {cfg.ccl_scan_rounds}+{cfg.ccl_phase2_rounds} on the scene "

@@ -1,9 +1,10 @@
 """Tag family definitions: geometric bit layouts + codeword tables.
 
 Pure numpy: the same layouts and codebooks as
-``isaac_ros_apriltag_tpu/models/families.py``. The codebooks are read by FILE
-PATH from the reference package's data directory, so importing this module
-never imports the JAX package (whose ``__init__`` imports jax).
+``isaac_ros_apriltag_tpu/models/families.py``. The codebooks are this
+package's own ``models/data/codebooks.npz``, a byte-for-byte copy of the
+reference package's file (the tests hold the two to the same sha256), so the
+port neither imports nor reads anything of the JAX package.
 
 Coordinate convention: the border frame puts the outer edge of the tag's
 border square at ``[0, width_at_border]^2`` in cell units; bit cell (bx, by)
@@ -18,8 +19,7 @@ import os
 
 import numpy as np
 
-_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "isaac_ros_apriltag_tpu", "models", "data")
+_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +148,8 @@ def _load_codebooks() -> dict[str, np.ndarray]:
     path = os.path.join(_DATA_DIR, "codebooks.npz")
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"{path} missing — run tools/gen_codebooks.py to generate codeword tables")
+            f"{path} missing — copy isaac_ros_apriltag_tpu/models/data/codebooks.npz "
+            "(made by tools/gen_codebooks.py) there")
     with np.load(path) as z:
         return {k: z[k].copy() for k in z.files}
 

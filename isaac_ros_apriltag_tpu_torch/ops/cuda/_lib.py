@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) at first use.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, which is loaded with ``ctypes``. The library lives
+The sources are compiled by ``nvcc`` for ``sm_90a``, one process per source
+and all at once, and linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``. The library lives
 in ``isaac_ros_apriltag_tpu_torch/_build/<source hash>/`` (git-ignored), so a
 checkout builds everything from its own sources and rebuilds when a source
 changes. A build failure raises; there is no fallback.
@@ -22,8 +23,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("threshold.cu", "ccl.cu")
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
+# (kept in build_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+              "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 # (name, number of pointer args, number of int args); every entry point ends
 # with the stream pointer and returns cudaGetLastError().
@@ -35,6 +38,7 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
 MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame
 
 build_seconds: float | None = None   # wall time of the last build (None = loaded from cache)
+build_log: str | None = None         # the compilers' output of the last build
 
 
 def _nvcc() -> str:
@@ -52,19 +56,33 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once and return their output; raise with the
+    output of the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
+    return "".join(out + err for out, err in outs)
+
+
 def _build(out_path: str) -> None:
-    global build_seconds
+    """One nvcc per source, all started together, then one link."""
+    global build_seconds, build_log
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out_path))
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(_CSRC, s) for s in _SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out_path)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out_path)) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in _SOURCES]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC, s), "-o", o]
+                        for s, o in zip(_SOURCES, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out_path)
     build_seconds = time.perf_counter() - t0
+    build_log = log
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,9 @@
 """Wrapper of the adaptive-threshold kernel (csrc/threshold.cu).
 
 A CUDA tensor launches the kernel on the current stream; a CPU tensor runs
-the plain version (ops/threshold.py). Anything else raises.
+the plain version (ops/threshold.py). Anything else raises. A contiguous
+view that starts off a 16-byte boundary, or a width that is not a multiple
+of 4, is taken by the kernel's own scalar path (csrc/threshold.cu).
 """
 
 from __future__ import annotations

@@ -8,10 +8,12 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import THRESH_CASES, THRESH_MIN_DIFF, THRESH_TILES, thresh_case, thresh_case_id
 from isaac_ros_apriltag_tpu import detector as jdet
 from isaac_ros_apriltag_tpu.models.families import get_family as jget_family
 from isaac_ros_apriltag_tpu.ops.grayscale import grayscale as jgrayscale
 from isaac_ros_apriltag_tpu.ops.pallas.threshold import adaptive_threshold_pallas
+from isaac_ros_apriltag_tpu.ops.threshold import adaptive_threshold as jadaptive_threshold
 from isaac_ros_apriltag_tpu.utils.render import render_tags as jrender
 from isaac_ros_apriltag_tpu.utils.render import upright_pose
 from isaac_ros_apriltag_tpu_torch import detector as tdet
@@ -81,6 +83,27 @@ def test_threshold_twin_bit_exact_scene():
                   noise=3.0).astype(np.float32)
     a = np.asarray(adaptive_threshold_pallas(jnp.asarray(img), 4, 5, interpret=True))
     np.testing.assert_array_equal(a, adaptive_threshold(torch.from_numpy(img), 4, 5).numpy())
+
+
+def test_threshold_cases_cover_every_tile_size():
+    assert THRESH_TILES == thr_kernel.TILE_SIZES
+
+
+@pytest.mark.parametrize("case", THRESH_CASES, ids=thresh_case_id)
+def test_threshold_twin_bit_exact_kernel_cases(case):
+    """chip_smoke's threshold cases (the ones the kernel is held to on the
+    card): the twin against the JAX XLA threshold frame by frame, and against
+    the Pallas kernel in interpret mode on the first frame."""
+    ts, shape, _, _ = case
+    g = thresh_case(case)
+    frames = g.reshape(-1, *shape[-2:])
+    got = adaptive_threshold(torch.from_numpy(g), ts, THRESH_MIN_DIFF).numpy()
+    got = got.reshape(frames.shape)
+    for b, f in enumerate(frames):
+        np.testing.assert_array_equal(
+            got[b], np.asarray(jadaptive_threshold(jnp.asarray(f), ts, THRESH_MIN_DIFF)))
+    np.testing.assert_array_equal(got[0], np.asarray(adaptive_threshold_pallas(
+        jnp.asarray(frames[0]), ts, THRESH_MIN_DIFF, interpret=True)))
 
 
 def test_threshold_rejects_ragged_shape():

@@ -4,8 +4,8 @@ different frames (where it must also equal itself run on each frame alone),
 and the two backends against each other end to end: one frame, a batch, and
 the rectify -> resize -> detect graph. They skip without a card.
 
-The scan kernels' adversarial inputs are chip_smoke.py's, so the smoke run
-and these tests hold the kernels to the same lines. This file imports
+The adversarial inputs of the threshold and scan kernels are chip_smoke.py's,
+so the smoke run and these tests hold the kernels to the same cases. This file imports
 neither jax nor the JAX package, so it runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SCAN_CASES, edge_batch, scan_case, scan_case_id
+from chip_smoke import (SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, edge_batch, scan_case,
+                        scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           batched_detect_fn, get_family)
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl
@@ -45,7 +46,20 @@ def test_threshold_kernel_bit_exact(cuda, ts, shape):
     assert torch.equal(thr_kernel.adaptive_threshold(g, ts, 5), adaptive_threshold(g, ts, 5))
 
 
-_RANDOM_SCANS = tuple((shape, "random", "perm")
+@pytest.mark.parametrize("case", THRESH_CASES, ids=thresh_case_id)
+def test_threshold_kernel_cases(cuda, case):
+    """chip_smoke's threshold cases; offsets off 16 bytes and W = 2 mod 4
+    take the kernel's scalar path, the others its vector path."""
+    ts, shape, _, offset = case
+    g = thresh_input(case, cuda)
+    assert (g.data_ptr() % 16 == 0) == (offset % 4 == 0)
+    out = thr_kernel.adaptive_threshold(g, ts, THRESH_MIN_DIFF)
+    assert torch.equal(out, adaptive_threshold(g, ts, THRESH_MIN_DIFF))
+    for b in range(shape[0] if len(shape) == 3 else 0):
+        assert torch.equal(out[b], thr_kernel.adaptive_threshold(g[b], ts, THRESH_MIN_DIFF))
+
+
+_RANDOM_SCANS =tuple((shape, "random", "perm")
                       for shape in [(540, 960), (37, 2047), (300, 1), (1, 4096), (4096, 3)])
 
 
