@@ -48,7 +48,28 @@ non-zero):
      same ids with corners within 0.05 px; launches 1 / 14 / 14 for the batch;
  10. times: ms per frame of both backends at batch 1 and batch 8, of the
      graph at batch 8 with the separable rectify and with the gather, and
-     device ms per call of each kernel and its twin at batch 8.
+     device ms per call of each kernel and its twin at batch 8;
+ 11. rig: RigDetector over 16 cameras at 1080x1920, each with its own K
+     (fx = fy = 900 (1 + 0.02 c), its own cx and cy) and the six-tag scene
+     rendered through it (noise 2, seed c): 6/6 ids per camera with corners
+     within 1 px and translations within 2 cm of the truth; a shared-K rig
+     (camera 0's K) off by more than 5 cm on every camera c >= 5 and equal
+     to batched_detect_fn on the same frames; "cuda" equal to "torch";
+     launches 1 / 14 / 14 per rig call; peak memory and ms per call;
+ 12. streaming: StreamingRunner over 24 different host 1080p frames at depth
+     1, 2 and 3 (batch 1) and as three batches of 8 at depth 1 and 2, equal
+     to synchronous detection (valid, ids and FrameStats exact, corners
+     within 1e-4 px); a function that sleeps on the card before it reads its
+     input, at depth 3, gives every frame its own result; Detector, batched,
+     rig and streaming calls under torch.cuda.set_sync_debug_mode("error")
+     (no hidden host sync); ms per frame at each depth;
+ 13. serving: the reference's golden proof-of-life scene on both backends to
+     its contract (one detection, id 0, hamming 0, center and corners
+     within 2 px, translation within 0.01 m, quaternion within 0.01);
+     Detector.detect_checked equal to detect_with_stats on both backends;
+     `python -m isaac_ros_apriltag_tpu_torch detect` on the scene saved as
+     .npy gives the same row; `... bench --hw 1080,1920 --batch 8 --iters
+     20` exits 0 with 6 detections a frame.
 It ends with a JSON line describing the kernels (launches of every path;
 times beside the least time the card could take, from the bytes each call
 must move), the nvidia-smi name and power limit, and a last JSON line
@@ -83,6 +104,12 @@ BATCH_TOL = {"corners": 1e-3, "translation": 1e-4, "quaternion": 1e-4}
 REF_K = dict(fx=942.53242, fy=946.21221, cx=642.81122, cy=346.71313)
 REF_D = [0.065725, -0.096954, 0.002318, 0.004110, 0.0]
 GRAPH_TOL_PX = 0.05           # separable rectify against the gather
+RIG_CAMERAS = 16
+RIG_T_TOL_M = 0.02            # per-camera rig translation against the truth
+RIG_SHARED_MIN_ERR_M = 0.05   # shared-K rig error on every camera c >= 5
+STREAM_TOL_PX = 1e-4          # streamed corners against synchronous detection
+# The reference's proof-of-life contract (test/isaac_ros_apriltag_pol_test.py).
+GOLDEN_TOL = {"px": 2.0, "translation": 0.01, "quaternion": 0.01}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 
 # Scan-kernel inputs that break a chunked scan: widths and heights around
@@ -275,6 +302,16 @@ def _scene(seed: int, id_shift: int = 0, cam=None, size=(H, W)):
     return cam, tags, frame
 
 
+def rig_camera(c: int):
+    """Camera c of phase 11's rig: fx = fy = 900 (1 + 0.02 c) and a principal
+    point of its own, at 1080x1920."""
+    from isaac_ros_apriltag_tpu_torch import CameraModel
+
+    f = 900.0 * (1.0 + 0.02 * c)
+    return CameraModel.create(fx=f, fy=f, cx=W / 2 + 6.0 * (c - 8), cy=H / 2 - 4.0 * (c - 8),
+                              width=W, height=H)
+
+
 def batch_scenes(n: int):
     """n different frames of the scene: frame b has ids TAG_IDS + b and
     noise seed b."""
@@ -329,6 +366,47 @@ def _all_same(a, b, what: str) -> None:
         for fld in dataclasses.fields(x):
             if not _same(getattr(x, fld.name), getattr(y, fld.name)):
                 raise AssertionError(f"{what} differ in {type(x).__name__}.{fld.name}")
+
+
+def _translation_errors(det, tags) -> list[float]:
+    """|t - t_true| (m) of each tag in one frame's detections; raises if a
+    tag's id is missing."""
+    rows = {r["id"]: r for r in det.to_list()}
+    missing = sorted({t["id"] for t in tags} - set(rows))
+    if missing:
+        raise AssertionError(f"ids {missing} not detected")
+    return [float(np.linalg.norm(np.asarray(rows[t["id"]]["translation"]) - t["t"]))
+            for t in tags]
+
+
+def _same_as_sync(got, want, what: str) -> float:
+    """A streamed (Detections, FrameStats) against the synchronous call's:
+    FrameStats, valid and ids exact, corners on valid rows within
+    STREAM_TOL_PX; returns the corner gap."""
+    import dataclasses
+
+    (dg, sg), (dw, sw) = got, want
+    for fld in dataclasses.fields(sw):
+        if not _same(getattr(sg, fld.name), getattr(sw, fld.name)):
+            raise AssertionError(f"{what}: FrameStats.{fld.name} differs")
+    if not (_same(dg.valid, dw.valid) and _same(dg.id, dw.id)):
+        raise AssertionError(f"{what}: valid or ids differ")
+    gap = _max_abs_err(dg.corners[dw.valid], dw.corners[dw.valid]) if bool(dw.valid.any()) else 0.0
+    if gap > STREAM_TOL_PX:
+        raise AssertionError(f"{what}: corners differ by {gap} px > {STREAM_TOL_PX}")
+    return gap
+
+
+def _cli(*args: str):
+    """`python -m isaac_ros_apriltag_tpu_torch *args` from the checkout;
+    raises unless it exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, "-m", "isaac_ros_apriltag_tpu_torch", *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"cli {args[0]} exited {out.returncode}:\n{out.stderr[-3000:]}")
+    return out
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -743,6 +821,177 @@ def main() -> int:
                       f"({bound8[k] / a:.1%} of bound)" for k, (a, b) in kernel_ms8.items()),
           flush=True)
 
+    # --- 11. rig: 16 cameras, each with its own intrinsics -------------------
+    from isaac_ros_apriltag_tpu_torch import RigDetector
+
+    rig_scenes = [_scene(c, cam=rig_camera(c)) for c in range(RIG_CAMERAS)]
+    rig_cams = [sc[0] for sc in rig_scenes]
+    rig_host = np.stack([sc[2] for sc in rig_scenes])
+    rig_frames = torch.from_numpy(rig_host).to(dev)
+    rigs = {b: RigDetector(dataclasses.replace(cfg, backend=b), rig_cams[0], RIG_CAMERAS,
+                           device=dev, cameras=rig_cams) for b in ("cuda", "torch")}
+    shared_rig = RigDetector(cfg, rig_cams[0], RIG_CAMERAS, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    rdet, rst = rigs["cuda"].detect(rig_frames)
+    torch.cuda.synchronize()
+    counts_rig = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
+                  "col": ccl_ops.col_diag_launches}
+    peak_rig = torch.cuda.max_memory_allocated()
+    if counts_rig != want1:
+        raise AssertionError(f"rig launch counts {counts_rig} != expected {want1}")
+    worst_rig = max(_truth_error(rdet.frame(c), rig_scenes[c][1], rig_cams[c].K.numpy())
+                    for c in range(RIG_CAMERAS))
+    worst_t = max(max(_translation_errors(rdet.frame(c), rig_scenes[c][1]))
+                  for c in range(RIG_CAMERAS))
+    if worst_t > RIG_T_TOL_M:
+        raise AssertionError(f"rig translation error {worst_t:.4f} m > {RIG_T_TOL_M} m")
+    _all_same(rigs["torch"].detect(rig_frames), (rdet, rst), "rig cuda and torch")
+    sdet, sst = shared_rig.detect(rig_frames)
+    _all_same(batched_detect_fn(cfg, rig_cams[0].to(dev), "mono8")(rig_frames), (sdet, sst),
+              "shared-K rig and batched_detect_fn")
+    shared_least = min(min(_translation_errors(sdet.frame(c), rig_scenes[c][1]))
+                       for c in range(5, RIG_CAMERAS))
+    if shared_least <= RIG_SHARED_MIN_ERR_M:
+        raise AssertionError(f"a shared-K rig came within {shared_least:.4f} m of the truth "
+                             f"on a camera c >= 5 (must be > {RIG_SHARED_MIN_ERR_M} m)")
+    rig_ms = [_time_ms(lambda: rigs["cuda"].detect(rig_frames), 5) for _ in range(2)]
+    print(f"[11 rig] {RIG_CAMERAS} cameras at {H}x{W}, fx 900..{900 * (1 + 0.02 * 15):.0f}, "
+          f"own principal points: 6/6 ids each, worst corner error {worst_rig:.4f} px (limit "
+          f"{CORNER_TOL_PX}), worst translation error {worst_t:.4f} m (limit {RIG_T_TOL_M}); "
+          f"shared-K rig equal to batched_detect_fn, its least error on cameras c >= 5 "
+          f"{shared_least:.4f} m (must exceed {RIG_SHARED_MIN_ERR_M}); cuda == torch on every "
+          f"field; launches {counts_rig} a rig call; peak device memory {peak_rig / 2**30:.3f} "
+          f"GiB; on {gpu}: ms a rig call {rig_ms}, ms a camera-frame "
+          f"{[m / RIG_CAMERAS for m in rig_ms]}", flush=True)
+
+    # --- 12. streaming: host frames through the upload ring -------------------
+    from isaac_ros_apriltag_tpu_torch import StreamingRunner, run_stream
+
+    stream_host = [f for _, _, f in bscenes] + list(rig_host)     # 24 different frames
+
+    def detect1(x):
+        return det_cuda.detect_with_stats(x, "mono8")
+
+    sync1 = [detect1(torch.from_numpy(f).to(dev)) for f in stream_host]
+    stream_gap = 0.0
+    for depth in (1, 2, 3):
+        if depth == 2:
+            torch.cuda.synchronize()
+            thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+        outs = run_stream(detect1, stream_host, depth=depth, device=dev)
+        if depth == 2:
+            torch.cuda.synchronize()
+            counts_stream = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
+                             "col": ccl_ops.col_diag_launches}
+        if len(outs) != len(stream_host):
+            raise AssertionError(f"depth {depth}: {len(outs)} results for {len(stream_host)} frames")
+        for k, (got, want) in enumerate(zip(outs, sync1)):
+            stream_gap = max(stream_gap, _same_as_sync(got, want, f"depth {depth}, frame {k}"))
+    n_str = len(stream_host)
+    want_stream = {"threshold": n_str, "row": SCAN_ROUNDS * n_str, "col": SCAN_ROUNDS * n_str}
+    if counts_stream != want_stream:
+        raise AssertionError(f"stream launch counts {counts_stream} != expected {want_stream}")
+    host8 = [np.stack(stream_host[i:i + BATCH]) for i in range(0, n_str, BATCH)]
+    sync8 = [bfn["cuda"](torch.from_numpy(b).to(dev)) for b in host8]
+    for depth in (1, 2):
+        outs = run_stream(bfn["cuda"], host8, depth=depth, device=dev)
+        for i, (got, want) in enumerate(zip(outs, sync8)):
+            stream_gap = max(stream_gap, _same_as_sync(got, want, f"batch {i} at depth {depth}"))
+
+    def slow_copy(x):
+        torch.cuda._sleep(int(2e9 * 0.005))      # ~5 ms at ~2 GHz before the input is read
+        return x.clone()
+
+    for k, (got, f) in enumerate(zip(run_stream(slow_copy, stream_host, depth=3, device=dev),
+                                     stream_host)):
+        if not torch.equal(got.cpu(), torch.from_numpy(f)):
+            raise AssertionError(f"depth 3 with a slow reader: result {k} is not frame {k}")
+    f_dev = torch.from_numpy(stream_host[0]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        detect1(f_dev)
+        bfn["cuda"](frames8)
+        rigs["cuda"].detect(rig_frames)
+        for _ in StreamingRunner(detect1, 2, dev).run(stream_host[:3]):
+            pass
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    stream_ms = {}
+    for depth in (1, 2, 3, 3, 2, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in StreamingRunner(detect1, depth, dev).run(stream_host):
+            pass
+        stream_ms.setdefault(depth, []).append((time.perf_counter() - t0) * 1e3 / n_str)
+    stream8_ms = {}
+    for depth in (1, 2, 2, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in StreamingRunner(bfn["cuda"], depth, dev).run(host8):
+            pass
+        stream8_ms.setdefault(depth, []).append((time.perf_counter() - t0) * 1e3 / n_str)
+    print(f"[12 streaming] {n_str} different host {H}x{W} frames at depth 1/2/3 and as "
+          f"{len(host8)} batches of {BATCH} at depth 1/2: equal to synchronous detection "
+          f"(FrameStats, valid, ids exact; corner gap {stream_gap:.2e} px, limit "
+          f"{STREAM_TOL_PX}); a reader that sleeps on the card at depth 3 gets every frame's own "
+          f"pixels; Detector, batched, rig and streaming calls ran under sync debug mode "
+          f"'error' (no host sync); launches {counts_stream} over {n_str} frames at depth 2; "
+          f"on {gpu}: ms a frame, batch 1 {stream_ms}, batch {BATCH} {stream8_ms}", flush=True)
+
+    # --- 13. serving: golden POL scene, detect_checked, the command line -----
+    import tempfile
+
+    from isaac_ros_apriltag_tpu_torch.utils.render import GOLDEN, golden_scene
+
+    gk = GOLDEN["K"]
+    gcam = CameraModel.create(fx=gk[0, 0], fy=gk[1, 1], cx=gk[0, 2], cy=gk[1, 2],
+                              width=GOLDEN["size"][1], height=GOLDEN["size"][0])
+    gimg = golden_scene()
+    gold, gold_err = {}, {}
+    for b in ("cuda", "torch"):
+        gd = Detector(DetectorConfig(backend=b, tag_size=GOLDEN["tag_size"]), gcam, device=dev)
+        res = gd.detect_with_stats(gimg, "mono8")
+        rows = res[0].to_list()
+        if len(rows) != 1 or rows[0]["id"] != GOLDEN["id"] or rows[0]["hamming"] != 0:
+            raise AssertionError(f"golden ({b}): {rows}")
+        r = rows[0]
+        err = {"px": max(np.abs(np.asarray(r["center"]) - GOLDEN["center"]).max(),
+                         np.abs(np.asarray(r["corners"]) - GOLDEN["corners"]).max()),
+               "translation": np.abs(np.asarray(r["translation"]) - GOLDEN["translation"]).max(),
+               "quaternion": np.abs(np.asarray(r["quaternion"])
+                                    - GOLDEN["quaternion_wxyz"]).max()}
+        for k, tol in GOLDEN_TOL.items():
+            if not err[k] < tol:
+                raise AssertionError(f"golden ({b}): {k} error {err[k]} >= {tol}")
+        _all_same(gd.detect_checked(gimg, "mono8"), res, f"detect_checked ({b}, golden)")
+        gold[b], gold_err[b] = r, {k: float(v) for k, v in err.items()}
+    for b, det in (("cuda", det_cuda), ("torch", det_torch)):
+        _all_same(det.detect_checked(frames[0], "mono8"), det.detect_with_stats(frames[0], "mono8"),
+                  f"detect_checked ({b}, six tags)")
+    if gold["cuda"] != gold["torch"]:
+        raise AssertionError(f"golden rows differ between backends: {gold}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "golden.npy")
+        np.save(path, gimg)
+        out = _cli("detect", "--image", path, "--size", repr(GOLDEN["tag_size"]),
+                   "--fx", repr(float(gk[0, 0])), "--fy", repr(float(gk[1, 1])),
+                   "--cx", repr(float(gk[0, 2])), "--cy", repr(float(gk[1, 2])))
+    cli_rows = [json.loads(line) for line in out.stdout.splitlines() if line.strip()]
+    if cli_rows != [gold["cuda"]]:
+        raise AssertionError(f"cli detect gave {cli_rows}, in process {gold['cuda']}")
+    out = _cli("bench", "--hw", f"{H},{W}", "--batch", str(BATCH), "--iters", "20")
+    bench = json.loads(out.stdout.strip().splitlines()[-1])
+    if bench["detections_per_frame"] != len(TAG_IDS) or bench["backend"] != "cuda":
+        raise AssertionError(f"cli bench: {bench}")
+    print(f"[13 serving] golden POL scene {GOLDEN['size'][0]}x{GOLDEN['size'][1]}: one "
+          f"detection, id 0, hamming 0 on both backends, errors {gold_err} (limits "
+          f"{GOLDEN_TOL}), rows equal; detect_checked == detect_with_stats on both backends "
+          f"(golden and six tags); `python -m isaac_ros_apriltag_tpu_torch detect` gave the same "
+          f"row; `bench --hw {H},{W} --batch {BATCH} --iters 20` on {gpu}: {bench}", flush=True)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -753,7 +1002,8 @@ def main() -> int:
     }
     names = {"threshold": "adaptive_threshold", "row": "ccl_row_scan",
              "col": "ccl_col_diag_scan"}
-    paths = {"frame": counts, f"batch{BATCH}": counts8, f"graph{BATCH}": counts_g}
+    paths = {"frame": counts, f"batch{BATCH}": counts8, f"graph{BATCH}": counts_g,
+             f"rig{RIG_CAMERAS}": counts_rig, "stream": counts_stream}
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": sum(c[k] for c in paths.values()),

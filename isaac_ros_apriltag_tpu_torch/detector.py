@@ -105,7 +105,8 @@ def _dedupe(valid, ids, margin, corners):
 def detect_tail(cfg: DetectorConfig, camera: CameraModel, family: TagFamily,
                 gray: torch.Tensor, trinary: torch.Tensor, label: torch.Tensor,
                 scan_converged: torch.Tensor, *, rank_table: torch.Tensor,
-                extra_overflow: torch.Tensor) -> tuple[Detections, FrameStats]:
+                extra_overflow: torch.Tensor, with_pose: bool = True
+                ) -> tuple[Detections, FrameStats]:
     """The back half of the detector on a batch: (B, ...) rank-space CCL
     labels -> Detections and FrameStats with a leading B."""
     E_eff, R_eff = cfg.effective_capacities(*trinary.shape[-2:])
@@ -122,14 +123,15 @@ def detect_tail(cfg: DetectorConfig, camera: CameraModel, family: TagFamily,
         min_cluster_pixels=cfg.min_cluster_pixels,
         max_cluster_points=cfg.max_cluster_points)
     return _detect_from_clusters(cfg, camera, family, gray, clusters,
-                                 scan_converged & res.converged)
+                                 scan_converged & res.converged, with_pose=with_pose)
 
 
-def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged
-                          ) -> tuple[Detections, FrameStats]:
+def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
+                          with_pose: bool = True) -> tuple[Detections, FrameStats]:
     """(B, ...) cluster moments -> Detections and FrameStats. Quad fit,
     refine, decode and pose work per quad; the top-k picks and the dedupe
-    work within each frame."""
+    work within each frame. with_pose=False leaves translation, quaternion
+    and rotation zero (rotation too, not the identity)."""
     quads = fit_quads_from_moments(clusters, min_area=64.0 / (cfg.quad_decimate ** 2))
     want_dark = not family.reversed_border
     qvalid = quads.valid & (quads.dark_inside == want_dark)
@@ -161,7 +163,14 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged
     c0, c1, c2, c3 = sel_corners.unbind(-2)
     center = line_intersection(c0, c2 - c0, c1, c3 - c1)
 
-    poses = estimate_poses(sel_corners, camera.K, cfg.tag_size)
+    if with_pose:
+        poses = estimate_poses(sel_corners, camera.K, cfg.tag_size)
+        translation, quaternion, rotation = poses.translation, poses.quaternion, poses.rotation
+    else:
+        lead = sel_corners.shape[:-2]
+        translation, quaternion, rotation = (
+            torch.zeros((*lead, *shape), dtype=torch.float32, device=sel_corners.device)
+            for shape in ((3,), (4,), (3, 3)))
 
     det = Detections(
         valid=sel_valid,
@@ -170,9 +179,9 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged
         decision_margin=_take(dec.margin, top_f),
         center=center,
         corners=sel_corners,
-        translation=poses.translation,
-        quaternion=poses.quaternion,
-        rotation=poses.rotation,
+        translation=translation,
+        quaternion=quaternion,
+        rotation=rotation,
     )
     n_quads = qvalid.sum(-1).to(torch.int32)
     stats = FrameStats(
@@ -188,12 +197,16 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged
 
 
 def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
-                            encoding: str = "rgb8"):
+                            encoding: str = "rgb8", *, with_pose: bool = True):
     """Returns a function (B, H, W[, C]) image tensor -> (Detections,
     FrameStats), every field with a leading B. The images must lie on the
     device the camera's tensors lie on; backend 'cuda' needs that to be a
     CUDA device and raises otherwise. Whatever B, one call makes the same
-    kernel launches: K1 once, K2 and K3 once per scan round."""
+    kernel launches: K1 once, K2 and K3 once per scan round.
+
+    with_pose=False skips the pose stage (translation, quaternion and
+    rotation come back zero), for callers that pose the corners with their
+    own intrinsics (parallel/rig.py), so no pose is computed twice."""
     family = get_family(config.tag_family)
     cfg = config
     if cfg.ccl_phase2_rounds < 1:
@@ -226,22 +239,50 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
             label0=rank_img)
         return detect_tail(cfg, camera, family, gray, trinary, label,
                            scan_converged, rank_table=rank_table,
-                           extra_overflow=extra_overflow)
+                           extra_overflow=extra_overflow, with_pose=with_pose)
 
     return detect
 
 
 def build_detect_fn(config: DetectorConfig, camera: CameraModel,
-                    encoding: str = "rgb8"):
+                    encoding: str = "rgb8", *, with_pose: bool = True):
     """Returns a function image tensor (H, W[, C]) -> (Detections,
     FrameStats) of one frame: the batched function on a batch of one."""
-    batched = build_batched_detect_fn(config, camera, encoding)
+    batched = build_batched_detect_fn(config, camera, encoding, with_pose=with_pose)
 
     def detect(image: torch.Tensor) -> tuple[Detections, FrameStats]:
         det, stats = batched(image[None])
         return det.frame(0), stats.frame(0)
 
     return detect
+
+
+# detect_checked's invariants, in the order they are checked, with the
+# reference's messages (isaac_ros_apriltag_tpu/detector.py:369-384).
+INVARIANTS = ("non-finite corners on valid detections",
+              "non-finite centers on valid detections",
+              "non-finite translations on valid detections",
+              "unnormalized quaternions on valid detections",
+              "tag id out of family range",
+              "num_detections disagrees with the valid mask")
+
+
+def _invariants(det: Detections, stats: FrameStats, ncodes: int) -> torch.Tensor:
+    """(len(INVARIANTS),) bool on the detections' device, True where the
+    invariant holds on every valid row of every frame (one frame or a batch)."""
+    v = det.valid
+
+    def on_valid(ok: torch.Tensor) -> torch.Tensor:
+        return (ok.reshape(*v.shape, -1).all(-1) | ~v).all()
+
+    qn = (det.quaternion * det.quaternion).sum(-1)
+    return torch.stack([
+        on_valid(torch.isfinite(det.corners)),
+        on_valid(torch.isfinite(det.center)),
+        on_valid(torch.isfinite(det.translation)),
+        on_valid((qn - 1.0).abs() < 1e-3),
+        on_valid((det.id >= 0) & (det.id < ncodes)),
+        (stats.num_detections == v.sum(-1)).all()])
 
 
 def device_for(config: DetectorConfig, device: torch.device | str | None) -> torch.device:
@@ -300,3 +341,18 @@ class Detector:
     def detect_with_stats(self, image, encoding: str = "rgb8"
                           ) -> tuple[Detections, FrameStats]:
         return self._fn(encoding)(to_device(image, self.device))
+
+    def detect_checked(self, image, encoding: str = "rgb8"
+                       ) -> tuple[Detections, FrameStats]:
+        """detect_with_stats, then the reference's output invariants
+        (INVARIANTS: finite corners, centers and translations, unit
+        quaternions, ids in the family, num_detections equal to the valid
+        count), taken on the device and read back once; raises RuntimeError
+        with the first violated invariant's message. Waits for the device:
+        a debugging entry point, not the hot path."""
+        det, stats = self.detect_with_stats(image, encoding)
+        holds = _invariants(det, stats, self.family.ncodes).tolist()
+        for ok, message in zip(holds, INVARIANTS):
+            if not ok:
+                raise RuntimeError(message)
+        return det, stats

@@ -42,6 +42,13 @@ class TagFamily:
         return int(self.codes.shape[0])
 
     @functools.cached_property
+    def device_tables(self) -> dict:
+        """Tensors the detector's stages derive from this family, by (stage,
+        device), uploaded once: a copy from numpy memory at every call would
+        make the host wait for the device's queue."""
+        return {}
+
+    @functools.cached_property
     def rotation_perm(self) -> np.ndarray:
         """(4, nbits) int32: perm[r, i] = index of the bit that lands on
         position i after rotating the tag by r*90 deg CCW; a 90 deg turn maps

@@ -79,6 +79,36 @@ def _popcount64(x: torch.Tensor) -> torch.Tensor:
     return (x * 0x0101010101010101) >> 56 & 0xFF
 
 
+class _Tables(NamedTuple):
+    """A family's decode tables on one device."""
+    square: torch.Tensor     # (4, 2) _SQUARE
+    uv_bits: torch.Tensor    # (nbits, 2) bit-cell centers
+    uv_border: torch.Tensor  # border-ring cell centers
+    uv_outer: torch.Tensor   # outer-ring cell centers
+    lin: torch.Tensor        # (nbits,) int64 flat bit cells in the total_width grid
+    perms: torch.Tensor      # (4, nbits) int64 rotation_perm
+    weights: torch.Tensor    # (nbits,) int64 bit weights, MSB first
+    codes: torch.Tensor      # (ncodes,) int64 codebook
+
+
+def _tables(family: TagFamily, dev: torch.device) -> _Tables:
+    """The family's tables on `dev`, uploaded once per device and kept on
+    the family (family.device_tables)."""
+    key = ("decode", dev)
+    if key not in family.device_tables:
+        wb, tw, nbits = family.width_at_border, family.total_width, family.nbits
+        off = (tw - wb) // 2
+        bit_cells = np.stack([family.bit_x, family.bit_y], -1).astype(np.float32)
+        arrays = (_SQUARE, _cell_uv(bit_cells, wb), _cell_uv(_ring_cells(0, wb - 1), wb),
+                  _cell_uv(_ring_cells(-1, wb), wb),
+                  (family.bit_y + off).astype(np.int64) * tw + (family.bit_x + off).astype(np.int64),
+                  family.rotation_perm.astype(np.int64),
+                  np.left_shift(np.int64(1), nbits - 1 - np.arange(nbits, dtype=np.int64)),
+                  family.codes.astype(np.int64))
+        family.device_tables[key] = _Tables(*(torch.as_tensor(a, device=dev) for a in arrays))
+    return family.device_tables[key]
+
+
 def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *,
                  max_hamming: int = 2, decode_sharpening: float = 0.25,
                  ) -> DecodeResult:
@@ -86,18 +116,10 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *
     a batch of each, (B, H, W) and (B, C, 4, 2)."""
     dev = corners.device
     lead = corners.shape[:-2]
-    wb = family.width_at_border
-    nbits = family.nbits
+    tab = _tables(family, dev)
+    uv_bits, uv_border, uv_outer = tab.uv_bits, tab.uv_border, tab.uv_outer
 
-    def t(a):
-        return torch.as_tensor(a, device=dev)
-
-    bit_cells = np.stack([family.bit_x, family.bit_y], -1).astype(np.float32)
-    uv_bits = t(_cell_uv(bit_cells, wb))
-    uv_border = t(_cell_uv(_ring_cells(0, wb - 1), wb))
-    uv_outer = t(_cell_uv(_ring_cells(-1, wb), wb))
-
-    H = homography_from_correspondences(t(_SQUARE).expand(*lead, 4, 2), corners)
+    H = homography_from_correspondences(tab.square.expand(*lead, 4, 2), corners)
 
     def sample(uv):
         return _bilinear(gray, apply_homography(H, uv.expand(lead + uv.shape)))
@@ -113,9 +135,7 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *
 
     if decode_sharpening > 0:
         tw = family.total_width
-        off = (tw - wb) // 2
-        lin = t((family.bit_y + off).astype(np.int64) * tw
-                + (family.bit_x + off).astype(np.int64))
+        lin = tab.lin
         grid = torch.zeros((*lead, tw * tw), dtype=v_bits.dtype, device=dev)
         grid[..., lin] = v_bits
         grid = grid.reshape(*lead, tw, tw)
@@ -139,12 +159,9 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *
     margin = torch.minimum(wmean, bmean)
 
     # --- codebook match under 4 rotations ---------------------------------
-    perms = t(family.rotation_perm.astype(np.int64))          # (4, nbits)
-    rbits = bits[..., perms].to(torch.int64)                   # (..., 4, nbits)
-    weights = t(np.left_shift(np.int64(1), nbits - 1 - np.arange(nbits, dtype=np.int64)))
-    code = (rbits * weights).sum(-1)                           # (..., 4)
-    table = t(family.codes.astype(np.int64))                   # (ncodes,)
-    ham = _popcount64(code[..., None] ^ table)                 # (..., 4, ncodes)
+    rbits = bits[..., tab.perms].to(torch.int64)               # (..., 4, nbits)
+    code = (rbits * tab.weights).sum(-1)                       # (..., 4)
+    ham = _popcount64(code[..., None] ^ tab.codes)             # (..., 4, ncodes)
     ham_min = ham.amin(-1)
     id_min = torch.argmin(ham, -1)       # first minimum, as jnp.argmin
     best_r = torch.argmin(ham_min, -1)

@@ -30,10 +30,11 @@ def grayscale(image: torch.Tensor, encoding: str = "rgb8", *,
     w = (b, g, r) if encoding in ("bgr8", "bgra8") else (r, g, b)
     # f32 weights, widened: each uint8 * weight product is exact in f64, and
     # so is each f32 + product sum, so rounding to f32 after every step is
-    # one rounding per fused multiply-add, as in the reference's dot.
-    w = torch.tensor(w, dtype=torch.float32).to(torch.float64)
-    x = image[..., :3].to(device=image.device, dtype=torch.float64)
-    w = w.to(image.device)
+    # one rounding per fused multiply-add, as in the reference's dot. The
+    # weights are Python floats (the f32 values exactly), so nothing is
+    # copied to the device.
+    w = torch.tensor(w, dtype=torch.float32).tolist()
+    x = image[..., :3].to(torch.float64)
     acc = (x[..., 0] * w[0]).to(torch.float32)
     for c in (1, 2):
         acc = (acc.to(torch.float64) + x[..., c] * w[c]).to(torch.float32)

@@ -8,6 +8,7 @@ projection onto SO(3). Detection corner k is tag-frame point TAG_CORNERS[k]
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -23,13 +24,24 @@ class Poses(NamedTuple):
     quaternion: torch.Tensor    # (C, 4) (w, x, y, z)
 
 
+@functools.lru_cache(maxsize=None)
+def _tag_corners(device: torch.device) -> torch.Tensor:
+    """TAG_CORNERS on `device`, uploaded once: a copy from numpy memory at
+    every call would make the host wait for the device's queue."""
+    return torch.as_tensor(TAG_CORNERS, device=device)
+
+
 def estimate_poses(corners: torch.Tensor, K: torch.Tensor, tag_size: float) -> Poses:
     """corners: (..., C, 4, 2) rotation-corrected detection corners
-    (pixels); one K for all of them."""
-    obj = torch.as_tensor(TAG_CORNERS, device=corners.device) * (tag_size * 0.5)
+    (pixels). K: (3, 3), one for all of them, or (B, 3, 3), one per frame of
+    corners (B, C, 4, 2) (a rig whose cameras have their own intrinsics)."""
+    obj = _tag_corners(corners.device) * (tag_size * 0.5)
     H = homography_from_correspondences(obj.expand(corners.shape), corners)
     Kinv = inverse3x3(K.to(torch.float32))
-    M = torch.einsum("ij,...jk->...ik", Kinv, H)
+    if K.ndim == 2:
+        M = torch.einsum("ij,...jk->...ik", Kinv, H)
+    else:
+        M = torch.einsum("bij,b...jk->b...ik", Kinv, H)
     m1, m2, m3 = M[..., 0], M[..., 1], M[..., 2]
     n1 = torch.linalg.vector_norm(m1, dim=-1)
     n2 = torch.linalg.vector_norm(m2, dim=-1)

@@ -11,6 +11,7 @@ is fitted as one (B*C, ...) set of clusters.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import NamedTuple
 
@@ -23,6 +24,13 @@ _NBINS = 64
 _MAXIMA = 10
 # All 4-subsets of the top-M maxima in cyclic (ascending angular) order.
 _COMBOS = np.array(list(itertools.combinations(range(_MAXIMA), 4)), np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _combos(device: torch.device) -> torch.Tensor:
+    """_COMBOS on `device`, uploaded once (a copy from numpy memory at every
+    call would make the host wait for the device's queue)."""
+    return torch.as_tensor(_COMBOS, device=device)
 
 
 class Quads(NamedTuple):
@@ -120,7 +128,7 @@ def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
     cand_sorted = torch.sort(torch.where(cand_valid, top_idx, 2 * K), -1).values
 
     # --- score all 4-subsets -------------------------------------------------
-    combos = torch.as_tensor(_COMBOS, device=dev)
+    combos = _combos(dev)
     cidx = cand_sorted[:, combos]                               # (C, Ncomb, 4)
     combo_ok = torch.all(cidx < K, -1)
     c1 = torch.roll(cidx, -1, -1) + torch.where(torch.arange(4, device=dev) == 3, K, 0)
@@ -166,7 +174,9 @@ def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
     valid = gates.all(-1)
 
     # Normalize winding: positive signed area (y-down CCW); reverse 1<->3.
-    flip = corners[:, [0, 3, 2, 1]]
+    # Corners (0, 3, 2, 1) by flip and roll: an index list would be copied
+    # to the device, and the host would wait for it.
+    flip = torch.roll(torch.flip(corners, (1,)), 1, 1)
     corners = torch.where((area2 < 0)[:, None, None], flip, corners)
     return Quads(corners=corners.reshape(*lead, 4, 2), valid=valid.reshape(lead),
                  dark_inside=m.dark_inside, fit_err=(best_err * scale2).reshape(lead),

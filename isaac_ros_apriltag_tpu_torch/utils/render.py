@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..models.families import TagFamily
+from ..models.families import TagFamily, get_family
 
 # Tag-frame (x, y) of detection corners, in units of tag_size/2.
 TAG_CORNERS = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]],
@@ -120,6 +120,32 @@ def upright_pose(t: np.ndarray, inplane: float = 0.0) -> np.ndarray:
     """R_camera_tag for an upright fronto-parallel tag, optionally rotated
     in-plane by `inplane` radians. inplane=0 gives diag(-1,-1,1)."""
     return rotz(np.pi + inplane)
+
+
+GOLDEN = dict(
+    # The reference's proof-of-life fixture: tag 0 of tag36h11 at this pose,
+    # camera and image size, with the POL test's expected detection.
+    family="tag36h11", id=0,
+    center=np.array([926.0, 547.0]),
+    corners=np.array([[1044.0, 665.0], [808.0, 665.0],
+                      [808.0, 429.0], [1044.0, 429.0]]),
+    translation=np.array([0.255342, 0.098358, 0.403961]),
+    quaternion_wxyz=np.array([0.0, 0.0, 0.0, 1.0]),
+    tag_size=0.22,
+    K=np.array([[434.943999, 0.0, 651.073921],
+                [0.0, 431.741273, 441.878037],
+                [0.0, 0.0, 1.0]]),
+    size=(1080, 1920),
+)
+
+
+def golden_scene() -> np.ndarray:
+    """The GOLDEN fixture rendered: one tag, no noise, (1080, 1920) uint8."""
+    g = GOLDEN
+    return render_tags(g["K"], g["size"],
+                       [dict(family=get_family(g["family"]), id=g["id"],
+                             R=upright_pose(g["translation"]), t=g["translation"],
+                             tag_size=g["tag_size"])])
 
 
 def distort_image(ideal: np.ndarray, camera) -> np.ndarray:

@@ -1,8 +1,11 @@
 """Tests of the PyTorch port that need a CUDA device: each hand-written
 kernel against its plain twin, bit for bit, on one frame and on a batch of
 different frames (where it must also equal itself run on each frame alone),
-and the two backends against each other end to end: one frame, a batch, and
-the rectify -> resize -> detect graph. They skip without a card.
+the two backends against each other end to end: one frame, a batch, and
+the rectify -> resize -> detect graph; and the serving layer on the card:
+the streaming runner's upload ring against a slow reader, the rig's launch
+counts, no host sync on the detect path, and detect_checked. They skip
+without a card.
 
 The adversarial inputs of the threshold and scan kernels are chip_smoke.py's,
 so the smoke run and these tests hold the kernels to the same cases. This file imports
@@ -20,7 +23,9 @@ import torch
 from chip_smoke import (SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, edge_batch, scan_case,
                         scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
-                                          batched_detect_fn, get_family)
+                                          RigDetector, StreamingRunner, batched_detect_fn,
+                                          get_family, run_stream)
+from isaac_ros_apriltag_tpu_torch import detector as tdetector
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
 from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
@@ -204,3 +209,93 @@ def test_graph_backends_identical(cuda):
                          device=cuda)(img)
     _assert_same(got, want)
     assert sorted(r["id"] for r in got[0].to_list()) == [t["id"] for t in tags]
+
+
+def _rig(n, size=(240, 320)):
+    """n cameras with their own intrinsics, each rendering three tags through
+    its own K (noise 1, seed c): cameras and (n, H, W) uint8 frames."""
+    cams, frames = [], []
+    for c in range(n):
+        f = 210.0 * (1.0 + 0.02 * c)
+        cam = CameraModel.create(fx=f, fy=f, cx=size[1] / 2 + c - n / 2, cy=size[0] / 2 - c / 2,
+                                 width=size[1], height=size[0])
+        frames.append(render_tags(cam.K.numpy(), size, _tags(c, 0.8), noise=1.0, seed=c))
+        cams.append(cam)
+    return cams, np.stack(frames)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_streaming_slow_reader_gets_its_own_frame(cuda, depth):
+    """A function that sleeps on the card before it reads its input: every
+    result is its own frame's pixels, so no upload overwrote a slot that a
+    queued compute had still to read."""
+    rng = np.random.default_rng(depth)
+    frames = [rng.integers(0, 256, (240, 320), dtype=np.uint8) for _ in range(9)]
+
+    def slow_copy(x):
+        torch.cuda._sleep(int(2e9 * 0.003))
+        return x.clone()
+
+    got = run_stream(slow_copy, frames, depth=depth, device=cuda)
+    assert len(got) == len(frames)
+    for g, f in zip(got, frames):
+        assert torch.equal(g.cpu(), torch.from_numpy(f))
+
+
+def test_streaming_detect_equals_direct_calls(cuda):
+    cams, frames = _rig(4)
+    det = Detector(DetectorConfig(tag_size=0.16), cams[0], device=cuda)
+    fn = lambda x: det.detect_with_stats(x, "mono8")     # noqa: E731
+    for depth in (1, 2, 3):
+        for got, f in zip(run_stream(fn, list(frames), depth=depth, device=cuda), frames):
+            _assert_same(got, det.detect_with_stats(f, "mono8"))
+
+
+def test_rig_launches_once_for_16_cameras(cuda):
+    cams, frames = _rig(16)
+    rig = RigDetector(DetectorConfig(tag_size=0.16), cams[0], 16, device=cuda, cameras=cams)
+    x = torch.from_numpy(frames).to(cuda)
+    torch.cuda.synchronize()
+    thr_kernel.launches = ccl.row_launches = ccl.col_diag_launches = 0
+    det, _ = rig.detect(x)
+    torch.cuda.synchronize()
+    assert (thr_kernel.launches, ccl.row_launches, ccl.col_diag_launches) == (1, 14, 14)
+    for c in range(16):
+        assert sorted(r["id"] for r in det.frame(c).to_list()) == [2 + c, 7 + c, 12 + c]
+
+
+def test_detect_path_makes_no_host_sync(cuda):
+    """Detector, batched detect, the per-camera rig and the streaming runner
+    under sync debug mode 'error': a hidden host sync would raise."""
+    cams, frames = _rig(3)
+    cfg = DetectorConfig(tag_size=0.16)
+    det = Detector(cfg, cams[0], device=cuda)
+    bfn = batched_detect_fn(cfg, cams[0].to(cuda), "mono8")
+    rig = RigDetector(cfg, cams[0], 3, device=cuda, cameras=cams)
+    x = torch.from_numpy(frames).to(cuda)
+    fn = lambda f: det.detect_with_stats(f, "mono8")     # noqa: E731
+    fn(x[0]), bfn(x), rig.detect(x)                      # first calls upload constant tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(x[0])
+        bfn(x)
+        rig.detect(x)
+        for _ in StreamingRunner(fn, 2, cuda).run(list(frames)):
+            pass
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_detect_checked_on_the_card(cuda, backend, monkeypatch):
+    cams, frames = _rig(1, (480, 640))
+    det = Detector(DetectorConfig(tag_size=0.16, backend=backend), cams[0], device=cuda)
+    x = torch.from_numpy(frames[0]).to(cuda)
+    _assert_same(det.detect_checked(x, "mono8"), det.detect_with_stats(x, "mono8"))
+    good, stats = det.detect_with_stats(x, "mono8")
+    bad = dataclasses.replace(good, quaternion=good.quaternion * 2.0)
+    monkeypatch.setattr(tdetector, "build_detect_fn", lambda *a, **k: lambda img: (bad, stats))
+    det = Detector(DetectorConfig(tag_size=0.16, backend=backend), cams[0], device=cuda)
+    with pytest.raises(RuntimeError, match="unnormalized quaternions on valid detections"):
+        det.detect_checked(x, "mono8")

@@ -12,13 +12,25 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NO_JAX = """
+import runpy
 import sys
 import isaac_ros_apriltag_tpu_torch
+import isaac_ros_apriltag_tpu_torch.cli
 import isaac_ros_apriltag_tpu_torch.convert
 import isaac_ros_apriltag_tpu_torch.detector
+import isaac_ros_apriltag_tpu_torch.parallel.rig
+import isaac_ros_apriltag_tpu_torch.streaming
+import isaac_ros_apriltag_tpu_torch.sync
 import isaac_ros_apriltag_tpu_torch.utils.render
+import isaac_ros_apriltag_tpu_torch.utils.timing
+import isaac_ros_apriltag_tpu_torch.utils.viz
 from isaac_ros_apriltag_tpu_torch import get_family
 get_family("tag36h11")
+sys.argv = ["isaac_ros_apriltag_tpu_torch", "--help"]
+try:
+    runpy.run_module("isaac_ros_apriltag_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "isaac_ros_apriltag_tpu"))
 assert not loaded, loaded
@@ -31,7 +43,8 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert "usage: isaac_ros_apriltag_tpu_torch" in out.stdout
 
 
 def test_port_has_its_own_codebooks():
@@ -169,10 +182,13 @@ def test_ptxas_usage_reads_each_kernel():
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")
-@pytest.mark.parametrize("script", ["chip_smoke.py", "torch_stage_profile.py"])
+@pytest.mark.parametrize("script", [["chip_smoke.py"], ["torch_stage_profile.py"],
+                                    ["-m", "isaac_ros_apriltag_tpu_torch", "bench"]],
+                         ids=lambda a: a[-1])
 def test_scripts_refuse_without_cuda(script):
-    """Without a CUDA device the scripts exit non-zero and print no result."""
-    out = subprocess.run([sys.executable, script], cwd=ROOT, capture_output=True,
+    """Without a CUDA device the scripts, and the command line's bench at its
+    default --device cuda, exit non-zero and print no result."""
+    out = subprocess.run([sys.executable, *script], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0
     assert out.stdout.strip() == ""
