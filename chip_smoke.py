@@ -16,8 +16,8 @@ non-zero):
      pixels at the threshold, misaligned frame views and W = 2 mod 4
      through its scalar path, batches also against each frame alone), and
      the two scan kernels on SCAN_CASES, lines built to break a chunked scan
-     (see scan_case), and on a batch whose frames differ only in their first
-     and last rows;
+     (see scan_case; rows and columns past 4096 pixels among them), and on a
+     batch whose frames differ only in their first and last rows;
   4. main path: Detector(backend="cuda") on three rendered 1080x1920 frames
      with six tag36h11 tags and noise 2 must find all six ids with corners
      within 1 px of ground truth, backend "torch" on the same card must
@@ -69,7 +69,25 @@ non-zero):
      Detector.detect_checked equal to detect_with_stats on both backends;
      `python -m isaac_ros_apriltag_tpu_torch detect` on the scene saved as
      .npy gives the same row; `... bench --hw 1080,1920 --batch 8 --iters
-     20` exits 0 with 6 detections a frame.
+     20` exits 0 with 6 detections a frame;
+ 14. spatial: SpatialDetector on one 3840x2160 frame with two tags in 4 row
+     bands (segmentation 1080x1920, bands of 272 rows): ids [1, 3], corners
+     within 0.6 px of the truth, "cuda" equal to "torch", the single-device
+     Detector's ids and corners within 0.1 px; the sharded trinary and labels
+     equal to the single-device threshold and the single-device scan run
+     the spatial path's 3 x 8 rounds (both converged; the scan's default 8
+     rounds do not converge on this frame, and the count of labels short of
+     convergence is printed); K1 on the halo-padded band batch and K2/K3 on
+     the bands seeded with global flat indices bit-exact vs their twins;
+     launches 1 / 24 / 24 a call; peak memory; ms a frame (median of 20
+     calls) beside the single-device Detector's;
+ 15. flat flow: ccl_phase2_rounds=0 on phase 7's batch of 8 frames: 6/6 ids
+     each, "cuda" equal to "torch", launches 1 / 8 / 8; ms a frame beside the
+     two-phase flow's;
+ 16. long lines: the scan kernels on rows and columns past 4096 pixels at
+     batch 3 of different frames (and each frame alone), ccl_scan on
+     (2, 3, 5000) and (1, 5000, 40) equal on both backends, and device ms
+     per call at LONG_TIME_SHAPE.
 It ends with a JSON line describing the kernels (launches of every path;
 times beside the least time the card could take, from the bytes each call
 must move), the nvidia-smi name and power limit, and a last JSON line
@@ -111,12 +129,21 @@ STREAM_TOL_PX = 1e-4          # streamed corners against synchronous detection
 # The reference's proof-of-life contract (test/isaac_ros_apriltag_pol_test.py).
 GOLDEN_TOL = {"px": 2.0, "translation": 0.01, "quaternion": 0.01}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+# Phase 14: tests/test_spatial.py's 8 MP scene, two tags at 2 m, in 4 bands.
+SP_H, SP_W = 2160, 3840
+SP_BANDS = 4
+SP_CORNER_TOL_PX = 0.6        # the reference's own 8 MP bound
+SP_ITERS = 20                 # calls per median
+LONG_TIME_SHAPE = (1, 2160, 7680)   # scan kernels timed past 4096 px: an 8K frame's rows
 
+# Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
+# walks longer ones through the output row (csrc/ccl.cu).
+LONG_SHAPES = ((2, 5000), (3, 8193), (5000, 33), (8193, 2))
 # Scan-kernel inputs that break a chunked scan: widths and heights around
-# a warp's 32 lanes and at the 4096-pixel limit, each with fills and labels
+# a warp's 32 lanes, at 4096 pixels and past it, each with fills and labels
 # from scan_case.
 SCAN_SHAPES = ((1, 1), (31, 32), (32, 33), (33, 31), (1023, 1025), (1025, 1023),
-               (33, 4096), (4096, 33))
+               (33, 4096), (4096, 33)) + LONG_SHAPES
 SCAN_FILLS = (("random", "perm"), ("random", "top"), ("all0", "asc"), ("all127", "perm"),
               ("all255", "desc"), ("all255", "asc"), ("checker", "desc"),
               ("stripes32", "desc"), ("stripes31", "high"), ("stripes33", "perm"),
@@ -165,6 +192,13 @@ def scan_case(shape, fill: str, labels: str, seed: int = 0):
            "desc": lambda: n - 1 - flat, "high": lambda: 2**30 - n // 2 + rng.permutation(n),
            "top": lambda: 2**31 - 1 - rng.permutation(n)}[labels]()
     return tri.astype(np.uint8), lab.astype(np.int32).reshape(shape)
+
+
+def scan_batch(shape, fill: str, labels: str, n: int = 3):
+    """n frames of one scan case, frame b made with seed b, as (uint8
+    trinary, int32 labels) of shape (n, H, W)."""
+    frames = [scan_case(shape, fill, labels, seed=b) for b in range(n)]
+    return tuple(np.stack([f[k] for f in frames]) for k in (0, 1))
 
 
 def scan_case_id(case) -> str:
@@ -407,6 +441,41 @@ def _cli(*args: str):
     if out.returncode != 0:
         raise AssertionError(f"cli {args[0]} exited {out.returncode}:\n{out.stderr[-3000:]}")
     return out
+
+
+def spatial_scene():
+    """Phase 14's 3840x2160 camera, tags and frame: ids 1 and 3, 0.3 m, at 2 m."""
+    from isaac_ros_apriltag_tpu_torch import CameraModel, get_family
+    from isaac_ros_apriltag_tpu_torch.utils.render import render_tags, upright_pose
+
+    cam = CameraModel.create(fx=1800.0, fy=1800.0, cx=SP_W / 2, cy=SP_H / 2, width=SP_W,
+                             height=SP_H)
+    fam = get_family("tag36h11")
+    tags = []
+    for i, (x, y) in enumerate([(-0.35, -0.1), (0.35, 0.12)]):
+        t = np.array([x, y, 2.0])
+        tags.append(dict(family=fam, id=2 * i + 1, R=upright_pose(t, 0.1 * i), t=t,
+                         tag_size=TAG_SIZE))
+    return cam, tags, render_tags(cam.K.numpy(), (SP_H, SP_W), tags)
+
+
+def _median_ms(fn, iters: int = SP_ITERS) -> float:
+    """Median ms of `iters` calls, each between two CUDA events, after a warmup."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -992,6 +1061,170 @@ def main() -> int:
           f"(golden and six tags); `python -m isaac_ros_apriltag_tpu_torch detect` gave the same "
           f"row; `bench --hw {H},{W} --batch {BATCH} --iters 20` on {gpu}: {bench}", flush=True)
 
+    # --- 14. spatial: one 8 MP frame in row bands -----------------------------
+    from isaac_ros_apriltag_tpu_torch import SpatialDetector, build_spatial_front_fn
+    from isaac_ros_apriltag_tpu_torch.parallel.spatial import pad_bands
+
+    cam_sp, sp_tags, sp_img = spatial_scene()
+    sp_frame = torch.from_numpy(sp_img).to(dev)
+    sds = {b: SpatialDetector(dataclasses.replace(cfg, backend=b), cam_sp, SP_BANDS, device=dev)
+           for b in ("cuda", "torch")}
+    sp_single = Detector(cfg, cam_sp, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    det_sp, st_sp = sds["cuda"].detect_with_stats(sp_frame)
+    torch.cuda.synchronize()
+    counts_sp = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
+                 "col": ccl_ops.col_diag_launches}
+    peak_sp = torch.cuda.max_memory_allocated()
+    sp_rounds = max(3, SP_BANDS - 1) * cfg.ccl_rounds
+    want_sp = {"threshold": 1, "row": sp_rounds, "col": sp_rounds}
+    if counts_sp != want_sp:
+        raise AssertionError(f"spatial launch counts {counts_sp} != expected {want_sp}")
+    worst_sp = _truth_error(det_sp, sp_tags, cam_sp.K.numpy())
+    if worst_sp >= SP_CORNER_TOL_PX:
+        raise AssertionError(f"spatial corner error {worst_sp:.3f} px >= {SP_CORNER_TOL_PX} px")
+    _all_same(sds["torch"].detect_with_stats(sp_frame), (det_sp, st_sp), "spatial cuda and torch")
+    d1 = sp_single.detect(sp_frame, "mono8")
+    if not (_same(d1.valid, det_sp.valid) and _same(d1.id, det_sp.id)):
+        raise AssertionError("spatial and single-device detections differ in ids")
+    sp_gap = _max_abs_err(d1.corners[d1.valid], det_sp.corners[d1.valid])
+    if sp_gap > 0.1:
+        raise AssertionError(f"spatial corners {sp_gap} px from the single-device Detector's")
+    # The front against the single-device front: the single-device scan, run
+    # as many rounds as the spatial path's (its default 8 leave this frame
+    # unconverged), converges to each component's global min flat index, and
+    # so must the bands with their cut merges.
+    tri_sp, lab_sp = build_spatial_front_fn(cfg, cam_sp, SP_BANDS)(sp_frame)
+    tri_spt, lab_spt = build_spatial_front_fn(dataclasses.replace(cfg, backend="torch"), cam_sp,
+                                              SP_BANDS)(sp_frame)
+    seg_sp = _pad_to_tiles(_decimate(grayscale(sp_frame, "mono8"), cfg.quad_decimate),
+                           ts).contiguous()
+    tri_1 = thr_ops.adaptive_threshold(seg_sp, ts, md)
+    lab_1, conv_1 = ccl_ops.ccl_scan(tri_1, sp_rounds, backend="cuda")
+    if not bool(conv_1):
+        raise AssertionError(f"the single-device scan did not converge in {sp_rounds} rounds")
+    lab_8, conv_8 = ccl_ops.ccl_scan(tri_1, cfg.ccl_scan_rounds, backend="cuda")
+    unconverged_8 = int((lab_8 != lab_1).sum())
+    for what, a, b in (("trinary", tri_sp, tri_1), ("labels", lab_sp, lab_1),
+                       ("torch trinary", tri_spt, tri_sp), ("torch labels", lab_spt, lab_sp)):
+        if not _same(a, b):
+            raise AssertionError(f"spatial front: {what} differ from the single-device front")
+    # K1 on the halo-padded band batch, K2 and K3 on the bands seeded with
+    # global flat indices and on the final labels, against their twins.
+    Hp0, Wsp = seg_sp.shape
+    Hp = -(-Hp0 // (SP_BANDS * ts)) * SP_BANDS * ts
+    Hb = Hp // SP_BANDS
+    seg_bands = torch.cat([seg_sp, seg_sp[-1:].expand(Hp - Hp0, Wsp)]).reshape(SP_BANDS, Hb, Wsp)
+    padded = pad_bands(seg_bands, 2 * ts)
+    check("threshold", thr_ops.adaptive_threshold(padded, ts, md),
+          adaptive_threshold(padded, ts, md), f"threshold on the band batch {tuple(padded.shape)}")
+    tri_bands = torch.cat([tri_sp, torch.full((Hp - Hp0, Wsp), 127, dtype=torch.uint8,
+                                              device=dev)]).reshape(SP_BANDS, Hb, Wsp)
+    lab_global = torch.arange(Hp * Wsp, dtype=torch.int32, device=dev).reshape(SP_BANDS, Hb, Wsp)
+    lab_final = lab_global.clone().reshape(Hp, Wsp)
+    lab_final[:Hp0] = lab_sp
+    lab_final = lab_final.reshape(SP_BANDS, Hb, Wsp)
+    for lab_in, what in ((lab_global, "global flat indices"), (lab_final, "final labels")):
+        check("row", ccl_ops.row_scan(tri_bands, lab_in), ccl_ops.row_scan_plain(tri_bands, lab_in),
+              f"row scan on the bands, {what}")
+        check("col", ccl_ops.col_diag_scan(tri_bands, lab_in),
+              ccl_ops.col_diag_scan_plain(tri_bands, lab_in), f"column scan on the bands, {what}")
+    sp_ms = {}
+    for name, fn in (("spatial", lambda: sds["cuda"].detect_with_stats(sp_frame)),
+                     ("single", lambda: sp_single.detect_with_stats(sp_frame, "mono8")),
+                     ("single", lambda: sp_single.detect_with_stats(sp_frame, "mono8")),
+                     ("spatial", lambda: sds["cuda"].detect_with_stats(sp_frame)),
+                     ("spatial_torch", lambda: sds["torch"].detect_with_stats(sp_frame))):
+        sp_ms.setdefault(name, []).append(_median_ms(fn))
+    pairs_sp = {
+        "threshold": (padded, lambda: thr_ops.adaptive_threshold(padded, ts, md),
+                      lambda: adaptive_threshold(padded, ts, md)),
+        "row": (tri_bands, lambda: ccl_ops.row_scan(tri_bands, lab_global),
+                lambda: ccl_ops.row_scan_plain(tri_bands, lab_global)),
+        "col": (tri_bands, lambda: ccl_ops.col_diag_scan(tri_bands, lab_global),
+                lambda: ccl_ops.col_diag_scan_plain(tri_bands, lab_global)),
+    }
+    kernel_ms_sp = {k: (_device_ms(a, 20), _device_ms(b, 20)) for k, (_, a, b) in pairs_sp.items()}
+    bound_sp = {"threshold": _bound_ms(padded, padded.to(torch.uint8)),
+                "row": _bound_ms(tri_bands, lab_global, lab_global),
+                "col": _bound_ms(tri_bands, lab_global, lab_global)}
+    shape_sp = {k: list(v[0].shape) for k, v in pairs_sp.items()}
+    print(f"[14 spatial] one {SP_H}x{SP_W} frame (segmentation {Hp0}x{Wsp}) in {SP_BANDS} bands "
+          f"of {Hb} rows: ids [1, 3], worst corner error {worst_sp:.4f} px (limit "
+          f"{SP_CORNER_TOL_PX}); cuda == torch on every field; single-device Detector: same "
+          f"ids, corners within {sp_gap:.2e} px; trinary and labels equal to the single-device "
+          f"threshold and {sp_rounds}-round scan (converged; at {cfg.ccl_scan_rounds} rounds "
+          f"converged={bool(conv_8)}, {unconverged_8} labels short of it), on both backends; K1 on "
+          f"{shape_sp['threshold']} and K2/K3 on {shape_sp['row']} (global flat-index seeds and "
+          f"final labels) bit-exact vs twins; launches {counts_sp} a call; peak device memory "
+          f"{peak_sp / 2**30:.3f} GiB; on {gpu}: ms a frame (median of {SP_ITERS}) {sp_ms}; device "
+          f"ms/call at the band shapes "
+          + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f} bound {bound_sp[k]:.4f}"
+                      for k, (a, b) in kernel_ms_sp.items()), flush=True)
+
+    # --- 15. the flat-label flow: ccl_phase2_rounds=0 at batch 8 ---------------
+    flat_cfg = dataclasses.replace(cfg, ccl_phase2_rounds=0)
+    ffn = {b: batched_detect_fn(dataclasses.replace(flat_cfg, backend=b), cam_dev, "mono8")
+           for b in ("cuda", "torch")}
+    torch.cuda.synchronize()
+    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    detf, stf = ffn["cuda"](frames8)
+    torch.cuda.synchronize()
+    counts_flat = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
+                   "col": ccl_ops.col_diag_launches}
+    want_flat = {"threshold": 1, "row": cfg.ccl_scan_rounds, "col": cfg.ccl_scan_rounds}
+    if counts_flat != want_flat:
+        raise AssertionError(f"flat-flow launch counts {counts_flat} != expected {want_flat}")
+    worst_f = max(_truth_error(detf.frame(b), tg, K) for b, (_, tg, _) in enumerate(bscenes))
+    _all_same(ffn["torch"](frames8), (detf, stf), "flat flow cuda and torch")
+    flow_ms = {}
+    for name, fn in (("flat", ffn["cuda"]), ("two_phase", bfn["cuda"]), ("two_phase", bfn["cuda"]),
+                     ("flat", ffn["cuda"])):
+        flow_ms.setdefault(name, []).append(_time_ms(lambda: fn(frames8), 5) / BATCH)
+    print(f"[15 flat flow] ccl_phase2_rounds=0, batch {BATCH} of different {H}x{W} frames: 6/6 "
+          f"ids each, worst corner error {worst_f:.4f} px (limit {CORNER_TOL_PX}); cuda == torch "
+          f"on every field; launches {counts_flat} for the batch; on {gpu}: ms a frame {flow_ms}",
+          flush=True)
+
+    # --- 16. long lines: rows and columns past 4096 pixels -------------------
+    for shape in LONG_SHAPES:
+        for fill, labels in SCAN_FILLS:
+            lt, ll = (torch.from_numpy(a).to(dev) for a in scan_batch(shape, fill, labels))
+            for name, kern, twin in (("row", ccl_ops.row_scan, ccl_ops.row_scan_plain),
+                                     ("col", ccl_ops.col_diag_scan, ccl_ops.col_diag_scan_plain)):
+                got = kern(lt, ll)
+                check(name, got, twin(lt, ll), f"{name} scan {shape} {fill} {labels}, batch 3")
+                for b in range(lt.shape[0]):
+                    check(name, got[b], kern(lt[b].contiguous(), ll[b].contiguous()),
+                          f"{name} scan {shape} {fill} {labels}, frame {b} alone")
+    for shape in ((2, 3, 5000), (1, 5000, 40)):
+        lt = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8), size=shape,
+                                         p=[0.3, 0.2, 0.5])).to(dev)
+        a, b = (ccl_ops.ccl_scan(lt, 8, backend=bk) for bk in ("cuda", "torch"))
+        if not (_same(a[0], b[0]) and _same(a[1], b[1])):
+            raise AssertionError(f"ccl_scan on {shape}: cuda and torch differ")
+    lt = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8), size=LONG_TIME_SHAPE,
+                                     p=[0.3, 0.2, 0.5])).to(dev)
+    ll = torch.arange(lt.numel(), dtype=torch.int32, device=dev).reshape(LONG_TIME_SHAPE)
+    check("row", ccl_ops.row_scan(lt, ll), ccl_ops.row_scan_plain(lt, ll), "row scan, timed shape")
+    check("col", ccl_ops.col_diag_scan(lt, ll), ccl_ops.col_diag_scan_plain(lt, ll),
+          "column scan, timed shape")
+    kernel_ms_long = {"row": (_device_ms(lambda: ccl_ops.row_scan(lt, ll), 20),
+                              _device_ms(lambda: ccl_ops.row_scan_plain(lt, ll), 5)),
+                      "col": (_device_ms(lambda: ccl_ops.col_diag_scan(lt, ll), 20),
+                              _device_ms(lambda: ccl_ops.col_diag_scan_plain(lt, ll), 5))}
+    bound_long = _bound_ms(lt, ll, ll)
+    torch.cuda.synchronize()
+    print(f"[16 long lines] row and column scans bit-exact vs twins on {list(LONG_SHAPES)} at "
+          f"batch 1 (phase 3) and batch 3 of different frames, also each alone, "
+          f"{len(SCAN_FILLS)} fills each; ccl_scan 8 rounds cuda == torch on (2, 3, 5000) and "
+          f"(1, 5000, 40); on {gpu}: device ms/call at {LONG_TIME_SHAPE} "
+          + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f} bound {bound_long:.4f} "
+                      f"({bound_long / a:.1%} of bound)" for k, (a, b) in kernel_ms_long.items()),
+          flush=True)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -1003,7 +1236,8 @@ def main() -> int:
     names = {"threshold": "adaptive_threshold", "row": "ccl_row_scan",
              "col": "ccl_col_diag_scan"}
     paths = {"frame": counts, f"batch{BATCH}": counts8, f"graph{BATCH}": counts_g,
-             f"rig{RIG_CAMERAS}": counts_rig, "stream": counts_stream}
+             f"rig{RIG_CAMERAS}": counts_rig, "stream": counts_stream, "spatial": counts_sp,
+             "flat": counts_flat}
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": sum(c[k] for c in paths.values()),
@@ -1011,7 +1245,12 @@ def main() -> int:
          "max_abs_err": errs[k], "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1],
          "bound_ms": bound[k], "bound_by": "bytes", "library_ms": None,
          f"ms_batch{BATCH}": kernel_ms8[k][0], f"plain_ms_batch{BATCH}": kernel_ms8[k][1],
-         f"bound_ms_batch{BATCH}": bound8[k], f"share_batch{BATCH}": bound8[k] / kernel_ms8[k][0]}
+         f"bound_ms_batch{BATCH}": bound8[k], f"share_batch{BATCH}": bound8[k] / kernel_ms8[k][0],
+         "shape_spatial": shape_sp[k], "ms_spatial": kernel_ms_sp[k][0],
+         "plain_ms_spatial": kernel_ms_sp[k][1], "bound_ms_spatial": bound_sp[k],
+         "ms_long": kernel_ms_long[k][0] if k in kernel_ms_long else None,
+         "plain_ms_long": kernel_ms_long[k][1] if k in kernel_ms_long else None,
+         "bound_ms_long": bound_long if k in kernel_ms_long else None}
         for k in names]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,9 +6,12 @@ H100. The detector runs end to end on one frame (``Detector``, with
 (``pipeline.batched_detect_fn``), behind the rectify -> resize graph
 (``pipeline.GraphPipeline``), over a multi-camera rig with shared or
 per-camera intrinsics (``RigDetector``, one batched call on one card), over a
-timestamp-aligned set of camera streams (``TimestampAligner``) and over a
+timestamp-aligned set of camera streams (``TimestampAligner``), over a
 stream of host frames with uploads overlapped with compute
-(``StreamingRunner``); ``python -m isaac_ros_apriltag_tpu_torch detect|bench``
+(``StreamingRunner``), and on one large frame cut into bands of rows
+(``SpatialDetector``: the bands as a batch on one card, or one band on each
+rank of a ``torch.distributed`` group, see ``make_mesh``);
+``python -m isaac_ros_apriltag_tpu_torch detect|bench``
 is its command line. Its three hot kernels (adaptive threshold and the two
 CCL scan kernels) are hand-written CUDA in ``csrc/``, built with nvcc at
 first use. Backend 'torch' runs plain PyTorch twins of those kernels on any
@@ -19,7 +22,9 @@ from .camera.model import CameraModel
 from .config import BACKENDS, DetectorConfig
 from .detector import Detector, build_detect_fn
 from .models.families import TagFamily, family_names, get_family, register_family
+from .parallel.mesh import make_mesh
 from .parallel.rig import RigDetector
+from .parallel.spatial import SpatialDetector, build_spatial_front_fn
 from .pipeline import GraphPipeline, batched_detect_fn
 from .streaming import StreamingRunner, run_stream
 from .sync import TimestampAligner
@@ -29,7 +34,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BACKENDS", "CameraModel", "Detections", "Detector", "DetectorConfig",
-    "FrameStats", "GraphPipeline", "RigDetector", "StreamingRunner", "TagFamily",
-    "TimestampAligner", "batched_detect_fn", "build_detect_fn", "family_names",
-    "get_family", "register_family", "run_stream", "__version__",
+    "FrameStats", "GraphPipeline", "RigDetector", "SpatialDetector", "StreamingRunner",
+    "TagFamily", "TimestampAligner", "batched_detect_fn", "build_detect_fn",
+    "build_spatial_front_fn", "family_names", "get_family", "make_mesh",
+    "register_family", "run_stream", "__version__",
 ]

@@ -35,7 +35,8 @@ class DetectorConfig:
     max_clusters: int = 128          # candidate boundary clusters kept
     max_cluster_points: int = 1024   # points retained per cluster
     # Single-phase CCL with pointer jumps (the reference package's XLA
-    # oracle). Not run by this package; kept so configs carry across.
+    # oracle), not run by this package. ccl_rounds is also the scan rounds
+    # of each outer round of the row-sharded front (parallel/spatial.py).
     ccl_rounds: int = 8
     ccl_jumps: int = 2
     ccl_jump_every: int = 4

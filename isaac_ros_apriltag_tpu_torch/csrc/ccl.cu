@@ -43,10 +43,16 @@
 // five __shfl_up_sync steps bounded by the lane's segment start, and the
 // carry between groups is lane 31's value. The forward values and the break
 // masks stay in the warp's slice of shared memory (4 bytes a pixel, 16.5 KB
-// at the 4096-pixel limit, so a block stays under 48 KB). The backward pass
-// walks the groups from the end: each lane takes the forward value at the
-// end of its run with one __shfl_sync, or the carry of the next group when
-// its run goes on past the group.
+// for a row of ROW_SMEM_LINE = 4096 pixels, so a block stays under 48 KB).
+// The backward pass walks the groups from the end: each lane takes the
+// forward value at the end of its run with one __shfl_sync, or the carry of
+// the next group when its run goes on past the group. A row longer than
+// ROW_SMEM_LINE takes the kernel's LONG instance, which has no limit: the
+// forward pass writes its values to the output row (each lane reads back
+// only what it wrote itself, still in L2), and the backward pass loads the
+// trinary again and recomputes each group's break mask with the same
+// ballot, carrying the mask of the group after it, so its results are the
+// shared-memory instance's bit for bit. It moves 9 more bytes a pixel.
 //
 // K3 (columns): one block per band of 32 adjacent columns of one frame, one
 // lane per column, so a warp's load of one row of the band is 128
@@ -78,6 +84,7 @@ constexpr int32_t NONE = INT32_MAX;   // identity of min: the carry before any p
 constexpr int ROW_WARPS = 8;          // K2: rows (warps) per block, at most
 constexpr int ROW_UNROLL = 8;         // K2: groups of 32 pixels loaded before they are scanned
 constexpr int ROW_SMEM = 48 * 1024;   // K2: shared memory a block may take
+constexpr int ROW_SMEM_LINE = 4096;   // K2: longest row kept in shared memory
 constexpr int COL_BAND = 32;          // K3: columns per block, one per lane
 constexpr int COL_WARPS = 16;         // K3: row chunks (warps) per block, at most
 constexpr int COL_UNROLL = 8;         // K3: rows loaded before they are scanned
@@ -96,6 +103,9 @@ __host__ __device__ inline int row_warp_words(int W) {
     return G * 32 + G + 1;
 }
 
+// LONG: the forward values go to the output row instead of shared memory,
+// and the break masks are recomputed on the way back (any W).
+template <bool LONG>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 row_scan_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ lab_in,
                 int32_t* __restrict__ lab_out, int rows, int W) {
@@ -104,9 +114,9 @@ row_scan_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ lab
     const int row = blockIdx.x * (blockDim.x >> 5) + warp;
     if (row >= rows) return;               // whole warps only; no block barrier below
     const int G = (W + 31) / 32;
-    int32_t* fwd = row_smem + warp * row_warp_words(W);
-    uint32_t* brk = reinterpret_cast<uint32_t*>(fwd + G * 32);
     const size_t base = (size_t)row * W;
+    int32_t* fwd = LONG ? lab_out + base : row_smem + warp * row_warp_words(W);
+    uint32_t* brk = LONG ? nullptr : reinterpret_cast<uint32_t*>(fwd + G * 32);
 
     // Forward: segmented min-scan, group by group.
     int32_t carry = NONE;
@@ -140,9 +150,48 @@ row_scan_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ lab
             }
             if (s < 0) v = min(v, carry);
             carry = __shfl_sync(FULL, v, 31);
-            fwd[g * 32 + lane] = v;
-            if (lane == 0) brk[g] = m;
+            if constexpr (LONG) {
+                if (g * 32 + lane < W) fwd[g * 32 + lane] = v;
+            } else {
+                fwd[g * 32 + lane] = v;
+                if (lane == 0) brk[g] = m;
+            }
         }
+    }
+
+    if constexpr (LONG) {
+        // Backward, ROW_UNROLL groups loaded at a time from the end; `next`
+        // is the break mask of the group after the current one.
+        carry = NONE;
+        uint32_t next = 1;                 // the row ends every segment
+        for (int g1 = G - 1; g1 >= 0; g1 -= ROW_UNROLL) {
+            int t[ROW_UNROLL], tp[ROW_UNROLL];
+            int32_t f[ROW_UNROLL];
+#pragma unroll
+            for (int k = 0; k < ROW_UNROLL; ++k) {
+                const int x = (g1 - k) * 32 + lane;
+                const bool in = x >= 0 && x < W;
+                t[k] = in ? tri[base + x] : 127;
+                f[k] = in ? fwd[x] : NONE;
+                tp[k] = (lane == 0 && in && x > 0) ? tri[base + x - 1] : 127;
+            }
+#pragma unroll
+            for (int k = 0; k < ROW_UNROLL; ++k) {
+                const int g = g1 - k;
+                if (g < 0) break;
+                int prev = __shfl_up_sync(FULL, t[k], 1);
+                if (lane == 0) prev = tp[k];
+                const uint32_t m = __ballot_sync(FULL, starts(t[k], prev));
+                const uint32_t ends = (m >> 1) | (next << 31);
+                const uint32_t from = ends & (FULL << lane);
+                int32_t res = __shfl_sync(FULL, f[k], from ? __ffs(from) - 1 : 0);
+                if (!from) res = carry;
+                carry = __shfl_sync(FULL, res, 0);
+                next = m;
+                if (g * 32 + lane < W) lab_out[base + g * 32 + lane] = res;
+            }
+        }
+        return;
     }
     if (lane == 0) brk[G] = 1;             // the row ends every segment
     __syncwarp();
@@ -318,12 +367,19 @@ col_diag_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ lab
 extern "C" int apriltag_ccl_row(const void* tri, const void* lab_in, void* lab_out,
                                 int B, int H, int W, void* stream) {
     const int rows = B * H;
+    if (W > ROW_SMEM_LINE) {
+        const int warps = rows < ROW_WARPS ? rows : ROW_WARPS;
+        row_scan_kernel<true><<<(rows + warps - 1) / warps, warps * 32, 0,
+                                (cudaStream_t)stream>>>(
+            (const uint8_t*)tri, (const int32_t*)lab_in, (int32_t*)lab_out, rows, W);
+        return (int)cudaGetLastError();
+    }
     const size_t warp_bytes = (size_t)row_warp_words(W) * sizeof(int32_t);
     int warps = (int)(ROW_SMEM / warp_bytes);
     warps = warps < 1 ? 1 : (warps > ROW_WARPS ? ROW_WARPS : warps);
     if (warps > rows) warps = rows;
-    row_scan_kernel<<<(rows + warps - 1) / warps, warps * 32, warps * warp_bytes,
-                      (cudaStream_t)stream>>>(
+    row_scan_kernel<false><<<(rows + warps - 1) / warps, warps * 32, warps * warp_bytes,
+                             (cudaStream_t)stream>>>(
         (const uint8_t*)tri, (const int32_t*)lab_in, (int32_t*)lab_out, rows, W);
     return (int)cudaGetLastError();
 }

@@ -6,7 +6,8 @@ batch of frames with a leading batch dimension written through every stage
 frame is a batch of one. A batch makes the same kernel launches as one
 frame. Stages: grayscale, quad_decimate mean-pool, adaptive threshold
 (kernel K1), two-phase scan CCL (kernels K2 and K3, with the rank-space
-contraction between the phases), resolve, cluster moments, quad fit, top-2T
+contraction between the phases; with ccl_phase2_rounds=0 one scan phase on
+flat-index labels), resolve, cluster moments, quad fit, top-2T
 by fit quality, edge refinement, decode, dedupe, top-T by decision margin,
 center and pose. Backend 'cuda' runs the three kernels; 'torch' runs their
 plain twins. Everything else is plain PyTorch on the detector's device.
@@ -104,20 +105,26 @@ def _dedupe(valid, ids, margin, corners):
 
 def detect_tail(cfg: DetectorConfig, camera: CameraModel, family: TagFamily,
                 gray: torch.Tensor, trinary: torch.Tensor, label: torch.Tensor,
-                scan_converged: torch.Tensor, *, rank_table: torch.Tensor,
-                extra_overflow: torch.Tensor, with_pose: bool = True
+                scan_converged: torch.Tensor, *, with_pose: bool = True,
+                rank_table: torch.Tensor | None = None,
+                extra_overflow: torch.Tensor | None = None
                 ) -> tuple[Detections, FrameStats]:
-    """The back half of the detector on a batch: (B, ...) rank-space CCL
-    labels -> Detections and FrameStats with a leading B."""
+    """The back half of the detector on a batch: (B, ...) CCL labels ->
+    Detections and FrameStats with a leading B. Shared by the detector and
+    the row-sharded front (parallel/spatial.py). Labels are flat indices, or
+    compacted ranks with their `rank_table` (the two-phase flow);
+    `extra_overflow` ORs an upstream capacity flag (the contraction's) into
+    the cluster stage's overflow."""
     E_eff, R_eff = cfg.effective_capacities(*trinary.shape[-2:])
     res = resolve_components(label, trinary != 127,
                              min_component_pixels=cfg.min_component_pixels,
                              max_components=R_eff,
                              chain_steps=cfg.ccl_resolve_steps,
                              rank_table=rank_table)
+    comp_overflow = res.overflow if extra_overflow is None else res.overflow | extra_overflow
     clusters = extract_cluster_moments(
         trinary, res.dense,
-        comp_overflow=res.overflow | extra_overflow,
+        comp_overflow=comp_overflow,
         max_edge_points=E_eff,
         max_clusters=cfg.max_clusters,
         min_cluster_pixels=cfg.min_cluster_pixels,
@@ -202,17 +209,15 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
     FrameStats), every field with a leading B. The images must lie on the
     device the camera's tensors lie on; backend 'cuda' needs that to be a
     CUDA device and raises otherwise. Whatever B, one call makes the same
-    kernel launches: K1 once, K2 and K3 once per scan round.
+    kernel launches: K1 once, K2 and K3 once per scan round
+    (ccl_scan_rounds + ccl_phase2_rounds). With ccl_phase2_rounds=0 the
+    phase-1 labels go to the flat-label resolve, with no contraction.
 
     with_pose=False skips the pose stage (translation, quaternion and
     rotation come back zero), for callers that pose the corners with their
     own intrinsics (parallel/rig.py), so no pose is computed twice."""
     family = get_family(config.tag_family)
     cfg = config
-    if cfg.ccl_phase2_rounds < 1:
-        # One scan phase ends in resolve's flat-label mode, not ported yet.
-        raise ValueError("ccl_phase2_rounds=0 (single-phase CCL) is not supported "
-                         "by this package yet")
     if cfg.backend == "cuda":
         if camera.K.device.type != "cuda":
             raise ValueError(f"backend 'cuda' needs a CUDA device, got {camera.K.device}")
@@ -226,13 +231,15 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
         gray = grayscale(images, encoding, batched=True).contiguous()
         seg = _pad_to_tiles(_decimate(gray, cfg.quad_decimate), cfg.tile_size).contiguous()
         trinary = threshold(seg, cfg.tile_size, cfg.min_white_black_diff)
-        valid = trinary != 127
-        R_eff = cfg.effective_capacities(*trinary.shape[-2:])[1]
         label, scan_converged = ccl_ops.ccl_scan(trinary, cfg.ccl_scan_rounds,
                                                  backend=cfg.backend)
+        if cfg.ccl_phase2_rounds == 0:
+            return detect_tail(cfg, camera, family, gray, trinary, label,
+                               scan_converged, with_pose=with_pose)
         # Rank-space contraction + a short second scan phase.
+        R_eff = cfg.effective_capacities(*trinary.shape[-2:])[1]
         rank_img, rank_table, extra_overflow = resolve_roots_rank(
-            label, valid, max_components=R_eff,
+            label, trinary != 127, max_components=R_eff,
             chain_steps=cfg.ccl_contraction_steps)
         label, scan_converged = ccl_ops.ccl_scan(
             trinary, cfg.ccl_phase2_rounds, backend=cfg.backend,

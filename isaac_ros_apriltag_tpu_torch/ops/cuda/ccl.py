@@ -24,8 +24,6 @@ import torch
 
 from . import _lib
 
-MAX_LINE = 4096   # the longest row or column the kernels take (K2 keeps a row in shared memory)
-
 row_launches = 0        # K2 launches made by row_scan
 col_diag_launches = 0   # K3 launches made by col_diag_scan
 
@@ -95,13 +93,11 @@ def _check(tri: torch.Tensor, label: torch.Tensor) -> tuple[int, int, int]:
 
 def row_scan(tri: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """K2: (B, H, W) or (H, W) uint8 trinary + int32 labels -> row-scanned
-    labels; one launch for the batch."""
+    labels; one launch for the batch, rows of any length."""
     global row_launches
     if tri.device.type == "cpu":
         return row_scan_plain(tri, label)
     B, H, W = _check(tri, label)
-    if W > MAX_LINE:
-        raise ValueError(f"row length {W} exceeds the kernel's {MAX_LINE}")
     out = torch.empty_like(label)
     with torch.cuda.device(tri.device):
         status = _lib.library().apriltag_ccl_row(
@@ -114,13 +110,11 @@ def row_scan(tri: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 
 def col_diag_scan(tri: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """K3: diagonal hop + column scans on (B, H, W) or (H, W); reads `label`,
-    writes a new tensor; one launch for the batch."""
+    writes a new tensor; one launch for the batch, columns of any length."""
     global col_diag_launches
     if tri.device.type == "cpu":
         return col_diag_scan_plain(tri, label)
     B, H, W = _check(tri, label)
-    if H > MAX_LINE:
-        raise ValueError(f"column length {H} exceeds the kernel's {MAX_LINE}")
     out = torch.empty_like(label)
     with torch.cuda.device(tri.device):
         status = _lib.library().apriltag_ccl_col_diag(

@@ -1,9 +1,12 @@
-"""Sort-based component resolution in compacted-rank space.
+"""Sort-based component resolution: CCL labels -> gated dense component ids.
 
-Counterpart of ``isaac_ros_apriltag_tpu/ops/resolve.py``: the contraction
-between the two CCL scan phases (``resolve_roots_rank``) and the final
-resolve (``resolve_components`` in rank-table mode), both bit-exact with the
-reference. Flat-label mode and ``with_roots`` are not ported.
+Counterpart of ``isaac_ros_apriltag_tpu/ops/resolve.py``, bit-exact with the
+reference: the contraction between the two CCL scan phases, in rank space
+(``resolve_roots_rank``) or in flat-label space (``resolve_roots``), and the
+final resolve (``resolve_components``) on rank-space labels with their rank
+table or on flat-index labels (the single-phase flow and the row-sharded
+front, parallel/spatial.py), optionally with each pixel's root label
+(``with_roots``).
 
 Both take a batch of frames, (B, H, W), or one frame, (H, W). Every sort,
 cumsum, cummax and gather runs along the last dim of a (B, N) tensor, and
@@ -40,6 +43,17 @@ class ResolvedComponents(NamedTuple):
     n_eligible: torch.Tensor   # (B,) int components passing the area gate
     overflow: torch.Tensor     # (B,) bool — a static capacity was exceeded
     converged: torch.Tensor    # (B,) bool — parent chains fully resolved
+
+
+class RootedComponents(NamedTuple):
+    """ResolvedComponents and each pixel's root: resolve_components with
+    with_roots=True (the reference's `roots` field)."""
+    dense: torch.Tensor
+    n_eligible: torch.Tensor
+    overflow: torch.Tensor
+    converged: torch.Tensor
+    roots: torch.Tensor        # (B, H, W) int32 min-flat-index root per pixel
+    #   (equals a fully converged CCL labeling)
 
 
 def _gather_fill(table: torch.Tensor, idx: torch.Tensor, fill: int) -> torch.Tensor:
@@ -109,14 +123,36 @@ def _inverse(D: torch.Tensor, kvalid: torch.Tensor, ks: torch.Tensor, size: int,
 
 
 def _broadcast(rank: torch.Tensor, kvalid: torch.Tensor, P: torch.Tensor,
-               vals: torch.Tensor) -> torch.Tensor:
-    """Each sorted position takes the 16-bit value seeded at its group's start:
-    one packed cummax, group rank (16 high bits) | value (16 low)."""
+               vals: torch.Tensor, bits: int = 16) -> torch.Tensor:
+    """Each sorted position takes the `bits`-bit value seeded at its group's
+    start: one packed cummax, group rank (16 bits, clamped) above the value."""
     B, N = rank.shape
     seed = torch.zeros((B, N + 1), dtype=_I64, device=rank.device)
     seed.scatter_(1, torch.where(kvalid, P, N), vals)
-    rank16 = rank.clamp(max=(1 << 16) - 1) << 16
-    return torch.cummax(rank16 | seed[:, :N], -1).values & 0xFFFF
+    high = rank.clamp(max=(1 << 16) - 1) << bits
+    return torch.cummax(high | seed[:, :N], -1).values & ((1 << bits) - 1)
+
+
+def _broadcast_roots(rank, kvalid, P, root_k):
+    """Root flat indices (up to 22 bits: N < 2^22 under the 2047x2047 image
+    guard) broadcast as two 11-bit chunks, each packed +1 under the group rank
+    (rank << 12 | chunk + 1); -1 where a position's group was not seeded or
+    its root is negative."""
+    lo, hi = (_broadcast(rank, kvalid, P,
+                         (((root_k >> shift) & 0x7FF) + 1) * (root_k >= 0), bits=12)
+              for shift in (0, 11))
+    return torch.where((lo > 0) & (hi > 0), ((hi - 1) << 11) | (lo - 1), -1)
+
+
+def _flat_parents(flat, D, kvalid, ks, N, R):
+    """(B, R + 1) compacted parent map of flat-index labels: slot k points at
+    the slot of flat[D_k] (the label at the group's label pixel); slots that
+    match no group, and the extra slot R, point at R."""
+    dev = flat.device
+    flatp = torch.cat([flat, _col(flat.shape[0], N, dev)], 1)
+    par = torch.where(kvalid, _gather_fill(flatp, D, N), N)
+    inv = _inverse(D, kvalid, ks, N, R)
+    return torch.cat([torch.gather(inv, 1, par.clamp(0, N)), _col(flat.shape[0], R, dev)], 1)
 
 
 def resolve_roots_rank(label: torch.Tensor, valid: torch.Tensor, *,
@@ -138,17 +174,12 @@ def resolve_roots_rank(label: torch.Tensor, valid: torch.Tensor, *,
     if R > (1 << 16):
         raise ValueError("max_components must be <= 65536 "
                          "(16-bit ranks in the packed broadcast)")
-    dev = label.device
     flat = label.reshape(B, N).to(_I64)
     vflat = valid.reshape(B, N)
     key = torch.where(vflat, flat, N)
     lab_s, idx_s, vs, rank, n_groups, P, D, ks, kvalid = _groups(key, N, R)
 
-    flatp = torch.cat([flat, _col(B, N, dev)], 1)
-    par = torch.where(kvalid, _gather_fill(flatp, D, N), N)
-    inv = _inverse(D, kvalid, ks, N, R)
-    parx = torch.cat([torch.gather(inv, 1, par.clamp(0, N)), _col(B, R, dev)], 1)
-    parx, _ = _pointer_double(parx, chain_steps)
+    parx, _ = _pointer_double(_flat_parents(flat, D, kvalid, ks, N, R), chain_steps)
     carried = _broadcast(rank, kvalid, P, parx[:, :R])
     rank_sorted = torch.where(vs & (rank < R), carried, R)
     rank_flat = _unsort(idx_s, rank_sorted)
@@ -157,32 +188,73 @@ def resolve_roots_rank(label: torch.Tensor, valid: torch.Tensor, *,
     return first_frame(out) if single else out
 
 
+def resolve_roots(label: torch.Tensor, valid: torch.Tensor, *,
+                  max_components: int = 1 << 16,
+                  chain_steps: int = 5) -> torch.Tensor:
+    """(B, H, W) flat-index labels -> (B, H, W) chain-root labels (the
+    contraction step in flat-label space); one frame, (H, W), gives (H, W).
+
+    Every valid pixel's label is replaced by its chain fixpoint, the
+    component's min flat index; invalid pixels and pixels of over-capacity
+    groups keep their incoming label.
+    """
+    label, single = batch_first(label, 2)
+    valid, _ = batch_first(valid, 2)
+    B, H, W = label.shape
+    N = H * W
+    R = min(max_components, N)
+    if R > (1 << 16):
+        raise ValueError("max_components must be <= 65536 "
+                         "(16-bit group ranks in the packed broadcast)")
+    dev = label.device
+    flat = label.reshape(B, N).to(_I64)
+    key = torch.where(valid.reshape(B, N), flat, N)
+    _, idx_s, _, rank, _, P, D, ks, kvalid = _groups(key, N, R)
+    parx, _ = _pointer_double(_flat_parents(flat, D, kvalid, ks, N, R), chain_steps)
+    Dx = torch.cat([D, _col(B, N, dev)], 1)
+    root_k = torch.where(kvalid, torch.gather(Dx, 1, parx[:, :R]), -1)
+    roots = _unsort(idx_s, _broadcast_roots(rank, kvalid, P, root_k)).reshape(B, H, W)
+    out = torch.where(valid & (roots >= 0), roots, label).to(torch.int32)
+    return out[0] if single else out
+
+
 def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
                        min_component_pixels: int,
                        max_components: int = 1 << 16,
                        chain_steps: int = 4,
-                       rank_table: torch.Tensor) -> ResolvedComponents:
-    """(B, H, W) rank-space labels + validity -> area-gated dense component
-    ids; one frame, (H, W), with an (R,) rank table, gives the same without
-    the batch dim.
+                       with_roots: bool = False,
+                       rank_table: torch.Tensor | None = None
+                       ) -> ResolvedComponents | RootedComponents:
+    """(B, H, W) CCL labels + validity -> area-gated dense component ids; one
+    frame, (H, W) (with an (R,) rank table in rank mode), gives the same
+    without the batch dim.
 
-    label[b, p] is a rank r with rank_table[b, r] the flat index of a pixel in
-    p's component (ranks ascending in root flat index), as produced by
-    resolve_roots_rank followed by an opaque-mode scan phase.
+    Without `rank_table`, label[b, p] is the flat index of a pixel in p's
+    component with label <= p, as a scan CCL leaves it (`chain_steps`
+    pointer doublings resolve chains up to depth 2^chain_steps; `converged`
+    says whether that sufficed). With `rank_table`, label[b, p] is a rank r
+    with rank_table[b, r] the flat index of a pixel in p's component (ranks
+    ascending in root flat index), as produced by resolve_roots_rank followed
+    by a scan phase; the dense ids are those of the flat form. `with_roots`
+    (flat mode only) returns RootedComponents, which adds each valid pixel's
+    root flat index.
     """
     label, single = batch_first(label, 2)
     valid, _ = batch_first(valid, 2)
-    rank_table, _ = batch_first(rank_table, 1)
     B, H, W = label.shape
     N = H * W
     R = min(max_components, N)
     if R > (1 << 16):
         raise ValueError("max_components must be <= 65536")
-    if rank_table.shape[-1] != R:
-        raise ValueError("rank_table capacity mismatch: "
-                         f"{rank_table.shape[-1]} != {R}")
+    if rank_table is not None:
+        if with_roots:
+            raise ValueError("with_roots is unsupported in rank-space mode")
+        rank_table, _ = batch_first(rank_table, 1)
+        if rank_table.shape[-1] != R:
+            raise ValueError("rank_table capacity mismatch: "
+                             f"{rank_table.shape[-1]} != {R}")
     dev = label.device
-    SENT = R
+    SENT = R if rank_table is not None else N    # one past the largest label
     flat = label.reshape(B, N).to(_I64)
     key = torch.where(valid.reshape(B, N), flat, SENT)
     lab_s, idx_s, vs, rank, n_groups, P, D, ks, kvalid = _groups(key, SENT, R)
@@ -191,13 +263,17 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
     nxt = torch.where(ks == n_groups[:, None] - 1, n_valid_pix[:, None], nxt)
     cnt = torch.where(kvalid, nxt - P, 0)
 
-    # --- chain resolution through the rank-sized tables ---------------------
-    flatp = torch.cat([flat, _col(B, SENT, dev)], 1)
-    Tp = torch.cat([rank_table.to(_I64), _col(B, N, dev)], 1)
-    root_pix = torch.where(kvalid, _gather_fill(Tp, D, N), N)
-    par = _gather_fill(flatp, root_pix, SENT)
-    inv = _inverse(D, kvalid, ks, R, R)
-    parx = torch.cat([torch.gather(inv, 1, par.clamp(0, R)), _col(B, R, dev)], 1)
+    # --- chain resolution on the compacted labels ---------------------------
+    if rank_table is not None:
+        # parent of rank group v = the rank label at v's root pixel.
+        flatp = torch.cat([flat, _col(B, SENT, dev)], 1)
+        Tp = torch.cat([rank_table.to(_I64), _col(B, N, dev)], 1)
+        root_pix = torch.where(kvalid, _gather_fill(Tp, D, N), N)
+        par = _gather_fill(flatp, root_pix, SENT)
+        inv = _inverse(D, kvalid, ks, R, R)
+        parx = torch.cat([torch.gather(inv, 1, par.clamp(0, R)), _col(B, R, dev)], 1)
+    else:
+        parx = _flat_parents(flat, D, kvalid, ks, N, R)
     parx, prev = _pointer_double(parx, chain_steps)
     converged = torch.all(parx == prev, -1)
     Dx = torch.cat([D, _col(B, SENT, dev)], 1)
@@ -224,4 +300,8 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
     overflow = (n_groups > R) | (n_eligible > _KMAX)
     out = ResolvedComponents(dense=dense, n_eligible=n_eligible,
                              overflow=overflow, converged=converged)
+    if with_roots:
+        root_flat = _unsort(idx_s, _broadcast_roots(rank, kvalid, P, root)).reshape(B, H, W)
+        roots = torch.where(valid & (root_flat >= 0), root_flat, label).to(torch.int32)
+        out = RootedComponents(*out, roots=roots)
     return first_frame(out) if single else out

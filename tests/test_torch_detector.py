@@ -198,7 +198,11 @@ def test_backend_names():
 
 
 def test_single_phase_ccl_not_supported_yet(cams):
+    """ccl_phase2_rounds=0 (one scan phase, then the flat-label resolve) is
+    supported now: it runs, finds nothing on an empty frame and reports a
+    converged CCL (tests/test_torch_flat.py holds it against the reference)."""
     _, cam_t = cams
     det = Detector(DetectorConfig(backend="torch", ccl_phase2_rounds=0), cam_t, device="cpu")
-    with pytest.raises(ValueError, match="ccl_phase2_rounds=0"):
-        det.detect(np.zeros((480, 640), np.uint8), encoding="mono8")
+    found, stats = det.detect_with_stats(np.zeros((480, 640), np.uint8), encoding="mono8")
+    assert found.to_list() == [] and int(stats.num_detections) == 0
+    assert bool(stats.ccl_converged)

@@ -20,11 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, edge_batch, scan_case,
-                        scan_case_id, thresh_case_id, thresh_input)
+from chip_smoke import (LONG_SHAPES, SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, edge_batch,
+                        scan_batch, scan_case, scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
-                                          RigDetector, StreamingRunner, batched_detect_fn,
-                                          get_family, run_stream)
+                                          RigDetector, SpatialDetector, StreamingRunner,
+                                          batched_detect_fn, build_spatial_front_fn, get_family,
+                                          run_stream)
 from isaac_ros_apriltag_tpu_torch import detector as tdetector
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
@@ -64,13 +65,15 @@ def test_threshold_kernel_cases(cuda, case):
         assert torch.equal(out[b], thr_kernel.adaptive_threshold(g[b], ts, THRESH_MIN_DIFF))
 
 
-_RANDOM_SCANS =tuple((shape, "random", "perm")
-                      for shape in [(540, 960), (37, 2047), (300, 1), (1, 4096), (4096, 3)])
+_RANDOM_SCANS = tuple((shape, "random", "perm")
+                      for shape in [(540, 960), (37, 2047), (300, 1), (1, 4096), (4096, 3),
+                                    (1, 4097), (7, 12345), (12345, 7)])
 
 
 @pytest.mark.parametrize("case", _RANDOM_SCANS + SCAN_CASES, ids=scan_case_id)
 def test_scan_kernels_bit_exact(cuda, case):
-    """Random lines, and chip_smoke's lines built to break a chunked scan."""
+    """Random lines, and chip_smoke's lines built to break a chunked scan,
+    rows and columns past 4096 pixels among them."""
     tri, lab = (torch.from_numpy(a).to(cuda) for a in scan_case(*case))
     assert torch.equal(ccl.row_scan(tri, lab), ccl.row_scan_plain(tri, lab))
     assert torch.equal(ccl.col_diag_scan(tri, lab), ccl.col_diag_scan_plain(tri, lab))
@@ -79,7 +82,35 @@ def test_scan_kernels_bit_exact(cuda, case):
     assert torch.equal(a[0], b[0]) and bool(a[1]) == bool(b[1])
 
 
+@pytest.mark.parametrize("shape", LONG_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("fill,labels", [("random", "perm"), ("all255", "desc"),
+                                         ("stripes32", "desc"), ("lone127", "top")])
+def test_scan_kernels_long_lines_batched(cuda, shape, fill, labels):
+    """Lines past 4096 pixels at batch 3 of different frames: bit-exact with
+    the twins and with each frame alone."""
+    tri, lab = (torch.from_numpy(a).to(cuda) for a in scan_batch(shape, fill, labels))
+    for kern, twin in ((ccl.row_scan, ccl.row_scan_plain),
+                       (ccl.col_diag_scan, ccl.col_diag_scan_plain)):
+        out = kern(tri, lab)
+        assert torch.equal(out, twin(tri, lab))
+        for b in range(3):
+            assert torch.equal(out[b], kern(tri[b].contiguous(), lab[b].contiguous()))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5000), (1, 5000, 40)])
+def test_ccl_scan_long_lines(cuda, shape):
+    """The op: 8 rounds on a noisy trinary with lines past 4096 pixels give the
+    twins' labels and flags."""
+    rng = np.random.default_rng(5)
+    tri = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8), size=shape,
+                                      p=[0.3, 0.2, 0.5])).to(cuda)
+    a, ca = ccl.ccl_scan(tri, 8, backend="cuda")
+    b, cb = ccl.ccl_scan(tri, 8, backend="torch")
+    assert torch.equal(a, b) and torch.equal(ca, cb)
+
+
 def test_wrappers_check_arguments(cuda):
+    """Wrong shapes and types raise; no line length does."""
     g = torch.zeros((30, 30), device=cuda)
     with pytest.raises(ValueError):
         thr_kernel.adaptive_threshold(g, 4, 5)            # 30 is not a multiple of 4
@@ -88,12 +119,11 @@ def test_wrappers_check_arguments(cuda):
     tri = torch.zeros((8, 8), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         ccl.row_scan(tri, torch.zeros((8, 8), dtype=torch.int64, device=cuda))
-    with pytest.raises(ValueError):
-        ccl.row_scan(torch.zeros((2, 5000), dtype=torch.uint8, device=cuda),
-                     torch.zeros((2, 5000), dtype=torch.int32, device=cuda))
-    with pytest.raises(ValueError):
-        ccl.col_diag_scan(torch.zeros((5000, 2), dtype=torch.uint8, device=cuda),
-                          torch.zeros((5000, 2), dtype=torch.int32, device=cuda))
+    for shape in ((2, 5000), (5000, 2)):
+        tri = torch.zeros(shape, dtype=torch.uint8, device=cuda)
+        lab = torch.arange(10000, dtype=torch.int32, device=cuda).reshape(shape)
+        assert torch.equal(ccl.row_scan(tri, lab), ccl.row_scan_plain(tri, lab))
+        assert torch.equal(ccl.col_diag_scan(tri, lab), ccl.col_diag_scan_plain(tri, lab))
 
 
 def test_detector_turns_tf32_off(cuda):
@@ -299,3 +329,56 @@ def test_detect_checked_on_the_card(cuda, backend, monkeypatch):
     det = Detector(DetectorConfig(tag_size=0.16, backend=backend), cams[0], device=cuda)
     with pytest.raises(RuntimeError, match="unnormalized quaternions on valid detections"):
         det.detect_checked(x, "mono8")
+
+
+def _four_tags(noise):
+    """tests/test_torch_spatial.py's 640x480 scene: ids 1, 4, 7, 10."""
+    cam = CameraModel.create(fx=420.0, fy=420.0, cx=320.0, cy=240.0, width=640, height=480)
+    fam = get_family("tag36h11")
+    tags = []
+    for i, (x, y) in enumerate([(-0.25, -0.15), (0.25, -0.15), (-0.25, 0.18), (0.25, 0.18)]):
+        t = np.array([x, y, 1.1])
+        tags.append(dict(family=fam, id=3 * i + 1, R=upright_pose(t, 0.1 * i), t=t,
+                         tag_size=0.16))
+    return cam, render_tags(cam.K.numpy(), (480, 640), tags, noise=noise)
+
+
+@pytest.mark.parametrize("noise", [0.0, 1.5])
+def test_spatial_backends_identical(cuda, noise):
+    """SpatialDetector on 4 bands: 'cuda' equals 'torch' on the card, front
+    and detections; the front launches K1 once and K2 and K3 3 x 8 times."""
+    cam, img = _four_tags(noise)
+    cfg = DetectorConfig(tag_size=0.16)
+    x = torch.from_numpy(img).to(cuda)
+    torch.cuda.synchronize()
+    thr_kernel.launches = ccl.row_launches = ccl.col_diag_launches = 0
+    front = build_spatial_front_fn(cfg, cam, 4)(x)
+    torch.cuda.synchronize()
+    assert (thr_kernel.launches, ccl.row_launches, ccl.col_diag_launches) == (1, 24, 24)
+    plain = build_spatial_front_fn(dataclasses.replace(cfg, backend="torch"), cam, 4)(x)
+    assert torch.equal(front[0], plain[0]) and torch.equal(front[1], plain[1])
+    got = SpatialDetector(cfg, cam, 4, device=cuda).detect_with_stats(x)
+    want = SpatialDetector(dataclasses.replace(cfg, backend="torch"), cam, 4,
+                           device=cuda).detect_with_stats(x)
+    _assert_same(got, want)
+    assert sorted(r["id"] for r in got[0].to_list()) == [1, 4, 7, 10]
+
+
+def test_flat_flow_backends_identical(cuda):
+    """ccl_phase2_rounds=0 at batch 3: 'cuda' equals 'torch', launches 1 / 8 / 8."""
+    cam = CameraModel.create(fx=420.0, fy=420.0, cx=320.0, cy=240.0, width=640, height=480)
+    imgs = np.stack([render_tags(cam.K.numpy(), (480, 640), _tags(b, 1.1 + 0.05 * b),
+                                 noise=2.0, seed=b) for b in range(3)])
+    imgs = torch.from_numpy(imgs).to(cuda)
+    cfg = DetectorConfig(tag_size=0.16, ccl_phase2_rounds=0)
+    cam = cam.to(cuda)
+    fn = batched_detect_fn(cfg, cam, "mono8")
+    torch.cuda.synchronize()
+    thr_kernel.launches = ccl.row_launches = ccl.col_diag_launches = 0
+    got = fn(imgs)
+    torch.cuda.synchronize()
+    assert (thr_kernel.launches, ccl.row_launches, ccl.col_diag_launches) == (1, 8, 8)
+    _assert_same(got, batched_detect_fn(dataclasses.replace(cfg, backend="torch"), cam,
+                                        "mono8")(imgs))
+    for b in range(3):
+        assert sorted(r["id"] for r in got[0].frame(b).to_list()) == [2 + b, 7 + b, 12 + b]

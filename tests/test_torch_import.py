@@ -18,13 +18,17 @@ import isaac_ros_apriltag_tpu_torch
 import isaac_ros_apriltag_tpu_torch.cli
 import isaac_ros_apriltag_tpu_torch.convert
 import isaac_ros_apriltag_tpu_torch.detector
+import isaac_ros_apriltag_tpu_torch.ops.ccl
+import isaac_ros_apriltag_tpu_torch.parallel.mesh
 import isaac_ros_apriltag_tpu_torch.parallel.rig
+import isaac_ros_apriltag_tpu_torch.parallel.spatial
 import isaac_ros_apriltag_tpu_torch.streaming
 import isaac_ros_apriltag_tpu_torch.sync
 import isaac_ros_apriltag_tpu_torch.utils.render
 import isaac_ros_apriltag_tpu_torch.utils.timing
 import isaac_ros_apriltag_tpu_torch.utils.viz
-from isaac_ros_apriltag_tpu_torch import get_family
+from isaac_ros_apriltag_tpu_torch import (SpatialDetector, build_spatial_front_fn, get_family,
+                                          make_mesh)
 get_family("tag36h11")
 sys.argv = ["isaac_ros_apriltag_tpu_torch", "--help"]
 try:
@@ -183,6 +187,7 @@ def test_ptxas_usage_reads_each_kernel():
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")
 @pytest.mark.parametrize("script", [["chip_smoke.py"], ["torch_stage_profile.py"],
+                                    ["torch_kernel_times.py"],
                                     ["-m", "isaac_ros_apriltag_tpu_torch", "bench"]],
                          ids=lambda a: a[-1])
 def test_scripts_refuse_without_cuda(script):
