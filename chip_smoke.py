@@ -87,7 +87,25 @@ non-zero):
  16. long lines: the scan kernels on rows and columns past 4096 pixels at
      batch 3 of different frames (and each frame alone), ccl_scan on
      (2, 3, 5000) and (1, 5000, 40) equal on both backends, and device ms
-     per call at LONG_TIME_SHAPE.
+     per call at LONG_TIME_SHAPE;
+ 17. oracle flow: ccl_flow="jumps" (8 rounds, 2 jumps every 4) on phase 7's
+     batch of 8: 6/6 ids each, "cuda" equal to "torch", launches 1 / 8 / 8;
+     connected_components with jumps bit-exact between backends on the
+     segmentation batch and on a random batch of 3, each frame also alone;
+     ms a frame beside the two-phase flow's; device ms of the jumps CCL, of
+     the same rounds without jumps and of one jump step;
+ 18. slam: the CLI's default orbit (640x480, 16 frames, 9 tags, noise 1)
+     through Detector -> TagMapper -> ba.solve(8) on the card under both
+     flows: 9 tags mapped, ATE under 0.05 m, the "cuda" chain's trajectory
+     within 1e-3 m of the "torch" chain's; the 12-node pose-graph loop
+     closure on the card (and against the CPU); `python -m
+     isaac_ros_apriltag_tpu_torch slam --ccl-flow jumps --save-map` exits
+     0 and its map loads back;
+ 19. 10k-tag map: BA on K=16, L=10 000, O=40 000 (map_problem): rms falls
+     at least 5x and ends under 0.5 px, cameras within 1e-3 m of the CPU's
+     solve and of the 4-shard batched solver's, a Gauss-Newton step under
+     torch.cuda.set_sync_debug_mode("error"); ms a step, launches a step
+     (torch.profiler), peak memory.
 It ends with a JSON line describing the kernels (launches of every path;
 times beside the least time the card could take, from the bytes each call
 must move), the nvidia-smi name and power limit, and a last JSON line
@@ -135,6 +153,17 @@ SP_BANDS = 4
 SP_CORNER_TOL_PX = 0.6        # the reference's own 8 MP bound
 SP_ITERS = 20                 # calls per median
 LONG_TIME_SHAPE = (1, 2160, 7680)   # scan kernels timed past 4096 px: an 8K frame's rows
+# Phase 18: the CLI's `slam` defaults (16 frames, 9 tags, noise 1, 8 BA
+# iterations, ATE bound 0.05 m; the detector flags' tag size 0.22 m).
+SLAM_FRAMES, SLAM_TAGS, SLAM_NOISE, SLAM_TAG_SIZE = 16, 9, 1.0, 0.22
+SLAM_BA_ITERS = 8
+SLAM_ATE_M = 0.05
+SLAM_BACKEND_TOL_M = 1e-3     # the card's cuda chain against its torch chain
+# Phase 19: BASELINE.json's 10k-tag map on one card.
+MAP_KF, MAP_LM, MAP_OBS = 16, 10_000, 40_000
+MAP_ITERS = 5
+MAP_TOL_M = 1e-3              # card against CPU, shard batch against single
+MAP_SHARDS = 4
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -459,6 +488,65 @@ def spatial_scene():
     return cam, tags, render_tags(cam.K.numpy(), (SP_H, SP_W), tags)
 
 
+def map_problem(n_kf: int = MAP_KF, n_lm: int = MAP_LM, n_obs: int = MAP_OBS, seed: int = 3,
+                device="cuda"):
+    """tests/test_slam_e2e.py::test_sparse_ba_1000_landmarks's synthetic map
+    at any scale: n_kf cameras 0.1 m apart on a line, n_lm upright tags in a
+    slab 2-4 m in front, n_obs observations of random (camera, tag) pairs
+    with 0.3 px corner noise, states perturbed by 0.05 m. The port's
+    BAProblem on `device`."""
+    from isaac_ros_apriltag_tpu_torch.convert import ba_problem_from_reference
+    from isaac_ros_apriltag_tpu_torch.utils.render import TAG_CORNERS
+
+    rng = np.random.default_rng(seed)
+    fx = 420.0
+    K = np.array([[fx, 0, 320], [0, fx, 240], [0, 0, 1]], np.float32)
+    cam_t_gt = np.stack([np.array([0.1 * k, 0.0, 0.0]) for k in range(n_kf)])
+    lm_t_gt = rng.uniform([-3, -2, 2.0], [3 + 1.6, 2, 4.0], (n_lm, 3))
+    lm_R_gt = np.broadcast_to(np.diag([-1.0, -1.0, 1.0]), (n_lm, 3, 3))
+    obs_kf = rng.integers(0, n_kf, n_obs).astype(np.int32)
+    obs_lm = rng.integers(0, n_lm, n_obs).astype(np.int32)
+    corners_tag = np.concatenate([TAG_CORNERS * 0.08, np.zeros((4, 1))], -1)
+    p_w = corners_tag @ np.swapaxes(lm_R_gt[obs_lm], 1, 2) + lm_t_gt[obs_lm][:, None]
+    p_c = p_w - cam_t_gt[obs_kf][:, None]
+    uv = np.stack([fx * p_c[..., 0] / p_c[..., 2] + 320,
+                   fx * p_c[..., 1] / p_c[..., 2] + 240], -1).astype(np.float32)
+    uv += rng.normal(0, 0.3, uv.shape).astype(np.float32)
+    return ba_problem_from_reference(
+        cam_R=np.broadcast_to(np.eye(3), (n_kf, 3, 3)),
+        cam_t=cam_t_gt + rng.normal(0, 0.05, (n_kf, 3)), lm_R=lm_R_gt,
+        lm_t=lm_t_gt + rng.normal(0, 0.05, (n_lm, 3)), obs_kf=obs_kf, obs_lm=obs_lm,
+        obs_uv=uv, obs_valid=np.ones(n_obs, bool), K=K, tag_size=0.16, device=device)
+
+
+def loop_graph(n: int = 12, seed: int = 0):
+    """tests/test_slam.py::test_posegraph_loop_closure's pose graph: n poses
+    on the unit circle, each joined to the next (the last closes the loop),
+    translations perturbed by 0.05 m but node 0's. Its fields as numpy, and
+    the true translations."""
+    rng = np.random.default_rng(seed)
+    R_gt, t_gt = [], []
+    for i in range(n):
+        th = 2 * np.pi * i / n
+        R_gt.append(np.array([[np.cos(th), -np.sin(th), 0],
+                              [np.sin(th), np.cos(th), 0], [0, 0, 1]]))
+        t_gt.append(np.array([np.cos(th), np.sin(th), 0.0]))
+    ei, ej, eR, et = [], [], [], []
+    for i in range(n):
+        j = (i + 1) % n
+        ei.append(i)
+        ej.append(j)
+        eR.append(R_gt[i].T @ R_gt[j])
+        et.append(R_gt[i].T @ (t_gt[j] - t_gt[i]))
+    init_t = np.stack(t_gt) + rng.normal(0, 0.05, (n, 3))
+    init_t[0] = t_gt[0]
+    fields = dict(R=np.stack(R_gt).astype(np.float32), t=init_t.astype(np.float32),
+                  edge_i=np.array(ei, np.int32), edge_j=np.array(ej, np.int32),
+                  edge_R=np.stack(eR).astype(np.float32), edge_t=np.stack(et).astype(np.float32),
+                  edge_valid=np.ones(n, bool))
+    return fields, np.stack(t_gt)
+
+
 def _median_ms(fn, iters: int = SP_ITERS) -> float:
     """Median ms of `iters` calls, each between two CUDA events, after a warmup."""
     import torch
@@ -547,6 +635,248 @@ def ptxas_usage(log: str) -> dict:
         elif (m := re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)) and name:
             usage[name] = (int(m.group(1)), spill, int(m.group(2) or 0))
     return usage
+
+
+def _reset_launches() -> None:
+    """Wait for the card, then set every kernel's launch count to 0."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_ops
+
+    torch.cuda.synchronize()
+    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+
+
+def _launches() -> dict:
+    """Wait for the card; the kernels' launch counts since _reset_launches."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_ops
+
+    torch.cuda.synchronize()
+    return {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
+            "col": ccl_ops.col_diag_launches}
+
+
+def oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu: str, two_phase_fn) -> dict:
+    """Phase 17: the single-phase CCL with pointer jumps (ccl_flow='jumps',
+    the reference's 'xla' oracle) on phase 7's batch of 8 different 1080p
+    frames. Returns the kernels' launches on the batched call."""
+    import dataclasses
+
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch import connected_components
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
+    from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
+
+    dev = frames8.device
+    jcfg = dataclasses.replace(cfg, ccl_flow="jumps")
+    jfn = {b: batched_detect_fn(dataclasses.replace(jcfg, backend=b), cam_dev, "mono8")
+           for b in ("cuda", "torch")}
+    _reset_launches()
+    det, st = jfn["cuda"](frames8)
+    counts = _launches()
+    want = {"threshold": 1, "row": cfg.ccl_rounds, "col": cfg.ccl_rounds}
+    if counts != want:
+        raise AssertionError(f"jumps-flow launch counts {counts} != expected {want}")
+    K = cam_dev.K.cpu().numpy()
+    worst = max(_truth_error(det.frame(b), tg, K) for b, (_, tg, _) in enumerate(bscenes))
+    _all_same(jfn["torch"](frames8), (det, st), "jumps flow cuda and torch")
+    # connected_components with jumps: kernels against twins, batch against
+    # each frame alone, at the detector's schedule and others.
+    rng = np.random.default_rng(17)
+    rtri3 = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8), size=(3,) + tri8.shape[1:],
+                                        p=[0.4, 0.2, 0.4])).to(dev)
+    schedules = ((cfg.ccl_rounds, cfg.ccl_jumps, cfg.ccl_jump_every), (5, 2, 1), (6, 3, 2),
+                 (16, 2, 4))
+    conv = {}
+    for what, tri in (("segmentation batch 8", tri8), ("random batch 3", rtri3)):
+        for sched in schedules:
+            lab, cv = connected_components(tri, *sched, backend="cuda", with_convergence=True)
+            twin = connected_components(tri, *sched, backend="torch", with_convergence=True)
+            if not (_same(lab, twin[0]) and _same(cv, twin[1])):
+                raise AssertionError(f"connected_components {sched} on the {what}: cuda != torch")
+            for b in range(tri.shape[0]):
+                one = connected_components(tri[b], *sched, backend="cuda", with_convergence=True)
+                if not (_same(one[0], lab[b]) and _same(one[1], cv[b])):
+                    raise AssertionError(f"connected_components {sched} on the {what}: frame {b} "
+                                         "differs from itself alone")
+            conv[f"{what} {sched}"] = int(cv.sum())
+    flow_ms = {}
+    for name, fn in (("jumps", jfn["cuda"]), ("two_phase", two_phase_fn),
+                     ("two_phase", two_phase_fn), ("jumps", jfn["cuda"])):
+        flow_ms.setdefault(name, []).append(_time_ms(lambda: fn(frames8), 5) / BATCH)
+    sched = schedules[0]
+    lab8 = connected_components(tri8, *sched, backend="cuda")
+    ccl_ms = {"jumps": _device_ms(lambda: connected_components(tri8, *sched, backend="cuda"), 10),
+              "scan": _device_ms(lambda: ccl_ops.ccl_scan(tri8, sched[0], backend="cuda"), 10)}
+    jump_ms = _device_ms(lambda: ccl_ops._jump(lab8, sched[1]), 20)
+    jump_bound = sched[1] * _bound_ms(lab8, lab8, lab8)
+    print(f"[17 oracle flow] ccl_flow='jumps' ({sched[0]} rounds, {sched[1]} jumps every "
+          f"{sched[2]}), batch {BATCH} of different {H}x{W} frames: 6/6 ids each, worst corner "
+          f"error {worst:.4f} px (limit {CORNER_TOL_PX}); cuda == torch on every field; launches "
+          f"{counts} for the batch; connected_components cuda == torch and each frame alone == "
+          f"its batch entry at schedules {list(schedules)} on the segmentation batch and a random "
+          f"batch of 3 (converged frames {conv}); on {gpu}: ms a frame {flow_ms}; device ms at "
+          f"batch {BATCH} x {tri8.shape[1]}x{tri8.shape[2]}: jumps CCL {ccl_ms['jumps']:.4f}, "
+          f"the same {sched[0]} scan rounds without jumps {ccl_ms['scan']:.4f}, one torch.gather "
+          f"jump step ({sched[1]} gathers) {jump_ms:.4f} (bound {jump_bound:.4f})", flush=True)
+    return counts
+
+
+def slam_phase(gpu: str) -> dict:
+    """Phase 18: the CLI's default synthetic orbit through Detector ->
+    TagMapper -> BA on the card under both CCL flows, the pose graph's loop
+    closure, and `slam` as a subprocess. Returns the kernels' launches over
+    the backend-'cuda' chains."""
+    import tempfile
+
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch import Detector, DetectorConfig, TagMapper, ate_rmse
+    from isaac_ros_apriltag_tpu_torch.cli import slam_orbit
+    from isaac_ros_apriltag_tpu_torch.convert import pose_graph_from_reference
+    from isaac_ros_apriltag_tpu_torch.parallel.slam import ba, posegraph
+
+    dev = torch.device("cuda")
+    cam, frames, gt = slam_orbit(SLAM_FRAMES, SLAM_TAGS, SLAM_TAG_SIZE, SLAM_NOISE)
+    rounds = {"scan": SCAN_ROUNDS, "jumps": DetectorConfig().ccl_rounds}
+    counts = {"threshold": 0, "row": 0, "col": 0}
+    chains = {}
+    for flow in ("scan", "jumps"):
+        for backend in ("cuda", "torch"):
+            det = Detector(DetectorConfig(tag_size=SLAM_TAG_SIZE, backend=backend, ccl_flow=flow),
+                           cam, device=dev)
+            mapper = TagMapper(K=cam.K.numpy(), tag_size=SLAM_TAG_SIZE, device=dev)
+            _reset_launches()
+            t0 = time.perf_counter()
+            for f in frames:
+                mapper.process_frame(det.detect(f, "mono8"))
+            map_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+            if backend == "cuda":
+                got = _launches()
+                want = {"threshold": len(frames), "row": rounds[flow] * len(frames),
+                        "col": rounds[flow] * len(frames)}
+                if got != want:
+                    raise AssertionError(f"slam ({flow}) launch counts {got} != expected {want}")
+                counts = {k: counts[k] + got[k] for k in counts}
+            p = mapper.build_problem()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solved, rms = ba.solve(p, SLAM_BA_ITERS)
+            rms = rms.cpu().numpy()
+            ba_ms = (time.perf_counter() - t0) * 1e3
+            mapper.update_from_problem(solved)
+            kf_t = np.stack(mapper.kf_t)
+            ate = ate_rmse(kf_t, gt)
+            if len(mapper.lm_ids) != SLAM_TAGS or not np.isfinite(rms).all() or ate >= SLAM_ATE_M:
+                raise AssertionError(f"slam ({flow}, {backend}): {len(mapper.lm_ids)} tags mapped, "
+                                     f"rms {rms}, ATE {ate} m (limit {SLAM_ATE_M})")
+            chains[flow, backend] = dict(kf_t=kf_t, ate=ate, rms=float(rms[-1]), obs=len(mapper.obs),
+                                         map_ms=map_ms, ba_ms=ba_ms)
+    gaps = {}
+    for flow in ("scan", "jumps"):
+        gaps[flow] = float(np.abs(chains[flow, "cuda"]["kf_t"] - chains[flow, "torch"]["kf_t"]).max())
+        if gaps[flow] > SLAM_BACKEND_TOL_M:
+            raise AssertionError(f"slam ({flow}): the cuda chain's trajectory is {gaps[flow]} m from "
+                                 f"the torch chain's (limit {SLAM_BACKEND_TOL_M})")
+    fields, t_gt = loop_graph()
+    g, rms_pg = posegraph.solve(pose_graph_from_reference(**fields, device=dev), iters=10)
+    g_cpu, _ = posegraph.solve(pose_graph_from_reference(**fields, device="cpu"), iters=10)
+    _, Ji, Jj = posegraph._linearize(g)
+    pg_err = float((g.t.cpu() - torch.from_numpy(t_gt).float()).abs().max())
+    pg_gap = float((g.t.cpu() - g_cpu.t).abs().max())
+    if not (float(rms_pg[-1]) < 1e-3 and pg_err < 1e-2 and pg_gap < 1e-3
+            and bool(torch.isfinite(Ji).all()) and bool(torch.isfinite(Jj).all())):
+        raise AssertionError(f"pose graph: rms {rms_pg.tolist()}, error {pg_err} m, CPU gap "
+                             f"{pg_gap} m, Jacobians finite {bool(torch.isfinite(Ji).all())}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        out = _cli("slam", "--ccl-flow", "jumps", "--save-map", path)
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        loaded = TagMapper(K=np.zeros((3, 3)), tag_size=0.0, device=dev)
+        loaded.load(path)
+    if not (res["tags_mapped"] == SLAM_TAGS and res["ate_rmse_m"] < SLAM_ATE_M
+            and len(loaded.lm_ids) == SLAM_TAGS and len(loaded.kf_t) == SLAM_FRAMES
+            and loaded.tag_size == SLAM_TAG_SIZE
+            and int(loaded.build_problem().obs_valid.sum()) == len(loaded.obs)):
+        raise AssertionError(f"cli slam: {res}; loaded map: {len(loaded.lm_ids)} tags, "
+                             f"{len(loaded.kf_t)} keyframes")
+    summary = {f"{f}/{b}": {k: (round(v, 6) if isinstance(v, float) else v)
+                            for k, v in c.items() if k != "kf_t"} for (f, b), c in chains.items()}
+    print(f"[18 slam] CLI orbit 640x480, {SLAM_FRAMES} frames, {SLAM_TAGS} tags, noise "
+          f"{SLAM_NOISE}: Detector -> TagMapper -> ba.solve({SLAM_BA_ITERS}) on the card, both "
+          f"flows and backends: {SLAM_TAGS} tags mapped, ATE under {SLAM_ATE_M} m; cuda chain "
+          f"within {gaps} m of the torch chain (limit {SLAM_BACKEND_TOL_M}); launches over the "
+          f"cuda chains {counts}; pose-graph loop closure (12 nodes) rms {float(rms_pg[-1]):.2e}, "
+          f"error {pg_err:.2e} m, {pg_gap:.2e} m from the CPU; `slam --ccl-flow jumps` exited 0: "
+          f"{res}, its saved map loaded back; on {gpu}: {summary} (map_ms: ms a frame, detect and "
+          f"mapper; ba_ms: the whole solve)", flush=True)
+    return counts
+
+
+def map_phase(gpu: str) -> None:
+    """Phase 19: BA on BASELINE.json's 10k-tag map at one card's scale
+    (MAP_KF keyframes, MAP_LM landmarks, MAP_OBS observations)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from isaac_ros_apriltag_tpu_torch import make_distributed_solver, partition_problem
+    from isaac_ros_apriltag_tpu_torch.parallel.slam import ba
+
+    dev = torch.device("cuda")
+    p = map_problem(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solved, rms = ba.solve(p, MAP_ITERS)
+    rms = rms.cpu().numpy()
+    solve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(rms).all() and rms[-1] < 0.5 and rms[-1] <= rms[0] / 5):
+        raise AssertionError(f"10k-tag BA did not converge: rms {rms}")
+    t0 = time.perf_counter()
+    cpu, rms_cpu = ba.solve(map_problem(device="cpu"), MAP_ITERS)
+    cpu_s = time.perf_counter() - t0
+    gap_cpu = float((solved.cam_t.cpu() - cpu.cam_t).abs().max())
+    if gap_cpu > MAP_TOL_M:
+        raise AssertionError(f"10k-tag BA: card cameras {gap_cpu} m from the CPU's")
+    parts = partition_problem(p, MAP_SHARDS)
+    sharded = make_distributed_solver(MAP_ITERS, nshards=MAP_SHARDS)
+    sd, rms_d = sharded(parts)
+    gap_dba = float((sd.cam_t - solved.cam_t).abs().max())
+    if gap_dba > MAP_TOL_M:
+        raise AssertionError(f"10k-tag shard-batched BA: cameras {gap_dba} m from the single solver")
+    ba.gauss_newton_step(p)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ba.gauss_newton_step(p)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_ms = _median_ms(lambda: ba.gauss_newton_step(p), 10)
+    dba_ms = _median_ms(lambda: sharded(parts), 3) / MAP_ITERS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ba.gauss_newton_step(p)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launch_calls = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+                       for e in events)
+    device_ops = sum(e.device_type == DeviceType.CUDA for e in events)
+    print(f"[19 10k-tag map] K={MAP_KF}, L={MAP_LM}, O={MAP_OBS}: ba.solve({MAP_ITERS}) on the "
+          f"card rms {rms.tolist()} (falls {rms[0] / rms[-1]:.1f}x, ends under 0.5 px); cameras "
+          f"within {gap_cpu:.2e} m of the CPU's solve and the {MAP_SHARDS}-shard batch within "
+          f"{gap_dba:.2e} m of the single solver (limit {MAP_TOL_M}); a Gauss-Newton step ran under "
+          f"sync debug mode 'error' (no host sync); on {gpu}: ms a GN step {step_ms:.3f} (median "
+          f"of 10), shard-batched {dba_ms:.3f} a step, first solve {solve_s * 1e3:.1f} ms wall, "
+          f"the CPU's {cpu_s * 1e3:.1f} ms; a GN step makes {launch_calls} kernel launch calls and "
+          f"{device_ops} device operations (torch.profiler); peak device memory of the solve "
+          f"{peak / 2**30:.3f} GiB", flush=True)
 
 
 def main() -> int:
@@ -667,12 +997,9 @@ def main() -> int:
     det_cuda = Detector(cfg, cam, device=dev)
     det_torch = Detector(dataclasses.replace(cfg, backend="torch"), cam, device=dev)
     frames = [torch.from_numpy(f).to(dev) for _, _, f in scenes]
-    torch.cuda.synchronize()
-    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    _reset_launches()
     results = [det_cuda.detect_with_stats(f, "mono8") for f in frames]
-    torch.cuda.synchronize()
-    counts = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
-              "col": ccl_ops.col_diag_launches}
+    counts = _launches()
     # The detector turns TF32 off; nothing on the main path turns it back on.
     if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
@@ -779,13 +1106,10 @@ def main() -> int:
     cam_dev = cam.to(dev)
     bfn = {b: batched_detect_fn(dataclasses.replace(cfg, backend=b), cam_dev, "mono8")
            for b in ("cuda", "torch")}
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    _reset_launches()
     det8, st8 = bfn["cuda"](frames8)
-    torch.cuda.synchronize()
-    counts8 = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
-               "col": ccl_ops.col_diag_launches}
+    counts8 = _launches()
     peak8 = torch.cuda.max_memory_allocated()
     want1 = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
     if counts8 != want1:
@@ -832,13 +1156,10 @@ def main() -> int:
                                  encoding="mono8", device=dev),
           "gather": GraphPipeline(cfg, cam8, downscale=2, encoding="mono8", exact_remap=True,
                                   device=dev)}
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    _reset_launches()
     gdet, gst = gp["cuda"].batched(gbatch)
-    torch.cuda.synchronize()
-    counts_g = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
-                "col": ccl_ops.col_diag_launches}
+    counts_g = _launches()
     peak_g = torch.cuda.max_memory_allocated()
     if counts_g != want1:
         raise AssertionError(f"graph launch counts {counts_g} != expected {want1}")
@@ -900,13 +1221,10 @@ def main() -> int:
     rigs = {b: RigDetector(dataclasses.replace(cfg, backend=b), rig_cams[0], RIG_CAMERAS,
                            device=dev, cameras=rig_cams) for b in ("cuda", "torch")}
     shared_rig = RigDetector(cfg, rig_cams[0], RIG_CAMERAS, device=dev)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    _reset_launches()
     rdet, rst = rigs["cuda"].detect(rig_frames)
-    torch.cuda.synchronize()
-    counts_rig = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
-                  "col": ccl_ops.col_diag_launches}
+    counts_rig = _launches()
     peak_rig = torch.cuda.max_memory_allocated()
     if counts_rig != want1:
         raise AssertionError(f"rig launch counts {counts_rig} != expected {want1}")
@@ -947,13 +1265,10 @@ def main() -> int:
     stream_gap = 0.0
     for depth in (1, 2, 3):
         if depth == 2:
-            torch.cuda.synchronize()
-            thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+            _reset_launches()
         outs = run_stream(detect1, stream_host, depth=depth, device=dev)
         if depth == 2:
-            torch.cuda.synchronize()
-            counts_stream = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
-                             "col": ccl_ops.col_diag_launches}
+            counts_stream = _launches()
         if len(outs) != len(stream_host):
             raise AssertionError(f"depth {depth}: {len(outs)} results for {len(stream_host)} frames")
         for k, (got, want) in enumerate(zip(outs, sync1)):
@@ -1070,13 +1385,10 @@ def main() -> int:
     sds = {b: SpatialDetector(dataclasses.replace(cfg, backend=b), cam_sp, SP_BANDS, device=dev)
            for b in ("cuda", "torch")}
     sp_single = Detector(cfg, cam_sp, device=dev)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    _reset_launches()
     det_sp, st_sp = sds["cuda"].detect_with_stats(sp_frame)
-    torch.cuda.synchronize()
-    counts_sp = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
-                 "col": ccl_ops.col_diag_launches}
+    counts_sp = _launches()
     peak_sp = torch.cuda.max_memory_allocated()
     sp_rounds = max(3, SP_BANDS - 1) * cfg.ccl_rounds
     want_sp = {"threshold": 1, "row": sp_rounds, "col": sp_rounds}
@@ -1168,12 +1480,9 @@ def main() -> int:
     flat_cfg = dataclasses.replace(cfg, ccl_phase2_rounds=0)
     ffn = {b: batched_detect_fn(dataclasses.replace(flat_cfg, backend=b), cam_dev, "mono8")
            for b in ("cuda", "torch")}
-    torch.cuda.synchronize()
-    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    _reset_launches()
     detf, stf = ffn["cuda"](frames8)
-    torch.cuda.synchronize()
-    counts_flat = {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
-                   "col": ccl_ops.col_diag_launches}
+    counts_flat = _launches()
     want_flat = {"threshold": 1, "row": cfg.ccl_scan_rounds, "col": cfg.ccl_scan_rounds}
     if counts_flat != want_flat:
         raise AssertionError(f"flat-flow launch counts {counts_flat} != expected {want_flat}")
@@ -1225,6 +1534,11 @@ def main() -> int:
                       f"({bound_long / a:.1%} of bound)" for k, (a, b) in kernel_ms_long.items()),
           flush=True)
 
+    # --- 17-19. the oracle flow, SLAM end to end, the 10k-tag map -------------
+    counts_oracle = oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu, bfn["cuda"])
+    counts_slam = slam_phase(gpu)
+    map_phase(gpu)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -1237,7 +1551,7 @@ def main() -> int:
              "col": "ccl_col_diag_scan"}
     paths = {"frame": counts, f"batch{BATCH}": counts8, f"graph{BATCH}": counts_g,
              f"rig{RIG_CAMERAS}": counts_rig, "stream": counts_stream, "spatial": counts_sp,
-             "flat": counts_flat}
+             "flat": counts_flat, "oracle": counts_oracle, "slam": counts_slam}
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": sum(c[k] for c in paths.values()),

@@ -2,7 +2,10 @@
 
 The same fields, defaults and constructor-time checks as
 ``isaac_ros_apriltag_tpu/config.py``, so a configuration carries across the
-two packages field for field (see ``convert.config_from_reference``).
+two packages field for field (see ``convert.config_from_reference``), plus
+``ccl_flow``: the reference picks its CCL flow by backend ('xla' runs the
+single-phase flow with jumps), the port by this field, since its backends
+only choose kernels or their twins.
 
 Backends (mirroring the reference package's ``xla|pallas|interpret``):
   - 'cuda'  the hand-written Hopper kernels on the hot stages (threshold and
@@ -17,6 +20,7 @@ import dataclasses
 from .models.families import FAMILY_SPECS, family_names
 
 BACKENDS = ("torch", "cuda")
+CCL_FLOWS = ("scan", "jumps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,13 +38,20 @@ class DetectorConfig:
     max_edge_points: int = 1 << 19   # cap on compacted boundary points
     max_clusters: int = 128          # candidate boundary clusters kept
     max_cluster_points: int = 1024   # points retained per cluster
-    # Single-phase CCL with pointer jumps (the reference package's XLA
-    # oracle), not run by this package. ccl_rounds is also the scan rounds
-    # of each outer round of the row-sharded front (parallel/spatial.py).
+    # Which CCL flow the detector runs:
+    #   'scan'  the two-phase scan flow (or with ccl_phase2_rounds=0 one scan
+    #           phase and the flat-label resolve), the reference's
+    #           pallas|interpret flow;
+    #   'jumps' the single-phase flow with pointer jumps, the reference's
+    #           'xla' oracle: ccl_rounds scan rounds with ccl_jumps jumps
+    #           every ccl_jump_every rounds, then the flat-label resolve.
+    ccl_flow: str = "scan"
+    # The 'jumps' flow. ccl_rounds is also the scan rounds of each outer
+    # round of the row-sharded front (parallel/spatial.py), which never jumps.
     ccl_rounds: int = 8
     ccl_jumps: int = 2
     ccl_jump_every: int = 4
-    # Two-phase scan CCL: phase-1 rounds, rank-space chain contraction,
+    # The 'scan' flow: phase-1 rounds, rank-space chain contraction,
     # phase-2 rounds; then the final resolve (ops/resolve.py).
     ccl_scan_rounds: int = 8
     ccl_phase2_rounds: int = 6       # 0 = no contraction / second phase
@@ -98,6 +109,10 @@ class DetectorConfig:
                              "(resolve packs group ranks into 16 bits)")
         if self.ccl_rounds < 1:
             raise ValueError("ccl_rounds must be >= 1")
+        if self.ccl_flow not in CCL_FLOWS:
+            raise ValueError(f"Invalid ccl_flow {self.ccl_flow!r}; expected one of {CCL_FLOWS}")
+        if self.ccl_jumps < 0:
+            raise ValueError("ccl_jumps must be >= 0")
         fam_h = FAMILY_SPECS[self.tag_family][1]
         if self.max_hamming > (fam_h - 1) // 2:
             raise ValueError(

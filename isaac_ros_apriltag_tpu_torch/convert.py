@@ -1,7 +1,8 @@
 """Carry the reference package's parameters across to this one.
 
 The detector has no learned weights: its parameters are the camera, the tag
-family and the config, and the graph pipeline's rectification plan. These
+family and the config, and the graph pipeline's rectification plan; the
+SLAM layer's state is its problem (a BA problem, a pose graph). These
 functions build the port's objects from plain values and numpy arrays, so a
 caller holding the reference package's objects
 (``np.asarray(cam.K)``, ``dataclasses.asdict(cfg)``, a ``TagFamily``'s fields)
@@ -11,6 +12,7 @@ runs both packages on exactly the same parameters. Nothing here imports jax.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -19,6 +21,8 @@ from .camera.model import CameraModel
 from .config import DetectorConfig
 from .models.families import TagFamily
 from .ops.remap import SeparableRectify
+from .parallel.slam.ba import BAProblem
+from .parallel.slam.posegraph import PoseGraph
 
 
 def camera_from_reference(K, dist, width: int, height: int) -> CameraModel:
@@ -43,12 +47,40 @@ def family_from_reference(name: str, nbits: int, min_hamming: int, total_width: 
 
 def config_from_reference(fields: dict, backend: str = "cuda") -> DetectorConfig:
     """The reference config's fields (dataclasses.asdict) -> DetectorConfig
-    with this package's `backend`. Unknown fields raise."""
+    with this package's `backend`; a reference backend 'xla' (its oracle
+    flow) becomes ccl_flow='jumps', any other 'scan'. Unknown fields raise."""
     names = {f.name for f in dataclasses.fields(DetectorConfig)}
     unknown = set(fields) - names
     if unknown:
         raise ValueError(f"fields unknown to this package's DetectorConfig: {sorted(unknown)}")
-    return DetectorConfig(**{**fields, "backend": backend})
+    flow = "jumps" if fields.get("backend") == "xla" else "scan"
+    return DetectorConfig(**{"ccl_flow": flow, **fields, "backend": backend})
+
+
+def ba_problem_from_reference(cam_R, cam_t, lm_R, lm_t, obs_kf, obs_lm, obs_uv, obs_valid, K,
+                              tag_size, device: torch.device | str = "cuda") -> BAProblem:
+    """A reference BAProblem's fields (numpy, e.g. ``{k: np.asarray(v) for
+    k, v in p._asdict().items()}``) -> the port's BAProblem on `device`:
+    float32 states and observations, int64 indices, a bool mask."""
+    f32, idx, mask = (functools.partial(_tensor, dtype=d, device=device)
+                      for d in (np.float32, np.int64, bool))
+    return BAProblem(cam_R=f32(cam_R), cam_t=f32(cam_t), lm_R=f32(lm_R), lm_t=f32(lm_t),
+                     obs_kf=idx(obs_kf), obs_lm=idx(obs_lm), obs_uv=f32(obs_uv),
+                     obs_valid=mask(obs_valid), K=f32(K), tag_size=f32(tag_size))
+
+
+def pose_graph_from_reference(R, t, edge_i, edge_j, edge_R, edge_t, edge_valid,
+                              device: torch.device | str = "cuda") -> PoseGraph:
+    """A reference PoseGraph's fields (numpy) -> the port's PoseGraph on
+    `device`."""
+    f32, idx, mask = (functools.partial(_tensor, dtype=d, device=device)
+                      for d in (np.float32, np.int64, bool))
+    return PoseGraph(R=f32(R), t=f32(t), edge_i=idx(edge_i), edge_j=idx(edge_j),
+                     edge_R=f32(edge_R), edge_t=f32(edge_t), edge_valid=mask(edge_valid))
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype)).to(device)
 
 
 def rectify_from_reference(sx2, sy2, dx_range, dy_range) -> SeparableRectify:

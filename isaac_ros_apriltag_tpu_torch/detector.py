@@ -7,7 +7,8 @@ frame is a batch of one. A batch makes the same kernel launches as one
 frame. Stages: grayscale, quad_decimate mean-pool, adaptive threshold
 (kernel K1), two-phase scan CCL (kernels K2 and K3, with the rank-space
 contraction between the phases; with ccl_phase2_rounds=0 one scan phase on
-flat-index labels), resolve, cluster moments, quad fit, top-2T
+flat-index labels; with ccl_flow='jumps' one scan phase with pointer jumps
+between rounds), resolve, cluster moments, quad fit, top-2T
 by fit quality, edge refinement, decode, dedupe, top-T by decision margin,
 center and pose. Backend 'cuda' runs the three kernels; 'torch' runs their
 plain twins. Everything else is plain PyTorch on the detector's device.
@@ -211,7 +212,11 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
     CUDA device and raises otherwise. Whatever B, one call makes the same
     kernel launches: K1 once, K2 and K3 once per scan round
     (ccl_scan_rounds + ccl_phase2_rounds). With ccl_phase2_rounds=0 the
-    phase-1 labels go to the flat-label resolve, with no contraction.
+    phase-1 labels go to the flat-label resolve, with no contraction. With
+    ccl_flow='jumps' (the reference's 'xla' flow) the CCL is ccl_rounds
+    scan rounds with ccl_jumps pointer jumps every ccl_jump_every rounds,
+    and its labels go to the flat-label resolve: K2 and K3 ccl_rounds
+    times each.
 
     with_pose=False skips the pose stage (translation, quaternion and
     rotation come back zero), for callers that pose the corners with their
@@ -231,6 +236,12 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
         gray = grayscale(images, encoding, batched=True).contiguous()
         seg = _pad_to_tiles(_decimate(gray, cfg.quad_decimate), cfg.tile_size).contiguous()
         trinary = threshold(seg, cfg.tile_size, cfg.min_white_black_diff)
+        if cfg.ccl_flow == "jumps":
+            label, scan_converged = ccl_ops.ccl_scan(
+                trinary, cfg.ccl_rounds, backend=cfg.backend, jumps=cfg.ccl_jumps,
+                jump_every=cfg.ccl_jump_every)
+            return detect_tail(cfg, camera, family, gray, trinary, label,
+                               scan_converged, with_pose=with_pose)
         label, scan_converged = ccl_ops.ccl_scan(trinary, cfg.ccl_scan_rounds,
                                                  backend=cfg.backend)
         if cfg.ccl_phase2_rounds == 0:
@@ -309,9 +320,15 @@ def device_for(config: DetectorConfig, device: torch.device | str | None) -> tor
         from .ops.cuda import _lib
         _lib.library()          # build or load the kernels now; raises on failure
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        no_tf32()
     return device
+
+
+def no_tf32() -> None:
+    """Turn TF32 off for the whole process (torch.backends.cuda.matmul and
+    cudnn), so f32 matmuls on the card keep their 24 mantissa bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def to_device(image, device: torch.device) -> torch.Tensor:

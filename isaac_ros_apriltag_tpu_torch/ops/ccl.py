@@ -1,9 +1,9 @@
-"""Component sizes of a CCL labeling.
+"""The single-phase CCL with pointer jumps, and component sizes.
 
-Counterpart of ``isaac_ros_apriltag_tpu/ops/ccl.py::component_sizes``. The
-scan-only labeling itself (kernels K2 and K3 and their twins) is
-ops/cuda/ccl.py; the reference's single-phase labeling with pointer jumps
-(``connected_components`` with jumps > 0) is not ported.
+Counterparts of ``isaac_ros_apriltag_tpu/ops/ccl.py::connected_components``
+(the reference's oracle flow, which its 'xla' backend runs) and
+``::component_sizes``. The scan rounds themselves (kernels K2 and K3 and
+their twins) and the jumps between them are ops/cuda/ccl.py::ccl_scan.
 """
 
 from __future__ import annotations
@@ -11,6 +11,27 @@ from __future__ import annotations
 import torch
 
 from .batch import batch_first
+from .cuda.ccl import ccl_scan
+
+
+def connected_components(trinary: torch.Tensor, rounds: int = 6, jumps: int = 2,
+                         jump_every: int = 1, *, backend: str,
+                         label0: torch.Tensor | None = None, with_convergence: bool = False):
+    """(B, H, W) or (H, W) uint8 trinary {0, 127, 255} -> int32 component
+    labels of the same shape: valid pixels get the min flat index of their
+    component within their frame, 127 pixels their own index.
+
+    `rounds` scan rounds; after round r, when (r + 1) % jump_every == 0,
+    `jumps` pointer-jump passes (label <- label[label]). `label0` seeds the
+    labels (jumps must then be 0). With `with_convergence` it returns
+    (labels, converged): converged is True iff the final round, its jumps
+    included, changed nothing ((B,) for a batch). backend 'cuda' runs the
+    kernels K2 and K3, 'torch' their plain twins."""
+    if rounds < 1:
+        raise ValueError("rounds must be >= 1")
+    label, converged = ccl_scan(trinary, rounds, backend=backend, label0=label0,
+                                jumps=jumps, jump_every=jump_every)
+    return (label, converged) if with_convergence else label
 
 
 def component_sizes(label: torch.Tensor) -> torch.Tensor:

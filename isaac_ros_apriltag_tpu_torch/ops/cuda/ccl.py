@@ -1,10 +1,11 @@
-"""Scan-only connected-component labeling: the round loop, the two kernels'
+"""Scan connected-component labeling: the round loop, the two kernels'
 wrappers (csrc/ccl.cu) and their plain PyTorch twins.
 
-Counterpart of ``isaac_ros_apriltag_tpu/ops/pallas/ccl.py`` with jumps=0 and
-``ops/pallas/ccl_fused.py::ccl_scan_pallas``. One round is a row scan (K2)
-then a diagonal hop + column scan (K3); both are bit-exact with their twins,
-and the round loop is bit-identical round for round with the reference's.
+Counterpart of ``isaac_ros_apriltag_tpu/ops/pallas/ccl.py`` (pointer jumps
+between rounds included) and ``ops/pallas/ccl_fused.py::ccl_scan_pallas``.
+One round is a row scan (K2) then a diagonal hop + column scan (K3); both
+are bit-exact with their twins, and the round loop is bit-identical round
+for round with the reference's.
 
 Every function takes a batch of frames, (B, H, W), or one frame, (H, W); the
 frames of a batch never touch. Labels start as the flat pixel index within
@@ -125,20 +126,45 @@ def col_diag_scan(tri: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _jump(label: torch.Tensor, jumps: int) -> torch.Tensor:
+    """label <- label[label], `jumps` times, within each frame: a gather
+    along the last dim of the (B, H*W) view, so frames never mix."""
+    H, W = label.shape[-2:]
+    flat = label.reshape(-1, H * W)
+    for _ in range(jumps):
+        flat = torch.gather(flat, 1, flat.long())
+    return flat.reshape(label.shape)
+
+
 def ccl_scan(trinary: torch.Tensor, rounds: int, *, backend: str,
-             label0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+             label0: torch.Tensor | None = None, jumps: int = 0,
+             jump_every: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W) uint8 trinary -> ((B, H, W) int32 labels, (B,) converged);
     one frame, (H, W), gives (H, W) labels and a 0-dim flag.
 
-    `converged[b]` is True iff the final round changed nothing in frame b.
-    `label0` seeds the labels (flat indices, or any order-isomorphic int32
-    labeling such as resolve_roots_rank's ranks); without it each pixel
-    starts at its flat index within its frame. backend 'cuda' runs the
-    kernels, 'torch' their plain twins; either way a round is one call of
-    each for the whole batch.
+    `converged[b]` is True iff the final round, its jumps included, changed
+    nothing in frame b. `label0` seeds the labels (flat indices, or any
+    order-isomorphic int32 labeling such as resolve_roots_rank's ranks);
+    without it each pixel starts at its flat index within its frame. backend
+    'cuda' runs the kernels, 'torch' their plain twins; either way a round
+    is one call of each for the whole batch.
+
+    `jumps` > 0 is the reference's single-phase flow
+    (``isaac_ros_apriltag_tpu/ops/ccl.py::connected_components``): after
+    round r, when (r + 1) % jump_every == 0, label <- label[label] `jumps`
+    times, a torch gather per frame (the reference's gather is XLA, not a
+    kernel). The reference's Pallas flow jumps in padded flat-index space;
+    the jumps here are in unpadded space. Both are lexicographic in (y, x)
+    and labels only ever point at pixels of the frame, so the two are
+    order-isomorphic round for round (tests/test_torch_oracle.py). Jumps
+    need flat-index labels, so they refuse a seed `label0`.
     """
     if rounds < 1:
         raise ValueError("rounds must be >= 1")
+    if jumps < 0 or jump_every < 1:
+        raise ValueError("jumps must be >= 0 and jump_every >= 1")
+    if jumps and label0 is not None:
+        raise ValueError("jumps need flat-index labels: label0 must be None when jumps > 0")
     if backend == "cuda":
         row, col = row_scan, col_diag_scan
     elif backend == "torch":
@@ -153,7 +179,9 @@ def ccl_scan(trinary: torch.Tensor, rounds: int, *, backend: str,
     else:
         label = label0.to(torch.int32).contiguous()
     prev = label
-    for _ in range(rounds):
+    for r in range(rounds):
         prev = label
         label = col(tri, row(tri, label))
+        if jumps and (r + 1) % jump_every == 0:
+            label = _jump(label, jumps)
     return label, ~torch.any((label != prev).reshape(*lead, H * W), -1)

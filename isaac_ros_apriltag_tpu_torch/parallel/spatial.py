@@ -223,7 +223,12 @@ class SpatialDetector:
     bands (on one device as a batch, or one band on each rank of `group`),
     the tail on the gathered frame. Detections equal the single-device
     Detector's (tests/test_torch_spatial.py). device: default the card; pass
-    device='cpu' to run backend 'torch' on the CPU."""
+    device='cpu' to run backend 'torch' on the CPU.
+
+    The front is its own whatever config.ccl_flow says, as the reference's
+    is whatever its backend: ccl_rounds scan rounds per outer round and no
+    pointer jumps, since the band labels are global flat indices that a
+    band's gather table does not hold."""
 
     def __init__(self, config: DetectorConfig, camera: CameraModel, nshards: int = 4,
                  device: torch.device | str | None = None, encoding: str = "mono8",

@@ -1,10 +1,10 @@
 """Batched geometry primitives: quaternions, homographies, small solves.
 
-The subset of ``isaac_ros_apriltag_tpu/utils/geometry.py`` that the detector
-uses, ported as written: Shepperd quaternion conversion, the exact 4-point
-DLT homography (an 8x8 solve on Hartley-normalized coordinates, no SVD), the
-closed-form 3x3 inverse and the Newton polar projection onto SO(3). All
-functions broadcast over leading batch dims.
+``isaac_ros_apriltag_tpu/utils/geometry.py`` ported as written: Shepperd
+quaternion conversion, the exact 4-point DLT homography (an 8x8 solve on
+Hartley-normalized coordinates, no SVD), the closed-form 3x3 inverse, the
+Newton polar projection onto SO(3), and the se(3) exponential and skew
+matrix of the SLAM layer. All functions broadcast over leading batch dims.
 """
 
 from __future__ import annotations
@@ -116,3 +116,33 @@ def orthonormalize_rotation(M: torch.Tensor, iters: int = 4) -> torch.Tensor:
     for _ in range(iters):
         X = 0.5 * (X + inverse3x3(X).transpose(-1, -2))
     return X
+
+
+def se3_exp(tau: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """se(3) exponential. tau: (..., 6) = (omega, v). Returns (R, t). Below
+    an angle of 1e-6 rad, R = I + skew(omega) and t = v, selected with
+    torch.where, so forward-mode derivatives at tau = 0 are finite."""
+    omega, v = tau[..., :3], tau[..., 3:]
+    theta = torch.clamp(torch.linalg.vector_norm(omega, dim=-1, keepdim=True), min=1e-12)
+    K = skew(omega / theta)
+    st = torch.sin(theta)[..., None]
+    ct = torch.cos(theta)[..., None]
+    I = torch.eye(3, dtype=tau.dtype, device=tau.device).expand(K.shape)
+    KK = torch.einsum("...ij,...jk->...ik", K, K)
+    R = I + st * K + (1 - ct) * KK
+    th = theta[..., None]
+    V = I + ((1 - ct) / th) * K + ((th - st) / th) * KK
+    small = (theta < 1e-6)[..., None]
+    R = torch.where(small, I + skew(omega), R)
+    t = torch.where(small[..., 0], v, torch.einsum("...ij,...j->...i", V, v))
+    return R, t
+
+
+def skew(w: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) cross-product matrix."""
+    z = torch.zeros_like(w[..., 0])
+    return torch.stack([
+        torch.stack([z, -w[..., 2], w[..., 1]], -1),
+        torch.stack([w[..., 2], z, -w[..., 0]], -1),
+        torch.stack([-w[..., 1], w[..., 0], z], -1),
+    ], -2)

@@ -197,6 +197,30 @@ def test_backend_names():
         J.DetectorConfig(backend="cuda")
 
 
+def test_ccl_flow_field():
+    """The port picks the CCL flow by ccl_flow ('scan' by default); the
+    reference's backend 'xla' carries across as 'jumps'."""
+    assert DetectorConfig().ccl_flow == "scan"
+    assert DetectorConfig(ccl_flow="jumps").ccl_flow == "jumps"
+    with pytest.raises(ValueError, match="Invalid ccl_flow"):
+        DetectorConfig(ccl_flow="xla")
+    with pytest.raises(ValueError, match="ccl_jumps"):
+        DetectorConfig(ccl_jumps=-1)
+    for backend, flow in (("xla", "jumps"), ("pallas", "scan"), ("interpret", "scan")):
+        fields = dataclasses.asdict(J.DetectorConfig(backend=backend))
+        assert config_from_reference(fields, backend="torch").ccl_flow == flow
+
+
+def test_jumps_flow_runs(cams):
+    """ccl_flow='jumps' runs on the Detector and finds nothing on an empty
+    frame (tests/test_torch_oracle.py holds it against the reference)."""
+    _, cam_t = cams
+    det = Detector(DetectorConfig(backend="torch", ccl_flow="jumps"), cam_t, device="cpu")
+    found, stats = det.detect_with_stats(np.zeros((480, 640), np.uint8), encoding="mono8")
+    assert found.to_list() == [] and int(stats.num_detections) == 0
+    assert bool(stats.ccl_converged)
+
+
 def test_single_phase_ccl_not_supported_yet(cams):
     """ccl_phase2_rounds=0 (one scan phase, then the flat-label resolve) is
     supported now: it runs, finds nothing on an empty frame and reports a

@@ -4,8 +4,9 @@ different frames (where it must also equal itself run on each frame alone),
 the two backends against each other end to end: one frame, a batch, and
 the rectify -> resize -> detect graph; and the serving layer on the card:
 the streaming runner's upload ring against a slow reader, the rig's launch
-counts, no host sync on the detect path, and detect_checked. They skip
-without a card.
+counts, no host sync on the detect path, and detect_checked; the CCL flow
+with pointer jumps, and bundle adjustment of a 10k-tag map against the CPU.
+They skip without a card.
 
 The adversarial inputs of the threshold and scan kernels are chip_smoke.py's,
 so the smoke run and these tests hold the kernels to the same cases. This file imports
@@ -21,11 +22,14 @@ import pytest
 import torch
 
 from chip_smoke import (LONG_SHAPES, SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, edge_batch,
-                        scan_batch, scan_case, scan_case_id, thresh_case_id, thresh_input)
+                        map_problem, scan_batch, scan_case, scan_case_id, thresh_case_id,
+                        thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
-                                          batched_detect_fn, build_spatial_front_fn, get_family,
-                                          run_stream)
+                                          batched_detect_fn, build_spatial_front_fn,
+                                          connected_components, get_family,
+                                          make_distributed_solver, partition_problem, run_stream)
+from isaac_ros_apriltag_tpu_torch.parallel.slam import ba
 from isaac_ros_apriltag_tpu_torch import detector as tdetector
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
@@ -382,3 +386,63 @@ def test_flat_flow_backends_identical(cuda):
                                         "mono8")(imgs))
     for b in range(3):
         assert sorted(r["id"] for r in got[0].frame(b).to_list()) == [2 + b, 7 + b, 12 + b]
+
+
+@pytest.mark.parametrize("rounds,jumps,jump_every", [(8, 2, 4), (5, 2, 1), (6, 3, 2)])
+def test_connected_components_jumps_backends_identical(cuda, rounds, jumps, jump_every):
+    """The single-phase CCL with pointer jumps at batch 3 of different
+    frames: 'cuda' equals 'torch', and each frame alone its batch entry."""
+    rng = np.random.default_rng(rounds)
+    tri = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8), size=(3, 137, 203),
+                                      p=[0.4, 0.2, 0.4])).to(cuda)
+    lab, conv = connected_components(tri, rounds, jumps, jump_every, backend="cuda",
+                                     with_convergence=True)
+    twin = connected_components(tri, rounds, jumps, jump_every, backend="torch",
+                                with_convergence=True)
+    assert torch.equal(lab, twin[0]) and torch.equal(conv, twin[1])
+    for b in range(3):
+        one, c1 = connected_components(tri[b], rounds, jumps, jump_every, backend="cuda",
+                                       with_convergence=True)
+        assert torch.equal(one, lab[b]) and bool(c1) == bool(conv[b])
+
+
+def test_jumps_flow_backends_identical(cuda):
+    """ccl_flow='jumps' at batch 3: 'cuda' equals 'torch', launches 1 / 8 / 8."""
+    cam = CameraModel.create(fx=420.0, fy=420.0, cx=320.0, cy=240.0, width=640, height=480)
+    imgs = np.stack([render_tags(cam.K.numpy(), (480, 640), _tags(b, 1.1 + 0.05 * b),
+                                 noise=2.0, seed=b) for b in range(3)])
+    imgs = torch.from_numpy(imgs).to(cuda)
+    cfg = DetectorConfig(tag_size=0.16, ccl_flow="jumps")
+    cam = cam.to(cuda)
+    fn = batched_detect_fn(cfg, cam, "mono8")
+    torch.cuda.synchronize()
+    thr_kernel.launches = ccl.row_launches = ccl.col_diag_launches = 0
+    got = fn(imgs)
+    torch.cuda.synchronize()
+    assert (thr_kernel.launches, ccl.row_launches, ccl.col_diag_launches) == (1, 8, 8)
+    _assert_same(got, batched_detect_fn(dataclasses.replace(cfg, backend="torch"), cam,
+                                        "mono8")(imgs))
+    for b in range(3):
+        assert sorted(r["id"] for r in got[0].frame(b).to_list()) == [2 + b, 7 + b, 12 + b]
+
+
+def test_map_ba_on_card_matches_cpu(cuda):
+    """BA of the 10k-tag map (K=16, L=10 000, O=40 000) on the card: the rms
+    falls 5x to under 0.5 px, the cameras lie within 1e-3 m of the CPU's
+    solve and of the 4-shard batched solver's (index_add_ adds with atomics
+    on the card, so the match is to a tolerance, not bit for bit), and a
+    Gauss-Newton step makes no host sync."""
+    p = map_problem(device=cuda)
+    solved, rms = ba.solve(p, 5)
+    rms = rms.cpu().numpy()
+    assert rms[-1] < 0.5 and rms[-1] <= rms[0] / 5
+    cpu, _ = ba.solve(map_problem(device="cpu"), 5)
+    np.testing.assert_allclose(solved.cam_t.cpu().numpy(), cpu.cam_t.numpy(), atol=1e-3)
+    sharded, _ = make_distributed_solver(5, nshards=4)(partition_problem(p, 4))
+    np.testing.assert_allclose(sharded.cam_t.cpu().numpy(), solved.cam_t.cpu().numpy(), atol=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ba.gauss_newton_step(p)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

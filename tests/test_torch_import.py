@@ -21,20 +21,28 @@ import isaac_ros_apriltag_tpu_torch.detector
 import isaac_ros_apriltag_tpu_torch.ops.ccl
 import isaac_ros_apriltag_tpu_torch.parallel.mesh
 import isaac_ros_apriltag_tpu_torch.parallel.rig
+import isaac_ros_apriltag_tpu_torch.parallel.slam.ba
+import isaac_ros_apriltag_tpu_torch.parallel.slam.dba
+import isaac_ros_apriltag_tpu_torch.parallel.slam.map
+import isaac_ros_apriltag_tpu_torch.parallel.slam.posegraph
 import isaac_ros_apriltag_tpu_torch.parallel.spatial
 import isaac_ros_apriltag_tpu_torch.streaming
 import isaac_ros_apriltag_tpu_torch.sync
+import isaac_ros_apriltag_tpu_torch.utils.geometry
 import isaac_ros_apriltag_tpu_torch.utils.render
 import isaac_ros_apriltag_tpu_torch.utils.timing
 import isaac_ros_apriltag_tpu_torch.utils.viz
-from isaac_ros_apriltag_tpu_torch import (SpatialDetector, build_spatial_front_fn, get_family,
-                                          make_mesh)
+from isaac_ros_apriltag_tpu_torch import (SpatialDetector, TagMapper, ate_rmse, ba_solve,
+                                          build_spatial_front_fn, connected_components,
+                                          get_family, make_distributed_solver, make_mesh,
+                                          partition_problem, pose_graph_solve)
 get_family("tag36h11")
-sys.argv = ["isaac_ros_apriltag_tpu_torch", "--help"]
-try:
-    runpy.run_module("isaac_ros_apriltag_tpu_torch", run_name="__main__")
-except SystemExit as e:
-    assert e.code == 0, e.code
+for argv in (["--help"], ["slam", "--help"]):
+    sys.argv = ["isaac_ros_apriltag_tpu_torch", *argv]
+    try:
+        runpy.run_module("isaac_ros_apriltag_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "isaac_ros_apriltag_tpu"))
 assert not loaded, loaded

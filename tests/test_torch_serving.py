@@ -1,6 +1,6 @@
 """The PyTorch port's serving surface on the CPU, held against the JAX
-package: TimestampAligner, StreamingRunner / run_stream, the command line,
-draw_detections and Detector.detect_checked."""
+package: TimestampAligner, StreamingRunner / run_stream, the command line
+(detect, bench, slam), draw_detections and Detector.detect_checked."""
 
 import dataclasses
 import json
@@ -17,6 +17,7 @@ from isaac_ros_apriltag_tpu import cli as jcli
 from isaac_ros_apriltag_tpu import streaming as jstreaming
 from isaac_ros_apriltag_tpu import sync as jsync
 from isaac_ros_apriltag_tpu import types as jtypes
+from isaac_ros_apriltag_tpu.parallel.slam import map as jmap
 from isaac_ros_apriltag_tpu.utils import viz as jviz
 from isaac_ros_apriltag_tpu.utils.render import render_tags, upright_pose
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detections, Detector, DetectorConfig,
@@ -191,9 +192,20 @@ def test_cli_bench_small(capsys):
     assert res["backend"] == "torch" and res["hw"] == [240, 320]
 
 
-def test_cli_has_no_slam_yet():
-    with pytest.raises(SystemExit):
-        cli.main(["slam", *CPU])
+def test_cli_slam_roundtrip(tmp_path, capsys):
+    """tests/test_cli.py::test_cli_slam_roundtrip on the port (the jumps
+    flow, as the reference runs it with --backends xla); the saved map loads
+    in the JAX package's TagMapper."""
+    mp = str(tmp_path / "map.npz")
+    assert cli.main(["slam", *CPU, "--ccl-flow", "jumps", "--size", "0.16", "--frames", "4",
+                     "--tags", "4", "--ba-iters", "4", "--noise", "0.5", "--save-map", mp]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["tags_mapped"] == 4 and res["frames"] == 4
+    assert res["ate_rmse_m"] < 0.05
+    ref = jmap.TagMapper(K=np.zeros((3, 3)), tag_size=0.0)
+    ref.load(mp)
+    assert len(ref.lm_ids) == 4 and len(ref.kf_t) == 4 and ref.tag_size == 0.16
+    assert int(ref.build_problem().obs_valid.sum()) == len(ref.obs) > 0
 
 
 # --- draw_detections ----------------------------------------------------------------
