@@ -105,7 +105,17 @@ non-zero):
      at least 5x and ends under 0.5 px, cameras within 1e-3 m of the CPU's
      solve and of the 4-shard batched solver's, a Gauss-Newton step under
      torch.cuda.set_sync_debug_mode("error"); ms a step, launches a step
-     (torch.profiler), peak memory.
+     (torch.profiler), peak memory;
+ 20. process groups on the card: a world of one NCCL process
+     (initialize_multihost on a free loopback port, make_mesh(1, 1)):
+     phase 11's rig with group= the mesh's 'cam' group identical to the rig
+     without a group on both backends, launches 1 / 14 / 14 a call;
+     SpatialDetector(nshards=1, group=) on phase 14's frame identical to
+     SpatialDetector(nshards=1); make_distributed_solver(group= the 'map'
+     group) within 1e-3 m of nshards=1 on a reduced map_problem; the warm
+     mesh rig under torch.cuda.set_sync_debug_mode("error"); ms a
+     camera-frame of the mesh rig beside the one-card rig's, in turns (one
+     card, mesh, mesh, one card, twice; 10 calls each).
 It ends with a JSON line describing the kernels (launches of every path;
 times beside the least time the card could take, from the bytes each call
 must move), the nvidia-smi name and power limit, and a last JSON line
@@ -164,6 +174,8 @@ MAP_KF, MAP_LM, MAP_OBS = 16, 10_000, 40_000
 MAP_ITERS = 5
 MAP_TOL_M = 1e-3              # card against CPU, shard batch against single
 MAP_SHARDS = 4
+# Phase 20: the distributed BA on a reduced map (cameras, tags, observations).
+MESH_MAP = (8, 1000, 4000)
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -336,6 +348,15 @@ def thresh_input(case, device):
     g = torch.from_numpy(thresh_case(case))
     view = torch.empty(offset + g.numel(), dtype=torch.float32, device=device)[offset:]
     return view.view(g.shape).copy_(g)
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _gpu_info() -> str:
@@ -877,6 +898,73 @@ def map_phase(gpu: str) -> None:
           f"the CPU's {cpu_s * 1e3:.1f} ms; a GN step makes {launch_calls} kernel launch calls and "
           f"{device_ops} device operations (torch.profiler); peak device memory of the solve "
           f"{peak / 2**30:.3f} GiB", flush=True)
+
+
+def mesh_phase(gpu: str, cfg, rigs: dict, rig_cams, rig_frames, sp_cam, sp_frame) -> dict:
+    """Phase 20: the port's process-group paths on the card, in a world of
+    one NCCL process (NCCL takes one rank a card, and the script needs one
+    card). `rigs` are phase 11's one-card rigs by backend. Returns the
+    kernels' launches on the mesh rig's first call."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from isaac_ros_apriltag_tpu_torch import (RigDetector, SpatialDetector,
+                                              make_distributed_solver, make_mesh,
+                                              partition_problem)
+    from isaac_ros_apriltag_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = make_mesh(1, 1)
+        cam_group, map_group = mesh.get_group("cam"), mesh.get_group("map")
+        mrigs = {b: RigDetector(rig.config, rig_cams[0], RIG_CAMERAS, cameras=rig_cams,
+                                group=cam_group) for b, rig in rigs.items()}
+        _reset_launches()
+        got = mrigs["cuda"].detect(rig_frames)
+        counts = _launches()
+        want = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
+        if counts != want:
+            raise AssertionError(f"mesh rig launch counts {counts} != expected {want}")
+        _all_same(got, rigs["cuda"].detect(rig_frames), "mesh rig (cuda) and the one-card rig")
+        _all_same(mrigs["torch"].detect(rig_frames), rigs["torch"].detect(rig_frames),
+                  "mesh rig (torch) and the one-card rig")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mrigs["cuda"].detect(rig_frames)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sds = [SpatialDetector(cfg, sp_cam, 1, group=g) for g in (cam_group, None)]
+        _all_same(*(sd.detect_with_stats(sp_frame) for sd in sds),
+                  "SpatialDetector(nshards=1) with and without the group")
+        parts = partition_problem(map_problem(*MESH_MAP), 1)
+        (pg, rms_g), (p1, rms_1) = (make_distributed_solver(MAP_ITERS, group=map_group)(parts),
+                                    make_distributed_solver(MAP_ITERS, nshards=1)(parts))
+        gap_ba = max(float((a - b).abs().max())
+                     for a, b in ((pg.cam_t, p1.cam_t), (pg.lm_t, p1.lm_t)))
+        if gap_ba > MAP_TOL_M or not bool(torch.isfinite(rms_g).all()):
+            raise AssertionError(f"distributed BA over the group: {gap_ba} m from nshards=1, "
+                                 f"rms {rms_g.tolist()}")
+        rig_ms = {}
+        for name, rig in (("one_card", rigs["cuda"]), ("mesh", mrigs["cuda"]),
+                          ("mesh", mrigs["cuda"]), ("one_card", rigs["cuda"])) * 2:
+            rig_ms.setdefault(name, []).append(
+                _time_ms(lambda: rig.detect(rig_frames), 10) / RIG_CAMERAS)
+    finally:
+        dist.destroy_process_group()
+    print(f"[20 process groups] a world of one NCCL process, mesh (1, 1): the {RIG_CAMERAS}-camera "
+          f"per-camera-K rig over the 'cam' group identical to the one-card rig on both "
+          f"backends, launches {counts} a call, no host sync in a warm call; "
+          f"SpatialDetector(nshards=1) over the group identical to no group; distributed BA "
+          f"(K {MESH_MAP[0]}, L {MESH_MAP[1]}, O {MESH_MAP[2]}, {MAP_ITERS} iterations) over the "
+          f"'map' group within {gap_ba:.2e} m of nshards=1 (limit {MAP_TOL_M}), rms "
+          f"{float(rms_g[-1]):.4f} / {float(rms_1[-1]):.4f} px; on {gpu}: ms a camera-frame "
+          f"{rig_ms}", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -1534,10 +1622,11 @@ def main() -> int:
                       f"({bound_long / a:.1%} of bound)" for k, (a, b) in kernel_ms_long.items()),
           flush=True)
 
-    # --- 17-19. the oracle flow, SLAM end to end, the 10k-tag map -------------
+    # --- 17-20. the oracle flow, SLAM end to end, the 10k-tag map, process groups
     counts_oracle = oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu, bfn["cuda"])
     counts_slam = slam_phase(gpu)
     map_phase(gpu)
+    counts_mesh = mesh_phase(gpu, cfg, rigs, rig_cams, rig_frames, cam_sp, sp_frame)
 
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
@@ -1551,7 +1640,8 @@ def main() -> int:
              "col": "ccl_col_diag_scan"}
     paths = {"frame": counts, f"batch{BATCH}": counts8, f"graph{BATCH}": counts_g,
              f"rig{RIG_CAMERAS}": counts_rig, "stream": counts_stream, "spatial": counts_sp,
-             "flat": counts_flat, "oracle": counts_oracle, "slam": counts_slam}
+             "flat": counts_flat, "oracle": counts_oracle, "slam": counts_slam,
+             "rig_mesh": counts_mesh}
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": sum(c[k] for c in paths.values()),

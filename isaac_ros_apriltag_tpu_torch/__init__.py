@@ -5,7 +5,9 @@ H100. The detector runs end to end on one frame (``Detector``, with
 ``detect_checked`` for its output invariants) or on a batch
 (``pipeline.batched_detect_fn``), behind the rectify -> resize graph
 (``pipeline.GraphPipeline``), over a multi-camera rig with shared or
-per-camera intrinsics (``RigDetector``, one batched call on one card), over a
+per-camera intrinsics (``RigDetector``: one batched call on one card, or
+with ``group=`` its cameras split over the ranks of a ``torch.distributed``
+group and the results gathered in camera order), over a
 timestamp-aligned set of camera streams (``TimestampAligner``), over a
 stream of host frames with uploads overlapped with compute
 (``StreamingRunner``), and on one large frame cut into bands of rows

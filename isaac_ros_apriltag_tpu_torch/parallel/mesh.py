@@ -12,8 +12,8 @@ a ``torch.distributed`` process group:
     processes and this process's rank are given explicitly; nothing here
     discovers a cluster;
   - ``make_mesh`` -> a ('cam', 'map') ``DeviceMesh`` (``init_device_mesh``);
-    ``mesh.get_group("cam")`` is a group that a row-sharded
-    ``SpatialDetector`` can run over;
+    ``mesh.get_group("cam")`` is a group that a ``RigDetector`` splits its
+    cameras over, or a row-sharded ``SpatialDetector`` its bands;
   - the exchanges that ``SpatialDetector(group=...)`` makes when each rank
     holds one band of a frame: ``neighbor_rows`` (halo and cut rows through
     ``batch_isend_irecv``, the counterpart of ``ppermute``) and
@@ -35,11 +35,24 @@ def initialize_multihost(coordinator_address: str, num_processes: int, process_i
     """Join this process to a group of `num_processes` processes that meet at
     `coordinator_address` ('host:port', served by the process of rank 0), as
     rank `process_id`. backend: 'nccl' (default where CUDA is available) or
-    'gloo'. Must run before make_mesh or a SpatialDetector with a group."""
+    'gloo'. Must run before make_mesh or a RigDetector or SpatialDetector
+    with a group.
+
+    Under NCCL each process takes its own card, process_id modulo the cards
+    of its host (the local rank where the processes of one host are ranks
+    0..n-1), makes it the current device and binds the group's communicator
+    to it, so the default device of every entry point ('cuda') is that
+    card: the counterpart of the local devices that jax.distributed.initialize
+    gives each process. Under gloo nothing selects a card."""
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    kwargs = {}
+    if backend == "nccl":
+        card = torch.device("cuda", process_id % torch.cuda.device_count())
+        torch.cuda.set_device(card)
+        kwargs["device_id"] = card
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id, **kwargs)
 
 
 def make_mesh(n_cam: int | None = None, n_map: int = 1):

@@ -5,8 +5,8 @@ the two backends against each other end to end: one frame, a batch, and
 the rectify -> resize -> detect graph; and the serving layer on the card:
 the streaming runner's upload ring against a slow reader, the rig's launch
 counts, no host sync on the detect path, and detect_checked; the CCL flow
-with pointer jumps, and bundle adjustment of a 10k-tag map against the CPU.
-They skip without a card.
+with pointer jumps, bundle adjustment of a 10k-tag map against the CPU, and
+the rig over a world of one NCCL process. They skip without a card.
 
 The adversarial inputs of the threshold and scan kernels are chip_smoke.py's,
 so the smoke run and these tests hold the kernels to the same cases. This file imports
@@ -16,14 +16,17 @@ neither jax nor the JAX package, so it runs where jax is not installed:
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (LONG_SHAPES, SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, edge_batch,
-                        map_problem, scan_batch, scan_case, scan_case_id, thresh_case_id,
-                        thresh_input)
+                        free_port, map_problem, scan_batch, scan_case, scan_case_id,
+                        thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
                                           batched_detect_fn, build_spatial_front_fn,
@@ -37,6 +40,8 @@ from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
 from isaac_ros_apriltag_tpu_torch.utils.render import distort_image, render_tags, upright_pose
 
 pytestmark = pytest.mark.gpu
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -319,6 +324,43 @@ def test_detect_path_makes_no_host_sync(cuda):
             pass
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+_NCCL_RIG = """
+import sys
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {tests!r})
+from isaac_ros_apriltag_tpu_torch import DetectorConfig, RigDetector, make_mesh
+from isaac_ros_apriltag_tpu_torch.parallel import mesh as pmesh
+from test_torch_gpu import _assert_same, _rig
+
+pmesh.initialize_multihost(sys.argv[1], 1, 0)
+try:
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    group = make_mesh(1, 1).get_group("cam")
+    cams, frames = _rig(4)
+    x = torch.from_numpy(frames).cuda()
+    cfg = DetectorConfig(tag_size=0.16)
+    _assert_same(RigDetector(cfg, cams[0], 4, cameras=cams, group=group).detect(x),
+                 RigDetector(cfg, cams[0], 4, cameras=cams).detect(x))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_rig_over_a_world_of_one_nccl_process(cuda, tmp_path):
+    """RigDetector(group=) over the 'cam' group of a world of one NCCL
+    process equals the rig without a group on every field. It runs in a
+    child process, since a process group is global to its process."""
+    script = tmp_path / "nccl_rig.py"
+    script.write_text(_NCCL_RIG.format(root=ROOT, tests=os.path.join(ROOT, "tests")))
+    out = subprocess.run([sys.executable, str(script), f"127.0.0.1:{free_port()}"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
