@@ -18,8 +18,9 @@ non-zero):
      the two scan kernels on SCAN_CASES, lines built to break a chunked scan
      (see scan_case; rows and columns past 4096 pixels among them), and on a
      batch whose frames differ only in their first and last rows;
-  4. main path: Detector(backend="cuda") on three rendered 1080x1920 frames
-     with six tag36h11 tags and noise 2 must find all six ids with corners
+  4. main path: Detector(backend="cuda"), warm (its first call eager, its
+     second capturing the graph), replayed on three rendered 1080x1920
+     frames with six tag36h11 tags and noise 2 must find all six ids with corners
      within 1 px of ground truth, backend "torch" on the same card must
      give identical results, and TF32 must be off after the run;
   5. launch counts: the main path ran each kernel the expected number of
@@ -55,7 +56,8 @@ non-zero):
      within 1 px and translations within 2 cm of the truth; a shared-K rig
      (camera 0's K) off by more than 5 cm on every camera c >= 5 and equal
      to batched_detect_fn on the same frames; "cuda" equal to "torch";
-     launches 1 / 14 / 14 per rig call; peak memory and ms per call;
+     launches 1 / 14 / 14 on a replay of the rig call, equal to its eager
+     first call; peak memory (of the eager call) and ms per call;
  12. streaming: StreamingRunner over 24 different host 1080p frames at depth
      1, 2 and 3 (batch 1) and as three batches of 8 at depth 1 and 2, equal
      to synchronous detection (valid, ids and FrameStats exact, corners
@@ -115,7 +117,27 @@ non-zero):
      group) within 1e-3 m of nshards=1 on a reduced map_problem; the warm
      mesh rig under torch.cuda.set_sync_debug_mode("error"); ms a
      camera-frame of the mesh rig beside the one-card rig's, in turns (one
-     card, mesh, mesh, one card, twice; 10 calls each).
+     card, mesh, mesh, one card, twice; 10 calls each);
+ 21. captured call: the detect function replayed from CUDA graphs
+     (capture.GraphedCall, the default on the card) at torch_bench.py's
+     720p batch 1 and 1080p batch 8 scenes, on both backends: five calls
+     on five different inputs (the first eager, with no graph; the second
+     captures and replays; the rest replay), all kept, each equal bit for
+     bit (NaN == NaN) to the eager call (capture=False) on its input;
+     launches 1 / 14 / 14 for a replay; set-up ms (capture + first replay)
+     beside a warm eager call's; the device memory the graph keeps (pool
+     and static buffers) and the peaks over the replays; ms a frame of the
+     eager and the captured call in turns (eager, captured, captured,
+     eager, twice; 20 calls each);
+ 22. profiled replays (run right after phase 2, in a child process): the
+     paths whose counts come from graph replays (phase 4's three frames,
+     the rig, the stream at depth 2, phase 21's two calls), each warm and
+     run once under torch.profiler, whose count of each kernel by name
+     must equal the launch counters' and the expected counts.
+A path counted on an eager call reads the wrappers' counters, which each
+wrapper adds to where it launches its kernel; a replay adds the counts its
+capture recorded (capture.GraphedCall), which phase 22 holds against the
+profiler. The kernels line's `captured` path is phase 22's 720p b1 replay.
 It ends with a JSON line describing the kernels (launches of every path;
 times beside the least time the card could take, from the bytes each call
 must move), the nvidia-smi name and power limit, and a last JSON line
@@ -125,6 +147,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -176,6 +199,13 @@ MAP_TOL_M = 1e-3              # card against CPU, shard batch against single
 MAP_SHARDS = 4
 # Phase 20: the distributed BA on a reduced map (cameras, tags, observations).
 MESH_MAP = (8, 1000, 4000)
+# Phase 21: (BENCHMARK.json configuration, batch) of torch_bench.py's cells.
+CAPTURE_CASES = (("tag36h11-720p-node", 1), ("tag36h11-1080p-batch", 8))
+CAPTURE_CALLS = 5             # calls kept, each on its own input
+CAPTURE_TURN_CALLS = 20       # calls per timed turn
+# Substrings of the kernels' names in a torch.profiler trace (csrc/*.cu).
+KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
+                "col": "col_diag_kernel"}
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -662,23 +692,49 @@ def _reset_launches() -> None:
     """Wait for the card, then set every kernel's launch count to 0."""
     import torch
 
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_ops
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import LAUNCH_COUNTERS, set_launch_counts
 
     torch.cuda.synchronize()
-    thr_ops.launches = ccl_ops.row_launches = ccl_ops.col_diag_launches = 0
+    set_launch_counts({k: 0 for k in LAUNCH_COUNTERS})
 
 
 def _launches() -> dict:
     """Wait for the card; the kernels' launch counts since _reset_launches."""
     import torch
 
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_ops
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import launch_counts
 
     torch.cuda.synchronize()
-    return {"threshold": thr_ops.launches, "row": ccl_ops.row_launches,
-            "col": ccl_ops.col_diag_launches}
+    return launch_counts()
+
+
+def _profiled_kernels(prof) -> dict:
+    """How often each kernel ran on the card in a torch.profiler trace, by name."""
+    import torch
+
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(part in n for n in names) for k, part in KERNEL_NAMES.items()}
+
+
+@contextlib.contextmanager
+def _counted(what: str):
+    """Counts the kernels' launches in the block: yields a dict that, after
+    the block, holds each kernel's count (every count is set to 0 before the
+    block). torch.profiler watches the block, and the count it sees of each
+    kernel by name must equal its wrapper's count (a replayed graph's counts
+    are added by capture.GraphedCall, not by a wrapper), else it raises.
+    Used in a fresh process only (profiled_replays)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    _reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield counts
+        counts.update(_launches())
+    seen = _profiled_kernels(prof)
+    if seen != counts:
+        raise AssertionError(f"{what}: the launch counters say {counts}, torch.profiler saw "
+                             f"{seen}")
 
 
 def oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu: str, two_phase_fn) -> dict:
@@ -967,12 +1023,178 @@ def mesh_phase(gpu: str, cfg, rigs: dict, rig_cams, rig_frames, sp_cam, sp_frame
     return counts
 
 
+def bench_inputs(config: str, batch: int, dev, calls: int = CAPTURE_CALLS):
+    """torch_bench.py's scene for a BENCHMARK.json configuration: its
+    DetectorConfig, its camera on `dev` and `calls` different (batch, H, W)
+    uint8 inputs on `dev`, input k holding frames k .. k + batch - 1."""
+    import torch
+
+    import torch_bench
+    from isaac_ros_apriltag_tpu_torch import DetectorConfig
+
+    spec = torch_bench.load_spec()["configs"][config]
+    cam = torch_bench.config_camera(spec)
+    frames = np.stack([torch_bench.render_frame(cam, b, 0)[1] for b in range(batch + calls - 1)])
+    x = torch.from_numpy(frames).to(dev)
+    return DetectorConfig(**spec["detector"]), cam.to(dev), [x[k:k + batch] for k in range(calls)]
+
+
+def capture_phase(gpu: str) -> dict:
+    """Phase 21: the captured detect call against the eager one."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.capture import GraphedCall
+    from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
+
+    dev = torch.device("cuda")
+    want = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
+    resident0 = torch.cuda.memory_reserved()
+    lines = []
+    for config, batch in CAPTURE_CASES:
+        cfg, cam, inputs = bench_inputs(config, batch, dev)
+        H_, W_ = inputs[0].shape[-2:]
+        for backend in ("cuda", "torch"):
+            bcfg = dataclasses.replace(cfg, backend=backend)
+            eager = batched_detect_fn(bcfg, cam, "mono8", capture=False)
+            eager(inputs[0])                      # the tables, allocator and cuBLAS warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager(inputs[0])
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+            fn = batched_detect_fn(bcfg, cam, "mono8")
+            if not isinstance(fn, GraphedCall):
+                raise AssertionError("batched_detect_fn on the card is not captured")
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            outs = [fn(inputs[0])]                # eager: nothing captured
+            if fn.graphs:
+                raise AssertionError(f"{config} {backend}: a first call captured a graph")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(fn(inputs[1]))            # the capture and its first replay
+            torch.cuda.synchronize()
+            setup_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.empty_cache()
+            kept = torch.cuda.memory_reserved() - reserved0
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            outs.append(fn(inputs[2]))
+            counts = _launches()
+            if counts != (want if backend == "cuda" else {k: 0 for k in want}):
+                raise AssertionError(f"{config} {backend}: replay launch counts {counts}")
+            outs += [fn(x) for x in inputs[3:]]
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            peak_reserved = torch.cuda.max_memory_reserved()
+            if len(fn.graphs) != 1:
+                raise AssertionError(f"{len(fn.graphs)} graphs for one input shape")
+            for k, (x, out) in enumerate(zip(inputs, outs)):
+                _all_same(out, eager(x), f"{config} {backend}: call {k} captured and eager")
+            ms = {}
+            for mode in ("eager", "captured", "captured", "eager") * 2:
+                f, it = (eager if mode == "eager" else fn), itertools.cycle(inputs)
+                ms.setdefault(mode, []).append(
+                    _median_ms(lambda: f(next(it)), CAPTURE_TURN_CALLS) / batch)
+            lines.append(f"{config} ({H_}x{W_}) batch {batch} {backend}: {CAPTURE_CALLS} calls "
+                         f"(eager, capture, replays) equal to eager bit for bit; launches in a "
+                         f"replay {counts}; set-up "
+                         f"{setup_ms:.1f} ms (capture + first replay; warm eager call "
+                         f"{eager_ms:.1f} ms); graph keeps {kept / 2**30:.3f} GiB reserved; over "
+                         f"the replays peak allocated {peak / 2**30:.3f} GiB, peak reserved "
+                         f"{peak_reserved / 2**30:.3f} GiB; ms a frame (median of "
+                         f"{CAPTURE_TURN_CALLS}) eager {ms['eager']} captured {ms['captured']}")
+            del fn, eager, outs
+    print(f"[21 captured call] on {gpu} (device memory reserved at the start "
+          f"{resident0 / 2**30:.3f} GiB): " + "; ".join(lines), flush=True)
+
+
+def profiled_replays() -> dict:
+    """`chip_smoke.py --profiled-replays`, phase 22's child process: one run
+    of each path whose counts come from graph replays (phase 4's Detector
+    on three frames, phase 11's rig, phase 12's stream at depth 2, phase
+    21's 720p b1 and 1080p b8 calls), each warm (an eager call, then the
+    capture) and counted under torch.profiler (_counted). Returns the
+    counts by path."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch import Detector, DetectorConfig, RigDetector, run_stream
+    from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
+
+    dev = torch.device("cuda")
+    cfg = DetectorConfig(tag_size=TAG_SIZE)
+    frames = [torch.from_numpy(_scene(s)[2]).to(dev) for s in SEEDS]
+    det = Detector(cfg, _scene(SEEDS[0])[0], device=dev)
+    out = {}
+    for _ in range(2):
+        det.detect_with_stats(frames[0], "mono8")
+    with _counted("frame") as out["frame"]:
+        for f in frames:
+            det.detect_with_stats(f, "mono8")
+    rig_scenes = [_scene(c, cam=rig_camera(c)) for c in range(RIG_CAMERAS)]
+    rig_host = [sc[2] for sc in rig_scenes]
+    rig_frames = torch.from_numpy(np.stack(rig_host)).to(dev)
+    rig = RigDetector(cfg, rig_scenes[0][0], RIG_CAMERAS, device=dev,
+                      cameras=[sc[0] for sc in rig_scenes])
+    for _ in range(2):
+        rig.detect(rig_frames)
+    with _counted(f"rig{RIG_CAMERAS}") as out[f"rig{RIG_CAMERAS}"]:
+        rig.detect(rig_frames)
+    del rig
+    with _counted("stream") as out["stream"]:
+        run_stream(lambda x: det.detect_with_stats(x, "mono8"), rig_host, depth=2, device=dev)
+    del det
+    for config, batch in CAPTURE_CASES:
+        bcfg, bcam, inputs = bench_inputs(config, batch, dev, calls=3)
+        fn = batched_detect_fn(bcfg, bcam, "mono8")
+        fn(inputs[0]), fn(inputs[1])
+        with _counted(f"captured b{batch}") as out[f"captured_b{batch}"]:
+            fn(inputs[2])
+        del fn
+    return out
+
+
+def profiled_replays_phase(gpu: str) -> dict:
+    """Phase 22: profiled_replays in a child process, whose counts must be
+    the expected ones. It runs right after the build, while this process
+    holds almost no device memory: a profiler session late in a long
+    process lost the first kernels of what it watched (a replay's K1 and
+    first scan rounds, or an eager call's K1; torch 2.11, CUDA 12.8), and
+    one in a fresh process did not. Returns the counts by path."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--profiled-replays"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"profiled replays exited {out.returncode}: {out.stderr[-3000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    one = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
+    want = {"frame": {k: v * len(SEEDS) for k, v in one.items()}, f"rig{RIG_CAMERAS}": one,
+            "stream": {k: v * RIG_CAMERAS for k, v in one.items()},
+            **{f"captured_b{b}": one for _, b in CAPTURE_CASES}}
+    if got != want:
+        raise AssertionError(f"profiled replays: counts {got} != expected {want}")
+    torch.cuda.synchronize()
+    print(f"[22 profiled replays] in a child process ({time.perf_counter() - t0:.1f} s): "
+          f"torch.profiler's count of each kernel by name equals the counters' on the "
+          f"replayed paths: {got}", flush=True)
+    return got
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--profiled-replays"]:
+        print(json.dumps(profiled_replays()))
+        return 0
 
     import dataclasses
 
@@ -1004,6 +1226,7 @@ def main() -> int:
           "(registers, spill bytes, shared bytes): "
           + (", ".join(f"{k} {v}" for k, v in usage.items()) or "no report (cached build)"),
           flush=True)
+    profiled = profiled_replays_phase(gpu)           # phase 22, run first: see its docstring
 
     # --- 3. kernels against their twins, on the card -----------------------
     scenes = [_scene(s) for s in SEEDS]
@@ -1085,8 +1308,10 @@ def main() -> int:
     det_cuda = Detector(cfg, cam, device=dev)
     det_torch = Detector(dataclasses.replace(cfg, backend="torch"), cam, device=dev)
     frames = [torch.from_numpy(f).to(dev) for _, _, f in scenes]
+    for _ in range(2):             # the first call runs eagerly, the second captures
+        det_cuda.detect_with_stats(frames[0], "mono8")
     _reset_launches()
-    results = [det_cuda.detect_with_stats(f, "mono8") for f in frames]
+    results = [det_cuda.detect_with_stats(f, "mono8") for f in frames]      # replays
     counts = _launches()
     # The detector turns TF32 off; nothing on the main path turns it back on.
     if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
@@ -1298,6 +1523,8 @@ def main() -> int:
           + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f} bound {bound8[k]:.4f} "
                       f"({bound8[k] / a:.1%} of bound)" for k, (a, b) in kernel_ms8.items()),
           flush=True)
+    # A detect object keeps its CUDA graphs' memory: drop the ones no later phase calls.
+    del gp
 
     # --- 11. rig: 16 cameras, each with its own intrinsics -------------------
     from isaac_ros_apriltag_tpu_torch import RigDetector
@@ -1310,12 +1537,15 @@ def main() -> int:
                            device=dev, cameras=rig_cams) for b in ("cuda", "torch")}
     shared_rig = RigDetector(cfg, rig_cams[0], RIG_CAMERAS, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    rdet, rst = rigs["cuda"].detect(rig_frames)
-    counts_rig = _launches()
+    rdet, rst = rigs["cuda"].detect(rig_frames)          # eager: the call's working set
     peak_rig = torch.cuda.max_memory_allocated()
+    rigs["cuda"].detect(rig_frames)                      # captures the rig's graph
+    _reset_launches()
+    rig_replay = rigs["cuda"].detect(rig_frames)
+    counts_rig = _launches()
     if counts_rig != want1:
         raise AssertionError(f"rig launch counts {counts_rig} != expected {want1}")
+    _all_same(rig_replay, (rdet, rst), "rig replay and eager call")
     worst_rig = max(_truth_error(rdet.frame(c), rig_scenes[c][1], rig_cams[c].K.numpy())
                     for c in range(RIG_CAMERAS))
     worst_t = max(max(_translation_errors(rdet.frame(c), rig_scenes[c][1]))
@@ -1340,6 +1570,7 @@ def main() -> int:
           f"field; launches {counts_rig} a rig call; peak device memory {peak_rig / 2**30:.3f} "
           f"GiB; on {gpu}: ms a rig call {rig_ms}, ms a camera-frame "
           f"{[m / RIG_CAMERAS for m in rig_ms]}", flush=True)
+    del shared_rig
 
     # --- 12. streaming: host frames through the upload ring -------------------
     from isaac_ros_apriltag_tpu_torch import StreamingRunner, run_stream
@@ -1351,12 +1582,11 @@ def main() -> int:
 
     sync1 = [detect1(torch.from_numpy(f).to(dev)) for f in stream_host]
     stream_gap = 0.0
+    _reset_launches()
+    outs2 = run_stream(detect1, stream_host, depth=2, device=dev)      # replays
+    counts_stream = _launches()
     for depth in (1, 2, 3):
-        if depth == 2:
-            _reset_launches()
-        outs = run_stream(detect1, stream_host, depth=depth, device=dev)
-        if depth == 2:
-            counts_stream = _launches()
+        outs = outs2 if depth == 2 else run_stream(detect1, stream_host, depth=depth, device=dev)
         if len(outs) != len(stream_host):
             raise AssertionError(f"depth {depth}: {len(outs)} results for {len(stream_host)} frames")
         for k, (got, want) in enumerate(zip(outs, sync1)):
@@ -1463,6 +1693,7 @@ def main() -> int:
           f"{GOLDEN_TOL}), rows equal; detect_checked == detect_with_stats on both backends "
           f"(golden and six tags); `python -m isaac_ros_apriltag_tpu_torch detect` gave the same "
           f"row; `bench --hw {H},{W} --batch {BATCH} --iters 20` on {gpu}: {bench}", flush=True)
+    del det_torch
 
     # --- 14. spatial: one 8 MP frame in row bands -----------------------------
     from isaac_ros_apriltag_tpu_torch import SpatialDetector, build_spatial_front_fn
@@ -1563,6 +1794,7 @@ def main() -> int:
           f"ms/call at the band shapes "
           + ", ".join(f"{k} kernel {a:.4f} twin {b:.4f} bound {bound_sp[k]:.4f}"
                       for k, (a, b) in kernel_ms_sp.items()), flush=True)
+    del sp_single
 
     # --- 15. the flat-label flow: ccl_phase2_rounds=0 at batch 8 ---------------
     flat_cfg = dataclasses.replace(cfg, ccl_phase2_rounds=0)
@@ -1584,6 +1816,7 @@ def main() -> int:
           f"ids each, worst corner error {worst_f:.4f} px (limit {CORNER_TOL_PX}); cuda == torch "
           f"on every field; launches {counts_flat} for the batch; on {gpu}: ms a frame {flow_ms}",
           flush=True)
+    del ffn
 
     # --- 16. long lines: rows and columns past 4096 pixels -------------------
     for shape in LONG_SHAPES:
@@ -1624,9 +1857,14 @@ def main() -> int:
 
     # --- 17-20. the oracle flow, SLAM end to end, the 10k-tag map, process groups
     counts_oracle = oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu, bfn["cuda"])
+    del bfn
     counts_slam = slam_phase(gpu)
     map_phase(gpu)
     counts_mesh = mesh_phase(gpu, cfg, rigs, rig_cams, rig_frames, cam_sp, sp_frame)
+
+    # --- 21. the captured call against the eager one ------------------------------
+    del rigs
+    capture_phase(gpu)
 
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
@@ -1641,7 +1879,7 @@ def main() -> int:
     paths = {"frame": counts, f"batch{BATCH}": counts8, f"graph{BATCH}": counts_g,
              f"rig{RIG_CAMERAS}": counts_rig, "stream": counts_stream, "spatial": counts_sp,
              "flat": counts_flat, "oracle": counts_oracle, "slam": counts_slam,
-             "rig_mesh": counts_mesh}
+             "rig_mesh": counts_mesh, "captured": profiled["captured_b1"]}
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": sum(c[k] for c in paths.values()),

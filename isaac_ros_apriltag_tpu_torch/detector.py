@@ -1,9 +1,12 @@
 """AprilTag detector: config + camera + device -> detect(frame).
 
-Counterpart of ``isaac_ros_apriltag_tpu/detector.py``, run eagerly, on a
-batch of frames with a leading batch dimension written through every stage
-(the counterpart of ``jax.vmap`` of the reference's detect function); one
-frame is a batch of one. A batch makes the same kernel launches as one
+Counterpart of ``isaac_ros_apriltag_tpu/detector.py``, on a batch of frames
+with a leading batch dimension written through every stage (the
+counterpart of ``jax.vmap`` of the reference's detect function); one frame
+is a batch of one. The reference jits the detect function; here, on a CUDA
+device, a call of an input shape seen before is one CUDA graph replay
+(capture.py), and on the CPU it
+runs op by op. A batch makes the same kernel launches as one
 frame. Stages: grayscale, quad_decimate mean-pool, adaptive threshold
 (kernel K1), two-phase scan CCL (kernels K2 and K3, with the rank-space
 contraction between the phases; with ccl_phase2_rounds=0 one scan phase on
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from .camera.model import CameraModel
+from .capture import GraphedCall
 from .config import DetectorConfig
 from .models.families import TagFamily, get_family
 from .ops.cluster_moments import extract_cluster_moments
@@ -205,7 +209,8 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
 
 
 def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
-                            encoding: str = "rgb8", *, with_pose: bool = True):
+                            encoding: str = "rgb8", *, with_pose: bool = True,
+                            capture: bool = True):
     """Returns a function (B, H, W[, C]) image tensor -> (Detections,
     FrameStats), every field with a leading B. The images must lie on the
     device the camera's tensors lie on; backend 'cuda' needs that to be a
@@ -220,7 +225,14 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
 
     with_pose=False skips the pose stage (translation, quaternion and
     rotation come back zero), for callers that pose the corners with their
-    own intrinsics (parallel/rig.py), so no pose is computed twice."""
+    own intrinsics (parallel/rig.py), so no pose is computed twice.
+
+    On a CUDA device the function is replayed from CUDA graphs
+    (capture.GraphedCall): its first call with a new input shape and dtype
+    runs eagerly; the second captures the call (a device sync) and replays
+    it; each later call with that signature is one graph replay on the
+    caller's current stream, whose results are fresh tensors.
+    capture=False, or a CPU device, gives the eager function, op by op."""
     family = get_family(config.tag_family)
     cfg = config
     if cfg.backend == "cuda":
@@ -259,13 +271,16 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
                            scan_converged, rank_table=rank_table,
                            extra_overflow=extra_overflow, with_pose=with_pose)
 
+    if capture and camera.K.device.type == "cuda":
+        return GraphedCall(detect)
     return detect
 
 
 def build_detect_fn(config: DetectorConfig, camera: CameraModel,
                     encoding: str = "rgb8", *, with_pose: bool = True):
     """Returns a function image tensor (H, W[, C]) -> (Detections,
-    FrameStats) of one frame: the batched function on a batch of one."""
+    FrameStats) of one frame: the batched function on a batch of one
+    (captured as build_batched_detect_fn says)."""
     batched = build_batched_detect_fn(config, camera, encoding, with_pose=with_pose)
 
     def detect(image: torch.Tensor) -> tuple[Detections, FrameStats]:

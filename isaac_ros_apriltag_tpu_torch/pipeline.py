@@ -22,10 +22,13 @@ from .types import Detections, FrameStats
 
 
 def batched_detect_fn(config: DetectorConfig, camera: CameraModel,
-                      encoding: str = "mono8"):
+                      encoding: str = "mono8", *, capture: bool = True):
     """Detect over a leading batch axis: (B, H, W[, C]) frames on the
-    camera's device -> (Detections, FrameStats) with a leading B."""
-    return build_batched_detect_fn(config, camera, encoding)
+    camera's device -> (Detections, FrameStats) with a leading B. On a CUDA
+    device each call after the first with its input shape is one CUDA graph
+    replay (the second captures the graph); capture=False keeps the eager
+    path (detector.build_batched_detect_fn)."""
+    return build_batched_detect_fn(config, camera, encoding, capture=capture)
 
 
 class GraphPipeline:

@@ -4,7 +4,8 @@ different frames (where it must also equal itself run on each frame alone),
 the two backends against each other end to end: one frame, a batch, and
 the rectify -> resize -> detect graph; and the serving layer on the card:
 the streaming runner's upload ring against a slow reader, the rig's launch
-counts, no host sync on the detect path, and detect_checked; the CCL flow
+counts, no host sync on the detect path, and detect_checked; the captured
+detect call (CUDA graph replay) against the eager call; the CCL flow
 with pointer jumps, bundle adjustment of a 10k-tag map against the CPU, and
 the rig over a world of one NCCL process. They skip without a card.
 
@@ -24,9 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (LONG_SHAPES, SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, edge_batch,
-                        free_port, map_problem, scan_batch, scan_case, scan_case_id,
-                        thresh_case_id, thresh_input)
+from chip_smoke import (CAPTURE_CASES, LONG_SHAPES, SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF,
+                        bench_inputs, edge_batch, free_port, map_problem, scan_batch, scan_case,
+                        scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
                                           batched_detect_fn, build_spatial_front_fn,
@@ -34,7 +35,7 @@ from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig,
                                           make_distributed_solver, partition_problem, run_stream)
 from isaac_ros_apriltag_tpu_torch.parallel.slam import ba
 from isaac_ros_apriltag_tpu_torch import detector as tdetector
-from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl
+from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl, launch_counts, set_launch_counts
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
 from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
 from isaac_ros_apriltag_tpu_torch.utils.render import distort_image, render_tags, upright_pose
@@ -305,7 +306,9 @@ def test_rig_launches_once_for_16_cameras(cuda):
 
 def test_detect_path_makes_no_host_sync(cuda):
     """Detector, batched detect, the per-camera rig and the streaming runner
-    under sync debug mode 'error': a hidden host sync would raise."""
+    under sync debug mode 'error': a hidden host sync would raise. On the
+    card the second call of each captures its graph and the third replays
+    it."""
     cams, frames = _rig(3)
     cfg = DetectorConfig(tag_size=0.16)
     det = Detector(cfg, cams[0], device=cuda)
@@ -317,13 +320,90 @@ def test_detect_path_makes_no_host_sync(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        fn(x[0])
-        bfn(x)
-        rig.detect(x)
+        for _ in range(2):
+            fn(x[0])
+            bfn(x)
+            rig.detect(x)
         for _ in StreamingRunner(fn, 2, cuda).run(list(frames)):
             pass
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+def _storages(result):
+    return {t.untyped_storage().data_ptr() for r in result
+            for t in (getattr(r, f.name) for f in dataclasses.fields(r))}
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+@pytest.mark.parametrize("config,batch", CAPTURE_CASES, ids=lambda v: str(v))
+def test_replay_equals_eager_call(cuda, config, batch, backend):
+    """Five calls of the captured function on five different inputs, all
+    kept, then each held bit for bit against the eager call (capture=False)
+    on its own input: a replay that handed out its static outputs would show
+    here as results overwritten by later calls."""
+    from isaac_ros_apriltag_tpu_torch.capture import GraphedCall
+
+    cfg, cam, inputs = bench_inputs(config, batch, cuda)
+    cfg = dataclasses.replace(cfg, backend=backend)
+    fn = batched_detect_fn(cfg, cam, "mono8")
+    eager = batched_detect_fn(cfg, cam, "mono8", capture=False)
+    assert isinstance(fn, GraphedCall) and not isinstance(eager, GraphedCall)
+    outs = [fn(x) for x in inputs]                # eager, then a capture, then replays
+    assert len(fn.graphs) == 1
+    seen = set()
+    for x, out in zip(inputs, outs):
+        assert not _storages(out) & seen
+        seen |= _storages(out)
+        _assert_same(out, eager(x))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_replay_counts_launches(cuda, backend):
+    """A replay adds the launches its capture recorded: 1 / 14 / 14 for
+    backend 'cuda', none for the twins; the capture itself adds none."""
+    cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
+    fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
+    n = 1 if backend == "cuda" else 0
+    for x in inputs:                               # eager, capture + replay, replay
+        torch.cuda.synchronize()
+        set_launch_counts({k: 0 for k in launch_counts()})
+        fn(x)
+        torch.cuda.synchronize()
+        assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n}
+
+
+def test_streaming_over_captured_call_equals_eager(cuda):
+    """StreamingRunner at depth 3 over the captured batch-of-one function,
+    against the eager function on each frame."""
+    cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=6)
+    fn = batched_detect_fn(cfg, cam, "mono8")
+    eager = batched_detect_fn(cfg, cam, "mono8", capture=False)
+    host = [x[0].cpu().numpy() for x in inputs]
+    got = run_stream(lambda f: fn(f[None]), host, depth=3, device=cuda)
+    assert len(got) == len(inputs)
+    for out, x in zip(got, inputs):
+        _assert_same(out, eager(x))
+
+
+def test_replay_from_another_stream(cuda):
+    """Calls alternating between the default stream and a side stream, all
+    kept: each equals the eager call on its input."""
+    cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=4)
+    fn = batched_detect_fn(cfg, cam, "mono8")
+    eager = batched_detect_fn(cfg, cam, "mono8", capture=False)
+    side = torch.cuda.Stream()
+    outs = []
+    for k, x in enumerate(inputs):
+        if k % 2:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                outs.append(fn(x))
+            torch.cuda.current_stream().wait_stream(side)
+        else:
+            outs.append(fn(x))
+    for out, x in zip(outs, inputs):
+        _assert_same(out, eager(x))
 
 
 _NCCL_RIG = """
