@@ -133,8 +133,20 @@ non-zero):
      paths whose counts come from graph replays (phase 4's three frames,
      the rig, the stream at depth 2, phase 21's two calls), each warm and
      run once under torch.profiler, whose count of each kernel by name
-     must equal the launch counters' and the expected counts.
-A path counted on an eager call reads the wrappers' counters, which each
+     must equal the launch counters' and the expected counts;
+ 23. cluster moments: the four cluster-moment kernels (csrc/
+     cluster_moments.cu) on torch_bench.py's 720p b1 and 1080p b8 inputs,
+     tests/test_noise.py's max_clusters=16 scene and the 1080p b8 batch with
+     a slot budget it overflows, and a 1080p frame segmented at full
+     resolution: the kernel path against the plain version
+     (counts, valid, dark side, centroid, scale, num_* and overflow
+     bit-exact; bin tables within one f32 ulp, the cells that differ
+     counted), each kernel against its plain version, two calls and a
+     captured replay equal, one launch of each kernel a call; device ms of
+     each kernel, its plain version and its bound, and of the stage (kernel
+     path, its torch.sort, the plain version's one-hot formulation).
+Every path launches K1 once, K2 and K3 once a scan round and each cluster
+kernel once a call. A path counted on an eager call reads the wrappers' counters, which each
 wrapper adds to where it launches its kernel; a replay adds the counts its
 capture recorded (capture.GraphedCall), which phase 22 holds against the
 profiler. The kernels line's `captured` path is phase 22's 720p b1 replay.
@@ -205,7 +217,30 @@ CAPTURE_CALLS = 5             # calls kept, each on its own input
 CAPTURE_TURN_CALLS = 20       # calls per timed turn
 # Substrings of the kernels' names in a torch.profiler trace (csrc/*.cu).
 KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
-                "col": "col_diag_kernel"}
+                "col": "col_diag_kernel", "edge_count": "cm_edge_count_kernel",
+                "edge_pairs": "cm_edge_pairs_kernel", "segments": "cm_segments_kernel",
+                "moments": "cm_moments_kernel"}
+CLUSTER_KERNELS = ("edge_count", "edge_pairs", "segments", "moments")   # once a detect call
+# Phase 23: tests/test_noise.py's max_clusters=16 scene (640x480, fx 420:
+# two 0.28 m tags at 1.2 m, noise 3), and the slot budget that overflows a
+# 1080p b8 batch's top-C clusters (E2 = 128 x 8 pairs), with a size gate
+# (400 px) that leaves fewer eligible segments than slots, so the slot
+# budget alone sets its frames' overflow.
+NOISE_SCENE = dict(positions=((-0.4, -0.25), (0.3, 0.2)), ids=(100, 200), z=1.2,
+                   tag_size=0.28, noise=3.0)
+SLOT_OVERFLOW_POINTS, SLOT_OVERFLOW_MIN_PIXELS = 8, 400
+CLUSTER_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES) + (
+    "noise scene, max_clusters 16",
+    f"1080p b8, max_cluster_points {SLOT_OVERFLOW_POINTS}, min_cluster_pixels "
+    f"{SLOT_OVERFLOW_MIN_PIXELS}",
+    "1080p b1, quad_decimate 1")
+# The reference's XLA code each cluster kernel replaces (it has no Pallas
+# kernel there): the pair count, the pair loop, the reverse cummin + top-C
+# sort, and the one-hot per-cluster matmuls (with the cummax and second sort).
+CLUSTER_REPLACES = {"edge_count": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:168",
+                    "edge_pairs": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:142",
+                    "segments": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:202",
+                    "moments": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:273"}
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -688,6 +723,14 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
+def _want(frames: int = 1, rounds: int = SCAN_ROUNDS) -> dict:
+    """The launches of `frames` detect calls (or batched calls) of `rounds`
+    scan rounds each: K1 once, K2 and K3 once a round, the four cluster
+    kernels once."""
+    return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
+            **{k: frames for k in CLUSTER_KERNELS}}
+
+
 def _reset_launches() -> None:
     """Wait for the card, then set every kernel's launch count to 0."""
     import torch
@@ -756,7 +799,7 @@ def oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu: str, two_phase_fn) -
     _reset_launches()
     det, st = jfn["cuda"](frames8)
     counts = _launches()
-    want = {"threshold": 1, "row": cfg.ccl_rounds, "col": cfg.ccl_rounds}
+    want = _want(rounds=cfg.ccl_rounds)
     if counts != want:
         raise AssertionError(f"jumps-flow launch counts {counts} != expected {want}")
     K = cam_dev.K.cpu().numpy()
@@ -821,7 +864,7 @@ def slam_phase(gpu: str) -> dict:
     dev = torch.device("cuda")
     cam, frames, gt = slam_orbit(SLAM_FRAMES, SLAM_TAGS, SLAM_TAG_SIZE, SLAM_NOISE)
     rounds = {"scan": SCAN_ROUNDS, "jumps": DetectorConfig().ccl_rounds}
-    counts = {"threshold": 0, "row": 0, "col": 0}
+    counts = {k: 0 for k in _want()}
     chains = {}
     for flow in ("scan", "jumps"):
         for backend in ("cuda", "torch"):
@@ -835,8 +878,7 @@ def slam_phase(gpu: str) -> dict:
             map_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
             if backend == "cuda":
                 got = _launches()
-                want = {"threshold": len(frames), "row": rounds[flow] * len(frames),
-                        "col": rounds[flow] * len(frames)}
+                want = _want(len(frames), rounds[flow])
                 if got != want:
                     raise AssertionError(f"slam ({flow}) launch counts {got} != expected {want}")
                 counts = {k: counts[k] + got[k] for k in counts}
@@ -982,7 +1024,7 @@ def mesh_phase(gpu: str, cfg, rigs: dict, rig_cams, rig_frames, sp_cam, sp_frame
         _reset_launches()
         got = mrigs["cuda"].detect(rig_frames)
         counts = _launches()
-        want = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
+        want = _want()
         if counts != want:
             raise AssertionError(f"mesh rig launch counts {counts} != expected {want}")
         _all_same(got, rigs["cuda"].detect(rig_frames), "mesh rig (cuda) and the one-card rig")
@@ -1039,6 +1081,259 @@ def bench_inputs(config: str, batch: int, dev, calls: int = CAPTURE_CALLS):
     return DetectorConfig(**spec["detector"]), cam.to(dev), [x[k:k + batch] for k in range(calls)]
 
 
+def cluster_inputs(cfg, images):
+    """The cluster-moment stage's inputs for a (B, H, W) uint8 batch on the
+    card, through the detector's front on backend 'cuda' (as detect_tail
+    feeds the stage): (trinary, dense ids, comp_overflow, the stage's
+    keyword arguments)."""
+    from isaac_ros_apriltag_tpu_torch.detector import _decimate, _pad_to_tiles
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_ops
+    from isaac_ros_apriltag_tpu_torch.ops.grayscale import grayscale
+    from isaac_ros_apriltag_tpu_torch.ops.resolve import resolve_components, resolve_roots_rank
+
+    gray = grayscale(images, "mono8", batched=True).contiguous()
+    seg = _pad_to_tiles(_decimate(gray, cfg.quad_decimate), cfg.tile_size).contiguous()
+    tri = thr_ops.adaptive_threshold(seg, cfg.tile_size, cfg.min_white_black_diff)
+    valid = tri != 127
+    E, R = cfg.effective_capacities(*tri.shape[-2:])
+    lab, _ = ccl_ops.ccl_scan(tri, cfg.ccl_scan_rounds, backend="cuda")
+    rank_img, table, ovf = resolve_roots_rank(lab, valid, max_components=R,
+                                              chain_steps=cfg.ccl_contraction_steps)
+    lab, _ = ccl_ops.ccl_scan(tri, cfg.ccl_phase2_rounds, backend="cuda", label0=rank_img)
+    res = resolve_components(lab, valid, min_component_pixels=cfg.min_component_pixels,
+                             max_components=R, chain_steps=cfg.ccl_resolve_steps,
+                             rank_table=table)
+    kw = dict(max_edge_points=E, max_clusters=cfg.max_clusters,
+              min_cluster_pixels=cfg.min_cluster_pixels,
+              max_cluster_points=cfg.max_cluster_points)
+    return tri, res.dense, res.overflow | ovf, kw
+
+
+CLUSTER_EXACT = ("count", "centroid", "scale", "dark_inside", "valid", "num_clusters",
+                 "num_eligible", "num_edge_points", "edge_stride", "overflow")
+CLUSTER_TABLES = ("bw", "bx", "by", "bxx", "bxy", "byy")
+
+
+def _within_one_ulp(a, b) -> bool:
+    """Every f32 of `a` equal to `b`'s or its neighbour above or below."""
+    import torch
+
+    return a.shape == b.shape and bool(
+        ((a == b) | (a == torch.nextafter(b, torch.full_like(b, np.inf)))
+         | (a == torch.nextafter(b, torch.full_like(b, -np.inf)))).all())
+
+
+def cluster_gap(got, want, what: str) -> tuple[int, int]:
+    """Two ClusterMoments: every field of CLUSTER_EXACT bit-exact and each
+    bin table cell equal or one f32 ulp away (the kernel's f64 sums and the
+    plain version's f64 GEMM add in other orders), else raise. Returns
+    (cells that differ, cells in all)."""
+    for f in CLUSTER_EXACT:
+        if not _same(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{what}: {f} differs (max abs err "
+                                 f"{_max_abs_err(getattr(got, f), getattr(want, f))})")
+    differ = cells = 0
+    for f in CLUSTER_TABLES:
+        a, b = getattr(got, f), getattr(want, f)
+        if not _within_one_ulp(a, b):
+            raise AssertionError(f"{what}: {f} differs by more than one f32 ulp "
+                                 f"(max abs err {_max_abs_err(a, b)})")
+        differ += int((a != b).sum())
+        cells += a.numel()
+    return differ, cells
+
+
+def noise_scene():
+    """(CameraModel, uint8 640x480 frame): tests/test_noise.py's overflow
+    scene, NOISE_SCENE."""
+    from isaac_ros_apriltag_tpu_torch import CameraModel, get_family
+    from isaac_ros_apriltag_tpu_torch.utils.render import render_tags, upright_pose
+
+    cam = CameraModel.create(fx=420.0, fy=420.0, cx=320.0, cy=240.0, width=640, height=480)
+    fam = get_family("tag36h11")
+    tags = []
+    for i, ((x, y), tid) in enumerate(zip(NOISE_SCENE["positions"], NOISE_SCENE["ids"])):
+        t = np.array([x, y, NOISE_SCENE["z"]])
+        tags.append(dict(family=fam, id=tid, R=upright_pose(t, 0.1 * i), t=t,
+                         tag_size=NOISE_SCENE["tag_size"]))
+    return cam, render_tags(cam.K.numpy(), (480, 640), tags, noise=NOISE_SCENE["noise"])
+
+
+def cluster_cases(dev) -> dict:
+    """Phase 23's inputs, name -> (DetectorConfig, (B, H, W) uint8 frames
+    on `dev`): torch_bench.py's 720p b1 and 1080p b8 inputs, the
+    max_clusters=16 noise scene, the 1080p b8 batch with its slot budget
+    cut to SLOT_OVERFLOW_POINTS pairs a cluster and fewer eligible segments
+    than slots, and one 1080p frame
+    segmented at full resolution (a size histogram past 48 KB of shared
+    memory)."""
+    import dataclasses
+
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch import DetectorConfig
+
+    bench = [bench_inputs(config, batch, dev, calls=1) for config, batch in CAPTURE_CASES]
+    _, img = noise_scene()
+    (cfg1, _, in1), (cfg8, _, in8) = bench
+    return dict(zip(CLUSTER_CASE_NAMES, (
+        (cfg1, in1[0]), (cfg8, in8[0]),
+        (DetectorConfig(tag_size=NOISE_SCENE["tag_size"], max_clusters=16, max_tags=16),
+         torch.from_numpy(img)[None].to(dev)),
+        (dataclasses.replace(cfg8, max_cluster_points=SLOT_OVERFLOW_POINTS,
+                             min_cluster_pixels=SLOT_OVERFLOW_MIN_PIXELS), in8[0]),
+        (dataclasses.replace(cfg8, quad_decimate=1), in8[0][:1]))))
+
+
+def check_cluster_case(name: str, cfg, images) -> dict:
+    """One of phase 23's cases: the kernel path against the plain version
+    (cluster_gap), one launch of each cluster kernel, two calls and a
+    captured replay equal, and each kernel against its plain version on the
+    same inputs (the moments kernel's tables within one f32 ulp, as
+    cluster_gap). Raises on a difference; returns the stage's inputs and
+    intermediates, the cells that differ (`differ` of `cells`) and the
+    largest difference of each kernel from its plain version (`errs`)."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    tri, dense, ovf, kw = cluster_inputs(cfg, images)
+    B, H, W = tri.shape
+    E = min(kw["max_edge_points"], 4 * H * W)
+    E2 = min(cfg.max_clusters * cfg.max_cluster_points, E)
+    skw = dict(E=E, E2=E2, max_clusters=cfg.max_clusters,
+               min_cluster_pixels=cfg.min_cluster_pixels, max_perimeter=4 * (W + H))
+
+    def stage():
+        return cmk.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw)
+
+    one = {k: int(k in CLUSTER_KERNELS) for k in _want()}
+    _reset_launches()
+    got = stage()
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"cluster moments, {name}: launches {counts} != {one}")
+    differ, cells = cluster_gap(got, plain.extract_cluster_moments(
+        tri, dense, comp_overflow=ovf, **kw), f"cluster moments, {name}, against the plain one")
+    if not all(_same(a, b) for a, b in zip(stage(), got)):
+        raise AssertionError(f"cluster moments, {name}: two calls differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        stage()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = stage()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(_same(a, b) for a, b in zip(static, got)):
+        raise AssertionError(f"cluster moments, {name}: the captured replay differs from eager")
+    del graph, static
+    ne = cmk.edge_count(tri, dense)
+    key, pay = cmk.edge_pairs(tri, dense, ne, E)
+    key_s, perm = torch.sort(key, dim=-1, stable=True)
+    seg = cmk.top_segments(key_s, ne, ovf, **skw)
+    mom = cmk.slot_moments(perm, pay, seg.top_pos, seg.count, E2)
+    momp = plain.slot_moments_plain(perm, pay, seg.top_pos, seg.count, E2)
+    checks = {"edge_count": [(ne, plain.edge_count_plain(tri, dense))],
+              "edge_pairs": list(zip((key, pay), plain.edge_pairs_plain(tri, dense, ne, E))),
+              "segments": list(zip(seg, plain.top_segments_plain(key_s, ne, ovf, **skw))),
+              "moments": [(getattr(mom, f), getattr(momp, f))
+                          for f in ("centroid", "scale", "dark_inside")]}
+    errs = {}
+    for k, pairs in checks.items():
+        errs[k] = max(_max_abs_err(a, b) for a, b in pairs)
+        if not all(_same(a, b) for a, b in pairs):
+            raise AssertionError(f"{k} kernel, {name}: differs from its plain version")
+    if not _within_one_ulp(mom.table, momp.table):
+        raise AssertionError(f"moments kernel, {name}: a bin table cell is more than one f32 "
+                             "ulp from the plain version's")
+    errs["moments"] = max(errs["moments"], _max_abs_err(mom.table, momp.table))
+    return dict(tri=tri, dense=dense, ovf=ovf, kw=kw, E=E, E2=E2, skw=skw, ne=ne, key=key,
+                pay=pay, key_s=key_s, perm=perm, seg=seg, mom=mom, got=got, differ=differ,
+                cells=cells, errs=errs, stage=stage)
+
+
+def cluster_phase(gpu: str) -> dict:
+    """Phase 23: check_cluster_case on each of cluster_cases, and device
+    times at torch_bench.py's two shapes. Returns kernel -> {max_abs_err,
+    and for 'b1' (720p) and 'batch8' (1080p): shape, ms, plain_ms,
+    bound_ms}."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    dev = torch.device("cuda")
+    out = {k: {"max_abs_err": 0.0} for k in CLUSTER_KERNELS}
+    lines, stage_ms = [], {}
+    for name, (cfg, images) in cluster_cases(dev).items():
+        c = check_cluster_case(name, cfg, images)
+        for k in CLUSTER_KERNELS:
+            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], c["errs"][k])
+        tri, dense, ne, key, pay, key_s, perm, seg, mom = (
+            c[k] for k in ("tri", "dense", "ne", "key", "pay", "key_s", "perm", "seg", "mom"))
+        ovf, skw, E, E2 = c["ovf"], c["skw"], c["E"], c["E2"]
+        B, H, W = tri.shape
+        lines.append(f"{name} ({B}x{H}x{W}, E {E}, C {cfg.max_clusters}, E2 {E2}): bin cells "
+                     f"one ulp apart {c['differ']} of {c['cells']}; frames with eligible "
+                     f"segments past C {int((seg.num_eligible > cfg.max_clusters).sum())} of "
+                     f"{B}, with slot pairs past E2 {int((seg.count.sum(-1) > E2).sum())}, "
+                     f"overflowed {int(c['got'].overflow.sum())}")
+        if name == CLUSTER_CASE_NAMES[3] and not (
+                bool((seg.num_eligible <= cfg.max_clusters).all())
+                and bool((seg.count.sum(-1) > E2).all()) and bool(c["got"].overflow.all())):
+            raise AssertionError(f"{name}: every frame must hold fewer eligible segments than "
+                                 "slots and overflow its slot budget")
+        if name not in CLUSTER_CASE_NAMES[:len(CAPTURE_CASES)]:
+            continue
+        # Times at the bench shapes; bounds from the bytes this input needs.
+        nv = int((key_s[:, :E] != torch.iinfo(torch.int32).max).sum())
+        resident = int(torch.clamp(seg.count.sum(-1), max=E2).sum())
+        timed = {
+            "edge_count": (lambda: cmk.edge_count(tri, dense),
+                           lambda: plain.edge_count_plain(tri, dense),
+                           _bound_ms(tri, dense, ne)),
+            "edge_pairs": (lambda: cmk.edge_pairs(tri, dense, ne, E),
+                           lambda: plain.edge_pairs_plain(tri, dense, ne, E),
+                           _bound_ms(tri, dense, ne, key, pay)),
+            # the valid prefix of the sorted keys, 4 bytes a key
+            "segments": (lambda: cmk.top_segments(key_s, ne, ovf, **skw),
+                         lambda: plain.top_segments_plain(key_s, ne, ovf, **skw),
+                         4 * nv / HBM_BYTES_PER_S * 1e3 + _bound_ms(ne, ovf, *seg)),
+            # each resident pair's permutation entry and pay, 12 bytes
+            "moments": (lambda: cmk.slot_moments(perm, pay, seg.top_pos, seg.count, E2),
+                        lambda: plain.slot_moments_plain(perm, pay, seg.top_pos, seg.count, E2),
+                        12 * resident / HBM_BYTES_PER_S * 1e3
+                        + _bound_ms(seg.top_pos, seg.count, *mom)),
+        }
+        tag = "b1" if B == 1 else f"batch{B}"
+        for k, (kern, twin, bound) in timed.items():
+            out[k][tag] = dict(shape=[B, H, W], ms=_device_ms(kern, 20),
+                               plain_ms=_device_ms(twin, 5), bound_ms=bound)
+        kw = c["kw"]
+        stage_ms[tag] = {
+            "kernels": _device_ms(c["stage"], 10),
+            "sort": _device_ms(lambda: torch.sort(key, dim=-1, stable=True), 10),
+            "plain": _device_ms(lambda: plain.extract_cluster_moments(
+                tri, dense, comp_overflow=ovf, **kw), 5)}
+    torch.cuda.synchronize()
+    print(f"[23 cluster moments] the kernel path (one launch of each of "
+          f"{list(CLUSTER_KERNELS)} a call) against the plain version: counts, valid, dark "
+          f"side, centroid, scale, num_* and overflow bit-exact, bin tables within one f32 ulp; "
+          f"each kernel against its plain version (the moments' tables within one ulp); two "
+          f"calls and a captured replay equal: " + "; ".join(lines) + f"; on {gpu}: device ms "
+          f"a call of the stage (kernel path, its torch.sort alone, the plain version's one-hot "
+          f"GEMM formulation) {stage_ms}; a kernel (kernel / plain / bound ms) "
+          + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
+                      f"{v[t]['bound_ms']:.4f}" for k, v in out.items()
+                      for t in ("b1", f"batch{BATCH}")), flush=True)
+    return out
+
+
 def capture_phase(gpu: str) -> dict:
     """Phase 21: the captured detect call against the eager one."""
     import dataclasses
@@ -1050,7 +1345,7 @@ def capture_phase(gpu: str) -> dict:
     from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
 
     dev = torch.device("cuda")
-    want = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
+    want = _want()
     resident0 = torch.cuda.memory_reserved()
     lines = []
     for config, batch in CAPTURE_CASES:
@@ -1173,7 +1468,7 @@ def profiled_replays_phase(gpu: str) -> dict:
     if out.returncode != 0:
         raise AssertionError(f"profiled replays exited {out.returncode}: {out.stderr[-3000:]}")
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    one = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
+    one = _want()
     want = {"frame": {k: v * len(SEEDS) for k, v in one.items()}, f"rig{RIG_CAMERAS}": one,
             "stream": {k: v * RIG_CAMERAS for k, v in one.items()},
             **{f"captured_b{b}": one for _, b in CAPTURE_CASES}}
@@ -1329,11 +1624,11 @@ def main() -> int:
 
     # --- 5. launch counts ---------------------------------------------------
     n = len(frames)
-    want = {"threshold": n, "row": SCAN_ROUNDS * n, "col": SCAN_ROUNDS * n}
+    want = _want(n)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     print(f"[5 launches] {counts} over {n} frames "
-          f"(1 / {SCAN_ROUNDS} / {SCAN_ROUNDS} per frame)", flush=True)
+          f"(1 / {SCAN_ROUNDS} / {SCAN_ROUNDS} / 1 / 1 / 1 / 1 per frame)", flush=True)
 
     # --- 6. times -----------------------------------------------------------
     f0 = frames[0]
@@ -1424,7 +1719,7 @@ def main() -> int:
     det8, st8 = bfn["cuda"](frames8)
     counts8 = _launches()
     peak8 = torch.cuda.max_memory_allocated()
-    want1 = {"threshold": 1, "row": SCAN_ROUNDS, "col": SCAN_ROUNDS}
+    want1 = _want()
     if counts8 != want1:
         raise AssertionError(f"batched launch counts {counts8} != expected {want1}")
     worst8 = max(_truth_error(det8.frame(b), tg, K) for b, (_, tg, _) in enumerate(bscenes))
@@ -1592,7 +1887,7 @@ def main() -> int:
         for k, (got, want) in enumerate(zip(outs, sync1)):
             stream_gap = max(stream_gap, _same_as_sync(got, want, f"depth {depth}, frame {k}"))
     n_str = len(stream_host)
-    want_stream = {"threshold": n_str, "row": SCAN_ROUNDS * n_str, "col": SCAN_ROUNDS * n_str}
+    want_stream = _want(n_str)
     if counts_stream != want_stream:
         raise AssertionError(f"stream launch counts {counts_stream} != expected {want_stream}")
     host8 = [np.stack(stream_host[i:i + BATCH]) for i in range(0, n_str, BATCH)]
@@ -1710,7 +2005,7 @@ def main() -> int:
     counts_sp = _launches()
     peak_sp = torch.cuda.max_memory_allocated()
     sp_rounds = max(3, SP_BANDS - 1) * cfg.ccl_rounds
-    want_sp = {"threshold": 1, "row": sp_rounds, "col": sp_rounds}
+    want_sp = _want(rounds=sp_rounds)
     if counts_sp != want_sp:
         raise AssertionError(f"spatial launch counts {counts_sp} != expected {want_sp}")
     worst_sp = _truth_error(det_sp, sp_tags, cam_sp.K.numpy())
@@ -1803,7 +2098,7 @@ def main() -> int:
     _reset_launches()
     detf, stf = ffn["cuda"](frames8)
     counts_flat = _launches()
-    want_flat = {"threshold": 1, "row": cfg.ccl_scan_rounds, "col": cfg.ccl_scan_rounds}
+    want_flat = _want(rounds=cfg.ccl_scan_rounds)
     if counts_flat != want_flat:
         raise AssertionError(f"flat-flow launch counts {counts_flat} != expected {want_flat}")
     worst_f = max(_truth_error(detf.frame(b), tg, K) for b, (_, tg, _) in enumerate(bscenes))
@@ -1866,6 +2161,9 @@ def main() -> int:
     del rigs
     capture_phase(gpu)
 
+    # --- 23. the cluster-moment kernels against their plain versions ---------------
+    cluster = cluster_phase(gpu)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -1893,7 +2191,22 @@ def main() -> int:
          "ms_long": kernel_ms_long[k][0] if k in kernel_ms_long else None,
          "plain_ms_long": kernel_ms_long[k][1] if k in kernel_ms_long else None,
          "bound_ms_long": bound_long if k in kernel_ms_long else None}
-        for k in names]}))
+        for k in names] + [
+        {"name": f"cluster_{k}", "route": "cuda",
+         "source": "isaac_ros_apriltag_tpu_torch/csrc/cluster_moments.cu",
+         "replaces": CLUSTER_REPLACES[k],
+         "launches": sum(c[k] for c in paths.values()),
+         "launches_by_path": {p: c[k] for p, c in paths.items()},
+         "max_abs_err": cluster[k]["max_abs_err"], "shape": cluster[k]["b1"]["shape"],
+         "ms": cluster[k]["b1"]["ms"], "plain_ms": cluster[k]["b1"]["plain_ms"],
+         "bound_ms": cluster[k]["b1"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         f"shape_batch{BATCH}": cluster[k][f"batch{BATCH}"]["shape"],
+         f"ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["ms"],
+         f"plain_ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["plain_ms"],
+         f"bound_ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["bound_ms"],
+         f"share_batch{BATCH}": (cluster[k][f"batch{BATCH}"]["bound_ms"]
+                                 / cluster[k][f"batch{BATCH}"]["ms"])}
+        for k in CLUSTER_KERNELS]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

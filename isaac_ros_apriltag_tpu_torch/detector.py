@@ -11,10 +11,11 @@ frame. Stages: grayscale, quad_decimate mean-pool, adaptive threshold
 (kernel K1), two-phase scan CCL (kernels K2 and K3, with the rank-space
 contraction between the phases; with ccl_phase2_rounds=0 one scan phase on
 flat-index labels; with ccl_flow='jumps' one scan phase with pointer jumps
-between rounds), resolve, cluster moments, quad fit, top-2T
-by fit quality, edge refinement, decode, dedupe, top-T by decision margin,
-center and pose. Backend 'cuda' runs the three kernels; 'torch' runs their
-plain twins. Everything else is plain PyTorch on the detector's device.
+between rounds), resolve, cluster moments (four kernels around one sort,
+ops/cuda/cluster_moments.py), quad fit, top-2T by fit quality, edge
+refinement, decode, dedupe, top-T by decision margin, center and pose.
+Backend 'cuda' runs the kernels; 'torch' runs their plain twins.
+Everything else is plain PyTorch on the detector's device.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from .config import DetectorConfig
 from .models.families import TagFamily, get_family
 from .ops.cluster_moments import extract_cluster_moments
 from .ops.cuda import ccl as ccl_ops
+from .ops.cuda import cluster_moments as cluster_kernels
 from .ops.cuda import threshold as threshold_kernel
 from .ops.decode import decode_quads
 from .ops.grayscale import grayscale
@@ -127,7 +129,9 @@ def detect_tail(cfg: DetectorConfig, camera: CameraModel, family: TagFamily,
                              chain_steps=cfg.ccl_resolve_steps,
                              rank_table=rank_table)
     comp_overflow = res.overflow if extra_overflow is None else res.overflow | extra_overflow
-    clusters = extract_cluster_moments(
+    moments = (cluster_kernels.extract_cluster_moments if cfg.backend == "cuda"
+               else extract_cluster_moments)
+    clusters = moments(
         trinary, res.dense,
         comp_overflow=comp_overflow,
         max_edge_points=E_eff,

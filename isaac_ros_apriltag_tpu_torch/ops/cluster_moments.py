@@ -28,6 +28,15 @@ The function takes a batch of frames, (B, H, W), or one frame, (H, W). Each
 frame's pairs are sorted, scanned and scattered along the last dim of a
 (B, ...) tensor, and the one-hot contractions are batched matmuls, so no
 frame sees another's pairs.
+
+extract_cluster_moments is the plain twin of the CUDA path
+(ops/cuda/cluster_moments.py). The plain versions of that path's four
+kernels are here too, on the range formulation the kernels use: after the
+sort each (black, white) segment is a contiguous range of the sorted keys,
+and each top-C cluster one such range, cut at E2 by the sizes of the slots
+before it (edge_count_plain, edge_pairs_plain, top_segments_plain,
+slot_moments_plain; tests/test_torch_cluster_ranges.py holds them to this
+twin).
 """
 
 from __future__ import annotations
@@ -88,26 +97,13 @@ def _diamond_bin(dx: torch.Tensor, dy: torch.Tensor, nbins: int) -> torch.Tensor
     return (t * (nbins / 4.0)).to(torch.int64).clamp(0, nbins - 1)
 
 
-def extract_cluster_moments(trinary: torch.Tensor, dense: torch.Tensor, *,
-                            comp_overflow: torch.Tensor, max_edge_points: int,
-                            max_clusters: int, min_cluster_pixels: int,
-                            max_cluster_points: int = 1024) -> ClusterMoments:
-    """trinary + area-gated dense component ids (ops/resolve.py) -> moments;
-    (B, H, W) with (B,) comp_overflow, or one frame without the batch dim."""
-    trinary, single = batch_first(trinary, 2)
-    dense, _ = batch_first(dense, 2)
+def _pairs(trinary: torch.Tensor, dense: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, H, W) trinary + dense ids -> the black/white neighbour pairs'
+    key, pay and mask, each (B, 4 H W), offset-major within each frame as
+    the reference's stack + reshape. Unmasked pairs hold key _I32MAX."""
     B, H, W = trinary.shape
     dev = trinary.device
-    E = min(max_edge_points, 4 * H * W)
-    C, K = max_clusters, NBINS
-    if not (2 * W < (1 << 12) and 2 * H < (1 << 12)):
-        raise ValueError(
-            "packed coords support segmentation images up to 2047x2047; "
-            f"got {H}x{W} — use quad_decimate for larger frames")
-    if C > 128:
-        raise ValueError("max_clusters must be <= 128 (8-bit slot packing)")
-
-    # --- dense pair generation (4 offsets), per frame ----------------------
     i32 = torch.int32
     xs = torch.arange(W, dtype=i32, device=dev).expand(H, W)
     ys = torch.arange(H, dtype=i32, device=dev)[:, None].expand(H, W)
@@ -127,21 +123,196 @@ def extract_cluster_moments(trinary: torch.Tensor, dense: torch.Tensor, *,
         key_all.append(torch.where(m, (db << _KBITS) | dw, _I32MAX))
         pay_all.append((2 * xs + dx) | ((2 * ys + dy) << 12) | (g << 24))
         m_all.append(m)
-    # Offset-major within each frame, as the reference's stack + reshape.
     key = torch.stack(key_all, 1).reshape(B, -1)
     pay = torch.stack(pay_all, 1).reshape(B, -1).to(i32)
     mask = torch.stack(m_all, 1).reshape(B, -1)
+    return key, pay, mask
 
-    # --- overflow decimation (hash gate, uniform spatial subsample) ---------
-    num_edge = mask.sum(-1).to(i32)
+
+def _edge_stride(num_edge: torch.Tensor, E: int) -> torch.Tensor:
+    """(B,) pair counts -> the decimation stride that brings them under 9/10
+    of the pair budget E."""
     budget = (9 * E) // 10
-    stride = torch.clamp((num_edge + budget - 1) // budget, min=1)
+    return torch.clamp((num_edge + budget - 1) // budget, min=1)
+
+
+def _gate(key: torch.Tensor, pay: torch.Tensor, mask: torch.Tensor,
+          stride: torch.Tensor) -> torch.Tensor:
+    """Overflow decimation: a masked pair is kept when the hash of its pay
+    is a multiple of its frame's stride (a uniform spatial subsample); the
+    others' keys become _I32MAX."""
     # Bits 15..30 of the int32-wrapped product pay * -1640531527.
     pay_hash = ((pay.to(torch.int64) * -1640531527) >> 15) & 0xFFFF
     keep = mask & (pay_hash % stride[:, None] == 0)
+    return torch.where(keep, key, _I32MAX)
+
+
+def edge_count_plain(trinary: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+    """(B,) int32 count of each frame's black/white pairs between gated
+    components, before decimation: the pair-count kernel's plain version."""
+    return _pairs(trinary, dense)[2].sum(-1).to(torch.int32)
+
+
+def edge_pairs_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+                     E: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 4 H W) int32 keys, decimated by the stride that num_edge and the
+    budget E give, and pays: the pair kernel's plain version."""
+    key, pay, mask = _pairs(trinary, dense)
+    return _gate(key, pay, mask, _edge_stride(num_edge, E)), pay
+
+
+class TopSegments(NamedTuple):
+    """Each frame's top-C (black, white) segments of the sorted keys."""
+
+    top_pos: torch.Tensor        # (B, C) int32 segment start in the sorted keys; 0 past count
+    count: torch.Tensor          # (B, C) int32 segment size (E-truncated); 0: no cluster
+    valid: torch.Tensor          # (B, C) bool
+    num_clusters: torch.Tensor   # (B,) int32 segments among the first E keys
+    num_eligible: torch.Tensor   # (B,) int32 positions that pass the size gate
+    edge_stride: torch.Tensor    # (B,) int32
+    overflow: torch.Tensor       # (B,) bool: pairs past E, comp_overflow, eligible past C,
+    #                              or the top-C clusters' pairs past E2
+
+
+def top_segments_plain(key_s: torch.Tensor, num_edge: torch.Tensor,
+                       comp_overflow: torch.Tensor, *, E: int, E2: int, max_clusters: int,
+                       min_cluster_pixels: int, max_perimeter: int) -> TopSegments:
+    """The segments kernel's plain version on (B, N >= E) sorted keys: a
+    segment's size is an upper bound found by binary search, and the top-C
+    are the stable descending sort of the gated sizes (ties to the lower
+    position), as the reference takes them."""
+    ks = key_s[:, :E].contiguous()
+    B = ks.shape[0]
+    idxs = torch.arange(E, dtype=torch.int64, device=ks.device)
+    valid = ks != _I32MAX
+    prev = torch.cat([torch.full((B, 1), -1, dtype=ks.dtype, device=ks.device), ks[:, :-1]], 1)
+    first = valid & (ks != prev)
+    stride = _edge_stride(num_edge, E)
+    size_at = torch.where(first, torch.searchsorted(ks, ks, right=True) - idxs, 0)
+    true_size = size_at * stride[:, None]
+    eligible = (true_size >= min_cluster_pixels) & (true_size <= max_perimeter)
+    neg, pos = torch.sort(-torch.where(eligible, size_at, 0), dim=-1, stable=True)
+    size, pos = -neg[:, :max_clusters], pos[:, :max_clusters]
+    cvalid = size > 0
+    count = torch.where(cvalid, size, 0).to(torch.int32)
+    n_eligible = eligible.sum(-1).to(torch.int32)
+    overflow = ((num_edge > E) | comp_overflow | (n_eligible > max_clusters)
+                | (count.sum(-1) > E2))
+    return TopSegments(top_pos=torch.where(cvalid, pos, 0).to(torch.int32), count=count,
+                       valid=cvalid, num_clusters=first.sum(-1).to(torch.int32),
+                       num_eligible=n_eligible, edge_stride=stride.to(torch.int32),
+                       overflow=overflow)
+
+
+class SlotMoments(NamedTuple):
+    """The per-cluster float outputs of the moments kernel."""
+
+    table: torch.Tensor        # (B, C, NBINS, 6) f32: weight, sx, sy, sxx, sxy, syy a bin
+    centroid: torch.Tensor     # (B, C, 2) f32
+    scale: torch.Tensor        # (B, C) f32
+    dark_inside: torch.Tensor  # (B, C) bool
+
+
+def _cluster_stats(ctot64: torch.Tensor):
+    """(..., 7) f64 per-cluster sums (weight, x, y, x^2 + y^2, gx, gy,
+    x gx + y gy) -> f32 centroid x and y, clamped variance, scale and the
+    dark-inside flag, in the reference's order and types."""
+    f64 = torch.float64
+    ctot = ctot64.to(torch.float32)
+    safe = torch.clamp(ctot[..., 0], min=1.0)
+    # Sums of half-pixel coords are exact in f32 too, so the centroid is
+    # the reference's to the bit.
+    ccx = ctot[..., 1] / safe
+    ccy = ctot[..., 2] / safe
+    safe64 = safe.to(f64)
+    r2m = (ctot64[..., 3] / safe64 - (ctot64[..., 1] / safe64) ** 2
+           - (ctot64[..., 2] / safe64) ** 2).to(torch.float32)
+    r2 = torch.clamp(r2m, min=1e-12)
+    mean_dot = (ctot[..., 6] - ccx * ctot[..., 4] - ccy * ctot[..., 5]) / safe
+    return ccx, ccy, r2, torch.sqrt(r2), mean_dot > 0
+
+
+def _pair_terms(pay: torch.Tensor):
+    """Packed pays -> f32 half-pixel x, y and gradient signs gx, gy."""
+    x = (pay & 0xFFF).to(torch.float32) * 0.5
+    y = ((pay >> 12) & 0xFFF).to(torch.float32) * 0.5
+    gp = pay >> 24
+    return x, y, ((gp & 0x3) - 1).to(torch.float32), (((gp >> 2) & 0x3) - 1).to(torch.float32)
+
+
+def slot_moments_plain(perm: torch.Tensor, pay: torch.Tensor, top_pos: torch.Tensor,
+                       count: torch.Tensor, E2: int) -> SlotMoments:
+    """The moments kernel's plain version. Slot j's pairs are the sorted
+    positions [top_pos_j, top_pos_j + count_j) (pay[perm[p]]); the first E2
+    pairs of the slots taken in order are resident (the reference's second
+    sort and truncation), and the moments cover those. Sums by index_add in
+    f64."""
+    B, C = count.shape
+    dev = count.device
+    f64 = torch.float64
+    cnt = count.to(torch.int64)
+    start = torch.cumsum(cnt, -1) - cnt
+    n = torch.minimum(torch.clamp(E2 - start, min=0), cnt)      # resident pairs a slot
+    ends = torch.cumsum(n, -1)
+    r = torch.arange(E2, device=dev).expand(B, E2).contiguous()
+    slot = torch.clamp(torch.searchsorted(ends, r, right=True), max=C - 1)
+    resident = r < ends[:, -1:]
+    at = torch.gather(top_pos.to(torch.int64), 1, slot) + r - torch.gather(ends - n, 1, slot)
+    at = torch.where(resident, at, 0)
+    x, y, gx, gy = _pair_terms(torch.gather(pay, 1, torch.gather(perm, 1, at)))
+    w = resident.to(torch.float32)
+    F2 = torch.stack([w, x * w, y * w, (x * x + y * y) * w, gx * w, gy * w,
+                      (x * gx + y * gy) * w], -1)
+    flat = (torch.arange(B, device=dev)[:, None] * C + slot).reshape(-1)
+    ctot64 = torch.zeros((B * C, 7), dtype=f64, device=dev).index_add_(
+        0, flat, F2.reshape(-1, 7).to(f64)).reshape(B, C, 7)
+    ccx, ccy, r2, scale, dark = _cluster_stats(ctot64)
+    cx2, cy2, r2_2 = (torch.gather(v, 1, slot) for v in (ccx, ccy, r2))
+    bins = _diamond_bin(x - cx2, y - cy2, NBINS)
+    inv2 = torch.rsqrt(r2_2)
+    sxn = (x - cx2) * inv2
+    syn = (y - cy2) * inv2
+    F3 = torch.stack([w, sxn * w, syn * w, sxn * sxn * w, sxn * syn * w, syn * syn * w], -1)
+    table = torch.zeros((B * C * NBINS, 6), dtype=f64, device=dev).index_add_(
+        0, flat * NBINS + bins.reshape(-1), F3.reshape(-1, 6).to(f64))
+    return SlotMoments(table=table.to(torch.float32).reshape(B, C, NBINS, 6),
+                       centroid=torch.stack([ccx, ccy], -1), scale=scale, dark_inside=dark)
+
+
+def check_shapes(H: int, W: int, max_clusters: int) -> None:
+    """Raise past the limits of the packed pair coordinates and slot ids."""
+    if not (2 * W < (1 << 12) and 2 * H < (1 << 12)):
+        raise ValueError(
+            "packed coords support segmentation images up to 2047x2047; "
+            f"got {H}x{W} — use quad_decimate for larger frames")
+    if max_clusters > 128:
+        raise ValueError("max_clusters must be <= 128 (8-bit slot packing)")
+
+
+def extract_cluster_moments(trinary: torch.Tensor, dense: torch.Tensor, *,
+                            comp_overflow: torch.Tensor, max_edge_points: int,
+                            max_clusters: int, min_cluster_pixels: int,
+                            max_cluster_points: int = 1024) -> ClusterMoments:
+    """trinary + area-gated dense component ids (ops/resolve.py) -> moments;
+    (B, H, W) with (B,) comp_overflow, or one frame without the batch dim."""
+    trinary, single = batch_first(trinary, 2)
+    dense, _ = batch_first(dense, 2)
+    B, H, W = trinary.shape
+    dev = trinary.device
+    E = min(max_edge_points, 4 * H * W)
+    C, K = max_clusters, NBINS
+    check_shapes(H, W, C)
+
+    # --- dense pair generation (4 offsets), per frame ----------------------
+    i32 = torch.int32
+    key, pay, mask = _pairs(trinary, dense)
+
+    # --- overflow decimation (hash gate, uniform spatial subsample) ---------
+    num_edge = mask.sum(-1).to(i32)
+    stride = _edge_stride(num_edge, E)
 
     # --- sort 1: group by (black, white) dense-id pair ----------------------
-    key_s, perm = torch.sort(torch.where(keep, key, _I32MAX), dim=-1, stable=True)
+    key_s, perm = torch.sort(_gate(key, pay, mask, stride), dim=-1, stable=True)
     key_s = key_s[:, :E]
     pay_s = torch.gather(pay, 1, perm[:, :E])
     valid = key_s != _I32MAX
@@ -187,11 +358,7 @@ def extract_cluster_moments(trinary: torch.Tensor, dense: torch.Tensor, *,
     pay2 = torch.gather(pay_s, 1, perm2[:, :E2])
     v2 = key2 != C
     slot2 = torch.where(v2, key2, C)
-    x2 = (pay2 & 0xFFF).to(torch.float32) * 0.5
-    y2 = ((pay2 >> 12) & 0xFFF).to(torch.float32) * 0.5
-    gp2 = pay2 >> 24
-    gx2 = ((gp2 & 0x3) - 1).to(torch.float32)
-    gy2 = (((gp2 >> 2) & 0x3) - 1).to(torch.float32)
+    x2, y2, gx2, gy2 = _pair_terms(pay2)
     w2 = v2.to(torch.float32)
 
     # --- per-cluster stats at E2: one batched one-hot f64 matmul ------------
@@ -201,22 +368,11 @@ def extract_cluster_moments(trinary: torch.Tensor, dense: torch.Tensor, *,
     onehot = (slot2[..., None] == torch.arange(C, dtype=slot2.dtype, device=dev)
               ).to(f64)                                            # (B, E2, C)
     ctot64 = onehot.mT @ F2.to(f64)                                # (B, C, 7)
-    ctot = ctot64.to(torch.float32)
-    safe = torch.clamp(ctot[..., 0], min=1.0)
-    # Sums of half-pixel coords are exact in f32 too, so the centroid is
-    # the reference's to the bit.
-    ccx = ctot[..., 1] / safe
-    ccy = ctot[..., 2] / safe
-    safe64 = safe.to(f64)
-    r2m = (ctot64[..., 3] / safe64 - (ctot64[..., 1] / safe64) ** 2
-           - (ctot64[..., 2] / safe64) ** 2).to(torch.float32)
-    cscale = torch.sqrt(torch.clamp(r2m, min=1e-12))
-    mean_dot = (ctot[..., 6] - ccx * ctot[..., 4] - ccy * ctot[..., 5]) / safe
-    dark = mean_dot > 0
+    ccx, ccy, r2c, cscale, dark = _cluster_stats(ctot64)
 
     # --- per-pair angular bin about the cluster centroid --------------------
     # One nonzero product per row: the fetch is exact.
-    paramC = torch.stack([ccx, ccy, torch.clamp(r2m, min=1e-12)], -1)  # (B, C, 3)
+    paramC = torch.stack([ccx, ccy, r2c], -1)                          # (B, C, 3)
     params = (onehot @ paramC.to(f64)).to(torch.float32)              # (B, E2, 3)
     cx2, cy2, r2_2 = params[..., 0], params[..., 1], params[..., 2]
     bins = _diamond_bin(x2 - cx2, y2 - cy2, K)

@@ -7,11 +7,15 @@ LAUNCH_COUNTERS names every counter, so code that counts or replays launches
 
 from __future__ import annotations
 
-from . import ccl, threshold
+from . import ccl, cluster_moments, threshold
 
 # kernel -> (wrapper module, name of its launch counter)
 LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launches"),
-                   "col": (ccl, "col_diag_launches")}
+                   "col": (ccl, "col_diag_launches"),
+                   "edge_count": (cluster_moments, "count_launches"),
+                   "edge_pairs": (cluster_moments, "pairs_launches"),
+                   "segments": (cluster_moments, "segments_launches"),
+                   "moments": (cluster_moments, "moments_launches")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -22,7 +22,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_SOURCES = ("threshold.cu", "ccl.cu")
+_SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu")
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
 # (kept in build_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,7 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Each takes the batch B first among its ints.
 _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_ccl_row", 3, 3),
-                 ("apriltag_ccl_col_diag", 3, 3))
+                 ("apriltag_ccl_col_diag", 3, 3),
+                 ("apriltag_cm_count", 3, 3),
+                 ("apriltag_cm_pairs", 5, 4),
+                 ("apriltag_cm_segments", 12, 8),
+                 ("apriltag_cm_moments", 8, 4))
 
 MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame
 

@@ -23,8 +23,7 @@ from isaac_ros_apriltag_tpu_torch import capture
 from isaac_ros_apriltag_tpu_torch.capture import GraphedCall
 from isaac_ros_apriltag_tpu_torch.convert import camera_from_reference, config_from_reference
 from isaac_ros_apriltag_tpu_torch.detector import build_batched_detect_fn
-from isaac_ros_apriltag_tpu_torch.ops.cuda import (LAUNCH_COUNTERS, ccl, launch_counts,
-                                                   set_launch_counts)
+from isaac_ros_apriltag_tpu_torch.ops.cuda import LAUNCH_COUNTERS, launch_counts, set_launch_counts
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
 
 H, W = 240, 320
@@ -289,7 +288,7 @@ def test_capture_error_reaches_caller(monkeypatch):
         fn(torch.ones(2, 2))
     assert not fn.graphs
     # The eager call counts its launch; the failed capture's is taken back.
-    assert launch_counts() == {"threshold": 1, "row": 0, "col": 0}
+    assert launch_counts() == {**{k: 0 for k in LAUNCH_COUNTERS}, "threshold": 1}
 
 
 def test_replay_error_reaches_caller():
@@ -300,24 +299,25 @@ def test_replay_error_reaches_caller():
 
 
 def test_replays_count_the_captured_launches(monkeypatch):
-    """An eager call and a replay each add 1 / 14 / 14; a capture adds none."""
+    """An eager call and a replay each add 1 / 14 / 14 and one launch of
+    each cluster kernel; a capture adds none."""
     for module, name in LAUNCH_COUNTERS.values():
         monkeypatch.setattr(module, name, 0)
+    per_call = {**{k: 1 for k in LAUNCH_COUNTERS}, "row": 14, "col": 14}
 
     def launching(x):
-        thr_kernel.launches += 1
-        ccl.row_launches += 14
-        ccl.col_diag_launches += 14
+        for k, (module, name) in LAUNCH_COUNTERS.items():
+            setattr(module, name, getattr(module, name) + per_call[k])
         return _scaled(x)
 
     rt = StubCuda()
     fn = GraphedCall(launching, runtime=rt)
     fn(torch.ones(2, 2))
-    assert launch_counts() == {"threshold": 1, "row": 14, "col": 14} and not rt.graphs
+    assert launch_counts() == per_call and not rt.graphs
     fn(torch.zeros(2, 2))                      # the capture, then its first replay
-    assert launch_counts() == {"threshold": 2, "row": 28, "col": 28} and len(rt.graphs) == 1
+    assert launch_counts() == {k: 2 * n for k, n in per_call.items()} and len(rt.graphs) == 1
     fn(torch.ones(2, 2))
-    assert launch_counts() == {"threshold": 3, "row": 42, "col": 42}
+    assert launch_counts() == {k: 3 * n for k, n in per_call.items()}
     assert rt.graphs[0].replays == 2
 
 

@@ -25,9 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CAPTURE_CASES, LONG_SHAPES, SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF,
-                        bench_inputs, edge_batch, free_port, map_problem, scan_batch, scan_case,
-                        scan_case_id, thresh_case_id, thresh_input)
+from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, LONG_SHAPES,
+                        SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, bench_inputs,
+                        check_cluster_case, cluster_cases, edge_batch, free_port, map_problem,
+                        scan_batch, scan_case, scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
                                           batched_detect_fn, build_spatial_front_fn,
@@ -36,6 +37,7 @@ from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig,
 from isaac_ros_apriltag_tpu_torch.parallel.slam import ba
 from isaac_ros_apriltag_tpu_torch import detector as tdetector
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl, launch_counts, set_launch_counts
+from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cluster_kernels
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
 from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
 from isaac_ros_apriltag_tpu_torch.utils.render import distort_image, render_tags, upright_pose
@@ -360,8 +362,9 @@ def test_replay_equals_eager_call(cuda, config, batch, backend):
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_replay_counts_launches(cuda, backend):
-    """A replay adds the launches its capture recorded: 1 / 14 / 14 for
-    backend 'cuda', none for the twins; the capture itself adds none."""
+    """A replay adds the launches its capture recorded: 1 / 14 / 14 and one
+    of each cluster kernel for backend 'cuda', none for the twins; the
+    capture itself adds none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
     n = 1 if backend == "cuda" else 0
@@ -370,7 +373,8 @@ def test_replay_counts_launches(cuda, backend):
         set_launch_counts({k: 0 for k in launch_counts()})
         fn(x)
         torch.cuda.synchronize()
-        assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n}
+        assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n,
+                                   **{k: n for k in CLUSTER_KERNELS}}
 
 
 def test_streaming_over_captured_call_equals_eager(cuda):
@@ -568,3 +572,37 @@ def test_map_ba_on_card_matches_cpu(cuda):
         ba.gauss_newton_step(p)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+_CLUSTER_CASES = {}
+
+
+@pytest.mark.parametrize("name", CLUSTER_CASE_NAMES)
+def test_cluster_kernels_match_plain_version(cuda, name):
+    """chip_smoke.py phase 23's checks on one case: the kernel path against
+    the plain version (integer outputs, centroid and scale bit-exact, bin
+    tables within one f32 ulp), one launch of each kernel, two calls and a
+    captured replay equal, each kernel against its plain version."""
+    if not _CLUSTER_CASES:
+        _CLUSTER_CASES.update(cluster_cases(cuda))
+    check_cluster_case(name, *_CLUSTER_CASES[name])
+
+
+def test_cluster_kernels_refuse_what_they_do_not_take(cuda):
+    tri = torch.zeros((1, 16, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        cluster_kernels.edge_count(tri, tri.to(torch.int64))
+    with pytest.raises(ValueError, match="same CUDA device"):
+        cluster_kernels.edge_count(tri, tri.to(torch.int32).cpu())
+    keys = torch.zeros((1, 1028), dtype=torch.int32, device=cuda)
+    num_edge = torch.zeros(1, dtype=torch.int32, device=cuda)
+    ovf = torch.zeros(1, dtype=torch.bool, device=cuda)
+    kw = dict(E=512, E2=512, max_clusters=16, min_cluster_pixels=24, max_perimeter=128)
+    with pytest.raises(ValueError, match="16-byte"):
+        cluster_kernels.top_segments(keys[:, 1:1025], num_edge, ovf, **kw)
+    with pytest.raises(ValueError, match="comp_overflow"):
+        cluster_kernels.top_segments(keys[:, :1024], num_edge, ovf.to(torch.int32), **kw)
+    with pytest.raises(ValueError, match="must hold max_clusters"):
+        cluster_kernels.extract_cluster_moments(tri, tri.to(torch.int32), comp_overflow=ovf,
+                                                max_edge_points=64, max_clusters=128,
+                                                min_cluster_pixels=24)

@@ -195,7 +195,7 @@ def test_ptxas_usage_reads_each_kernel():
 
 @pytest.mark.parametrize("script", [["chip_smoke.py"], ["torch_stage_profile.py"],
                                     ["torch_kernel_times.py"], ["torch_bench.py"],
-                                    ["torch_bench_memory.py"],
+                                    ["torch_bench_memory.py"], ["torch_bench_latency.py"],
                                     ["-m", "isaac_ros_apriltag_tpu_torch", "bench"]],
                          ids=lambda a: a[-1])
 def test_scripts_refuse_without_cuda(script):
