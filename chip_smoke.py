@@ -133,7 +133,8 @@ non-zero):
      paths whose counts come from graph replays (phase 4's three frames,
      the rig, the stream at depth 2, phase 21's two calls), each warm and
      run once under torch.profiler, whose count of each kernel by name
-     must equal the launch counters' and the expected counts;
+     must equal the launch counters' and the expected counts, with no
+     cummax kernel among them;
  23. cluster moments: the four cluster-moment kernels (csrc/
      cluster_moments.cu) on torch_bench.py's 720p b1 and 1080p b8 inputs,
      tests/test_noise.py's max_clusters=16 scene and the 1080p b8 batch with
@@ -144,8 +145,20 @@ non-zero):
      counted), each kernel against its plain version, two calls and a
      captured replay equal, one launch of each kernel a call; device ms of
      each kernel, its plain version and its bound, and of the stage (kernel
-     path, its torch.sort, the plain version's one-hot formulation).
-Every path launches K1 once, K2 and K3 once a scan round and each cluster
+     path, its torch.sort, the plain version's one-hot formulation);
+ 24. resolve: the four resolve kernels (csrc/resolve.cu: count, tile sums,
+     scan, map) on the phase-1 and phase-2 labels of torch_bench.py's 720p
+     b1 and 1080p b8 inputs, the 1080p b8 input at R = RESOLVE_SMALL_R, a
+     speckle batch whose phase-1 groups pass R, and synthetic flat frames
+     for the twin's slot R - 1 and its R = 65536 clamp: the contraction, the
+     rank-mode and the flat-mode resolve against the twin bit for bit on
+     every field, one launch of each kernel a call, two calls and a
+     captured replay equal, each kernel against its plain version bit for
+     bit; device ms of each kernel (its plain version, its bound, one
+     library call computing the same function) and of the stage against
+     the twin.
+Every path launches K1 once, K2 and K3 once a scan round, each resolve
+kernel once a resolve call (twice in the two-phase flow) and each cluster
 kernel once a call. A path counted on an eager call reads the wrappers' counters, which each
 wrapper adds to where it launches its kernel; a replay adds the counts its
 capture recorded (capture.GraphedCall), which phase 22 holds against the
@@ -219,8 +232,11 @@ CAPTURE_TURN_CALLS = 20       # calls per timed turn
 KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "col": "col_diag_kernel", "edge_count": "cm_edge_count_kernel",
                 "edge_pairs": "cm_edge_pairs_kernel", "segments": "cm_segments_kernel",
-                "moments": "cm_moments_kernel"}
+                "moments": "cm_moments_kernel", "resolve_count": "resolve_count_kernel",
+                "resolve_tiles": "resolve_tile_sums_kernel",
+                "resolve_scan": "resolve_scan_kernel", "resolve_map": "resolve_map_kernel"}
 CLUSTER_KERNELS = ("edge_count", "edge_pairs", "segments", "moments")   # once a detect call
+CUMMAX_KERNEL = "dim_with_indices"   # torch's cummax/cummin scan kernels' names hold it
 # Phase 23: tests/test_noise.py's max_clusters=16 scene (640x480, fx 420:
 # two 0.28 m tags at 1.2 m, noise 3), and the slot budget that overflows a
 # 1080p b8 batch's top-C clusters (E2 = 128 x 8 pairs), with a size gate
@@ -241,6 +257,31 @@ CLUSTER_REPLACES = {"edge_count": "isaac_ros_apriltag_tpu/ops/cluster_moments.py
                     "edge_pairs": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:142",
                     "segments": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:202",
                     "moments": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:273"}
+RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan",
+                   "resolve_map")                 # once a resolve call, twice a two-phase call
+# The reference's XLA code each resolve kernel replaces (it has no Pallas
+# kernel there): the pixel sort whose groups the count finds, the cumsum of
+# group starts, the second sort that compacts the first R groups, and the
+# packed-cummax broadcast with the unsort.
+RESOLVE_REPLACES = {"resolve_count": "isaac_ros_apriltag_tpu/ops/resolve.py:145",
+                    "resolve_tiles": "isaac_ros_apriltag_tpu/ops/resolve.py:150",
+                    "resolve_scan": "isaac_ros_apriltag_tpu/ops/resolve.py:156",
+                    "resolve_map": "isaac_ros_apriltag_tpu/ops/resolve.py:233"}
+# Phase 24: a capacity the 1080p b8 batch overflows, a speckle batch (the
+# tests' random trinary) whose phase-1 groups pass R = N / 8, and flat
+# synthetic frames (labels = flat index) with one group doubled, at a
+# capacity under their group count: the twin's slot R - 1 is never eligible
+# ((doubled group, eligible components) pairs), and at R = 65536 the groups
+# past 65535 take its dense id.
+RESOLVE_SMALL_R = 256
+RESOLVE_SPECKLE = dict(shape=(2, 540, 960), p=(0.4, 0.2, 0.4), seed=5)
+RESOLVE_SYNTH_SIDE = 300
+RESOLVE_SLOT_R = 65000
+RESOLVE_SLOT_CASES = ((64999, 0), (64998, 1))
+RESOLVE_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES) + (
+    f"1080p b8, R {RESOLVE_SMALL_R}", "speckle, phase-1 groups past R",
+    *(f"slot R - 1, group {g} doubled, R {RESOLVE_SLOT_R}" for g, _ in RESOLVE_SLOT_CASES),
+    "R 65536 clamp, one chain")
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -723,12 +764,15 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def _want(frames: int = 1, rounds: int = SCAN_ROUNDS) -> dict:
+def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict:
     """The launches of `frames` detect calls (or batched calls) of `rounds`
-    scan rounds each: K1 once, K2 and K3 once a round, the four cluster
-    kernels once."""
+    scan rounds and `resolves` resolve calls each (2 in the two-phase flow,
+    the contraction and the final resolve; 1 in the flat and jumps flows):
+    K1 once, K2 and K3 once a round, the four resolve kernels once a resolve
+    call, the four cluster kernels once."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
-            **{k: frames for k in CLUSTER_KERNELS}}
+            **{k: frames for k in CLUSTER_KERNELS},
+            **{k: resolves * frames for k in RESOLVE_KERNELS}}
 
 
 def _reset_launches() -> None:
@@ -751,11 +795,16 @@ def _launches() -> dict:
     return launch_counts()
 
 
-def _profiled_kernels(prof) -> dict:
-    """How often each kernel ran on the card in a torch.profiler trace, by name."""
+def _device_kernels(prof) -> list[str]:
+    """The names of the kernels that ran on the card in a torch.profiler trace."""
     import torch
 
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _profiled_kernels(prof) -> dict:
+    """How often each kernel ran on the card in a torch.profiler trace, by name."""
+    names = _device_kernels(prof)
     return {k: sum(part in n for n in names) for k, part in KERNEL_NAMES.items()}
 
 
@@ -765,8 +814,10 @@ def _counted(what: str):
     the block, holds each kernel's count (every count is set to 0 before the
     block). torch.profiler watches the block, and the count it sees of each
     kernel by name must equal its wrapper's count (a replayed graph's counts
-    are added by capture.GraphedCall, not by a wrapper), else it raises.
-    Used in a fresh process only (profiled_replays)."""
+    are added by capture.GraphedCall, not by a wrapper), and no cummax
+    kernel (torch's scans with indices, which the resolve kernels replace)
+    may run, else it raises. Used in a fresh process only
+    (profiled_replays)."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
@@ -778,6 +829,9 @@ def _counted(what: str):
     if seen != counts:
         raise AssertionError(f"{what}: the launch counters say {counts}, torch.profiler saw "
                              f"{seen}")
+    cummax = [n for n in _device_kernels(prof) if CUMMAX_KERNEL in n]
+    if cummax:
+        raise AssertionError(f"{what}: {len(cummax)} cummax kernels ran ({cummax[0]})")
 
 
 def oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu: str, two_phase_fn) -> dict:
@@ -799,7 +853,7 @@ def oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu: str, two_phase_fn) -
     _reset_launches()
     det, st = jfn["cuda"](frames8)
     counts = _launches()
-    want = _want(rounds=cfg.ccl_rounds)
+    want = _want(rounds=cfg.ccl_rounds, resolves=1)
     if counts != want:
         raise AssertionError(f"jumps-flow launch counts {counts} != expected {want}")
     K = cam_dev.K.cpu().numpy()
@@ -864,6 +918,7 @@ def slam_phase(gpu: str) -> dict:
     dev = torch.device("cuda")
     cam, frames, gt = slam_orbit(SLAM_FRAMES, SLAM_TAGS, SLAM_TAG_SIZE, SLAM_NOISE)
     rounds = {"scan": SCAN_ROUNDS, "jumps": DetectorConfig().ccl_rounds}
+    resolves = {"scan": 2, "jumps": 1}
     counts = {k: 0 for k in _want()}
     chains = {}
     for flow in ("scan", "jumps"):
@@ -878,7 +933,7 @@ def slam_phase(gpu: str) -> dict:
             map_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
             if backend == "cuda":
                 got = _launches()
-                want = _want(len(frames), rounds[flow])
+                want = _want(len(frames), rounds[flow], resolves[flow])
                 if got != want:
                     raise AssertionError(f"slam ({flow}) launch counts {got} != expected {want}")
                 counts = {k: counts[k] + got[k] for k in counts}
@@ -1081,31 +1136,48 @@ def bench_inputs(config: str, batch: int, dev, calls: int = CAPTURE_CALLS):
     return DetectorConfig(**spec["detector"]), cam.to(dev), [x[k:k + batch] for k in range(calls)]
 
 
+def front_trinary(cfg, images):
+    """A (B, H, W) uint8 batch on the card through the detector's front on
+    backend 'cuda': grayscale, decimate, pad, threshold (K1)."""
+    from isaac_ros_apriltag_tpu_torch.detector import _decimate, _pad_to_tiles
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_ops
+    from isaac_ros_apriltag_tpu_torch.ops.grayscale import grayscale
+
+    gray = grayscale(images, "mono8", batched=True).contiguous()
+    seg = _pad_to_tiles(_decimate(gray, cfg.quad_decimate), cfg.tile_size).contiguous()
+    return thr_ops.adaptive_threshold(seg, cfg.tile_size, cfg.min_white_black_diff)
+
+
+def labels_of(cfg, tri):
+    """The two-phase CCL of a (B, H, W) trinary batch on the card, backend
+    'cuda', as the detector runs it: (validity, phase-1 labels, phase-2
+    labels, rank table, R, the contraction's overflow)."""
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+
+    valid = tri != 127
+    R = cfg.effective_capacities(*tri.shape[-2:])[1]
+    lab1, _ = ccl_ops.ccl_scan(tri, cfg.ccl_scan_rounds, backend="cuda")
+    rank_img, table, ovf = rk.resolve_roots_rank(lab1, valid, max_components=R,
+                                                 chain_steps=cfg.ccl_contraction_steps)
+    lab2, _ = ccl_ops.ccl_scan(tri, cfg.ccl_phase2_rounds, backend="cuda", label0=rank_img)
+    return valid, lab1, lab2, table, R, ovf
+
+
 def cluster_inputs(cfg, images):
     """The cluster-moment stage's inputs for a (B, H, W) uint8 batch on the
     card, through the detector's front on backend 'cuda' (as detect_tail
     feeds the stage): (trinary, dense ids, comp_overflow, the stage's
     keyword arguments)."""
-    from isaac_ros_apriltag_tpu_torch.detector import _decimate, _pad_to_tiles
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_ops
-    from isaac_ros_apriltag_tpu_torch.ops.grayscale import grayscale
-    from isaac_ros_apriltag_tpu_torch.ops.resolve import resolve_components, resolve_roots_rank
+    from isaac_ros_apriltag_tpu_torch.ops.cuda.resolve import resolve_components
 
-    gray = grayscale(images, "mono8", batched=True).contiguous()
-    seg = _pad_to_tiles(_decimate(gray, cfg.quad_decimate), cfg.tile_size).contiguous()
-    tri = thr_ops.adaptive_threshold(seg, cfg.tile_size, cfg.min_white_black_diff)
-    valid = tri != 127
-    E, R = cfg.effective_capacities(*tri.shape[-2:])
-    lab, _ = ccl_ops.ccl_scan(tri, cfg.ccl_scan_rounds, backend="cuda")
-    rank_img, table, ovf = resolve_roots_rank(lab, valid, max_components=R,
-                                              chain_steps=cfg.ccl_contraction_steps)
-    lab, _ = ccl_ops.ccl_scan(tri, cfg.ccl_phase2_rounds, backend="cuda", label0=rank_img)
+    tri = front_trinary(cfg, images)
+    valid, _, lab, table, R, ovf = labels_of(cfg, tri)
     res = resolve_components(lab, valid, min_component_pixels=cfg.min_component_pixels,
                              max_components=R, chain_steps=cfg.ccl_resolve_steps,
                              rank_table=table)
-    kw = dict(max_edge_points=E, max_clusters=cfg.max_clusters,
-              min_cluster_pixels=cfg.min_cluster_pixels,
+    kw = dict(max_edge_points=cfg.effective_capacities(*tri.shape[-2:])[0],
+              max_clusters=cfg.max_clusters, min_cluster_pixels=cfg.min_cluster_pixels,
               max_cluster_points=cfg.max_cluster_points)
     return tri, res.dense, res.overflow | ovf, kw
 
@@ -1334,6 +1406,245 @@ def cluster_phase(gpu: str) -> dict:
     return out
 
 
+def resolve_cases(dev) -> dict:
+    """Phase 24's inputs, RESOLVE_CASE_NAMES -> list of (call, keyword
+    arguments, labels, validity, expected facts): torch_bench.py's 720p b1
+    and 1080p b8 inputs, the 1080p b8 input at R = RESOLVE_SMALL_R and a
+    speckle batch whose phase-1 groups pass R, each with the contraction
+    (phase-1 labels), the final resolve in rank mode (phase-2 labels) and
+    the flat-mode resolve (phase-1 labels); the synthetic flat frames of
+    RESOLVE_SLOT_CASES and the R = 65536 clamp frame (labels max(p - 1, 0),
+    one chain: with min_component_pixels 0 every group's dense id is 0,
+    also past group 65535)."""
+    import dataclasses
+
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch import DetectorConfig
+
+    def front_calls(cfg, tri):
+        valid, lab1, lab2, table, R, _ = labels_of(cfg, tri)
+        res = dict(min_component_pixels=cfg.min_component_pixels, max_components=R,
+                   chain_steps=cfg.ccl_resolve_steps)
+        return [("roots_rank", dict(max_components=R, chain_steps=cfg.ccl_contraction_steps),
+                 lab1, valid, {}),
+                ("components", dict(res, rank_table=table), lab2, valid, {}),
+                ("components", res, lab1, valid, {})]
+
+    cases, bench = [], {}
+    for config, batch in CAPTURE_CASES:
+        cfg, _, inputs = bench_inputs(config, batch, dev, calls=1)
+        bench[batch] = cfg, inputs[0]
+        cases.append(front_calls(cfg, front_trinary(cfg, inputs[0])))
+    cfg8, in8 = bench[BATCH]
+    small = dataclasses.replace(cfg8, max_components=RESOLVE_SMALL_R)
+    cases.append(front_calls(small, front_trinary(small, in8)))
+    rng = np.random.default_rng(RESOLVE_SPECKLE["seed"])
+    tri = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8),
+                                      size=RESOLVE_SPECKLE["shape"],
+                                      p=RESOLVE_SPECKLE["p"])).to(dev)
+    cfg = DetectorConfig(tag_size=TAG_SIZE)
+    cases.append(front_calls(cfg, tri))
+    side = RESOLVE_SYNTH_SIDE
+    ones = torch.ones((1, side, side), dtype=torch.bool, device=dev)
+    for g, eligible in RESOLVE_SLOT_CASES:
+        lab = torch.arange(side * side, dtype=torch.int32)
+        lab[g + 1] = g
+        lab = lab.reshape(ones.shape).to(dev)
+        cases.append([
+            ("components", dict(min_component_pixels=2, max_components=RESOLVE_SLOT_R,
+                                chain_steps=3), lab, ones, dict(n_eligible=eligible)),
+            ("roots_rank", dict(max_components=RESOLVE_SLOT_R, chain_steps=3), lab, ones, {})])
+    lab = (torch.arange(side * side, dtype=torch.int32) - 1).clamp(min=0)
+    lab = lab.reshape(ones.shape).to(dev)
+    cases.append([
+        ("components", dict(min_component_pixels=0, max_components=1 << 16, chain_steps=17),
+         lab, ones, dict(dense=0)),
+        ("roots_rank", dict(max_components=1 << 16, chain_steps=17), lab, ones, {})])
+    return dict(zip(RESOLVE_CASE_NAMES, cases, strict=True))
+
+
+def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) -> dict:
+    """One resolve call of phase 24: the kernel path against the twin bit
+    for bit (every field; `facts`' n_eligible or dense id where given), one
+    launch of each resolve kernel, two calls and a captured replay equal,
+    and each kernel against its plain version on the inputs the call gave
+    it. Raises on a difference; returns the kernels' inputs and outputs
+    (`log`), each kernel's largest difference from its plain version
+    (`errs`), the results and the stage and twin as functions."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+
+    rank = call == "roots_rank"
+    twin_fn = plain.resolve_roots_rank if rank else plain.resolve_components
+    kern_fn = rk.resolve_roots_rank if rank else rk.resolve_components
+    tables = plain.resolve_roots_rank_tables if rank else plain.resolve_components_tables
+    log = {}
+
+    def recorded(name, fn):
+        def run(*args):
+            log[name] = (args, fn(*args))
+            return log[name][1]
+        return run
+
+    def stage():
+        return kern_fn(lab, valid, **kw)
+
+    one = {k: int(k in RESOLVE_KERNELS) for k in _want()}
+    _reset_launches()
+    got = stage()
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"resolve {call}, {what}: launches {counts} != {one}")
+    for i, (a, b) in enumerate(zip(got, twin_fn(lab, valid, **kw))):
+        if not _same(a, b):
+            raise AssertionError(f"resolve {call}, {what}: field {i} differs from the twin "
+                                 f"(max abs err {_max_abs_err(a, b)})")
+    if "n_eligible" in facts and int(got.n_eligible.sum()) != facts["n_eligible"]:
+        raise AssertionError(f"{what}: n_eligible {got.n_eligible.tolist()}, not "
+                             f"{facts['n_eligible']}")
+    if "dense" in facts and not bool((got.dense == facts["dense"]).all()):
+        raise AssertionError(f"{what}: a dense id other than {facts['dense']}")
+    if not all(_same(a, b) for a, b in zip(stage(), got)):
+        raise AssertionError(f"resolve {call}, {what}: two calls differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        stage()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = stage()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(_same(a, b) for a, b in zip(static, got)):
+        raise AssertionError(f"resolve {call}, {what}: the captured replay differs from eager")
+    del graph, static
+    passes = plain.TablePasses(recorded("count", rk.count), recorded("scan", rk.scan),
+                               recorded("map", rk.map_pixels))
+    if not all(_same(a, b) for a, b in zip(tables(lab, valid, passes=passes, **kw), got)):
+        raise AssertionError(f"resolve {call}, {what}: the recorded passes differ")
+    (cl, cv, S), cnt = log["count"]
+    (_, R), (inv, D, n_groups) = log["scan"]
+    (_, _, _, table, fill), mapped = log["map"]
+    tsum = rk.tile_sums(cnt)
+    log["tiles"] = ((cnt,), tsum)
+    checks = {"resolve_count": [(cnt, plain.count_plain(cl, cv, S))],
+              "resolve_tiles": [(tsum, plain.tile_sums_plain(cnt))],
+              "resolve_scan": list(zip(rk.scan_ranks(cnt, tsum, R), plain.scan_plain(cnt, R)))
+              + list(zip((inv, D, n_groups), plain.scan_plain(cnt, R))),
+              "resolve_map": [(mapped, plain.map_plain(cl, cv, inv, table, fill))]}
+    errs = {}
+    for k, pairs in checks.items():
+        errs[k] = max(_max_abs_err(a, b) for a, b in pairs)
+        if not all(_same(a, b) for a, b in pairs):
+            raise AssertionError(f"{k} kernel, {call}, {what}: differs from its plain version")
+    return dict(log=log, errs=errs, got=got, stage=stage,
+                twin=lambda: twin_fn(lab, valid, **kw))
+
+
+def resolve_times(c: dict) -> dict:
+    """Device ms of each resolve kernel (kernel, plain version, bound,
+    library call) on one call's inputs (check_resolve_call's `log`)."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+
+    log = c["log"]
+    (cl, cv, S), cnt = log["count"]
+    (_, R), (inv, D, n_groups) = log["scan"]
+    (_, _, _, table, fill), mapped = log["map"]
+    tsum = log["tiles"][1]
+    B = cl.shape[0]
+    # The library yardsticks: one scatter_add_ of the pixels' keys, one
+    # cumsum of the presence table, one gather of a per-label table.
+    key = torch.where(cv & (cl >= 0) & (cl < S), cl.to(torch.int64), S)
+    ones = torch.ones(key.shape, dtype=torch.int32, device=cl.device)
+    acc = torch.zeros((B, S + 1), dtype=torch.int32, device=cl.device)
+    present = (cnt > 0).to(torch.int32)
+    lut = torch.cat([torch.gather(table, 1, inv.to(torch.int64)),
+                     torch.full((B, 1), fill, dtype=torch.int32, device=cl.device)], 1)
+    pix = torch.where(key < S, key, S + 1)
+    timed = {
+        "resolve_count": (lambda: rk.count(cl, cv, S), lambda: plain.count_plain(cl, cv, S),
+                          _bound_ms(cl, cv, cnt), lambda: acc.scatter_add_(1, key, ones)),
+        "resolve_tiles": (lambda: rk.tile_sums(cnt), lambda: plain.tile_sums_plain(cnt),
+                          _bound_ms(cnt, tsum), None),
+        "resolve_scan": (lambda: rk.scan_ranks(cnt, tsum, R), lambda: plain.scan_plain(cnt, R),
+                         _bound_ms(cnt, tsum, inv, D, n_groups),
+                         lambda: torch.cumsum(present, -1)),
+        "resolve_map": (lambda: rk.map_pixels(cl, cv, inv, table, fill),
+                        lambda: plain.map_plain(cl, cv, inv, table, fill),
+                        _bound_ms(cl, cv, inv, table, mapped), lambda: torch.gather(lut, 1, pix)),
+    }
+    if not _same(torch.gather(lut, 1, pix).to(torch.int32), mapped):
+        raise AssertionError("the map's library yardstick computes another function")
+    return {k: dict(ms=_device_ms(kern, 20), plain_ms=_device_ms(twin, 5), bound_ms=bound,
+                    library_ms=_device_ms(lib, 20) if lib else None)
+            for k, (kern, twin, bound, lib) in timed.items()}
+
+
+def resolve_phase(gpu: str) -> dict:
+    """Phase 24: check_resolve_call on each call of resolve_cases, and device
+    times at torch_bench.py's two shapes. Returns kernel -> {max_abs_err,
+    and for 'b1' (720p) and 'batch8' (1080p): shape, ms, plain_ms,
+    bound_ms, library_ms, each summed over a detect call's two resolve
+    calls (the contraction and the rank-mode resolve), and by_call}."""
+    import torch
+
+    dev = torch.device("cuda")
+    out = {k: {"max_abs_err": 0.0} for k in RESOLVE_KERNELS}
+    lines, stage_lines = [], []
+    bench_names = {f"{config} b{batch}": batch for config, batch in CAPTURE_CASES}
+    for name, calls in resolve_cases(dev).items():
+        facts = []
+        for call, kw, lab, valid, expect in calls:
+            c = check_resolve_call(name, call, dict(kw), lab, valid, expect)
+            for k in RESOLVE_KERNELS:
+                out[k]["max_abs_err"] = max(out[k]["max_abs_err"], c["errs"][k])
+            mode = ("contraction" if call == "roots_rank" else
+                    "rank mode" if "rank_table" in kw else "flat mode")
+            (_, _, S), _ = c["log"]["count"]
+            (_, R), (_, _, n_groups) = c["log"]["scan"]
+            ovf = c["got"][2] if call == "roots_rank" else c["got"].overflow
+            facts.append(f"{mode} (S {S}, R {R}): groups {n_groups.tolist()}, overflow "
+                         f"{ovf.tolist()}")
+            if name not in bench_names:
+                continue
+            stage_ms, twin_ms = _device_ms(c["stage"], 10), _device_ms(c["twin"], 5)
+            stage_lines.append(f"{name} {mode}: kernel path {stage_ms:.4f}, twin {twin_ms:.4f}, "
+                               f"bound {_bound_ms(lab, valid, *c['got']):.4f}")
+            if mode == "flat mode":
+                continue          # the detect call runs the contraction and the rank mode
+            batch = bench_names[name]
+            tag = "b1" if batch == 1 else f"batch{batch}"
+            for k, t in resolve_times(c).items():
+                acc = out[k].setdefault(tag, dict(shape=list(lab.shape), ms=0.0, plain_ms=0.0,
+                                                  bound_ms=0.0, library_ms=None, by_call={}))
+                for f in ("ms", "plain_ms", "bound_ms"):
+                    acc[f] += t[f]
+                if t["library_ms"] is not None:
+                    acc["library_ms"] = (acc["library_ms"] or 0.0) + t["library_ms"]
+                acc["by_call"][mode] = t
+        lines.append(f"{name}: " + "; ".join(facts))
+    torch.cuda.synchronize()
+    print(f"[24 resolve] the kernel path (one launch of each of {list(RESOLVE_KERNELS)} a "
+          f"resolve call) against the twin bit for bit on every field, two calls and a captured "
+          f"replay equal, each kernel against its plain version bit for bit: "
+          + " | ".join(lines) + f"; on {gpu}: device ms a call of the stage "
+          + "; ".join(stage_lines) + "; a kernel a detect call (the contraction's and the "
+          "rank-mode resolve's summed; kernel / plain / bound / library ms) "
+          + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
+                      f"{v[t]['bound_ms']:.4f} / {v[t]['library_ms']}"
+                      for k, v in out.items() for t in ("b1", f"batch{BATCH}"))
+          + "; by call: " + json.dumps({k: {t: v[t]["by_call"] for t in ("b1", f"batch{BATCH}")}
+                        for k, v in out.items()}), flush=True)
+    return out
+
+
 def capture_phase(gpu: str) -> dict:
     """Phase 21: the captured detect call against the eager one."""
     import dataclasses
@@ -1497,6 +1808,7 @@ def main() -> int:
     from isaac_ros_apriltag_tpu_torch.detector import _decimate, _pad_to_tiles
     from isaac_ros_apriltag_tpu_torch.ops.cuda import _lib
     from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl as ccl_ops
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as resolve_kernels
     from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_ops
     from isaac_ros_apriltag_tpu_torch.ops.grayscale import grayscale
     from isaac_ros_apriltag_tpu_torch.ops.resolve import resolve_roots_rank
@@ -1576,10 +1888,11 @@ def main() -> int:
     valid = tri != 127
     _, R_eff = cfg.effective_capacities(sh, sw)
     outs = {}
-    for backend in ("cuda", "torch"):
+    for backend, contract in (("cuda", resolve_kernels.resolve_roots_rank),
+                              ("torch", resolve_roots_rank)):
         lab1, conv1 = ccl_ops.ccl_scan(tri, cfg.ccl_scan_rounds, backend=backend)
-        rank_img, table, ovf = resolve_roots_rank(lab1, valid, max_components=R_eff,
-                                                  chain_steps=cfg.ccl_contraction_steps)
+        rank_img, table, ovf = contract(lab1, valid, max_components=R_eff,
+                                        chain_steps=cfg.ccl_contraction_steps)
         lab2, conv2 = ccl_ops.ccl_scan(tri, cfg.ccl_phase2_rounds, backend=backend,
                                        label0=rank_img)
         outs[backend] = dict(label1=lab1, converged1=conv1, rank_img=rank_img,
@@ -1595,7 +1908,8 @@ def main() -> int:
           f"path), row and column scans (one round, random; "
           f"{len(SCAN_CASES)} adversarial cases, shapes {list(SCAN_SHAPES)}; a batch of "
           f"{et.shape[0]} {sh}x{sw} frames that differ only in their edge rows, also each alone), "
-          f"two-phase CCL {cfg.ccl_scan_rounds}+{cfg.ccl_phase2_rounds} on the scene "
+          f"two-phase CCL {cfg.ccl_scan_rounds}+{cfg.ccl_phase2_rounds} on the scene, the "
+          f"contraction by the resolve kernels against the twin's "
           f"(labels, converged, rank_img, rank_table, overflow); max abs err {errs}",
           flush=True)
 
@@ -1628,7 +1942,8 @@ def main() -> int:
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     print(f"[5 launches] {counts} over {n} frames "
-          f"(1 / {SCAN_ROUNDS} / {SCAN_ROUNDS} / 1 / 1 / 1 / 1 per frame)", flush=True)
+          f"(1 / {SCAN_ROUNDS} / {SCAN_ROUNDS} / 1 / 1 / 1 / 1 / 2 / 2 / 2 / 2 per frame)",
+          flush=True)
 
     # --- 6. times -----------------------------------------------------------
     f0 = frames[0]
@@ -2005,7 +2320,7 @@ def main() -> int:
     counts_sp = _launches()
     peak_sp = torch.cuda.max_memory_allocated()
     sp_rounds = max(3, SP_BANDS - 1) * cfg.ccl_rounds
-    want_sp = _want(rounds=sp_rounds)
+    want_sp = _want(rounds=sp_rounds, resolves=1)
     if counts_sp != want_sp:
         raise AssertionError(f"spatial launch counts {counts_sp} != expected {want_sp}")
     worst_sp = _truth_error(det_sp, sp_tags, cam_sp.K.numpy())
@@ -2098,7 +2413,7 @@ def main() -> int:
     _reset_launches()
     detf, stf = ffn["cuda"](frames8)
     counts_flat = _launches()
-    want_flat = _want(rounds=cfg.ccl_scan_rounds)
+    want_flat = _want(rounds=cfg.ccl_scan_rounds, resolves=1)
     if counts_flat != want_flat:
         raise AssertionError(f"flat-flow launch counts {counts_flat} != expected {want_flat}")
     worst_f = max(_truth_error(detf.frame(b), tg, K) for b, (_, tg, _) in enumerate(bscenes))
@@ -2164,6 +2479,9 @@ def main() -> int:
     # --- 23. the cluster-moment kernels against their plain versions ---------------
     cluster = cluster_phase(gpu)
 
+    # --- 24. the resolve kernels against the twin and their plain versions ------------
+    resolve = resolve_phase(gpu)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -2206,7 +2524,23 @@ def main() -> int:
          f"bound_ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["bound_ms"],
          f"share_batch{BATCH}": (cluster[k][f"batch{BATCH}"]["bound_ms"]
                                  / cluster[k][f"batch{BATCH}"]["ms"])}
-        for k in CLUSTER_KERNELS]}))
+        for k in CLUSTER_KERNELS] + [
+        {"name": k, "route": "cuda", "source": "isaac_ros_apriltag_tpu_torch/csrc/resolve.cu",
+         "replaces": RESOLVE_REPLACES[k],
+         "launches": sum(c[k] for c in paths.values()),
+         "launches_by_path": {p: c[k] for p, c in paths.items()},
+         "max_abs_err": resolve[k]["max_abs_err"], "shape": resolve[k]["b1"]["shape"],
+         "ms": resolve[k]["b1"]["ms"], "plain_ms": resolve[k]["b1"]["plain_ms"],
+         "bound_ms": resolve[k]["b1"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": resolve[k]["b1"]["library_ms"],
+         f"shape_batch{BATCH}": resolve[k][f"batch{BATCH}"]["shape"],
+         f"ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["ms"],
+         f"plain_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["plain_ms"],
+         f"bound_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["bound_ms"],
+         f"library_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["library_ms"],
+         f"share_batch{BATCH}": (resolve[k][f"batch{BATCH}"]["bound_ms"]
+                                 / resolve[k][f"batch{BATCH}"]["ms"])}
+        for k in RESOLVE_KERNELS]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -11,9 +11,11 @@ frame. Stages: grayscale, quad_decimate mean-pool, adaptive threshold
 (kernel K1), two-phase scan CCL (kernels K2 and K3, with the rank-space
 contraction between the phases; with ccl_phase2_rounds=0 one scan phase on
 flat-index labels; with ccl_flow='jumps' one scan phase with pointer jumps
-between rounds), resolve, cluster moments (four kernels around one sort,
-ops/cuda/cluster_moments.py), quad fit, top-2T by fit quality, edge
-refinement, decode, dedupe, top-T by decision margin, center and pose.
+between rounds), resolve (four kernels a call around torch ops on the R
+slots, ops/cuda/resolve.py: the contraction and the final resolve), cluster
+moments (four kernels around one sort, ops/cuda/cluster_moments.py), quad
+fit, top-2T by fit quality, edge refinement, decode, dedupe, top-T by
+decision margin, center and pose.
 Backend 'cuda' runs the kernels; 'torch' runs their plain twins.
 Everything else is plain PyTorch on the detector's device.
 """
@@ -30,6 +32,7 @@ from .models.families import TagFamily, get_family
 from .ops.cluster_moments import extract_cluster_moments
 from .ops.cuda import ccl as ccl_ops
 from .ops.cuda import cluster_moments as cluster_kernels
+from .ops.cuda import resolve as resolve_kernels
 from .ops.cuda import threshold as threshold_kernel
 from .ops.decode import decode_quads
 from .ops.grayscale import grayscale
@@ -123,11 +126,13 @@ def detect_tail(cfg: DetectorConfig, camera: CameraModel, family: TagFamily,
     `extra_overflow` ORs an upstream capacity flag (the contraction's) into
     the cluster stage's overflow."""
     E_eff, R_eff = cfg.effective_capacities(*trinary.shape[-2:])
-    res = resolve_components(label, trinary != 127,
-                             min_component_pixels=cfg.min_component_pixels,
-                             max_components=R_eff,
-                             chain_steps=cfg.ccl_resolve_steps,
-                             rank_table=rank_table)
+    resolve = (resolve_kernels.resolve_components if cfg.backend == "cuda"
+               else resolve_components)
+    res = resolve(label, trinary != 127,
+                  min_component_pixels=cfg.min_component_pixels,
+                  max_components=R_eff,
+                  chain_steps=cfg.ccl_resolve_steps,
+                  rank_table=rank_table)
     comp_overflow = res.overflow if extra_overflow is None else res.overflow | extra_overflow
     moments = (cluster_kernels.extract_cluster_moments if cfg.backend == "cuda"
                else extract_cluster_moments)
@@ -220,7 +225,9 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
     device the camera's tensors lie on; backend 'cuda' needs that to be a
     CUDA device and raises otherwise. Whatever B, one call makes the same
     kernel launches: K1 once, K2 and K3 once per scan round
-    (ccl_scan_rounds + ccl_phase2_rounds). With ccl_phase2_rounds=0 the
+    (ccl_scan_rounds + ccl_phase2_rounds), each resolve kernel once per
+    resolve call (the contraction and the final resolve) and each cluster
+    kernel once. With ccl_phase2_rounds=0 the
     phase-1 labels go to the flat-label resolve, with no contraction. With
     ccl_flow='jumps' (the reference's 'xla' flow) the CCL is ccl_rounds
     scan rounds with ccl_jumps pointer jumps every ccl_jump_every rounds,
@@ -243,8 +250,10 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
         if camera.K.device.type != "cuda":
             raise ValueError(f"backend 'cuda' needs a CUDA device, got {camera.K.device}")
         threshold = threshold_kernel.adaptive_threshold
+        contract = resolve_kernels.resolve_roots_rank
     else:
         threshold = adaptive_threshold
+        contract = resolve_roots_rank
 
     def detect(images: torch.Tensor) -> tuple[Detections, FrameStats]:
         if images.device != camera.K.device:
@@ -265,7 +274,7 @@ def build_batched_detect_fn(config: DetectorConfig, camera: CameraModel,
                                scan_converged, with_pose=with_pose)
         # Rank-space contraction + a short second scan phase.
         R_eff = cfg.effective_capacities(*trinary.shape[-2:])[1]
-        rank_img, rank_table, extra_overflow = resolve_roots_rank(
+        rank_img, rank_table, extra_overflow = contract(
             label, trinary != 127, max_components=R_eff,
             chain_steps=cfg.ccl_contraction_steps)
         label, scan_converged = ccl_ops.ccl_scan(

@@ -7,7 +7,7 @@ LAUNCH_COUNTERS names every counter, so code that counts or replays launches
 
 from __future__ import annotations
 
-from . import ccl, cluster_moments, threshold
+from . import ccl, cluster_moments, resolve, threshold
 
 # kernel -> (wrapper module, name of its launch counter)
 LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launches"),
@@ -15,7 +15,11 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "edge_count": (cluster_moments, "count_launches"),
                    "edge_pairs": (cluster_moments, "pairs_launches"),
                    "segments": (cluster_moments, "segments_launches"),
-                   "moments": (cluster_moments, "moments_launches")}
+                   "moments": (cluster_moments, "moments_launches"),
+                   "resolve_count": (resolve, "count_launches"),
+                   "resolve_tiles": (resolve, "tiles_launches"),
+                   "resolve_scan": (resolve, "scan_launches"),
+                   "resolve_map": (resolve, "map_launches")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -22,7 +22,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu")
+_SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu", "resolve.cu")
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
 # (kept in build_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,7 +37,11 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_cm_count", 3, 3),
                  ("apriltag_cm_pairs", 5, 4),
                  ("apriltag_cm_segments", 12, 8),
-                 ("apriltag_cm_moments", 8, 4))
+                 ("apriltag_cm_moments", 8, 4),
+                 ("apriltag_resolve_count", 3, 3),
+                 ("apriltag_resolve_tile_sums", 2, 3),
+                 ("apriltag_resolve_scan", 5, 4),
+                 ("apriltag_resolve_map", 5, 5))
 
 MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame
 

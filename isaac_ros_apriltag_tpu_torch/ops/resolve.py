@@ -22,11 +22,19 @@ How the reference's primitives map to PyTorch:
     range masks and a dump slot past the end of each table;
   - the packed uint32 cummax broadcasts -> the same bits in int64;
   - the segmented sum over roots -> ``index_add_`` of int64 counts per group.
+
+Below the twin, the table formulation (resolve_roots_rank_tables,
+resolve_components_tables) gives the same results from count, scan and map
+passes over per-frame label tables, with no N-length sort, cumsum or
+cummax. Its plain passes (count_plain, tile_sums_plain, scan_plain,
+map_plain) are the plain versions of csrc/resolve.cu's kernels, and
+ops/cuda/resolve.py runs it with the kernels (backend 'cuda'); backend
+'torch' runs the twin.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -155,6 +163,29 @@ def _flat_parents(flat, D, kvalid, ks, N, R):
     return torch.cat([torch.gather(inv, 1, par.clamp(0, N)), _col(flat.shape[0], R, dev)], 1)
 
 
+def _dense_ranks(root: torch.Tensor, cnt: torch.Tensor, sent: int,
+                 min_component_pixels: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Component sizes, the area gate and the dense ranking in root order,
+    on the (B, R) slot tables: root[b, k] is slot k's root label (`sent` for
+    no group), cnt[b, k] its pixel count. Returns (dense_k, n_eligible):
+    each slot's dense id (_KMAX where gated out) and the (B,) count of
+    eligible components."""
+    B, R = root.shape
+    dev = root.device
+    rkey, korder = torch.sort(root, dim=-1, stable=True)
+    rcnt = torch.gather(cnt, 1, korder)
+    rprev = torch.cat([_col(B, -1, dev), rkey[:, :-1]], 1)
+    rfirst = rkey != rprev
+    gid = torch.cumsum(rfirst.to(_I64), -1) - 1
+    totals = torch.zeros((B, R), dtype=_I64, device=dev).scatter_add_(1, gid, rcnt)
+    size_m = torch.gather(totals, 1, gid)
+    eligible = (rkey != sent) & (size_m >= min_component_pixels)
+    crank = torch.cumsum((rfirst & eligible).to(_I64), -1) - 1
+    n_eligible = crank[:, -1] + 1
+    dense_m = torch.where(eligible & (crank < _KMAX), crank, _KMAX)
+    return _unsort(korder, dense_m), n_eligible
+
+
 def resolve_roots_rank(label: torch.Tensor, valid: torch.Tensor, *,
                        max_components: int = 1 << 16,
                        chain_steps: int = 5
@@ -279,19 +310,7 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
     Dx = torch.cat([D, _col(B, SENT, dev)], 1)
     root = torch.where(kvalid, torch.gather(Dx, 1, parx[:, :R]), SENT)
 
-    # --- component sizes + area gate + dense ranking (root order) ----------
-    rkey, korder = torch.sort(root, dim=-1, stable=True)
-    rcnt = torch.gather(cnt, 1, korder)
-    rprev = torch.cat([_col(B, -1, dev), rkey[:, :-1]], 1)
-    rfirst = rkey != rprev
-    gid = torch.cumsum(rfirst.to(_I64), -1) - 1
-    totals = torch.zeros((B, R), dtype=_I64, device=dev).scatter_add_(1, gid, rcnt)
-    size_m = torch.gather(totals, 1, gid)
-    eligible = (rkey != SENT) & (size_m >= min_component_pixels)
-    crank = torch.cumsum((rfirst & eligible).to(_I64), -1) - 1
-    n_eligible = crank[:, -1] + 1
-    dense_m = torch.where(eligible & (crank < _KMAX), crank, _KMAX)
-    dense_k = _unsort(korder, dense_m)
+    dense_k, n_eligible = _dense_ranks(root, cnt, SENT, min_component_pixels)
 
     # --- broadcast to pixels: seed at P, packed cummax, un-sort ------------
     carry = _broadcast(rank, kvalid, P, dense_k + 1)
@@ -304,4 +323,186 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
         root_flat = _unsort(idx_s, _broadcast_roots(rank, kvalid, P, root)).reshape(B, H, W)
         roots = torch.where(valid & (root_flat >= 0), root_flat, label).to(torch.int32)
         out = RootedComponents(*out, roots=roots)
+    return first_frame(out) if single else out
+
+
+# --- the table formulation: count, scan and map passes ----------------------
+#
+# The same results as resolve_roots_rank and resolve_components in rank mode
+# and flat mode, without an N-length sort, cumsum, cummax or unsort. Labels
+# are indices into a per-frame table of S entries (S = N for flat labels,
+# R for ranks), so a presence table and an exclusive scan over it give the
+# distinct labels in the order the sort gave them:
+#   count  cnt[b, L] = valid pixels labelled L (a pixel pass);
+#   scan   each present label's group rank, capped at R (inv), the first R
+#          present labels in order (D) and the group count (a pass over S);
+#   map    each pixel's value from a (B, R + 1) table through inv (a pixel
+#          pass).
+# Between scan and map, everything runs on the (B, R) slot tables as the
+# twin's chain resolution does. The three passes are arguments
+# (TablePasses): PLAIN_PASSES here, the kernels' wrappers in
+# ops/cuda/resolve.py. Valid pixels' labels must lie in [0, S]; a label of
+# S is the twin's sentinel (no group).
+
+
+class TablePasses(NamedTuple):
+    count: Callable       # (label, valid, S) -> cnt
+    scan: Callable        # (cnt, R) -> (inv, D, n_groups)
+    map: Callable         # (label, valid, inv, table, fill) -> out
+
+
+def count_plain(label: torch.Tensor, valid: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, N) int32 labels + (B, N) bool validity -> (B, S) int32 cnt:
+    cnt[b, L] = the valid pixels of frame b labelled L, for L in [0, S);
+    labels outside it are not counted."""
+    B, _ = label.shape
+    key = torch.where(valid & (label >= 0) & (label < S), label.to(_I64), S)
+    cnt = torch.zeros((B, S + 1), dtype=torch.int32, device=label.device)
+    cnt.scatter_add_(1, key, torch.ones(key.shape, dtype=torch.int32, device=label.device))
+    return cnt[:, :S].contiguous()
+
+
+SCAN_TILE = 4096     # table entries a block of the scan kernels takes (csrc/resolve.cu)
+
+
+def tile_sums_plain(cnt: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32 label counts -> (B, T) int32: the present labels
+    (cnt > 0) of each tile of SCAN_TILE entries, T tiles covering S + 1
+    entries (the scan's first step)."""
+    B, S = cnt.shape
+    T = -(-(S + 1) // SCAN_TILE)
+    present = torch.nn.functional.pad((cnt > 0).to(torch.int32), (0, T * SCAN_TILE - S))
+    return present.reshape(B, T, SCAN_TILE).sum(-1, dtype=torch.int32)
+
+
+def scan_plain(cnt: torch.Tensor, R: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, S) int32 label counts -> (inv, D, n_groups), all int32.
+
+    inv (B, S + 1): a present label's group rank (how many present labels
+    are smaller), capped at R; R for an absent label and for entry S.
+    D (B, R): the k-th present label, S past the frame's n_groups.
+    n_groups (B,): the present labels."""
+    B, S = cnt.shape
+    dev = cnt.device
+    present = cnt > 0
+    incl = torch.cumsum(present.to(_I64), -1)
+    rank = incl - present.to(_I64)
+    inv = torch.cat([torch.where(present, rank.clamp(max=R), R), _col(B, R, dev)], 1)
+    slot = torch.where(present & (rank < R), rank, R)
+    D = torch.full((B, R + 1), S, dtype=_I64, device=dev)
+    D.scatter_(1, slot, torch.arange(S, dtype=_I64, device=dev).expand(B, S))
+    return (inv.to(torch.int32), D[:, :R].to(torch.int32).contiguous(),
+            incl[:, -1].to(torch.int32))
+
+
+def map_plain(label: torch.Tensor, valid: torch.Tensor, inv: torch.Tensor,
+              table: torch.Tensor, fill: int) -> torch.Tensor:
+    """(B, N) int32 labels + (B, N) bool validity, (B, S + 1) inv and
+    (B, R + 1) int32 table -> (B, N) int32: table[b, inv[b, L]] for a valid
+    pixel labelled L in [0, S), `fill` for any other pixel."""
+    S = inv.shape[-1] - 1
+    ok = valid & (label >= 0) & (label < S)
+    r = torch.gather(inv, 1, torch.where(ok, label.to(_I64), S))
+    return torch.where(ok, torch.gather(table, 1, r.to(_I64)), fill).to(torch.int32)
+
+
+PLAIN_PASSES = TablePasses(count_plain, scan_plain, map_plain)
+
+
+def _pixels(label: torch.Tensor, valid: torch.Tensor, R_cap: int | None = None):
+    """(B, H, W) or (H, W) labels and validity -> ((B, N) int32 labels,
+    (B, N) bool validity, (B, H, W), whether a batch dim was added, R)."""
+    label, single = batch_first(label, 2)
+    valid, _ = batch_first(valid, 2)
+    B, H, W = label.shape
+    N = H * W
+    R = min(R_cap, N)
+    if R > (1 << 16):
+        raise ValueError("max_components must be <= 65536 "
+                         "(16-bit group ranks, as the twin packs them)")
+    lab = label.reshape(B, N).to(torch.int32).contiguous()
+    return lab, valid.reshape(B, N).to(torch.bool).contiguous(), (B, H, W), single, R
+
+
+def _slot_parents(lab: torch.Tensor, inv: torch.Tensor, label_k: torch.Tensor,
+                  R: int) -> torch.Tensor:
+    """(B, R + 1) compacted parent map: slot k points at the slot of the
+    label at pixel label_k[b, k] (a flat index; out of [0, N) reads the
+    table's sentinel, S), through inv; the extra slot R points at R."""
+    B, N = lab.shape
+    S = inv.shape[-1] - 1
+    inb = (label_k >= 0) & (label_k < N)
+    par = torch.where(inb, torch.gather(lab, 1, label_k.clamp(0, N - 1)).to(_I64), S)
+    parx = torch.gather(inv, 1, par.clamp(0, S)).to(_I64)
+    return torch.cat([parx, _col(B, R, lab.device)], 1)
+
+
+def resolve_roots_rank_tables(label: torch.Tensor, valid: torch.Tensor, *,
+                              max_components: int = 1 << 16, chain_steps: int = 5,
+                              passes: TablePasses = PLAIN_PASSES):
+    """resolve_roots_rank's results, bit for bit, by the count, scan and map
+    passes: rank_img[b, p] = the low 16 bits of the chain-fixpoint slot of
+    p's group when that group's rank is under R, else R (as the twin's
+    packed broadcast and its rank < R mask give it)."""
+    lab, vflat, (B, H, W), single, R = _pixels(label, valid, max_components)
+    N = H * W
+    inv, D, n_groups = passes.scan(passes.count(lab, vflat, N), R)
+    kvalid = torch.arange(R, device=lab.device) < n_groups[:, None]
+    parx = _slot_parents(lab, inv, torch.where(kvalid, D.to(_I64), N), R)
+    parx, _ = _pointer_double(parx, chain_steps)
+    table = torch.cat([parx[:, :R] & 0xFFFF, _col(B, R, lab.device)], 1).to(torch.int32)
+    rank_img = passes.map(lab, vflat, inv, table, R).reshape(B, H, W)
+    out = rank_img, D, n_groups > R
+    return first_frame(out) if single else out
+
+
+def resolve_components_tables(label: torch.Tensor, valid: torch.Tensor, *,
+                              min_component_pixels: int, max_components: int = 1 << 16,
+                              chain_steps: int = 4,
+                              rank_table: torch.Tensor | None = None,
+                              passes: TablePasses = PLAIN_PASSES) -> ResolvedComponents:
+    """resolve_components' results (without with_roots), bit for bit, by the
+    count, scan and map passes. Two of the twin's behaviours on a frame of
+    more than R groups are kept on purpose:
+      - slot R - 1's size is the twin's difference against the zero pad of
+        its start positions: minus the pixels of slots 0 .. R - 2, so that
+        slot is never eligible with a positive size gate;
+      - groups past R take, when R = 65536, group 65535's dense id (the
+        twin's 16-bit group ranks clamp there), else _KMAX."""
+    lab, vflat, (B, H, W), single, R = _pixels(label, valid, max_components)
+    N = H * W
+    dev = lab.device
+    if rank_table is not None:
+        rank_table, _ = batch_first(rank_table, 1)
+        if rank_table.shape[-1] != R:
+            raise ValueError("rank_table capacity mismatch: "
+                             f"{rank_table.shape[-1]} != {R}")
+    SENT = R if rank_table is not None else N       # one past the largest label
+    cnt = passes.count(lab, vflat, SENT)
+    inv, D, n_groups = passes.scan(cnt, R)
+    ng = n_groups.to(_I64)
+    ks = torch.arange(R, device=dev)
+    kvalid = ks < ng[:, None]
+    D = D.to(_I64)
+    cnt_k = torch.where(kvalid, torch.gather(cnt, 1, D.clamp(max=SENT - 1)).to(_I64), 0)
+    last = torch.where(ng > R, -cnt_k[:, :R - 1].sum(-1), cnt_k[:, R - 1])
+    cnt_k = torch.cat([cnt_k[:, :R - 1], last[:, None]], 1)
+
+    if rank_table is not None:
+        # parent of rank group v = the rank label at v's root pixel.
+        Tp = torch.cat([rank_table.to(_I64), _col(B, N, dev)], 1)
+        parx = _slot_parents(lab, inv, torch.where(kvalid, torch.gather(Tp, 1, D), N), R)
+    else:
+        parx = _slot_parents(lab, inv, torch.where(kvalid, D, N), R)
+    parx, prev = _pointer_double(parx, chain_steps)
+    converged = torch.all(parx == prev, -1)
+    Dx = torch.cat([D, _col(B, SENT, dev)], 1)
+    root = torch.where(kvalid, torch.gather(Dx, 1, parx[:, :R]), SENT)
+    dense_k, n_eligible = _dense_ranks(root, cnt_k, SENT, min_component_pixels)
+
+    tail = dense_k[:, (1 << 16) - 1:] if R == 1 << 16 else _col(B, _KMAX, dev)
+    table = torch.cat([dense_k, tail], 1).to(torch.int32)
+    dense = passes.map(lab, vflat, inv, table, _KMAX).reshape(B, H, W)
+    out = ResolvedComponents(dense=dense, n_eligible=n_eligible,
+                             overflow=(ng > R) | (n_eligible > _KMAX), converged=converged)
     return first_frame(out) if single else out

@@ -26,8 +26,9 @@ import pytest
 import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, LONG_SHAPES,
-                        SCAN_CASES, THRESH_CASES, THRESH_MIN_DIFF, bench_inputs,
-                        check_cluster_case, cluster_cases, edge_batch, free_port, map_problem,
+                        RESOLVE_CASE_NAMES, RESOLVE_KERNELS, SCAN_CASES, THRESH_CASES,
+                        THRESH_MIN_DIFF, bench_inputs, check_cluster_case, check_resolve_call,
+                        cluster_cases, edge_batch, free_port, map_problem, resolve_cases,
                         scan_batch, scan_case, scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
@@ -38,6 +39,7 @@ from isaac_ros_apriltag_tpu_torch.parallel.slam import ba
 from isaac_ros_apriltag_tpu_torch import detector as tdetector
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl, launch_counts, set_launch_counts
 from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cluster_kernels
+from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as resolve_kernels
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
 from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
 from isaac_ros_apriltag_tpu_torch.utils.render import distort_image, render_tags, upright_pose
@@ -362,9 +364,9 @@ def test_replay_equals_eager_call(cuda, config, batch, backend):
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_replay_counts_launches(cuda, backend):
-    """A replay adds the launches its capture recorded: 1 / 14 / 14 and one
-    of each cluster kernel for backend 'cuda', none for the twins; the
-    capture itself adds none."""
+    """A replay adds the launches its capture recorded: 1 / 14 / 14, two of
+    each resolve kernel and one of each cluster kernel for backend 'cuda',
+    none for the twins; the capture itself adds none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
     n = 1 if backend == "cuda" else 0
@@ -374,7 +376,8 @@ def test_replay_counts_launches(cuda, backend):
         fn(x)
         torch.cuda.synchronize()
         assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n,
-                                   **{k: n for k in CLUSTER_KERNELS}}
+                                   **{k: n for k in CLUSTER_KERNELS},
+                                   **{k: 2 * n for k in RESOLVE_KERNELS}}
 
 
 def test_streaming_over_captured_call_equals_eager(cuda):
@@ -606,3 +609,37 @@ def test_cluster_kernels_refuse_what_they_do_not_take(cuda):
         cluster_kernels.extract_cluster_moments(tri, tri.to(torch.int32), comp_overflow=ovf,
                                                 max_edge_points=64, max_clusters=128,
                                                 min_cluster_pixels=24)
+
+
+_RESOLVE_CASES = {}
+
+
+@pytest.mark.parametrize("name", RESOLVE_CASE_NAMES)
+def test_resolve_kernels_match_twin_and_plain_versions(cuda, name):
+    """chip_smoke.py phase 24's checks on one case: each resolve call by the
+    kernels against the twin bit for bit on every field, one launch of each
+    resolve kernel, two calls and a captured replay equal, each kernel
+    against its plain version."""
+    if not _RESOLVE_CASES:
+        _RESOLVE_CASES.update(resolve_cases(cuda))
+    for call, kw, lab, valid, facts in _RESOLVE_CASES[name]:
+        check_resolve_call(name, call, dict(kw), lab, valid, facts)
+
+
+def test_resolve_kernels_refuse_what_they_do_not_take(cuda):
+    label = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    valid = torch.ones((2, 64), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="label"):
+        resolve_kernels.count(label.to(torch.int64), valid, 64)
+    with pytest.raises(ValueError, match="valid"):
+        resolve_kernels.count(label, valid.cpu(), 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        resolve_kernels.count(label[:, ::2], valid[:, ::2], 64)
+    cnt = resolve_kernels.count(label, valid, 64)
+    with pytest.raises(ValueError, match="tile_sum"):
+        resolve_kernels.scan_ranks(cnt, cnt[:, :1], 8)
+    with pytest.raises(ValueError, match="capacity"):
+        resolve_kernels.scan(cnt, (1 << 16) + 1)
+    inv, _, _ = resolve_kernels.scan(cnt, 8)
+    with pytest.raises(ValueError, match="table"):
+        resolve_kernels.map_pixels(label, valid, inv, inv[:1, :9], 0)
