@@ -156,13 +156,25 @@ non-zero):
      captured replay equal, each kernel against its plain version bit for
      bit; device ms of each kernel (its plain version, its bound, one
      library call computing the same function) and of the stage against
-     the twin.
+     the twin;
+ 25. quad fit: the search kernel (csrc/quadfit.cu) on the cluster moments
+     of torch_bench.py's 720p b1 and 1080p b8 inputs, of node-720p-b1's
+     frame 23 at seed 1 (the capacity edge), of a blank 1080p b8 batch (no
+     valid cluster) and on synthetic clusters (tied maxima and 4-subsets,
+     one to three candidates, a candidate at bin 63, an empty slot, random
+     bins, an inf and a NaN): best, best_err and the six winner lines
+     bit-exact with its plain version, every Quads field of the fit on the
+     kernel equal to the plain fit's, one launch a call, two calls and a
+     captured replay equal; device ms of the kernel, its plain version, its
+     bound and the library yardstick (the parent's selector arc sums, one
+     torch.bmm a table), and of the stage (on the kernel, on the plain
+     search, in the parent's selector form).
 Every path launches K1 once, K2 and K3 once a scan round, each resolve
-kernel once a resolve call (twice in the two-phase flow) and each cluster
-kernel once a call. A path counted on an eager call reads the wrappers' counters, which each
-wrapper adds to where it launches its kernel; a replay adds the counts its
-capture recorded (capture.GraphedCall), which phase 22 holds against the
-profiler. The kernels line's `captured` path is phase 22's 720p b1 replay.
+kernel once a resolve call (twice in the two-phase flow), each cluster
+kernel and the quad-fit search once a call. A path counted on an eager
+call reads the wrappers' counters, which each wrapper adds to where it
+launches its kernel; a replay adds the counts its capture recorded
+(capture.GraphedCall), which phase 22 holds against the profiler. The kernels line's `captured` path is phase 22's 720p b1 replay.
 It ends with a JSON line describing the kernels (launches of every path;
 times beside the least time the card could take, from the bytes each call
 must move), the nvidia-smi name and power limit, and a last JSON line
@@ -234,7 +246,8 @@ KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "edge_pairs": "cm_edge_pairs_kernel", "segments": "cm_segments_kernel",
                 "moments": "cm_moments_kernel", "resolve_count": "resolve_count_kernel",
                 "resolve_tiles": "resolve_tile_sums_kernel",
-                "resolve_scan": "resolve_scan_kernel", "resolve_map": "resolve_map_kernel"}
+                "resolve_scan": "resolve_scan_kernel", "resolve_map": "resolve_map_kernel",
+                "quadfit_search": "qf_search_kernel"}
 CLUSTER_KERNELS = ("edge_count", "edge_pairs", "segments", "moments")   # once a detect call
 CUMMAX_KERNEL = "dim_with_indices"   # torch's cummax/cummin scan kernels' names hold it
 # Phase 23: tests/test_noise.py's max_clusters=16 scene (640x480, fx 420:
@@ -282,6 +295,20 @@ RESOLVE_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CAS
     f"1080p b8, R {RESOLVE_SMALL_R}", "speckle, phase-1 groups past R",
     *(f"slot R - 1, group {g} doubled, R {RESOLVE_SLOT_R}" for g, _ in RESOLVE_SLOT_CASES),
     "R 65536 clamp, one chain")
+
+# Phase 25: the quad fit's cases (see quadfit_cases), the reference's XLA
+# code the search kernel replaces (no Pallas kernel there: the selector
+# arc sums with the top-k, sort and argmin around them), and the f32
+# operations of one arc's sums and line fit for its bound: up to 12 adds
+# or subtracts for the six sums; in the fit 5 divisions, 7 multiplies, 7
+# adds or subtracts, 2 clamps and a square root.
+QUADFIT_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES) + (
+    "720p frame 23, seed 1 (capacity edge)", "blank 1080p b8 (no valid cluster)",
+    "synthetic: ties, few candidates, bin 63, empty, NaN")
+QUADFIT_REPLACES = "isaac_ros_apriltag_tpu/ops/quadfit.py:56"
+QUADFIT_EDGE = ("tag36h11-720p-node", 23, 1)          # config, frame, seed
+ARC_FLOPS = 12 + 22
+F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores (data sheet)
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -769,10 +796,10 @@ def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict
     scan rounds and `resolves` resolve calls each (2 in the two-phase flow,
     the contraction and the final resolve; 1 in the flat and jumps flows):
     K1 once, K2 and K3 once a round, the four resolve kernels once a resolve
-    call, the four cluster kernels once."""
+    call, the four cluster kernels and the quad-fit search once."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
             **{k: frames for k in CLUSTER_KERNELS},
-            **{k: resolves * frames for k in RESOLVE_KERNELS}}
+            **{k: resolves * frames for k in RESOLVE_KERNELS}, "quadfit_search": frames}
 
 
 def _reset_launches() -> None:
@@ -1645,6 +1672,251 @@ def resolve_phase(gpu: str) -> dict:
     return out
 
 
+def synthetic_bins(w, px, py, K: int = 64) -> np.ndarray:
+    """(6, K) float64 bin tables w, x, y, xx, xy, yy of w points at (px, py)
+    a bin (each broadcast to K bins)."""
+    w, px, py = (np.broadcast_to(np.asarray(v, np.float64), (K,)) for v in (w, px, py))
+    return np.stack([w, w * px, w * py, w * px * px, w * px * py, w * py * py])
+
+
+def periodic_bins(seed: int, period: int, K: int = 64) -> np.ndarray:
+    """synthetic_bins of small integers that repeat every `period` bins:
+    every prefix sum is exact in f32, so windows and arcs `period` bins
+    apart tie exactly."""
+    rng = np.random.default_rng(seed)
+    return synthetic_bins(*(np.tile(rng.integers(lo, hi, period), K // period)
+                            for lo, hi in ((1, 5), (-6, 7), (-6, 7))), K=K)
+
+
+def moved_bins(seed: int, K: int = 64) -> np.ndarray:
+    """synthetic_bins of 2 points a bin at the centroid but in three bins,
+    moved to random integer points: one to three corner candidates."""
+    rng = np.random.default_rng(seed)
+    px, py = np.zeros(K), np.zeros(K)
+    moved = rng.choice(K, 3, replace=False)
+    px[moved], py[moved] = rng.integers(-9, 10, (2, 3))
+    return synthetic_bins(2.0, px, py, K)
+
+
+def prefix_of_bins(bins):
+    """(N, 6, K) bins -> (N, 6, K+1) f32 prefix tables on the CPU, as
+    ops/quadfit.py::prefix_tables builds them from ClusterMoments."""
+    import torch
+
+    b = torch.from_numpy(np.asarray(bins, np.float32))
+    return torch.cat([torch.zeros(*b.shape[:-1], 1), torch.cumsum(b, -1)], -1)
+
+
+def quadfit_synthetic(dev, K: int = 64):
+    """Phase 25's synthetic clusters as ClusterMoments on `dev`: integer
+    bins that repeat every 4 or 8 bins (exact f32 sums: sixteen or eight
+    tied maxima, tied 4-subsets), every 16 bins turned so a candidate sits
+    at bin 63 (the arc after it starts at K), flat bins with three bins
+    moved (one to three candidates), empty bins (an invalid slot), random
+    bins, and bins holding an inf (one a NaN 4-subset error) or a NaN."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cluster_moments import ClusterMoments
+
+    rows = [periodic_bins(seed, p, K) for p in (4, 8) for seed in range(4)]
+    for seed in range(4):
+        b = periodic_bins(seed, 16, K)
+        first = int(plain.candidates(prefix_of_bins(b[None]))[0, 0])
+        rows.append(np.roll(b, (K - 1 - first) % 16, -1))
+    rows += [moved_bins(seed, K) for seed in range(6)]
+    empty = len(rows)
+    rows.append(np.zeros((6, K)))
+    rng = np.random.default_rng(9)
+    rows += [rng.normal(0.0, 3.0, (6, K)) for _ in range(4)]
+    rows += [synthetic_bins(rng.integers(1, 6, K), rng.normal(0, 1, K), rng.normal(0, 1, K), K)
+             for _ in range(4)]
+    for bad, f in ((np.inf, 1), (np.nan, 0), (np.inf, 3)):
+        b = periodic_bins(5, 8, K)
+        b[f, 21] = bad
+        rows.append(b)
+    b = torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev)
+    N = b.shape[0]
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    valid[empty] = False
+    z = torch.zeros(N, dtype=torch.int32, device=dev)
+    return ClusterMoments(
+        *b.unbind(1), count=torch.where(valid, 128, 0).to(torch.int32),
+        centroid=torch.from_numpy(rng.uniform(50, 500, (N, 2)).astype(np.float32)).to(dev),
+        scale=torch.from_numpy(rng.uniform(5, 40, N).astype(np.float32)).to(dev),
+        dark_inside=valid.clone(), valid=valid, num_clusters=z, num_eligible=z,
+        num_edge_points=z, edge_stride=z, overflow=z.bool())
+
+
+def quadfit_cases(dev) -> dict:
+    """Phase 25's inputs, QUADFIT_CASE_NAMES -> (cluster moments on `dev`,
+    min_area): the cluster stage's moments (kernel path) of torch_bench.py's
+    720p b1 and 1080p b8 inputs, of node-720p-b1's frame 23 at seed 1 (the
+    capacity edge, ROADMAP Queue 3) and of 8 blank 1080p frames; and
+    quadfit_synthetic."""
+    import torch
+
+    import torch_bench
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    def moments(cfg, images):
+        tri, dense, ovf, kw = cluster_inputs(cfg, images)
+        return (cmk.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw),
+                64.0 / cfg.quad_decimate ** 2)
+
+    (cfg1, _, in1), (cfg8, _, in8) = (bench_inputs(config, batch, dev, calls=1)
+                                      for config, batch in CAPTURE_CASES)
+    config, frame, seed = QUADFIT_EDGE
+    cam = torch_bench.config_camera(torch_bench.load_spec()["configs"][config])
+    edge = torch.from_numpy(torch_bench.render_frame(cam, frame, seed)[1])[None].to(dev)
+    return dict(zip(QUADFIT_CASE_NAMES, (
+        moments(cfg1, in1[0]), moments(cfg8, in8[0]), moments(cfg1, edge),
+        moments(cfg8, torch.zeros_like(in8[0])), (quadfit_synthetic(dev), 16.0))))
+
+
+def _selector_arc_sums(S, a, b):
+    """The parent's arc sums, kept as phase 25's library yardstick: one
+    {-1, 0, 1} (N, P, K+1) f32 selector and one torch.bmm a table (the
+    reference's formulation); ops/quadfit.py::_arc_sums's signature."""
+    import torch
+
+    N, T, K1 = S.shape
+    K = K1 - 1
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    shape = (N,) + tuple(shape[1:])
+    a = a.expand(shape).reshape(N, -1)
+    b = b.expand(shape).reshape(N, -1)
+    wrap = (b >= K)[..., None]
+    iota = torch.arange(K1, device=a.device)
+    ia = a.clamp(0, K)[..., None]
+    ib = (b + 1).clamp(0, K)[..., None]
+    iw = (b - K + 1).clamp(0, K)[..., None]
+    f32 = torch.float32
+    sel = torch.where(wrap,
+                      (iota == iw).to(f32) - (iota == ia).to(f32) + (iota == K).to(f32),
+                      (iota == ib).to(f32) - (iota == ia).to(f32))
+    return [torch.bmm(sel, S[:, t, :, None])[..., 0].reshape(shape) for t in range(T)]
+
+
+def check_quadfit_case(name: str, m, min_area: float) -> dict:
+    """One of phase 25's cases: the kernel against its plain version on the
+    prefix tables (best, best_err and the six winner lines bit-exact, NaN
+    equal to NaN), one launch a call, two calls and a captured replay
+    equal; the quad fit on the kernel against the plain fit on every Quads
+    field. Raises on a difference; returns the tables, the kernel's result,
+    the quads and each cluster's count of candidates."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
+
+    S = plain.prefix_tables(m)
+    one = {k: int(k == "quadfit_search") for k in _want()}
+    _reset_launches()
+    got = qk.quad_search(S)
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"quad fit, {name}: launches {counts} != {one}")
+    want = plain.search_plain(S)
+    for f, a, b in zip(want._fields, got, want):
+        if not _same(a, b):
+            raise AssertionError(f"quad search kernel, {name}: {f} differs from the plain "
+                                 f"version (max abs err {_max_abs_err(a, b)})")
+    if not all(_same(a, b) for a, b in zip(qk.quad_search(S), got)):
+        raise AssertionError(f"quad search kernel, {name}: two calls differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qk.quad_search(S)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = qk.quad_search(S)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(_same(a, b) for a, b in zip(static, got)):
+        raise AssertionError(f"quad search kernel, {name}: the captured replay differs")
+    del graph, static
+    qa = qk.fit_quads_from_moments(m, min_area=min_area)
+    qb = plain.fit_quads_from_moments(m, min_area=min_area)
+    for f, a, b in zip(qb._fields, qa, qb):
+        if not _same(a, b):
+            raise AssertionError(f"quad fit, {name}: {f} differs between the kernel and the "
+                                 "plain search")
+    n_cand = (plain.candidates(S) < S.shape[-1] - 1).sum(-1)
+    return dict(S=S, got=got, quads=qa, n_cand=n_cand)
+
+
+def quadfit_phase(gpu: str) -> dict:
+    """Phase 25: check_quadfit_case on each of quadfit_cases, and device
+    times at torch_bench.py's two shapes of the kernel, its plain version,
+    its bound and the library yardstick (_selector_arc_sums on the search's
+    arcs), and of the stage (the quad fit on the kernel, on the plain
+    search, and in the parent's form: the plain search with the selector
+    arc sums). Returns {max_abs_err (0: any difference raises), and for
+    'b1' (720p) and 'batch8' (1080p): shape, ms, plain_ms, bound_ms,
+    bound_by, library_ms, stage}."""
+    import math
+    from unittest import mock
+
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
+
+    dev = torch.device("cuda")
+    out = {"max_abs_err": 0.0}
+    lines = []
+    bench = {f"{config} b{batch}": batch for config, batch in CAPTURE_CASES}
+    for name, (m, min_area) in quadfit_cases(dev).items():
+        c = check_quadfit_case(name, m, min_area)
+        S, got, n_cand = c["S"], c["got"], c["n_cand"]
+        combos = sum(math.comb(int(n), 4) for n in n_cand.tolist())
+        lines.append(f"{name} ({S.shape[0]} clusters): candidates a cluster "
+                     f"{torch.bincount(n_cand, minlength=11).tolist()} (0..10), valid 4-subsets "
+                     f"{combos}, with a combo {int(torch.isfinite(got.best_err).sum())}, valid "
+                     f"quads {int(c['quads'].valid.sum())}")
+        if name == QUADFIT_CASE_NAMES[3] and bool(m.valid.any()):
+            raise AssertionError(f"{name}: a blank batch must hold no valid cluster")
+        if name not in bench:
+            continue
+        # Bound: the tables read once and the results written once, or the
+        # f32 operations of 64 window fits and 4 arc fits a valid 4-subset.
+        bytes_ms = _bound_ms(S, *got)
+        ops_ms = (64 * S.shape[0] + 4 * combos) * ARC_FLOPS / F32_OPS_PER_S * 1e3
+        kb = torch.arange(64, device=dev)[None]
+        wa = (kb - 2) % 64
+        cidx = plain.candidates(S)[:, plain._combos(dev)]
+        c1 = torch.roll(cidx, -1, -1) + torch.where(torch.arange(4, device=dev) == 3, 64, 0)
+        t = dict(shape=list(S.shape), ms=_device_ms(lambda: qk.quad_search(S), 20),
+                 plain_ms=_device_ms(lambda: plain.search_plain(S), 5),
+                 bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms
+                 else "operations",
+                 library_ms=_device_ms(lambda: (_selector_arc_sums(S, wa, wa + 4),
+                                                _selector_arc_sums(S, cidx + 1, c1 - 1)), 5))
+        with mock.patch.object(plain, "_arc_sums", _selector_arc_sums):
+            parent_ms = _device_ms(lambda: plain.fit_quads_from_moments(m, min_area=min_area), 5)
+        t["stage"] = {"kernel": _device_ms(lambda: qk.fit_quads_from_moments(
+                          m, min_area=min_area), 20),
+                      "plain": _device_ms(lambda: plain.fit_quads_from_moments(
+                          m, min_area=min_area), 5),
+                      "parent_form": parent_ms}
+        out["b1" if bench[name] == 1 else f"batch{bench[name]}"] = t
+    torch.cuda.synchronize()
+    print(f"[25 quad fit] qf_search_kernel (one launch a call) against its plain version "
+          f"(best, best_err, the six winner lines bit-exact), two calls and a captured replay "
+          f"equal, the fit on the kernel against the plain fit on every Quads field: "
+          + "; ".join(lines) + f"; on {gpu}: device ms a call (kernel / plain / bound "
+          "(by) / library: the selector arc sums), stage (kernel path / plain search / "
+          "parent's selector form) "
+          + ", ".join(f"{k} {v['shape']}: {v['ms']:.4f} / {v['plain_ms']:.4f} / "
+                      f"{v['bound_ms']:.5f} ({v['bound_by']}) / {v['library_ms']:.4f}, stage "
+                      f"{v['stage']['kernel']:.4f} / {v['stage']['plain']:.4f} / "
+                      f"{v['stage']['parent_form']:.4f}"
+                      for k, v in out.items() if k != "max_abs_err"), flush=True)
+    return out
+
+
 def capture_phase(gpu: str) -> dict:
     """Phase 21: the captured detect call against the eager one."""
     import dataclasses
@@ -2482,6 +2754,9 @@ def main() -> int:
     # --- 24. the resolve kernels against the twin and their plain versions ------------
     resolve = resolve_phase(gpu)
 
+    # --- 25. the quad-fit search kernel against its plain version ------------------------
+    quadfit = quadfit_phase(gpu)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -2540,7 +2815,24 @@ def main() -> int:
          f"library_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["library_ms"],
          f"share_batch{BATCH}": (resolve[k][f"batch{BATCH}"]["bound_ms"]
                                  / resolve[k][f"batch{BATCH}"]["ms"])}
-        for k in RESOLVE_KERNELS]}))
+        for k in RESOLVE_KERNELS] + [
+        {"name": "quadfit_search", "route": "cuda",
+         "source": "isaac_ros_apriltag_tpu_torch/csrc/quadfit.cu", "replaces": QUADFIT_REPLACES,
+         "launches": sum(c["quadfit_search"] for c in paths.values()),
+         "launches_by_path": {p: c["quadfit_search"] for p, c in paths.items()},
+         "max_abs_err": quadfit["max_abs_err"], "shape": quadfit["b1"]["shape"],
+         "ms": quadfit["b1"]["ms"], "plain_ms": quadfit["b1"]["plain_ms"],
+         "bound_ms": quadfit["b1"]["bound_ms"], "bound_by": quadfit["b1"]["bound_by"],
+         "library_ms": quadfit["b1"]["library_ms"], "stage_ms": quadfit["b1"]["stage"],
+         f"shape_batch{BATCH}": quadfit[f"batch{BATCH}"]["shape"],
+         f"ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["ms"],
+         f"plain_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["plain_ms"],
+         f"bound_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["bound_ms"],
+         f"bound_by_batch{BATCH}": quadfit[f"batch{BATCH}"]["bound_by"],
+         f"library_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["library_ms"],
+         f"stage_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["stage"],
+         f"share_batch{BATCH}": (quadfit[f"batch{BATCH}"]["bound_ms"]
+                                 / quadfit[f"batch{BATCH}"]["ms"])}]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

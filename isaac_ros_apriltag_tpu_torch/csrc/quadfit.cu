@@ -1,0 +1,265 @@
+// Quad fit search: (N, 6, K+1) circular prefix tables of the clusters'
+// angular bin moments -> each cluster's best cyclic 4-subset of corner
+// candidates and its four arcs' line fits.
+//
+// Replaces: the 4-subset search of isaac_ros_apriltag_tpu/ops/quadfit.py
+// (XLA, no Pallas kernel): _arc_sums (:56) reads each arc's sum from the
+// prefix tables by one {-1, 0, 1} (C, P, K+1) selector contraction a table
+// (P = 64 windows, then 210 combos x 4 arcs), since per-element gathers
+// serialise on a TPU, and the top-k, sort and argmin around it are XLA ops.
+// At C = 1024 clusters the combos' selector alone is 224 MB built and read
+// six times. Here one block a cluster keeps its six tables (6 x 65 f32,
+// 1.5 KB) in shared memory and reads an arc's two or three entries from
+// there, so nothing but the tables and the winner leaves or enters device
+// memory.
+//
+//   qf_search_kernel, one block a cluster:
+//     phase A, thread k of the first 64: the +-2-bin window's arc sums,
+//       line fit and error (-inf under a weight of 4); the circular local
+//       maximum test; the top 10 by rank (the count of greater values plus
+//       equal values at a lower bin: the plain version's stable descending
+//       sort); the candidates' ascending list by ballots, 2K past the last;
+//     phase B, thread t of the first 210: combo t of _COMBOS (kCombos, in
+//       itertools order), its four arcs' sums and line fits, arc_ok and
+//       combo_ok, and the combo's error in the plain version's add order;
+//       then a block argmin in torch.argmin's order (NaN first, then the
+//       least, ties to the lower combo);
+//     the first four threads fit the winner's arcs again and write them.
+//
+// Against the plain version (ops/quadfit.py::search_plain): bit-exact. Every
+// float step is the plain version's in its order (built with --fmad=false,
+// IEEE division and square root, clamps that pass NaN as torch.clamp does),
+// and an arc's sum takes the same entries in the same order: S[ib] - S[ia]
+// direct, (S[K] - S[ia]) + S[iw] wrapped, exactly S[iw] where ia == K and
+// exactly S[K] where iw == ia.
+//
+// What bounds it on an H100: bytes (6 x 65 + 27 words a cluster, ~1.7 MB at
+// C = 1024) and the f32 operations of 64 + 4 x (valid combos) line fits a
+// cluster; both are far under a microsecond, so in practice a launch is
+// bound by its latency: the phases of a block run one after another behind
+// barriers. One wave of blocks covers a b8 call (1024 blocks).
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int K = 64;                 // angular bins
+constexpr int K1 = K + 1;             // prefix-table entries
+constexpr int NT = 6;                 // tables: w, x, y, xx, xy, yy
+constexpr int MAXIMA = 10;            // corner candidates
+constexpr int NCOMB = 210;            // C(10, 4)
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+
+// _COMBOS in itertools.combinations order, candidate j of combo t in byte j.
+__constant__ uint32_t kCombos[NCOMB] = {
+    0x03020100u, 0x04020100u, 0x05020100u, 0x06020100u, 0x07020100u, 0x08020100u, 0x09020100u,
+    0x04030100u, 0x05030100u, 0x06030100u, 0x07030100u, 0x08030100u, 0x09030100u, 0x05040100u,
+    0x06040100u, 0x07040100u, 0x08040100u, 0x09040100u, 0x06050100u, 0x07050100u, 0x08050100u,
+    0x09050100u, 0x07060100u, 0x08060100u, 0x09060100u, 0x08070100u, 0x09070100u, 0x09080100u,
+    0x04030200u, 0x05030200u, 0x06030200u, 0x07030200u, 0x08030200u, 0x09030200u, 0x05040200u,
+    0x06040200u, 0x07040200u, 0x08040200u, 0x09040200u, 0x06050200u, 0x07050200u, 0x08050200u,
+    0x09050200u, 0x07060200u, 0x08060200u, 0x09060200u, 0x08070200u, 0x09070200u, 0x09080200u,
+    0x05040300u, 0x06040300u, 0x07040300u, 0x08040300u, 0x09040300u, 0x06050300u, 0x07050300u,
+    0x08050300u, 0x09050300u, 0x07060300u, 0x08060300u, 0x09060300u, 0x08070300u, 0x09070300u,
+    0x09080300u, 0x06050400u, 0x07050400u, 0x08050400u, 0x09050400u, 0x07060400u, 0x08060400u,
+    0x09060400u, 0x08070400u, 0x09070400u, 0x09080400u, 0x07060500u, 0x08060500u, 0x09060500u,
+    0x08070500u, 0x09070500u, 0x09080500u, 0x08070600u, 0x09070600u, 0x09080600u, 0x09080700u,
+    0x04030201u, 0x05030201u, 0x06030201u, 0x07030201u, 0x08030201u, 0x09030201u, 0x05040201u,
+    0x06040201u, 0x07040201u, 0x08040201u, 0x09040201u, 0x06050201u, 0x07050201u, 0x08050201u,
+    0x09050201u, 0x07060201u, 0x08060201u, 0x09060201u, 0x08070201u, 0x09070201u, 0x09080201u,
+    0x05040301u, 0x06040301u, 0x07040301u, 0x08040301u, 0x09040301u, 0x06050301u, 0x07050301u,
+    0x08050301u, 0x09050301u, 0x07060301u, 0x08060301u, 0x09060301u, 0x08070301u, 0x09070301u,
+    0x09080301u, 0x06050401u, 0x07050401u, 0x08050401u, 0x09050401u, 0x07060401u, 0x08060401u,
+    0x09060401u, 0x08070401u, 0x09070401u, 0x09080401u, 0x07060501u, 0x08060501u, 0x09060501u,
+    0x08070501u, 0x09070501u, 0x09080501u, 0x08070601u, 0x09070601u, 0x09080601u, 0x09080701u,
+    0x05040302u, 0x06040302u, 0x07040302u, 0x08040302u, 0x09040302u, 0x06050302u, 0x07050302u,
+    0x08050302u, 0x09050302u, 0x07060302u, 0x08060302u, 0x09060302u, 0x08070302u, 0x09070302u,
+    0x09080302u, 0x06050402u, 0x07050402u, 0x08050402u, 0x09050402u, 0x07060402u, 0x08060402u,
+    0x09060402u, 0x08070402u, 0x09070402u, 0x09080402u, 0x07060502u, 0x08060502u, 0x09060502u,
+    0x08070502u, 0x09070502u, 0x09080502u, 0x08070602u, 0x09070602u, 0x09080602u, 0x09080702u,
+    0x06050403u, 0x07050403u, 0x08050403u, 0x09050403u, 0x07060403u, 0x08060403u, 0x09060403u,
+    0x08070403u, 0x09070403u, 0x09080403u, 0x07060503u, 0x08060503u, 0x09060503u, 0x08070503u,
+    0x09070503u, 0x09080503u, 0x08070603u, 0x09070603u, 0x09080603u, 0x09080703u, 0x07060504u,
+    0x08060504u, 0x09060504u, 0x08070504u, 0x09070504u, 0x09080504u, 0x08070604u, 0x09070604u,
+    0x09080604u, 0x09080704u, 0x08070605u, 0x09070605u, 0x09080605u, 0x09080705u, 0x09080706u,
+};
+
+__device__ __forceinline__ bool is_nan(float v) { return v != v; }
+__device__ __forceinline__ bool is_finite(float v) { return fabsf(v) < INFINITY; }
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
+// torch.clamp(v, min=lo): NaN passes through.
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+    return is_nan(v) ? v : (v < lo ? lo : v);
+}
+
+// The six tables' sums over the circular bin range [a, b] (ops/quadfit.py::
+// _arc_sums): b < a is empty, b may pass K (wraps).
+__device__ __forceinline__ void arc_sums(const float* S, int a, int b, float* out) {
+    const int ia = clampi(a, 0, K), ib = clampi(b + 1, 0, K), iw = clampi(b - K + 1, 0, K);
+    const bool wrap = b >= K;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+        const float* s = S + t * K1;
+        float v;
+        if (!wrap) v = s[ib] - s[ia];
+        else if (ia == K) v = s[iw];
+        else if (iw == ia) v = s[K];
+        else v = (s[K] - s[ia]) + s[iw];
+        out[t] = v;
+    }
+}
+
+struct Line {
+    float ex, ey, cxx, cxy, cyy, err;
+};
+
+// ops/quadfit.py::_line_fit on sums m = (w, x, y, xx, xy, yy), op for op.
+__device__ __forceinline__ Line line_fit(const float* m) {
+    const float Wf = clamp_min(m[0], 1e-6f);
+    Line l;
+    l.ex = m[1] / Wf;
+    l.ey = m[2] / Wf;
+    l.cxx = m[3] / Wf - l.ex * l.ex;
+    l.cxy = m[4] / Wf - l.ex * l.ey;
+    l.cyy = m[5] / Wf - l.ey * l.ey;
+    const float d = l.cxx - l.cyy;
+    const float disc = sqrtf(clamp_min(d * d + (4.0f * l.cxy) * l.cxy, 0.0f));
+    l.err = 0.5f * ((l.cxx + l.cyy) - disc);
+    return l;
+}
+
+// Arc j of a combo with candidate bins c: from past corner j to before
+// corner j + 1, the last arc wrapping to the first corner + K.
+__device__ __forceinline__ void arc_bounds(const int* c, int j, int& a, int& b) {
+    a = c[j] + 1;
+    b = (j < 3 ? c[j + 1] : c[0] + K) - 1;
+}
+
+__device__ __forceinline__ void combo_bins(const int* cand, int t, int* c) {
+    const uint32_t packed = kCombos[t];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = cand[(packed >> (8 * j)) & 0xffu];
+}
+
+// torch.argmin's order: NaN first, then the least value, ties to the lower index.
+__device__ __forceinline__ bool before(float v, int i, float w, int j) {
+    const bool vn = is_nan(v), wn = is_nan(w);
+    if (vn || wn) return vn && (!wn || i < j);
+    return v < w || (v == w && i < j);
+}
+
+__global__ void __launch_bounds__(THREADS)
+qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_out,
+                 float* __restrict__ best_err_out, float* __restrict__ lines, int N) {
+    __shared__ float S[NT * K1];
+    __shared__ float errs[K];
+    __shared__ float max_errs[K];
+    __shared__ int cand[MAXIMA];
+    __shared__ unsigned cand_mask[2];
+    __shared__ float warp_v[WARPS];
+    __shared__ int warp_i[WARPS];
+    __shared__ int s_best;
+    const int c = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const float* src = tables + (size_t)c * NT * K1;
+    for (int i = tid; i < NT * K1; i += THREADS) S[i] = src[i];
+    if (tid < MAXIMA) cand[tid] = 2 * K;
+    __syncthreads();
+
+    // --- phase A: the per-bin corner error, local maxima, top 10 ------------
+    if (tid < K) {
+        const int a = (tid + K - 2) % K;
+        float m[NT];
+        arc_sums(S, a, a + 4, m);
+        const float e = line_fit(m).err;
+        errs[tid] = m[0] >= 4.0f ? e : -INFINITY;
+    }
+    __syncthreads();
+    if (tid < K) {
+        const float e = errs[tid];
+        const bool is_max = e > errs[(tid + K - 1) % K] && e >= errs[(tid + 1) % K] && is_finite(e);
+        max_errs[tid] = is_max ? e : -INFINITY;
+    }
+    __syncthreads();
+    bool is_cand = false;
+    if (tid < K) {
+        const float v = max_errs[tid];
+        int rank = 0;
+        for (int j = 0; j < K; ++j) {
+            const float u = max_errs[j];
+            rank += (u > v) || (u == v && j < tid);
+        }
+        is_cand = is_finite(v) && rank < MAXIMA;
+        const unsigned mask = __ballot_sync(FULL, is_cand);
+        if (lane == 0) cand_mask[warp] = mask;
+    }
+    __syncthreads();
+    if (is_cand)
+        cand[(warp ? __popc(cand_mask[0]) : 0) + __popc(cand_mask[warp] & ((1u << lane) - 1u))] = tid;
+    __syncthreads();
+
+    // --- phase B: every 4-subset, then the block argmin ---------------------
+    float v = INFINITY;
+    if (tid < NCOMB) {
+        int cb[4];
+        combo_bins(cand, tid, cb);
+        if (cb[0] < K && cb[1] < K && cb[2] < K && cb[3] < K) {
+            float ae[4];
+            bool ok = true;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                int a, b;
+                arc_bounds(cb, j, a, b);
+                float m[NT];
+                arc_sums(S, a, b, m);
+                ae[j] = line_fit(m).err;
+                ok = ok && b - a + 1 >= 1 && m[0] >= 3.0f;
+            }
+            if (ok) v = ((ae[0] + ae[1]) + ae[2]) + ae[3];
+        }
+    }
+    int i = tid;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+        const float w = __shfl_down_sync(FULL, v, off);
+        const int j = __shfl_down_sync(FULL, i, off);
+        if (before(w, j, v, i)) v = w, i = j;
+    }
+    if (lane == 0) warp_v[warp] = v, warp_i[warp] = i;
+    __syncthreads();
+    if (tid == 0) {
+        for (int w = 1; w < WARPS; ++w)
+            if (before(warp_v[w], warp_i[w], v, i)) v = warp_v[w], i = warp_i[w];
+        s_best = i;
+        best_out[c] = i;
+        best_err_out[c] = v;
+    }
+    __syncthreads();
+
+    // --- the winner's four arcs ----------------------------------------------
+    if (tid < 4) {
+        int cb[4], a, b;
+        combo_bins(cand, s_best, cb);
+        arc_bounds(cb, tid, a, b);
+        float m[NT];
+        arc_sums(S, a, b, m);
+        const Line l = line_fit(m);
+        const float out[NT] = {l.ex, l.ey, l.cxx, l.cxy, l.cyy, l.err};
+        const size_t plane = (size_t)N * 4;
+#pragma unroll
+        for (int f = 0; f < NT; ++f) lines[f * plane + (size_t)c * 4 + tid] = out[f];
+    }
+}
+
+}  // namespace
+
+extern "C" int apriltag_quadfit_search(const void* tables, void* best, void* best_err,
+                                       void* lines, int N, void* stream) {
+    if (N < 1) return (int)cudaErrorInvalidValue;
+    qf_search_kernel<<<N, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)tables, (int64_t*)best, (float*)best_err, (float*)lines, N);
+    return (int)cudaGetLastError();
+}

@@ -14,7 +14,7 @@ flat-index labels; with ccl_flow='jumps' one scan phase with pointer jumps
 between rounds), resolve (four kernels a call around torch ops on the R
 slots, ops/cuda/resolve.py: the contraction and the final resolve), cluster
 moments (four kernels around one sort, ops/cuda/cluster_moments.py), quad
-fit, top-2T by fit quality, edge refinement, decode, dedupe, top-T by
+fit (one search kernel, ops/cuda/quadfit.py), top-2T by fit quality, edge refinement, decode, dedupe, top-T by
 decision margin, center and pose.
 Backend 'cuda' runs the kernels; 'torch' runs their plain twins.
 Everything else is plain PyTorch on the detector's device.
@@ -32,6 +32,7 @@ from .models.families import TagFamily, get_family
 from .ops.cluster_moments import extract_cluster_moments
 from .ops.cuda import ccl as ccl_ops
 from .ops.cuda import cluster_moments as cluster_kernels
+from .ops.cuda import quadfit as quadfit_kernel
 from .ops.cuda import resolve as resolve_kernels
 from .ops.cuda import threshold as threshold_kernel
 from .ops.decode import decode_quads
@@ -153,7 +154,9 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
     refine, decode and pose work per quad; the top-k picks and the dedupe
     work within each frame. with_pose=False leaves translation, quaternion
     and rotation zero (rotation too, not the identity)."""
-    quads = fit_quads_from_moments(clusters, min_area=64.0 / (cfg.quad_decimate ** 2))
+    fit = (quadfit_kernel.fit_quads_from_moments if cfg.backend == "cuda"
+           else fit_quads_from_moments)
+    quads = fit(clusters, min_area=64.0 / (cfg.quad_decimate ** 2))
     want_dark = not family.reversed_border
     qvalid = quads.valid & (quads.dark_inside == want_dark)
 
@@ -337,8 +340,8 @@ def device_for(config: DetectorConfig, device: torch.device | str | None) -> tor
     'cuda' raises unless it is a CUDA device and the kernels build or load.
     On a CUDA device TF32 is turned off for the whole process
     (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
-    = False): the quad fit's arc sums, the decoder's least squares and the
-    pose take f32 matmuls, which TF32 would round to 10 mantissa bits."""
+    = False): the decoder's least squares and the pose take f32 matmuls,
+    which TF32 would round to 10 mantissa bits."""
     device = torch.device("cuda" if device is None else device)
     if config.backend == "cuda":
         if device.type != "cuda":

@@ -7,7 +7,7 @@ LAUNCH_COUNTERS names every counter, so code that counts or replays launches
 
 from __future__ import annotations
 
-from . import ccl, cluster_moments, resolve, threshold
+from . import ccl, cluster_moments, quadfit, resolve, threshold
 
 # kernel -> (wrapper module, name of its launch counter)
 LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launches"),
@@ -19,7 +19,8 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "resolve_count": (resolve, "count_launches"),
                    "resolve_tiles": (resolve, "tiles_launches"),
                    "resolve_scan": (resolve, "scan_launches"),
-                   "resolve_map": (resolve, "map_launches")}
+                   "resolve_map": (resolve, "map_launches"),
+                   "quadfit_search": (quadfit, "launches")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -22,7 +22,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu", "resolve.cu")
+_SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu", "resolve.cu", "quadfit.cu")
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
 # (kept in build_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # (name, number of pointer args, number of int args); every entry point ends
 # with the stream pointer and returns cudaGetLastError().
-# Each takes the batch B first among its ints.
+# Each takes the batch B (or the quad search's N clusters) first among its ints.
 _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_ccl_row", 3, 3),
                  ("apriltag_ccl_col_diag", 3, 3),
@@ -41,7 +41,8 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_resolve_count", 3, 3),
                  ("apriltag_resolve_tile_sums", 2, 3),
                  ("apriltag_resolve_scan", 5, 4),
-                 ("apriltag_resolve_map", 5, 5))
+                 ("apriltag_resolve_map", 5, 5),
+                 ("apriltag_quadfit_search", 4, 1))
 
 MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame
 

@@ -7,13 +7,21 @@ C(10,4) cyclic 4-subsets, re-fit lines -> corners, and geometric gates.
 ``lax.top_k`` (ties to the lower index) becomes a stable descending sort.
 Every step works per cluster, so a batch of frames' clusters, (B, C, ...),
 is fitted as one (B*C, ...) set of clusters.
+
+The reference reads an arc's sum from the prefix tables through a {-1, 0,
+1} selector contraction, since per-element gathers serialize on a TPU;
+here the two or three entries are gathered and added in one fixed order
+(``_arc_sums``), and every other float step is written in the order the
+CUDA kernel (csrc/quadfit.cu) takes, so ``search_plain`` is that kernel's
+plain version bit for bit. ``fit_quads_from_moments`` takes the search as
+an argument: ops/cuda/quadfit.py passes the kernel's wrapper.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -41,27 +49,54 @@ class Quads(NamedTuple):
     gates: torch.Tensor      # (C, 7) bool
 
 
-def _arc_sums(S_list, a: torch.Tensor, b: torch.Tensor):
-    """Sums of per-bin values over the circular bin range [a, b] inclusive
-    for every (C, K+1) prefix table in S_list; b < a is an empty arc, b may
-    pass K (wraps). One {-1, 0, 1} selector contraction per table, as in the
-    reference."""
-    C, K1 = S_list[0].shape
+class QuadSearch(NamedTuple):
+    """The 4-subset search of N clusters: the winning combo (an index into
+    _COMBOS; 0 where none is valid), its total arc error (inf where none is
+    valid) and its four arcs' line fits, arc j running from corner j to
+    corner j + 1."""
+    best: torch.Tensor       # (N,) int64
+    best_err: torch.Tensor   # (N,) float32
+    ex: torch.Tensor         # (N, 4) float32 each: arc centroid,
+    ey: torch.Tensor
+    cxx: torch.Tensor        # covariance,
+    cxy: torch.Tensor
+    cyy: torch.Tensor
+    aerr: torch.Tensor       # and smaller eigenvalue (the arc's MSE)
+
+
+def prefix_tables(m) -> torch.Tensor:
+    """ClusterMoments of (C, ...) or (B, C, ...) -> (N, 6, K+1) float32
+    circular prefix sums of the bin tables w, x, y, xx, xy, yy, N = B*C."""
+    K = m.bw.shape[-1]
+    b = torch.stack([t.reshape(-1, K) for t in (m.bw, m.bx, m.by, m.bxx, m.bxy, m.byy)], 1)
+    zero = torch.zeros((*b.shape[:2], 1), dtype=torch.float32, device=b.device)
+    return torch.cat([zero, torch.cumsum(b, -1)], -1)
+
+
+def _arc_sums(S: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """Sums of each of the (N, 6, K+1) prefix tables' bins over the circular
+    bin range [a, b] inclusive; a, b broadcast to (N, ...); b < a is an empty
+    arc, b may pass K (wraps). A direct arc is S[ib] - S[ia]; a wrapped one
+    (S[K] - S[ia]) + S[iw], exactly S[iw] where ia == K and exactly S[K]
+    where iw == ia (the reference's selector coefficients). Returns the six
+    (N, ...) sums w, x, y, xx, xy, yy."""
+    N, T, K1 = S.shape
     K = K1 - 1
     shape = torch.broadcast_shapes(a.shape, b.shape)
-    shape = (C,) + tuple(shape[1:])
-    a = a.expand(shape).reshape(C, -1)
-    b = b.expand(shape).reshape(C, -1)
-    wrap = (b >= K)[..., None]
-    iota = torch.arange(K1, device=a.device)
-    ia = a.clamp(0, K)[..., None]
-    ib = (b + 1).clamp(0, K)[..., None]
-    iw = (b - K + 1).clamp(0, K)[..., None]
-    f32 = torch.float32
-    sel = torch.where(wrap,
-                      (iota == iw).to(f32) - (iota == ia).to(f32) + (iota == K).to(f32),
-                      (iota == ib).to(f32) - (iota == ia).to(f32))   # (C, P, K+1)
-    return [torch.bmm(sel, S[:, :, None])[..., 0].reshape(shape) for S in S_list]
+    shape = (N,) + tuple(shape[1:])
+    a = a.expand(shape).reshape(N, 1, -1)
+    b = b.expand(shape).reshape(N, 1, -1)
+    ia = a.clamp(0, K)
+    ib = (b + 1).clamp(0, K)
+    iw = (b - K + 1).clamp(0, K)
+
+    def at(i):
+        return torch.gather(S, 2, i.expand(N, T, i.shape[-1]))
+
+    Sa, Sw, SK = at(ia), at(iw), S[..., K:]
+    wrapped = torch.where(ia == K, Sw, torch.where(iw == ia, SK, (SK - Sa) + Sw))
+    sums = torch.where(b >= K, wrapped, at(ib) - Sa)
+    return sums.reshape(N, T, *shape[1:]).unbind(1)
 
 
 def _line_fit(msums: tuple, W: torch.Tensor):
@@ -73,8 +108,8 @@ def _line_fit(msums: tuple, W: torch.Tensor):
     cxx = Sxx / Wf - ex * ex
     cxy = Sxy / Wf - ex * ey
     cyy = Syy / Wf - ey * ey
-    disc = torch.sqrt(torch.clamp((cxx - cyy) ** 2 + 4 * cxy * cxy, min=0.0))
-    err = 0.5 * (cxx + cyy - disc)
+    disc = torch.sqrt(torch.clamp((cxx - cyy) ** 2 + (4 * cxy) * cxy, min=0.0))
+    err = 0.5 * ((cxx + cyy) - disc)
     return ex, ey, cxx, cxy, cyy, err
 
 
@@ -90,34 +125,16 @@ def _line_dir(cxx, cxy, cyy):
     return v / torch.sqrt(torch.clamp((v * v).sum(-1, keepdim=True), min=1e-12))
 
 
-def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
-                           critical_cos: float = 0.985,
-                           min_area: float = 64.0) -> Quads:
-    """Consumes ops.cluster_moments.ClusterMoments, of one frame (C, ...)
-    or of a batch (B, C, ...); the quads have the same leading dims."""
-    lead, K = m.bw.shape[:-1], m.bw.shape[-1]
-    if K != _NBINS:
-        raise ValueError(f"expected {_NBINS} bins, got {K}")
-    B = [b.reshape(-1, K) for b in (m.bw, m.bx, m.by, m.bxx, m.bxy, m.byy)]
-    centroid = m.centroid.reshape(-1, 2)
-    n, cluster_valid = m.count.reshape(-1), m.valid.reshape(-1)
-    C = centroid.shape[0]
-    dev = centroid.device
-    cx = centroid[:, 0:1]
-    cy = centroid[:, 1:2]
-    scale = torch.clamp(m.scale.reshape(C, 1), min=1e-6)     # (C, 1)
-    zero = torch.zeros((C, 1), dtype=torch.float32, device=dev)
-    S = [torch.cat([zero, torch.cumsum(b, -1)], -1) for b in B]
-    Sw, Sx, Sy, Sxx, Sxy, Syy = S
-
-    # --- per-bin corner error: line fit over a +-2-bin window ---------------
-    kb = torch.arange(K, device=dev)[None, :]
+def candidates(S: torch.Tensor) -> torch.Tensor:
+    """(N, 6, K+1) prefix tables -> (N, M) corner candidate bins, ascending,
+    2K past the last: the circular local maxima of the +-2-bin line-fit
+    error, the M largest (ties to the lower bin)."""
+    K = S.shape[-1] - 1
+    kb = torch.arange(K, device=S.device)[None, :]
     a = (kb - 2) % K
-    *msums, Wn = _arc_sums((Sx, Sy, Sxx, Sxy, Syy, Sw), a, a + 4)
-    *_, errs = _line_fit(tuple(msums), Wn)                      # (C, K)
+    Wn, *msums = _arc_sums(S, a, a + 4)
+    *_, errs = _line_fit(tuple(msums), Wn)                      # (N, K)
     errs = torch.where(Wn >= 4.0, errs, -torch.inf)
-
-    # --- circular local maxima -> top-M candidate bins ----------------------
     prev = torch.roll(errs, 1, -1)
     nxt = torch.roll(errs, -1, -1)
     is_max = (errs > prev) & (errs >= nxt) & torch.isfinite(errs)
@@ -125,39 +142,66 @@ def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
     top_vals, top_idx = torch.sort(max_errs, dim=-1, descending=True, stable=True)
     top_vals, top_idx = top_vals[:, :_MAXIMA], top_idx[:, :_MAXIMA]
     cand_valid = torch.isfinite(top_vals)
-    cand_sorted = torch.sort(torch.where(cand_valid, top_idx, 2 * K), -1).values
+    return torch.sort(torch.where(cand_valid, top_idx, 2 * K), -1).values
 
-    # --- score all 4-subsets -------------------------------------------------
-    combos = _combos(dev)
-    cidx = cand_sorted[:, combos]                               # (C, Ncomb, 4)
+
+def search_plain(S: torch.Tensor) -> QuadSearch:
+    """(N, 6, K+1) prefix tables -> the best cyclic 4-subset of each
+    cluster's candidates by total arc line-fit error (argmin: NaN first,
+    ties to the lower combo). The plain version of csrc/quadfit.cu."""
+    K = S.shape[-1] - 1
+    dev = S.device
+    cidx = candidates(S)[:, _combos(dev)]                        # (N, Ncomb, 4)
     combo_ok = torch.all(cidx < K, -1)
     c1 = torch.roll(cidx, -1, -1) + torch.where(torch.arange(4, device=dev) == 3, K, 0)
     arc_a = cidx + 1
     arc_b = c1 - 1
     nbins_arc = arc_b - arc_a + 1
-    *msums, Wn = _arc_sums((Sx, Sy, Sxx, Sxy, Syy, Sw), arc_a, arc_b)
-    ex, ey, cxx, cxy, cyy, aerr = _line_fit(tuple(msums), Wn)   # (C, Ncomb, 4)
+    Wn, *msums = _arc_sums(S, arc_a, arc_b)
+    ex, ey, cxx, cxy, cyy, aerr = _line_fit(tuple(msums), Wn)   # (N, Ncomb, 4)
     arc_ok = (nbins_arc >= 1) & (Wn >= 3.0)
-    combo_err = torch.where(combo_ok & torch.all(arc_ok, -1), aerr.sum(-1), torch.inf)
-    best = torch.argmin(combo_err, -1)                          # (C,)
+    a0, a1, a2, a3 = aerr.unbind(-1)
+    combo_err = torch.where(combo_ok & torch.all(arc_ok, -1), ((a0 + a1) + a2) + a3,
+                            torch.inf)
+    best = torch.argmin(combo_err, -1)                          # (N,)
     best_err = torch.gather(combo_err, 1, best[:, None])[:, 0]
-    have_combo = torch.isfinite(best_err)
+    N = S.shape[0]
 
     def take(x):
-        return torch.gather(x, 1, best[:, None, None].expand(C, 1, 4))[:, 0]
+        return torch.gather(x, 1, best[:, None, None].expand(N, 1, 4))[:, 0]
 
-    ex, ey = take(ex), take(ey)
-    cxx, cxy, cyy, aerr = take(cxx), take(cxy), take(cyy), take(aerr)
+    return QuadSearch(best, best_err, *(take(x) for x in (ex, ey, cxx, cxy, cyy, aerr)))
+
+
+def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
+                           critical_cos: float = 0.985, min_area: float = 64.0,
+                           search: Callable[[torch.Tensor], QuadSearch] = search_plain
+                           ) -> Quads:
+    """Consumes ops.cluster_moments.ClusterMoments, of one frame (C, ...)
+    or of a batch (B, C, ...); the quads have the same leading dims.
+    `search` maps the prefix tables to the QuadSearch (search_plain, or the
+    kernel's wrapper ops/cuda/quadfit.py::quad_search)."""
+    lead, K = m.bw.shape[:-1], m.bw.shape[-1]
+    if K != _NBINS:
+        raise ValueError(f"expected {_NBINS} bins, got {K}")
+    centroid = m.centroid.reshape(-1, 2)
+    n, cluster_valid = m.count.reshape(-1), m.valid.reshape(-1)
+    C = centroid.shape[0]
+    cx = centroid[:, 0:1]
+    cy = centroid[:, 1:2]
+    scale = torch.clamp(m.scale.reshape(C, 1), min=1e-6)     # (C, 1)
+    q = search(prefix_tables(m))
+    have_combo = torch.isfinite(q.best_err)
 
     # --- winning lines -> corners --------------------------------------------
-    pts = torch.stack([ex, ey], -1)                             # (C, 4, 2)
-    dirs = _line_dir(cxx, cxy, cyy)
+    pts = torch.stack([q.ex, q.ey], -1)                         # (C, 4, 2)
+    dirs = _line_dir(q.cxx, q.cxy, q.cyy)
     corners = line_intersection(torch.roll(pts, 1, 1), torch.roll(dirs, 1, 1), pts, dirs)
     corners = corners * scale[..., None] + torch.stack([cx, cy], -1)
 
     # --- gates ----------------------------------------------------------------
     scale2 = scale[..., 0] ** 2
-    mse_ok = aerr.amax(-1) * scale2 <= max_line_fit_mse
+    mse_ok = q.aerr.amax(-1) * scale2 <= max_line_fit_mse
     x0, y0 = corners[..., 0], corners[..., 1]
     x1, y1 = torch.roll(x0, -1, -1), torch.roll(y0, -1, -1)
     area2 = (x0 * y1 - x1 * y0).sum(-1)
@@ -179,5 +223,5 @@ def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
     flip = torch.roll(torch.flip(corners, (1,)), 1, 1)
     corners = torch.where((area2 < 0)[:, None, None], flip, corners)
     return Quads(corners=corners.reshape(*lead, 4, 2), valid=valid.reshape(lead),
-                 dark_inside=m.dark_inside, fit_err=(best_err * scale2).reshape(lead),
+                 dark_inside=m.dark_inside, fit_err=(q.best_err * scale2).reshape(lead),
                  gates=gates.reshape(*lead, -1))

@@ -7,7 +7,8 @@ the streaming runner's upload ring against a slow reader, the rig's launch
 counts, no host sync on the detect path, and detect_checked; the captured
 detect call (CUDA graph replay) against the eager call; the CCL flow
 with pointer jumps, bundle adjustment of a 10k-tag map against the CPU, and
-the rig over a world of one NCCL process. They skip without a card.
+the rig over a world of one NCCL process; the cluster, resolve and
+quad-fit kernels on chip_smoke.py's cases. They skip without a card.
 
 The adversarial inputs of the threshold and scan kernels are chip_smoke.py's,
 so the smoke run and these tests hold the kernels to the same cases. This file imports
@@ -26,10 +27,11 @@ import pytest
 import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, LONG_SHAPES,
-                        RESOLVE_CASE_NAMES, RESOLVE_KERNELS, SCAN_CASES, THRESH_CASES,
-                        THRESH_MIN_DIFF, bench_inputs, check_cluster_case, check_resolve_call,
-                        cluster_cases, edge_batch, free_port, map_problem, resolve_cases,
-                        scan_batch, scan_case, scan_case_id, thresh_case_id, thresh_input)
+                        QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES, RESOLVE_KERNELS, SCAN_CASES,
+                        THRESH_CASES, THRESH_MIN_DIFF, bench_inputs, check_cluster_case,
+                        check_quadfit_case, check_resolve_call, cluster_cases, edge_batch,
+                        free_port, map_problem, quadfit_cases, resolve_cases, scan_batch,
+                        scan_case, scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
                                           batched_detect_fn, build_spatial_front_fn,
@@ -39,6 +41,7 @@ from isaac_ros_apriltag_tpu_torch.parallel.slam import ba
 from isaac_ros_apriltag_tpu_torch import detector as tdetector
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl, launch_counts, set_launch_counts
 from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cluster_kernels
+from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as quadfit_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as resolve_kernels
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
 from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
@@ -365,8 +368,8 @@ def test_replay_equals_eager_call(cuda, config, batch, backend):
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_replay_counts_launches(cuda, backend):
     """A replay adds the launches its capture recorded: 1 / 14 / 14, two of
-    each resolve kernel and one of each cluster kernel for backend 'cuda',
-    none for the twins; the capture itself adds none."""
+    each resolve kernel, one of each cluster kernel and one quad-fit search
+    for backend 'cuda', none for the twins; the capture itself adds none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
     n = 1 if backend == "cuda" else 0
@@ -377,7 +380,8 @@ def test_replay_counts_launches(cuda, backend):
         torch.cuda.synchronize()
         assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n,
                                    **{k: n for k in CLUSTER_KERNELS},
-                                   **{k: 2 * n for k in RESOLVE_KERNELS}}
+                                   **{k: 2 * n for k in RESOLVE_KERNELS},
+                                   "quadfit_search": n}
 
 
 def test_streaming_over_captured_call_equals_eager(cuda):
@@ -609,6 +613,27 @@ def test_cluster_kernels_refuse_what_they_do_not_take(cuda):
         cluster_kernels.extract_cluster_moments(tri, tri.to(torch.int32), comp_overflow=ovf,
                                                 max_edge_points=64, max_clusters=128,
                                                 min_cluster_pixels=24)
+
+
+_QUADFIT_CASES = {}
+
+
+@pytest.mark.parametrize("name", QUADFIT_CASE_NAMES)
+def test_quadfit_kernel_matches_plain_version(cuda, name):
+    """chip_smoke.py phase 25's checks on one case: the search kernel
+    against its plain version bit for bit (best, best_err, the six winner
+    lines), one launch a call, two calls and a captured replay equal, and
+    every Quads field of the fit on the kernel equal to the plain fit's."""
+    if not _QUADFIT_CASES:
+        _QUADFIT_CASES.update(quadfit_cases(cuda))
+    check_quadfit_case(name, *_QUADFIT_CASES[name])
+
+
+def test_quadfit_kernel_refuses_what_it_does_not_take(cuda):
+    S = torch.zeros((3, 6, 65), dtype=torch.float32, device=cuda)
+    for bad in (S.double(), S[..., :64], S.transpose(0, 1).contiguous().transpose(0, 1), S[:0]):
+        with pytest.raises(ValueError):
+            quadfit_kernel.quad_search(bad)
 
 
 _RESOLVE_CASES = {}
