@@ -135,7 +135,7 @@ non-zero):
      run once under torch.profiler, whose count of each kernel by name
      must equal the launch counters' and the expected counts, with no
      cummax kernel among them;
- 23. cluster moments: the four cluster-moment kernels (csrc/
+ 23. cluster moments: the five cluster-moment kernels (csrc/
      cluster_moments.cu) on torch_bench.py's 720p b1 and 1080p b8 inputs,
      tests/test_noise.py's max_clusters=16 scene and the 1080p b8 batch with
      a slot budget it overflows, and a 1080p frame segmented at full
@@ -143,14 +143,22 @@ non-zero):
      (counts, valid, dark side, centroid, scale, num_* and overflow
      bit-exact; bin tables within one f32 ulp, the cells that differ
      counted), each kernel against its plain version, two calls and a
-     captured replay equal, one launch of each kernel a call; device ms of
-     each kernel, its plain version and its bound, and of the stage (kernel
-     path, its torch.sort, the plain version's one-hot formulation);
+     captured replay equal, one launch of each kernel a call; the two
+     segment kernels on SEGMENT_ROWS' synthetic sorted keys (segments across
+     many tiles, ending on tile edges, ties split across tiles, fewer
+     candidates than C, none, a zero size gate, a frame with no valid key, a
+     16001-bin histogram) against top_segments_plain and each against its
+     plain version, one launch each, two calls and a captured replay equal;
+     device ms of each kernel, its plain version and its bound, and of the
+     stage (kernel path, its torch.sort, the plain version's one-hot
+     formulation);
  24. resolve: the four resolve kernels (csrc/resolve.cu: count, tile sums,
      scan, map) on the phase-1 and phase-2 labels of torch_bench.py's 720p
      b1 and 1080p b8 inputs, the 1080p b8 input at R = RESOLVE_SMALL_R, a
      speckle batch whose phase-1 groups pass R, and synthetic flat frames
-     for the twin's slot R - 1 and its R = 65536 clamp: the contraction, the
+     for the twin's slot R - 1 and its R = 65536 clamp (and the count kernel
+     alone on COUNT_CASES: one label a frame, speckle, labels at S - 1 and
+     out of range, rows that take its scalar path): the contraction, the
      rank-mode and the flat-mode resolve against the twin bit for bit on
      every field, one launch of each kernel a call, two calls and a
      captured replay equal, each kernel against its plain version bit for
@@ -243,12 +251,14 @@ CAPTURE_TURN_CALLS = 20       # calls per timed turn
 # Substrings of the kernels' names in a torch.profiler trace (csrc/*.cu).
 KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "col": "col_diag_kernel", "edge_count": "cm_edge_count_kernel",
-                "edge_pairs": "cm_edge_pairs_kernel", "segments": "cm_segments_kernel",
-                "moments": "cm_moments_kernel", "resolve_count": "resolve_count_kernel",
+                "edge_pairs": "cm_edge_pairs_kernel", "segment_tiles": "cm_seg_tiles_kernel",
+                "segment_top": "cm_seg_top_kernel", "moments": "cm_moments_kernel",
+                "resolve_count": "resolve_count_kernel",
                 "resolve_tiles": "resolve_tile_sums_kernel",
                 "resolve_scan": "resolve_scan_kernel", "resolve_map": "resolve_map_kernel",
                 "quadfit_search": "qf_search_kernel"}
-CLUSTER_KERNELS = ("edge_count", "edge_pairs", "segments", "moments")   # once a detect call
+CLUSTER_KERNELS = ("edge_count", "edge_pairs", "segment_tiles", "segment_top",
+                   "moments")                                  # once a detect call
 CUMMAX_KERNEL = "dim_with_indices"   # torch's cummax/cummin scan kernels' names hold it
 # Phase 23: tests/test_noise.py's max_clusters=16 scene (640x480, fx 420:
 # two 0.28 m tags at 1.2 m, noise 3), and the slot budget that overflows a
@@ -264,12 +274,40 @@ CLUSTER_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CAS
     f"{SLOT_OVERFLOW_MIN_PIXELS}",
     "1080p b1, quad_decimate 1")
 # The reference's XLA code each cluster kernel replaces (it has no Pallas
-# kernel there): the pair count, the pair loop, the reverse cummin + top-C
-# sort, and the one-hot per-cluster matmuls (with the cummax and second sort).
+# kernel there): the pair count, the pair loop, the reverse cummin, the
+# top-C sort, and the one-hot per-cluster matmuls (with the cummax and second
+# sort).
 CLUSTER_REPLACES = {"edge_count": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:168",
                     "edge_pairs": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:142",
-                    "segments": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:202",
+                    "segment_tiles": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:202",
+                    "segment_top": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:214",
                     "moments": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:273"}
+# Phase 23's synthetic sorted-key rows for the two segment kernels, whose
+# tiles are 512 keys: name -> (each frame's segment sizes in key order, None
+# for a frame with no valid key; row length N, E, E2, max_clusters,
+# min_cluster_pixels, max_perimeter; the frames whose num_edge is twice the
+# pair budget (stride 2), the frames with comp_overflow). Each case holds a
+# segment that runs past a tile's end and is gated or ranked otherwise when
+# cut there; the ties at the threshold size fall in more than one tile.
+SEGMENT_ROWS = {
+    "a segment across many tiles": (
+        ([30] * 10 + [3000, 40, 25, 26] + [5] * 100, [20] * 5 + [5000] + [30] * 20),
+        8192, 8000, 8000, 4, 24, 4000, (1,), ()),
+    "segments ending on tile edges": (
+        ([32] * 16 + [100, 412, 700] + [25] * 10,), 2048, 2048, 2048, 8, 24, 600, (), ()),
+    "ties at T split across tiles": (
+        ([30] * 60 + [50, 45],), 2048, 2048, 500, 20, 24, 600, (), ()),
+    "fewer candidates than C": (
+        ([10] * 20 + [40, 700] + [5] * 50 + [33],), 4096, 4096, 4096, 128, 24, 2000, (), ()),
+    "no candidates": (
+        ([10] * 40 + [900] + [3] * 100,), 2048, 2048, 2048, 16, 24, 800, (), ()),
+    "min_cluster_pixels 0, nv < E": (
+        ([7] * 100 + [600] + [1] * 50,), 4096, 4096, 4096, 16, 0, 5000, (), ()),
+    "a frame with no valid key": (
+        (None, [26] * 30 + [1000] + [24] * 5), 4096, 4000, 4000, 8, 24, 2000, (), (0,)),
+    "a histogram of 16001 bins": (
+        ([40] * 20 + [13000] + [30] * 10,), 16384, 16384, 16384, 16, 24, 16000, (), (0,)),
+}
 RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan",
                    "resolve_map")                 # once a resolve call, twice a two-phase call
 # The reference's XLA code each resolve kernel replaces (it has no Pallas
@@ -295,6 +333,15 @@ RESOLVE_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CAS
     f"1080p b8, R {RESOLVE_SMALL_R}", "speckle, phase-1 groups past R",
     *(f"slot R - 1, group {g} doubled, R {RESOLVE_SLOT_R}" for g, _ in RESOLVE_SLOT_CASES),
     "R 65536 clamp, one chain")
+# Phase 24's inputs of the count kernel alone: name -> ((B, N), S, label
+# kind, share of valid pixels); see count_case. N = 518400 is the 1080p
+# segmentation frame; rows of 1001 and 12345 pixels take the kernel's
+# scalar path. From 2^20 pixels a launch its blocks take 4096 pixels, else
+# 1024: the cases hold each of the four instances.
+COUNT_CASES = {"one label a frame": ((3, 518400), 518400, "one", 1.0),
+               "speckle": ((2, 518400), 518400, "speckle", 0.7),
+               "labels at S - 1 and out of range": ((3, 1001), 777, "edges", 0.9),
+               "runs, rows of 12345 pixels": ((90, 12345), 4096, "runs", 0.8)}
 
 # Phase 25: the quad fit's cases (see quadfit_cases), the reference's XLA
 # code the search kernel replaces (no Pallas kernel there: the selector
@@ -394,6 +441,48 @@ def edge_batch(H: int, W: int, n: int = 3, seed: int = 0):
         tri[b, -1] = pal[(b + 1) % 3]
     lab = np.broadcast_to(np.arange(H * W, dtype=np.int32).reshape(H, W), (n, H, W))
     return tri, np.ascontiguousarray(lab)
+
+
+def segment_rows() -> dict:
+    """SEGMENT_ROWS as numpy inputs: name -> ((B, N) int32 sorted keys,
+    segment i of a frame holding key 8 i + 5, then int32 max; (B,) int32
+    num_edge, the frame's valid keys capped at the pair budget (stride 1)
+    or twice the budget (stride 2); (B,) bool comp_overflow; top_segments'
+    keyword arguments)."""
+    out = {}
+    for name, (frames, N, E, E2, C, min_pix, max_per, strided, ovf) in SEGMENT_ROWS.items():
+        keys = np.full((len(frames), N), np.iinfo(np.int32).max, np.int32)
+        for b, sizes in enumerate(frames):
+            row = np.repeat(8 * np.arange(len(sizes or [])) + 5, sizes or [])
+            keys[b, :len(row)] = row
+        nv = (keys[:, :E] != np.iinfo(np.int32).max).sum(-1)
+        budget = (9 * E) // 10
+        num_edge = np.where(np.isin(np.arange(len(frames)), strided), 2 * budget,
+                            np.minimum(nv, budget)).astype(np.int32)
+        out[name] = (keys, num_edge, np.isin(np.arange(len(frames)), ovf),
+                     dict(E=E, E2=E2, max_clusters=C, min_cluster_pixels=min_pix,
+                          max_perimeter=max_per))
+    return out
+
+
+def count_case(name: str, seed: int = 0):
+    """COUNT_CASES[name] as numpy inputs: ((B, N) int32 labels, (B, N) bool
+    validity, S). 'one': every pixel labelled 7; 'speckle': labels uniform
+    in [0, S); 'edges': runs of -5, -1, 0, S - 1, S, S + 3 and int32 max;
+    'runs': runs of 1 to 300 pixels of labels in [-2, S + 2)."""
+    (B, N), S, kind, share = COUNT_CASES[name]
+    rng = np.random.default_rng(seed)
+    if kind == "one":
+        label = np.full((B, N), 7, np.int64)
+    elif kind == "speckle":
+        label = rng.integers(0, S, (B, N))
+    else:
+        values = (np.array([-5, -1, 0, S - 1, S, S + 3, np.iinfo(np.int32).max])
+                  if kind == "edges" else np.arange(-2, S + 2))
+        runs = rng.integers(1, 300 if kind == "runs" else 20, B * N)
+        label = np.repeat(rng.choice(values, B * N), runs)[:B * N].reshape(B, N)
+    valid = rng.random((B, N)) < share
+    return label.astype(np.int32), valid, S
 
 
 # Threshold-kernel inputs, (tile size, shape, fill, offset); see thresh_case.
@@ -548,6 +637,26 @@ def _same(a, b) -> bool:
 
 def _max_abs_err(a, b) -> float:
     return float((a.to(float) - b.to(float)).abs().max())
+
+
+def _replay_equals(fn, got, what: str) -> None:
+    """fn() captured in a CUDA graph (after a warm call on a side stream) and
+    replayed once must equal `got`, a tensor or a tuple of them, else raise."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    pairs = zip(static, got) if isinstance(got, tuple) else [(static, got)]
+    if not all(_same(a, b) for a, b in pairs):
+        raise AssertionError(f"{what}: the captured replay differs from eager")
 
 
 def _truth_error(det, tags, K) -> float:
@@ -796,7 +905,7 @@ def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict
     scan rounds and `resolves` resolve calls each (2 in the two-phase flow,
     the contraction and the final resolve; 1 in the flat and jumps flows):
     K1 once, K2 and K3 once a round, the four resolve kernels once a resolve
-    call, the four cluster kernels and the quad-fit search once."""
+    call, the five cluster kernels and the quad-fit search once."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
             **{k: frames for k in CLUSTER_KERNELS},
             **{k: resolves * frames for k in RESOLVE_KERNELS}, "quadfit_search": frames}
@@ -1318,28 +1427,16 @@ def check_cluster_case(name: str, cfg, images) -> dict:
         tri, dense, comp_overflow=ovf, **kw), f"cluster moments, {name}, against the plain one")
     if not all(_same(a, b) for a, b in zip(stage(), got)):
         raise AssertionError(f"cluster moments, {name}: two calls differ")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        stage()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static = stage()
-    graph.replay()
-    torch.cuda.synchronize()
-    if not all(_same(a, b) for a, b in zip(static, got)):
-        raise AssertionError(f"cluster moments, {name}: the captured replay differs from eager")
-    del graph, static
+    _replay_equals(stage, got, f"cluster moments, {name}")
     ne = cmk.edge_count(tri, dense)
     key, pay = cmk.edge_pairs(tri, dense, ne, E)
     key_s, perm = torch.sort(key, dim=-1, stable=True)
-    seg = cmk.top_segments(key_s, ne, ovf, **skw)
+    tiles, seg, seg_pairs = segment_pairs(key_s, ne, ovf, skw)
     mom = cmk.slot_moments(perm, pay, seg.top_pos, seg.count, E2)
     momp = plain.slot_moments_plain(perm, pay, seg.top_pos, seg.count, E2)
     checks = {"edge_count": [(ne, plain.edge_count_plain(tri, dense))],
               "edge_pairs": list(zip((key, pay), plain.edge_pairs_plain(tri, dense, ne, E))),
-              "segments": list(zip(seg, plain.top_segments_plain(key_s, ne, ovf, **skw))),
+              **seg_pairs,
               "moments": [(getattr(mom, f), getattr(momp, f))
                           for f in ("centroid", "scale", "dark_inside")]}
     errs = {}
@@ -1352,8 +1449,78 @@ def check_cluster_case(name: str, cfg, images) -> dict:
                              "ulp from the plain version's")
     errs["moments"] = max(errs["moments"], _max_abs_err(mom.table, momp.table))
     return dict(tri=tri, dense=dense, ovf=ovf, kw=kw, E=E, E2=E2, skw=skw, ne=ne, key=key,
-                pay=pay, key_s=key_s, perm=perm, seg=seg, mom=mom, got=got, differ=differ,
-                cells=cells, errs=errs, stage=stage)
+                pay=pay, key_s=key_s, perm=perm, tiles=tiles, seg=seg, mom=mom, got=got,
+                differ=differ, cells=cells, errs=errs, stage=stage)
+
+
+def _own_candidates(tiles):
+    """A SegmentTiles' candidates, each tile's entries past its count (which
+    the kernel leaves unwritten) set to 0 as segment_tiles_plain has them."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.cluster_moments import SEG_TILE
+
+    B = tiles.stats.shape[0]
+    own = torch.arange(SEG_TILE, device=tiles.cand.device) < tiles.stats[:, 1, :, None]
+    return torch.where(own.reshape(B, -1), tiles.cand, 0)
+
+
+def segment_pairs(key_s, ne, ovf, skw: dict):
+    """The two segment kernels on (B, N) sorted keys beside their plain
+    versions: (tiles, TopSegments, {kernel: [(got, want), ...]}): the tiles
+    kernel's fields, histogram, valid keys and candidates against
+    segment_tiles_plain; the top kernel on the kernel's tiles against
+    segment_top_plain on them and against top_segments_plain on the keys."""
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    tkw = dict(E=skw["E"], min_cluster_pixels=skw["min_cluster_pixels"],
+               max_perimeter=skw["max_perimeter"])
+    tiles = cmk.segment_tiles(key_s, ne, **tkw)
+    want = plain.segment_tiles_plain(key_s, ne, **tkw)
+    seg = cmk.segment_top(tiles, ne, ovf, **skw)
+    return tiles, seg, {
+        "segment_tiles": [(tiles.stats, want.stats), (tiles.hist, want.hist),
+                          (tiles.nv, want.nv), (_own_candidates(tiles), want.cand)],
+        "segment_top": list(zip(seg, plain.segment_top_plain(tiles, ne, ovf, **skw)))
+        + list(zip(seg, plain.top_segments_plain(key_s, ne, ovf, **skw)))}
+
+
+def check_segment_row(name: str, dev) -> dict:
+    """One of SEGMENT_ROWS on the card: top_segments (the two segment
+    kernels, one launch each) against top_segments_plain on every field,
+    two calls and a captured replay equal, and each kernel against its
+    plain version (segment_pairs). Raises on a difference; returns each
+    kernel's largest difference from its plain version."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    keys, num_edge, comp_overflow, skw = segment_rows()[name]
+    key_s, ne, ovf = (torch.from_numpy(a).to(dev) for a in (keys, num_edge, comp_overflow))
+
+    def call():
+        return cmk.top_segments(key_s, ne, ovf, **skw)
+
+    one = {k: int(k in ("segment_tiles", "segment_top")) for k in _want()}
+    _reset_launches()
+    got = call()
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"segments, {name}: launches {counts} != {one}")
+    for f, a, b in zip(got._fields, got, plain.top_segments_plain(key_s, ne, ovf, **skw)):
+        if not _same(a, b):
+            raise AssertionError(f"segments, {name}: {f} differs from top_segments_plain")
+    if not all(_same(a, b) for a, b in zip(call(), got)):
+        raise AssertionError(f"segments, {name}: two calls differ")
+    _replay_equals(call, got, f"segments, {name}")
+    errs = {}
+    for k, pairs in segment_pairs(key_s, ne, ovf, skw)[2].items():
+        errs[k] = max(_max_abs_err(a, b) for a, b in pairs)
+        if not all(_same(a, b) for a, b in pairs):
+            raise AssertionError(f"{k} kernel, {name}: differs from its plain version")
+    return errs
 
 
 def cluster_phase(gpu: str) -> dict:
@@ -1390,7 +1557,11 @@ def cluster_phase(gpu: str) -> dict:
         if name not in CLUSTER_CASE_NAMES[:len(CAPTURE_CASES)]:
             continue
         # Times at the bench shapes; bounds from the bytes this input needs.
-        nv = int((key_s[:, :E] != torch.iinfo(torch.int32).max).sum())
+        tiles = c["tiles"]
+        tkw = dict(E=E, min_cluster_pixels=skw["min_cluster_pixels"],
+                   max_perimeter=skw["max_perimeter"])
+        nv = int(tiles.nv.sum())
+        cand_bytes = 4 * int(tiles.stats[:, 1].sum()) / HBM_BYTES_PER_S * 1e3
         resident = int(torch.clamp(seg.count.sum(-1), max=E2).sum())
         timed = {
             "edge_count": (lambda: cmk.edge_count(tri, dense),
@@ -1399,10 +1570,16 @@ def cluster_phase(gpu: str) -> dict:
             "edge_pairs": (lambda: cmk.edge_pairs(tri, dense, ne, E),
                            lambda: plain.edge_pairs_plain(tri, dense, ne, E),
                            _bound_ms(tri, dense, ne, key, pay)),
-            # the valid prefix of the sorted keys, 4 bytes a key
-            "segments": (lambda: cmk.top_segments(key_s, ne, ovf, **skw),
-                         lambda: plain.top_segments_plain(key_s, ne, ovf, **skw),
-                         4 * nv / HBM_BYTES_PER_S * 1e3 + _bound_ms(ne, ovf, *seg)),
+            # the valid prefix of the sorted keys, 4 bytes a key; the tiles'
+            # fields, histogram and valid keys, and 4 bytes a candidate
+            "segment_tiles": (lambda: cmk.segment_tiles(key_s, ne, **tkw),
+                              lambda: plain.segment_tiles_plain(key_s, ne, **tkw),
+                              4 * nv / HBM_BYTES_PER_S * 1e3 + cand_bytes
+                              + _bound_ms(ne, tiles.stats, tiles.hist, tiles.nv)),
+            "segment_top": (lambda: cmk.segment_top(tiles, ne, ovf, **skw),
+                            lambda: plain.segment_top_plain(tiles, ne, ovf, **skw),
+                            cand_bytes + _bound_ms(tiles.stats, tiles.hist, tiles.nv, ne, ovf,
+                                                   *seg)),
             # each resident pair's permutation entry and pay, 12 bytes
             "moments": (lambda: cmk.slot_moments(perm, pay, seg.top_pos, seg.count, E2),
                         lambda: plain.slot_moments_plain(perm, pay, seg.top_pos, seg.count, E2),
@@ -1419,12 +1596,20 @@ def cluster_phase(gpu: str) -> dict:
             "sort": _device_ms(lambda: torch.sort(key, dim=-1, stable=True), 10),
             "plain": _device_ms(lambda: plain.extract_cluster_moments(
                 tri, dense, comp_overflow=ovf, **kw), 5)}
+    for name in SEGMENT_ROWS:
+        for k, e in check_segment_row(name, dev).items():
+            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], e)
+    seg_ms = {t: out["segment_tiles"][t]["ms"] + out["segment_top"][t]["ms"]
+              for t in ("b1", f"batch{BATCH}")}
     torch.cuda.synchronize()
     print(f"[23 cluster moments] the kernel path (one launch of each of "
           f"{list(CLUSTER_KERNELS)} a call) against the plain version: counts, valid, dark "
           f"side, centroid, scale, num_* and overflow bit-exact, bin tables within one f32 ulp; "
           f"each kernel against its plain version (the moments' tables within one ulp); two "
-          f"calls and a captured replay equal: " + "; ".join(lines) + f"; on {gpu}: device ms "
+          f"calls and a captured replay equal: " + "; ".join(lines) + "; the two segment "
+          f"kernels on the synthetic rows {list(SEGMENT_ROWS)}: equal to top_segments_plain and "
+          f"each to its plain version, one launch each, two calls and a captured replay equal; "
+          f"on {gpu}: the two segment kernels summed {seg_ms} ms; device ms "
           f"a call of the stage (kernel path, its torch.sort alone, the plain version's one-hot "
           f"GEMM formulation) {stage_ms}; a kernel (kernel / plain / bound ms) "
           + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
@@ -1499,8 +1684,6 @@ def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) 
     it. Raises on a difference; returns the kernels' inputs and outputs
     (`log`), each kernel's largest difference from its plain version
     (`errs`), the results and the stage and twin as functions."""
-    import torch
-
     from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
 
@@ -1536,19 +1719,7 @@ def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) 
         raise AssertionError(f"{what}: a dense id other than {facts['dense']}")
     if not all(_same(a, b) for a, b in zip(stage(), got)):
         raise AssertionError(f"resolve {call}, {what}: two calls differ")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        stage()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static = stage()
-    graph.replay()
-    torch.cuda.synchronize()
-    if not all(_same(a, b) for a, b in zip(static, got)):
-        raise AssertionError(f"resolve {call}, {what}: the captured replay differs from eager")
-    del graph, static
+    _replay_equals(stage, got, f"resolve {call}, {what}")
     passes = plain.TablePasses(recorded("count", rk.count), recorded("scan", rk.scan),
                                recorded("map", rk.map_pixels))
     if not all(_same(a, b) for a, b in zip(tables(lab, valid, passes=passes, **kw), got)):
@@ -1570,6 +1741,30 @@ def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) 
             raise AssertionError(f"{k} kernel, {call}, {what}: differs from its plain version")
     return dict(log=log, errs=errs, got=got, stage=stage,
                 twin=lambda: twin_fn(lab, valid, **kw))
+
+
+def check_count_case(name: str, dev) -> float:
+    """One of COUNT_CASES through the count kernel alone: one launch, equal
+    to count_plain, two calls and a captured replay (the table's memset and
+    the kernel) equal. Raises on a difference; returns the largest one."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+
+    label, valid, S = count_case(name)
+    cl, cv = torch.from_numpy(label).to(dev), torch.from_numpy(valid).to(dev)
+    one = {k: int(k == "resolve_count") for k in _want()}
+    _reset_launches()
+    got = rk.count(cl, cv, S)
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"count, {name}: launches {counts} != {one}")
+    want = plain.count_plain(cl, cv, S)
+    if not (_same(got, want) and _same(rk.count(cl, cv, S), want)):
+        raise AssertionError(f"count kernel, {name}: differs from count_plain")
+    _replay_equals(lambda: rk.count(cl, cv, S), want, f"count kernel, {name}")
+    return _max_abs_err(got, want)
 
 
 def resolve_times(c: dict) -> dict:
@@ -1609,9 +1804,15 @@ def resolve_times(c: dict) -> dict:
     }
     if not _same(torch.gather(lut, 1, pix).to(torch.int32), mapped):
         raise AssertionError("the map's library yardstick computes another function")
-    return {k: dict(ms=_device_ms(kern, 20), plain_ms=_device_ms(twin, 5), bound_ms=bound,
-                    library_ms=_device_ms(lib, 20) if lib else None)
-            for k, (kern, twin, bound, lib) in timed.items()}
+    out = {k: dict(ms=_device_ms(kern, 20), plain_ms=_device_ms(twin, 5), bound_ms=bound,
+                   library_ms=_device_ms(lib, 20) if lib else None)
+           for k, (kern, twin, bound, lib) in timed.items()}
+    # The count's integer atomics follow its runs: maximal spans of one counted label.
+    counted = key < S
+    starts = counted.clone()
+    starts[:, 1:] &= key[:, 1:] != key[:, :-1]
+    out["resolve_count"]["runs"] = int(starts.sum())
+    return out
 
 
 def resolve_phase(gpu: str) -> dict:
@@ -1657,17 +1858,23 @@ def resolve_phase(gpu: str) -> dict:
                     acc["library_ms"] = (acc["library_ms"] or 0.0) + t["library_ms"]
                 acc["by_call"][mode] = t
         lines.append(f"{name}: " + "; ".join(facts))
+    for name in COUNT_CASES:
+        out["resolve_count"]["max_abs_err"] = max(out["resolve_count"]["max_abs_err"],
+                                                  check_count_case(name, dev))
     torch.cuda.synchronize()
     print(f"[24 resolve] the kernel path (one launch of each of {list(RESOLVE_KERNELS)} a "
           f"resolve call) against the twin bit for bit on every field, two calls and a captured "
           f"replay equal, each kernel against its plain version bit for bit: "
-          + " | ".join(lines) + f"; on {gpu}: device ms a call of the stage "
+          + " | ".join(lines) + f"; the count kernel alone on {list(COUNT_CASES)}: equal to "
+          f"count_plain, one launch, two calls and a captured replay equal; on {gpu}: device "
+          f"ms a call of the stage "
           + "; ".join(stage_lines) + "; a kernel a detect call (the contraction's and the "
           "rank-mode resolve's summed; kernel / plain / bound / library ms) "
           + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
                       f"{v[t]['bound_ms']:.4f} / {v[t]['library_ms']}"
                       for k, v in out.items() for t in ("b1", f"batch{BATCH}"))
-          + "; by call: " + json.dumps({k: {t: v[t]["by_call"] for t in ("b1", f"batch{BATCH}")}
+          + "; by call (the count's runs: its labels' maximal spans in a row of pixels): "
+          + json.dumps({k: {t: v[t]["by_call"] for t in ("b1", f"batch{BATCH}")}
                         for k, v in out.items()}), flush=True)
     return out
 
@@ -1805,8 +2012,6 @@ def check_quadfit_case(name: str, m, min_area: float) -> dict:
     equal; the quad fit on the kernel against the plain fit on every Quads
     field. Raises on a difference; returns the tables, the kernel's result,
     the quads and each cluster's count of candidates."""
-    import torch
-
     from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
 
@@ -1824,19 +2029,7 @@ def check_quadfit_case(name: str, m, min_area: float) -> dict:
                                  f"version (max abs err {_max_abs_err(a, b)})")
     if not all(_same(a, b) for a, b in zip(qk.quad_search(S), got)):
         raise AssertionError(f"quad search kernel, {name}: two calls differ")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        qk.quad_search(S)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static = qk.quad_search(S)
-    graph.replay()
-    torch.cuda.synchronize()
-    if not all(_same(a, b) for a, b in zip(static, got)):
-        raise AssertionError(f"quad search kernel, {name}: the captured replay differs")
-    del graph, static
+    _replay_equals(lambda: qk.quad_search(S), got, f"quad search kernel, {name}")
     qa = qk.fit_quads_from_moments(m, min_area=min_area)
     qb = plain.fit_quads_from_moments(m, min_area=min_area)
     for f, a, b in zip(qb._fields, qa, qb):

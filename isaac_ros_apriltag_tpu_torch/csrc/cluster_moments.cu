@@ -1,5 +1,5 @@
 // Cluster moments: (B, H, W) trinary + area-gated dense component ids ->
-// per-cluster angular moment tables, in four kernels around one torch.sort.
+// per-cluster angular moment tables, in five kernels around one torch.sort.
 //
 // Replaces: the sort-centric formulation of
 // isaac_ros_apriltag_tpu/ops/cluster_moments.py (XLA, no Pallas kernel),
@@ -22,14 +22,22 @@
 //       plain version lays them out: torch.sort's stable order depends on
 //       that layout;
 //   (torch.sort, stable, of the keys: values and permutation)
-//   cm_segments_kernel  one block a frame over the first E sorted keys: a
-//       segment's size is found at its start by a galloping binary search
-//       (no scan); the size gate; counts; a histogram of the gated sizes in
-//       shared memory; the candidates compacted in position order (block
-//       scans); the threshold size of the top C; the winners taken in
-//       position order, ties at the threshold to the lower position (the
-//       plain version's stable sort), then ranked by (size descending,
-//       position);
+//   cm_seg_tiles_kernel  many blocks a frame, one a tile of SEG_TILE sorted
+//       keys: the segment starts; each start's size from the next start in
+//       the tile (a block suffix minimum, no search), the tile's last start
+//       left to the top kernel when its segment runs past the tile; the
+//       size gate; the tile's candidates compacted in position order; one
+//       integer atomic a candidate into the frame's size histogram (zeroed
+//       by a memset on the stream); the tile's counts, first start, largest
+//       candidate and crossing start;
+//   cm_seg_top_kernel  one block a frame over the tiles' fields: each
+//       crossing segment's size from the first start of a later tile (a
+//       suffix minimum over tiles) into a copy of the histogram in shared
+//       memory (opted in past 48 KB); the
+//       threshold size T of the top C; the winners taken in position order
+//       from the tiles that hold a size >= T, ties at T to the lower
+//       position (the plain version's stable sort), then ranked by (size
+//       descending, position);
 //   cm_moments_kernel  one block a (frame, slot): the slot's resident pairs
 //       are sorted positions [top_pos, top_pos + n), n = its size cut at E2
 //       less the sizes of the slots before it (the plain version's second
@@ -51,11 +59,13 @@
 // version's GEMM, so a cell may round to the neighbouring f32.
 //
 // What bounds it on an H100: bytes. The pair kernels read 5 B a pixel and
-// write 32 B (key and pay at 4 offsets); the segments kernel reads the
-// valid prefix of the first E sorted keys once (and a few keys again in its
-// searches); the moments kernel reads each resident pair's permutation
-// entry (8 B) and pay (4 B) twice, the second time from L1/L2. The sort
-// between them is torch's.
+// write 32 B (key and pay at 4 offsets); the tiles kernel reads the valid
+// prefix of the first E sorted keys once, in enough blocks to fill the card
+// (about 165 tiles at 720p); the top kernel reads 20 B a tile and the
+// candidates of the few tiles that reach T, but one block a frame is a
+// chain of loads and barriers, so latency bounds it; the moments kernel
+// reads each resident pair's permutation entry (8 B) and pay (4 B) twice,
+// the second time from L1/L2. The sort between them is torch's.
 
 #include <climits>
 #include <cstdint>
@@ -71,8 +81,21 @@ constexpr int NBINS = 64;
 constexpr int NQ = 6;                          // terms a bin
 constexpr int MAX_C = 128;
 constexpr int PIX_THREADS = 256;
-constexpr int SEG_THREADS = 1024;
-constexpr int SEG_WARPS = SEG_THREADS / 32;
+constexpr int SEG_TILE = 512;                  // sorted keys a tile of cm_seg_tiles_kernel
+constexpr int SEG_TILE_THREADS = SEG_TILE / 4;  // 4 keys a thread
+constexpr int SEG_TILE_WARPS = SEG_TILE_THREADS / 32;
+constexpr int SEG_POS_BITS = 10;               // a candidate's offset in its tile, under its size
+constexpr int SEG_MAX_PER = (1 << 15) - 1;    // the largest max_per: the top kernel's
+                                               // histogram in 128 KB of shared memory
+// A tile's fields (stats[b, f, tile]): its starts, its compacted candidates,
+// their largest size, its first start (INT_MAX: none), and its crossing
+// start (-1: none).
+constexpr int ST_STARTS = 0, ST_CANDS = 1, ST_MAX = 2, ST_FIRST = 3, ST_CROSS = 4, SEG_STATS = 5;
+constexpr int TOP_THREADS = 1024;
+constexpr int TOP_WARPS = TOP_THREADS / 32;
+static_assert(SEG_TILE <= (1 << SEG_POS_BITS) && SEG_MAX_PER < (1 << (31 - SEG_POS_BITS)),
+              "a candidate's offset and size must fit its fields");
+static_assert(SEG_TILE_THREADS % 32 == 0 && TOP_THREADS >= MAX_C, "whole warps; a thread a slot");
 constexpr int MOM_THREADS = 256;
 constexpr int MOM_WARPS = MOM_THREADS / 32;
 
@@ -164,8 +187,9 @@ cm_edge_pairs_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict_
     }
 }
 
-// Block-wide exclusive prefix sum of one int a thread (SEG_THREADS threads,
-// every thread calls it); *total gets the block's sum.
+// Block-wide exclusive prefix sum of one int a thread (NT threads, every
+// thread calls it); *total gets the block's sum.
+template <int NT>
 __device__ __forceinline__ int block_scan(int v, int* buf, int* total) {
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     int inc = v;
@@ -176,185 +200,376 @@ __device__ __forceinline__ int block_scan(int v, int* buf, int* total) {
     }
     if (lane == 31) buf[w] = inc;
     __syncthreads();
-    if (w == 0) {
-        const int s = buf[lane];            // SEG_WARPS == 32: one warp total a lane
-        int si = s;
+    int before = 0, all = 0;
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int n = __shfl_up_sync(FULL, si, d);
-            if (lane >= d) si += n;
+    for (int u = 0; u < NT / 32; ++u) {
+        const int s = buf[u];
+        before += u < w ? s : 0;
+        all += s;
+    }
+    *total = all;
+    __syncthreads();                        // buf is free for the next scan
+    return before + inc - v;
+}
+
+// Block-wide exclusive suffix minimum (NT threads, every thread calls it):
+// the least v of the threads after this one, INT_MAX for the last; *all
+// gets the block's least v.
+template <int NT>
+__device__ __forceinline__ int block_suffix_min(int v, int* buf, int* all) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    int inc = v;                            // the least of lanes lane .. 31
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int n = __shfl_down_sync(FULL, inc, d);
+        if (lane + d < 32) inc = min(inc, n);
+    }
+    int after = __shfl_down_sync(FULL, inc, 1);
+    if (lane == 31) after = INT_MAX;
+    if (lane == 0) buf[w] = inc;
+    __syncthreads();
+    int m = INT_MAX;
+#pragma unroll
+    for (int u = 0; u < NT / 32; ++u) {
+        const int s = buf[u];
+        if (u > w) after = min(after, s);
+        m = min(m, s);
+    }
+    *all = m;
+    __syncthreads();
+    return after;
+}
+
+// One block a tile of SEG_TILE sorted keys [s, e), e = min(s + SEG_TILE, E),
+// 4 keys a thread. A key at i is a segment start when it is valid (< I32MAX)
+// and differs from the key at i - 1; the valid keys are a prefix, of length
+// nv. A start's segment ends at the next start in the tile (an exclusive
+// suffix minimum of the threads' first starts) or, for the tile's last
+// start, at the tile's valid end s + vt, unless the tile is all valid and
+// its last key's segment runs on into the next tile (`open_end`): that
+// crossing start is left to cm_seg_top_kernel, which knows the next tile's
+// first start. Writes the tile's fields (stats[b, f, tile]: ST_STARTS,
+// ST_CANDS, ST_MAX, ST_FIRST, ST_CROSS), its gated in-tile segments
+// (candidates) compacted in position order from cand[b, s] as
+// size << SEG_POS_BITS | (start - s), one histogram atomic a candidate
+// (hist zeroed by the launcher), and, from the one tile that holds the end
+// of the valid prefix, nv[b]. A tile past the prefix reads one key.
+__global__ void __launch_bounds__(SEG_TILE_THREADS)
+cm_seg_tiles_kernel(const int32_t* __restrict__ key_s, const int32_t* __restrict__ num_edge,
+                    int32_t* __restrict__ stats, int32_t* __restrict__ cand,
+                    int32_t* __restrict__ hist, int32_t* __restrict__ nv_out, int row, int E,
+                    int tiles, int min_pix, int max_per, int budget) {
+    __shared__ int red[6][SEG_TILE_WARPS];
+    const int tile = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const int32_t* ks = key_s + (size_t)b * row;
+    int32_t* st = stats + (size_t)b * SEG_STATS * tiles + tile;    // field f at st[f * tiles]
+    const int s = tile * SEG_TILE, e = min(s + SEG_TILE, E);
+    if (tile > 0 && ks[s] == I32MAX) {      // past the valid prefix: no keys
+        if (t == 0) {
+            st[ST_STARTS * tiles] = 0;
+            st[ST_CANDS * tiles] = 0;
+            st[ST_MAX * tiles] = 0;
+            st[ST_FIRST * tiles] = INT_MAX;
+            st[ST_CROSS * tiles] = -1;
         }
-        buf[lane] = si - s;
-        if (lane == 31) buf[SEG_WARPS] = si;
+        return;
+    }
+    const int32_t k_last = ks[e - 1], k_end = e < E ? ks[e] : I32MAX;
+    const int stride = edge_stride(num_edge[b], budget);
+    const int i0 = s + 4 * t;
+    int32_t k[4];
+    if (i0 + 3 < e) {
+        const int4 v = *reinterpret_cast<const int4*>(ks + i0);
+        k[0] = v.x; k[1] = v.y; k[2] = v.z; k[3] = v.w;
+    } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) k[j] = i0 + j < e ? ks[i0 + j] : I32MAX;
+    }
+    int32_t prev = __shfl_up_sync(FULL, k[3], 1);
+    if (lane == 0) prev = i0 > 0 && i0 < e ? ks[i0 - 1] : -1;
+    bool start[4];
+    int first = INT_MAX, last = -1, n_start = 0, n_valid = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const bool v = k[j] < I32MAX;
+        start[j] = v && k[j] != (j ? k[j - 1] : prev);
+        n_valid += v;
+        if (start[j]) {
+            first = min(first, i0 + j);
+            last = i0 + j;
+            ++n_start;
+        }
+    }
+    // The first start after this thread's keys; the tile's valid keys,
+    // starts, first and last start.
+    int inc = first;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int n = __shfl_down_sync(FULL, inc, d);
+        if (lane + d < 32) inc = min(inc, n);
+    }
+    int next = __shfl_down_sync(FULL, inc, 1);
+    if (lane == 31) next = INT_MAX;
+    const int wv = __reduce_add_sync(FULL, n_valid), ws = __reduce_add_sync(FULL, n_start);
+    const int wl = __reduce_max_sync(FULL, last);
+    if (lane == 0) {
+        red[0][w] = inc;
+        red[1][w] = wv;
+        red[2][w] = ws;
+        red[3][w] = wl;
     }
     __syncthreads();
-    const int out = buf[w] + inc - v;
-    *total = buf[SEG_WARPS];
-    __syncthreads();                        // buf is free for the next scan
-    return out;
-}
-
-// The first index in (i, n] whose key differs from ks[i] == k (n if none);
-// the keys ascend. Gallops from i, then bisects.
-__device__ __forceinline__ int segment_end(const int32_t* ks, int i, int n, int32_t k) {
-    int lo = i + 1, hi = lo, step = 1;      // ks[lo - 1] == k
-    while (hi < n && ks[hi] == k) {
-        lo = hi + 1;
-        hi = lo + step;
-        step <<= 1;
+    int vt = 0, n_starts = 0, fs = INT_MAX, ls = -1;
+#pragma unroll
+    for (int u = 0; u < SEG_TILE_WARPS; ++u) {
+        if (u > w) next = min(next, red[0][u]);
+        fs = min(fs, red[0][u]);
+        vt += red[1][u];
+        n_starts += red[2][u];
+        ls = max(ls, red[3][u]);
     }
-    hi = min(hi, n);                        // hi == n or ks[hi] != k
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (ks[mid] == k) lo = mid + 1;
-        else hi = mid;
-    }
-    return lo;
-}
+    const int vend = s + vt;                // the tile's valid end
+    const bool full = vend == e;
+    const bool open_end = full && e < E && k_end == k_last;
 
-static_assert(SEG_WARPS == 32, "block_scan takes one warp total a lane");
-
-// Dynamic shared memory: (max_per + 1) ints, the histogram of gated sizes.
-__global__ void __launch_bounds__(SEG_THREADS)
-cm_segments_kernel(const int32_t* __restrict__ key_s, const int32_t* __restrict__ num_edge,
-                   const uint8_t* __restrict__ comp_overflow, int32_t* __restrict__ cand_pos,
-                   int32_t* __restrict__ cand_size, int32_t* __restrict__ top_pos,
-                   int32_t* __restrict__ count, uint8_t* __restrict__ valid,
-                   int32_t* __restrict__ n_clusters, int32_t* __restrict__ n_eligible,
-                   int32_t* __restrict__ edge_stride_out, uint8_t* __restrict__ overflow, int row,
-                   int E, int E2, int C, int min_pix, int max_per, int budget) {
-    extern __shared__ int hist[];
-    __shared__ int buf[SEG_WARPS + 1];
-    __shared__ int s_nv, s_T, s_ngt;
-    __shared__ int win_pos[MAX_C], win_size[MAX_C];
-    const int b = blockIdx.x, t = threadIdx.x;
-    const int32_t* ks = key_s + (size_t)b * row;
-    cand_pos += (size_t)b * E;
-    cand_size += (size_t)b * E;
-    for (int s = t; s <= max_per; s += SEG_THREADS) hist[s] = 0;
-    const int ne = num_edge[b];
-    const int stride = edge_stride(ne, budget);
-    if (t == 0) {                           // the valid keys are a prefix: its length
-        int lo = 0, hi = E;
-        while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (ks[mid] < I32MAX) lo = mid + 1;
-            else hi = mid;
+    // Each start's size, from the last one back; the gate; the candidates.
+    int sz[4], nc = 0, mx = 0;
+#pragma unroll
+    for (int j = 3; j >= 0; --j) {
+        sz[j] = 0;
+        if (start[j]) {
+            const int i = i0 + j;
+            const bool tail = next == INT_MAX;     // the tile's last start
+            if (!(tail && open_end)) {
+                const int cnt = (tail ? vend : next) - i;
+                const long long true_size = (long long)cnt * stride;
+                if (true_size >= min_pix && true_size <= max_per) sz[j] = cnt;
+            }
+            next = i;
         }
-        s_nv = lo;
+        nc += sz[j] > 0;
+        mx = max(mx, sz[j]);
+    }
+    int cinc = nc;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int n = __shfl_up_sync(FULL, cinc, d);
+        if (lane >= d) cinc += n;
+    }
+    const int wm = __reduce_max_sync(FULL, mx);
+    if (lane == 31) red[4][w] = cinc;
+    if (lane == 0) red[5][w] = wm;
+    __syncthreads();
+    int before = 0, n_cand = 0, tile_max = 0;
+#pragma unroll
+    for (int u = 0; u < SEG_TILE_WARPS; ++u) {
+        before += u < w ? red[4][u] : 0;
+        n_cand += red[4][u];
+        tile_max = max(tile_max, red[5][u]);
+    }
+    int at = before + cinc - nc;
+    int32_t* cd = cand + (size_t)b * tiles * SEG_TILE + s;
+    int32_t* hb = hist + (size_t)b * (max_per + 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        if (sz[j]) {
+            cd[at++] = (sz[j] << SEG_POS_BITS) | (i0 + j - s);
+            atomicAdd(hb + sz[j], 1);
+        }
+    }
+    if (t == 0) {
+        st[ST_STARTS * tiles] = n_starts;
+        st[ST_CANDS * tiles] = n_cand;
+        st[ST_MAX * tiles] = tile_max;
+        st[ST_FIRST * tiles] = fs;
+        st[ST_CROSS * tiles] = open_end && n_starts > 0 ? ls : -1;
+        if (!full || e == E || k_end == I32MAX) nv_out[b] = vend;
+    }
+}
+
+// One block a frame over the tiles' fields, the histogram copied into
+// shared memory (hist itself is not written). Pass 1, last tiles first:
+// each tile's five fields in one load; a crossing start's segment ends at
+// the first start of a later tile (an exclusive suffix minimum over the
+// tiles) or at nv; its size is gated and counted into the copy. The
+// threshold size T of the top want = min(C, candidates) from the copy; then
+// pass 2, tiles in order (the first TOP_THREADS tiles' fields still in
+// registers): the candidates of the tiles that hold a size >= T, in
+// position order (each tile's compacted candidates, then its crossing one),
+// every size above T and the first `ties` of size T taken (the plain
+// version's stable sort), and the winners ranked by (size descending,
+// position ascending), 8 threads a winner.
+__global__ void __launch_bounds__(TOP_THREADS)
+cm_seg_top_kernel(const int32_t* __restrict__ stats, const int32_t* __restrict__ cand,
+                  const int32_t* __restrict__ hist, const int32_t* __restrict__ nv_in,
+                  const int32_t* __restrict__ num_edge,
+                  const uint8_t* __restrict__ comp_overflow, int32_t* __restrict__ cross,
+                  int32_t* __restrict__ top_pos, int32_t* __restrict__ count,
+                  uint8_t* __restrict__ valid, int32_t* __restrict__ n_clusters,
+                  int32_t* __restrict__ n_eligible, int32_t* __restrict__ edge_stride_out,
+                  uint8_t* __restrict__ overflow, int tiles, int E, int E2, int C, int min_pix,
+                  int max_per, int budget) {
+    extern __shared__ int hb[];             // the frame's histogram, max_per + 1 bins
+    __shared__ int buf[TOP_WARPS], buf2[TOP_WARPS];
+    __shared__ int s_off[TOP_THREADS], s_nc[TOP_THREADS], s_cs[TOP_THREADS], s_ls[TOP_THREADS];
+    __shared__ int s_T, s_ngt;
+    __shared__ int win_pos[MAX_C], win_size[MAX_C], win_rank[MAX_C];
+    const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const int32_t* st = stats + (size_t)b * SEG_STATS * tiles;
+    const int32_t* cd = cand + (size_t)b * tiles * SEG_TILE;
+    int32_t* cr = cross + (size_t)b * tiles;
+    const int ne = num_edge[b], stride = edge_stride(ne, budget), nv = nv_in[b];
+    const int NB = max_per + 1;
+    for (int x = t; x < NB; x += TOP_THREADS) hb[x] = hist[(size_t)b * NB + x];
+    if (t < MAX_C) win_rank[t] = 0;
+    if (t == 0) {
         s_T = INT_MAX;
         s_ngt = 0;
     }
-    __syncthreads();
-    const int nv = s_nv;
 
-    // Pass over the valid keys, 4 a thread: segment starts, the size gate,
-    // the histogram, and the candidates in position order.
-    int n_first = 0, n_elig = 0, n_cand = 0;
-    for (int base = 0; base < nv; base += 4 * SEG_THREADS) {
-        const int i0 = base + 4 * t;
-        int k[4];
-        if (i0 + 3 < nv) {
-            const int4 v = *reinterpret_cast<const int4*>(ks + i0);
-            k[0] = v.x; k[1] = v.y; k[2] = v.z; k[3] = v.w;
-        } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) k[j] = i0 + j < nv ? ks[i0 + j] : I32MAX;
+    // Pass 1; the first chunk's fields stay in registers for pass 2.
+    int n_first = 0, n_cand = 0, nc = 0, cs = 0, ls = -1, mx = 0;
+    int later = nv;                         // the first start past the chunk, or nv
+    for (int c0 = (tiles - 1) / TOP_THREADS * TOP_THREADS; c0 >= 0; c0 -= TOP_THREADS) {
+        const int u = c0 + t;
+        const bool in = u < tiles;
+        int fs = INT_MAX, ns = 0;
+        nc = 0, cs = 0, ls = -1, mx = 0;
+        if (in) {
+            ns = st[ST_STARTS * tiles + u];
+            nc = st[ST_CANDS * tiles + u];
+            mx = st[ST_MAX * tiles + u];
+            fs = st[ST_FIRST * tiles + u];
+            ls = st[ST_CROSS * tiles + u];
         }
-        int prev = i0 > 0 && i0 < nv ? ks[i0 - 1] : -1;
-        int sz[4], nc = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int i = i0 + j;
-            const bool first = i < nv && k[j] != prev;
-            prev = k[j];
-            long long true_size = 0;
-            int cnt = 0;
-            if (first) {
-                cnt = segment_end(ks, i, nv, k[j]) - i;
-                true_size = (long long)cnt * stride;
-            }
-            const bool elig = i < nv && true_size >= min_pix && true_size <= max_per;
-            n_first += first;
-            n_elig += elig;
-            sz[j] = first && elig ? cnt : 0;
-            if (sz[j]) {
-                atomicAdd(hist + cnt, 1);
-                ++nc;
+        int all;
+        const int next = min(block_suffix_min<TOP_THREADS>(fs, buf, &all), later);
+        later = min(later, all);
+        if (ls >= 0) {
+            const int cnt = next - ls;
+            const long long true_size = (long long)cnt * stride;
+            if (true_size >= min_pix && true_size <= max_per) {
+                cs = cnt;
+                atomicAdd(hb + cnt, 1);
             }
         }
-        int tot;
-        int at = n_cand + block_scan(nc, buf, &tot);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if (sz[j]) {
-                cand_pos[at] = i0 + j;
-                cand_size[at] = sz[j];
-                ++at;
-            }
-        }
-        n_cand += tot;
+        if (in) cr[u] = cs;
+        n_first += ns;
+        n_cand += nc + (cs > 0);
     }
-    int tot_first, tot_elig;
-    block_scan(n_first, buf, &tot_first);
-    block_scan(n_elig, buf, &tot_elig);
-    if (min_pix <= 0) tot_elig += E - nv;   // the invalid positions' size 0 passes the gate
+    n_first = __reduce_add_sync(FULL, n_first);
+    n_cand = __reduce_add_sync(FULL, n_cand);
+    if (lane == 0) {
+        buf[w] = n_first;
+        buf2[w] = n_cand;
+    }
+    __syncthreads();
+    int tot_first = 0, tot_cand = 0;
+#pragma unroll
+    for (int u = 0; u < TOP_WARPS; ++u) {
+        tot_first += buf[u];
+        tot_cand += buf2[u];
+    }
+    __syncthreads();
+    // The invalid positions' and non-starts' size 0 passes the gate too.
+    const int tot_elig = tot_cand + (min_pix <= 0 ? E - tot_first : 0);
 
-    // The threshold size T of the top `want`: thread t holds bins
-    // [hi - per, hi), hi = NB - t per, so a scan in thread order runs from the
-    // largest size down.
-    const int want = min(C, n_cand);
-    const int NB = max_per + 1;
-    const int per = (NB + SEG_THREADS - 1) / SEG_THREADS;
+    // The threshold size T of the top `want`: thread t holds bins [lo, hi),
+    // hi = NB - t per, so a scan in thread order runs from the largest down.
+    const int want = min(C, tot_cand);
+    const int per = (NB + TOP_THREADS - 1) / TOP_THREADS;
     const int hi = NB - t * per, lo = max(0, hi - per);
     int mine = 0;
-    for (int s = lo; s < hi; ++s) mine += hist[s];
+    for (int x = lo; x < hi; ++x) mine += hb[x];
     int tot_h;
-    const int above = block_scan(mine, buf, &tot_h);
+    const int above = block_scan<TOP_THREADS>(mine, buf, &tot_h);
     if (want > 0 && above < want && above + mine >= want) {
         int acc = above;
-        for (int s = hi - 1; s >= lo; --s) {
-            if (acc + hist[s] >= want) {
-                s_T = s;
+        for (int x = hi - 1; x >= lo; --x) {
+            if (acc + hb[x] >= want) {
+                s_T = x;
                 s_ngt = acc;
                 break;
             }
-            acc += hist[s];
+            acc += hb[x];
         }
     }
     __syncthreads();
     const int T = s_T, ties = want - s_ngt;
 
-    // The winners in position order: every size above T, and the first
-    // `ties` candidates of size T.
+    // Pass 2: the winners in position order.
     int n_win = 0, n_tie = 0;
-    for (int base = 0; base < n_cand && n_win < want; base += SEG_THREADS) {
-        const int i = base + t;
-        const int size = i < n_cand ? cand_size[i] : 0;
-        int tt, tw;
-        const int tie_at = n_tie + block_scan(size == T, buf, &tt);
-        const bool take = size > T || (size == T && tie_at < ties);
-        const int win_at = n_win + block_scan(take, buf, &tw);
-        if (take) {
-            win_pos[win_at] = cand_pos[i];
-            win_size[win_at] = size;
+    for (int c0 = 0; c0 < tiles && n_win < want; c0 += TOP_THREADS) {
+        const int u = c0 + t;
+        if (c0 > 0) {
+            nc = 0, cs = 0, ls = -1, mx = 0;
+            if (u < tiles) {
+                nc = st[ST_CANDS * tiles + u];
+                mx = st[ST_MAX * tiles + u];
+                ls = st[ST_CROSS * tiles + u];
+                cs = __ldcg(cr + u);
+            }
         }
-        n_tie += tt;
-        n_win += tw;
+        const int n = max(mx, cs) >= T ? nc + (cs > 0) : 0;
+        int tot;
+        s_off[t] = block_scan<TOP_THREADS>(n, buf, &tot);
+        s_nc[t] = nc;
+        s_cs[t] = cs;
+        s_ls[t] = ls;
+        __syncthreads();
+        for (int f0 = 0; f0 < tot && n_win < want; f0 += TOP_THREADS) {
+            const int f = f0 + t;
+            int size = 0, pos = 0;
+            if (f < tot) {
+                int a = 0, z = TOP_THREADS - 1;    // the last tile v with s_off[v] <= f
+                while (a < z) {
+                    const int mid = (a + z + 1) >> 1;
+                    if (s_off[mid] <= f) a = mid;
+                    else z = mid - 1;
+                }
+                const int j = f - s_off[a], tl = c0 + a;
+                if (j < s_nc[a]) {
+                    const int v = cd[(size_t)tl * SEG_TILE + j];
+                    size = v >> SEG_POS_BITS;
+                    pos = tl * SEG_TILE + (v & ((1 << SEG_POS_BITS) - 1));
+                } else {
+                    size = s_cs[a];
+                    pos = s_ls[a];
+                }
+            }
+            int tt, tw;
+            const int tie_at = n_tie + block_scan<TOP_THREADS>(size == T, buf, &tt);
+            const bool take = size > T || (size == T && tie_at < ties);
+            const int win_at = n_win + block_scan<TOP_THREADS>(take, buf, &tw);
+            if (take) {
+                win_pos[win_at] = pos;
+                win_size[win_at] = size;
+            }
+            n_tie += tt;
+            n_win += tw;
+        }
+        __syncthreads();                    // s_off .. s_ls are written again
     }
-    __syncthreads();
 
-    // Rank the winners by (size descending, position ascending).
-    int size = 0;
-    if (t < want) {
-        const int pos = win_pos[t];
-        size = win_size[t];
+    // Rank the winners by (size descending, position ascending): winner i's
+    // rank counts the winners before it, TOP_THREADS / MAX_C threads a winner.
+    constexpr int PARTS = TOP_THREADS / MAX_C;
+    const int i = t % MAX_C, part = t / MAX_C;
+    if (i < want) {
+        const int pos = win_pos[i], size = win_size[i];
         int r = 0;
-        for (int u = 0; u < want; ++u) {
+        for (int u = part; u < want; u += PARTS) {
             const int su = win_size[u];
             r += su > size || (su == size && win_pos[u] < pos);
         }
-        top_pos[(size_t)b * C + r] = pos;
+        if (r) atomicAdd(win_rank + i, r);
+    }
+    __syncthreads();
+    int size = 0;
+    if (t < want) {
+        const int r = win_rank[t];
+        size = win_size[t];
+        top_pos[(size_t)b * C + r] = win_pos[t];
         count[(size_t)b * C + r] = size;
         valid[(size_t)b * C + r] = 1;
     } else if (t < C) {
@@ -363,7 +578,7 @@ cm_segments_kernel(const int32_t* __restrict__ key_s, const int32_t* __restrict_
         valid[(size_t)b * C + t] = 0;
     }
     int tot_size;
-    block_scan(size, buf, &tot_size);
+    block_scan<TOP_THREADS>(size, buf, &tot_size);
     if (t == 0) {
         n_clusters[b] = tot_first;
         n_eligible[b] = tot_elig;
@@ -529,26 +744,45 @@ extern "C" int apriltag_cm_pairs(const void* tri, const void* dense, const void*
     return (int)cudaGetLastError();
 }
 
-extern "C" int apriltag_cm_segments(const void* key_s, const void* num_edge,
-                                    const void* comp_overflow, void* cand_pos, void* cand_size,
-                                    void* top_pos, void* count, void* valid, void* n_clusters,
-                                    void* n_eligible, void* edge_stride, void* overflow, int B,
-                                    int row, int E, int E2, int C, int min_pix, int max_per,
-                                    int budget, void* stream) {
-    if (budget < 1 || C < 1 || C > MAX_C || E < 1 || E > row || max_per < 0)
+extern "C" int apriltag_cm_seg_tiles(const void* key_s, const void* num_edge, void* stats,
+                                     void* cand, void* hist, void* nv, int B, int row, int E,
+                                     int tiles, int min_pix, int max_per, int budget,
+                                     void* stream) {
+    if (budget < 1 || E < 1 || E > row || row % 4 || max_per < 0 || max_per > SEG_MAX_PER
+        || tiles != (E + SEG_TILE - 1) / SEG_TILE)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(max_per + 1) * sizeof(int);
-    // Past 48 KB with the static arrays (about 1.2 KB) the kernel must opt in.
-    if (smem > 40 * 1024) {
+    const cudaError_t e = cudaMemsetAsync(hist, 0, (size_t)B * (max_per + 1) * sizeof(int32_t),
+                                          (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+    cm_seg_tiles_kernel<<<dim3(tiles, B), SEG_TILE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)key_s, (const int32_t*)num_edge, (int32_t*)stats, (int32_t*)cand,
+        (int32_t*)hist, (int32_t*)nv, row, E, tiles, min_pix, max_per, budget);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int apriltag_cm_seg_top(const void* stats, const void* cand, const void* hist,
+                                   const void* nv, const void* num_edge,
+                                   const void* comp_overflow, void* cross, void* top_pos,
+                                   void* count, void* valid, void* n_clusters, void* n_eligible,
+                                   void* edge_stride, void* overflow, int B, int tiles, int E,
+                                   int E2, int C, int min_pix, int max_per, int budget,
+                                   void* stream) {
+    if (budget < 1 || C < 1 || C > MAX_C || E < 1 || max_per < 0 || max_per > SEG_MAX_PER
+        || tiles != (E + SEG_TILE - 1) / SEG_TILE)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(max_per + 1) * sizeof(int32_t);
+    // Past 48 KB with the static arrays (about 18 KB) the kernel must opt in.
+    if (smem > 28 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            cm_segments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            cm_seg_top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    cm_segments_kernel<<<B, SEG_THREADS, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)key_s, (const int32_t*)num_edge, (const uint8_t*)comp_overflow,
-        (int32_t*)cand_pos, (int32_t*)cand_size, (int32_t*)top_pos, (int32_t*)count,
-        (uint8_t*)valid, (int32_t*)n_clusters, (int32_t*)n_eligible, (int32_t*)edge_stride,
-        (uint8_t*)overflow, row, E, E2, C, min_pix, max_per, budget);
+    cm_seg_top_kernel<<<B, TOP_THREADS, smem, (cudaStream_t)stream>>>(
+        (const int32_t*)stats, (const int32_t*)cand, (const int32_t*)hist, (const int32_t*)nv,
+        (const int32_t*)num_edge, (const uint8_t*)comp_overflow, (int32_t*)cross,
+        (int32_t*)top_pos, (int32_t*)count, (uint8_t*)valid, (int32_t*)n_clusters,
+        (int32_t*)n_eligible, (int32_t*)edge_stride, (uint8_t*)overflow, tiles, E, E2, C,
+        min_pix, max_per, budget);
     return (int)cudaGetLastError();
 }
 

@@ -15,11 +15,18 @@
 // exclusive scan gives the distinct labels in the sort's order:
 //
 //   resolve_count_kernel  cnt[b, L] += 1 for each valid pixel labelled L in
-//       [0, S): a thread counts 8 consecutive pixels (staged through shared
-//       memory, so the loads are coalesced) as runs, and adds each run with
-//       one integer atomic; its last run is merged with the warp's other
-//       last runs of the same label (__match_any_sync), so a frame's
-//       background component costs one atomic a warp, not one a pixel.
+//       [0, S), the table zeroed first by a memset on the stream: a thread
+//       loads PT consecutive pixels with vector loads (a scalar instance
+//       takes rows that are not so aligned), a block 256 PT pixels (PT 16
+//       from 2^20 pixels a launch, else 4, so a 720p frame still fills the
+//       card). Runs of one label are merged across the whole block: a run's
+//       start is the last run boundary at or before it, a block max-scan of
+//       the threads' last boundaries. The thread that holds a run's last
+//       pixel adds its length into the block's shared-memory hash table of
+//       labels (the global table if 16 probes find no slot), and the table
+//       is then added to the global one, one integer atomic a distinct label
+//       a block: the bench's labels change every few pixels, and a
+//       component's runs in the rows a block spans share one atomic.
 //       Integer atomics: the counts are exact in any order;
 //   resolve_tile_sums_kernel  the present labels (cnt > 0) of each tile of
 //       4096 table entries;
@@ -38,11 +45,12 @@
 // Against the plain versions (ops/resolve.py::count_plain, scan_plain,
 // map_plain): bit-exact, all integer.
 //
-// What bounds it on an H100: bytes. count reads 5 B a pixel and writes the
-// 4 B a table entry (zeroed by the wrapper); tile sums read the table once;
-// scan reads it again and writes inv (4 B an entry) and D; map reads 5 B a
-// pixel, writes 4 B, and gathers from inv and the table, which runs of
-// equal labels keep in L1 and L2.
+// What bounds it on an H100: bytes, but for count, whose integer atomics
+// bound it on labels that change every few pixels. count reads 5 B a pixel
+// and writes the 4 B a table entry (the memset; the atomics then meet the
+// table in L2); tile sums read the table once; scan reads it again and writes inv (4 B
+// an entry) and D; map reads 5 B a pixel, writes 4 B, and gathers from inv
+// and the table, which runs of equal labels keep in L1 and L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,59 +60,119 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int COUNT_PER_THREAD = 8;                           // consecutive pixels a thread
-constexpr int COUNT_TILE = THREADS * COUNT_PER_THREAD;        // pixels a block
+constexpr int COUNT_THREADS = 256;
+constexpr int COUNT_WARPS = COUNT_THREADS / 32;
+constexpr int COUNT_PROBES = 16;              // hash slots a run tries before the global table
+constexpr long long COUNT_BIG = 1 << 20;      // pixels a launch from which blocks take 4096
 constexpr int SCAN_PER_THREAD = 16;
 constexpr int SCAN_TILE = THREADS * SCAN_PER_THREAD;          // table entries a block
 constexpr int MAP_PER_THREAD = 4;
 constexpr int MAP_TILE = THREADS * MAP_PER_THREAD;
+constexpr int32_t EDGE = -2;                 // the key beyond a block's ends: no run crosses them
 
-// Staging index with one pad word every 32: a warp storing 32 consecutive
-// words and a thread reading its 8 consecutive words both meet 32 banks.
-__host__ __device__ constexpr int skew(int i) { return i + (i >> 5); }
+// A label's first slot in a hash table of 2^HBITS slots.
+template <int HBITS>
+__device__ __forceinline__ unsigned slot_of(int32_t key) {
+    return ((uint32_t)key * 2654435769u) >> (32 - HBITS);
+}
 
-__global__ void __launch_bounds__(THREADS)
+// PT consecutive pixels a thread (4 or 16: blocks of 1024 or 4096 pixels).
+// VEC: label rows start 16-byte aligned, valid rows PT-byte aligned and N is
+// a multiple of PT, so a thread's pixels are PT / 4 int4 of labels and PT
+// bytes of validity in one load, or all past N.
+template <bool VEC, int PT>
+__global__ void __launch_bounds__(COUNT_THREADS)
 resolve_count_kernel(const int32_t* __restrict__ label, const uint8_t* __restrict__ valid,
                      int32_t* __restrict__ cnt, int N, int S) {
-    __shared__ int32_t key[skew(COUNT_TILE)];
-    __shared__ int lane_run[WARPS][32];
+    constexpr int TILE = COUNT_THREADS * PT;     // pixels a block
+    constexpr int HS = TILE;                     // hash slots
+    constexpr int HBITS = PT == 16 ? 12 : 10;
+    static_assert(HS == 1 << HBITS, "a power of two slots");
+    __shared__ int32_t first_key[COUNT_THREADS], last_key[COUNT_THREADS];
+    __shared__ int wmax[COUNT_WARPS];
+    __shared__ int32_t hkey[HS];
+    __shared__ int hcnt[HS];
     const int b = blockIdx.y, t = threadIdx.x, lane = t & 31, w = t >> 5;
-    const int base = blockIdx.x * COUNT_TILE;
+    const int p0 = blockIdx.x * TILE + t * PT;
     label += (size_t)b * N;
     valid += (size_t)b * N;
     cnt += (size_t)b * S;
-#pragma unroll
-    for (int j = 0; j < COUNT_PER_THREAD; ++j) {
-        const int i = j * THREADS + t, p = base + i;
-        int32_t k = -1;                          // -1: not counted
-        if (p < N && valid[p]) {
-            const int32_t l = label[p];
-            if (l >= 0 && l < S) k = l;
+    for (int i = t; i < HS; i += COUNT_THREADS) {
+        hkey[i] = -1;
+        hcnt[i] = 0;
+    }
+    int32_t k[PT];                               // -1: not counted
+    if (VEC && p0 < N) {
+        uint32_t m[PT / 4];
+        if constexpr (PT == 16) {
+            const uint4 v = *reinterpret_cast<const uint4*>(valid + p0);
+            m[0] = v.x; m[1] = v.y; m[2] = v.z; m[3] = v.w;
+        } else {
+            m[0] = *reinterpret_cast<const uint32_t*>(valid + p0);
         }
-        key[skew(i)] = k;
+#pragma unroll
+        for (int q = 0; q < PT / 4; ++q) {
+            const int4 a = *reinterpret_cast<const int4*>(label + p0 + 4 * q);
+            const int32_t l[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                k[4 * q + j] = (m[q] >> (8 * j)) & 0xFFu && l[j] >= 0 && l[j] < S ? l[j] : -1;
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < PT; ++j) {
+            const int p = p0 + j;
+            const int32_t l = p < N && valid[p] ? label[p] : -1;
+            k[j] = l >= 0 && l < S ? l : -1;
+        }
+    }
+    first_key[t] = k[0];
+    last_key[t] = k[PT - 1];
+    __syncthreads();
+    const int32_t prev = t > 0 ? last_key[t - 1] : EDGE;
+    const int32_t next = t + 1 < COUNT_THREADS ? first_key[t + 1] : EDGE;
+    const int q0 = t * PT;                       // the thread's first pixel in the block
+    // The last run boundary in this thread's pixels (-1: none), max-scanned
+    // over the block: the start of the run that enters each thread.
+    int last = -1;
+#pragma unroll
+    for (int j = 0; j < PT; ++j)
+        if (k[j] != (j ? k[j - 1] : prev)) last = q0 + j;
+    int inc = last;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int n = __shfl_up_sync(FULL, inc, d);
+        if (lane >= d) inc = max(inc, n);
+    }
+    if (lane == 31) wmax[w] = inc;
+    __syncthreads();
+    int start = __shfl_up_sync(FULL, inc, 1);
+    if (lane == 0) start = -1;
+#pragma unroll
+    for (int u = 0; u < COUNT_WARPS; ++u)
+        if (u < w) start = max(start, wmax[u]);
+    // Each run that ends in this thread, into the block's hash table (the
+    // global table when COUNT_PROBES slots are taken by other labels).
+#pragma unroll
+    for (int j = 0; j < PT; ++j) {
+        if (k[j] != (j ? k[j - 1] : prev)) start = q0 + j;
+        if (k[j] >= 0 && k[j] != (j + 1 < PT ? k[j + 1] : next)) {
+            const int len = q0 + j + 1 - start;
+            unsigned slot = slot_of<HBITS>(k[j]);
+            int probe = 0;
+            for (; probe < COUNT_PROBES; ++probe, slot = (slot + 1) & (HS - 1)) {
+                const int32_t had = atomicCAS(hkey + slot, -1, k[j]);
+                if (had == -1 || had == k[j]) {
+                    atomicAdd(hcnt + slot, len);
+                    break;
+                }
+            }
+            if (probe == COUNT_PROBES) atomicAdd(cnt + k[j], len);
+        }
     }
     __syncthreads();
-    int32_t cur = key[skew(t * COUNT_PER_THREAD)];
-    int run = 1;
-#pragma unroll
-    for (int j = 1; j < COUNT_PER_THREAD; ++j) {
-        const int32_t k = key[skew(t * COUNT_PER_THREAD + j)];
-        if (k != cur) {
-            if (cur >= 0) atomicAdd(cnt + cur, run);
-            cur = k;
-            run = 0;
-        }
-        ++run;
-    }
-    // The warp's last runs: one atomic per distinct label, by its lowest lane.
-    lane_run[w][lane] = run;
-    __syncwarp();
-    const unsigned peers = __match_any_sync(FULL, cur);
-    if (cur >= 0 && lane == __ffs(peers) - 1) {
-        int total = 0;
-        for (unsigned m = peers; m; m &= m - 1) total += lane_run[w][__ffs(m) - 1];
-        atomicAdd(cnt + cur, total);
-    }
+    for (int i = t; i < HS; i += COUNT_THREADS)
+        if (hkey[i] >= 0) atomicAdd(cnt + hkey[i], hcnt[i]);
 }
 
 // Block sum of one int a thread (THREADS threads, every thread calls it);
@@ -211,9 +279,20 @@ int scan_tiles(int S) { return (S + 1 + SCAN_TILE - 1) / SCAN_TILE; }
 extern "C" int apriltag_resolve_count(const void* label, const void* valid, void* cnt, int B,
                                       int N, int S, void* stream) {
     if (B < 1 || N < 1 || S < 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid((N + COUNT_TILE - 1) / COUNT_TILE, B);
-    resolve_count_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)label, (const uint8_t*)valid, (int32_t*)cnt, N, S);
+    cudaStream_t st = (cudaStream_t)stream;
+    const cudaError_t e = cudaMemsetAsync(cnt, 0, (size_t)B * S * sizeof(int32_t), st);
+    if (e != cudaSuccess) return (int)e;
+    const int32_t* l = (const int32_t*)label;
+    const uint8_t* v = (const uint8_t*)valid;
+    int32_t* c = (int32_t*)cnt;
+    const bool big = (long long)B * N >= COUNT_BIG;
+    const int pt = big ? 16 : 4;
+    const dim3 grid((N + COUNT_THREADS * pt - 1) / (COUNT_THREADS * pt), B);
+    const bool vec = N % pt == 0 && (uintptr_t)label % 16 == 0 && (uintptr_t)valid % pt == 0;
+    if (big && vec) resolve_count_kernel<true, 16><<<grid, COUNT_THREADS, 0, st>>>(l, v, c, N, S);
+    else if (big) resolve_count_kernel<false, 16><<<grid, COUNT_THREADS, 0, st>>>(l, v, c, N, S);
+    else if (vec) resolve_count_kernel<true, 4><<<grid, COUNT_THREADS, 0, st>>>(l, v, c, N, S);
+    else resolve_count_kernel<false, 4><<<grid, COUNT_THREADS, 0, st>>>(l, v, c, N, S);
     return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,8 @@ extract_cluster_moments is the plain twin of the CUDA path
 kernels are here too, on the range formulation the kernels use: after the
 sort each (black, white) segment is a contiguous range of the sorted keys,
 and each top-C cluster one such range, cut at E2 by the sizes of the slots
-before it (edge_count_plain, edge_pairs_plain, top_segments_plain,
+before it (edge_count_plain, edge_pairs_plain, segment_tiles_plain and
+segment_top_plain (which together give top_segments_plain), and
 slot_moments_plain; tests/test_torch_cluster_ranges.py holds them to this
 twin).
 """
@@ -174,13 +175,32 @@ class TopSegments(NamedTuple):
     #                              or the top-C clusters' pairs past E2
 
 
+def _top_c(gated: torch.Tensor, first: torch.Tensor, n_eligible: torch.Tensor,
+           num_edge: torch.Tensor, comp_overflow: torch.Tensor, stride: torch.Tensor, *,
+           E: int, E2: int, max_clusters: int) -> TopSegments:
+    """TopSegments from (B, E) gated segment sizes at their starts: the top
+    C by one stable descending sort (ties to the lower position), as the
+    reference takes them; `first` (B,) segments and n_eligible (B,)."""
+    neg, pos = torch.sort(-gated, dim=-1, stable=True)
+    size, pos = -neg[:, :max_clusters], pos[:, :max_clusters]
+    cvalid = size > 0
+    count = torch.where(cvalid, size, 0).to(torch.int32)
+    n_eligible = n_eligible.to(torch.int32)
+    overflow = ((num_edge > E) | comp_overflow | (n_eligible > max_clusters)
+                | (count.sum(-1) > E2))
+    return TopSegments(top_pos=torch.where(cvalid, pos, 0).to(torch.int32), count=count,
+                       valid=cvalid, num_clusters=first.to(torch.int32),
+                       num_eligible=n_eligible, edge_stride=stride.to(torch.int32),
+                       overflow=overflow)
+
+
 def top_segments_plain(key_s: torch.Tensor, num_edge: torch.Tensor,
                        comp_overflow: torch.Tensor, *, E: int, E2: int, max_clusters: int,
                        min_cluster_pixels: int, max_perimeter: int) -> TopSegments:
-    """The segments kernel's plain version on (B, N >= E) sorted keys: a
-    segment's size is an upper bound found by binary search, and the top-C
-    are the stable descending sort of the gated sizes (ties to the lower
-    position), as the reference takes them."""
+    """Each frame's top-C segments of (B, N >= E) sorted keys, the segment
+    kernels' reference: a segment's size is an upper bound found by binary
+    search, and the top-C are the stable descending sort of the gated sizes
+    (ties to the lower position), as the reference takes them."""
     ks = key_s[:, :E].contiguous()
     B = ks.shape[0]
     idxs = torch.arange(E, dtype=torch.int64, device=ks.device)
@@ -191,17 +211,94 @@ def top_segments_plain(key_s: torch.Tensor, num_edge: torch.Tensor,
     size_at = torch.where(first, torch.searchsorted(ks, ks, right=True) - idxs, 0)
     true_size = size_at * stride[:, None]
     eligible = (true_size >= min_cluster_pixels) & (true_size <= max_perimeter)
-    neg, pos = torch.sort(-torch.where(eligible, size_at, 0), dim=-1, stable=True)
-    size, pos = -neg[:, :max_clusters], pos[:, :max_clusters]
-    cvalid = size > 0
-    count = torch.where(cvalid, size, 0).to(torch.int32)
-    n_eligible = eligible.sum(-1).to(torch.int32)
-    overflow = ((num_edge > E) | comp_overflow | (n_eligible > max_clusters)
-                | (count.sum(-1) > E2))
-    return TopSegments(top_pos=torch.where(cvalid, pos, 0).to(torch.int32), count=count,
-                       valid=cvalid, num_clusters=first.sum(-1).to(torch.int32),
-                       num_eligible=n_eligible, edge_stride=stride.to(torch.int32),
-                       overflow=overflow)
+    return _top_c(torch.where(eligible, size_at, 0), first.sum(-1), eligible.sum(-1), num_edge,
+                  comp_overflow, stride, E=E, E2=E2, max_clusters=max_clusters)
+
+
+SEG_TILE = 512       # sorted keys a tile of the segment-tiles kernel (csrc/cluster_moments.cu)
+SEG_POS_BITS = 10    # a candidate's offset in its tile, under its size
+
+
+class SegmentTiles(NamedTuple):
+    """The first E sorted keys of each frame cut into tiles of SEG_TILE:
+    each tile's segments that end in it (its candidates, gated) and the one
+    that runs past its end (its crossing start), left to the top step."""
+
+    stats: torch.Tensor   # (B, 5, T) int32 a tile: starts, candidates, their largest size,
+    #                       first start (int32 max: none), crossing start (-1: none)
+    cand: torch.Tensor    # (B, T * SEG_TILE) int32: tile t's candidates from t * SEG_TILE in
+    #                       position order, size << SEG_POS_BITS | offset (the rest undefined)
+    hist: torch.Tensor    # (B, max_perimeter + 1) int32 candidates a size
+    nv: torch.Tensor      # (B,) int32 valid keys (before the first int32 max) among the first E
+
+
+def segment_tiles_plain(key_s: torch.Tensor, num_edge: torch.Tensor, *, E: int,
+                        min_cluster_pixels: int, max_perimeter: int) -> SegmentTiles:
+    """The segment-tiles kernel's plain version: a start's segment crosses
+    its tile's end when it runs past it; the others are the tile's, gated
+    and compacted. Undefined candidate entries are 0 here."""
+    ks = key_s[:, :E].contiguous()
+    B = ks.shape[0]
+    dev = ks.device
+    T = -(-E // SEG_TILE)
+    idx = torch.arange(E, dtype=torch.int64, device=dev)
+    valid = ks != _I32MAX
+    prev = torch.cat([torch.full((B, 1), -1, dtype=ks.dtype, device=dev), ks[:, :-1]], 1)
+    first = valid & (ks != prev)
+    size = torch.searchsorted(ks, ks, right=True) - idx
+    t0 = idx // SEG_TILE * SEG_TILE
+    cross = first & (idx + size > torch.clamp(t0 + SEG_TILE, max=E))
+    true_size = size * _edge_stride(num_edge, E)[:, None]
+    cand = first & ~cross & (true_size >= min_cluster_pixels) & (true_size <= max_perimeter)
+
+    def tiled(x: torch.Tensor, fill: int) -> torch.Tensor:
+        return torch.nn.functional.pad(x, (0, T * SEG_TILE - E), value=fill).reshape(B, T, -1)
+
+    ci = cand.to(torch.int64)
+    stats = torch.stack([tiled(first.to(torch.int64), 0).sum(-1), tiled(ci, 0).sum(-1),
+                         tiled(torch.where(cand, size, 0), 0).amax(-1),
+                         tiled(torch.where(first, idx, _I32MAX), _I32MAX).amin(-1),
+                         tiled(torch.where(cross, idx, -1), -1).amax(-1)], 1).to(torch.int32)
+    rank = (tiled(ci, 0).cumsum(-1) - 1).reshape(B, -1)[:, :E]
+    dump = T * SEG_TILE
+    packed = torch.where(cand, size << SEG_POS_BITS | idx - t0, 0)
+    packed = torch.zeros((B, dump + 1), dtype=torch.int64, device=dev).scatter_(
+        1, torch.where(cand, t0 + rank, dump), packed)
+    hist = torch.zeros((B, max_perimeter + 2), dtype=torch.int32, device=dev).scatter_add_(
+        1, torch.where(cand, size, max_perimeter + 1), torch.ones_like(ks))
+    return SegmentTiles(stats=stats, cand=packed[:, :dump].to(torch.int32),
+                        hist=hist[:, :-1].contiguous(), nv=valid.sum(-1).to(torch.int32))
+
+
+def segment_top_plain(tiles: SegmentTiles, num_edge: torch.Tensor, comp_overflow: torch.Tensor,
+                      *, E: int, E2: int, max_clusters: int, min_cluster_pixels: int,
+                      max_perimeter: int) -> TopSegments:
+    """The segment-top kernel's plain version: a crossing start's segment
+    ends at the first start of a later tile or at nv; its gated size and
+    the tiles' candidates are set at their starts and the top C taken by
+    _top_c. The histogram is not read."""
+    stats, cand, _, nv = tiles
+    B, _, T = stats.shape
+    dev = stats.device
+    n_starts, n_cand, _, fs, ls = stats.to(torch.int64).unbind(1)
+    later = torch.cat([fs[:, 1:], torch.full((B, 1), _I32MAX, dtype=torch.int64, device=dev)], 1)
+    later = torch.minimum(torch.cummin(later.flip(-1), -1).values.flip(-1), nv[:, None])
+    stride = _edge_stride(num_edge, E)
+    csize = torch.where(ls >= 0, later - ls, 0)
+    true_size = csize * stride[:, None]
+    ccand = (ls >= 0) & (true_size >= min_cluster_pixels) & (true_size <= max_perimeter)
+    j = torch.arange(SEG_TILE, device=dev)
+    own = j < n_cand[..., None]
+    v = cand.reshape(B, T, SEG_TILE).to(torch.int64)
+    at = torch.arange(T, device=dev)[:, None] * SEG_TILE + (v & ((1 << SEG_POS_BITS) - 1))
+    gated = torch.zeros((B, E + 1), dtype=torch.int64, device=dev)
+    gated.scatter_(1, torch.where(own, at, E).reshape(B, -1),
+                   torch.where(own, v >> SEG_POS_BITS, 0).reshape(B, -1))
+    gated.scatter_(1, torch.where(ccand, ls, E), torch.where(ccand, csize, 0))
+    first = n_starts.sum(-1)
+    n_eligible = n_cand.sum(-1) + ccand.sum(-1) + (E - first if min_cluster_pixels <= 0 else 0)
+    return _top_c(gated[:, :E], first, n_eligible, num_edge, comp_overflow, stride, E=E, E2=E2,
+                  max_clusters=max_clusters)
 
 
 class SlotMoments(NamedTuple):

@@ -14,7 +14,8 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "col": (ccl, "col_diag_launches"),
                    "edge_count": (cluster_moments, "count_launches"),
                    "edge_pairs": (cluster_moments, "pairs_launches"),
-                   "segments": (cluster_moments, "segments_launches"),
+                   "segment_tiles": (cluster_moments, "seg_tiles_launches"),
+                   "segment_top": (cluster_moments, "seg_top_launches"),
                    "moments": (cluster_moments, "moments_launches"),
                    "resolve_count": (resolve, "count_launches"),
                    "resolve_tiles": (resolve, "tiles_launches"),

@@ -36,7 +36,8 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_ccl_col_diag", 3, 3),
                  ("apriltag_cm_count", 3, 3),
                  ("apriltag_cm_pairs", 5, 4),
-                 ("apriltag_cm_segments", 12, 8),
+                 ("apriltag_cm_seg_tiles", 6, 7),
+                 ("apriltag_cm_seg_top", 14, 8),
                  ("apriltag_cm_moments", 8, 4),
                  ("apriltag_resolve_count", 3, 3),
                  ("apriltag_resolve_tile_sums", 2, 3),

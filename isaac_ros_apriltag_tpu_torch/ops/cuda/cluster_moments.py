@@ -1,9 +1,12 @@
 """Wrappers of the cluster-moment kernels (csrc/cluster_moments.cu).
 
 ``extract_cluster_moments`` is the CUDA path of the stage: the pair-count
-and pair kernels, one stable torch.sort of the keys, the segments kernel
-(segment sizes, the size gate, the top-C) and the moments kernel (one block
-a frame and slot: centroid, scale, dark side and the bin tables). A CPU
+and pair kernels, one stable torch.sort of the keys, the two segment
+kernels (``segment_tiles``, many blocks a frame: segment sizes, the size
+gate, each tile's candidates and a size histogram; ``segment_top``, one
+block a frame: the segments that cross tiles, the top-C; together
+``top_segments``) and the moments kernel (one block a frame and slot:
+centroid, scale, dark side and the bin tables). A CPU
 tensor runs the plain version (ops/cluster_moments.py::
 extract_cluster_moments); a CUDA tensor launches the kernels or raises.
 Each kernel's wrapper adds one to its own counter where it launches; on a
@@ -19,12 +22,14 @@ import torch
 
 from .. import cluster_moments as plain
 from ..batch import batch_first, first_frame
-from ..cluster_moments import NBINS, ClusterMoments, SlotMoments, TopSegments
+from ..cluster_moments import (NBINS, SEG_TILE, ClusterMoments, SegmentTiles, SlotMoments,
+                               TopSegments)
 from . import _lib
 
 count_launches = 0      # cm_edge_count_kernel launches made by edge_count
 pairs_launches = 0      # cm_edge_pairs_kernel launches made by edge_pairs
-segments_launches = 0   # cm_segments_kernel launches made by top_segments
+seg_tiles_launches = 0  # cm_seg_tiles_kernel launches made by segment_tiles
+seg_top_launches = 0    # cm_seg_top_kernel launches made by segment_top
 moments_launches = 0    # cm_moments_kernel launches made by slot_moments
 
 
@@ -87,16 +92,26 @@ def edge_pairs(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tenso
     return key, pay
 
 
-def top_segments(key_s: torch.Tensor, num_edge: torch.Tensor, comp_overflow: torch.Tensor, *,
-                 E: int, E2: int, max_clusters: int, min_cluster_pixels: int,
-                 max_perimeter: int) -> TopSegments:
-    """(B, N >= E) int32 sorted keys -> each frame's top-C segments, counts,
-    stride and overflow (ops/cluster_moments.py::TopSegments)."""
-    global segments_launches
-    kw = dict(E=E, E2=E2, max_clusters=max_clusters, min_cluster_pixels=min_cluster_pixels,
-              max_perimeter=max_perimeter)
+def _check_segments(E: int, max_perimeter: int) -> int:
+    """Raise on a budget or size range the segment kernels do not take;
+    return the tiles a frame."""
+    if (9 * E) // 10 < 1:
+        raise ValueError("E must be at least 2")
+    if not 0 <= max_perimeter < 1 << 15:
+        raise ValueError(f"max_perimeter {max_perimeter} out of [0, 2**15)")
+    return -(-E // SEG_TILE)
+
+
+def segment_tiles(key_s: torch.Tensor, num_edge: torch.Tensor, *, E: int,
+                  min_cluster_pixels: int, max_perimeter: int) -> SegmentTiles:
+    """(B, N >= E) int32 sorted keys -> each tile's fields, candidates, the
+    size histogram and the valid keys (ops/cluster_moments.py::
+    SegmentTiles)."""
+    global seg_tiles_launches
     if key_s.device.type == "cpu":
-        return plain.top_segments_plain(key_s, num_edge, comp_overflow, **kw)
+        return plain.segment_tiles_plain(key_s, num_edge, E=E,
+                                         min_cluster_pixels=min_cluster_pixels,
+                                         max_perimeter=max_perimeter)
     dev = key_s.device
     if key_s.ndim != 2 or key_s.dtype != torch.int32 or not key_s.is_contiguous():
         raise ValueError("key_s must be a contiguous (B, N) int32 tensor")
@@ -104,30 +119,79 @@ def top_segments(key_s: torch.Tensor, num_edge: torch.Tensor, comp_overflow: tor
     if not 1 <= E <= N or key_s.data_ptr() % 16 or N % 4:
         raise ValueError("key_s must hold E keys a row, rows of a multiple of 4 keys "
                          "starting 16-byte aligned")
-    if not 1 <= max_clusters <= 128 or (9 * E) // 10 < 1:
-        raise ValueError("max_clusters must be in [1, 128] and E at least 2")
-    for name, t, dt in (("num_edge", num_edge, torch.int32),
-                        ("comp_overflow", comp_overflow, torch.bool)):
-        if t.shape != (B,) or t.dtype != dt or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous ({B},) {dt} tensor on {dev}")
+    if B > _lib.MAX_BATCH:
+        raise ValueError(f"batch {B} exceeds the kernels' {_lib.MAX_BATCH} frames")
+    tiles = _check_segments(E, max_perimeter)
+    if (num_edge.shape != (B,) or num_edge.dtype != torch.int32 or num_edge.device != dev
+            or not num_edge.is_contiguous()):
+        raise ValueError(f"num_edge must be a contiguous ({B},) int32 tensor on {dev}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = SegmentTiles(stats=torch.empty((B, 5, tiles), **i32),
+                       cand=torch.empty((B, tiles * SEG_TILE), **i32),
+                       hist=torch.empty((B, max_perimeter + 1), **i32), nv=torch.empty(B, **i32))
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_cm_seg_tiles(
+            key_s.data_ptr(), num_edge.data_ptr(), *(t.data_ptr() for t in out), B, N, E, tiles,
+            min_cluster_pixels, max_perimeter, (9 * E) // 10, _stream())
+    _lib.check(status, "apriltag_cm_seg_tiles")
+    seg_tiles_launches += 1
+    return out
+
+
+def segment_top(tiles: SegmentTiles, num_edge: torch.Tensor, comp_overflow: torch.Tensor, *,
+                E: int, E2: int, max_clusters: int, min_cluster_pixels: int,
+                max_perimeter: int) -> TopSegments:
+    """segment_tiles' results -> each frame's top-C segments, counts,
+    stride and overflow (ops/cluster_moments.py::TopSegments). Reads the
+    tiles' results and writes none of them."""
+    global seg_top_launches
+    kw = dict(E=E, E2=E2, max_clusters=max_clusters, min_cluster_pixels=min_cluster_pixels,
+              max_perimeter=max_perimeter)
+    if tiles.stats.device.type == "cpu":
+        return plain.segment_top_plain(tiles, num_edge, comp_overflow, **kw)
+    dev = tiles.stats.device
+    B = tiles.stats.shape[0]
+    T = _check_segments(E, max_perimeter)
+    if not 1 <= max_clusters <= 128:
+        raise ValueError("max_clusters must be in [1, 128]")
+    for name, t, shape, dt in (("stats", tiles.stats, (B, 5, T), torch.int32),
+                               ("cand", tiles.cand, (B, T * SEG_TILE), torch.int32),
+                               ("hist", tiles.hist, (B, max_perimeter + 1), torch.int32),
+                               ("nv", tiles.nv, (B,), torch.int32),
+                               ("num_edge", num_edge, (B,), torch.int32),
+                               ("comp_overflow", comp_overflow, (B,), torch.bool)):
+        if t.shape != shape or t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} {dt} tensor on {dev}")
     C = max_clusters
     i32 = dict(dtype=torch.int32, device=dev)
-    cand = torch.empty((2, B, E), **i32)
+    cross = torch.empty((B, T), **i32)
     top_pos, count = torch.empty((B, C), **i32), torch.empty((B, C), **i32)
     valid = torch.empty((B, C), dtype=torch.bool, device=dev)
     n_clusters, n_eligible, stride = (torch.empty(B, **i32) for _ in range(3))
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        status = _lib.library().apriltag_cm_segments(
-            key_s.data_ptr(), num_edge.data_ptr(), comp_overflow.data_ptr(), cand[0].data_ptr(),
-            cand[1].data_ptr(), top_pos.data_ptr(), count.data_ptr(), valid.data_ptr(),
-            n_clusters.data_ptr(), n_eligible.data_ptr(), stride.data_ptr(),
-            overflow.data_ptr(), B, N, E, E2, C, min_cluster_pixels, max_perimeter,
+        status = _lib.library().apriltag_cm_seg_top(
+            *(t.data_ptr() for t in tiles), num_edge.data_ptr(), comp_overflow.data_ptr(),
+            cross.data_ptr(), top_pos.data_ptr(), count.data_ptr(),
+            valid.data_ptr(), n_clusters.data_ptr(), n_eligible.data_ptr(), stride.data_ptr(),
+            overflow.data_ptr(), B, T, E, E2, C, min_cluster_pixels, max_perimeter,
             (9 * E) // 10, _stream())
-    _lib.check(status, "apriltag_cm_segments")
-    segments_launches += 1
+    _lib.check(status, "apriltag_cm_seg_top")
+    seg_top_launches += 1
     return TopSegments(top_pos=top_pos, count=count, valid=valid, num_clusters=n_clusters,
                        num_eligible=n_eligible, edge_stride=stride, overflow=overflow)
+
+
+def top_segments(key_s: torch.Tensor, num_edge: torch.Tensor, comp_overflow: torch.Tensor, *,
+                 E: int, E2: int, max_clusters: int, min_cluster_pixels: int,
+                 max_perimeter: int) -> TopSegments:
+    """(B, N >= E) int32 sorted keys -> each frame's top-C segments, counts,
+    stride and overflow, as top_segments_plain: segment_tiles, then
+    segment_top."""
+    tiles = segment_tiles(key_s, num_edge, E=E, min_cluster_pixels=min_cluster_pixels,
+                          max_perimeter=max_perimeter)
+    return segment_top(tiles, num_edge, comp_overflow, E=E, E2=E2, max_clusters=max_clusters,
+                       min_cluster_pixels=min_cluster_pixels, max_perimeter=max_perimeter)
 
 
 def slot_moments(perm: torch.Tensor, pay: torch.Tensor, top_pos: torch.Tensor,

@@ -10,9 +10,9 @@ torch ops. Each wrapper adds one to its kernel's counter where it launches
 it; on a CPU tensor it runs that pass's plain version (ops/resolve.py::
 count_plain, tile_sums_plain, scan_plain, map_plain), so on the CPU the
 stage functions run the plain composition, bit-exact with the twin. Every
-launch goes on the current stream, with outputs and scratch allocated here
-by torch.empty or torch.zeros and no host sync, so the stage can be
-captured in a CUDA graph.
+launch goes on the current stream (the count's table zeroed there by a
+memset), with outputs and scratch allocated here by torch.empty and no host
+sync, so the stage can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def count(label: torch.Tensor, valid: torch.Tensor, S: int) -> torch.Tensor:
     B, N = _check_pixels(label, valid)
     if not 1 <= S < 2**31 - 1:
         raise ValueError(f"table size {S} out of range")
-    cnt = torch.zeros((B, S), dtype=torch.int32, device=label.device)
+    cnt = torch.empty((B, S), dtype=torch.int32, device=label.device)   # zeroed by the launch
     with torch.cuda.device(label.device):
         status = _lib.library().apriltag_resolve_count(label.data_ptr(), valid.data_ptr(),
                                                        cnt.data_ptr(), B, N, S, _stream())

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import segment_rows
 from isaac_ros_apriltag_tpu_torch.config import DetectorConfig
 from isaac_ros_apriltag_tpu_torch.detector import _decimate, _pad_to_tiles
 from isaac_ros_apriltag_tpu_torch.models.families import get_family
@@ -73,43 +74,93 @@ def frames():
     return dict(tri=tri, dense=res.dense, ovf=res.overflow | ovf, E=E)
 
 
-def mirror_segments(key_s, num_edge, comp_overflow, *, E, E2, C, min_pix, max_per):
-    """The segments kernel's steps in numpy, frame by frame."""
+def mirror_segments(key_s, num_edge, comp_overflow, *, E, E2, C, min_pix, max_per,
+                    tile=P.SEG_TILE, ties_high=False, cut_crossing=False):
+    """The two segment kernels' steps in numpy, frame by frame, on tiles of
+    `tile` keys (csrc/cluster_moments.cu: cm_seg_tiles_kernel, a block a
+    tile, then cm_seg_top_kernel, a block a frame). `ties_high` and
+    `cut_crossing` are wrong on purpose: ties at the threshold size to the
+    higher position; a segment that crosses its tile's end cut there. Also
+    returns each frame's tile fields as segment_tiles_plain lays them out."""
     B = key_s.shape[0]
     budget = (9 * E) // 10
+    T = -(-E // tile)
     top_pos = np.zeros((B, C), np.int32)
     count = np.zeros((B, C), np.int32)
-    out = dict(n_clusters=[], n_eligible=[], stride=[], overflow=[], ties=[])
+    out = dict(n_clusters=[], n_eligible=[], stride=[], overflow=[], ties=[], stats=[],
+               hist=[], nv=[], cand=[])
     for b in range(B):
-        ks = key_s[b, :E]
-        nv = int(np.searchsorted(ks, I32MAX, "left"))            # the valid prefix
+        ks = key_s[b, :E].astype(np.int64)
         stride = max(1, (int(num_edge[b]) + budget - 1) // budget)
-        starts = np.flatnonzero(np.r_[True, ks[1:nv] != ks[:nv - 1]])[:nv]
-        size = np.searchsorted(ks[:nv], ks[starts], "right") - starts
-        true = size.astype(np.int64) * stride
-        elig = (true >= min_pix) & (true <= max_per)
-        n_elig = int(elig.sum()) + (E - len(starts) if min_pix <= 0 else 0)
-        cpos, csize = starts[elig], size[elig]                  # candidates, position order
-        want = min(C, len(cpos))
+        # The tiles kernel, a block a tile [lo, hi).
+        lo = np.arange(T) * tile
+        hi = np.minimum(lo + tile, E)
+        valid = ks < I32MAX
+        sp = np.flatnonzero(valid & (ks != np.r_[-1, ks[:-1]]))      # the starts
+        st = sp // tile
+        vend = lo + np.bincount(np.flatnonzero(valid) // tile, minlength=T)
+        k_end = np.where(hi < E, ks[np.minimum(hi, E - 1)], I32MAX)
+        open_end = (vend == hi) & (hi < E) & (k_end == ks[hi - 1])
+        done = (lo == 0) | (ks[lo] < I32MAX)       # a tile past the prefix reads one key
+        writer = done & ((vend < hi) | (hi == E) | (k_end == I32MAX))
+        assert writer.sum() == 1, "one tile holds the end of the valid keys"
+        nv = int(vend[writer][0])
+        tail = np.r_[st[1:] != st[:-1], True]      # the tile's last start
+        cross = tail & open_end[st]
+        size = np.where(tail, vend[st], np.r_[sp[1:], 0]) - sp
+        cand = ~cross & (size * stride >= min_pix) & (size * stride <= max_per)
+        hist = np.bincount(size[cand], minlength=max_per + 1)
+        fs = np.full(T, I32MAX)
+        np.minimum.at(fs, st, sp)
+        ls = np.full(T, -1)
+        ls[st[cross]] = sp[cross]
+        tmax = np.zeros(T, np.int64)
+        np.maximum.at(tmax, st[cand], size[cand])
+        ncand = np.bincount(st[cand], minlength=T)
+        out["stats"].append(np.stack([np.bincount(st, minlength=T), ncand, tmax, fs, ls]))
+        out["hist"].append(hist.copy())
+        out["nv"].append(nv)
+        out["cand"].append([(size[own] << P.SEG_POS_BITS) | (sp[own] - t * tile)
+                            for t, own in ((t, cand & (st == t)) for t in range(T))])
+        # The top kernel: crossing sizes from the later tiles' first starts.
+        later = np.minimum(np.minimum.accumulate(np.r_[fs[1:], I32MAX][::-1])[::-1], nv)
+        cs = np.where(ls >= 0, (hi if cut_crossing else later) - ls, 0)
+        ccand = (ls >= 0) & (cs * stride >= min_pix) & (cs * stride <= max_per)
+        cs = np.where(ccand, cs, 0)
+        np.add.at(hist, cs[ccand], 1)
+        n_cand = int(cand.sum() + ccand.sum())
+        n_elig = n_cand + (E - len(sp) if min_pix <= 0 else 0)
+        want = min(C, n_cand)
         ties = 0
         if want:
-            at_least = np.cumsum(np.bincount(csize, minlength=max_per + 1)[::-1])[::-1]
-            T = int(np.flatnonzero(at_least >= want).max())      # the threshold size
-            n_gt = int(at_least[T + 1]) if T < max_per else 0
-            tie_rank = np.cumsum(csize == T) - 1
-            take = (csize > T) | ((csize == T) & (tie_rank < want - n_gt))
-            ties = int((csize == T).sum()) - (want - n_gt)      # ties left out
-            wpos, wsize = cpos[take], csize[take]
-            order = np.lexsort((wpos, -wsize))                   # size down, position up
+            at_least = np.r_[np.cumsum(hist[::-1])[::-1], 0]
+            Tsz = int(np.flatnonzero(at_least >= want).max())          # the threshold size
+            n_gt = int(at_least[Tsz + 1])
+            # The candidates of the tiles that hold a size >= T, tile by tile:
+            # the tile's own in position order, then its crossing one.
+            rel = np.maximum(tmax, cs) >= Tsz
+            own = cand & rel[st]
+            tl = np.r_[st[own], np.flatnonzero(ccand & rel)]
+            kind = np.r_[np.zeros(own.sum(), int), np.ones((ccand & rel).sum(), int)]
+            pos = np.r_[sp[own], ls[ccand & rel]]
+            sz = np.r_[size[own], cs[ccand & rel]]
+            order = np.lexsort((kind, tl))
+            pos, sz = pos[order], sz[order]
+            at_T = sz == Tsz
+            tie_rank = (np.cumsum(at_T[::-1])[::-1] if ties_high else np.cumsum(at_T)) - 1
+            take = (sz > Tsz) | (at_T & (tie_rank < want - n_gt))
+            ties = int(at_T.sum()) - (want - n_gt)                       # ties left out
+            wpos, wsize = pos[take], sz[take]
+            order = np.lexsort((wpos, -wsize))                           # size down, position up
             top_pos[b, :want], count[b, :want] = wpos[order], wsize[order]
-        out["n_clusters"].append(len(starts))
+        out["n_clusters"].append(len(sp))
         out["n_eligible"].append(n_elig)
         out["stride"].append(stride)
         out["overflow"].append(bool(num_edge[b] > E or comp_overflow[b] or n_elig > C
                                     or count[b].sum() > E2))
         out["ties"].append(ties)
     return dict(top_pos=top_pos, count=count, valid=count > 0,
-                **{k: np.array(v) for k, v in out.items()})
+                **{k: np.array(v) if k != "cand" else v for k, v in out.items()})
 
 
 def _diamond_bin(dx, dy):
@@ -240,7 +291,8 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(frames, stages):
     tri, dense, ovf = frames["tri"], frames["dense"], frames["ovf"]
     st = stages["default"]
     kw = dict(max_edge_points=st["kw"]["E"], max_clusters=128, min_cluster_pixels=MIN_PIX)
-    counts = (K.count_launches, K.pairs_launches, K.segments_launches, K.moments_launches)
+    counts = (K.count_launches, K.pairs_launches, K.seg_tiles_launches, K.seg_top_launches,
+              K.moments_launches)
     got = K.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw)
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(st["twin"], f)), f
@@ -256,7 +308,7 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(frames, stages):
     assert torch.equal(seg.count, st["twin"].count)
     mom = K.slot_moments(st["perm"], st["pay"], seg.top_pos, seg.count, E2)
     assert torch.equal(mom.centroid, st["twin"].centroid)
-    assert (K.count_launches, K.pairs_launches, K.segments_launches,
+    assert (K.count_launches, K.pairs_launches, K.seg_tiles_launches, K.seg_top_launches,
             K.moments_launches) == counts, "nothing launched on the CPU"
 
 
@@ -275,3 +327,144 @@ def test_wrapper_argument_errors(device):
     if device == "meta":
         with pytest.raises(ValueError, match="unsupported device"):
             K.extract_cluster_moments(small, small.to(torch.int32), max_clusters=16, **kw)
+
+
+SEG_FIELDS = (("top_pos", "top_pos"), ("count", "count"), ("valid", "valid"),
+              ("num_clusters", "n_clusters"), ("num_eligible", "n_eligible"),
+              ("edge_stride", "stride"), ("overflow", "overflow"))
+TILES = (8, 64, P.SEG_TILE)
+ROWS = segment_rows()
+
+
+def _top_kw(kw: dict) -> dict:
+    return dict(E=kw["E"], E2=kw["E2"], max_clusters=kw["C"], min_cluster_pixels=kw["min_pix"],
+                max_perimeter=kw["max_per"])
+
+
+def _mirror_kw(kw: dict) -> dict:
+    return dict(E=kw["E"], E2=kw["E2"], C=kw["max_clusters"], min_pix=kw["min_cluster_pixels"],
+                max_per=kw["max_perimeter"])
+
+
+def _assert_segments(got, want: dict, what: str) -> None:
+    for f, m in SEG_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), want[m], err_msg=f"{what}: {f}")
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("case", list(CASES))
+def test_tiled_mirror_matches_plain_version(stages, case, tile):
+    """The segment kernels' tile decomposition at tile lengths 8, 64 and the
+    kernel's own gives top_segments_plain's results bit for bit."""
+    st = stages[case]
+    kw = _top_kw(st["kw"])
+    want = P.top_segments_plain(st["key_s"], st["num_edge"], st["ovf"], **kw)
+    got = mirror_segments(st["key_s"].numpy(), st["num_edge"].numpy(), st["ovf"].numpy(),
+                          tile=tile, **st["kw"])
+    for f, m in SEG_FIELDS:
+        np.testing.assert_array_equal(getattr(want, f).numpy(), got[m], err_msg=f)
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("name", list(ROWS))
+def test_tiled_mirror_on_synthetic_rows(name, tile):
+    """chip_smoke.py's synthetic rows (segments across many tiles, ending on
+    tile edges, ties split across tiles, fewer candidates than C, none, a
+    zero size gate with nv < E, a frame with no valid key, a 16001-bin
+    histogram): the mirror against top_segments_plain."""
+    keys, num_edge, ovf, kw = ROWS[name]
+    want = P.top_segments_plain(torch.from_numpy(keys), torch.from_numpy(num_edge),
+                                torch.from_numpy(ovf), **kw)
+    got = mirror_segments(keys, num_edge, ovf, tile=tile, **_mirror_kw(kw))
+    for f, m in SEG_FIELDS:
+        np.testing.assert_array_equal(getattr(want, f).numpy(), got[m], err_msg=f)
+
+
+@pytest.mark.parametrize("name", list(ROWS))
+def test_segment_plain_versions_on_synthetic_rows(name):
+    """segment_tiles_plain lays out the mirror's tile fields, histogram,
+    valid keys and candidates; segment_top_plain on them, and the CPU
+    wrappers' composition, give top_segments_plain's results."""
+    keys, num_edge, ovf, kw = ROWS[name]
+    k, ne, ov = torch.from_numpy(keys), torch.from_numpy(num_edge), torch.from_numpy(ovf)
+    m = mirror_segments(keys, num_edge, ovf, **_mirror_kw(kw))
+    tiles = P.segment_tiles_plain(k, ne, E=kw["E"], min_cluster_pixels=kw["min_cluster_pixels"],
+                                  max_perimeter=kw["max_perimeter"])
+    np.testing.assert_array_equal(tiles.stats.numpy(), m["stats"])
+    np.testing.assert_array_equal(tiles.hist.numpy(), m["hist"])
+    np.testing.assert_array_equal(tiles.nv.numpy(), m["nv"])
+    cand = tiles.cand.numpy().reshape(len(keys), -1, P.SEG_TILE)
+    for b, frame in enumerate(m["cand"]):
+        for t, c in enumerate(frame):
+            np.testing.assert_array_equal(cand[b, t, :len(c)], c, err_msg=f"frame {b} tile {t}")
+    want = P.top_segments_plain(k, ne, ov, **kw)
+    _assert_segments(P.segment_top_plain(tiles, ne, ov, **kw), m, "segment_top_plain")
+    _assert_segments(K.top_segments(k, ne, ov, **kw), m, "the CPU wrappers")
+    for got, w in zip(K.top_segments(k, ne, ov, **kw), want):
+        assert torch.equal(got, w)
+
+
+# The wrong mirrors each synthetic row must expose (ties to the higher
+# position; a crossing segment cut at its tile's end).
+CATCHES = {"a segment across many tiles": ("ties_high", "cut_crossing"),
+           "segments ending on tile edges": ("ties_high", "cut_crossing"),
+           "ties at T split across tiles": ("ties_high", "cut_crossing"),
+           "fewer candidates than C": ("cut_crossing",),
+           "no candidates": ("cut_crossing",),
+           "min_cluster_pixels 0, nv < E": ("ties_high", "cut_crossing"),
+           "a frame with no valid key": ("ties_high", "cut_crossing"),
+           "a histogram of 16001 bins": ("ties_high", "cut_crossing")}
+
+
+@pytest.mark.parametrize("name", list(ROWS))
+def test_synthetic_rows_expose_wrong_mirrors(name):
+    """Each synthetic row reaches the edge it is named for: a mirror that
+    takes ties at the threshold from the higher position, or that cuts a
+    crossing segment at its tile's end, gives other results there."""
+    keys, num_edge, ovf, kw = ROWS[name]
+    want = P.top_segments_plain(torch.from_numpy(keys), torch.from_numpy(num_edge),
+                                torch.from_numpy(ovf), **kw)
+    for wrong in CATCHES[name]:
+        got = mirror_segments(keys, num_edge, ovf, **_mirror_kw(kw), **{wrong: True})
+        assert any(not np.array_equal(getattr(want, f).numpy(), got[m]) for f, m in SEG_FIELDS), \
+            f"{name}: the {wrong} mirror agrees"
+
+
+def test_synthetic_rows_reach_their_edges():
+    """The rows hold what they are named for, at the kernel's 512-key tiles."""
+    got = {name: (P.top_segments_plain(torch.from_numpy(k), torch.from_numpy(ne),
+                                       torch.from_numpy(ov), **kw),
+                  P.segment_tiles_plain(torch.from_numpy(k), torch.from_numpy(ne), E=kw["E"],
+                                        min_cluster_pixels=kw["min_cluster_pixels"],
+                                        max_perimeter=kw["max_perimeter"]), kw)
+           for name, (k, ne, ov, kw) in ROWS.items()}
+    for name, (seg, tiles, kw) in got.items():
+        assert (tiles.stats[:, 4] >= 0).any(), f"{name}: a segment crosses a tile's end"
+    seg, tiles, _ = got["a segment across many tiles"]
+    assert int(seg.count[0, 0]) == 3000 and int(seg.edge_stride[1]) == 2
+    seg, tiles, _ = got["segments ending on tile edges"]
+    assert (tiles.stats[0, 4, :2] == -1).all() and int(tiles.stats[0, 0, 1]) == 2
+    seg, _, kw = got["fewer candidates than C"]
+    assert 0 < int(seg.valid.sum()) < kw["max_clusters"]
+    seg, _, _ = got["no candidates"]
+    assert not seg.valid.any() and int(seg.num_eligible[0]) == 0
+    seg, tiles, kw = got["min_cluster_pixels 0, nv < E"]
+    assert int(tiles.nv[0]) < kw["E"] and int(seg.num_eligible[0]) == kw["E"]
+    seg, tiles, _ = got["a frame with no valid key"]
+    assert int(tiles.nv[0]) == 0 and not seg.valid[0].any() and bool(seg.overflow[0])
+    seg, tiles, kw = got["a histogram of 16001 bins"]
+    assert tiles.hist.shape[-1] == 16001 and int(seg.count[0, 0]) == 13000 > 12000
+    seg, _, _ = got["ties at T split across tiles"]
+    assert bool(seg.overflow[0]) and int((seg.count[0] == 30).sum()) == 18
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_wrappers_compose_the_plain_segment_versions(stages, case):
+    """On CPU tensors top_segments runs segment_tiles_plain then
+    segment_top_plain: every field equals top_segments_plain's."""
+    st = stages[case]
+    kw = _top_kw(st["kw"])
+    want = P.top_segments_plain(st["key_s"], st["num_edge"], st["ovf"], **kw)
+    got = K.top_segments(st["key_s"], st["num_edge"], st["ovf"], **kw)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -8,7 +8,8 @@ counts, no host sync on the detect path, and detect_checked; the captured
 detect call (CUDA graph replay) against the eager call; the CCL flow
 with pointer jumps, bundle adjustment of a 10k-tag map against the CPU, and
 the rig over a world of one NCCL process; the cluster, resolve and
-quad-fit kernels on chip_smoke.py's cases. They skip without a card.
+quad-fit kernels on chip_smoke.py's cases, the segment kernels on its
+synthetic sorted keys and the count kernel on its count cases. They skip without a card.
 
 The adversarial inputs of the threshold and scan kernels are chip_smoke.py's,
 so the smoke run and these tests hold the kernels to the same cases. This file imports
@@ -26,10 +27,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, LONG_SHAPES,
-                        QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES, RESOLVE_KERNELS, SCAN_CASES,
-                        THRESH_CASES, THRESH_MIN_DIFF, bench_inputs, check_cluster_case,
-                        check_quadfit_case, check_resolve_call, cluster_cases, edge_batch,
+from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
+                        LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES, RESOLVE_KERNELS,
+                        SCAN_CASES, SEGMENT_ROWS, THRESH_CASES, THRESH_MIN_DIFF, bench_inputs,
+                        check_cluster_case, check_count_case, check_quadfit_case,
+                        check_resolve_call, check_segment_row, cluster_cases, edge_batch,
                         free_port, map_problem, quadfit_cases, resolve_cases, scan_batch,
                         scan_case, scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
@@ -615,6 +617,38 @@ def test_cluster_kernels_refuse_what_they_do_not_take(cuda):
                                                 min_cluster_pixels=24)
 
 
+@pytest.mark.parametrize("name", list(SEGMENT_ROWS))
+def test_segment_kernels_on_synthetic_rows(cuda, name):
+    """chip_smoke.py phase 23's synthetic sorted keys: the two segment
+    kernels against top_segments_plain and each against its plain version,
+    one launch each, two calls and a captured replay equal."""
+    check_segment_row(name, cuda)
+
+
+def test_segment_kernels_refuse_what_they_do_not_take(cuda):
+    keys = torch.zeros((2, 1024), dtype=torch.int32, device=cuda)
+    num_edge = torch.zeros(2, dtype=torch.int32, device=cuda)
+    ovf = torch.zeros(2, dtype=torch.bool, device=cuda)
+    tkw = dict(E=1000, min_cluster_pixels=24)
+    with pytest.raises(ValueError, match="max_perimeter"):
+        cluster_kernels.segment_tiles(keys, num_edge, max_perimeter=1 << 15, **tkw)
+    with pytest.raises(ValueError, match="num_edge"):
+        cluster_kernels.segment_tiles(keys, num_edge[:1], max_perimeter=128, **tkw)
+    tiles = cluster_kernels.segment_tiles(keys, num_edge, max_perimeter=128, **tkw)
+    kw = dict(E=1000, E2=1000, max_clusters=16, min_cluster_pixels=24, max_perimeter=128)
+    with pytest.raises(ValueError, match="hist"):
+        cluster_kernels.segment_top(tiles, num_edge, ovf, **{**kw, "max_perimeter": 64})
+    with pytest.raises(ValueError, match="stats"):
+        cluster_kernels.segment_top(tiles, num_edge, ovf, **{**kw, "E": 1500})
+    with pytest.raises(ValueError, match="cand"):
+        cluster_kernels.segment_top(tiles._replace(cand=tiles.cand[:, :-4].contiguous()),
+                                    num_edge, ovf, **kw)
+    with pytest.raises(ValueError, match="max_clusters"):
+        cluster_kernels.segment_top(tiles, num_edge, ovf, **{**kw, "max_clusters": 129})
+    seg = cluster_kernels.segment_top(tiles, num_edge, ovf, **kw)
+    assert not seg.valid.any() and int(seg.num_clusters.sum()) == 2
+
+
 _QUADFIT_CASES = {}
 
 
@@ -651,6 +685,15 @@ def test_resolve_kernels_match_twin_and_plain_versions(cuda, name):
         check_resolve_call(name, call, dict(kw), lab, valid, facts)
 
 
+@pytest.mark.parametrize("name", list(COUNT_CASES))
+def test_count_kernel_cases(cuda, name):
+    """chip_smoke.py phase 24's count cases (one label a frame, speckle,
+    labels at S - 1 and out of range, rows of the scalar path): the count
+    kernel against count_plain, one launch, two calls and a captured replay
+    equal."""
+    check_count_case(name, cuda)
+
+
 def test_resolve_kernels_refuse_what_they_do_not_take(cuda):
     label = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
     valid = torch.ones((2, 64), dtype=torch.bool, device=cuda)
@@ -660,6 +703,8 @@ def test_resolve_kernels_refuse_what_they_do_not_take(cuda):
         resolve_kernels.count(label, valid.cpu(), 64)
     with pytest.raises(ValueError, match="contiguous"):
         resolve_kernels.count(label[:, ::2], valid[:, ::2], 64)
+    with pytest.raises(ValueError, match="table size"):
+        resolve_kernels.count(label, valid, 0)
     cnt = resolve_kernels.count(label, valid, 64)
     with pytest.raises(ValueError, match="tile_sum"):
         resolve_kernels.scan_ranks(cnt, cnt[:, :1], 8)
