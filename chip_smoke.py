@@ -135,36 +135,49 @@ non-zero):
      run once under torch.profiler, whose count of each kernel by name
      must equal the launch counters' and the expected counts, with no
      cummax kernel among them;
- 23. cluster moments: the five cluster-moment kernels (csrc/
-     cluster_moments.cu) on torch_bench.py's 720p b1 and 1080p b8 inputs,
-     tests/test_noise.py's max_clusters=16 scene and the 1080p b8 batch with
-     a slot budget it overflows, and a 1080p frame segmented at full
-     resolution: the kernel path against the plain version
+ 23. cluster moments: the cluster-moment kernels (csrc/cluster_moments.cu:
+     the pair count, the kept pairs' compaction (count and write kernels)
+     and radix sort (SORT_PASSES launches of the scatter kernel), the two
+     segment kernels, the moments kernel) on torch_bench.py's 720p b1 and
+     1080p b8 inputs, tests/test_noise.py's max_clusters=16 scene and the
+     1080p b8 batch with a slot budget it overflows, and a 1080p frame
+     segmented at full resolution: the kernel path against the plain version
      (counts, valid, dark side, centroid, scale, num_* and overflow
      bit-exact; bin tables within one f32 ulp, the cells that differ
-     counted), each kernel against its plain version, two calls and a
-     captured replay equal, one launch of each kernel a call; the two
+     counted), each kernel against its plain version (the sorted rows also
+     against torch.sort(stable=True) of the padded key row), two calls and a
+     captured replay equal, CLUSTER_KERNELS' launches a call; the two
      segment kernels on SEGMENT_ROWS' synthetic sorted keys (segments across
      many tiles, ending on tile edges, ties split across tiles, fewer
      candidates than C, none, a zero size gate, a frame with no valid key, a
      16001-bin histogram) against top_segments_plain and each against its
      plain version, one launch each, two calls and a captured replay equal;
-     device ms of each kernel, its plain version and its bound, and of the
-     stage (kernel path, its torch.sort, the plain version's one-hot
-     formulation);
+     the radix passes alone on SORT_ROWS (all keys equal, keys at 2^30 - 1,
+     K = 0 beside a full row, K on tile boundaries of both tile sizes, K
+     past E in tiles of both sizes) against numpy's stable argsort and each
+     pass against its plain version, and the whole sort on SORT_FRAMES (an
+     empty frame beside a checkerboard at stride 3, one key, the largest
+     dense ids, K past E), also with num_edge cut to a quarter (more pairs
+     kept than num_edge), two calls and a captured replay equal; torch.profiler, in a child
+     process (`chip_smoke.py --cluster-profile`), sees no library sort or
+     select kernel in the stage at both bench shapes; device ms of each
+     kernel, its plain version, its bound and (the scatter kernel's row)
+     torch.sort of the padded row, of the sort (the compaction and the
+     passes with their memset) against torch.sort and its bound, and of the
+     stage (kernel path, the plain version's one-hot formulation);
  24. resolve: the four resolve kernels (csrc/resolve.cu: count, tile sums,
      scan, map) on the phase-1 and phase-2 labels of torch_bench.py's 720p
      b1 and 1080p b8 inputs, the 1080p b8 input at R = RESOLVE_SMALL_R, a
      speckle batch whose phase-1 groups pass R, and synthetic flat frames
-     for the twin's slot R - 1 and its R = 65536 clamp (and the count kernel
-     alone on COUNT_CASES: one label a frame, speckle, labels at S - 1 and
-     out of range, rows that take its scalar path): the contraction, the
-     rank-mode and the flat-mode resolve against the twin bit for bit on
-     every field, one launch of each kernel a call, two calls and a
-     captured replay equal, each kernel against its plain version bit for
-     bit; device ms of each kernel (its plain version, its bound, one
-     library call computing the same function) and of the stage against
-     the twin;
+     for the twin's slot R - 1 and its R = 65536 clamp (and the count and
+     map kernels alone on COUNT_CASES: one label a frame, speckle, labels at
+     S - 1 and out of range, rows that take their scalar path): the
+     contraction, the rank-mode and the flat-mode resolve against the twin
+     bit for bit on every field, one launch of each kernel a call, two
+     calls and a captured replay equal, each kernel against its plain
+     version bit for bit; device ms of each kernel (its plain version, its bound, one
+     library call computing the same function; the map's share of its bound
+     beside its gather) and of the stage against the twin;
  25. quad fit: the search kernel (csrc/quadfit.cu) on the cluster moments
      of torch_bench.py's 720p b1 and 1080p b8 inputs, of node-720p-b1's
      frame 23 at seed 1 (the capacity edge), of a blank 1080p b8 batch (no
@@ -179,7 +192,8 @@ non-zero):
      search, in the parent's selector form).
 Every path launches K1 once, K2 and K3 once a scan round, each resolve
 kernel once a resolve call (twice in the two-phase flow), each cluster
-kernel and the quad-fit search once a call. A path counted on an eager
+kernel once a call but the radix scatter, once a pass (CLUSTER_KERNELS),
+and the quad-fit search once a call. A path counted on an eager
 call reads the wrappers' counters, which each wrapper adds to where it
 launches its kernel; a replay adds the counts its capture recorded
 (capture.GraphedCall), which phase 22 holds against the profiler. The kernels line's `captured` path is phase 22's 720p b1 replay.
@@ -251,14 +265,23 @@ CAPTURE_TURN_CALLS = 20       # calls per timed turn
 # Substrings of the kernels' names in a torch.profiler trace (csrc/*.cu).
 KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "col": "col_diag_kernel", "edge_count": "cm_edge_count_kernel",
-                "edge_pairs": "cm_edge_pairs_kernel", "segment_tiles": "cm_seg_tiles_kernel",
+                "pair_count": "cm_pair_count_kernel", "pair_write": "cm_pair_write_kernel",
+                "radix_scatter": "cm_radix_scatter_kernel", "segment_tiles": "cm_seg_tiles_kernel",
                 "segment_top": "cm_seg_top_kernel", "moments": "cm_moments_kernel",
                 "resolve_count": "resolve_count_kernel",
                 "resolve_tiles": "resolve_tile_sums_kernel",
                 "resolve_scan": "resolve_scan_kernel", "resolve_map": "resolve_map_kernel",
                 "quadfit_search": "qf_search_kernel"}
-CLUSTER_KERNELS = ("edge_count", "edge_pairs", "segment_tiles", "segment_top",
-                   "moments")                                  # once a detect call
+SORT_PASSES = 4               # radix passes of the cluster stage's sort (ops/cluster_moments.py)
+# The cluster kernels' launches a detect call: each once, the radix scatter
+# once a pass.
+CLUSTER_KERNELS = {"edge_count": 1, "pair_count": 1, "pair_write": 1,
+                   "radix_scatter": SORT_PASSES, "segment_tiles": 1, "segment_top": 1,
+                   "moments": 1}
+# Substrings of a device kernel's name that mark a library sort or select
+# (torch.sort, argsort, nonzero, masked_select; CUB's device-level ones),
+# none of which the cluster stage may launch on backend 'cuda'.
+LIBRARY_SORT_NAMES = ("sort", "select", "nonzero", "cub::")
 CUMMAX_KERNEL = "dim_with_indices"   # torch's cummax/cummin scan kernels' names hold it
 # Phase 23: tests/test_noise.py's max_clusters=16 scene (640x480, fx 420:
 # two 0.28 m tags at 1.2 m, noise 3), and the slot budget that overflows a
@@ -274,11 +297,13 @@ CLUSTER_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CAS
     f"{SLOT_OVERFLOW_MIN_PIXELS}",
     "1080p b1, quad_decimate 1")
 # The reference's XLA code each cluster kernel replaces (it has no Pallas
-# kernel there): the pair count, the pair loop, the reverse cummin, the
-# top-C sort, and the one-hot per-cluster matmuls (with the cummax and second
-# sort).
+# kernel there): the pair count, the hash gate, the gated key row, its
+# stable sort, the reverse cummin, the top-C sort, and the one-hot
+# per-cluster matmuls (with the cummax and second sort).
 CLUSTER_REPLACES = {"edge_count": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:168",
-                    "edge_pairs": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:142",
+                    "pair_count": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:176",
+                    "pair_write": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:179",
+                    "radix_scatter": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:180",
                     "segment_tiles": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:202",
                     "segment_top": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:214",
                     "moments": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:273"}
@@ -308,6 +333,30 @@ SEGMENT_ROWS = {
     "a histogram of 16001 bins": (
         ([40] * 20 + [13000] + [30] * 10,), 16384, 16384, 16384, 16, 24, 16000, (), (0,)),
 }
+# Phase 23's synthetic rows of kept pairs for the radix passes alone:
+# name -> (each frame's (kept count K, key kind), row length N, E; see
+# sort_rows). The kernels' sort tiles hold 1024 positions under 2^22 pair
+# slots a launch, else 4096; a frame's grid holds ceil(E / tile) blocks, so
+# K past E walks its tiles in a loop.
+SORT_ROWS = {
+    "all keys equal, ties across every tile": (((5000, "equal"), (3000, "zero")), 8192, 8192),
+    "keys at 2^30 - 1 and 0": (((6000, "extremes"),), 8192, 6000),
+    "K = 0 beside a full row": (((0, "none"), (8192, "few")), 8192, 4096),
+    "K on 1024-position tile boundaries": (((1024, "few"), (2048, "runs"), (4096, "few")),
+                                           4096, 4096),
+    "K on 4096-position tile boundaries": (((4096, "runs"), (8192, "few"), (12288, "runs"),
+                                            (0, "none")), 1 << 20, 1 << 16),
+    "K past E, tiles walked in a loop": (((60000, "runs"), (30000, "few")), 65536, 1500),
+    "K past E, 4096-position tiles walked in a loop": (
+        ((40000, "runs"), (20480, "equal"), (9000, "few"), (0, "none")), 1 << 20, 8192),
+}
+# Phase 23's synthetic frames for the whole sort (see sort_frames): 64x96
+# frames (64x94 for rows the pixel kernels cannot load 4 pixels at a time),
+# E at the detector's 3/4 of the pixels unless given.
+SORT_FRAMES = ("an empty frame beside a checkerboard (stride 3)",
+               "one key: a black half and a white half", "the largest dense ids",
+               "K past E: a checkerboard at E 240 (stride 57)",
+               "rows of 94 pixels (the pixel kernels' scalar path)")
 RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan",
                    "resolve_map")                 # once a resolve call, twice a two-phase call
 # The reference's XLA code each resolve kernel replaces (it has no Pallas
@@ -463,6 +512,65 @@ def segment_rows() -> dict:
                      dict(E=E, E2=E2, max_clusters=C, min_cluster_pixels=min_pix,
                           max_perimeter=max_per))
     return out
+
+
+def sort_rows(seed: int = 0) -> dict:
+    """SORT_ROWS as numpy inputs: name -> ((B, N) int32 keys, each frame's
+    K keys in [0, K) and int32 max past them; (B, N) int32 pays, 8 p + b at
+    position p of frame b; (B,) int32 K; E). Key kinds: 'equal' one key,
+    (12345 << 15) | 777; 'zero' 0; 'extremes' 0, 2^30 - 1 or any key below;
+    'few' a draw from 12 keys; 'runs' runs of 1 to 40 of random keys;
+    'none' no key."""
+    rng = np.random.default_rng(seed)
+    top = (1 << 30) - 1
+    out = {}
+    for name, (frames, N, E) in SORT_ROWS.items():
+        B = len(frames)
+        keys = np.full((B, N), np.iinfo(np.int32).max, np.int32)
+        for b, (K, kind) in enumerate(frames):
+            if kind == "equal":
+                row = np.full(K, (12345 << 15) | 777)
+            elif kind == "zero":
+                row = np.zeros(K)
+            elif kind == "extremes":
+                row = np.where(rng.random(K) < 0.4, top,
+                               np.where(rng.random(K) < 0.5, 0, rng.integers(0, top, K)))
+            elif kind == "few":
+                row = rng.choice(rng.integers(0, top, 12), K)
+            elif kind == "runs":
+                row = np.repeat(rng.integers(0, top, K), rng.integers(1, 41, K))[:K]
+            else:
+                row = np.zeros(0)
+            keys[b, :K] = row
+        pays = (8 * np.arange(N)[None] + np.arange(B)[:, None]).astype(np.int32)
+        out[name] = (keys, pays, np.array([k for k, _ in frames], np.int32), E)
+    return out
+
+
+def sort_frames(seed: int = 0) -> dict:
+    """SORT_FRAMES as numpy inputs: name -> ((B, 64, 96) uint8 trinary,
+    int32 dense ids, E). The checkerboard's right and down neighbours pair
+    (two pairs a pixel, 2.0 times 3/4 of the pixels: stride 3), its ids
+    constant on 6x6 cells; the halves pair only across their border, every
+    pair with key (0 << 15) | 1; the largest ids are 32764 to 32766 on a
+    random trinary; at E 240 the checkerboard keeps 245 pairs; the 94-pixel
+    rows are the speckle's and the cells' first 94 columns."""
+    rng = np.random.default_rng(seed)
+    H, W = 64, 96
+    y, x = np.mgrid[:H, :W]
+    checker = (((y + x) % 2) * 255).astype(np.uint8)
+    cells = ((x // 6 + (y // 6) * 16) % 700).astype(np.int32)
+    E = (3 * H * W) // 4
+    halves = np.where(x < W // 2, 0, 255).astype(np.uint8)
+    speckle = rng.choice(np.array([0, 255, 127], np.uint8), size=(H, W), p=[0.45, 0.45, 0.1])
+    cases = ((np.stack([np.full((H, W), 127, np.uint8), checker]),
+              np.stack([np.zeros((H, W), np.int32), cells]), E),
+             (halves[None], (halves // 255).astype(np.int32)[None], E),
+             (speckle[None], (32766 - rng.integers(0, 3, (1, H, W))).astype(np.int32), E),
+             (checker[None], cells[None], 240),
+             (np.ascontiguousarray(speckle[None, :, :94]),
+              np.ascontiguousarray(cells[None, :, :94]), (3 * H * 94) // 4))
+    return dict(zip(SORT_FRAMES, cases, strict=True))
 
 
 def count_case(name: str, seed: int = 0):
@@ -905,9 +1013,10 @@ def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict
     scan rounds and `resolves` resolve calls each (2 in the two-phase flow,
     the contraction and the final resolve; 1 in the flat and jumps flows):
     K1 once, K2 and K3 once a round, the four resolve kernels once a resolve
-    call, the five cluster kernels and the quad-fit search once."""
+    call, the cluster kernels as CLUSTER_KERNELS counts them and the
+    quad-fit search once."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
-            **{k: frames for k in CLUSTER_KERNELS},
+            **{k: n * frames for k, n in CLUSTER_KERNELS.items()},
             **{k: resolves * frames for k in RESOLVE_KERNELS}, "quadfit_search": frames}
 
 
@@ -1394,16 +1503,88 @@ def cluster_cases(dev) -> dict:
         (dataclasses.replace(cfg8, quad_decimate=1), in8[0][:1]))))
 
 
-def check_cluster_case(name: str, cfg, images) -> dict:
-    """One of phase 23's cases: the kernel path against the plain version
-    (cluster_gap), one launch of each cluster kernel, two calls and a
-    captured replay equal, and each kernel against its plain version on the
-    same inputs (the moments kernel's tables within one f32 ulp, as
-    cluster_gap). Raises on a difference; returns the stage's inputs and
-    intermediates, the cells that differ (`differ` of `cells`) and the
-    largest difference of each kernel from its plain version (`errs`)."""
+def _live_look(look, kept, tile: int):
+    """The passes' (SORT_PASSES, B, T, RADIX) look-back words on each frame's
+    first ceil(K / tile) sort tiles, 0 past them (the kernels leave those
+    undefined)."""
     import torch
 
+    on = torch.arange(look.shape[2], device=kept.device) < ((kept + tile - 1) // tile)[:, None]
+    return torch.where(on[None, :, :, None], look, 0)
+
+
+def _live_rows(rows, kept) -> tuple:
+    """A sort's rows as the kernels define them: keys and pays on [0, K)
+    (int32 max and 0 past K)."""
+    import torch
+
+    live = torch.arange(rows.key.shape[1], device=kept.device) < kept[:, None]
+    return torch.where(live, rows.key, np.iinfo(np.int32).max), torch.where(live, rows.pay, 0)
+
+
+def radix_steps(rows, tiles, E: int):
+    """The SORT_PASSES radix passes on the card from `rows` (as pair_write
+    leaves them), each against radix_scatter_plain on the rows and digit
+    counts it was given (its rows and the next pass's digit counts).
+    Returns (sorted rows, [(got, want), ...])."""
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    got, pairs, spare = _live_rows(rows, tiles.kept), [], None
+    for k in range(plain.SORT_PASSES):
+        given = plain.SortRows(*got), tiles._replace(digits=tiles.digits.clone())
+        moved = cmk.radix_scatter(rows, tiles, k, E=E, out=spare)
+        spare, rows = (rows.key, rows.pay), moved
+        got = _live_rows(rows, tiles.kept)
+        want, nxt = plain.radix_scatter_plain(*given, k)
+        pairs += list(zip(got, _live_rows(want, tiles.kept)))
+        if nxt is not None:
+            pairs.append((tiles.digits[k + 1], nxt))
+    return rows, pairs
+
+
+def sort_steps(tri, dense, ne, E: int):
+    """The kept pairs' sort on the card kernel by kernel (pair_count,
+    pair_write, the radix passes), each against its plain version on the
+    inputs it was given, and the sorted rows against torch.sort(stable=True)
+    of the padded row (edge_pairs_plain): keys on [0, max(K, E)), pays on
+    [0, K). Returns (rows, PairTiles, {kernel: [(got, want), ...]})."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    B, H, W = tri.shape
+    tile = plain.sort_tile(B, 4 * H * W)
+    tiles = cmk.pair_count(tri, dense, ne, E)
+    want = plain.pair_count_plain(tri, dense, ne, E)
+    kept = tiles.kept
+    pairs = {"pair_count": [(tiles.counts, want.counts), (tiles.digits.clone(), want.digits)]}
+    rows = cmk.pair_write(tri, dense, ne, tiles, E)
+    pairs["pair_write"] = [(kept, want.kept), (_live_look(tiles.look, want.kept, tile),
+                                               want.look)] + list(zip(_live_rows(rows, kept),
+                                                                      _live_rows(
+        plain.pair_write_plain(tri, dense, ne, want, E), kept)))
+    rows, pairs["radix_scatter"] = radix_steps(rows, tiles, E)
+    key, pay = plain.edge_pairs_plain(tri, dense, ne, E)
+    key_s, perm = torch.sort(key, dim=-1, stable=True)
+    pos = torch.arange(key.shape[1], device=key.device)
+    upto, live = pos < torch.clamp(kept, min=E)[:, None], pos < kept[:, None]
+    pairs["radix_scatter"] += [
+        (torch.where(upto, rows.key, np.iinfo(np.int32).max), key_s),
+        (torch.where(live, rows.pay, 0), torch.where(live, torch.gather(pay, 1, perm), 0))]
+    return rows, tiles, pairs
+
+
+def check_cluster_case(name: str, cfg, images) -> dict:
+    """One of phase 23's cases: the kernel path against the plain version
+    (cluster_gap), the cluster kernels' launches (CLUSTER_KERNELS), two
+    calls and a captured replay equal, and each kernel against its plain
+    version on the same inputs (sort_steps for the sort's kernels; the
+    moments kernel's tables within one f32 ulp, as cluster_gap). Raises on a
+    difference; returns the stage's inputs and intermediates, the cells that
+    differ (`differ` of `cells`) and the largest difference of each kernel
+    from its plain version (`errs`)."""
     from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
 
@@ -1417,7 +1598,7 @@ def check_cluster_case(name: str, cfg, images) -> dict:
     def stage():
         return cmk.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw)
 
-    one = {k: int(k in CLUSTER_KERNELS) for k in _want()}
+    one = {k: CLUSTER_KERNELS.get(k, 0) for k in _want()}
     _reset_launches()
     got = stage()
     counts = _launches()
@@ -1429,13 +1610,11 @@ def check_cluster_case(name: str, cfg, images) -> dict:
         raise AssertionError(f"cluster moments, {name}: two calls differ")
     _replay_equals(stage, got, f"cluster moments, {name}")
     ne = cmk.edge_count(tri, dense)
-    key, pay = cmk.edge_pairs(tri, dense, ne, E)
-    key_s, perm = torch.sort(key, dim=-1, stable=True)
-    tiles, seg, seg_pairs = segment_pairs(key_s, ne, ovf, skw)
-    mom = cmk.slot_moments(perm, pay, seg.top_pos, seg.count, E2)
-    momp = plain.slot_moments_plain(perm, pay, seg.top_pos, seg.count, E2)
-    checks = {"edge_count": [(ne, plain.edge_count_plain(tri, dense))],
-              "edge_pairs": list(zip((key, pay), plain.edge_pairs_plain(tri, dense, ne, E))),
+    rows, sorted_tiles, sort_checks = sort_steps(tri, dense, ne, E)
+    tiles, seg, seg_pairs = segment_pairs(rows.key, ne, ovf, skw)
+    mom = cmk.slot_moments(rows.pay, seg.top_pos, seg.count, E2)
+    momp = plain.slot_moments_plain(rows.pay, seg.top_pos, seg.count, E2)
+    checks = {"edge_count": [(ne, plain.edge_count_plain(tri, dense))], **sort_checks,
               **seg_pairs,
               "moments": [(getattr(mom, f), getattr(momp, f))
                           for f in ("centroid", "scale", "dark_inside")]}
@@ -1448,9 +1627,9 @@ def check_cluster_case(name: str, cfg, images) -> dict:
         raise AssertionError(f"moments kernel, {name}: a bin table cell is more than one f32 "
                              "ulp from the plain version's")
     errs["moments"] = max(errs["moments"], _max_abs_err(mom.table, momp.table))
-    return dict(tri=tri, dense=dense, ovf=ovf, kw=kw, E=E, E2=E2, skw=skw, ne=ne, key=key,
-                pay=pay, key_s=key_s, perm=perm, tiles=tiles, seg=seg, mom=mom, got=got,
-                differ=differ, cells=cells, errs=errs, stage=stage)
+    return dict(tri=tri, dense=dense, ovf=ovf, kw=kw, E=E, E2=E2, skw=skw, ne=ne, rows=rows,
+                kept=sorted_tiles.kept, counts=sorted_tiles.counts, tiles=tiles, seg=seg, mom=mom,
+                got=got, differ=differ, cells=cells, errs=errs, stage=stage)
 
 
 def _own_candidates(tiles):
@@ -1523,28 +1702,210 @@ def check_segment_row(name: str, dev) -> dict:
     return errs
 
 
+def sort_row_start(key, pay, kept):
+    """(B, N) int32 keys and pays and (B,) kept counts on the card as
+    pair_write leaves a sort: (SortRows, PairTiles with the kept counts,
+    the first pass's digit counts and zeroed look-back words and
+    counters)."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+
+    B, N = key.shape
+    i32 = dict(dtype=torch.int32, device=key.device)
+    T = -(-N // plain.sort_tile(B, N))
+    tiles = plain.PairTiles(counts=torch.zeros((B, 4), **i32), kept=kept,
+                            digits=torch.stack([plain.digit_counts_plain(key, kept, 0)] + [
+                                torch.zeros((B, plain.RADIX), **i32)] * (plain.SORT_PASSES - 1)),
+                            look=torch.zeros((plain.SORT_PASSES, B, T, plain.RADIX), **i32),
+                            ctl=torch.zeros((B, plain.CTL), **i32))
+    return plain.SortRows(key=key, pay=pay), tiles
+
+
+def check_sort_row(name: str, dev) -> float:
+    """One of SORT_ROWS through the radix passes alone on the card:
+    SORT_PASSES launches of the scatter kernel, the sorted keys and pays
+    equal to numpy's stable argsort of each frame's keys, each pass against
+    radix_scatter_plain, two calls and a captured replay equal. Raises on a
+    difference; returns the largest one."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    keys, pays, kept, E = sort_rows()[name]
+    key, pay, K = (torch.from_numpy(a).to(dev) for a in (keys, pays, kept))
+
+    def call():
+        rows, tiles = sort_row_start(key, pay, K)
+        spare = None
+        for k in range(SORT_PASSES):
+            moved = cmk.radix_scatter(rows, tiles, k, E=E, out=spare)
+            spare, rows = (rows.key, rows.pay), moved
+        return _live_rows(rows, K)
+
+    one = {k: SORT_PASSES * (k == "radix_scatter") for k in _want()}
+    _reset_launches()
+    got = call()
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"sort rows, {name}: launches {counts} != {one}")
+    want_key = np.full_like(keys, np.iinfo(np.int32).max)
+    want_pay = np.zeros_like(pays)
+    for b, n in enumerate(kept):
+        order = np.argsort(keys[b, :n], kind="stable")
+        want_key[b, :n], want_pay[b, :n] = keys[b, order], pays[b, order]
+    _, pairs = radix_steps(*sort_row_start(key, pay, K), E)
+    pairs += list(zip(got, (torch.from_numpy(want_key).to(dev),
+                            torch.from_numpy(want_pay).to(dev))))
+    if not all(_same(a, b) for a, b in pairs):
+        raise AssertionError(f"sort rows, {name}: the passes differ from the plain passes or "
+                             "from numpy's stable argsort")
+    if not all(_same(a, b) for a, b in zip(call(), got)):
+        raise AssertionError(f"sort rows, {name}: two calls differ")
+    _replay_equals(call, got, f"sort rows, {name}")
+    return max(_max_abs_err(a, b) for a, b in pairs)
+
+
+def check_sort_frame(name: str, dev) -> dict:
+    """One of SORT_FRAMES through the whole sort on the card: one launch of
+    each compaction kernel and SORT_PASSES of the scatter kernel, each
+    kernel against its plain version and the rows against torch.sort of the
+    padded row (sort_steps), at the frames' num_edge and at a quarter of it,
+    two calls and a captured replay equal. Raises on a difference; returns
+    each kernel's largest difference and the frames' kept counts, num_edge
+    and E, and the kept counts and num_edge at the quarter."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    tri, dense, E = sort_frames()[name]
+    tri, dense = torch.from_numpy(tri).to(dev), torch.from_numpy(dense).to(dev)
+    ne = cmk.edge_count(tri, dense)
+
+    def call():
+        rows, kept = cmk.sort_pairs(tri, dense, ne, E)
+        return _live_rows(rows, kept)
+
+    one = {k: {"pair_count": 1, "pair_write": 1, "radix_scatter": SORT_PASSES}.get(k, 0)
+           for k in _want()}
+    _reset_launches()
+    got = call()
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"sort frames, {name}: launches {counts} != {one}")
+    errs, kept = {}, {}
+    # num_edge cut to a quarter: a smaller stride keeps more pairs than
+    # num_edge says the frame holds, and the sort must still take them all.
+    for cut in (1, 4):
+        _, tiles, checks = sort_steps(tri, dense, ne // cut, E)
+        kept[cut] = tiles.kept.tolist()
+        for k, pairs in checks.items():
+            errs[k] = max([errs.get(k, 0.0)] + [_max_abs_err(a, b) for a, b in pairs])
+            if not all(_same(a, b) for a, b in pairs):
+                raise AssertionError(f"{k} kernel, sort frames, {name}, num_edge / {cut}: "
+                                     "differs from its plain version or torch.sort")
+    if not all(_same(a, b) for a, b in zip(call(), got)):
+        raise AssertionError(f"sort frames, {name}: two calls differ")
+    _replay_equals(call, got, f"sort frames, {name}")
+    return dict(errs=errs, kept=kept[1], num_edge=ne.tolist(), E=E, kept_cut=kept[4],
+                num_edge_cut=(ne // 4).tolist())
+
+
+def _chain_ms(steps, iters: int) -> list[float]:
+    """Mean device ms of each of `steps`, callables run in order (a chain of
+    kernels, each on what the steps before it left), over `iters` runs of
+    the chain queued behind a spin kernel (as _device_ms), with CUDA events
+    between the steps."""
+    import torch
+
+    def chain():
+        for f in steps:
+            f()
+
+    for _ in range(3):
+        chain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        chain()
+    torch.cuda.synchronize()
+    issue_s = time.perf_counter() - t0
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+             for _ in range(iters)]
+    torch.cuda._sleep(int(2e9 * 2 * issue_s) + 1000)
+    for ev in marks:
+        ev[0].record()
+        for f, e in zip(steps, ev[1:]):
+            f()
+            e.record()
+    torch.cuda.synchronize()
+    return [float(np.mean([ev[j].elapsed_time(ev[j + 1]) for ev in marks]))
+            for j in range(len(steps))]
+
+
+def cluster_profile() -> dict:
+    """`chip_smoke.py --cluster-profile`, phase 23's child process: the
+    cluster stage on backend 'cuda' at torch_bench.py's two shapes, warm,
+    once under torch.profiler: no device kernel of a library sort or select
+    (LIBRARY_SORT_NAMES), and each cluster kernel seen as often as its
+    counter says. Returns, by shape, the kernels seen and the largest
+    library kernels' names (none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+
+    dev = torch.device("cuda")
+    out = {}
+    for config, batch in CAPTURE_CASES:
+        cfg, _, inputs = bench_inputs(config, batch, dev, calls=1)
+        tri, dense, ovf, kw = cluster_inputs(cfg, inputs[0])
+        cmk.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw)
+        _reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cmk.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw)
+            counts = _launches()
+        names = _device_kernels(prof)
+        seen = _profiled_kernels(prof)
+        library = sorted({n for n in names if any(p in n.lower() for p in LIBRARY_SORT_NAMES)})
+        if library:
+            raise AssertionError(f"cluster stage b{batch}: library sort or select kernels ran: "
+                                 f"{library[:3]}")
+        if any(seen[k] != counts[k] for k in CLUSTER_KERNELS):
+            raise AssertionError(f"cluster stage b{batch}: the profiler saw {seen}, the "
+                                 f"counters say {counts}")
+        out[f"b{batch}"] = dict(kernels=len(names), cluster={k: seen[k] for k in CLUSTER_KERNELS},
+                                library=library)
+    return out
+
+
 def cluster_phase(gpu: str) -> dict:
-    """Phase 23: check_cluster_case on each of cluster_cases, and device
-    times at torch_bench.py's two shapes. Returns kernel -> {max_abs_err,
-    and for 'b1' (720p) and 'batch8' (1080p): shape, ms, plain_ms,
-    bound_ms}."""
+    """Phase 23: check_cluster_case on each of cluster_cases, the segment
+    kernels on SEGMENT_ROWS, the radix passes on SORT_ROWS and the whole sort
+    on SORT_FRAMES, the profiler check of cluster_profile in a child
+    process, and device times at torch_bench.py's two shapes. Returns
+    kernel -> {max_abs_err, and for 'b1' (720p) and 'batch8' (1080p):
+    shape, ms, plain_ms, bound_ms, library_ms}."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
 
+    if plain.SORT_PASSES != SORT_PASSES:
+        raise AssertionError("chip_smoke.SORT_PASSES differs from the package's")
     dev = torch.device("cuda")
     out = {k: {"max_abs_err": 0.0} for k in CLUSTER_KERNELS}
-    lines, stage_ms = [], {}
+    lines, stage_ms, sort_ms, by_pass = [], {}, {}, {}
     for name, (cfg, images) in cluster_cases(dev).items():
         c = check_cluster_case(name, cfg, images)
         for k in CLUSTER_KERNELS:
             out[k]["max_abs_err"] = max(out[k]["max_abs_err"], c["errs"][k])
-        tri, dense, ne, key, pay, key_s, perm, seg, mom = (
-            c[k] for k in ("tri", "dense", "ne", "key", "pay", "key_s", "perm", "seg", "mom"))
+        tri, dense, ne, rows, kept, seg, mom = (
+            c[k] for k in ("tri", "dense", "ne", "rows", "kept", "seg", "mom"))
         ovf, skw, E, E2 = c["ovf"], c["skw"], c["E"], c["E2"]
         B, H, W = tri.shape
-        lines.append(f"{name} ({B}x{H}x{W}, E {E}, C {cfg.max_clusters}, E2 {E2}): bin cells "
+        lines.append(f"{name} ({B}x{H}x{W}, E {E}, C {cfg.max_clusters}, E2 {E2}): kept pairs "
+                     f"{int(kept.sum())} (frames past E {int((kept > E).sum())}); bin cells "
                      f"one ulp apart {c['differ']} of {c['cells']}; frames with eligible "
                      f"segments past C {int((seg.num_eligible > cfg.max_clusters).sum())} of "
                      f"{B}, with slot pairs past E2 {int((seg.count.sum(-1) > E2).sum())}, "
@@ -1563,57 +1924,126 @@ def cluster_phase(gpu: str) -> dict:
         nv = int(tiles.nv.sum())
         cand_bytes = 4 * int(tiles.stats[:, 1].sum()) / HBM_BYTES_PER_S * 1e3
         resident = int(torch.clamp(seg.count.sum(-1), max=E2).sum())
+        # The sort's bounds count the bytes the work needs, and not the
+        # look-back words (scratch of this design, which stay in L2).
+        K, px = int(kept.sum()), B * H * W
+        fill = 4 * int(torch.clamp(E - kept, min=0).sum())
+        head = 5 * px + 4 * c["counts"].numel()             # tri, dense; the tile counts
+        digit_bytes = 4 * plain.RADIX * B                  # a pass's digit counts
+        want_tiles = plain.pair_count_plain(tri, dense, ne, E)
+        given = [(plain.SortRows(*_live_rows(plain.pair_write_plain(
+            tri, dense, ne, want_tiles, E), kept)), want_tiles)]
+        for k in range(SORT_PASSES - 1):
+            moved, nxt = plain.radix_scatter_plain(*given[-1], k)
+            digits = given[-1][1].digits.clone()
+            digits[k + 1] = nxt
+            given.append((moved, given[-1][1]._replace(digits=digits)))
+        key_pad = plain.edge_pairs_plain(tri, dense, ne, E)[0]
+        torch_sort_ms = _device_ms(lambda: torch.sort(key_pad, dim=-1, stable=True), 10)
+        state = {}
+        steps = [lambda: state.update(t=cmk.pair_count(tri, dense, ne, E)),
+                 lambda: state.update(r=cmk.pair_write(tri, dense, ne, state["t"], E))]
+        steps += [lambda k=k: state.update(r=cmk.radix_scatter(state["r"], state["t"], k, E=E))
+                  for k in range(SORT_PASSES)]
+        chain = _chain_ms(steps, 20)
+        tag = "b1" if B == 1 else f"batch{B}"
+        by_pass[tag] = chain[2:]
         timed = {
-            "edge_count": (lambda: cmk.edge_count(tri, dense),
-                           lambda: plain.edge_count_plain(tri, dense),
+            "edge_count": (None, lambda: plain.edge_count_plain(tri, dense),
                            _bound_ms(tri, dense, ne)),
-            "edge_pairs": (lambda: cmk.edge_pairs(tri, dense, ne, E),
-                           lambda: plain.edge_pairs_plain(tri, dense, ne, E),
-                           _bound_ms(tri, dense, ne, key, pay)),
+            # tri and dense; the tiles' counts and the first digit counts
+            "pair_count": (chain[0], lambda: plain.pair_count_plain(tri, dense, ne, E),
+                           (head + digit_bytes) / HBM_BYTES_PER_S * 1e3),
+            # tri, dense and the tiles' counts; K, 8 bytes a kept pair and the
+            # fill to E
+            "pair_write": (chain[1], lambda: plain.pair_write_plain(tri, dense, ne, want_tiles, E),
+                           (head + 4 * B + 8 * K + fill) / HBM_BYTES_PER_S * 1e3),
+            # a pass reads its digit counts, reads and writes 8 bytes a kept
+            # pair and (but the last) writes the next digit counts
+            "radix_scatter": (sum(chain[2:]), lambda: [plain.radix_scatter_plain(*g, k)
+                                                      for k, g in enumerate(given)],
+                              (SORT_PASSES * (16 * K + digit_bytes)
+                               + (SORT_PASSES - 1) * digit_bytes) / HBM_BYTES_PER_S * 1e3),
             # the valid prefix of the sorted keys, 4 bytes a key; the tiles'
             # fields, histogram and valid keys, and 4 bytes a candidate
-            "segment_tiles": (lambda: cmk.segment_tiles(key_s, ne, **tkw),
-                              lambda: plain.segment_tiles_plain(key_s, ne, **tkw),
+            "segment_tiles": (None, lambda: plain.segment_tiles_plain(rows.key, ne, **tkw),
                               4 * nv / HBM_BYTES_PER_S * 1e3 + cand_bytes
                               + _bound_ms(ne, tiles.stats, tiles.hist, tiles.nv)),
-            "segment_top": (lambda: cmk.segment_top(tiles, ne, ovf, **skw),
-                            lambda: plain.segment_top_plain(tiles, ne, ovf, **skw),
+            "segment_top": (None, lambda: plain.segment_top_plain(tiles, ne, ovf, **skw),
                             cand_bytes + _bound_ms(tiles.stats, tiles.hist, tiles.nv, ne, ovf,
                                                    *seg)),
-            # each resident pair's permutation entry and pay, 12 bytes
-            "moments": (lambda: cmk.slot_moments(perm, pay, seg.top_pos, seg.count, E2),
-                        lambda: plain.slot_moments_plain(perm, pay, seg.top_pos, seg.count, E2),
-                        12 * resident / HBM_BYTES_PER_S * 1e3
+            # each resident pair's pay, 4 bytes
+            "moments": (None, lambda: plain.slot_moments_plain(rows.pay, seg.top_pos, seg.count,
+                                                               E2),
+                        4 * resident / HBM_BYTES_PER_S * 1e3
                         + _bound_ms(seg.top_pos, seg.count, *mom)),
         }
-        tag = "b1" if B == 1 else f"batch{B}"
-        for k, (kern, twin, bound) in timed.items():
-            out[k][tag] = dict(shape=[B, H, W], ms=_device_ms(kern, 20),
-                               plain_ms=_device_ms(twin, 5), bound_ms=bound)
+        alone = {"edge_count": lambda: cmk.edge_count(tri, dense),
+                 "segment_tiles": lambda: cmk.segment_tiles(rows.key, ne, **tkw),
+                 "segment_top": lambda: cmk.segment_top(tiles, ne, ovf, **skw),
+                 "moments": lambda: cmk.slot_moments(rows.pay, seg.top_pos, seg.count, E2)}
+        for k, (ms, twin, bound) in timed.items():
+            out[k][tag] = dict(shape=[B, H, W], ms=ms if ms is not None else
+                               _device_ms(alone[k], 20), plain_ms=_device_ms(twin, 5),
+                               bound_ms=bound,
+                               library_ms=torch_sort_ms if k == "radix_scatter" else None)
         kw = c["kw"]
+        # The whole sort's yardstick bound: the compaction reads
+        # 5 bytes a pixel and writes 8 a kept pair; a pass reads 4 a kept
+        # pair for its histogram, then reads and writes 8.
+        sort_bound = (5 * px + 8 * K + SORT_PASSES * 20 * K) / HBM_BYTES_PER_S * 1e3
+        sort_ms[tag] = dict(kernels=_device_ms(lambda: cmk.sort_pairs(tri, dense, ne, E), 20),
+                            torch_sort=torch_sort_ms, bound=sort_bound, kept=K)
+        sort_ms[tag]["share"] = sort_bound / sort_ms[tag]["kernels"]
         stage_ms[tag] = {
             "kernels": _device_ms(c["stage"], 10),
-            "sort": _device_ms(lambda: torch.sort(key, dim=-1, stable=True), 10),
             "plain": _device_ms(lambda: plain.extract_cluster_moments(
                 tri, dense, comp_overflow=ovf, **kw), 5)}
     for name in SEGMENT_ROWS:
         for k, e in check_segment_row(name, dev).items():
             out[k]["max_abs_err"] = max(out[k]["max_abs_err"], e)
+    for name in SORT_ROWS:
+        out["radix_scatter"]["max_abs_err"] = max(out["radix_scatter"]["max_abs_err"],
+                                                  check_sort_row(name, dev))
+    frames = {}
+    for name in SORT_FRAMES:
+        f = check_sort_frame(name, dev)
+        for k, e in f["errs"].items():
+            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], e)
+        frames[name] = {k: f[k] for k in ("kept", "num_edge", "E", "kept_cut", "num_edge_cut")}
+    if not frames[SORT_FRAMES[3]]["kept"][0] > frames[SORT_FRAMES[3]]["E"]:
+        raise AssertionError(f"{SORT_FRAMES[3]}: the frame must keep more pairs than E")
+    if not any(k > n for f in frames.values() for k, n in zip(f["kept_cut"], f["num_edge_cut"])):
+        raise AssertionError("no synthetic frame keeps more pairs than its cut num_edge")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--cluster-profile"],
+                           cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f"cluster profile exited {child.returncode}: "
+                             f"{child.stderr[-3000:]}")
+    profiled = json.loads(child.stdout.strip().splitlines()[-1])
     seg_ms = {t: out["segment_tiles"][t]["ms"] + out["segment_top"][t]["ms"]
               for t in ("b1", f"batch{BATCH}")}
     torch.cuda.synchronize()
-    print(f"[23 cluster moments] the kernel path (one launch of each of "
-          f"{list(CLUSTER_KERNELS)} a call) against the plain version: counts, valid, dark "
-          f"side, centroid, scale, num_* and overflow bit-exact, bin tables within one f32 ulp; "
-          f"each kernel against its plain version (the moments' tables within one ulp); two "
-          f"calls and a captured replay equal: " + "; ".join(lines) + "; the two segment "
-          f"kernels on the synthetic rows {list(SEGMENT_ROWS)}: equal to top_segments_plain and "
-          f"each to its plain version, one launch each, two calls and a captured replay equal; "
-          f"on {gpu}: the two segment kernels summed {seg_ms} ms; device ms "
-          f"a call of the stage (kernel path, its torch.sort alone, the plain version's one-hot "
-          f"GEMM formulation) {stage_ms}; a kernel (kernel / plain / bound ms) "
+    print(f"[23 cluster moments] the kernel path (launches a call {CLUSTER_KERNELS}) against "
+          f"the plain version: counts, valid, dark side, centroid, scale, num_* and overflow "
+          f"bit-exact, bin tables within one f32 ulp; each kernel against its plain version "
+          f"(the sort's rows also against torch.sort of the padded row; the moments' tables "
+          f"within one ulp); two calls and a captured replay equal: " + "; ".join(lines)
+          + f"; the two segment kernels on the synthetic rows {list(SEGMENT_ROWS)}: equal to "
+          f"top_segments_plain and each to its plain version, one launch each, two calls and a "
+          f"captured replay equal; the radix passes on the synthetic rows {list(SORT_ROWS)}: "
+          f"equal to numpy's stable argsort and each pass to its plain version, "
+          f"{SORT_PASSES} launches, two calls and a captured replay equal; the whole sort on the "
+          f"synthetic frames (kept pairs, num_edge, E) {frames}: each kernel equal to its plain "
+          f"version and the rows to torch.sort of the padded row; torch.profiler in a child "
+          f"process (kernels seen, cluster kernels, library sorts): {profiled}; on {gpu}: "
+          f"the sort (pair_count, pair_write, {SORT_PASSES} passes, with the memset; ms, "
+          f"torch.sort of the padded row, yardstick bound by bytes, share, kept pairs) "
+          f"{sort_ms}; the passes' ms {by_pass}; the two segment kernels summed {seg_ms} ms; "
+          f"device ms a call of the stage (kernel path, the plain version's one-hot GEMM "
+          f"formulation) {stage_ms}; a kernel a call (kernel / plain / bound / library ms) "
           + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
-                      f"{v[t]['bound_ms']:.4f}" for k, v in out.items()
+                      f"{v[t]['bound_ms']:.4f} / {v[t]['library_ms']}" for k, v in out.items()
                       for t in ("b1", f"batch{BATCH}")), flush=True)
     return out
 
@@ -1767,6 +2197,36 @@ def check_count_case(name: str, dev) -> float:
     return _max_abs_err(got, want)
 
 
+def check_map_case(name: str, dev) -> float:
+    """One of COUNT_CASES' label rows through the map kernel alone, with a
+    random (B, S + 1) inv into a random (B, 301) table: one launch, equal to
+    map_plain, two calls and a captured replay equal. Its 1001- and
+    12345-pixel rows take the kernel's scalar instances, at 4 and 16 pixels
+    a thread. Raises on a difference; returns the largest one."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+
+    label, valid, S = count_case(name)
+    rng = np.random.default_rng(1)
+    B, R = label.shape[0], 300
+    inv = torch.from_numpy(rng.integers(0, R + 1, (B, S + 1)).astype(np.int32)).to(dev)
+    table = torch.from_numpy(rng.integers(-5, 1 << 20, (B, R + 1)).astype(np.int32)).to(dev)
+    cl, cv = torch.from_numpy(label).to(dev), torch.from_numpy(valid).to(dev)
+    one = {k: int(k == "resolve_map") for k in _want()}
+    _reset_launches()
+    got = rk.map_pixels(cl, cv, inv, table, -7)
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"map, {name}: launches {counts} != {one}")
+    want = plain.map_plain(cl, cv, inv, table, -7)
+    if not (_same(got, want) and _same(rk.map_pixels(cl, cv, inv, table, -7), want)):
+        raise AssertionError(f"map kernel, {name}: differs from map_plain")
+    _replay_equals(lambda: rk.map_pixels(cl, cv, inv, table, -7), want, f"map kernel, {name}")
+    return _max_abs_err(got, want)
+
+
 def resolve_times(c: dict) -> dict:
     """Device ms of each resolve kernel (kernel, plain version, bound,
     library call) on one call's inputs (check_resolve_call's `log`)."""
@@ -1861,18 +2321,26 @@ def resolve_phase(gpu: str) -> dict:
     for name in COUNT_CASES:
         out["resolve_count"]["max_abs_err"] = max(out["resolve_count"]["max_abs_err"],
                                                   check_count_case(name, dev))
+        out["resolve_map"]["max_abs_err"] = max(out["resolve_map"]["max_abs_err"],
+                                                check_map_case(name, dev))
     torch.cuda.synchronize()
     print(f"[24 resolve] the kernel path (one launch of each of {list(RESOLVE_KERNELS)} a "
           f"resolve call) against the twin bit for bit on every field, two calls and a captured "
           f"replay equal, each kernel against its plain version bit for bit: "
-          + " | ".join(lines) + f"; the count kernel alone on {list(COUNT_CASES)}: equal to "
-          f"count_plain, one launch, two calls and a captured replay equal; on {gpu}: device "
+          + " | ".join(lines) + f"; the count and map kernels alone on {list(COUNT_CASES)}: equal "
+          f"to count_plain and map_plain, one launch, two calls and a captured replay equal; on "
+          f"{gpu}: device "
           f"ms a call of the stage "
           + "; ".join(stage_lines) + "; a kernel a detect call (the contraction's and the "
           "rank-mode resolve's summed; kernel / plain / bound / library ms) "
           + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
                       f"{v[t]['bound_ms']:.4f} / {v[t]['library_ms']}"
                       for k, v in out.items() for t in ("b1", f"batch{BATCH}"))
+          + "; resolve_map against its gather (kernel / gather ms, share of bound) "
+          + ", ".join(f"{t}: {out['resolve_map'][t]['ms']:.4f} / "
+                      f"{out['resolve_map'][t]['library_ms']:.4f}, "
+                      f"{out['resolve_map'][t]['bound_ms'] / out['resolve_map'][t]['ms']:.1%}"
+                      for t in ("b1", f"batch{BATCH}"))
           + "; by call (the count's runs: its labels' maximal spans in a row of pixels): "
           + json.dumps({k: {t: v[t]["by_call"] for t in ("b1", f"batch{BATCH}")}
                         for k, v in out.items()}), flush=True)
@@ -2265,6 +2733,9 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--profiled-replays"]:
         print(json.dumps(profiled_replays()))
+        return 0
+    if sys.argv[1:] == ["--cluster-profile"]:
+        print(json.dumps(cluster_profile()))
         return 0
 
     import dataclasses
@@ -2985,11 +3456,13 @@ def main() -> int:
          "launches_by_path": {p: c[k] for p, c in paths.items()},
          "max_abs_err": cluster[k]["max_abs_err"], "shape": cluster[k]["b1"]["shape"],
          "ms": cluster[k]["b1"]["ms"], "plain_ms": cluster[k]["b1"]["plain_ms"],
-         "bound_ms": cluster[k]["b1"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "bound_ms": cluster[k]["b1"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": cluster[k]["b1"]["library_ms"],
          f"shape_batch{BATCH}": cluster[k][f"batch{BATCH}"]["shape"],
          f"ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["ms"],
          f"plain_ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["plain_ms"],
          f"bound_ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["bound_ms"],
+         f"library_ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["library_ms"],
          f"share_batch{BATCH}": (cluster[k][f"batch{BATCH}"]["bound_ms"]
                                  / cluster[k][f"batch{BATCH}"]["ms"])}
         for k in CLUSTER_KERNELS] + [

@@ -1,5 +1,7 @@
 // Cluster moments: (B, H, W) trinary + area-gated dense component ids ->
-// per-cluster angular moment tables, in five kernels around one torch.sort.
+// per-cluster angular moment tables, in ten launches: the pair count, the
+// kept pairs compacted (two kernels) and radix-sorted (four launches of one
+// kernel), the two segment kernels and the moments kernel.
 //
 // Replaces: the sort-centric formulation of
 // isaac_ros_apriltag_tpu/ops/cluster_moments.py (XLA, no Pallas kernel),
@@ -12,16 +14,44 @@
 // per-element scatter serialises there. Here one fact replaces it: after
 // the sort each (black, white) segment is a contiguous range of the sorted
 // keys, and each top-C cluster is one such segment. So nothing after the
-// sort scans or sorts E elements again.
+// sort scans or sorts E elements again. The reference sorts the whole
+// padded row of 4 H W pair slots; here only the kept pairs are sorted, by a
+// stable compaction and a stable LSD radix sort written by hand, which
+// give the same order: keys ascending, ties in the padded layout's order
+// (offset o major, then pixel p).
 //
 //   cm_edge_count_kernel  the pairs of a frame (4 offsets a pixel, mask
 //       only): num_edge, by block sums and one integer atomic a block
 //       (exact in any order);
-//   cm_edge_pairs_kernel  the pairs' keys, decimated by the frame's stride
-//       (from num_edge and the budget), and their pays, offset-major as the
-//       plain version lays them out: torch.sort's stable order depends on
-//       that layout;
-//   (torch.sort, stable, of the keys: values and permutation)
+//   cm_pair_count_kernel  a block 1024 pixels of a frame (4 a thread,
+//       their pairs found by byte compares and built only where they
+//       exist), its four tiles (offset o, the block) in o-major order: the
+//       pairs kept by the frame's stride (from num_edge and the budget) a
+//       tile; the first radix pass's digit counts of the kept keys (runs of
+//       one key merged across a thread's pixels and a warp's lanes, a
+//       shared-memory histogram a block, one integer atomic a nonzero bin;
+//       counters and digit counts zeroed by one memset on the stream);
+//   cm_pair_write_kernel  the same blocks: each tile's first position and
+//       the frame's kept count K from the tiles' counts (each block reads
+//       them all), then each kept pair's key and pay at its tile's first
+//       position plus its rank in the tile (a block prefix of the threads'
+//       counts), so the kept pairs lie in layout order in [0, K); I32MAX in
+//       [K, E); the passes' look-back words of the frame's ceil(K / tile)
+//       sort tiles zeroed;
+//   cm_radix_scatter_kernel<KPT>  four launches, one a RADIX_BITS digit of
+//       the key (keys are under 2^30: two 15-bit dense ids), ping-pong
+//       between two row pairs, in the onesweep form: a block a sort tile of
+//       256 KPT positions in [0, K) at a time, the tiles taken in order from
+//       the frame's counter. Each key's rank among the tile's keys of its
+//       digit is its rank in its warp's run of 32 KPT positions
+//       (__match_any_sync groups, taken chunk by chunk in position order)
+//       plus the counts of the warps before it, so equal digits keep their
+//       order (a stable pass); the keys of its digit in the tiles before
+//       come by decoupled look-back over the tiles' published counts; key
+//       and pay go to the digit's first position plus those counts. After
+//       the fourth pass [0, K) holds the kept pairs sorted, in the row the
+//       write kernel filled, so [K, E) reads I32MAX. Each pass but the last
+//       counts the next pass's digits as it writes;
 //   cm_seg_tiles_kernel  many blocks a frame, one a tile of SEG_TILE sorted
 //       keys: the segment starts; each start's size from the next start in
 //       the tile (a block suffix minimum, no search), the tile's last start
@@ -41,7 +71,8 @@
 //   cm_moments_kernel  one block a (frame, slot): the slot's resident pairs
 //       are sorted positions [top_pos, top_pos + n), n = its size cut at E2
 //       less the sizes of the slots before it (the plain version's second
-//       sort and cut at E2; the count stays the uncut size). Pass 1 sums the
+//       sort and cut at E2; the count stays the uncut size), their pays
+//       read where the sort left them. Pass 1 sums the
 //       seven centroid terms in f64, exact whatever the order (each term is
 //       a multiple of 1/4 under 2^24, a slot has at most 2^14 pairs). Pass 2
 //       bins each pair about the centroid and adds its six f32 terms into
@@ -51,21 +82,33 @@
 //       float atomics: a call gives the same bits every time, so a captured
 //       replay equals the eager call.
 //
+// In a radix pass a block waits only on tiles taken before its own, whose
+// blocks run and publish their own counts before they wait on anything.
+// The counts are integer adds, exact in any order, and every position comes
+// from counts and ranks, so the sort gives the same bits every call.
+//
 // Against the plain version: the integer outputs, the centroid and the
 // scale are bit-exact (exact f64 sums, then the plain version's f32 and f64
 // operations in its order, built with --fmad=false; IEEE division and
 // square root, and rsqrtf as torch's CUDA rsqrt computes it). The bin
 // tables are f64 sums of the same f32 terms in another order than the plain
-// version's GEMM, so a cell may round to the neighbouring f32.
+// version's GEMM, so a cell may round to the neighbouring f32. The sorted
+// keys and pays are those of torch.sort(stable=True) on the padded row, bit
+// for bit.
 //
-// What bounds it on an H100: bytes. The pair kernels read 5 B a pixel and
-// write 32 B (key and pay at 4 offsets); the tiles kernel reads the valid
-// prefix of the first E sorted keys once, in enough blocks to fill the card
-// (about 165 tiles at 720p); the top kernel reads 20 B a tile and the
-// candidates of the few tiles that reach T, but one block a frame is a
-// chain of loads and barriers, so latency bounds it; the moments kernel
-// reads each resident pair's permutation entry (8 B) and pay (4 B) twice,
-// the second time from L1/L2. The sort between them is torch's.
+// What bounds it on an H100: bytes. The count and write kernels read 5 B a
+// pixel each (tri, dense; the neighbours from L1) and the write kernel
+// writes 8 B a kept pair; each radix pass reads and writes 8 B a kept pair
+// (its look-back words stay in L2); the tiles kernel reads
+// the valid prefix of the first E sorted keys once, in enough blocks to
+// fill the card (about 165 tiles at 720p); the top kernel reads 20 B a
+// tile and the candidates of the few tiles that reach T, but one block a
+// frame is a chain of loads and barriers, so latency bounds it; the
+// moments kernel reads each resident pair's pay (4 B) twice, the second
+// time from L1/L2. At 720p b1 each kernel is a few microseconds of launch
+// and latency, so the sort is written as few launches: the passes' digit
+// counts ride in the count kernel, and a pass needs no histogram kernel
+// or scan of its own.
 
 #include <climits>
 #include <cstdint>
@@ -98,6 +141,24 @@ static_assert(SEG_TILE <= (1 << SEG_POS_BITS) && SEG_MAX_PER < (1 << (31 - SEG_P
 static_assert(SEG_TILE_THREADS % 32 == 0 && TOP_THREADS >= MAX_C, "whole warps; a thread a slot");
 constexpr int MOM_THREADS = 256;
 constexpr int MOM_WARPS = MOM_THREADS / 32;
+// The compaction and the radix sort. A compaction block takes PAIR_BLOCK
+// pixels, 4 consecutive ones a thread: its tiles are (offset o, the block),
+// o-major. A sort tile is SORT_THREADS * KPT
+// positions, warp w's run of 32 KPT from w * 32 KPT, its i-th chunk of 32
+// at i * 32. Each pass's digit counts lie in digits[pass, b, digit], its
+// look-back words in look[pass, b, tile, digit], pass k's tile counter in
+// ctl[b, k].
+constexpr int PAIR_THREADS = 256;
+constexpr int PAIR_WARPS = PAIR_THREADS / 32;
+constexpr int PAIR_BLOCK = PAIR_THREADS * 4;    // pixels a block, 4 a thread
+constexpr int RADIX_BITS = 8;
+constexpr int RADIX = 1 << RADIX_BITS;
+constexpr int SORT_PASSES = 4;                 // keys are under 2^30 <= 2^(8 * 4)
+constexpr int SORT_THREADS = 256;
+constexpr int SORT_WARPS = SORT_THREADS / 32;
+constexpr int CTL = SORT_PASSES;               // counters a frame: pass k's next tile
+static_assert(PAIR_THREADS == RADIX && SORT_THREADS == RADIX, "a thread a digit");
+static_assert(RADIX_BITS * SORT_PASSES >= 2 * KBITS, "the passes cover the key");
 
 struct Pair {
     bool m;
@@ -112,13 +173,10 @@ __device__ __forceinline__ int off_dx(int o) {
 __device__ __forceinline__ int off_dy(int o) { return o == 0 ? 0 : 1; }
 
 // The pair of pixel (y, x) (trinary v0, id d0) and its neighbour at (dx, dy)
-// of one frame, as the plain version's _pairs computes it in int32.
-__device__ __forceinline__ Pair make_pair(const uint8_t* tri, const int32_t* dense, int H, int W,
-                                          int y, int x, int v0, int32_t d0, int dx, int dy) {
-    const int ny = y + dy, nx = x + dx;
-    const bool in = nx >= 0 && nx < W && ny < H;
-    const int v1 = in ? tri[(size_t)ny * W + nx] : 127;
-    const int32_t d1 = in ? dense[(size_t)ny * W + nx] : KMAX;
+// (trinary v1, id d1: 127 and KMAX outside the frame), as the plain
+// version's _pairs computes it in int32.
+__device__ __forceinline__ Pair pair_of(int v0, int32_t d0, int v1, int32_t d1, int y, int x,
+                                        int dx, int dy) {
     const bool black = v0 == 0;
     const int32_t db = black ? d0 : d1, dw = black ? d1 : d0;
     Pair p;
@@ -128,6 +186,96 @@ __device__ __forceinline__ Pair make_pair(const uint8_t* tri, const int32_t* den
     p.key = p.m ? (int32_t)(((uint32_t)db << KBITS) | (uint32_t)dw) : I32MAX;
     p.pay = (2 * x + dx) | ((2 * y + dy) << 12) | (g << 24);
     return p;
+}
+
+// The same pair, its neighbour read from the frame.
+__device__ __forceinline__ Pair make_pair(const uint8_t* tri, const int32_t* dense, int H, int W,
+                                          int y, int x, int v0, int32_t d0, int dx, int dy) {
+    const int ny = y + dy, nx = x + dx;
+    const bool in = nx >= 0 && nx < W && ny < H;
+    return pair_of(v0, d0, in ? tri[(size_t)ny * W + nx] : 127,
+                   in ? dense[(size_t)ny * W + nx] : KMAX, y, x, dx, dy);
+}
+
+// The 16 pairs q[o][i] of the 4 pixels p + i of a frame (offset o of
+// pixel p + i; q.m false past the frame). VEC: W % 4 == 0 and p % 4 == 0,
+// so the 4 pixels lie in one row, and tri and dense rows are 4- and
+// 16-byte aligned: the pixels' row and the row below come as vector loads,
+// the columns beside them as scalars. Else each pixel reads its own
+// neighbours.
+template <bool VEC>
+__device__ __forceinline__ void quad_pairs(const uint8_t* tri, const int32_t* dense, int H, int W,
+                                           int HW, int p, Pair (&q)[4][4]) {
+    if constexpr (VEC) {
+        if (p >= HW) {
+#pragma unroll
+            for (int o = 0; o < 4; ++o)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) q[o][i] = Pair{false, I32MAX, 0};
+            return;
+        }
+        const int y = p / W, x = p - y * W;
+        const bool right = x + 4 < W, left = x > 0, down = y + 1 < H;
+        int v0[5], v1[6];                   // rows y (x .. x + 4) and y + 1 (x - 1 .. x + 4)
+        int32_t d0[5], d1[6];
+        const uint32_t a = *reinterpret_cast<const uint32_t*>(tri + p);
+        const int4 da = *reinterpret_cast<const int4*>(dense + p);
+        v0[0] = a & 0xFF; v0[1] = (a >> 8) & 0xFF; v0[2] = (a >> 16) & 0xFF; v0[3] = a >> 24;
+        d0[0] = da.x; d0[1] = da.y; d0[2] = da.z; d0[3] = da.w;
+        v0[4] = right ? tri[p + 4] : 127;
+        d0[4] = right ? dense[p + 4] : KMAX;
+        uint32_t c = 0x7F7F7F7Fu;           // the row below (127: outside the frame)
+        if (down) {
+            c = *reinterpret_cast<const uint32_t*>(tri + p + W);
+            const int4 dc = *reinterpret_cast<const int4*>(dense + p + W);
+            v1[1] = c & 0xFF; v1[2] = (c >> 8) & 0xFF; v1[3] = (c >> 16) & 0xFF; v1[4] = c >> 24;
+            d1[1] = dc.x; d1[2] = dc.y; d1[3] = dc.z; d1[4] = dc.w;
+            v1[0] = left ? tri[p + W - 1] : 127;
+            d1[0] = left ? dense[p + W - 1] : KMAX;
+            v1[5] = right ? tri[p + W + 4] : 127;
+            d1[5] = right ? dense[p + W + 4] : KMAX;
+        } else {
+#pragma unroll
+            for (int i = 0; i < 6; ++i) {
+                v1[i] = 127;
+                d1[i] = KMAX;
+            }
+        }
+        // Trinary values are 0, 127 or 255, so two pixels pair (sum 255)
+        // exactly when their bytes XOR to 0xFF: one compare a byte finds the
+        // 4 pixels' pairs at an offset, and only those are built.
+        const uint32_t nb[4] = {(a >> 8) | ((uint32_t)v0[4] << 24), c,
+                                (c << 8) | (uint32_t)v1[0], (c >> 8) | ((uint32_t)v1[5] << 24)};
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+            const uint32_t pm = __vcmpeq4(a ^ nb[o], 0xFFFFFFFFu);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                q[o][i] = Pair{false, I32MAX, 0};
+                if ((pm >> (8 * i)) & 1u) {
+                    const int j = o == 0 ? i + 1 : (o == 1 ? i + 1 : (o == 2 ? i : i + 2));
+                    q[o][i] = o == 0 ? pair_of(v0[i], d0[i], v0[j], d0[j], y, x + i, 1, 0)
+                                     : pair_of(v0[i], d0[i], v1[j], d1[j], y, x + i, off_dx(o), 1);
+                }
+            }
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int pi = p + i;
+            if (pi < HW) {
+                const int y = pi / W, x = pi - y * W;
+                const int v = tri[pi];
+                const int32_t d = dense[pi];
+#pragma unroll
+                for (int o = 0; o < 4; ++o)
+                    q[o][i] = make_pair(tri, dense, H, W, y, x, v, d, off_dx(o), off_dy(o));
+            } else {
+#pragma unroll
+                for (int o = 0; o < 4; ++o) q[o][i] = Pair{false, I32MAX, 0};
+            }
+        }
+    }
 }
 
 __device__ __forceinline__ int edge_stride(int num_edge, int budget) {
@@ -158,32 +306,6 @@ cm_edge_count_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict_
     if (threadIdx.x == 0) {
         for (int w = 1; w < PIX_THREADS / 32; ++w) c += warp_sum[w];
         if (c) atomicAdd(num_edge + b, c);
-    }
-}
-
-__global__ void __launch_bounds__(PIX_THREADS)
-cm_edge_pairs_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ dense,
-                     const int32_t* __restrict__ num_edge, int32_t* __restrict__ key,
-                     int32_t* __restrict__ pay, int H, int W, int budget) {
-    const int b = blockIdx.y;
-    const int HW = H * W;
-    const int p = blockIdx.x * PIX_THREADS + threadIdx.x;
-    if (p >= HW) return;
-    tri += (size_t)b * HW;
-    dense += (size_t)b * HW;
-    key += (size_t)b * 4 * HW;
-    pay += (size_t)b * 4 * HW;
-    const unsigned stride = edge_stride(num_edge[b], budget);
-    const int y = p / W, x = p - y * W;
-    const int v0 = tri[p];
-    const int32_t d0 = dense[p];
-#pragma unroll
-    for (int o = 0; o < 4; ++o) {
-        const Pair q = make_pair(tri, dense, H, W, y, x, v0, d0, off_dx(o), off_dy(o));
-        // Bits 15..30 of the int32-wrapped product pay * -1640531527.
-        const unsigned hash = ((uint32_t)q.pay * 2654435769u >> 15) & 0xFFFFu;
-        key[(size_t)o * HW + p] = q.m && hash % stride == 0 ? q.key : I32MAX;
-        pay[(size_t)o * HW + p] = q.pay;
     }
 }
 
@@ -238,6 +360,387 @@ __device__ __forceinline__ int block_suffix_min(int v, int* buf, int* all) {
     *all = m;
     __syncthreads();
     return after;
+}
+
+// A pair is kept when its hash is a multiple of the frame's stride: bits
+// 15..30 of the int32-wrapped product pay * -1640531527.
+__device__ __forceinline__ bool kept_pair(const Pair& q, unsigned stride) {
+    if (stride == 1) return q.m;            // no decimation: no division
+    const unsigned hash = ((uint32_t)q.pay * 2654435769u >> 15) & 0xFFFFu;
+    return q.m && hash % stride == 0;
+}
+
+// A look-back word of a radix pass: a sort tile's count of one digit (the
+// low 30 bits), the tile's own (LB_AGG) or with every tile before it
+// (LB_INCL); 0 until the tile's block publishes it. One word holds both, so
+// a word read is whole and needs no fence.
+constexpr int LB_AGG = 1 << 30, LB_INCL = INT_MIN, LB_COUNT = LB_AGG - 1;
+constexpr int LB_READS = 8;                    // words a thread reads at once
+
+__device__ __forceinline__ int load_relaxed(const int32_t* p) {
+    int v;
+    asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void store_relaxed(int32_t* p, int v) {
+    asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// A warp's lanes each hold at most one run of `len` equal keys (key < 0:
+// none), consecutive lanes in the keys' order: each segment of lanes that
+// hold one key adds its runs' lengths, once, by its last lane, into the
+// shared histogram h at the key's low digit.
+__device__ __forceinline__ void count_lane_runs(int* h, int32_t key, int len) {
+    const int lane = threadIdx.x & 31;
+    const int32_t key_before = __shfl_up_sync(FULL, key, 1);   // every lane takes part
+    const unsigned heads = __ballot_sync(FULL, lane == 0 || key_before != key);
+    int incl = len;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int n = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += n;
+    }
+    const int first = 31 - __clz(heads & ((2u << lane) - 1u));
+    const int ahead = __shfl_sync(FULL, incl, first > 0 ? first - 1 : 0);
+    const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
+    if (tail && key >= 0) atomicAdd(&h[key & (RADIX - 1)], incl - (first > 0 ? ahead : 0));
+}
+
+// A block PAIR_BLOCK pixels of frame blockIdx.y, 4 consecutive ones a
+// thread: counts[b, o, blk] = the kept pairs of tile (o, blk); the first
+// radix pass's digit counts of the frame's kept keys (a thread's runs of
+// equal keys at one offset merged, then a segment of lanes that hold one
+// key: one shared atomic a segment into the block's histogram, then one
+// integer atomic a nonzero bin into digits[0, b], zeroed by the launcher).
+template <bool VEC>
+__global__ void __launch_bounds__(PAIR_THREADS)
+cm_pair_count_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ dense,
+                     const int32_t* __restrict__ num_edge, int32_t* __restrict__ counts,
+                     int32_t* __restrict__ digits, int H, int W, int budget) {
+    __shared__ int red[4][PAIR_WARPS];
+    __shared__ int dh[RADIX];
+    const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+    const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const int HW = H * W;
+    tri += (size_t)b * HW;
+    dense += (size_t)b * HW;
+    dh[t] = 0;
+    const int ne = num_edge[b];
+    const unsigned stride = edge_stride(ne, budget);
+    __syncthreads();
+    int c[4] = {0, 0, 0, 0};
+    Pair q[4][4];
+    quad_pairs<VEC>(tri, dense, H, W, HW, blk * PAIR_BLOCK + 4 * t, q);
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+        // The thread's runs of equal kept keys: a run starts where the
+        // key differs from the last kept one; its length counted from
+        // the back.
+        bool kp[4], st[4];
+        int len[4], n = 0, n_runs = 0;
+        int32_t last = -1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            kp[i] = kept_pair(q[o][i], stride);
+            st[i] = kp[i] && q[o][i].key != last;
+            n_runs += st[i];
+            if (kp[i]) {
+                last = q[o][i].key;
+                ++n;
+            }
+        }
+        c[o] += n;
+        if (!__any_sync(FULL, n)) continue;   // the warp keeps no pair here
+        int32_t nk = -1;
+        int nl = 0;
+#pragma unroll
+        for (int i = 3; i >= 0; --i) {
+            len[i] = 0;
+            if (kp[i]) {
+                len[i] = q[o][i].key == nk ? nl + 1 : 1;
+                nk = q[o][i].key;
+                nl = len[i];
+            }
+        }
+        if (n_runs > 1) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                if (st[i]) atomicAdd(&dh[q[o][i].key & (RADIX - 1)], len[i]);
+        }
+        // A thread of one run joins the lanes around it that hold the
+        // same key (a horizontal edge spans many).
+        count_lane_runs(dh, n_runs == 1 ? last : -1, n_runs == 1 ? n : 0);
+    }
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+        const int s = __reduce_add_sync(FULL, c[o]);
+        if (lane == 0) red[o][w] = s;
+    }
+    __syncthreads();
+    if (t < 4) {
+        int s = 0;
+        for (int u = 0; u < PAIR_WARPS; ++u) s += red[t][u];
+        counts[((size_t)b * 4 + t) * nblk + blk] = s;
+    }
+    if (dh[t]) atomicAdd(digits + (size_t)b * RADIX + t, dh[t]);
+}
+
+// The count kernel's blocks again: each tile's first position from the
+// tiles' counts (the pairs of the earlier offsets, and of the earlier
+// blocks at its offset: a block reads the frame's counts, so no kernel
+// scans them and none waits for the last block), and the frame's kept
+// count K (kept[b]); each kept pair's key and pay at its tile's first
+// position plus the kept pairs before it in the tile (the block's pixels in
+// order are its threads in order, 4 pixels a thread: a block prefix of the
+// threads' counts, two offsets packed in an int), so the kept pairs lie in
+// layout order in [0, K) of the frame's rows; I32MAX in [K, E) of key_out.
+// The frame's look-back words of its first ceil(K / 2^tshift) sort tiles,
+// the ones the radix passes read, zeroed in every pass's plane.
+template <bool VEC>
+__global__ void __launch_bounds__(PAIR_THREADS)
+cm_pair_write_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ dense,
+                     const int32_t* __restrict__ num_edge, const int32_t* __restrict__ counts,
+                     int32_t* __restrict__ kept, int32_t* __restrict__ key_out,
+                     int32_t* __restrict__ pay_out, int32_t* __restrict__ look, int H, int W,
+                     int budget, int E, int tshift, int T) {
+    __shared__ int buf[PAIR_WARPS];
+    __shared__ int red[8][PAIR_WARPS];
+    const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x, B = gridDim.y;
+    const int t = threadIdx.x;
+    const int lane = t & 31, w = t >> 5;
+    const int HW = H * W;
+    tri += (size_t)b * HW;
+    dense += (size_t)b * HW;
+    key_out += (size_t)b * 4 * HW;
+    pay_out += (size_t)b * 4 * HW;
+    const unsigned stride = edge_stride(num_edge[b], budget);
+    // Each offset's kept pairs in the frame and in the blocks before this
+    // one: the tile's first place is every earlier offset's pairs plus the
+    // earlier blocks' at its offset.
+    const int32_t* cs = counts + (size_t)b * 4 * nblk;
+    int row[4] = {0, 0, 0, 0}, ahead[4] = {0, 0, 0, 0};
+    for (int i = t; i < nblk; i += PAIR_THREADS) {
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+            const int c = cs[o * nblk + i];
+            row[o] += c;
+            ahead[o] += i < blk ? c : 0;
+        }
+    }
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+        const int r = __reduce_add_sync(FULL, row[o]), a = __reduce_add_sync(FULL, ahead[o]);
+        if (lane == 0) {
+            red[o][w] = r;
+            red[4 + o][w] = a;
+        }
+    }
+    __syncthreads();
+    int at0[4], K = 0;                      // each offset's first place in the block's tile
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+        int r = 0, a = 0;
+#pragma unroll
+        for (int u = 0; u < PAIR_WARPS; ++u) {
+            r += red[o][u];
+            a += red[4 + o][u];
+        }
+        at0[o] = K + a;
+        K += r;
+    }
+    if (blk == 0 && t == 0) kept[b] = K;
+    Pair q[4][4];
+    quad_pairs<VEC>(tri, dense, H, W, HW, blk * PAIR_BLOCK + 4 * t, q);
+    unsigned m[4];                      // bit i: pixel i's pair at offset o is kept
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+        m[o] = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m[o] |= (unsigned)kept_pair(q[o][i], stride) << i;
+    }
+    int all;
+    const int b01 = block_scan<PAIR_THREADS>(__popc(m[0]) | __popc(m[1]) << 16, buf, &all);
+    const int b23 = block_scan<PAIR_THREADS>(__popc(m[2]) | __popc(m[3]) << 16, buf, &all);
+    const int before[4] = {b01 & 0xFFFF, b01 >> 16, b23 & 0xFFFF, b23 >> 16};
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+        int at = at0[o] + before[o];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if ((m[o] >> i) & 1u) {
+                key_out[at] = q[o][i].key;
+                pay_out[at] = q[o][i].pay;
+                ++at;
+            }
+        }
+    }
+    for (int i = K + blk * PAIR_THREADS + t; i < E; i += nblk * PAIR_THREADS) key_out[i] = I32MAX;
+    const int live = ((K + (1 << tshift) - 1) >> tshift) * RADIX;
+    const size_t plane = (size_t)B * T * RADIX;
+    int32_t* lz = look + (size_t)b * T * RADIX;
+    for (int i = blk * PAIR_THREADS + t; i < live; i += nblk * PAIR_THREADS)
+#pragma unroll
+        for (int k = 0; k < SORT_PASSES; ++k) lz[k * plane + i] = 0;
+}
+
+// One radix pass over the frame's kept pairs [0, K), a block a sort tile
+// of SORT_THREADS * KPT positions at a time, the tiles taken in order from
+// the frame's counter (so every tile before a block's is held by a block
+// that runs). A key's destination is its digit's first position (a block
+// scan of the pass's digit counts), plus the keys of its digit in the
+// tiles before its tile, plus those before it in its tile: the warps
+// before its warp, and its rank in its warp's run, counted chunk by chunk
+// in position order (a __match_any_sync group's lanes read the warp's
+// count of the digit, then its lowest lane adds the group's size). So the
+// pass is stable. The
+// tiles before come by decoupled look-back: a block publishes its tile's
+// count of each digit (LB_AGG) before it waits on any other tile; each
+// thread then reads its digit's words of the tiles before, LB_READS at
+// once from the nearest, adding counts back to the first LB_INCL word (a
+// word not yet published is read again), and publishes its inclusive
+// count. A tile of 4096 is laid out by digit in shared memory first, so its
+// stores go out as runs of consecutive places (a tile of 1024, at small
+// launches, goes out from registers: the staging costs more latency than
+// it saves there); as they go, the block counts the next pass's digits (a
+// segment of lanes with one next digit at a time) and adds its counts into
+// digits[pass + 1, b] when it has no more tiles.
+template <int KPT>
+__global__ void __launch_bounds__(SORT_THREADS)
+cm_radix_scatter_kernel(const int32_t* __restrict__ key_in, const int32_t* __restrict__ pay_in,
+                        const int32_t* __restrict__ kept, int32_t* __restrict__ digits,
+                        int32_t* __restrict__ look, int32_t* __restrict__ ctl,
+                        int32_t* __restrict__ key_out, int32_t* __restrict__ pay_out, int N,
+                        int T, int pass) {
+    constexpr int TILE = SORT_THREADS * KPT;
+    constexpr bool STAGED = KPT > 4;         // large tiles go out through shared memory
+    __shared__ int wcnt[SORT_WARPS][RADIX];  // a digit's keys a warp, then those before it
+    __shared__ int tstart[RADIX];            // a digit's first place in the tile
+    __shared__ int dstart[RADIX];            // its keys' destination less their tile place
+    __shared__ int32_t skey[STAGED ? TILE : 1], spay[STAGED ? TILE : 1];   // the tile by digit
+    __shared__ int next_count[RADIX];        // the block's keys a next-pass digit
+    __shared__ int scan_buf[SORT_WARPS];
+    __shared__ int s_tile;
+    const int b = blockIdx.y, B = gridDim.y, t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const int K = kept[b], tiles = (K + TILE - 1) / TILE;
+    const int shift = RADIX_BITS * pass;
+    key_in += (size_t)b * N;
+    pay_in += (size_t)b * N;
+    key_out += (size_t)b * N;
+    pay_out += (size_t)b * N;
+    int32_t* lk = look + ((size_t)pass * B + b) * T * RADIX + t;   // tile q's word: lk[q RADIX]
+    int32_t* next_tile = ctl + b * CTL + pass;
+    const unsigned lt = (1u << lane) - 1u;
+    int total;                              // a thread a digit: its first position
+    const int dbase = block_scan<SORT_THREADS>(digits[((size_t)pass * B + b) * RADIX + t],
+                                               scan_buf, &total);
+    const bool more = pass + 1 < SORT_PASSES;
+    next_count[t] = 0;
+    for (;;) {
+        if (t == 0) s_tile = atomicAdd(next_tile, 1);
+        for (int i = t; i < SORT_WARPS * RADIX; i += SORT_THREADS) (&wcnt[0][0])[i] = 0;
+        __syncthreads();
+        const int tile = s_tile;
+        if (tile >= tiles) break;
+        const int p0 = tile * TILE + w * 32 * KPT + lane;
+        int32_t k[KPT], v[KPT];
+        int r[KPT];
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) {
+            const int p = p0 + i * 32;
+            k[i] = p < K ? key_in[p] : -1;      // kept keys are >= 0
+            v[i] = p < K ? pay_in[p] : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) {
+            const int d = k[i] >= 0 ? (k[i] >> shift) & (RADIX - 1) : RADIX;
+            const unsigned grp = __match_any_sync(FULL, d);
+            const int c = d < RADIX ? wcnt[w][d] : 0;
+            r[i] = c + __popc(grp & lt);
+            __syncwarp();
+            if (d < RADIX && lane == __ffs(grp) - 1) wcnt[w][d] = c + __popc(grp);
+            __syncwarp();
+        }
+        __syncthreads();
+        int s = 0;
+        for (int u = 0; u < SORT_WARPS; ++u) {
+            const int c = wcnt[u][t];
+            wcnt[u][t] = s;
+            s += c;
+        }
+        int32_t* mine = lk + (size_t)tile * RADIX;
+        store_relaxed(mine, (tile == 0 ? LB_INCL : LB_AGG) | s);
+        int tile_keys;
+        const int first = block_scan<SORT_THREADS>(s, scan_buf, &tile_keys);
+        tstart[t] = first;
+        int before = 0;
+        for (int qt = tile - 1; qt >= 0;) {
+            int word[LB_READS];
+#pragma unroll
+            for (int u = 0; u < LB_READS; ++u)    // before the first tile: an inclusive 0
+                word[u] = qt - u >= 0 ? load_relaxed(lk + (size_t)(qt - u) * RADIX) : LB_INCL;
+            int u = 0;
+            bool done = false;
+#pragma unroll
+            for (; u < LB_READS; ++u) {
+                if (word[u] == 0) break;        // not published yet: read again from here
+                before += word[u] & LB_COUNT;
+                if (word[u] & LB_INCL) {
+                    done = true;
+                    break;
+                }
+            }
+            if (done) break;
+            qt -= u;
+        }
+        if (tile > 0) store_relaxed(mine, LB_INCL | (before + s));
+        dstart[t] = dbase + before - first;
+        __syncthreads();
+        if constexpr (STAGED) {
+            // The tile by digit in shared memory, then written out in order,
+            // so a warp's stores are runs of consecutive places.
+#pragma unroll
+            for (int i = 0; i < KPT; ++i) {
+                if (k[i] >= 0) {
+                    const int d = (k[i] >> shift) & (RADIX - 1);
+                    const int at = tstart[d] + wcnt[w][d] + r[i];
+                    skey[at] = k[i];
+                    spay[at] = v[i];
+                }
+            }
+            __syncthreads();
+            for (int j0 = 0; j0 < tile_keys; j0 += SORT_THREADS) {
+                const int j = j0 + t;
+                const int32_t key = j < tile_keys ? skey[j] : -1;
+                if (key >= 0) {
+                    const int at = dstart[(key >> shift) & (RADIX - 1)] + j;
+                    key_out[at] = key;
+                    pay_out[at] = spay[j];
+                }
+                // The next pass's digit counts, a segment of lanes with one
+                // next digit at a time (equal keys lie together here).
+                if (more)
+                    count_lane_runs(next_count, key >= 0 ? key >> (shift + RADIX_BITS) : -1, 1);
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < KPT; ++i) {
+                if (k[i] >= 0) {
+                    const int d = (k[i] >> shift) & (RADIX - 1);
+                    const int at = dstart[d] + tstart[d] + wcnt[w][d] + r[i];
+                    key_out[at] = k[i];
+                    pay_out[at] = v[i];
+                }
+                if (more)                  // a chunk's lanes hold consecutive keys
+                    count_lane_runs(next_count, k[i] >= 0 ? k[i] >> (shift + RADIX_BITS) : -1, 1);
+            }
+        }
+        if (tiles <= (int)gridDim.x) break; // every tile went in the first round
+        __syncthreads();                    // the shared arrays are written again
+    }
+    __syncthreads();
+    if (more && next_count[t])
+        atomicAdd(digits + ((size_t)(pass + 1) * B + b) * RADIX + t, next_count[t]);
 }
 
 // One block a tile of SEG_TILE sorted keys [s, e), e = min(s + SEG_TILE, E),
@@ -609,10 +1112,10 @@ __device__ __forceinline__ int diamond_bin(float dx, float dy) {
 }
 
 __global__ void __launch_bounds__(MOM_THREADS)
-cm_moments_kernel(const int64_t* __restrict__ perm, const int32_t* __restrict__ pay,
-                  const int32_t* __restrict__ top_pos, const int32_t* __restrict__ count,
-                  float* __restrict__ table, float* __restrict__ centroid,
-                  float* __restrict__ scale, uint8_t* __restrict__ dark, int row, int C, int E2) {
+cm_moments_kernel(const int32_t* __restrict__ pay_s, const int32_t* __restrict__ top_pos,
+                  const int32_t* __restrict__ count, float* __restrict__ table,
+                  float* __restrict__ centroid, float* __restrict__ scale,
+                  uint8_t* __restrict__ dark, int row, int C, int E2) {
     __shared__ double wt[MOM_WARPS][NBINS * NQ];
     __shared__ float stage[MOM_WARPS][32][NQ];
     __shared__ double part[MOM_WARPS][7];
@@ -632,14 +1135,13 @@ cm_moments_kernel(const int64_t* __restrict__ perm, const int32_t* __restrict__ 
     for (int c = t; c < MOM_WARPS * NBINS * NQ; c += MOM_THREADS) (&wt[0][0])[c] = 0.0;
     __syncthreads();
     const int n = s_n;
-    const int64_t* pm = perm + (size_t)b * row + s_p;
-    const int32_t* py = pay + (size_t)b * row;
+    const int32_t* py = pay_s + (size_t)b * row + s_p;
 
     // Pass 1: the seven centroid terms, summed exactly in f64.
     double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
     for (int i = t; i < n; i += MOM_THREADS) {
         float x, y, gx, gy;
-        pair_terms(py[pm[i]], x, y, gx, gy);
+        pair_terms(py[i], x, y, gx, gy);
         acc[0] += 1.0;
         acc[1] += x;
         acc[2] += y;
@@ -690,7 +1192,7 @@ cm_moments_kernel(const int64_t* __restrict__ perm, const int32_t* __restrict__ 
         int bin = NBINS;
         if (i < n) {
             float x, y, gx, gy;
-            pair_terms(py[pm[i]], x, y, gx, gy);
+            pair_terms(py[i], x, y, gx, gy);
             const float dx = __fsub_rn(x, cx), dy = __fsub_rn(y, cy);
             bin = diamond_bin(dx, dy);
             const float sx = __fmul_rn(dx, inv), sy = __fmul_rn(dy, inv);
@@ -733,14 +1235,70 @@ extern "C" int apriltag_cm_count(const void* tri, const void* dense, void* num_e
     return (int)cudaGetLastError();
 }
 
-extern "C" int apriltag_cm_pairs(const void* tri, const void* dense, const void* num_edge,
-                                 void* key, void* pay, int B, int H, int W, int budget,
-                                 void* stream) {
-    if (budget < 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid((H * W + PIX_THREADS - 1) / PIX_THREADS, B);
-    cm_edge_pairs_kernel<<<grid, PIX_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)tri, (const int32_t*)dense, (const int32_t*)num_edge, (int32_t*)key,
-        (int32_t*)pay, H, W, budget);
+// The sort's tiles: 2^tshift positions, 1024 or 4096; T of them a frame's
+// row of 4 H W pair slots.
+static bool sort_shape_ok(long long N, int tshift, int T) {
+    return (tshift == 10 || tshift == 12) && T == (int)((N + (1LL << tshift) - 1) >> tshift);
+}
+
+// The pixel kernels' vector path: rows of a multiple of 4 pixels, tri 4-
+// and dense 16-byte aligned.
+static bool quads_vec(const void* tri, const void* dense, int W) {
+    return W % 4 == 0 && (uintptr_t)tri % 4 == 0 && (uintptr_t)dense % 16 == 0;
+}
+
+// block: the pixels a compaction block, by which the caller sized the
+// tiles' counts; PAIR_BLOCK.
+extern "C" int apriltag_cm_pair_count(const void* tri, const void* dense, const void* num_edge,
+                                      void* counts, void* digits, void* ctl, int B, int H,
+                                      int W, int budget, int block, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || budget < 1 || block != PAIR_BLOCK)
+        return (int)cudaErrorInvalidValue;
+    // ctl and digits are one buffer, digits right after ctl: one memset.
+    if ((int32_t*)digits != (int32_t*)ctl + (size_t)B * CTL) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const cudaError_t e = cudaMemsetAsync(
+        ctl, 0, (size_t)B * (CTL + SORT_PASSES * RADIX) * sizeof(int32_t), st);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((H * W + PAIR_BLOCK - 1) / PAIR_BLOCK, B);
+    auto kernel = quads_vec(tri, dense, W) ? cm_pair_count_kernel<true>
+                                           : cm_pair_count_kernel<false>;
+    kernel<<<grid, PAIR_THREADS, 0, st>>>((const uint8_t*)tri, (const int32_t*)dense,
+                                          (const int32_t*)num_edge, (int32_t*)counts,
+                                          (int32_t*)digits, H, W, budget);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int apriltag_cm_pair_write(const void* tri, const void* dense, const void* num_edge,
+                                      const void* counts, void* kept, void* key, void* pay,
+                                      void* look, int B, int H, int W, int budget, int E,
+                                      int block, int tshift, int T, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || budget < 1 || E < 1 || E > 4LL * H * W
+        || block != PAIR_BLOCK || !sort_shape_ok(4LL * H * W, tshift, T))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((H * W + PAIR_BLOCK - 1) / PAIR_BLOCK, B);
+    auto kernel = quads_vec(tri, dense, W) ? cm_pair_write_kernel<true>
+                                           : cm_pair_write_kernel<false>;
+    kernel<<<grid, PAIR_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)tri, (const int32_t*)dense, (const int32_t*)num_edge,
+        (const int32_t*)counts, (int32_t*)kept, (int32_t*)key, (int32_t*)pay, (int32_t*)look, H,
+        W, budget, E, tshift, T);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int apriltag_cm_radix_scatter(const void* key_in, const void* pay_in, const void* kept,
+                                         void* digits, void* look, void* ctl, void* key_out,
+                                         void* pay_out, int B, int N, int T, int blocks, int pass,
+                                         int kpt, void* stream) {
+    if (B < 1 || N < 1 || blocks < 1 || pass < 0 || pass >= SORT_PASSES
+        || (kpt != 4 && kpt != 16) || !sort_shape_ok(N, kpt == 16 ? 12 : 10, T))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(blocks, B);
+    auto kernel = kpt == 16 ? cm_radix_scatter_kernel<16> : cm_radix_scatter_kernel<4>;
+    kernel<<<grid, SORT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)key_in, (const int32_t*)pay_in, (const int32_t*)kept,
+        (int32_t*)digits, (int32_t*)look, (int32_t*)ctl, (int32_t*)key_out,
+        (int32_t*)pay_out, N, T, pass);
     return (int)cudaGetLastError();
 }
 
@@ -786,14 +1344,13 @@ extern "C" int apriltag_cm_seg_top(const void* stats, const void* cand, const vo
     return (int)cudaGetLastError();
 }
 
-extern "C" int apriltag_cm_moments(const void* perm, const void* pay, const void* top_pos,
-                                   const void* count, void* table, void* centroid, void* scale,
-                                   void* dark, int B, int row, int C, int E2, void* stream) {
+extern "C" int apriltag_cm_moments(const void* pay_s, const void* top_pos, const void* count,
+                                   void* table, void* centroid, void* scale, void* dark, int B,
+                                   int row, int C, int E2, void* stream) {
     if (C < 1 || C > MAX_C) return (int)cudaErrorInvalidValue;
     const dim3 grid(C, B);
     cm_moments_kernel<<<grid, MOM_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)perm, (const int32_t*)pay, (const int32_t*)top_pos,
-        (const int32_t*)count, (float*)table, (float*)centroid, (float*)scale, (uint8_t*)dark,
-        row, C, E2);
+        (const int32_t*)pay_s, (const int32_t*)top_pos, (const int32_t*)count, (float*)table,
+        (float*)centroid, (float*)scale, (uint8_t*)dark, row, C, E2);
     return (int)cudaGetLastError();
 }

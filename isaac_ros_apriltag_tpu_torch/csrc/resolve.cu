@@ -40,7 +40,12 @@
 //   resolve_map_kernel  out[b, p] = table[b, inv[b, label[b, p]]] for a
 //       valid pixel labelled in [0, S), else fill: the contraction's rank
 //       image and the final resolve's dense ids, from (B, R + 1) tables
-//       that torch computes on the R slots between scan and map.
+//       that torch computes on the R slots between scan and map. A thread
+//       takes PT consecutive pixels as the count kernel does (vector loads
+//       and stores where the rows are aligned, PT 16 from 2^20 pixels a
+//       launch), gathers once a run of equal labels among them, and issues
+//       its inv gathers before its table gathers; the pixel rows are read
+//       and written with streaming hints, so inv and the table keep L2.
 //
 // Against the plain versions (ops/resolve.py::count_plain, scan_plain,
 // map_plain): bit-exact, all integer.
@@ -50,7 +55,9 @@
 // and writes the 4 B a table entry (the memset; the atomics then meet the
 // table in L2); tile sums read the table once; scan reads it again and writes inv (4 B
 // an entry) and D; map reads 5 B a pixel, writes 4 B, and gathers from inv
-// and the table, which runs of equal labels keep in L1 and L2.
+// and the table, which runs of equal labels keep in L1 and L2: its gathers
+// are dependent (the table's index is inv's entry), so it keeps many in
+// flight a thread.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,8 +73,6 @@ constexpr int COUNT_PROBES = 16;              // hash slots a run tries before t
 constexpr long long COUNT_BIG = 1 << 20;      // pixels a launch from which blocks take 4096
 constexpr int SCAN_PER_THREAD = 16;
 constexpr int SCAN_TILE = THREADS * SCAN_PER_THREAD;          // table entries a block
-constexpr int MAP_PER_THREAD = 4;
-constexpr int MAP_TILE = THREADS * MAP_PER_THREAD;
 constexpr int32_t EDGE = -2;                 // the key beyond a block's ends: no run crosses them
 
 // A label's first slot in a hash table of 2^HBITS slots.
@@ -248,27 +253,76 @@ resolve_scan_kernel(const int32_t* __restrict__ cnt, const int32_t* __restrict__
     for (int k = ng + tile * THREADS + t; k < R; k += tiles * THREADS) D[k] = S;
 }
 
+// PT consecutive pixels a thread (4, or 16 from COUNT_BIG pixels a launch),
+// as resolve_count_kernel takes them (VEC: PT / 4 int4 of labels, PT bytes
+// of validity and PT / 4 int4 of output a thread). The pixel rows are read
+// and written once, with streaming hints, so inv and the table keep L2. A
+// thread gathers once a run of equal labels among its pixels, and issues
+// all its inv gathers, then all its table gathers, so they are in flight
+// together.
+template <bool VEC, int PT>
 __global__ void __launch_bounds__(THREADS)
 resolve_map_kernel(const int32_t* __restrict__ label, const uint8_t* __restrict__ valid,
                    const int32_t* __restrict__ inv, const int32_t* __restrict__ table,
                    int32_t* __restrict__ out, int N, int S, int R, int fill) {
-    const int b = blockIdx.y, t = threadIdx.x;
+    const int b = blockIdx.y;
     label += (size_t)b * N;
     valid += (size_t)b * N;
     out += (size_t)b * N;
     inv += (size_t)b * (S + 1);
     table += (size_t)b * (R + 1);
-    const int base = blockIdx.x * MAP_TILE;
+    const int chunks = (N + THREADS * PT - 1) / (THREADS * PT);
+    for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+        const int p0 = (chunk * THREADS + threadIdx.x) * PT;
+        if (p0 >= N) break;
+        int32_t l[PT];
+        bool ok[PT];
+        if constexpr (VEC) {
+            uint32_t m[PT / 4];
+            if constexpr (PT == 16) {
+                const uint4 v = __ldcs(reinterpret_cast<const uint4*>(valid + p0));
+                m[0] = v.x; m[1] = v.y; m[2] = v.z; m[3] = v.w;
+            } else {
+                m[0] = __ldcs(reinterpret_cast<const unsigned int*>(valid + p0));
+            }
 #pragma unroll
-    for (int j = 0; j < MAP_PER_THREAD; ++j) {
-        const int p = base + j * THREADS + t;
-        if (p >= N) return;
-        int32_t v = fill;
-        if (valid[p]) {
-            const int32_t l = label[p];
-            if (l >= 0 && l < S) v = table[inv[l]];
+            for (int q = 0; q < PT / 4; ++q) {
+                const int4 a = __ldcs(reinterpret_cast<const int4*>(label + p0 + 4 * q));
+                l[4 * q] = a.x; l[4 * q + 1] = a.y; l[4 * q + 2] = a.z; l[4 * q + 3] = a.w;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) ok[4 * q + j] = (m[q] >> (8 * j)) & 0xFFu;
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < PT; ++j) {
+                const int p = p0 + j;
+                ok[j] = p < N && valid[p];
+                l[j] = ok[j] ? label[p] : 0;
+            }
         }
-        out[p] = v;
+        bool first[PT];                     // the first pixel of a run of one label
+        int32_t r[PT];
+#pragma unroll
+        for (int j = 0; j < PT; ++j) {
+            ok[j] = ok[j] && l[j] >= 0 && l[j] < S;
+            first[j] = ok[j] && !(j > 0 && ok[j - 1] && l[j] == l[j - 1]);
+            r[j] = first[j] ? __ldg(inv + l[j]) : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < PT; ++j) r[j] = first[j] ? __ldg(table + r[j]) : fill;
+#pragma unroll
+        for (int j = 1; j < PT; ++j)
+            if (ok[j] && !first[j]) r[j] = r[j - 1];
+        if constexpr (VEC) {
+#pragma unroll
+            for (int q = 0; q < PT / 4; ++q)
+                __stcs(reinterpret_cast<int4*>(out + p0 + 4 * q),
+                       make_int4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]));
+        } else {
+#pragma unroll
+            for (int j = 0; j < PT; ++j)
+                if (p0 + j < N) out[p0 + j] = r[j];
+        }
     }
 }
 
@@ -316,13 +370,25 @@ extern "C" int apriltag_resolve_scan(const void* cnt, const void* tile_sum, void
     return (int)cudaGetLastError();
 }
 
+// blocks: a frame's blocks (at least 1), each taking every blocks-th chunk
+// of THREADS PT pixels.
 extern "C" int apriltag_resolve_map(const void* label, const void* valid, const void* inv,
                                     const void* table, void* out, int B, int N, int S, int R,
-                                    int fill, void* stream) {
-    if (B < 1 || N < 1 || S < 1 || R < 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid((N + MAP_TILE - 1) / MAP_TILE, B);
-    resolve_map_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)label, (const uint8_t*)valid, (const int32_t*)inv,
-        (const int32_t*)table, (int32_t*)out, N, S, R, fill);
+                                    int fill, int blocks, void* stream) {
+    if (B < 1 || N < 1 || S < 1 || R < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int32_t *l = (const int32_t*)label, *iv = (const int32_t*)inv,
+                  *tb = (const int32_t*)table;
+    const uint8_t* v = (const uint8_t*)valid;
+    int32_t* o = (int32_t*)out;
+    const bool big = (long long)B * N >= COUNT_BIG;
+    const int pt = big ? 16 : 4;
+    const int chunks = (N + THREADS * pt - 1) / (THREADS * pt);
+    const dim3 grid(min(blocks, chunks), B);
+    const bool vec = N % pt == 0 && (uintptr_t)label % 16 == 0 && (uintptr_t)valid % pt == 0
+                     && (uintptr_t)out % 16 == 0;
+    auto kernel = big ? (vec ? resolve_map_kernel<true, 16> : resolve_map_kernel<false, 16>)
+                      : (vec ? resolve_map_kernel<true, 4> : resolve_map_kernel<false, 4>);
+    kernel<<<grid, THREADS, 0, st>>>(l, v, iv, tb, o, N, S, R, fill);
     return (int)cudaGetLastError();
 }

@@ -30,14 +30,18 @@ frame's pairs are sorted, scanned and scattered along the last dim of a
 frame sees another's pairs.
 
 extract_cluster_moments is the plain twin of the CUDA path
-(ops/cuda/cluster_moments.py). The plain versions of that path's four
-kernels are here too, on the range formulation the kernels use: after the
-sort each (black, white) segment is a contiguous range of the sorted keys,
-and each top-C cluster one such range, cut at E2 by the sizes of the slots
-before it (edge_count_plain, edge_pairs_plain, segment_tiles_plain and
-segment_top_plain (which together give top_segments_plain), and
-slot_moments_plain; tests/test_torch_cluster_ranges.py holds them to this
-twin).
+(ops/cuda/cluster_moments.py). The plain versions of that path's kernels
+are here too, on the formulation the kernels use: the kept pairs alone
+compacted in layout order and sorted by a stable LSD radix sort
+(pair_count_plain, pair_write_plain and radix_scatter_plain, composed by
+sort_pairs_plain, which equals the reference's stable sort of the padded
+row, edge_pairs_plain); after the sort each (black, white) segment is a
+contiguous range of the sorted keys, and each top-C cluster one such range,
+cut at E2 by the sizes of the slots before it (edge_count_plain,
+segment_tiles_plain and segment_top_plain (which together give
+top_segments_plain), and slot_moments_plain;
+tests/test_torch_cluster_ranges.py and tests/test_torch_cluster_sort.py
+hold them to this twin and to numpy mirrors).
 """
 
 from __future__ import annotations
@@ -137,15 +141,18 @@ def _edge_stride(num_edge: torch.Tensor, E: int) -> torch.Tensor:
     return torch.clamp((num_edge + budget - 1) // budget, min=1)
 
 
-def _gate(key: torch.Tensor, pay: torch.Tensor, mask: torch.Tensor,
-          stride: torch.Tensor) -> torch.Tensor:
+def _keep(pay: torch.Tensor, mask: torch.Tensor, stride: torch.Tensor) -> torch.Tensor:
     """Overflow decimation: a masked pair is kept when the hash of its pay
-    is a multiple of its frame's stride (a uniform spatial subsample); the
-    others' keys become _I32MAX."""
+    is a multiple of its frame's stride (a uniform spatial subsample)."""
     # Bits 15..30 of the int32-wrapped product pay * -1640531527.
     pay_hash = ((pay.to(torch.int64) * -1640531527) >> 15) & 0xFFFF
-    keep = mask & (pay_hash % stride[:, None] == 0)
-    return torch.where(keep, key, _I32MAX)
+    return mask & (pay_hash % stride[:, None] == 0)
+
+
+def _gate(key: torch.Tensor, pay: torch.Tensor, mask: torch.Tensor,
+          stride: torch.Tensor) -> torch.Tensor:
+    """The kept pairs' keys (_keep); the others' keys become _I32MAX."""
+    return torch.where(_keep(pay, mask, stride), key, _I32MAX)
 
 
 def edge_count_plain(trinary: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
@@ -157,9 +164,179 @@ def edge_count_plain(trinary: torch.Tensor, dense: torch.Tensor) -> torch.Tensor
 def edge_pairs_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
                      E: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, 4 H W) int32 keys, decimated by the stride that num_edge and the
-    budget E give, and pays: the pair kernel's plain version."""
+    budget E give, and pays, in the padded layout the reference sorts
+    (offset-major; _I32MAX where no pair is kept). The kernels sort only the
+    kept pairs (pair_count_plain, pair_write_plain, radix_scatter_plain);
+    sort_pairs_plain is held to torch.sort(stable=True) of this row."""
     key, pay, mask = _pairs(trinary, dense)
     return _gate(key, pay, mask, _edge_stride(num_edge, E)), pay
+
+
+# The kept pairs' compaction and stable LSD radix sort (csrc/cluster_moments.cu:
+# cm_pair_count_kernel, cm_pair_write_kernel, cm_radix_scatter_kernel).
+PAIR_BLOCK = 1024      # pixels a compaction block (a tile is one offset of them)
+RADIX_BITS = 8         # a radix pass's digit
+RADIX = 1 << RADIX_BITS
+SORT_PASSES = 4        # keys are two 15-bit dense ids: under 2^30
+SORT_BIG = 1 << 22     # pair slots a launch (B 4 H W) from which a sort tile holds 4096
+CTL = SORT_PASSES      # tile counters a frame, one a radix pass
+
+
+def sort_tile(B: int, N: int) -> int:
+    """Positions a sort tile for B rows of N pair slots: 4096 from SORT_BIG
+    slots a launch, else 1024, so a 720p frame's few kept pairs still span
+    many blocks."""
+    return 4096 if B * N >= SORT_BIG else 1024
+
+
+class PairTiles(NamedTuple):
+    """The compaction's count pass: each (offset, pixel block) tile's kept
+    pairs, and the sort's digit counts and scratch."""
+
+    counts: torch.Tensor   # (B, 4 nblk) int32 each tile's kept pairs, offset-major
+    kept: torch.Tensor     # (B,) int32 the frame's kept pairs K (the kernels: written by
+    #                        the write pass)
+    digits: torch.Tensor   # (SORT_PASSES, B, RADIX) int32 pass k's count of each digit k
+    #                        among the kept keys: plane 0 from this pass, plane k + 1
+    #                        filled by pass k (0 until then)
+    look: torch.Tensor     # (SORT_PASSES, B, T, RADIX) int32 the passes' look-back words
+    #                        (scratch), zeroed by the write pass on a frame's first
+    #                        ceil(K / tile) tiles
+    ctl: torch.Tensor      # (B, CTL) int32 the passes' tile counters (scratch), zero
+
+
+class SortRows(NamedTuple):
+    """A frame's kept pairs in one pass's order, in rows of 4 H W slots."""
+
+    key: torch.Tensor    # (B, N) int32 [0, K) the keys; [K, E) _I32MAX in the row the write
+    #                      pass fills, which the passes that write that row keep (the
+    #                      kernels leave the rest undefined; _I32MAX here)
+    pay: torch.Tensor    # (B, N) int32 [0, K) each key's pay (the rest undefined; 0 here)
+
+
+def _kept_pairs(trinary, dense, num_edge, E):
+    key, pay, mask = _pairs(trinary, dense)
+    return key, pay, _keep(pay, mask, _edge_stride(num_edge, E))
+
+
+def _digit(key: torch.Tensor, k: int) -> torch.Tensor:
+    return (key.to(torch.int64) >> (RADIX_BITS * k)) & (RADIX - 1)
+
+
+def _digit_counts(key: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """(SORT_PASSES, B, RADIX) int32: each pass's count of each digit among
+    the live keys."""
+    B = key.shape[0]
+    out = []
+    for k in range(SORT_PASSES):
+        at = torch.where(live, _digit(key, k), RADIX)
+        out.append(torch.zeros((B, RADIX + 1), dtype=torch.int64, device=key.device).scatter_add_(
+            1, at, torch.ones_like(at))[:, :RADIX])
+    return torch.stack(out).to(torch.int32)
+
+
+def digit_counts_plain(key: torch.Tensor, kept: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, N) keys, (B,) kept counts -> (B, RADIX) int32: the count of each
+    k-th digit among the keys [0, K)."""
+    live = torch.arange(key.shape[1], device=key.device) < kept[:, None]
+    return _digit_counts(key, live)[k]
+
+
+def pair_count_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+                     E: int, *, block: int | None = None, tile: int | None = None) -> PairTiles:
+    """The compaction count kernel's plain version: the kept pairs of each
+    (offset o, block of `block` pixels) tile, in o-major order, each frame's
+    kept count, and the first radix pass's digit counts of the kept keys
+    (the other passes' planes 0)."""
+    B, H, W = trinary.shape
+    HW = H * W
+    block = block or PAIR_BLOCK
+    tile = tile or sort_tile(B, 4 * HW)
+    key, _, keep = _kept_pairs(trinary, dense, num_edge, E)
+    nblk = -(-HW // block)
+    cnt = torch.nn.functional.pad(keep.reshape(B, 4, HW).to(torch.int64),
+                                  (0, nblk * block - HW)).reshape(B, 4 * nblk, block).sum(-1)
+    T = -(-4 * HW // tile)
+    i32 = dict(dtype=torch.int32, device=trinary.device)
+    digits = torch.zeros((SORT_PASSES, B, RADIX), **i32)
+    digits[0] = _digit_counts(key, keep)[0]
+    return PairTiles(counts=cnt.to(torch.int32), kept=cnt.sum(-1).to(torch.int32), digits=digits,
+                     look=torch.zeros((SORT_PASSES, B, T, RADIX), **i32),
+                     ctl=torch.zeros((B, CTL), **i32))
+
+
+def pair_write_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+                     tiles: PairTiles, E: int, *, block: int | None = None) -> SortRows:
+    """The compaction write kernel's plain version: each tile's first
+    position from the tiles' counts (tiles.counts, scanned in o-major
+    order), and each kept pair's key and pay there plus the kept pairs
+    before it in the tile, so [0, K) holds the kept pairs in layout order
+    (offset-major, then pixel)."""
+    B, H, W = trinary.shape
+    HW, N = H * W, 4 * H * W
+    block = block or PAIR_BLOCK
+    key, pay, keep = _kept_pairs(trinary, dense, num_edge, E)
+    nblk = -(-HW // block)
+    tiled = torch.nn.functional.pad(keep.reshape(B, 4, HW).to(torch.int64),
+                                    (0, nblk * block - HW)).reshape(B, 4 * nblk, block)
+    cnt = tiles.counts.to(torch.int64)
+    at = (torch.cumsum(cnt, -1) - cnt)[..., None] + torch.cumsum(tiled, -1) - 1
+    at = at.reshape(B, 4, -1)[..., :HW].reshape(B, N)
+    at = torch.where(keep, at, N)
+    key_c = torch.full((B, N + 1), _I32MAX, dtype=torch.int32,
+                       device=key.device).scatter_(1, at, key)[:, :N]
+    pay_c = torch.zeros((B, N + 1), dtype=torch.int32, device=key.device).scatter_(
+        1, at, pay.to(torch.int32))[:, :N]
+    return SortRows(key=key_c, pay=pay_c)
+
+
+def radix_scatter_plain(rows: SortRows, tiles: PairTiles,
+                        k: int) -> tuple[SortRows, torch.Tensor | None]:
+    """The radix scatter kernel's plain version, pass k: each key of [0, K)
+    to its digit's first position (the keys of smaller digits, from
+    tiles.digits[k]) plus the keys of its digit before it, so [0, K) is
+    stably sorted by the key's k-th digit. Returns (rows, the (B, RADIX)
+    counts of the next pass's digit, None after the last pass), as the
+    kernel fills tiles.digits[k + 1]."""
+    B, N = rows.key.shape
+    kept = tiles.kept
+    dev = kept.device
+    live = torch.arange(N, device=dev) < kept[:, None]
+    d = torch.where(live, _digit(rows.key, k), RADIX)
+    order = torch.sort(d, dim=-1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(1, order, torch.arange(N, device=dev).expand(B, N))
+    h = torch.zeros((B, RADIX + 1), dtype=torch.int64, device=dev).scatter_add_(
+        1, d, torch.ones_like(d))
+    first = torch.gather(torch.cumsum(h, -1) - h, 1, d)      # the digit's first, sorted
+    counts = tiles.digits[k].to(torch.int64)
+    bases = torch.cat([torch.cumsum(counts, -1) - counts,
+                       torch.full((B, 1), N, dtype=torch.int64, device=dev)], 1)
+    at = torch.where(live, torch.gather(bases, 1, d) + rank - first, N)
+    key = torch.full((B, N + 1), _I32MAX, dtype=torch.int32, device=dev).scatter_(
+        1, at, rows.key)[:, :N]
+    pay = torch.zeros((B, N + 1), dtype=torch.int32, device=dev).scatter_(
+        1, at, rows.pay)[:, :N]
+    nxt = digit_counts_plain(key, kept, k + 1) if k + 1 < SORT_PASSES else None
+    return SortRows(key=key, pay=pay), nxt
+
+
+def sort_pairs_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+                     E: int, *, block: int | None = None,
+                     tile: int | None = None) -> tuple[SortRows, torch.Tensor]:
+    """The kept pairs sorted by key, ties in layout order, as the kernels
+    compose them: pair_count_plain, pair_write_plain, then SORT_PASSES
+    radix_scatter_plain passes, each pass's digit counts from the one
+    before. Returns (rows, (B,) kept counts): rows.key equals
+    torch.sort(edge_pairs_plain(..)[0], stable=True)'s values, and
+    rows.pay[:, :K] its permutation of the pays."""
+    tiles = pair_count_plain(trinary, dense, num_edge, E, block=block, tile=tile)
+    rows = pair_write_plain(trinary, dense, num_edge, tiles, E, block=block)
+    digits = tiles.digits.clone()
+    for k in range(SORT_PASSES):
+        rows, nxt = radix_scatter_plain(rows, tiles._replace(digits=digits), k)
+        if nxt is not None:
+            digits[k + 1] = nxt
+    return rows, tiles.kept
 
 
 class TopSegments(NamedTuple):
@@ -337,13 +514,13 @@ def _pair_terms(pay: torch.Tensor):
     return x, y, ((gp & 0x3) - 1).to(torch.float32), (((gp >> 2) & 0x3) - 1).to(torch.float32)
 
 
-def slot_moments_plain(perm: torch.Tensor, pay: torch.Tensor, top_pos: torch.Tensor,
-                       count: torch.Tensor, E2: int) -> SlotMoments:
+def slot_moments_plain(pay_s: torch.Tensor, top_pos: torch.Tensor, count: torch.Tensor,
+                       E2: int) -> SlotMoments:
     """The moments kernel's plain version. Slot j's pairs are the sorted
-    positions [top_pos_j, top_pos_j + count_j) (pay[perm[p]]); the first E2
-    pairs of the slots taken in order are resident (the reference's second
-    sort and truncation), and the moments cover those. Sums by index_add in
-    f64."""
+    positions [top_pos_j, top_pos_j + count_j), whose pays the sort left in
+    pay_s; the first E2 pairs of the slots taken in order are resident (the
+    reference's second sort and truncation), and the moments cover those.
+    Sums by index_add in f64."""
     B, C = count.shape
     dev = count.device
     f64 = torch.float64
@@ -356,7 +533,7 @@ def slot_moments_plain(perm: torch.Tensor, pay: torch.Tensor, top_pos: torch.Ten
     resident = r < ends[:, -1:]
     at = torch.gather(top_pos.to(torch.int64), 1, slot) + r - torch.gather(ends - n, 1, slot)
     at = torch.where(resident, at, 0)
-    x, y, gx, gy = _pair_terms(torch.gather(pay, 1, torch.gather(perm, 1, at)))
+    x, y, gx, gy = _pair_terms(torch.gather(pay_s, 1, at))
     w = resident.to(torch.float32)
     F2 = torch.stack([w, x * w, y * w, (x * x + y * y) * w, gx * w, gy * w,
                       (x * gx + y * gy) * w], -1)

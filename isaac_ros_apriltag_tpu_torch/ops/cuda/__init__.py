@@ -13,7 +13,9 @@ from . import ccl, cluster_moments, quadfit, resolve, threshold
 LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launches"),
                    "col": (ccl, "col_diag_launches"),
                    "edge_count": (cluster_moments, "count_launches"),
-                   "edge_pairs": (cluster_moments, "pairs_launches"),
+                   "pair_count": (cluster_moments, "pair_count_launches"),
+                   "pair_write": (cluster_moments, "pair_write_launches"),
+                   "radix_scatter": (cluster_moments, "scatter_launches"),
                    "segment_tiles": (cluster_moments, "seg_tiles_launches"),
                    "segment_top": (cluster_moments, "seg_top_launches"),
                    "moments": (cluster_moments, "moments_launches"),

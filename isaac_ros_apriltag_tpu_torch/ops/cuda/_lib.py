@@ -35,14 +35,16 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_ccl_row", 3, 3),
                  ("apriltag_ccl_col_diag", 3, 3),
                  ("apriltag_cm_count", 3, 3),
-                 ("apriltag_cm_pairs", 5, 4),
+                 ("apriltag_cm_pair_count", 6, 5),
+                 ("apriltag_cm_pair_write", 8, 8),
+                 ("apriltag_cm_radix_scatter", 8, 6),
                  ("apriltag_cm_seg_tiles", 6, 7),
                  ("apriltag_cm_seg_top", 14, 8),
-                 ("apriltag_cm_moments", 8, 4),
+                 ("apriltag_cm_moments", 7, 4),
                  ("apriltag_resolve_count", 3, 3),
                  ("apriltag_resolve_tile_sums", 2, 3),
                  ("apriltag_resolve_scan", 5, 4),
-                 ("apriltag_resolve_map", 5, 5),
+                 ("apriltag_resolve_map", 5, 6),
                  ("apriltag_quadfit_search", 4, 1))
 
 MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame

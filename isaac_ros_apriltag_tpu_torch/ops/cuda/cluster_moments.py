@@ -1,19 +1,29 @@
 """Wrappers of the cluster-moment kernels (csrc/cluster_moments.cu).
 
-``extract_cluster_moments`` is the CUDA path of the stage: the pair-count
-and pair kernels, one stable torch.sort of the keys, the two segment
-kernels (``segment_tiles``, many blocks a frame: segment sizes, the size
-gate, each tile's candidates and a size histogram; ``segment_top``, one
-block a frame: the segments that cross tiles, the top-C; together
+``extract_cluster_moments`` is the CUDA path of the stage, ten launches in
+this order: the pair-count kernel (``edge_count``: num_edge); the kept
+pairs' sort (``sort_pairs``): the compaction's count and write kernels
+(``pair_count``: each (offset, pixel block) tile's kept pairs and the
+first radix pass's digit counts; ``pair_write``: each tile's first
+position, the kept count K and the kept pairs' keys and pays in layout
+order) and SORT_PASSES stable radix passes (``radix_scatter``, one launch
+a digit, ping-pong between two row pairs); the two segment kernels
+(``segment_tiles``, many blocks a frame: segment sizes, the size gate,
+each tile's candidates and a size histogram; ``segment_top``, one block a
+frame: the segments that cross tiles, the top-C; together
 ``top_segments``) and the moments kernel (one block a frame and slot:
-centroid, scale, dark side and the bin tables). A CPU
+centroid, scale, dark side and the bin tables, from the pays the sort
+left beside the keys). No torch.sort runs. A CPU
 tensor runs the plain version (ops/cluster_moments.py::
 extract_cluster_moments); a CUDA tensor launches the kernels or raises.
 Each kernel's wrapper adds one to its own counter where it launches; on a
 CPU tensor it runs that kernel's plain version, also in
 ops/cluster_moments.py. Every launch goes on the current stream, with
-outputs and scratch allocated here by torch.empty and no host sync, so the
-stage can be captured in a CUDA graph.
+outputs, scratch and the sort's ping-pong rows allocated here by
+torch.empty (the sort's counters and digit counts zeroed by one memset) and
+no host sync, so the stage can be captured in a CUDA graph: the grids are
+sized for the padded rows and the frames' work follows their kept counts on
+the card.
 """
 
 from __future__ import annotations
@@ -22,15 +32,18 @@ import torch
 
 from .. import cluster_moments as plain
 from ..batch import batch_first, first_frame
-from ..cluster_moments import (NBINS, SEG_TILE, ClusterMoments, SegmentTiles, SlotMoments,
-                               TopSegments)
+from ..cluster_moments import (CTL, NBINS, PAIR_BLOCK, RADIX, SEG_TILE, SORT_PASSES,
+                               ClusterMoments, PairTiles, SegmentTiles, SlotMoments, SortRows,
+                               TopSegments, sort_tile)
 from . import _lib
 
-count_launches = 0      # cm_edge_count_kernel launches made by edge_count
-pairs_launches = 0      # cm_edge_pairs_kernel launches made by edge_pairs
-seg_tiles_launches = 0  # cm_seg_tiles_kernel launches made by segment_tiles
-seg_top_launches = 0    # cm_seg_top_kernel launches made by segment_top
-moments_launches = 0    # cm_moments_kernel launches made by slot_moments
+count_launches = 0        # cm_edge_count_kernel launches made by edge_count
+pair_count_launches = 0   # cm_pair_count_kernel launches made by pair_count
+pair_write_launches = 0   # cm_pair_write_kernel launches made by pair_write
+scatter_launches = 0      # cm_radix_scatter_kernel launches made by radix_scatter
+seg_tiles_launches = 0    # cm_seg_tiles_kernel launches made by segment_tiles
+seg_top_launches = 0      # cm_seg_top_kernel launches made by segment_top
+moments_launches = 0      # cm_moments_kernel launches made by slot_moments
 
 
 def _stream() -> int:
@@ -69,27 +82,157 @@ def edge_count(trinary: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
     return num_edge
 
 
-def edge_pairs(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
-               E: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> ((B, 4 H W) int32 keys decimated to the budget E, int32 pays),
-    offset-major."""
-    global pairs_launches
-    if trinary.device.type == "cpu":
-        return plain.edge_pairs_plain(trinary, dense, num_edge, E)
-    B, H, W = _check_front(trinary, dense)
-    if num_edge.shape != (B,) or num_edge.dtype != torch.int32 or num_edge.device != trinary.device:
-        raise ValueError("num_edge must be a (B,) int32 tensor on the frames' device")
+def _check_num_edge(num_edge: torch.Tensor, B: int, dev: torch.device, E: int) -> None:
+    if (num_edge.shape != (B,) or num_edge.dtype != torch.int32 or num_edge.device != dev
+            or not num_edge.is_contiguous()):
+        raise ValueError(f"num_edge must be a contiguous ({B},) int32 tensor on the frames' device")
     if (9 * E) // 10 < 1:
         raise ValueError(f"the pair budget E={E} is under 2")
-    key = torch.empty((B, 4 * H * W), dtype=torch.int32, device=trinary.device)
+
+
+def _check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
+                  dev: torch.device) -> None:
+    if t.shape != shape or t.dtype != dtype or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {shape} {dtype} tensor on {dev}")
+
+
+def pair_count(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+               E: int) -> PairTiles:
+    """(B, H, W) uint8 trinary + int32 dense ids, (B,) num_edge -> each
+    (offset, pixel block) tile's kept pairs, the first radix pass's digit
+    counts, and the passes' counters; kept and the look-back words are left
+    to pair_write (ops/cluster_moments.py::PairTiles)."""
+    global pair_count_launches
+    if trinary.device.type == "cpu":
+        return plain.pair_count_plain(trinary, dense, num_edge, E)
+    B, H, W = _check_front(trinary, dense)
+    dev = trinary.device
+    _check_num_edge(num_edge, B, dev, E)
+    N = 4 * H * W
+    tile = sort_tile(B, N)
+    T = -(-N // tile)
+    i32 = dict(dtype=torch.int32, device=dev)
+    zeroed = torch.empty(B * CTL + SORT_PASSES * B * RADIX, **i32)   # one memset: ctl, digits
+    out = PairTiles(counts=torch.empty((B, 4 * -(-H * W // PAIR_BLOCK)), **i32),
+                    kept=torch.empty(B, **i32),
+                    digits=zeroed[B * CTL:].view(SORT_PASSES, B, RADIX),
+                    look=torch.empty((SORT_PASSES, B, T, RADIX), **i32),
+                    ctl=zeroed[:B * CTL].view(B, CTL))
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_cm_pair_count(
+            trinary.data_ptr(), dense.data_ptr(), num_edge.data_ptr(), out.counts.data_ptr(),
+            out.digits.data_ptr(), out.ctl.data_ptr(), B, H, W, (9 * E) // 10, PAIR_BLOCK,
+            _stream())
+    _lib.check(status, "apriltag_cm_pair_count")
+    pair_count_launches += 1
+    return out
+
+
+def _check_tiles(tiles: PairTiles, B: int, N: int, dev: torch.device,
+                 hw: tuple[int, int] | None = None) -> None:
+    """Raise on a PairTiles the write (frames of shape hw) or scatter kernel
+    does not take."""
+    T = -(-N // sort_tile(B, N))
+    fields = [("kept", tiles.kept, (B,)), ("digits", tiles.digits, (SORT_PASSES, B, RADIX)),
+              ("look", tiles.look, (SORT_PASSES, B, T, RADIX)), ("ctl", tiles.ctl, (B, CTL))]
+    if hw is not None:
+        fields.append(("counts", tiles.counts, (B, 4 * -(-N // 4 // PAIR_BLOCK))))
+    for name, t, shape in fields:
+        _check_tensor(name, t, shape, torch.int32, dev)
+
+
+def pair_write(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+               tiles: PairTiles, E: int) -> SortRows:
+    """pair_count's tiles -> (B, 4 H W) rows holding each frame's kept
+    pairs' keys and pays in layout order in [0, K) (keys _I32MAX in [K, E);
+    the rest of the rows undefined) (ops/cluster_moments.py::SortRows), each
+    frame's K into tiles.kept, and the look-back words of the frame's first
+    ceil(K / tile) sort tiles zeroed, the ones the radix passes read."""
+    global pair_write_launches
+    if trinary.device.type == "cpu":
+        return plain.pair_write_plain(trinary, dense, num_edge, tiles, E)
+    B, H, W = _check_front(trinary, dense)
+    dev = trinary.device
+    _check_num_edge(num_edge, B, dev, E)
+    N = 4 * H * W
+    _check_tiles(tiles, B, N, dev, (H, W))
+    if not 1 <= E <= N:
+        raise ValueError(f"E={E} out of [1, 4 H W]")
+    key = torch.empty((B, N), dtype=torch.int32, device=dev)
     pay = torch.empty_like(key)
-    with torch.cuda.device(trinary.device):
-        status = _lib.library().apriltag_cm_pairs(
-            trinary.data_ptr(), dense.data_ptr(), num_edge.data_ptr(), key.data_ptr(),
-            pay.data_ptr(), B, H, W, (9 * E) // 10, _stream())
-    _lib.check(status, "apriltag_cm_pairs")
-    pairs_launches += 1
-    return key, pay
+    tile = sort_tile(B, N)
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_cm_pair_write(
+            trinary.data_ptr(), dense.data_ptr(), num_edge.data_ptr(), tiles.counts.data_ptr(),
+            tiles.kept.data_ptr(), key.data_ptr(), pay.data_ptr(), tiles.look.data_ptr(), B, H,
+            W, (9 * E) // 10, E, PAIR_BLOCK, tile.bit_length() - 1, -(-N // tile), _stream())
+    _lib.check(status, "apriltag_cm_pair_write")
+    pair_write_launches += 1
+    return SortRows(key=key, pay=pay)
+
+
+def radix_scatter(rows: SortRows, tiles: PairTiles, k: int, *, E: int,
+                  out: tuple[torch.Tensor, torch.Tensor] | None = None) -> SortRows:
+    """Radix pass k (digit k of RADIX_BITS): rows' [0, K) stably sorted by
+    that digit into `out` (two (B, N) int32 rows, key and pay; allocated
+    here when None), and the next pass's digit counts into tiles.digits[k +
+    1]. Only [0, K) of the out rows is written. Each pass runs once after
+    pair_write, whose look-back words it uses with pair_count's counters.
+    The grid holds ceil(E / tile) blocks a frame (at most the row's tiles),
+    which take the frame's tiles in order, so a frame whose K passes E
+    takes more tiles a block."""
+    global scatter_launches
+    if rows.key.device.type == "cpu":
+        moved, nxt = plain.radix_scatter_plain(rows, tiles, k)
+        if nxt is not None:
+            tiles.digits[k + 1] = nxt
+        return moved
+    dev = rows.key.device
+    if rows.key.ndim != 2:
+        raise ValueError("the rows must be (B, N) tensors")
+    B, N = rows.key.shape
+    if B > _lib.MAX_BATCH or N % 4:
+        raise ValueError(f"rows of {B} frames of {N} slots: at most {_lib.MAX_BATCH} frames of "
+                         "4 H W slots")
+    if not 0 <= k < SORT_PASSES:
+        raise ValueError(f"pass {k} out of [0, {SORT_PASSES})")
+    for name, t in (("key", rows.key), ("pay", rows.pay)):
+        _check_tensor(name, t, (B, N), torch.int32, dev)
+    _check_tiles(tiles, B, N, dev)
+    if out is None:
+        out = (torch.empty_like(rows.key), torch.empty_like(rows.pay))
+    for name, t in zip(("out key", "out pay"), out):
+        _check_tensor(name, t, (B, N), torch.int32, dev)
+        if any(t.data_ptr() == r.data_ptr() for r in rows):
+            raise ValueError("a pass cannot write the rows it reads")
+    tile = sort_tile(B, N)
+    T = -(-N // tile)
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_cm_radix_scatter(
+            rows.key.data_ptr(), rows.pay.data_ptr(), tiles.kept.data_ptr(),
+            tiles.digits.data_ptr(), tiles.look.data_ptr(), tiles.ctl.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), B, N, T, min(T, max(1, -(-E // tile))), k,
+            tile // 256, _stream())
+    _lib.check(status, "apriltag_cm_radix_scatter")
+    scatter_launches += 1
+    return SortRows(key=out[0], pay=out[1])
+
+
+def sort_pairs(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+               E: int) -> tuple[SortRows, torch.Tensor]:
+    """The kept pairs sorted by key, ties in layout order: pair_count,
+    pair_write, then SORT_PASSES radix_scatter passes between the write's
+    rows and one other pair of rows, ending in the write's. Returns (rows,
+    (B,) kept counts K): keys bit-exact with torch.sort(stable=True) of
+    edge_pairs_plain's padded row on [0, max(K, E)) and pays on [0, K)
+    (sort_pairs_plain); nothing reads a row past those."""
+    tiles = pair_count(trinary, dense, num_edge, E)
+    rows = pair_write(trinary, dense, num_edge, tiles, E)
+    spare = None
+    for k in range(SORT_PASSES):
+        moved = radix_scatter(rows, tiles, k, E=E, out=spare)
+        spare, rows = (rows.key, rows.pay), moved
+    return rows, tiles.kept
 
 
 def _check_segments(E: int, max_perimeter: int) -> int:
@@ -194,34 +337,32 @@ def top_segments(key_s: torch.Tensor, num_edge: torch.Tensor, comp_overflow: tor
                        min_cluster_pixels=min_cluster_pixels, max_perimeter=max_perimeter)
 
 
-def slot_moments(perm: torch.Tensor, pay: torch.Tensor, top_pos: torch.Tensor,
-                 count: torch.Tensor, E2: int) -> SlotMoments:
-    """(B, N) int64 sort permutation, (B, N) int32 pays, (B, C) int32 top-C
-    starts and sizes -> each slot's bin tables, centroid, scale and dark
-    side over its E2-resident pairs (ops/cluster_moments.py::SlotMoments)."""
+def slot_moments(pay_s: torch.Tensor, top_pos: torch.Tensor, count: torch.Tensor,
+                 E2: int) -> SlotMoments:
+    """(B, N) int32 pays in sorted order, (B, C) int32 top-C starts and
+    sizes -> each slot's bin tables, centroid, scale and dark side over its
+    E2-resident pairs (ops/cluster_moments.py::SlotMoments)."""
     global moments_launches
-    if perm.device.type == "cpu":
-        return plain.slot_moments_plain(perm, pay, top_pos, count, E2)
-    dev = perm.device
-    if (perm.ndim != 2 or perm.dtype != torch.int64 or pay.shape != perm.shape
-            or pay.dtype != torch.int32 or not (perm.is_contiguous() and pay.is_contiguous())):
-        raise ValueError("perm must be a contiguous (B, N) int64 tensor and pay int32 of its shape")
-    B, N = perm.shape
+    if pay_s.device.type == "cpu":
+        return plain.slot_moments_plain(pay_s, top_pos, count, E2)
+    dev = pay_s.device
+    if pay_s.ndim != 2 or pay_s.dtype != torch.int32 or not pay_s.is_contiguous():
+        raise ValueError("pay_s must be a contiguous (B, N) int32 tensor")
+    B, N = pay_s.shape
     C = count.shape[-1]
     for name, t in (("top_pos", top_pos), ("count", count)):
         if t.shape != (B, C) or t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous ({B}, C) int32 tensor on {dev}")
-    if pay.device != dev or not 1 <= C <= 128:
-        raise ValueError("pay must lie on perm's device, and C must be in [1, 128]")
+    if not 1 <= C <= 128:
+        raise ValueError("C must be in [1, 128]")
     f32 = dict(dtype=torch.float32, device=dev)
     table = torch.empty((B, C, NBINS, 6), **f32)
     centroid, scale = torch.empty((B, C, 2), **f32), torch.empty((B, C), **f32)
     dark = torch.empty((B, C), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         status = _lib.library().apriltag_cm_moments(
-            perm.data_ptr(), pay.data_ptr(), top_pos.data_ptr(), count.data_ptr(),
-            table.data_ptr(), centroid.data_ptr(), scale.data_ptr(), dark.data_ptr(), B, N, C,
-            E2, _stream())
+            pay_s.data_ptr(), top_pos.data_ptr(), count.data_ptr(), table.data_ptr(),
+            centroid.data_ptr(), scale.data_ptr(), dark.data_ptr(), B, N, C, E2, _stream())
     _lib.check(status, "apriltag_cm_moments")
     moments_launches += 1
     return SlotMoments(table=table, centroid=centroid, scale=scale, dark_inside=dark)
@@ -253,11 +394,10 @@ def extract_cluster_moments(trinary: torch.Tensor, dense: torch.Tensor, *,
     trinary, dense = trinary.contiguous(), dense.to(torch.int32).contiguous()
     comp_overflow = comp_overflow.to(torch.bool).expand(B).contiguous()
     num_edge = edge_count(trinary, dense)
-    key, pay = edge_pairs(trinary, dense, num_edge, E)
-    key_s, perm = torch.sort(key, dim=-1, stable=True)
-    seg = top_segments(key_s, num_edge, comp_overflow, E=E, E2=E2, max_clusters=max_clusters,
+    rows, _ = sort_pairs(trinary, dense, num_edge, E)
+    seg = top_segments(rows.key, num_edge, comp_overflow, E=E, E2=E2, max_clusters=max_clusters,
                        min_cluster_pixels=min_cluster_pixels, max_perimeter=4 * (W + H))
-    mom = slot_moments(perm, pay, seg.top_pos, seg.count, E2)
+    mom = slot_moments(rows.pay, seg.top_pos, seg.count, E2)
     bw, bx, by, bxx, bxy, byy = (mom.table[..., i] for i in range(6))
     out = ClusterMoments(
         bw=bw, bx=bx, by=by, bxx=bxx, bxy=bxy, byy=byy, count=seg.count,

@@ -26,6 +26,9 @@ count_launches = 0       # resolve_count_kernel launches made by count
 tiles_launches = 0       # resolve_tile_sums_kernel launches made by tile_sums
 scan_launches = 0        # resolve_scan_kernel launches made by scan_ranks
 map_launches = 0         # resolve_map_kernel launches made by map_pixels
+# The map kernel's blocks a launch (about four an SM), past which a block
+# takes every n-th chunk of its frame's pixels.
+MAP_GRID = 528
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
@@ -151,7 +154,7 @@ def map_pixels(label: torch.Tensor, valid: torch.Tensor, inv: torch.Tensor,
         status = _lib.library().apriltag_resolve_map(label.data_ptr(), valid.data_ptr(),
                                                      inv.data_ptr(), table.data_ptr(),
                                                      out.data_ptr(), B, N, S, R, int(fill),
-                                                     _stream())
+                                                     -(-MAP_GRID // B), _stream())
     _lib.check(status, "apriltag_resolve_map")
     map_launches += 1
     return out

@@ -172,7 +172,7 @@ def _diamond_bin(dx, dy):
     return np.clip((t * f32(16)).astype(np.int64), 0, 63)
 
 
-def mirror_moments(perm, pay, top_pos, count, E2):
+def mirror_moments(pay_s, top_pos, count, E2):
     """The moments kernel's steps in numpy, slot by slot: the slot's range
     cut at E2 by the slots before it, exact f64 centroid sums, then each
     pair's terms added in f64 to its bin."""
@@ -185,7 +185,7 @@ def mirror_moments(perm, pay, top_pos, count, E2):
     for b in range(B):
         for j in range(C):
             n = max(0, min(int(count[b, j]), E2 - int(count[b, :j].sum())))
-            pv = pay[b, perm[b, top_pos[b, j]:top_pos[b, j] + n]]
+            pv = pay_s[b, top_pos[b, j]:top_pos[b, j] + n]
             x = (pv & 0xFFF).astype(f32) * f32(0.5)
             y = ((pv >> 12) & 0xFFF).astype(f32) * f32(0.5)
             gx = ((pv >> 24) & 0x3).astype(f32) - f32(1)
@@ -224,10 +224,11 @@ def _stage(frames, case):
     num_edge = P.edge_count_plain(tri, dense)
     key, pay = P.edge_pairs_plain(tri, dense, num_edge, E)
     key_s, perm = torch.sort(key, dim=-1, stable=True)
+    pay_s = torch.gather(pay, 1, perm)
     kw = dict(E=E, E2=E2, C=C, min_pix=min_pix, max_per=4 * (W + H))
     seg = mirror_segments(key_s.numpy(), num_edge.numpy(), ovf.numpy(), **kw)
-    mom = mirror_moments(perm.numpy(), pay.numpy(), seg["top_pos"], seg["count"], E2)
-    return dict(twin=twin, key=key, key_s=key_s, perm=perm, pay=pay, num_edge=num_edge,
+    mom = mirror_moments(pay_s.numpy(), seg["top_pos"], seg["count"], E2)
+    return dict(twin=twin, key=key, key_s=key_s, pay_s=pay_s, pay=pay, num_edge=num_edge,
                 ovf=ovf, seg=seg, mom=mom, kw=kw)
 
 
@@ -279,7 +280,7 @@ def test_kernel_plain_versions_match_mirror(stages, case):
                  ("num_clusters", "n_clusters"), ("num_eligible", "n_eligible"),
                  ("edge_stride", "stride"), ("overflow", "overflow")):
         np.testing.assert_array_equal(getattr(got, f).numpy(), seg[m], err_msg=f)
-    mp = P.slot_moments_plain(st["perm"], st["pay"], got.top_pos, got.count, kw["E2"])
+    mp = P.slot_moments_plain(st["pay_s"], got.top_pos, got.count, kw["E2"])
     for f in ("centroid", "scale", "dark_inside"):
         np.testing.assert_array_equal(getattr(mp, f).numpy(), mom[f], err_msg=f)
     np.testing.assert_array_max_ulp(mp.table.numpy(), mom["table"], maxulp=1)
@@ -291,8 +292,9 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(frames, stages):
     tri, dense, ovf = frames["tri"], frames["dense"], frames["ovf"]
     st = stages["default"]
     kw = dict(max_edge_points=st["kw"]["E"], max_clusters=128, min_cluster_pixels=MIN_PIX)
-    counts = (K.count_launches, K.pairs_launches, K.seg_tiles_launches, K.seg_top_launches,
-              K.moments_launches)
+    counters = ("count_launches", "pair_count_launches", "pair_write_launches",
+                "scatter_launches", "seg_tiles_launches", "seg_top_launches", "moments_launches")
+    counts = [getattr(K, c) for c in counters]
     got = K.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw)
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(st["twin"], f)), f
@@ -301,15 +303,16 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(frames, stages):
         assert torch.equal(getattr(one, f), getattr(got, f)[1]), f
     E, E2 = st["kw"]["E"], st["kw"]["E2"]
     assert torch.equal(K.edge_count(tri, dense), st["num_edge"])
-    key, pay = K.edge_pairs(tri, dense, st["num_edge"], E)
-    assert torch.equal(key, st["key"]) and torch.equal(pay, st["pay"])
+    rows, kept = K.sort_pairs(tri, dense, st["num_edge"], E)
+    assert torch.equal(rows.key, st["key_s"])
+    for b, n in enumerate(kept.tolist()):
+        assert torch.equal(rows.pay[b, :n], st["pay_s"][b, :n])
     seg = K.top_segments(st["key_s"], st["num_edge"], ovf, E=E, E2=E2, max_clusters=128,
                          min_cluster_pixels=MIN_PIX, max_perimeter=st["kw"]["max_per"])
     assert torch.equal(seg.count, st["twin"].count)
-    mom = K.slot_moments(st["perm"], st["pay"], seg.top_pos, seg.count, E2)
+    mom = K.slot_moments(rows.pay, seg.top_pos, seg.count, E2)
     assert torch.equal(mom.centroid, st["twin"].centroid)
-    assert (K.count_launches, K.pairs_launches, K.seg_tiles_launches, K.seg_top_launches,
-            K.moments_launches) == counts, "nothing launched on the CPU"
+    assert [getattr(K, c) for c in counters] == counts, "nothing launched on the CPU"
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])

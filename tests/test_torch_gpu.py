@@ -9,7 +9,9 @@ detect call (CUDA graph replay) against the eager call; the CCL flow
 with pointer jumps, bundle adjustment of a 10k-tag map against the CPU, and
 the rig over a world of one NCCL process; the cluster, resolve and
 quad-fit kernels on chip_smoke.py's cases, the segment kernels on its
-synthetic sorted keys and the count kernel on its count cases. They skip without a card.
+synthetic sorted keys, the cluster sort's kernels on its synthetic rows
+and frames, and the count and map kernels on its count cases. They skip
+without a card.
 
 The adversarial inputs of the threshold and scan kernels are chip_smoke.py's,
 so the smoke run and these tests hold the kernels to the same cases. This file imports
@@ -29,9 +31,11 @@ import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
                         LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES, RESOLVE_KERNELS,
-                        SCAN_CASES, SEGMENT_ROWS, THRESH_CASES, THRESH_MIN_DIFF, bench_inputs,
-                        check_cluster_case, check_count_case, check_quadfit_case,
-                        check_resolve_call, check_segment_row, cluster_cases, edge_batch,
+                        SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, THRESH_CASES,
+                        THRESH_MIN_DIFF, bench_inputs, check_cluster_case, check_count_case,
+                        check_map_case, check_quadfit_case, check_resolve_call,
+                        check_segment_row, check_sort_frame, check_sort_row, cluster_cases,
+                        edge_batch,
                         free_port, map_problem, quadfit_cases, resolve_cases, scan_batch,
                         scan_case, scan_case_id, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
@@ -370,7 +374,8 @@ def test_replay_equals_eager_call(cuda, config, batch, backend):
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_replay_counts_launches(cuda, backend):
     """A replay adds the launches its capture recorded: 1 / 14 / 14, two of
-    each resolve kernel, one of each cluster kernel and one quad-fit search
+    each resolve kernel, the cluster kernels' (one of each, one radix
+    scatter a pass) and one quad-fit search
     for backend 'cuda', none for the twins; the capture itself adds none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
@@ -381,7 +386,7 @@ def test_replay_counts_launches(cuda, backend):
         fn(x)
         torch.cuda.synchronize()
         assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n,
-                                   **{k: n for k in CLUSTER_KERNELS},
+                                   **{k: n * m for k, m in CLUSTER_KERNELS.items()},
                                    **{k: 2 * n for k in RESOLVE_KERNELS},
                                    "quadfit_search": n}
 
@@ -617,6 +622,50 @@ def test_cluster_kernels_refuse_what_they_do_not_take(cuda):
                                                 min_cluster_pixels=24)
 
 
+@pytest.mark.parametrize("name", list(SORT_ROWS))
+def test_radix_passes_on_synthetic_rows(cuda, name):
+    """chip_smoke.py phase 23's synthetic rows of kept pairs: the radix
+    passes against numpy's stable argsort and each against its plain
+    version, two calls and a captured replay equal."""
+    check_sort_row(name, cuda)
+
+
+@pytest.mark.parametrize("name", SORT_FRAMES)
+def test_sort_kernels_on_synthetic_frames(cuda, name):
+    """chip_smoke.py phase 23's synthetic frames: the compaction and the
+    radix passes, each kernel against its plain version, the rows against
+    torch.sort of the padded row, two calls and a captured replay equal."""
+    check_sort_frame(name, cuda)
+
+
+def test_sort_kernels_refuse_what_they_do_not_take(cuda):
+    tri = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
+    dense = tri.to(torch.int32)
+    ne = cluster_kernels.edge_count(tri, dense)
+    with pytest.raises(ValueError, match="num_edge"):
+        cluster_kernels.pair_count(tri, dense, ne[:1], 512)
+    with pytest.raises(ValueError, match="budget"):
+        cluster_kernels.pair_count(tri, dense, ne, 1)
+    tiles = cluster_kernels.pair_count(tri, dense, ne, 512)
+    with pytest.raises(ValueError, match="counts"):
+        cluster_kernels.pair_write(tri, dense, ne, tiles._replace(counts=tiles.counts[:1]), 512)
+    with pytest.raises(ValueError, match="E="):
+        cluster_kernels.pair_write(tri, dense, ne, tiles, 4 * 16 * 16 + 1)
+    rows = cluster_kernels.pair_write(tri, dense, ne, tiles, 512)
+    with pytest.raises(ValueError, match="pass"):
+        cluster_kernels.radix_scatter(rows, tiles, 4, E=512)
+    with pytest.raises(ValueError, match="reads"):
+        cluster_kernels.radix_scatter(rows, tiles, 0, E=512, out=(rows.key, rows.pay))
+    with pytest.raises(ValueError, match="pay"):
+        cluster_kernels.radix_scatter(rows._replace(pay=rows.pay.to(torch.int64)), tiles, 0,
+                                      E=512)
+    rows = cluster_kernels.radix_scatter(rows, tiles, 0, E=512)
+    assert int(tiles.kept.sum()) == 0
+    top = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="pay_s"):
+        cluster_kernels.slot_moments(rows.pay.to(torch.int64), top, top, 64)
+
+
 @pytest.mark.parametrize("name", list(SEGMENT_ROWS))
 def test_segment_kernels_on_synthetic_rows(cuda, name):
     """chip_smoke.py phase 23's synthetic sorted keys: the two segment
@@ -692,6 +741,14 @@ def test_count_kernel_cases(cuda, name):
     kernel against count_plain, one launch, two calls and a captured replay
     equal."""
     check_count_case(name, cuda)
+
+
+@pytest.mark.parametrize("name", list(COUNT_CASES))
+def test_map_kernel_cases(cuda, name):
+    """chip_smoke.py phase 24's count cases through the map kernel (its
+    vector and scalar instances at 4 and 16 pixels a thread) against
+    map_plain, one launch, two calls and a captured replay equal."""
+    check_map_case(name, cuda)
 
 
 def test_resolve_kernels_refuse_what_they_do_not_take(cuda):
