@@ -134,7 +134,9 @@ non-zero):
      the rig, the stream at depth 2, phase 21's two calls), each warm and
      run once under torch.profiler, whose count of each kernel by name
      must equal the launch counters' and the expected counts, with no
-     cummax kernel among them;
+     cummax kernel among them; and the contraction and the final resolve
+     alone at the same two shapes, eager, with no torch sort, scan or
+     scatter/gather kernel (RESOLVE_LIBRARY_NAMES) among theirs;
  23. cluster moments: the cluster-moment kernels (csrc/cluster_moments.cu:
      the pair count, the kept pairs' compaction (count and write kernels)
      and radix sort (SORT_PASSES launches of the scatter kernel), the two
@@ -165,19 +167,27 @@ non-zero):
      torch.sort of the padded row, of the sort (the compaction and the
      passes with their memset) against torch.sort and its bound, and of the
      stage (kernel path, the plain version's one-hot formulation);
- 24. resolve: the four resolve kernels (csrc/resolve.cu: count, tile sums,
-     scan, map) on the phase-1 and phase-2 labels of torch_bench.py's 720p
-     b1 and 1080p b8 inputs, the 1080p b8 input at R = RESOLVE_SMALL_R, a
-     speckle batch whose phase-1 groups pass R, and synthetic flat frames
-     for the twin's slot R - 1 and its R = 65536 clamp (and the count and
-     map kernels alone on COUNT_CASES: one label a frame, speckle, labels at
-     S - 1 and out of range, rows that take their scalar path): the
-     contraction, the rank-mode and the flat-mode resolve against the twin
-     bit for bit on every field, one launch of each kernel a call, two
-     calls and a captured replay equal, each kernel against its plain
-     version bit for bit; device ms of each kernel (its plain version, its bound, one
-     library call computing the same function; the map's share of its bound
-     beside its gather) and of the stage against the twin;
+ 24. resolve: the six resolve kernels (csrc/resolve.cu: count, tile sums,
+     scan, slots, dense, map) on the phase-1 and phase-2 labels of
+     torch_bench.py's 720p b1 and 1080p b8 inputs, the 1080p b8 input at
+     R = RESOLVE_SMALL_R, a speckle batch whose phase-1 groups pass R,
+     synthetic flat frames for the twin's slot R - 1 and its R = 65536
+     clamp, and SLOT_ROWS' frames (see slot_rows: root slots no slot maps
+     to, more groups than R, R = 65536, more than _KMAX eligible
+     components, long chains, labels and rank-table pixels out of range, an
+     empty frame beside a full one, cycles walked past R + 1 hops) (and the
+     count and map kernels alone on COUNT_CASES: one label a frame, speckle,
+     labels at S - 1 and out of range, rows that take their scalar path):
+     the contraction, the rank-mode and the flat-mode resolve against the
+     twin bit for bit on every field, one launch of each kernel a call (the
+     dense kernel only in a final resolve), two calls and a captured replay
+     equal, each kernel against its plain version bit for bit, the slots
+     and dense kernels' tables against the parent's form (parent_slots_form,
+     parent_dense_form: pointer doubling and the roots' sort); device ms of
+     each kernel (its plain version, its bound, one library call computing
+     the same function where there is one, the parent's form for the slots
+     and dense kernels; the map's share of its bound beside its gather) and
+     of the stage against the twin;
  25. quad fit: the search kernel (csrc/quadfit.cu) on the cluster moments
      of torch_bench.py's 720p b1 and 1080p b8 inputs, of node-720p-b1's
      frame 23 at seed 1 (the capacity edge), of a blank 1080p b8 batch (no
@@ -191,7 +201,8 @@ non-zero):
      torch.bmm a table), and of the stage (on the kernel, on the plain
      search, in the parent's selector form).
 Every path launches K1 once, K2 and K3 once a scan round, each resolve
-kernel once a resolve call (twice in the two-phase flow), each cluster
+kernel once a resolve call (twice in the two-phase flow) but the dense
+kernel, once a final resolve, each cluster
 kernel once a call but the radix scatter, once a pass (CLUSTER_KERNELS),
 and the quad-fit search once a call. A path counted on an eager
 call reads the wrappers' counters, which each wrapper adds to where it
@@ -270,7 +281,8 @@ KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "segment_top": "cm_seg_top_kernel", "moments": "cm_moments_kernel",
                 "resolve_count": "resolve_count_kernel",
                 "resolve_tiles": "resolve_tile_sums_kernel",
-                "resolve_scan": "resolve_scan_kernel", "resolve_map": "resolve_map_kernel",
+                "resolve_scan": "resolve_scan_kernel", "resolve_slots": "resolve_slots_kernel",
+                "resolve_dense": "resolve_dense_kernel", "resolve_map": "resolve_map_kernel",
                 "quadfit_search": "qf_search_kernel"}
 SORT_PASSES = 4               # radix passes of the cluster stage's sort (ops/cluster_moments.py)
 # The cluster kernels' launches a detect call: each once, the radix scatter
@@ -283,6 +295,10 @@ CLUSTER_KERNELS = {"edge_count": 1, "pair_count": 1, "pair_write": 1,
 # none of which the cluster stage may launch on backend 'cuda'.
 LIBRARY_SORT_NAMES = ("sort", "select", "nonzero", "cub::")
 CUMMAX_KERNEL = "dim_with_indices"   # torch's cummax/cummin scan kernels' names hold it
+# Substrings of a device kernel's name that mark torch's sort (CUB's radix
+# sort), cumsum and gather/scatter kernels, none of which a resolve call may
+# launch on backend 'cuda'.
+RESOLVE_LIBRARY_NAMES = ("DeviceRadixSort", "scan_innermost_dim", "scatter_gather")
 # Phase 23: tests/test_noise.py's max_clusters=16 scene (640x480, fx 420:
 # two 0.28 m tags at 1.2 m, noise 3), and the slot budget that overflows a
 # 1080p b8 batch's top-C clusters (E2 = 128 x 8 pairs), with a size gate
@@ -357,15 +373,21 @@ SORT_FRAMES = ("an empty frame beside a checkerboard (stride 3)",
                "one key: a black half and a white half", "the largest dense ids",
                "K past E: a checkerboard at E 240 (stride 57)",
                "rows of 94 pixels (the pixel kernels' scalar path)")
-RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan",
-                   "resolve_map")                 # once a resolve call, twice a two-phase call
+# Once a resolve call (twice a two-phase call), but RESOLVE_FINAL_ONLY's,
+# once a final resolve (the contraction does not launch them).
+RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan", "resolve_slots",
+                   "resolve_dense", "resolve_map")
+RESOLVE_FINAL_ONLY = ("resolve_dense",)
 # The reference's XLA code each resolve kernel replaces (it has no Pallas
 # kernel there): the pixel sort whose groups the count finds, the cumsum of
-# group starts, the second sort that compacts the first R groups, and the
+# group starts, the second sort that compacts the first R groups, the
+# chain doubling, the sizes and dense ranks (the sort of the roots), and the
 # packed-cummax broadcast with the unsort.
 RESOLVE_REPLACES = {"resolve_count": "isaac_ros_apriltag_tpu/ops/resolve.py:145",
                     "resolve_tiles": "isaac_ros_apriltag_tpu/ops/resolve.py:150",
                     "resolve_scan": "isaac_ros_apriltag_tpu/ops/resolve.py:156",
+                    "resolve_slots": "isaac_ros_apriltag_tpu/ops/resolve.py:194",
+                    "resolve_dense": "isaac_ros_apriltag_tpu/ops/resolve.py:204",
                     "resolve_map": "isaac_ros_apriltag_tpu/ops/resolve.py:233"}
 # Phase 24: a capacity the 1080p b8 batch overflows, a speckle batch (the
 # tests' random trinary) whose phase-1 groups pass R = N / 8, and flat
@@ -378,10 +400,20 @@ RESOLVE_SPECKLE = dict(shape=(2, 540, 960), p=(0.4, 0.2, 0.4), seed=5)
 RESOLVE_SYNTH_SIDE = 300
 RESOLVE_SLOT_R = 65000
 RESOLVE_SLOT_CASES = ((64999, 0), (64998, 1))
+# Phase 24's synthetic slot rows (slot_rows), each also held on the CPU
+# (tests/test_torch_resolve_slots.py).
+SLOT_ROWS = ("a root slot that no slot maps to, min_component_pixels 0",
+             "more groups than R: slot R - 1 takes minus the rest",
+             "R = 65536: groups past R take slot 65535's dense id",
+             "more than _KMAX eligible components",
+             "a chain longer than 2^s, pixel labels out of range",
+             "rank mode: rank table pixels and labels out of range",
+             "a frame with no valid slot beside a full one",
+             "cycles walked past R + 1 hops")
 RESOLVE_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES) + (
     f"1080p b8, R {RESOLVE_SMALL_R}", "speckle, phase-1 groups past R",
     *(f"slot R - 1, group {g} doubled, R {RESOLVE_SLOT_R}" for g, _ in RESOLVE_SLOT_CASES),
-    "R 65536 clamp, one chain")
+    "R 65536 clamp, one chain", *(f"slot row: {name}" for name in SLOT_ROWS))
 # Phase 24's inputs of the count kernel alone: name -> ((B, N), S, label
 # kind, share of valid pixels); see count_case. N = 518400 is the 1080p
 # segmentation frame; rows of 1001 and 12345 pixels take the kernel's
@@ -571,6 +603,136 @@ def sort_frames(seed: int = 0) -> dict:
              (np.ascontiguousarray(speckle[None, :, :94]),
               np.ascontiguousarray(cells[None, :, :94]), (3 * H * 94) // 4))
     return dict(zip(SORT_FRAMES, cases, strict=True))
+
+
+def _inverted_parents(G: int, a: int, **over) -> np.ndarray:
+    """Each of G groups its own parent but an inverted pair: a -> a + 2, so
+    root slot a + 1 comes before a + 2, whose component's first slot, a,
+    comes before a + 1; `over` sets other groups' parents."""
+    p = np.arange(G)
+    p[a] = a + 2
+    for j, v in over.items():
+        p[int(j)] = v
+    return p
+
+
+def _slot_frame(lab: np.ndarray, out: dict | None = None):
+    """A (2G,) label row as a (1, 2, G) frame and its validity: out = {j: a
+    label for pixel 2j outside the labels' range}, which pixel is then
+    invalid (valid pixels hold labels in range; a parent reads any pixel)."""
+    valid = np.ones(lab.shape, bool)
+    for j, v in (out or {}).items():
+        lab[2 * j], valid[2 * j] = v, False
+    G = lab.shape[0] // 2
+    return lab.reshape(1, 2, G).astype(np.int32), valid.reshape(1, 2, G)
+
+
+def _flat_slots(parents, out=None):
+    """Flat labels of groups 0, 2, .., 2G - 2: pixel 2j + 1 is labelled 2j
+    and pixel 2j holds 2 parents[j], the label group 2j's parent reads, so
+    slot j's parent is slot parents[j]."""
+    G = len(parents)
+    lab = np.empty(2 * G, np.int64)
+    lab[1::2], lab[0::2] = 2 * np.arange(G), 2 * np.asarray(parents)
+    return _slot_frame(lab, out)
+
+
+def _ranked_slots(parents, R: int, table_out: dict, out: dict):
+    """Rank labels 0 .. G - 1: pixel 2v + 1 is labelled v, pixel 2v parents[v]
+    and rank_table[v] = 2v (table_out = {v: a pixel outside the frame})."""
+    G = len(parents)
+    lab = np.empty(2 * G, np.int64)
+    lab[1::2], lab[0::2] = np.arange(G), parents
+    table = np.zeros(R, np.int64)
+    table[:G] = 2 * np.arange(G)
+    for v, px in table_out.items():
+        table[v] = px
+    return (*_slot_frame(lab, out), table[None].astype(np.int32))
+
+
+def slot_rows() -> dict:
+    """SLOT_ROWS -> (labels (B, 2, G) int32, valid (B, 2, G) bool, R, chain
+    steps, min_component_pixels, rank table (B, R) int32 or None): frames
+    whose slot tables reach the slots and dense kernels' edges, each with an
+    inverted pair (see _inverted_parents), so components ranked by their
+    first slot, not their root slot, come out in another order."""
+    G = (1 << 16) + 50
+    tail = _inverted_parents(G, 7)
+    tail[10:] = np.arange(10, G) % 7         # slot 65535's root is slot 1
+    chain = {str(j): j - 1 for j in range(1, 41)}
+    # More groups than R, a second frame whose slots all share root slot 0:
+    # its total is exactly 0 (slot R - 1 takes minus the rest, not its own
+    # pixels too), under the gate of 1.
+    over = [np.concatenate(a) for a in zip(_flat_slots(_inverted_parents(38, 10, **{"31": 3})),
+                                          _flat_slots(np.zeros(38, np.int64)))]
+    lab, valid = _flat_slots(_inverted_parents(20, 2, **{"15": 5}))
+    lab, valid = np.repeat(lab, 2, 0), np.repeat(valid, 2, 0)
+    valid[0] = False
+    ranks, rvalid, table = _ranked_slots(_inverted_parents(20, 3), 32, {7: -3, 9: 44},
+                                         {11: -5, 12: 39})
+    rows = [
+        (*_flat_slots(_inverted_parents(9, 6, **{str(j): j - 1 for j in range(1, 6)})),
+         16, 1, 0, None),
+        (*over, 32, 3, 1, None),
+        (*_flat_slots(tail), 1 << 16, 2, -(1 << 30), None),
+        (*_flat_slots(_inverted_parents(40000, 0)), 40000, 2, 1, None),
+        (*_flat_slots(_inverted_parents(48, 41, **chain), out={45: -5, 46: 10 ** 6}),
+         64, 3, 2, None),
+        (ranks, rvalid, 32, 3, 1, table),
+        (lab, valid, 16, 3, 2, None),
+        (*_flat_slots(_inverted_parents(12, 8, **{"2": 3, "3": 2, "4": 5, "5": 6, "6": 4})),
+         8, 6, 1, None)]
+    return dict(zip(SLOT_ROWS, rows, strict=True))
+
+
+def parent_slots_form(lab, inv, D, n_groups, steps: int, rank_table=None, cnt=None):
+    """The torch ops that resolve_slots_kernel replaced (ops/resolve.py's
+    table functions between scan and map before it, up to the roots' sort):
+    each slot's parent doubled `steps` times (_pointer_double). Without cnt
+    the contraction's (map table, overflow); with cnt the final resolve's
+    (root labels, slot sizes with slot R - 1's rule, converged)."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
+
+    B, N = lab.shape
+    R, S = D.shape[1], inv.shape[1] - 1
+    dev = lab.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    ng = n_groups.to(torch.int64)
+    ks = torch.arange(R, device=dev)
+    kvalid = ks < ng[:, None]
+    Dl = D.to(torch.int64)
+    label_k = Dl if rank_table is None else torch.gather(
+        torch.cat([rank_table.to(torch.int64), torch.full((B, 1), N, **i64)], 1), 1, Dl)
+    parx = plain._slot_parents(lab, inv, torch.where(kvalid, label_k, N), R)
+    parx, prev = plain._pointer_double(parx, steps)
+    if cnt is None:
+        return (torch.cat([parx[:, :R] & 0xFFFF, torch.full((B, 1), R, **i64)], 1)
+                .to(torch.int32), n_groups > R)
+    cnt_k = torch.where(kvalid, torch.gather(cnt, 1, Dl.clamp(max=S - 1)).to(torch.int64), 0)
+    last = torch.where(ng > R, -cnt_k[:, :R - 1].sum(-1), cnt_k[:, R - 1])
+    cnt_k = torch.cat([cnt_k[:, :R - 1], last[:, None]], 1)
+    Dx = torch.cat([Dl, torch.full((B, 1), S, **i64)], 1)
+    root = torch.where(kvalid, torch.gather(Dx, 1, parx[:, :R]), S)
+    return root, cnt_k, torch.all(parx == prev, -1)
+
+
+def parent_dense_form(root, cnt_k, n_groups, sent: int, min_component_pixels: int):
+    """The torch ops that resolve_dense_kernel replaced: the sizes, gate and
+    dense ranks by the stable sort of the root labels and its cumsums
+    (_dense_ranks), the R = 65536 tail and the map table: (table,
+    n_eligible, overflow)."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
+
+    B, R = root.shape
+    dense_k, n_eligible = plain._dense_ranks(root, cnt_k, sent, min_component_pixels)
+    tail = (dense_k[:, (1 << 16) - 1:] if R == 1 << 16 else
+            torch.full((B, 1), plain._KMAX, dtype=torch.int64, device=root.device))
+    return (torch.cat([dense_k, tail], 1).to(torch.int32), n_eligible,
+            (n_groups > R) | (n_eligible > plain._KMAX))
 
 
 def count_case(name: str, seed: int = 0):
@@ -979,12 +1141,17 @@ def _device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bytes_ms(n: int) -> float:
+    """The least ms the card could take to move n bytes, at HBM_BYTES_PER_S."""
+    return n / HBM_BYTES_PER_S * 1e3
+
+
 def _bound_ms(*tensors) -> float:
     """The least time the card could take to read each input once and write
     each output once, at HBM_BYTES_PER_S. The kernels do a few integer
     operations a pixel, far under the card's rate for them, so bytes bound
     them."""
-    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
+    return _bytes_ms(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def ptxas_usage(log: str) -> dict:
@@ -1012,12 +1179,21 @@ def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict
     """The launches of `frames` detect calls (or batched calls) of `rounds`
     scan rounds and `resolves` resolve calls each (2 in the two-phase flow,
     the contraction and the final resolve; 1 in the flat and jumps flows):
-    K1 once, K2 and K3 once a round, the four resolve kernels once a resolve
-    call, the cluster kernels as CLUSTER_KERNELS counts them and the
-    quad-fit search once."""
+    K1 once, K2 and K3 once a round, the resolve kernels once a resolve call
+    (RESOLVE_FINAL_ONLY's once, in the final resolve), the cluster kernels
+    as CLUSTER_KERNELS counts them and the quad-fit search once."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
             **{k: n * frames for k, n in CLUSTER_KERNELS.items()},
-            **{k: resolves * frames for k in RESOLVE_KERNELS}, "quadfit_search": frames}
+            **{k: (1 if k in RESOLVE_FINAL_ONLY else resolves) * frames
+               for k in RESOLVE_KERNELS}, "quadfit_search": frames}
+
+
+def _resolve_want(call: str) -> dict:
+    """The launches of one resolve call alone: 'roots_rank' (the
+    contraction) or 'components' (a final resolve)."""
+    return {k: int(k in RESOLVE_KERNELS and (call == "components"
+                                             or k not in RESOLVE_FINAL_ONLY))
+            for k in _want()}
 
 
 def _reset_launches() -> None:
@@ -1054,15 +1230,15 @@ def _profiled_kernels(prof) -> dict:
 
 
 @contextlib.contextmanager
-def _counted(what: str):
+def _counted(what: str, banned: tuple = ()):
     """Counts the kernels' launches in the block: yields a dict that, after
     the block, holds each kernel's count (every count is set to 0 before the
     block). torch.profiler watches the block, and the count it sees of each
     kernel by name must equal its wrapper's count (a replayed graph's counts
     are added by capture.GraphedCall, not by a wrapper), and no cummax
     kernel (torch's scans with indices, which the resolve kernels replace)
-    may run, else it raises. Used in a fresh process only
-    (profiled_replays)."""
+    nor one whose name holds one of `banned` may run, else it raises. Used
+    in a fresh process only (profiled_replays)."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
@@ -1077,6 +1253,9 @@ def _counted(what: str):
     cummax = [n for n in _device_kernels(prof) if CUMMAX_KERNEL in n]
     if cummax:
         raise AssertionError(f"{what}: {len(cummax)} cummax kernels ran ({cummax[0]})")
+    ran = sorted({n for n in _device_kernels(prof) if any(b in n for b in banned)})
+    if ran:
+        raise AssertionError(f"{what}: kernels it may not launch ran: {ran[:3]}")
 
 
 def oracle_phase(cfg, cam_dev, frames8, bscenes, tri8, gpu: str, two_phase_fn) -> dict:
@@ -2057,7 +2236,8 @@ def resolve_cases(dev) -> dict:
     the flat-mode resolve (phase-1 labels); the synthetic flat frames of
     RESOLVE_SLOT_CASES and the R = 65536 clamp frame (labels max(p - 1, 0),
     one chain: with min_component_pixels 0 every group's dense id is 0,
-    also past group 65535)."""
+    also past group 65535); SLOT_ROWS' frames, the final resolve and (flat
+    rows) the contraction."""
     import dataclasses
 
     import torch
@@ -2103,17 +2283,27 @@ def resolve_cases(dev) -> dict:
         ("components", dict(min_component_pixels=0, max_components=1 << 16, chain_steps=17),
          lab, ones, dict(dense=0)),
         ("roots_rank", dict(max_components=1 << 16, chain_steps=17), lab, ones, {})])
+    for lab, valid, R, steps, min_px, table in slot_rows().values():
+        lab, valid = torch.from_numpy(lab).to(dev), torch.from_numpy(valid).to(dev)
+        kw = dict(min_component_pixels=min_px, max_components=R, chain_steps=steps)
+        if table is not None:
+            kw["rank_table"] = torch.from_numpy(table).to(dev)
+        cases.append([("components", kw, lab, valid, {})] + (
+            [("roots_rank", dict(max_components=R, chain_steps=steps), lab, valid, {})]
+            if table is None else []))
     return dict(zip(RESOLVE_CASE_NAMES, cases, strict=True))
 
 
 def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) -> dict:
     """One resolve call of phase 24: the kernel path against the twin bit
     for bit (every field; `facts`' n_eligible or dense id where given), one
-    launch of each resolve kernel, two calls and a captured replay equal,
-    and each kernel against its plain version on the inputs the call gave
-    it. Raises on a difference; returns the kernels' inputs and outputs
-    (`log`), each kernel's largest difference from its plain version
-    (`errs`), the results and the stage and twin as functions."""
+    launch of each resolve kernel (_resolve_want), two calls and a captured
+    replay equal, each kernel against its plain version on the inputs the
+    call gave it, and the slots and dense kernels' tables against the
+    parent's form. Raises on a difference; returns the kernels' inputs and
+    outputs (`log`), each launched kernel's largest difference from its
+    plain version (`errs`), the results and the stage and twin as
+    functions."""
     from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
 
@@ -2132,7 +2322,7 @@ def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) 
     def stage():
         return kern_fn(lab, valid, **kw)
 
-    one = {k: int(k in RESOLVE_KERNELS) for k in _want()}
+    one = _resolve_want(call)
     _reset_launches()
     got = stage()
     counts = _launches()
@@ -2150,20 +2340,35 @@ def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) 
     if not all(_same(a, b) for a, b in zip(stage(), got)):
         raise AssertionError(f"resolve {call}, {what}: two calls differ")
     _replay_equals(stage, got, f"resolve {call}, {what}")
-    passes = plain.TablePasses(recorded("count", rk.count), recorded("scan", rk.scan),
-                               recorded("map", rk.map_pixels))
+    passes = plain.TablePasses(*(recorded(n, f) for n, f in (
+        ("count", rk.count), ("scan", rk.scan), ("slots", rk.slots), ("dense", rk.dense),
+        ("map", rk.map_pixels))))
     if not all(_same(a, b) for a, b in zip(tables(lab, valid, passes=passes, **kw), got)):
         raise AssertionError(f"resolve {call}, {what}: the recorded passes differ")
     (cl, cv, S), cnt = log["count"]
     (_, R), (inv, D, n_groups) = log["scan"]
+    sargs, slotted = log["slots"]
     (_, _, _, table, fill), mapped = log["map"]
     tsum = rk.tile_sums(cnt)
     log["tiles"] = ((cnt,), tsum)
+    splain = plain.slots_plain(*sargs)
     checks = {"resolve_count": [(cnt, plain.count_plain(cl, cv, S))],
               "resolve_tiles": [(tsum, plain.tile_sums_plain(cnt))],
               "resolve_scan": list(zip(rk.scan_ranks(cnt, tsum, R), plain.scan_plain(cnt, R)))
               + list(zip((inv, D, n_groups), plain.scan_plain(cnt, R))),
+              "resolve_slots": list(zip(slotted, splain)) + list(zip(rk.slots(*sargs), splain)),
               "resolve_map": [(mapped, plain.map_plain(cl, cv, inv, table, fill))]}
+    parent = parent_slots_form(*sargs)
+    if rank:
+        tabled = slotted
+    else:
+        dargs, tabled = log["dense"]
+        dplain = plain.dense_plain(*dargs)
+        checks["resolve_dense"] = list(zip(tabled, dplain)) + list(zip(rk.dense(*dargs), dplain))
+        parent = (*parent_dense_form(parent[0], parent[1], n_groups, S, dargs[3]), parent[2])
+    if not all(_same(a, b) for a, b in zip(tabled, parent, strict=True)):
+        raise AssertionError(f"resolve {call}, {what}: the slot tables differ from the parent's "
+                             f"form")
     errs = {}
     for k, pairs in checks.items():
         errs[k] = max(_max_abs_err(a, b) for a, b in pairs)
@@ -2228,8 +2433,10 @@ def check_map_case(name: str, dev) -> float:
 
 
 def resolve_times(c: dict) -> dict:
-    """Device ms of each resolve kernel (kernel, plain version, bound,
-    library call) on one call's inputs (check_resolve_call's `log`)."""
+    """Device ms of each resolve kernel the call launched (kernel, plain
+    version, bound, library call; for the slots and dense kernels the
+    parent's form of their step, `parent_ms`) on one call's inputs
+    (check_resolve_call's `log`)."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
@@ -2240,7 +2447,17 @@ def resolve_times(c: dict) -> dict:
     (_, R), (inv, D, n_groups) = log["scan"]
     (_, _, _, table, fill), mapped = log["map"]
     tsum = log["tiles"][1]
+    sargs, slotted = log["slots"]
     B = cl.shape[0]
+    # The slots kernel needs, a valid slot, its label (D), the pixel label
+    # its parent reads, that label's slot (inv) and in rank mode the rank
+    # table's pixel, in the final resolve its count; the frames' group
+    # counts; and writes its outputs. The memo is scratch of the design.
+    nv = int(torch.clamp(n_groups, max=R).sum())
+    rank_table, slot_cnt = (tuple(sargs) + (None, None))[5:7]
+    per_slot = 4 * (3 + (rank_table is not None) + (slot_cnt is not None))
+    slots_ms = _bytes_ms(nv * per_slot + n_groups.numel() * 4
+                         + sum(t.numel() * t.element_size() for t in slotted))
     # The library yardsticks: one scatter_add_ of the pixels' keys, one
     # cumsum of the presence table, one gather of a per-label table.
     key = torch.where(cv & (cl >= 0) & (cl < S), cl.to(torch.int64), S)
@@ -2262,10 +2479,21 @@ def resolve_times(c: dict) -> dict:
                         lambda: plain.map_plain(cl, cv, inv, table, fill),
                         _bound_ms(cl, cv, inv, table, mapped), lambda: torch.gather(lut, 1, pix)),
     }
+    timed["resolve_slots"] = (lambda: rk.slots(*sargs), lambda: plain.slots_plain(*sargs),
+                              slots_ms, None)
+    parent = {"resolve_slots": lambda: parent_slots_form(*sargs)}
+    if "dense" in log:
+        dargs, dense_out = log["dense"]
+        timed["resolve_dense"] = (lambda: rk.dense(*dargs), lambda: plain.dense_plain(*dargs),
+                                  _bound_ms(*dargs[:3], *dense_out), None)
+        root_labels, cnt_k, _ = parent_slots_form(*sargs)
+        parent["resolve_dense"] = lambda: parent_dense_form(root_labels, cnt_k, n_groups, S,
+                                                            dargs[3])
     if not _same(torch.gather(lut, 1, pix).to(torch.int32), mapped):
         raise AssertionError("the map's library yardstick computes another function")
     out = {k: dict(ms=_device_ms(kern, 20), plain_ms=_device_ms(twin, 5), bound_ms=bound,
-                   library_ms=_device_ms(lib, 20) if lib else None)
+                   library_ms=_device_ms(lib, 20) if lib else None,
+                   parent_ms=_device_ms(parent[k], 5) if k in parent else None)
            for k, (kern, twin, bound, lib) in timed.items()}
     # The count's integer atomics follow its runs: maximal spans of one counted label.
     counted = key < S
@@ -2280,7 +2508,9 @@ def resolve_phase(gpu: str) -> dict:
     times at torch_bench.py's two shapes. Returns kernel -> {max_abs_err,
     and for 'b1' (720p) and 'batch8' (1080p): shape, ms, plain_ms,
     bound_ms, library_ms, each summed over a detect call's two resolve
-    calls (the contraction and the rank-mode resolve), and by_call}."""
+    calls (the contraction and the rank-mode resolve; the dense kernel's
+    from the latter alone), parent_ms for the slots and dense kernels, and
+    by_call}."""
     import torch
 
     dev = torch.device("cuda")
@@ -2291,8 +2521,8 @@ def resolve_phase(gpu: str) -> dict:
         facts = []
         for call, kw, lab, valid, expect in calls:
             c = check_resolve_call(name, call, dict(kw), lab, valid, expect)
-            for k in RESOLVE_KERNELS:
-                out[k]["max_abs_err"] = max(out[k]["max_abs_err"], c["errs"][k])
+            for k, e in c["errs"].items():
+                out[k]["max_abs_err"] = max(out[k]["max_abs_err"], e)
             mode = ("contraction" if call == "roots_rank" else
                     "rank mode" if "rank_table" in kw else "flat mode")
             (_, _, S), _ = c["log"]["count"]
@@ -2311,11 +2541,13 @@ def resolve_phase(gpu: str) -> dict:
             tag = "b1" if batch == 1 else f"batch{batch}"
             for k, t in resolve_times(c).items():
                 acc = out[k].setdefault(tag, dict(shape=list(lab.shape), ms=0.0, plain_ms=0.0,
-                                                  bound_ms=0.0, library_ms=None, by_call={}))
+                                                  bound_ms=0.0, library_ms=None, parent_ms=None,
+                                                  by_call={}))
                 for f in ("ms", "plain_ms", "bound_ms"):
                     acc[f] += t[f]
-                if t["library_ms"] is not None:
-                    acc["library_ms"] = (acc["library_ms"] or 0.0) + t["library_ms"]
+                for f in ("library_ms", "parent_ms"):
+                    if t[f] is not None:
+                        acc[f] = (acc[f] or 0.0) + t[f]
                 acc["by_call"][mode] = t
         lines.append(f"{name}: " + "; ".join(facts))
     for name in COUNT_CASES:
@@ -2325,8 +2557,10 @@ def resolve_phase(gpu: str) -> dict:
                                                 check_map_case(name, dev))
     torch.cuda.synchronize()
     print(f"[24 resolve] the kernel path (one launch of each of {list(RESOLVE_KERNELS)} a "
-          f"resolve call) against the twin bit for bit on every field, two calls and a captured "
-          f"replay equal, each kernel against its plain version bit for bit: "
+          f"resolve call, {list(RESOLVE_FINAL_ONLY)} only in a final resolve) against the twin "
+          f"bit for bit on every field, two calls and a captured replay equal, each kernel "
+          f"against its plain version bit for bit, the slots and dense kernels' tables equal to "
+          f"the parent's form: "
           + " | ".join(lines) + f"; the count and map kernels alone on {list(COUNT_CASES)}: equal "
           f"to count_plain and map_plain, one launch, two calls and a captured replay equal; on "
           f"{gpu}: device "
@@ -2336,6 +2570,10 @@ def resolve_phase(gpu: str) -> dict:
           + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
                       f"{v[t]['bound_ms']:.4f} / {v[t]['library_ms']}"
                       for k, v in out.items() for t in ("b1", f"batch{BATCH}"))
+          + "; the slots and dense kernels against the parent's form of their step (kernel / "
+          "parent ms) " + ", ".join(f"{k} {t}: {out[k][t]['ms']:.4f} / {out[k][t]['parent_ms']:.4f}"
+                                    for k in ("resolve_slots", "resolve_dense")
+                                    for t in ("b1", f"batch{BATCH}"))
           + "; resolve_map against its gather (kernel / gather ms, share of bound) "
           + ", ".join(f"{t}: {out['resolve_map'][t]['ms']:.4f} / "
                       f"{out['resolve_map'][t]['library_ms']:.4f}, "
@@ -2656,7 +2894,9 @@ def profiled_replays() -> dict:
     of each path whose counts come from graph replays (phase 4's Detector
     on three frames, phase 11's rig, phase 12's stream at depth 2, phase
     21's 720p b1 and 1080p b8 calls), each warm (an eager call, then the
-    capture) and counted under torch.profiler (_counted). Returns the
+    capture) and counted under torch.profiler (_counted); then the
+    contraction and the final resolve alone on those two inputs, eager and
+    warm, where no kernel of RESOLVE_LIBRARY_NAMES may run. Returns the
     counts by path."""
     import torch
 
@@ -2693,6 +2933,20 @@ def profiled_replays() -> dict:
         with _counted(f"captured b{batch}") as out[f"captured_b{batch}"]:
             fn(inputs[2])
         del fn
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+    for config, batch in CAPTURE_CASES:
+        bcfg, _, inputs = bench_inputs(config, batch, dev, calls=1)
+        valid, lab1, lab2, table, R, _ = labels_of(bcfg, front_trinary(bcfg, inputs[0]))
+        calls = {"roots_rank": lambda: rk.resolve_roots_rank(
+                     lab1, valid, max_components=R, chain_steps=bcfg.ccl_contraction_steps),
+                 "components": lambda: rk.resolve_components(
+                     lab2, valid, min_component_pixels=bcfg.min_component_pixels,
+                     max_components=R, chain_steps=bcfg.ccl_resolve_steps, rank_table=table)}
+        for call, fn in calls.items():
+            fn()
+            with _counted(f"resolve {call} b{batch}", RESOLVE_LIBRARY_NAMES) as out[
+                    f"resolve_{call}_b{batch}"]:
+                fn()
     return out
 
 
@@ -2715,13 +2969,16 @@ def profiled_replays_phase(gpu: str) -> dict:
     one = _want()
     want = {"frame": {k: v * len(SEEDS) for k, v in one.items()}, f"rig{RIG_CAMERAS}": one,
             "stream": {k: v * RIG_CAMERAS for k, v in one.items()},
-            **{f"captured_b{b}": one for _, b in CAPTURE_CASES}}
+            **{f"captured_b{b}": one for _, b in CAPTURE_CASES},
+            **{f"resolve_{call}_b{b}": _resolve_want(call) for _, b in CAPTURE_CASES
+               for call in ("roots_rank", "components")}}
     if got != want:
         raise AssertionError(f"profiled replays: counts {got} != expected {want}")
     torch.cuda.synchronize()
     print(f"[22 profiled replays] in a child process ({time.perf_counter() - t0:.1f} s): "
           f"torch.profiler's count of each kernel by name equals the counters' on the "
-          f"replayed paths: {got}", flush=True)
+          f"replayed paths and on the resolve calls alone, which launch no "
+          f"{list(RESOLVE_LIBRARY_NAMES)} kernel: {got}", flush=True)
     return got
 
 
@@ -3479,6 +3736,8 @@ def main() -> int:
          f"plain_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["plain_ms"],
          f"bound_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["bound_ms"],
          f"library_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["library_ms"],
+         "parent_form_ms": resolve[k]["b1"]["parent_ms"],
+         f"parent_form_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["parent_ms"],
          f"share_batch{BATCH}": (resolve[k][f"batch{BATCH}"]["bound_ms"]
                                  / resolve[k][f"batch{BATCH}"]["ms"])}
         for k in RESOLVE_KERNELS] + [

@@ -22,6 +22,8 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "resolve_count": (resolve, "count_launches"),
                    "resolve_tiles": (resolve, "tiles_launches"),
                    "resolve_scan": (resolve, "scan_launches"),
+                   "resolve_slots": (resolve, "slots_launches"),
+                   "resolve_dense": (resolve, "dense_launches"),
                    "resolve_map": (resolve, "map_launches"),
                    "quadfit_search": (quadfit, "launches")}
 

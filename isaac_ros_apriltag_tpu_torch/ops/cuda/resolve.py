@@ -2,15 +2,18 @@
 
 ``resolve_roots_rank`` and ``resolve_components`` are the CUDA path of the
 resolve stage: the table formulation of ops/resolve.py
-(resolve_roots_rank_tables, resolve_components_tables) with its three
+(resolve_roots_rank_tables, resolve_components_tables) with its five
 passes run by the kernels: ``count`` (one kernel), ``scan`` (the tile-sums
-kernel, ``tile_sums``, then the scan kernel, ``scan_ranks``) and
-``map_pixels`` (one kernel). The R-slot tables between scan and map stay
-torch ops. Each wrapper adds one to its kernel's counter where it launches
-it; on a CPU tensor it runs that pass's plain version (ops/resolve.py::
-count_plain, tile_sums_plain, scan_plain, map_plain), so on the CPU the
-stage functions run the plain composition, bit-exact with the twin. Every
-launch goes on the current stream (the count's table zeroed there by a
+kernel, ``tile_sums``, then the scan kernel, ``scan_ranks``), ``slots``
+(one kernel: the chain walk; the map table in the contraction, root slots
+and totals in the final resolve), ``dense`` (one kernel, the final resolve
+only: the area gate, the dense ranks and the map table) and ``map_pixels``
+(one kernel). Each wrapper adds one to its kernel's counter where it
+launches it; on a CPU tensor it runs that pass's plain version
+(ops/resolve.py:: count_plain, tile_sums_plain, scan_plain, slots_plain,
+dense_plain, map_plain), so on the CPU the stage functions run the plain
+composition, bit-exact with the twin. Every launch goes on the current
+stream (the count's table and the slots' scratch zeroed there by a
 memset), with outputs and scratch allocated here by torch.empty and no host
 sync, so the stage can be captured in a CUDA graph.
 """
@@ -26,6 +29,8 @@ count_launches = 0       # resolve_count_kernel launches made by count
 tiles_launches = 0       # resolve_tile_sums_kernel launches made by tile_sums
 scan_launches = 0        # resolve_scan_kernel launches made by scan_ranks
 map_launches = 0         # resolve_map_kernel launches made by map_pixels
+slots_launches = 0       # resolve_slots_kernel launches made by slots
+dense_launches = 0       # resolve_dense_kernel launches made by dense
 # The map kernel's blocks a launch (about four an SM), past which a block
 # takes every n-th chunk of its frame's pixels.
 MAP_GRID = 528
@@ -160,13 +165,101 @@ def map_pixels(label: torch.Tensor, valid: torch.Tensor, inv: torch.Tensor,
     return out
 
 
-PASSES = plain.TablePasses(count, scan, map_pixels)
+def _check_slot_tables(label: torch.Tensor, inv: torch.Tensor, D: torch.Tensor,
+                       n_groups: torch.Tensor) -> tuple[int, int, int, int]:
+    """Raise on slot tables the slots kernel does not take; return (B, N, S, R)."""
+    if label.device.type != "cuda" or label.ndim != 2 or label.numel() == 0:
+        raise ValueError("label must be a non-empty (B, N) tensor on a CUDA device")
+    if inv.ndim != 2 or D.ndim != 2:
+        raise ValueError("inv and D must be (B, S + 1) and (B, R) tensors")
+    B, N = label.shape
+    S, R = inv.shape[1] - 1, D.shape[1]
+    dev = label.device
+    if B > _lib.MAX_BATCH:
+        raise ValueError(f"batch {B} exceeds the kernels' {_lib.MAX_BATCH} frames")
+    if S < 1 or not 1 <= R <= 1 << 16:
+        raise ValueError(f"table size {S} or capacity {R} out of range")
+    _check("label", label, (B, N), torch.int32, dev)
+    _check("inv", inv, (B, S + 1), torch.int32, dev)
+    _check("D", D, (B, R), torch.int32, dev)
+    _check("n_groups", n_groups, (B,), torch.int32, dev)
+    return B, N, S, R
+
+
+def slots(label: torch.Tensor, inv: torch.Tensor, D: torch.Tensor, n_groups: torch.Tensor,
+          steps: int, rank_table: torch.Tensor | None = None,
+          cnt: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slot tables' chains, as slots_plain: without cnt the contraction's
+    ((B, R + 1) map table, (B,) bool overflow); with cnt ((B, S) label
+    counts) the final resolve's ((B, R) root slots, (B, R + 2) acc)."""
+    global slots_launches
+    if label.device.type == "cpu":
+        return plain.slots_plain(label, inv, D, n_groups, steps, rank_table, cnt)
+    B, N, S, R = _check_slot_tables(label, inv, D, n_groups)
+    dev = label.device
+    if rank_table is not None:
+        _check("rank_table", rank_table, (B, S), torch.int32, dev)
+    if cnt is not None:
+        _check("cnt", cnt, (B, S), torch.int32, dev)
+    if not -2**31 < steps < 2**31:
+        raise ValueError(f"chain steps {steps} out of range")
+    i32 = dict(dtype=torch.int32, device=dev)
+    final = cnt is not None
+    # The walk's memo, then (final resolve) acc; zeroed by the launch.
+    scratch = torch.empty(B * (R + 1) + (B * (R + 2) if final else 0), **i32)
+    out = torch.empty((B, R) if final else (B, R + 1), **i32)
+    ovf = None if final else torch.empty(B, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_resolve_slots(
+            label.data_ptr(), inv.data_ptr(), D.data_ptr(), n_groups.data_ptr(),
+            None if rank_table is None else rank_table.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            None if ovf is None else ovf.data_ptr(), B, N, S, R, int(steps), _stream())
+    _lib.check(status, "apriltag_resolve_slots")
+    slots_launches += 1
+    return (out, scratch[B * (R + 1):].view(B, R + 2)) if final else (out, ovf)
+
+
+def dense(root: torch.Tensor, acc: torch.Tensor, n_groups: torch.Tensor,
+          min_component_pixels: int):
+    """The final resolve's area gate and dense ranks, as dense_plain: ((B, R + 1)
+    int32 map table, (B,) int64 n_eligible, (B,) bool overflow, (B,) bool
+    converged) from slots' (B, R) root slots and (B, R + 2) acc."""
+    global dense_launches
+    if root.device.type == "cpu":
+        return plain.dense_plain(root, acc, n_groups, min_component_pixels)
+    if root.device.type != "cuda" or root.ndim != 2 or root.numel() == 0:
+        raise ValueError("root must be a non-empty (B, R) tensor on a CUDA device")
+    B, R = root.shape
+    dev = root.device
+    if B > _lib.MAX_BATCH or R > 1 << 16:
+        raise ValueError(f"(B, R) = {(B, R)} past the kernel's {_lib.MAX_BATCH} frames "
+                         f"or 65536 slots")
+    _check("root", root, (B, R), torch.int32, dev)
+    _check("acc", acc, (B, R + 2), torch.int32, dev)
+    _check("n_groups", n_groups, (B,), torch.int32, dev)
+    # Totals lie in [-N, N], N < 2^31: a gate past int32 gates the same.
+    gate = max(-2**31, min(int(min_component_pixels), 2**31 - 1))
+    table = torch.empty((B, R + 1), dtype=torch.int32, device=dev)
+    n_eligible = torch.empty(B, dtype=torch.int64, device=dev)
+    overflow, converged = (torch.empty(B, dtype=torch.bool, device=dev) for _ in range(2))
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_resolve_dense(
+            root.data_ptr(), acc.data_ptr(), n_groups.data_ptr(), table.data_ptr(),
+            n_eligible.data_ptr(), overflow.data_ptr(), converged.data_ptr(), B, R, gate,
+            _stream())
+    _lib.check(status, "apriltag_resolve_dense")
+    dense_launches += 1
+    return table, n_eligible, overflow, converged
+
+
+PASSES = plain.TablePasses(count, scan, slots, dense, map_pixels)
 
 
 def resolve_roots_rank(label: torch.Tensor, valid: torch.Tensor, *,
                        max_components: int = 1 << 16, chain_steps: int = 5):
     """ops/resolve.py::resolve_roots_rank's signature and results, bit for
-    bit: the contraction by the count, scan and map kernels."""
+    bit: the contraction by the count, scan, slots and map kernels."""
     return plain.resolve_roots_rank_tables(label, valid, max_components=max_components,
                                            chain_steps=chain_steps, passes=PASSES)
 
@@ -176,8 +269,8 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
                        chain_steps: int = 4,
                        rank_table: torch.Tensor | None = None) -> plain.ResolvedComponents:
     """ops/resolve.py::resolve_components' signature and results (without
-    with_roots), bit for bit: the final resolve by the count, scan and map
-    kernels, in rank mode (with rank_table) or flat mode."""
+    with_roots), bit for bit: the final resolve by the count, scan, slots,
+    dense and map kernels, in rank mode (with rank_table) or flat mode."""
     return plain.resolve_components_tables(
         label, valid, min_component_pixels=min_component_pixels,
         max_components=max_components, chain_steps=chain_steps, rank_table=rank_table,

@@ -24,12 +24,12 @@ How the reference's primitives map to PyTorch:
   - the segmented sum over roots -> ``index_add_`` of int64 counts per group.
 
 Below the twin, the table formulation (resolve_roots_rank_tables,
-resolve_components_tables) gives the same results from count, scan and map
-passes over per-frame label tables, with no N-length sort, cumsum or
-cummax. Its plain passes (count_plain, tile_sums_plain, scan_plain,
-map_plain) are the plain versions of csrc/resolve.cu's kernels, and
-ops/cuda/resolve.py runs it with the kernels (backend 'cuda'); backend
-'torch' runs the twin.
+resolve_components_tables) gives the same results from count, scan, slots,
+dense and map passes over per-frame label tables, with no N-length sort,
+cumsum or cummax, and no sort of the slots. Its plain passes (count_plain,
+tile_sums_plain, scan_plain, slots_plain, dense_plain, map_plain) are the
+plain versions of csrc/resolve.cu's kernels, and ops/cuda/resolve.py runs
+it with the kernels (backend 'cuda'); backend 'torch' runs the twin.
 """
 
 from __future__ import annotations
@@ -326,7 +326,7 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
     return first_frame(out) if single else out
 
 
-# --- the table formulation: count, scan and map passes ----------------------
+# --- the table formulation: count, scan, slots, dense and map passes --------
 #
 # The same results as resolve_roots_rank and resolve_components in rank mode
 # and flat mode, without an N-length sort, cumsum, cummax or unsort. Labels
@@ -336,18 +336,23 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
 #   count  cnt[b, L] = valid pixels labelled L (a pixel pass);
 #   scan   each present label's group rank, capped at R (inv), the first R
 #          present labels in order (D) and the group count (a pass over S);
+#   slots  each slot's parent slot, followed 2^s hops as s pointer
+#          doublings would take it: the contraction's map table, or the
+#          final resolve's root slots and each root slot's pixel total;
+#   dense  (final resolve) the area gate and each root slot's dense id in
+#          root order, and the map's table;
 #   map    each pixel's value from a (B, R + 1) table through inv (a pixel
 #          pass).
-# Between scan and map, everything runs on the (B, R) slot tables as the
-# twin's chain resolution does. The three passes are arguments
-# (TablePasses): PLAIN_PASSES here, the kernels' wrappers in
-# ops/cuda/resolve.py. Valid pixels' labels must lie in [0, S]; a label of
-# S is the twin's sentinel (no group).
+# The five passes are arguments (TablePasses): PLAIN_PASSES here, the
+# kernels' wrappers in ops/cuda/resolve.py. Valid pixels' labels must lie
+# in [0, S]; a label of S is the twin's sentinel (no group).
 
 
 class TablePasses(NamedTuple):
     count: Callable       # (label, valid, S) -> cnt
     scan: Callable        # (cnt, R) -> (inv, D, n_groups)
+    slots: Callable       # (label, inv, D, n_groups, steps[, rank_table, cnt]) -> see slots_plain
+    dense: Callable       # (root, acc, n_groups, min_component_pixels) -> see dense_plain
     map: Callable         # (label, valid, inv, table, fill) -> out
 
 
@@ -406,7 +411,131 @@ def map_plain(label: torch.Tensor, valid: torch.Tensor, inv: torch.Tensor,
     return torch.where(ok, torch.gather(table, 1, r.to(_I64)), fill).to(torch.int32)
 
 
-PLAIN_PASSES = TablePasses(count_plain, scan_plain, map_plain)
+def _slot_parents(lab: torch.Tensor, inv: torch.Tensor, label_k: torch.Tensor,
+                  R: int) -> torch.Tensor:
+    """(B, R + 1) compacted parent map: slot k points at the slot of the
+    label at pixel label_k[b, k] (a flat index; out of [0, N) reads the
+    table's sentinel, S), through inv; the extra slot R points at R."""
+    B, N = lab.shape
+    S = inv.shape[-1] - 1
+    inb = (label_k >= 0) & (label_k < N)
+    par = torch.where(inb, torch.gather(lab, 1, label_k.clamp(0, N - 1)).to(_I64), S)
+    parx = torch.gather(inv, 1, par.clamp(0, S)).to(_I64)
+    return torch.cat([parx, _col(B, R, lab.device)], 1)
+
+
+WALK_CHECK = 16      # hops between slots_plain's checks that every walk has stopped
+
+
+def _walk(f: torch.Tensor, x: torch.Tensor, e: int) -> torch.Tensor:
+    """f^(2^e)(x) for (B, M) starts x into (B, R + 1) parent maps f, by
+    following f as resolve_slots_kernel does: a walk at a fixpoint stays
+    there (every WALK_CHECK hops, the walks stop if all are); after R + 1
+    hops over the R + 1 slots every walk is on a cycle, and the 2^e - (R + 1)
+    hops left are taken modulo its length."""
+    R = f.shape[-1] - 1
+    n = 1 << e
+    for i in range(min(n, R + 1)):
+        y = torch.gather(f, 1, x)
+        if i % WALK_CHECK == WALK_CHECK - 1 and i + 1 < n and torch.equal(y, x):
+            return x
+        x = y
+    if n <= R + 1:
+        return x
+    length, z = torch.ones_like(x), torch.gather(f, 1, x)
+    while bool((away := z != x).any()):
+        length += away
+        z = torch.where(away, torch.gather(f, 1, z), z)
+    pw, sq, q = torch.ones_like(x) % length, torch.full_like(x, 2) % length, e
+    while q:                                        # 2^e modulo each cycle's length
+        if q & 1:
+            pw = pw * sq % length
+        sq, q = sq * sq % length, q >> 1
+    rest = (pw - (R + 1)) % length
+    for j in range(int(rest.max())):
+        x = torch.where(j < rest, torch.gather(f, 1, x), x)
+    return x
+
+
+def slots_plain(lab: torch.Tensor, inv: torch.Tensor, D: torch.Tensor, n_groups: torch.Tensor,
+                steps: int, rank_table: torch.Tensor | None = None,
+                cnt: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slot tables' chains, from (B, N) int32 pixel labels and scan's
+    (inv (B, S + 1), D (B, R), n_groups (B,)): slot k's parent is the slot
+    of the label at pixel D[b, k] (rank_table[b, D[b, k]], (B, S), in rank
+    mode), R for a slot past n_groups and for the extra slot R; each slot
+    follows it 2^s hops, s = max(steps, 1) (the root), which is what s
+    pointer doublings give.
+
+    Without cnt (the contraction): ((B, R + 1) int32 map table, root & 0xFFFF
+    and R at slot R; (B,) bool n_groups > R).
+    With cnt ((B, S) int32 label counts; the final resolve): ((B, R) int32
+    root slots, (B, R + 2) int32 acc): acc[:, :R] each root slot's pixels
+    (a slot's count cnt[D[k]] added at its root; roots R add nothing, and
+    slot R - 1 nothing when n_groups > R), acc[:, R] the counts of slots
+    0 .. R - 2 when n_groups > R (slot R - 1 takes them negated), else 0,
+    and acc[:, R + 1] 1 where some slot's root differs from its 2^(s-1)
+    hops (the chains did not converge), else 0."""
+    B, N = lab.shape
+    R, S = D.shape[1], inv.shape[1] - 1
+    dev = lab.device
+    ks = torch.arange(R, device=dev)
+    kvalid = ks < n_groups.to(_I64)[:, None]
+    Dl = D.to(_I64)
+    label_k = Dl if rank_table is None else torch.gather(rank_table.to(_I64), 1,
+                                                          Dl.clamp(0, S - 1))
+    f = _slot_parents(lab, inv, torch.where(kvalid, label_k, N), R)
+    e = max(steps, 1) - 1
+    half = _walk(f, torch.arange(R + 1, device=dev).expand(B, -1), e)
+    root = _walk(f, half, e)
+    over = n_groups > R
+    if cnt is None:
+        return torch.cat([root[:, :R] & 0xFFFF, _col(B, R, dev)], 1).to(torch.int32), over
+    c = torch.where(kvalid, torch.gather(cnt, 1, Dl.clamp(0, S - 1)).to(_I64), 0)
+    r = root[:, :R]
+    adds = kvalid & (r < R) & ~(over[:, None] & (ks == R - 1))
+    totals = torch.zeros((B, R + 1), dtype=_I64, device=dev)
+    totals.scatter_add_(1, torch.where(adds, r, R), torch.where(adds, c, 0))
+    minus = torch.where(over, c[:, :R - 1].sum(-1), 0)
+    unconverged = (half != root).any(-1).to(_I64)
+    acc = torch.cat([totals[:, :R], minus[:, None], unconverged[:, None]], 1)
+    return r.to(torch.int32), acc.to(torch.int32)
+
+
+def dense_plain(root: torch.Tensor, acc: torch.Tensor, n_groups: torch.Tensor,
+                min_component_pixels: int):
+    """The final resolve's area gate and dense ranks, from slots_plain's
+    (B, R) root slots and (B, R + 2) acc and the (B,) group counts.
+
+    A root slot r < R is a component when some slot's root is r: its total
+    is positive, or it is the root of slot R - 1 when n_groups > R (whose
+    total then takes minus acc[:, R]). It is eligible when its total reaches
+    min_component_pixels. Its dense id is the count of eligible root slots
+    below it (root slots order as the twin's root labels: D increases).
+    Returns ((B, R + 1) int32 map table: each slot's dense id through its
+    root slot, _KMAX where gated out or past _KMAX - 1, slot R taking slot
+    65535's at R = 65536 and _KMAX else; (B,) int64 n_eligible; (B,) bool
+    overflow: n_groups > R or n_eligible > _KMAX; (B,) bool converged)."""
+    B, R = root.shape
+    dev = root.device
+    over = n_groups > R
+    sp = torch.where(over, root[:, R - 1].to(_I64), -1)
+    is_sp = torch.arange(R, device=dev) == sp[:, None]
+    totals = acc[:, :R].to(_I64)
+    present = (totals > 0) | is_sp
+    totals = totals - torch.where(is_sp, acc[:, R:R + 1].to(_I64), 0)
+    eligible = present & (totals >= min_component_pixels)
+    rank = torch.cumsum(eligible.to(_I64), -1) - eligible.to(_I64)
+    dense_r = torch.where(eligible & (rank < _KMAX), rank, _KMAX)
+    rl = root.to(_I64)
+    dense_k = torch.where(rl < R, torch.gather(dense_r, 1, rl.clamp(max=R - 1)), _KMAX)
+    tail = dense_k[:, R - 1:] if R == 1 << 16 else _col(B, _KMAX, dev)
+    n_eligible = eligible.sum(-1)
+    return (torch.cat([dense_k, tail], 1).to(torch.int32), n_eligible,
+            over | (n_eligible > _KMAX), acc[:, R + 1] == 0)
+
+
+PLAIN_PASSES = TablePasses(count_plain, scan_plain, slots_plain, dense_plain, map_plain)
 
 
 def _pixels(label: torch.Tensor, valid: torch.Tensor, R_cap: int | None = None):
@@ -424,35 +553,18 @@ def _pixels(label: torch.Tensor, valid: torch.Tensor, R_cap: int | None = None):
     return lab, valid.reshape(B, N).to(torch.bool).contiguous(), (B, H, W), single, R
 
 
-def _slot_parents(lab: torch.Tensor, inv: torch.Tensor, label_k: torch.Tensor,
-                  R: int) -> torch.Tensor:
-    """(B, R + 1) compacted parent map: slot k points at the slot of the
-    label at pixel label_k[b, k] (a flat index; out of [0, N) reads the
-    table's sentinel, S), through inv; the extra slot R points at R."""
-    B, N = lab.shape
-    S = inv.shape[-1] - 1
-    inb = (label_k >= 0) & (label_k < N)
-    par = torch.where(inb, torch.gather(lab, 1, label_k.clamp(0, N - 1)).to(_I64), S)
-    parx = torch.gather(inv, 1, par.clamp(0, S)).to(_I64)
-    return torch.cat([parx, _col(B, R, lab.device)], 1)
-
-
 def resolve_roots_rank_tables(label: torch.Tensor, valid: torch.Tensor, *,
                               max_components: int = 1 << 16, chain_steps: int = 5,
                               passes: TablePasses = PLAIN_PASSES):
-    """resolve_roots_rank's results, bit for bit, by the count, scan and map
-    passes: rank_img[b, p] = the low 16 bits of the chain-fixpoint slot of
-    p's group when that group's rank is under R, else R (as the twin's
-    packed broadcast and its rank < R mask give it)."""
+    """resolve_roots_rank's results, bit for bit, by the count, scan, slots
+    and map passes: rank_img[b, p] = the low 16 bits of the chain-fixpoint
+    slot of p's group when that group's rank is under R, else R (as the
+    twin's packed broadcast and its rank < R mask give it)."""
     lab, vflat, (B, H, W), single, R = _pixels(label, valid, max_components)
-    N = H * W
-    inv, D, n_groups = passes.scan(passes.count(lab, vflat, N), R)
-    kvalid = torch.arange(R, device=lab.device) < n_groups[:, None]
-    parx = _slot_parents(lab, inv, torch.where(kvalid, D.to(_I64), N), R)
-    parx, _ = _pointer_double(parx, chain_steps)
-    table = torch.cat([parx[:, :R] & 0xFFFF, _col(B, R, lab.device)], 1).to(torch.int32)
+    inv, D, n_groups = passes.scan(passes.count(lab, vflat, H * W), R)
+    table, overflow = passes.slots(lab, inv, D, n_groups, chain_steps)
     rank_img = passes.map(lab, vflat, inv, table, R).reshape(B, H, W)
-    out = rank_img, D, n_groups > R
+    out = rank_img, D, overflow
     return first_frame(out) if single else out
 
 
@@ -462,8 +574,8 @@ def resolve_components_tables(label: torch.Tensor, valid: torch.Tensor, *,
                               rank_table: torch.Tensor | None = None,
                               passes: TablePasses = PLAIN_PASSES) -> ResolvedComponents:
     """resolve_components' results (without with_roots), bit for bit, by the
-    count, scan and map passes. Two of the twin's behaviours on a frame of
-    more than R groups are kept on purpose:
+    count, scan, slots, dense and map passes. Two of the twin's behaviours
+    on a frame of more than R groups are kept on purpose:
       - slot R - 1's size is the twin's difference against the zero pad of
         its start positions: minus the pixels of slots 0 .. R - 2, so that
         slot is never eligible with a positive size gate;
@@ -471,38 +583,21 @@ def resolve_components_tables(label: torch.Tensor, valid: torch.Tensor, *,
         twin's 16-bit group ranks clamp there), else _KMAX."""
     lab, vflat, (B, H, W), single, R = _pixels(label, valid, max_components)
     N = H * W
-    dev = lab.device
     if rank_table is not None:
         rank_table, _ = batch_first(rank_table, 1)
         if rank_table.shape[-1] != R:
             raise ValueError("rank_table capacity mismatch: "
                              f"{rank_table.shape[-1]} != {R}")
+        if rank_table.dtype != torch.int32:        # pixels outside [0, N) all read the sentinel
+            rank_table = rank_table.clamp(-1, N).to(torch.int32)
+        rank_table = rank_table.contiguous()
     SENT = R if rank_table is not None else N       # one past the largest label
     cnt = passes.count(lab, vflat, SENT)
     inv, D, n_groups = passes.scan(cnt, R)
-    ng = n_groups.to(_I64)
-    ks = torch.arange(R, device=dev)
-    kvalid = ks < ng[:, None]
-    D = D.to(_I64)
-    cnt_k = torch.where(kvalid, torch.gather(cnt, 1, D.clamp(max=SENT - 1)).to(_I64), 0)
-    last = torch.where(ng > R, -cnt_k[:, :R - 1].sum(-1), cnt_k[:, R - 1])
-    cnt_k = torch.cat([cnt_k[:, :R - 1], last[:, None]], 1)
-
-    if rank_table is not None:
-        # parent of rank group v = the rank label at v's root pixel.
-        Tp = torch.cat([rank_table.to(_I64), _col(B, N, dev)], 1)
-        parx = _slot_parents(lab, inv, torch.where(kvalid, torch.gather(Tp, 1, D), N), R)
-    else:
-        parx = _slot_parents(lab, inv, torch.where(kvalid, D, N), R)
-    parx, prev = _pointer_double(parx, chain_steps)
-    converged = torch.all(parx == prev, -1)
-    Dx = torch.cat([D, _col(B, SENT, dev)], 1)
-    root = torch.where(kvalid, torch.gather(Dx, 1, parx[:, :R]), SENT)
-    dense_k, n_eligible = _dense_ranks(root, cnt_k, SENT, min_component_pixels)
-
-    tail = dense_k[:, (1 << 16) - 1:] if R == 1 << 16 else _col(B, _KMAX, dev)
-    table = torch.cat([dense_k, tail], 1).to(torch.int32)
+    root, acc = passes.slots(lab, inv, D, n_groups, chain_steps, rank_table, cnt)
+    table, n_eligible, overflow, converged = passes.dense(root, acc, n_groups,
+                                                          min_component_pixels)
     dense = passes.map(lab, vflat, inv, table, _KMAX).reshape(B, H, W)
-    out = ResolvedComponents(dense=dense, n_eligible=n_eligible,
-                             overflow=(ng > R) | (n_eligible > _KMAX), converged=converged)
+    out = ResolvedComponents(dense=dense, n_eligible=n_eligible, overflow=overflow,
+                             converged=converged)
     return first_frame(out) if single else out

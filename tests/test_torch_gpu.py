@@ -30,7 +30,8 @@ import pytest
 import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
-                        LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES, RESOLVE_KERNELS,
+                        LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES,
+                        RESOLVE_FINAL_ONLY, RESOLVE_KERNELS,
                         SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, THRESH_CASES,
                         THRESH_MIN_DIFF, bench_inputs, check_cluster_case, check_count_case,
                         check_map_case, check_quadfit_case, check_resolve_call,
@@ -374,9 +375,10 @@ def test_replay_equals_eager_call(cuda, config, batch, backend):
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_replay_counts_launches(cuda, backend):
     """A replay adds the launches its capture recorded: 1 / 14 / 14, two of
-    each resolve kernel, the cluster kernels' (one of each, one radix
-    scatter a pass) and one quad-fit search
-    for backend 'cuda', none for the twins; the capture itself adds none."""
+    each resolve kernel but the dense kernel's one (the final resolve's),
+    the cluster kernels' (one of each, one radix scatter a pass) and one
+    quad-fit search for backend 'cuda', none for the twins; the capture
+    itself adds none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
     n = 1 if backend == "cuda" else 0
@@ -387,7 +389,8 @@ def test_replay_counts_launches(cuda, backend):
         torch.cuda.synchronize()
         assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n,
                                    **{k: n * m for k, m in CLUSTER_KERNELS.items()},
-                                   **{k: 2 * n for k in RESOLVE_KERNELS},
+                                   **{k: (1 if k in RESOLVE_FINAL_ONLY else 2) * n
+                                      for k in RESOLVE_KERNELS},
                                    "quadfit_search": n}
 
 
@@ -724,10 +727,11 @@ _RESOLVE_CASES = {}
 
 @pytest.mark.parametrize("name", RESOLVE_CASE_NAMES)
 def test_resolve_kernels_match_twin_and_plain_versions(cuda, name):
-    """chip_smoke.py phase 24's checks on one case: each resolve call by the
-    kernels against the twin bit for bit on every field, one launch of each
-    resolve kernel, two calls and a captured replay equal, each kernel
-    against its plain version."""
+    """chip_smoke.py phase 24's checks on one case (SLOT_ROWS' among them):
+    each resolve call by the kernels against the twin bit for bit on every
+    field, one launch of each resolve kernel it runs, two calls and a
+    captured replay equal, each kernel against its plain version, the slots
+    and dense kernels' tables against the parent's form."""
     if not _RESOLVE_CASES:
         _RESOLVE_CASES.update(resolve_cases(cuda))
     for call, kw, lab, valid, facts in _RESOLVE_CASES[name]:
@@ -767,6 +771,18 @@ def test_resolve_kernels_refuse_what_they_do_not_take(cuda):
         resolve_kernels.scan_ranks(cnt, cnt[:, :1], 8)
     with pytest.raises(ValueError, match="capacity"):
         resolve_kernels.scan(cnt, (1 << 16) + 1)
-    inv, _, _ = resolve_kernels.scan(cnt, 8)
+    inv, D, ng = resolve_kernels.scan(cnt, 8)
     with pytest.raises(ValueError, match="table"):
         resolve_kernels.map_pixels(label, valid, inv, inv[:1, :9], 0)
+    with pytest.raises(ValueError, match="D"):
+        resolve_kernels.slots(label, inv, D.to(torch.int64), ng, 3)
+    with pytest.raises(ValueError, match="rank_table"):
+        resolve_kernels.slots(label, inv, D, ng, 3, rank_table=D, cnt=cnt)
+    with pytest.raises(ValueError, match="capacity"):
+        resolve_kernels.slots(label, inv, torch.zeros((2, (1 << 16) + 1), dtype=torch.int32,
+                                                      device=cuda), ng, 3)
+    root, acc = resolve_kernels.slots(label, inv, D, ng, 3, cnt=cnt)
+    with pytest.raises(ValueError, match="acc"):
+        resolve_kernels.dense(root, acc[:, :-1].contiguous(), ng, 1)
+    with pytest.raises(ValueError, match="root"):
+        resolve_kernels.dense(root.cpu().to(torch.int64).cuda(), acc, ng, 1)
