@@ -136,7 +136,9 @@ non-zero):
      must equal the launch counters' and the expected counts, with no
      cummax kernel among them; and the contraction and the final resolve
      alone at the same two shapes, eager, with no torch sort, scan or
-     scatter/gather kernel (RESOLVE_LIBRARY_NAMES) among theirs;
+     scatter/gather kernel (RESOLVE_LIBRARY_NAMES) among theirs; the count
+     of every kernel in phase 21's two replays, and in the same replays
+     with decode and pose in the parent's torch form;
  23. cluster moments: the cluster-moment kernels (csrc/cluster_moments.cu:
      the pair count, the kept pairs' compaction (count and write kernels)
      and radix sort (SORT_PASSES launches of the scatter kernel), the two
@@ -199,12 +201,22 @@ non-zero):
      captured replay equal; device ms of the kernel, its plain version, its
      bound and the library yardstick (the parent's selector arc sums, one
      torch.bmm a table), and of the stage (on the kernel, on the plain
-     search, in the parent's selector form).
+     search, in the parent's selector form);
+ 26. tail: the decode and pose kernels (csrc/tail.cu) on what a detect call
+     of torch_bench.py's 720p b1 and 1080p b8 inputs gives them (the top-2T
+     refined candidates, the top-T tags) and on tail_frame's one-tag frames
+     of all nine families with a blank quad, one past the frame's corner,
+     one outside it, a NaN and a collinear one (also posed), without
+     sharpening, at max_hamming 0, with the largest correctable bit flips,
+     and a batch of three frames posed with a per-frame K: every output
+     bit-exact with the plain version (ops/decode.py, ops/pose.py), one
+     launch a call, two calls and a captured replay equal; device ms of
+     each kernel, its plain version, its bound and the parent's torch form.
 Every path launches K1 once, K2 and K3 once a scan round, each resolve
 kernel once a resolve call (twice in the two-phase flow) but the dense
 kernel, once a final resolve, each cluster
 kernel once a call but the radix scatter, once a pass (CLUSTER_KERNELS),
-and the quad-fit search once a call. A path counted on an eager
+and the quad-fit search, decode and pose once a call. A path counted on an eager
 call reads the wrappers' counters, which each wrapper adds to where it
 launches its kernel; a replay adds the counts its capture recorded
 (capture.GraphedCall), which phase 22 holds against the profiler. The kernels line's `captured` path is phase 22's 720p b1 replay.
@@ -273,7 +285,9 @@ MESH_MAP = (8, 1000, 4000)
 CAPTURE_CASES = (("tag36h11-720p-node", 1), ("tag36h11-1080p-batch", 8))
 CAPTURE_CALLS = 5             # calls kept, each on its own input
 CAPTURE_TURN_CALLS = 20       # calls per timed turn
-# Substrings of the kernels' names in a torch.profiler trace (csrc/*.cu).
+# Substrings of the kernels' names in a torch.profiler trace (csrc/*.cu); a
+# tuple holds alternatives: the tail kernels' names, demangled or mangled,
+# without matching another kernel's (pose_kernel is a tail of transpose_kernel).
 KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "col": "col_diag_kernel", "edge_count": "cm_edge_count_kernel",
                 "pair_count": "cm_pair_count_kernel", "pair_write": "cm_pair_write_kernel",
@@ -283,7 +297,9 @@ KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "resolve_tiles": "resolve_tile_sums_kernel",
                 "resolve_scan": "resolve_scan_kernel", "resolve_slots": "resolve_slots_kernel",
                 "resolve_dense": "resolve_dense_kernel", "resolve_map": "resolve_map_kernel",
-                "quadfit_search": "qf_search_kernel"}
+                "quadfit_search": "qf_search_kernel",
+                "decode": ("::decode_kernel(", "13decode_kernelE"),
+                "pose": ("::pose_kernel(", "11pose_kernelE")}
 SORT_PASSES = 4               # radix passes of the cluster stage's sort (ops/cluster_moments.py)
 # The cluster kernels' launches a detect call: each once, the radix scatter
 # once a pass.
@@ -437,6 +453,29 @@ QUADFIT_REPLACES = "isaac_ros_apriltag_tpu/ops/quadfit.py:56"
 QUADFIT_EDGE = ("tag36h11-720p-node", 23, 1)          # config, frame, seed
 ARC_FLOPS = 12 + 22
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores (data sheet)
+# Phase 26: the tail kernels' cases (see tail_cases) and the reference's XLA
+# code each replaces (no Pallas kernel there). TAIL_FAMILY_TAG: the tag id
+# and pose of phase 26's one-tag frames (tail_frame); TAIL_QUADS: the quads
+# beside the tag there, in the tail frame's 240x320 pixels: a blank patch,
+# one past the frame's corner, and (extra) one wholly outside the frame, one
+# with NaN and infinite corners and a collinear one, whose homography is
+# singular.
+TAIL_REPLACES = {"decode": "isaac_ros_apriltag_tpu/ops/decode.py:105",
+                 "pose": "isaac_ros_apriltag_tpu/ops/pose.py:38"}
+TAIL_K = ((420.0, 0.0, 160.0), (0.0, 420.0, 120.0), (0.0, 0.0, 1.0))
+TAIL_SIZE = (240, 320)
+TAIL_TAG_SIZE = 0.16
+TAIL_QUADS = (((10, 10), (50, 12), (48, 50), (12, 48)),
+              ((-20, 200), (30, 205), (28, 260), (-25, 250)))
+TAIL_EXTRA_QUADS = (((400, -50), (450, -50), (450, -10), (400, -10)),
+                    ((np.nan, 1.0), (np.inf, -np.inf), (1e30, -1e30), (0.0, np.nan)),
+                    ((0.0, 0.0), (1.0, 0.0), (2.0, 0.0), (3.0, 0.0)))
+TAIL_FAMILIES = ("tag36h11", "tag36h10", "tag25h9", "tag16h5", "tagCircle21h7",
+                 "tagCircle49h12", "tagCustom48h12", "tagStandard41h12", "tagStandard52h13")
+TAIL_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES)
+                   + TAIL_FAMILIES + ("tag36h11, no sharpening", "tag36h11, max_hamming 0",
+                                      "tagCircle49h12, 5 bits flipped, max_hamming 5",
+                                      "tag36h11, a batch of 3 frames, per-frame K"))
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -1141,6 +1180,25 @@ def _device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int) -> float:
+    """Device ms a call of fn, captured once in a CUDA graph (after a warm
+    call on a side stream) and timed by _device_ms of the replay: for a form
+    of many small torch ops, whose eager launches overfill the launch queue
+    that _device_ms's spin kernel covers, so that eager it is timed at the
+    host's pace."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _device_ms(graph.replay, iters)
+
+
 def _bytes_ms(n: int) -> float:
     """The least ms the card could take to move n bytes, at HBM_BYTES_PER_S."""
     return n / HBM_BYTES_PER_S * 1e3
@@ -1181,11 +1239,14 @@ def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict
     the contraction and the final resolve; 1 in the flat and jumps flows):
     K1 once, K2 and K3 once a round, the resolve kernels once a resolve call
     (RESOLVE_FINAL_ONLY's once, in the final resolve), the cluster kernels
-    as CLUSTER_KERNELS counts them and the quad-fit search once."""
+    as CLUSTER_KERNELS counts them, the quad-fit search, decode and pose
+    once (a rig whose cameras have their own K poses once a call, outside
+    its graph)."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
             **{k: n * frames for k, n in CLUSTER_KERNELS.items()},
             **{k: (1 if k in RESOLVE_FINAL_ONLY else resolves) * frames
-               for k in RESOLVE_KERNELS}, "quadfit_search": frames}
+               for k in RESOLVE_KERNELS}, "quadfit_search": frames, "decode": frames,
+            "pose": frames}
 
 
 def _resolve_want(call: str) -> dict:
@@ -1226,11 +1287,12 @@ def _device_kernels(prof) -> list[str]:
 def _profiled_kernels(prof) -> dict:
     """How often each kernel ran on the card in a torch.profiler trace, by name."""
     names = _device_kernels(prof)
-    return {k: sum(part in n for n in names) for k, part in KERNEL_NAMES.items()}
+    return {k: sum(any(p in n for p in ((part,) if isinstance(part, str) else part))
+                   for n in names) for k, part in KERNEL_NAMES.items()}
 
 
 @contextlib.contextmanager
-def _counted(what: str, banned: tuple = ()):
+def _counted(what: str, banned: tuple = (), totals: dict | None = None):
     """Counts the kernels' launches in the block: yields a dict that, after
     the block, holds each kernel's count (every count is set to 0 before the
     block). torch.profiler watches the block, and the count it sees of each
@@ -1238,7 +1300,8 @@ def _counted(what: str, banned: tuple = ()):
     are added by capture.GraphedCall, not by a wrapper), and no cummax
     kernel (torch's scans with indices, which the resolve kernels replace)
     nor one whose name holds one of `banned` may run, else it raises. Used
-    in a fresh process only (profiled_replays)."""
+    in a fresh process only (profiled_replays). With `totals`, totals[what]
+    is the count of every kernel that ran on the card in the block."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
@@ -1246,6 +1309,8 @@ def _counted(what: str, banned: tuple = ()):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         yield counts
         counts.update(_launches())
+    if totals is not None:
+        totals[what] = len(_device_kernels(prof))
     seen = _profiled_kernels(prof)
     if seen != counts:
         raise AssertionError(f"{what}: the launch counters say {counts}, torch.profiler saw "
@@ -2816,6 +2881,346 @@ def quadfit_phase(gpu: str) -> dict:
     return out
 
 
+def tail_frame(name: str, flip: int = 0, seed: int = 0, tag_id: int = 3,
+               extra: bool = False):
+    """Phase 26's one-tag frame: a tag of family `name` at 0.5 m seen
+    through TAIL_K (noise 2), its code word with the first `flip` bits
+    flipped. Returns the gray frame (240, 320) and the quads (C, 4, 2),
+    float32: the tag's true corners (0.2 px noise) first, then TAIL_QUADS
+    (and TAIL_EXTRA_QUADS with `extra`)."""
+    import dataclasses
+
+    from isaac_ros_apriltag_tpu_torch.models.families import get_family
+    from isaac_ros_apriltag_tpu_torch.utils.render import (project_corners, render_tags,
+                                                           upright_pose)
+
+    K = np.array(TAIL_K, np.float32)
+    rng = np.random.default_rng(seed)
+    fam = get_family(name)
+    if flip:
+        codes = fam.codes.copy()
+        codes[tag_id] ^= np.uint64(((1 << flip) - 1) << (fam.nbits - flip))
+        fam = dataclasses.replace(fam, codes=codes)
+    t = np.array([rng.uniform(-0.03, 0.03), rng.uniform(-0.03, 0.03), 0.5])
+    R = upright_pose(t, rng.uniform(-0.6, 0.6))
+    gray = render_tags(K, TAIL_SIZE, [dict(family=fam, id=tag_id, R=R, t=t,
+                                           tag_size=TAIL_TAG_SIZE)], noise=2.0, seed=seed)
+    tag = project_corners(K, R, t, TAIL_TAG_SIZE) + rng.normal(0, 0.2, (4, 2))
+    quads = np.array(TAIL_QUADS + (TAIL_EXTRA_QUADS if extra else ()), np.float32)
+    return gray.astype(np.float32), np.concatenate([tag[None], quads]).astype(np.float32)
+
+
+def tail_pose_corners(Ks, n_tags: int, seed: int = 5) -> np.ndarray:
+    """(B, n_tags, 4, 2) float32 corners of tags at random poses (0.4 to
+    1.5 m, in-plane turns up to 0.8 rad) seen through Ks[b], with 0.2 px
+    noise."""
+    from isaac_ros_apriltag_tpu_torch.utils.render import project_corners, upright_pose
+
+    rng = np.random.default_rng(seed)
+    out = np.empty((len(Ks), n_tags, 4, 2), np.float32)
+    for b, K in enumerate(Ks):
+        for i in range(n_tags):
+            t = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.08, 0.08),
+                          rng.uniform(0.4, 1.5)])
+            R = upright_pose(t, rng.uniform(-0.8, 0.8))
+            out[b, i] = project_corners(K, R, t, TAIL_TAG_SIZE) + rng.normal(0, 0.2, (4, 2))
+    return out
+
+
+def detect_tail_inputs(cfg, cam, images) -> dict:
+    """The decode and pose kernels' inputs in an eager detect call of a
+    (B, H, W) uint8 batch on the card, backend 'cuda': {"decode": (gray,
+    the top-2T refined candidates, family, keyword arguments), "pose": (the
+    top-T tags' corners, K, tag size)}."""
+    from unittest import mock
+
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pk
+    from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
+
+    seen = {}
+    decode, pose = dk.decode_quads, pk.estimate_poses
+
+    def seen_decode(gray, corners, family, **kw):
+        seen["decode"] = (gray, corners, family, kw)
+        return decode(gray, corners, family, **kw)
+
+    def seen_pose(corners, K, tag_size):
+        seen["pose"] = (corners, K, tag_size)
+        return pose(corners, K, tag_size)
+
+    with mock.patch.object(dk, "decode_quads", seen_decode), \
+            mock.patch.object(pk, "estimate_poses", seen_pose):
+        batched_detect_fn(cfg, cam, "mono8", capture=False)(images)
+    return seen
+
+
+def tail_cases(dev) -> dict:
+    """Phase 26's inputs, TAIL_CASE_NAMES -> {"decode": (gray, corners,
+    family, keyword arguments), "pose": (corners, K, tag size)} on `dev`:
+    the kernels' inputs in a detect call of torch_bench.py's 720p b1 and
+    1080p b8 inputs (detect_tail_inputs); tail_frame's frame of every family
+    with TAIL_EXTRA_QUADS (its six quads also posed, with TAIL_K); tag36h11
+    without sharpening and at max_hamming 0; tagCircle49h12 with its largest
+    correctable count of bits flipped, at that max_hamming; and a batch of
+    three tag36h11 frames, whose pose takes tail_pose_corners through a
+    (3, 3, 3) K, one per frame."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.models.families import get_family
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    K = on(np.array(TAIL_K, np.float32))
+    cases = {}
+    for config, batch in CAPTURE_CASES:
+        cfg, cam, inputs = bench_inputs(config, batch, dev, calls=1)
+        cases[f"{config} b{batch}"] = detect_tail_inputs(cfg, cam, inputs[0])
+
+    def frame_case(name, frame, **kw):
+        gray, quads = frame
+        return {"decode": (on(gray), on(quads), get_family(name), kw),
+                "pose": (on(quads), K, TAIL_TAG_SIZE)}
+
+    for name in TAIL_FAMILIES:
+        cases[name] = frame_case(name, tail_frame(name, extra=True))
+    sharp0, ham0, flipped, batch = TAIL_CASE_NAMES[len(CAPTURE_CASES) + len(TAIL_FAMILIES):]
+    cases[sharp0] = frame_case("tag36h11", tail_frame("tag36h11", seed=1, extra=True),
+                               decode_sharpening=0.0)
+    cases[ham0] = frame_case("tag36h11", tail_frame("tag36h11", seed=2, extra=True),
+                             max_hamming=0)
+    flip = (get_family("tagCircle49h12").min_hamming - 1) // 2
+    cases[flipped] = frame_case("tagCircle49h12",
+                                tail_frame("tagCircle49h12", flip=flip, seed=2, extra=True),
+                                max_hamming=flip)
+    frames = [tail_frame("tag36h11", seed=s, tag_id=s + 3, extra=True) for s in range(3)]
+    Ks = np.stack([np.array(TAIL_K, np.float32) * np.array([[1 + 0.1 * b], [1 + 0.1 * b], [1]],
+                                                           np.float32) for b in range(3)])
+    cases[batch] = {"decode": (on(np.stack([g for g, _ in frames])),
+                               on(np.stack([q for _, q in frames])), get_family("tag36h11"), {}),
+                    "pose": (on(tail_pose_corners(Ks, 4)), on(Ks), TAIL_TAG_SIZE)}
+    return cases
+
+
+def _parent_homography(src, dst):
+    """The parent's homography_from_correspondences: the 8x8 DLT system by
+    torch.linalg.solve_ex (LAPACK's getrf/getrs on the card)."""
+    import torch
+
+    c = dst.mean(-2, keepdim=True)
+    s = torch.clamp((dst - c).abs().mean((-2, -1)), min=1e-6)
+    dstn = (dst - c) / s[..., None, None]
+    x, y = src[..., 0], src[..., 1]
+    u, v = dstn[..., 0], dstn[..., 1]
+    z, o = torch.zeros_like(x), torch.ones_like(x)
+    A = torch.cat([torch.stack([x, y, o, z, z, z, -u * x, -u * y], -1),
+                   torch.stack([z, z, z, x, y, o, -v * x, -v * y], -1)], -2)
+    h = torch.linalg.solve_ex(A, torch.cat([u, v], -1)[..., None]).result[..., 0]
+    Hn = torch.cat([h, torch.ones_like(h[..., :1])], -1).reshape(*h.shape[:-1], 3, 3)
+    row01 = Hn[..., :2, :] * s[..., None, None] + torch.stack(
+        [c[..., 0, 0], c[..., 0, 1]], -1)[..., None] * Hn[..., 2:3, :]
+    return torch.cat([row01, Hn[..., 2:3, :]], -2)
+
+
+def parent_decode_form(gray, corners, family, *, max_hamming: int = 2,
+                       decode_sharpening: float = 0.25):
+    """The parent's decode_quads, phase 26's yardstick of the stage before
+    its kernel: the same steps as torch ops (einsum homography and gray
+    models, a LAPACK solve, float sums over the cells), ~350 of them."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import decode as D
+    from isaac_ros_apriltag_tpu_torch.utils.geometry import inverse3x3
+
+    dev = corners.device
+    lead = corners.shape[:-2]
+    tab = D._tables(family, dev)
+    H = _parent_homography(tab.square.expand(*lead, 4, 2), corners)
+
+    def sample(uv):
+        ph = torch.cat([uv, torch.ones_like(uv[..., :1])], -1).expand(lead + (uv.shape[0], 3))
+        q = torch.einsum("...ij,...nj->...ni", H, ph)
+        return D._bilinear(gray, q[..., :2] / q[..., 2:3])
+
+    def fit(uv, vals):
+        A = torch.cat([torch.ones_like(uv[..., :1]), uv], -1).expand(lead + (uv.shape[0], 3))
+        AtA = torch.einsum("...ni,...nj->...ij", A, A) + 1e-6 * torch.eye(3, device=dev)
+        Atb = torch.einsum("...ni,...n->...i", A, vals)
+        return torch.einsum("...ij,...j->...i", inverse3x3(AtA), Atb)
+
+    def ev(m, uv):
+        return m[..., 0:1] + m[..., 1:2] * uv[..., 0] + m[..., 2:3] * uv[..., 1]
+
+    v_bits = sample(tab.uv_bits)
+    thresh = 0.5 * (ev(fit(tab.uv_border, sample(tab.uv_border)), tab.uv_bits)
+                    + ev(fit(tab.uv_outer, sample(tab.uv_outer)), tab.uv_bits))
+    if decode_sharpening > 0:
+        tw = family.total_width
+        grid = torch.zeros((*lead, tw * tw), dtype=v_bits.dtype, device=dev)
+        grid[..., tab.lin] = v_bits
+        grid = grid.reshape(*lead, tw, tw)
+        lap = (4.0 * grid - torch.roll(grid, 1, -2) - torch.roll(grid, -1, -2)
+               - torch.roll(grid, 1, -1) - torch.roll(grid, -1, -1))
+        v_bits = (grid + decode_sharpening * lap).reshape(*lead, tw * tw)[..., tab.lin]
+    deviation = v_bits - thresh
+    bits = deviation > 0
+    wmask = bits.to(torch.float32)
+    bmask = 1.0 - wmask
+    wcnt, bcnt = wmask.sum(-1), bmask.sum(-1)
+    wmean = torch.where(wcnt > 0, (deviation * wmask).sum(-1) / torch.clamp(wcnt, min=1.0),
+                        torch.inf)
+    bmean = torch.where(bcnt > 0, (-deviation * bmask).sum(-1) / torch.clamp(bcnt, min=1.0),
+                        torch.inf)
+    code = (bits[..., tab.perms].to(torch.int64) * tab.weights).sum(-1)
+    ham = D._popcount64(code[..., None] ^ tab.codes)
+    ham_min = ham.amin(-1)
+    best_r = torch.argmin(ham_min, -1)
+    best_h = torch.gather(ham_min, -1, best_r[..., None])[..., 0].to(torch.int32)
+    best_id = torch.gather(torch.argmin(ham, -1), -1, best_r[..., None])[..., 0]
+    idx = torch.remainder(torch.arange(4, device=dev) + torch.remainder(2 - best_r, 4)[..., None],
+                          4)
+    return D.DecodeResult(valid=best_h <= max_hamming, id=best_id.to(torch.int32),
+                          hamming=best_h, margin=torch.minimum(wmean, bmean),
+                          rotation=best_r.to(torch.int32),
+                          corners=torch.gather(corners, -2, idx[..., None].expand(*lead, 4, 2)))
+
+
+def parent_pose_form(corners, K, tag_size: float):
+    """The parent's estimate_poses, phase 26's yardstick of the stage before
+    its kernel: torch ops (a LAPACK solve, einsum, vector_norm, linalg.cross,
+    the quaternion's argmax and gathers), ~320 of them."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.pose import Poses, _tag_corners
+    from isaac_ros_apriltag_tpu_torch.utils.geometry import inverse3x3, orthonormalize_rotation
+
+    obj = _tag_corners(corners.device) * (tag_size * 0.5)
+    H = _parent_homography(obj.expand(corners.shape), corners)
+    Kinv = inverse3x3(K.to(torch.float32))
+    M = (torch.einsum("ij,...jk->...ik", Kinv, H) if K.ndim == 2
+         else torch.einsum("bij,b...jk->b...ik", Kinv, H))
+    m1, m2, m3 = M[..., 0], M[..., 1], M[..., 2]
+    scale = 2.0 / torch.clamp(torch.linalg.vector_norm(m1, dim=-1)
+                              + torch.linalg.vector_norm(m2, dim=-1), min=1e-12)
+    scale = scale * torch.sign(m3[..., 2])
+    r1, r2, t = m1 * scale[..., None], m2 * scale[..., None], m3 * scale[..., None]
+    R = orthonormalize_rotation(torch.stack([r1, r2, torch.linalg.cross(r1, r2, dim=-1)], -1))
+    m = [[R[..., i, j] for j in range(3)] for i in range(3)]
+    tr = m[0][0] + m[1][1] + m[2][2]
+    cands = torch.stack([
+        torch.stack([1.0 + tr, m[2][1] - m[1][2], m[0][2] - m[2][0], m[1][0] - m[0][1]], -1),
+        torch.stack([m[2][1] - m[1][2], 1.0 + m[0][0] - m[1][1] - m[2][2], m[0][1] + m[1][0],
+                     m[0][2] + m[2][0]], -1),
+        torch.stack([m[0][2] - m[2][0], m[0][1] + m[1][0], 1.0 - m[0][0] + m[1][1] - m[2][2],
+                     m[1][2] + m[2][1]], -1),
+        torch.stack([m[1][0] - m[0][1], m[0][2] + m[2][0], m[1][2] + m[2][1],
+                     1.0 - m[0][0] - m[1][1] + m[2][2]], -1)], -2)
+    pivots = torch.diagonal(cands, dim1=-2, dim2=-1)
+    best = torch.argmax(pivots, -1)
+    q = torch.gather(cands, -2, best[..., None, None].expand(*best.shape, 1, 4))[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    lead = torch.gather(q, -1, torch.argmax(q.abs(), -1, keepdim=True))
+    return Poses(rotation=R, translation=t, quaternion=q * torch.where(lead < 0, -1.0, 1.0))
+
+
+def check_tail_case(name: str, case: dict) -> dict:
+    """One of phase 26's cases: each tail kernel against its plain version
+    bit for bit on every output (NaN equal to NaN), one launch a call, two
+    calls and a captured replay equal. Raises on a difference; returns
+    {"decode": DecodeResult, "pose": Poses} of the kernels."""
+    from isaac_ros_apriltag_tpu_torch.ops import decode as plain_decode
+    from isaac_ros_apriltag_tpu_torch.ops import pose as plain_pose
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pk
+
+    gray, corners, family, kw = case["decode"]
+    out = {}
+    for stage, kernel, plain, args, kwargs in (
+            ("decode", dk.decode_quads, plain_decode.decode_quads, (gray, corners, family), kw),
+            ("pose", pk.estimate_poses, plain_pose.estimate_poses, case["pose"], {})):
+        one = {k: int(k == stage) for k in _want()}
+        _reset_launches()
+        got = kernel(*args, **kwargs)
+        counts = _launches()
+        if counts != one:
+            raise AssertionError(f"{stage}, {name}: launches {counts} != {one}")
+        want = plain(*args, **kwargs)
+        for f, a, b in zip(want._fields, got, want):
+            if not _same(a, b):
+                raise AssertionError(f"{stage} kernel, {name}: {f} differs from the plain "
+                                     f"version (max abs err {_max_abs_err(a, b)})")
+        if not all(_same(a, b) for a, b in zip(kernel(*args, **kwargs), got)):
+            raise AssertionError(f"{stage} kernel, {name}: two calls differ")
+        _replay_equals(lambda: kernel(*args, **kwargs), got, f"{stage} kernel, {name}")
+        out[stage] = got
+    return out
+
+
+def tail_phase(gpu: str) -> dict:
+    """Phase 26: check_tail_case on each of tail_cases, and device times at
+    torch_bench.py's two shapes of each tail kernel, its plain version, its
+    bound (bytes: decode reads each sample's four taps, the corners, its
+    tables and the codebook once and writes its results; pose reads the
+    corners and K and writes its results) and the parent's form
+    (parent_decode_form, parent_pose_form); the plain version and the
+    parent's form, hundreds of small torch ops each, are timed as captured
+    replays (_graph_ms). No library call computes either function. Returns {max_abs_err (0: any difference raises), and for 'b1'
+    (720p) and 'batch8' (1080p): {decode, pose}: shape, ms, plain_ms,
+    bound_ms, bound_by, library_ms, parent_ms}."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import decode as plain_decode
+    from isaac_ros_apriltag_tpu_torch.ops import pose as plain_pose
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pk
+
+    out = {"max_abs_err": 0.0}
+    lines = []
+    bench = {f"{config} b{batch}": batch for config, batch in CAPTURE_CASES}
+    for name, case in tail_cases(torch.device("cuda")).items():
+        got = check_tail_case(name, case)
+        dec = got["decode"]
+        ids = sorted(set(dec.id[dec.valid].tolist()))
+        lines.append(f"{name}: {dec.valid.numel()} quads, {int(dec.valid.sum())} valid (ids "
+                     f"{ids[:8]}{' ...' if len(ids) > 8 else ''}), "
+                     f"{got['pose'].translation.numel() // 3} tags posed")
+        if name not in bench:
+            continue
+        gray, corners, family, kw = case["decode"]
+        pc, K, tag_size = case["pose"]
+        tab = plain_decode._tables(family, corners.device)
+        n_samples = (corners.numel() // 8) * (tab.uv_border.shape[0] + tab.uv_outer.shape[0]
+                                              + family.nbits)
+        stages = {"decode": (dk.decode_quads, plain_decode.decode_quads, parent_decode_form,
+                             (gray, corners, family), kw,
+                             n_samples * 4 * 4 + sum(t.numel() * t.element_size() for t in (
+                                 corners, tab.floats, tab.ints, tab.codes, *dec))),
+                  "pose": (pk.estimate_poses, plain_pose.estimate_poses, parent_pose_form,
+                           case["pose"], {},
+                           sum(t.numel() * t.element_size() for t in (pc, K, *got["pose"])))}
+        t = {}
+        for stage, (kernel, plain, parent, args, kwargs, nbytes) in stages.items():
+            t[stage] = dict(shape=list(args[1].shape if stage == "decode" else args[0].shape),
+                            ms=_device_ms(lambda: kernel(*args, **kwargs), 20),
+                            plain_ms=_graph_ms(lambda: plain(*args, **kwargs), 20),
+                            bound_ms=_bytes_ms(nbytes), bound_by="bytes", library_ms=None,
+                            parent_ms=_graph_ms(lambda: parent(*args, **kwargs), 20))
+        out["b1" if bench[name] == 1 else f"batch{bench[name]}"] = t
+    torch.cuda.synchronize()
+    print(f"[26 tail] decode_kernel and pose_kernel (one launch a call each) against their "
+          f"plain versions bit for bit on every output, two calls and a captured replay equal: "
+          + "; ".join(lines) + f"; on {gpu}: device ms a call (kernel / plain / bound (bytes) "
+          "/ the parent's form, plain and parent's form as captured replays; no library call "
+          "computes either) "
+          + ", ".join(f"{k} {stage} {v['shape']}: {v['ms']:.4f} / {v['plain_ms']:.4f} / "
+                      f"{v['bound_ms']:.5f} ({v['bound_ms'] / v['ms']:.1%} of bound) / "
+                      f"{v['parent_ms']:.4f}"
+                      for k, per in out.items() if k != "max_abs_err"
+                      for stage, v in per.items()), flush=True)
+    return out
+
+
 def capture_phase(gpu: str) -> dict:
     """Phase 21: the captured detect call against the eager one."""
     import dataclasses
@@ -2897,10 +3302,17 @@ def profiled_replays() -> dict:
     capture) and counted under torch.profiler (_counted); then the
     contraction and the final resolve alone on those two inputs, eager and
     warm, where no kernel of RESOLVE_LIBRARY_NAMES may run. Returns the
-    counts by path."""
+    counts by path, and under "kernels_a_replay" the count of every kernel
+    in each bench replay and in the same replay with decode and pose in the
+    parent's form (parent_decode_form, parent_pose_form)."""
+    from unittest import mock
+
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from isaac_ros_apriltag_tpu_torch import Detector, DetectorConfig, RigDetector, run_stream
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pk
     from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
 
     dev = torch.device("cuda")
@@ -2926,13 +3338,26 @@ def profiled_replays() -> dict:
     with _counted("stream") as out["stream"]:
         run_stream(lambda x: det.detect_with_stats(x, "mono8"), rig_host, depth=2, device=dev)
     del det
+    totals = {}
     for config, batch in CAPTURE_CASES:
         bcfg, bcam, inputs = bench_inputs(config, batch, dev, calls=3)
         fn = batched_detect_fn(bcfg, bcam, "mono8")
         fn(inputs[0]), fn(inputs[1])
-        with _counted(f"captured b{batch}") as out[f"captured_b{batch}"]:
+        with _counted(f"captured b{batch}", totals=totals) as out[f"captured_b{batch}"]:
             fn(inputs[2])
         del fn
+        # The same replay with decode and pose in the parent's torch ops.
+        with mock.patch.object(dk, "decode_quads", parent_decode_form), \
+                mock.patch.object(pk, "estimate_poses", parent_pose_form):
+            fn = batched_detect_fn(bcfg, bcam, "mono8")
+            fn(inputs[0]), fn(inputs[1])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(inputs[2])
+                torch.cuda.synchronize()
+            totals[f"captured b{batch}, tail in the parent's form"] = len(_device_kernels(prof))
+            del fn
+    out["kernels_a_replay"] = totals
     from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
     for config, batch in CAPTURE_CASES:
         bcfg, _, inputs = bench_inputs(config, batch, dev, calls=1)
@@ -2966,6 +3391,7 @@ def profiled_replays_phase(gpu: str) -> dict:
     if out.returncode != 0:
         raise AssertionError(f"profiled replays exited {out.returncode}: {out.stderr[-3000:]}")
     got = json.loads(out.stdout.strip().splitlines()[-1])
+    kernels = got.pop("kernels_a_replay")
     one = _want()
     want = {"frame": {k: v * len(SEEDS) for k, v in one.items()}, f"rig{RIG_CAMERAS}": one,
             "stream": {k: v * RIG_CAMERAS for k, v in one.items()},
@@ -2978,7 +3404,9 @@ def profiled_replays_phase(gpu: str) -> dict:
     print(f"[22 profiled replays] in a child process ({time.perf_counter() - t0:.1f} s): "
           f"torch.profiler's count of each kernel by name equals the counters' on the "
           f"replayed paths and on the resolve calls alone, which launch no "
-          f"{list(RESOLVE_LIBRARY_NAMES)} kernel: {got}", flush=True)
+          f"{list(RESOLVE_LIBRARY_NAMES)} kernel: {got}; kernels a replay {kernels}",
+          flush=True)
+    got["kernels_a_replay"] = kernels
     return got
 
 
@@ -3678,6 +4106,9 @@ def main() -> int:
     # --- 25. the quad-fit search kernel against its plain version ------------------------
     quadfit = quadfit_phase(gpu)
 
+    # --- 26. the decode and pose kernels against their plain versions --------------------
+    tail = tail_phase(gpu)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -3757,7 +4188,23 @@ def main() -> int:
          f"library_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["library_ms"],
          f"stage_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["stage"],
          f"share_batch{BATCH}": (quadfit[f"batch{BATCH}"]["bound_ms"]
-                                 / quadfit[f"batch{BATCH}"]["ms"])}]}))
+                                 / quadfit[f"batch{BATCH}"]["ms"])}] + [
+        {"name": f"{k}_kernel", "route": "cuda",
+         "source": "isaac_ros_apriltag_tpu_torch/csrc/tail.cu", "replaces": TAIL_REPLACES[k],
+         "launches": sum(c[k] for c in paths.values()),
+         "launches_by_path": {p: c[k] for p, c in paths.items()},
+         "max_abs_err": tail["max_abs_err"], "shape": tail["b1"][k]["shape"],
+         "ms": tail["b1"][k]["ms"], "plain_ms": tail["b1"][k]["plain_ms"],
+         "bound_ms": tail["b1"][k]["bound_ms"], "bound_by": tail["b1"][k]["bound_by"],
+         "library_ms": None, "parent_form_ms": tail["b1"][k]["parent_ms"],
+         f"shape_batch{BATCH}": tail[f"batch{BATCH}"][k]["shape"],
+         f"ms_batch{BATCH}": tail[f"batch{BATCH}"][k]["ms"],
+         f"plain_ms_batch{BATCH}": tail[f"batch{BATCH}"][k]["plain_ms"],
+         f"bound_ms_batch{BATCH}": tail[f"batch{BATCH}"][k]["bound_ms"],
+         f"parent_form_ms_batch{BATCH}": tail[f"batch{BATCH}"][k]["parent_ms"],
+         f"share_batch{BATCH}": (tail[f"batch{BATCH}"][k]["bound_ms"]
+                                 / tail[f"batch{BATCH}"][k]["ms"])}
+        for k in ("decode", "pose")]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

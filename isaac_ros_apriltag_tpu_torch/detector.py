@@ -14,8 +14,9 @@ flat-index labels; with ccl_flow='jumps' one scan phase with pointer jumps
 between rounds), resolve (four kernels a call around torch ops on the R
 slots, ops/cuda/resolve.py: the contraction and the final resolve), cluster
 moments (four kernels around one sort, ops/cuda/cluster_moments.py), quad
-fit (one search kernel, ops/cuda/quadfit.py), top-2T by fit quality, edge refinement, decode, dedupe, top-T by
-decision margin, center and pose.
+fit (one search kernel, ops/cuda/quadfit.py), top-2T by fit quality, edge
+refinement, decode (one kernel, ops/cuda/decode.py), dedupe, top-T by
+decision margin, center and pose (one kernel, ops/cuda/pose.py).
 Backend 'cuda' runs the kernels; 'torch' runs their plain twins.
 Everything else is plain PyTorch on the detector's device.
 """
@@ -32,6 +33,8 @@ from .models.families import TagFamily, get_family
 from .ops.cluster_moments import extract_cluster_moments
 from .ops.cuda import ccl as ccl_ops
 from .ops.cuda import cluster_moments as cluster_kernels
+from .ops.cuda import decode as decode_kernel
+from .ops.cuda import pose as pose_kernel
 from .ops.cuda import quadfit as quadfit_kernel
 from .ops.cuda import resolve as resolve_kernels
 from .ops.cuda import threshold as threshold_kernel
@@ -174,8 +177,9 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
                            _take(quads.dark_inside, top_i),
                            search_range=cfg.quad_decimate + 1.0)
 
-    dec = decode_quads(gray, corners, family, max_hamming=cfg.max_hamming,
-                       decode_sharpening=cfg.decode_sharpening)
+    decode = decode_kernel.decode_quads if cfg.backend == "cuda" else decode_quads
+    dec = decode(gray, corners, family, max_hamming=cfg.max_hamming,
+                 decode_sharpening=cfg.decode_sharpening)
     dec_valid = pre_valid & dec.valid & (dec.margin >= cfg.min_decision_margin)
     dec_valid = _dedupe(dec_valid, dec.id, dec.margin, dec.corners)
 
@@ -188,7 +192,8 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
     center = line_intersection(c0, c2 - c0, c1, c3 - c1)
 
     if with_pose:
-        poses = estimate_poses(sel_corners, camera.K, cfg.tag_size)
+        pose = pose_kernel.estimate_poses if cfg.backend == "cuda" else estimate_poses
+        poses = pose(sel_corners, camera.K, cfg.tag_size)
         translation, quaternion, rotation = poses.translation, poses.quaternion, poses.rotation
     else:
         lead = sel_corners.shape[:-2]

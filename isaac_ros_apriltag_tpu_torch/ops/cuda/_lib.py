@@ -15,6 +15,7 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import time
@@ -22,7 +23,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu", "resolve.cu", "quadfit.cu")
+_SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu", "resolve.cu", "quadfit.cu",
+            "tail.cu")
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
 # (kept in build_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,7 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # (name, number of pointer args, number of int args); every entry point ends
 # with the stream pointer and returns cudaGetLastError().
-# Each takes the batch B (or the quad search's N clusters) first among its ints.
+# Each takes the batch B (or the quad search's N clusters, the pose's N
+# tags) first among its ints; a float travels as the int of its float32
+# bits (float_bits).
 _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_ccl_row", 3, 3),
                  ("apriltag_ccl_col_diag", 3, 3),
@@ -47,7 +51,9 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_resolve_map", 5, 6),
                  ("apriltag_resolve_slots", 9, 5),
                  ("apriltag_resolve_dense", 7, 3),
-                 ("apriltag_quadfit_search", 4, 1))
+                 ("apriltag_quadfit_search", 4, 1),
+                 ("apriltag_decode", 11, 12),
+                 ("apriltag_pose", 5, 4))
 
 MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame
 
@@ -112,6 +118,11 @@ def library() -> ctypes.CDLL:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def float_bits(x: float) -> int:
+    """The bits of x rounded to float32, as a signed 32-bit int."""
+    return struct.unpack("<i", struct.pack("<f", x))[0]
 
 
 def check(status: int, name: str) -> None:

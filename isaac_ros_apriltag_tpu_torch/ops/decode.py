@@ -9,6 +9,14 @@ becomes one int64 word, and popcount is a SWAR bit count on int64.
 
 Decodes one frame's quads, (C, 4, 2) against an (H, W) image, or a batch,
 (B, C, 4, 2) against (B, H, W), each quad sampling its own frame.
+
+``decode_quads`` is the plain version of csrc/tail.cu's decode_kernel, bit
+for bit: every float step is elementwise and in the kernel's order. A sum
+over the cells of a sample set (at most 64) is the kernel's warp sum
+(``_warp_sum``: padded with zeros to 64, then halves added pairwise); the
+gray models' normal matrices depend on the family alone, so their inverses
+are family tables (``_tables``), and the homography is the explicit 8x8
+elimination of utils/geometry.py. The kernel reads the same tables.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from .refine import bilinear_taps
 
 # uv of the quad's cyclic corners in the border frame ([-1,1]^2).
 _SQUARE = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]], np.float32)
+_LANES = 32          # a warp: the kernel holds cell i and cell i + 32 in lane i
+MAX_CELLS = 2 * _LANES
 
 
 class DecodeResult(NamedTuple):
@@ -58,17 +68,29 @@ def _bilinear(gray: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
             + v10 * (1 - fx) * fy + v11 * fx * fy)
 
 
-def _fit_gray_model(uv: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Least-squares fit vals ~ a + b*u + c*v; uv (..., N, 2), vals (..., N)."""
-    A = torch.cat([torch.ones_like(uv[..., :1]), uv], -1)
-    AtA = torch.einsum("...ni,...nj->...ij", A, A)
-    AtA = AtA + 1e-6 * torch.eye(3, dtype=A.dtype, device=A.device)
-    Atb = torch.einsum("...ni,...n->...i", A, vals)
-    return torch.einsum("...ij,...j->...i", inverse3x3(AtA), Atb)
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim (at most 64 entries) in the decode kernel's
+    order: padded with zeros to 64, then x[:32] + x[32:], and so on down to
+    one (a lane's two cells, then the warp's butterfly)."""
+    x = torch.nn.functional.pad(x, (0, MAX_CELLS - x.shape[-1]))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
 
 
-def _eval_gray_model(model: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    return model[..., 0:1] + model[..., 1:2] * uv[..., 0] + model[..., 2:3] * uv[..., 1]
+def _fit_gray_model(uv: torch.Tensor, minv: torch.Tensor,
+                    vals: torch.Tensor) -> list[torch.Tensor]:
+    """Least-squares fit vals ~ a + b*u + c*v over one sample set: uv (N, 2),
+    minv (3, 3) the inverse of its normal matrix A^T A + 1e-6 I, vals
+    (..., N). Returns (a, b, c), each (...)."""
+    atb = [_warp_sum(vals), _warp_sum(uv[:, 0] * vals), _warp_sum(uv[:, 1] * vals)]
+    return [(minv[i, 0] * atb[0] + minv[i, 1] * atb[1]) + minv[i, 2] * atb[2]
+            for i in range(3)]
+
+
+def _eval_gray_model(model: list[torch.Tensor], uv: torch.Tensor) -> torch.Tensor:
+    return (model[0][..., None] + model[1][..., None] * uv[:, 0]) + model[2][..., None] * uv[:, 1]
 
 
 def _popcount64(x: torch.Tensor) -> torch.Tensor:
@@ -80,15 +102,28 @@ def _popcount64(x: torch.Tensor) -> torch.Tensor:
 
 
 class _Tables(NamedTuple):
-    """A family's decode tables on one device."""
+    """A family's decode tables on one device. The kernel reads `floats`,
+    `ints` and `codes`; the plain version the views and int64 copies."""
     square: torch.Tensor     # (4, 2) _SQUARE
-    uv_bits: torch.Tensor    # (nbits, 2) bit-cell centers
-    uv_border: torch.Tensor  # border-ring cell centers
-    uv_outer: torch.Tensor   # outer-ring cell centers
+    uv_border: torch.Tensor  # (nb, 2) border-ring cell centers  } views of
+    uv_outer: torch.Tensor   # (no, 2) outer-ring cell centers   } `floats`,
+    uv_bits: torch.Tensor    # (nbits, 2) bit-cell centers       } in this
+    minv_in: torch.Tensor    # (3, 3) inverse normal matrix, border ring } order
+    minv_out: torch.Tensor   # (3, 3) inverse normal matrix, outer ring  }
     lin: torch.Tensor        # (nbits,) int64 flat bit cells in the total_width grid
     perms: torch.Tensor      # (4, nbits) int64 rotation_perm
     weights: torch.Tensor    # (nbits,) int64 bit weights, MSB first
     codes: torch.Tensor      # (ncodes,) int64 codebook
+    floats: torch.Tensor     # float32: uv_border, uv_outer, uv_bits, minv_in, minv_out
+    ints: torch.Tensor       # int32: lin, then perms row by row
+
+
+def _inverse_normal_matrix(uv: np.ndarray) -> np.ndarray:
+    """inverse3x3(A^T A + 1e-6 I) of the design matrix A = [1, u, v] of a
+    sample set, in float64, rounded to float32."""
+    A = np.concatenate([np.ones((len(uv), 1)), uv.astype(np.float64)], 1)
+    AtA = torch.from_numpy(A.T @ A + 1e-6 * np.eye(3))
+    return inverse3x3(AtA).numpy().astype(np.float32)
 
 
 def _tables(family: TagFamily, dev: torch.device) -> _Tables:
@@ -99,13 +134,23 @@ def _tables(family: TagFamily, dev: torch.device) -> _Tables:
         wb, tw, nbits = family.width_at_border, family.total_width, family.nbits
         off = (tw - wb) // 2
         bit_cells = np.stack([family.bit_x, family.bit_y], -1).astype(np.float32)
-        arrays = (_SQUARE, _cell_uv(bit_cells, wb), _cell_uv(_ring_cells(0, wb - 1), wb),
-                  _cell_uv(_ring_cells(-1, wb), wb),
-                  (family.bit_y + off).astype(np.int64) * tw + (family.bit_x + off).astype(np.int64),
-                  family.rotation_perm.astype(np.int64),
+        uvs = (_cell_uv(_ring_cells(0, wb - 1), wb), _cell_uv(_ring_cells(-1, wb), wb),
+               _cell_uv(bit_cells, wb))
+        minvs = tuple(_inverse_normal_matrix(uv) for uv in uvs[:2])
+        floats = torch.as_tensor(np.concatenate([a.ravel() for a in uvs + minvs]), device=dev)
+        views, at = [], 0
+        for a in uvs + minvs:
+            views.append(floats[at:at + a.size].view(a.shape))
+            at += a.size
+        lin = (family.bit_y + off).astype(np.int64) * tw + (family.bit_x + off).astype(np.int64)
+        perms = family.rotation_perm.astype(np.int64)
+        ints = np.concatenate([lin, perms.ravel()]).astype(np.int32)
+        arrays = (lin, perms,
                   np.left_shift(np.int64(1), nbits - 1 - np.arange(nbits, dtype=np.int64)),
-                  family.codes.astype(np.int64))
-        family.device_tables[key] = _Tables(*(torch.as_tensor(a, device=dev) for a in arrays))
+                  family.codes.astype(np.int64), ints)
+        lin, perms, weights, codes, ints = (torch.as_tensor(a, device=dev) for a in arrays)
+        family.device_tables[key] = _Tables(torch.as_tensor(_SQUARE, device=dev), *views, lin,
+                                            perms, weights, codes, floats, ints)
     return family.device_tables[key]
 
 
@@ -128,8 +173,8 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *
     v_outer = sample(uv_outer)
     v_bits = sample(uv_bits)
 
-    model_in = _fit_gray_model(uv_border.expand(lead + uv_border.shape), v_border)
-    model_out = _fit_gray_model(uv_outer.expand(lead + uv_outer.shape), v_outer)
+    model_in = _fit_gray_model(uv_border, tab.minv_in, v_border)
+    model_out = _fit_gray_model(uv_outer, tab.minv_out, v_outer)
     thresh = 0.5 * (_eval_gray_model(model_in, uv_bits)
                     + _eval_gray_model(model_out, uv_bits))
 
@@ -150,11 +195,11 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor, family: TagFamily, *
     # Margin: the worse of the white and black class mean deviations.
     wmask = bits.to(torch.float32)
     bmask = 1.0 - wmask
-    wcnt = wmask.sum(-1)
+    wcnt = wmask.sum(-1)         # integers: exact in any order
     bcnt = bmask.sum(-1)
-    wmean = torch.where(wcnt > 0, (deviation * wmask).sum(-1) / torch.clamp(wcnt, min=1.0),
+    wmean = torch.where(wcnt > 0, _warp_sum(deviation * wmask) / torch.clamp(wcnt, min=1.0),
                         torch.inf)
-    bmean = torch.where(bcnt > 0, (-deviation * bmask).sum(-1) / torch.clamp(bcnt, min=1.0),
+    bmean = torch.where(bcnt > 0, _warp_sum(-deviation * bmask) / torch.clamp(bcnt, min=1.0),
                         torch.inf)
     margin = torch.minimum(wmean, bmean)
 

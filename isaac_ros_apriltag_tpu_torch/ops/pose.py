@@ -4,6 +4,11 @@ Counterpart of ``isaac_ros_apriltag_tpu/ops/pose.py``: a 4-point homography
 from the tag plane to the corners, K^-1 normalization, and a Newton polar
 projection onto SO(3). Detection corner k is tag-frame point TAG_CORNERS[k]
 * tag_size/2; a fronto-parallel upright tag gives R = diag(-1, -1, 1).
+
+``estimate_poses`` is the plain version of csrc/tail.cu's pose_kernel, bit
+for bit: every float step is elementwise and in the kernel's order (the
+homography's explicit elimination, K^-1 H, the column norms and the
+quaternion of utils/geometry.py written out; no einsum or vector_norm).
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.geometry import (homography_from_correspondences, inverse3x3,
+from ..utils.geometry import (homography_from_correspondences, inverse3x3, matmul3,
                               orthonormalize_rotation, quat_from_rotmat)
 from ..utils.render import TAG_CORNERS
 
@@ -38,18 +43,23 @@ def estimate_poses(corners: torch.Tensor, K: torch.Tensor, tag_size: float) -> P
     obj = _tag_corners(corners.device) * (tag_size * 0.5)
     H = homography_from_correspondences(obj.expand(corners.shape), corners)
     Kinv = inverse3x3(K.to(torch.float32))
-    if K.ndim == 2:
-        M = torch.einsum("ij,...jk->...ik", Kinv, H)
-    else:
-        M = torch.einsum("bij,b...jk->b...ik", Kinv, H)
+    if K.ndim == 3:
+        Kinv = Kinv.reshape(Kinv.shape[0], *[1] * (H.ndim - 3), 3, 3)
+    M = matmul3(Kinv, H)
     m1, m2, m3 = M[..., 0], M[..., 1], M[..., 2]
-    n1 = torch.linalg.vector_norm(m1, dim=-1)
-    n2 = torch.linalg.vector_norm(m2, dim=-1)
-    scale = 2.0 / torch.clamp(n1 + n2, min=1e-12)
-    scale = scale * torch.sign(m3[..., 2])     # positive depth
+    scale = torch.reciprocal(torch.clamp(_norm3(m1) + _norm3(m2), min=1e-12)) * 2.0
+    z = m3[..., 2]
+    scale = scale * ((z > 0).to(torch.float32) - (z < 0).to(torch.float32))  # positive depth
     r1 = m1 * scale[..., None]
     r2 = m2 * scale[..., None]
     t = m3 * scale[..., None]
-    r3 = torch.linalg.cross(r1, r2, dim=-1)
+    r3 = torch.stack([r1[..., 1] * r2[..., 2] - r1[..., 2] * r2[..., 1],
+                      r1[..., 2] * r2[..., 0] - r1[..., 0] * r2[..., 2],
+                      r1[..., 0] * r2[..., 1] - r1[..., 1] * r2[..., 0]], -1)
     R = orthonormalize_rotation(torch.stack([r1, r2, r3], -1))
     return Poses(rotation=R, translation=t, quaternion=quat_from_rotmat(R))
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm of (..., 3) vectors, summed in index order."""
+    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2])

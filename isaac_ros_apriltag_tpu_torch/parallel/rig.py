@@ -26,6 +26,7 @@ import torch.distributed as dist
 from ..camera.model import CameraModel
 from ..config import DetectorConfig
 from ..detector import build_batched_detect_fn, device_for, to_device
+from ..ops.cuda import pose as pose_kernel
 from ..ops.pose import estimate_poses
 from ..types import Detections, FrameStats
 from . import mesh
@@ -73,7 +74,9 @@ class RigDetector:
             raise ValueError(f"{frames.shape[0]} frames for {self.n_cameras}-camera rig")
         det, stats = self._fn(to_device(frames[self._lo:self._hi], self.device))
         if self._K is not None:
-            poses = estimate_poses(det.corners, self._K, self.config.tag_size)
+            pose = (pose_kernel.estimate_poses if self.config.backend == "cuda"
+                    else estimate_poses)
+            poses = pose(det.corners, self._K, self.config.tag_size)
             det = dataclasses.replace(det, translation=poses.translation,
                                       quaternion=poses.quaternion, rotation=poses.rotation)
         if self.group is not None:

@@ -1,15 +1,42 @@
 """Batched geometry primitives: quaternions, homographies, small solves.
 
-``isaac_ros_apriltag_tpu/utils/geometry.py`` ported as written: Shepperd
-quaternion conversion, the exact 4-point DLT homography (an 8x8 solve on
+``isaac_ros_apriltag_tpu/utils/geometry.py`` ported: Shepperd quaternion
+conversion, the exact 4-point DLT homography (an 8x8 solve on
 Hartley-normalized coordinates, no SVD), the closed-form 3x3 inverse, the
 Newton polar projection onto SO(3), and the se(3) exponential and skew
 matrix of the SLAM layer. All functions broadcast over leading batch dims.
+
+The homography, its 8x8 solve, ``apply_homography`` and
+``quat_from_rotmat`` are the plain versions of the decode and pose kernels'
+steps (csrc/tail.cu): every float sum is written out in the one order the
+kernels take, with elementwise torch ops only (no einsum, matmul, norm,
+mean or LAPACK solve, whose order on a GPU is not fixed), so the kernels
+match them bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def first_argmax(vals: list[torch.Tensor]) -> torch.Tensor:
+    """Index of the largest of `vals` (tensors of one shape), as torch.argmax
+    takes it: NaN counts as the largest, ties go to the lower index."""
+    best = torch.zeros(vals[0].shape, dtype=torch.int64, device=vals[0].device)
+    top = vals[0]
+    for i, v in enumerate(vals[1:], 1):
+        take = (v > top) | (torch.isnan(v) & ~torch.isnan(top))
+        best = torch.where(take, i, best)
+        top = torch.where(take, v, top)
+    return best
+
+
+def _pick(vals: list[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
+    """vals[idx] elementwise."""
+    out = vals[0]
+    for i, v in enumerate(vals[1:], 1):
+        out = torch.where(idx == i, v, out)
+    return out
 
 
 def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
@@ -18,20 +45,20 @@ def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
-    tr = m00 + m11 + m22
-    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], -1)
-    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], -1)
-    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], -1)
-    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], -1)
-    cands = torch.stack([qw, qx, qy, qz], -2)      # (..., 4 candidates, 4)
-    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
-                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
-    best = torch.argmax(pivots, -1)
-    idx = best[..., None, None].expand(*best.shape, 1, 4)
-    q = torch.gather(cands, -2, idx)[..., 0, :]
-    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
-    lead = torch.gather(q, -1, torch.argmax(q.abs(), -1, keepdim=True))
-    return q * torch.where(lead < 0, -1.0, 1.0)
+    tr = (m00 + m11) + m22
+    pivots = [1.0 + tr, ((1.0 + m00) - m11) - m22, ((1.0 - m00) + m11) - m22,
+              ((1.0 - m00) - m11) + m22]
+    cands = [[pivots[0], m21 - m12, m02 - m20, m10 - m01],
+             [m21 - m12, pivots[1], m01 + m10, m02 + m20],
+             [m02 - m20, m01 + m10, pivots[2], m12 + m21],
+             [m10 - m01, m02 + m20, m12 + m21, pivots[3]]]
+    best = first_argmax(pivots)
+    q = [_pick([c[k] for c in cands], best) for k in range(4)]
+    n = torch.sqrt(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3])
+    q = [qk / n for qk in q]
+    lead = _pick(q, first_argmax([qk.abs() for qk in q]))
+    sign = torch.where(lead < 0, -1.0, 1.0)
+    return torch.stack([qk * sign for qk in q], -1)
 
 
 def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
@@ -44,12 +71,55 @@ def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
     ], -2)
 
 
+def solve_pivoted(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for (..., n, n) A and (..., n) b, by Gaussian
+    elimination with partial pivoting: the pivot of column k is the first
+    row i >= k of largest |A[i, k]| (LAPACK's getrf rule; a NaN is taken
+    only where it comes first). Row k's multiple f = A[i, k] / A[k, k] is
+    taken off each row i > k as A[i, j] - f * A[k, j], then back
+    substitution runs column by column from the last: x[j] = b[j] / A[j, j],
+    b[i] - A[i, j] * x[j] for i < j. A zero pivot gives non-finite entries,
+    not an error."""
+    n = A.shape[-1]
+    A, b = A.clone(), b.clone()
+    rows = torch.arange(n, device=A.device)
+    for k in range(n):
+        col = A[..., k:, k].abs()
+        p = torch.zeros(col.shape[:-1], dtype=torch.int64, device=A.device)
+        top = col[..., 0]
+        for i in range(1, n - k):
+            take = col[..., i] > top
+            p = torch.where(take, i, p)
+            top = torch.where(take, col[..., i], top)
+        p = (p + k)[..., None]
+        perm = torch.where(rows == k, p, torch.where(rows == p, k, rows))
+        A = torch.gather(A, -2, perm[..., None].expand(A.shape))
+        b = torch.gather(b, -1, perm)
+        f = A[..., k + 1:, k] / A[..., k, k, None]
+        A[..., k + 1:, k + 1:] = A[..., k + 1:, k + 1:] - f[..., None] * A[..., k, None, k + 1:]
+        b[..., k + 1:] = b[..., k + 1:] - f * b[..., k, None]
+    x = [None] * n
+    for j in range(n - 1, -1, -1):
+        x[j] = b[..., j] / A[..., j, j]
+        b[..., :j] = b[..., :j] - A[..., :j, j] * x[j][..., None]
+    return torch.stack(x, -1)
+
+
 def homography_from_correspondences(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Exact 4-point homography src -> dst with H[2, 2] = 1. src, dst:
-    (..., 4, 2). A singular system gives non-finite entries, not an error."""
-    c = dst.mean(-2, keepdim=True)
-    s = torch.clamp((dst - c).abs().mean((-2, -1)), min=1e-6)
-    dstn = (dst - c) / s[..., None, None]
+    (..., 4, 2). dst is centred on its mean and scaled by its mean absolute
+    deviation (Hartley normalization); the 8x8 DLT system is solved by
+    solve_pivoted. A singular system gives non-finite entries, not an
+    error."""
+    d = dst.unbind(-2)
+    c = (((d[0] + d[1]) + d[2]) + d[3]) * 0.25                  # (..., 2)
+    e = dst - c[..., None, :]
+    a = e.abs().flatten(-2).unbind(-1)                          # |x0|, |y0|, |x1|, ...
+    s = a[0]
+    for ai in a[1:]:
+        s = s + ai
+    s = torch.clamp(s * 0.125, min=1e-6)
+    dstn = e / s[..., None, None]
     x, y = src[..., 0], src[..., 1]
     u, v = dstn[..., 0], dstn[..., 1]
     zeros = torch.zeros_like(x)
@@ -57,20 +127,26 @@ def homography_from_correspondences(src: torch.Tensor, dst: torch.Tensor) -> tor
     rows_u = torch.stack([x, y, ones, zeros, zeros, zeros, -u * x, -u * y], -1)
     rows_v = torch.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y], -1)
     A = torch.cat([rows_u, rows_v], -2)                # (..., 8, 8)
-    b = torch.cat([u, v], -1)[..., None]               # (..., 8, 1)
-    h = torch.linalg.solve_ex(A, b).result[..., 0]     # (..., 8)
+    h = solve_pivoted(A, torch.cat([u, v], -1))        # (..., 8)
     Hn = torch.cat([h, torch.ones_like(h[..., :1])], -1).reshape(*h.shape[:-1], 3, 3)
-    cx, cy = c[..., 0, 0], c[..., 0, 1]
-    row01 = Hn[..., :2, :] * s[..., None, None]
-    row01 = row01 + torch.stack([cx, cy], -1)[..., None] * Hn[..., 2:3, :]
+    row01 = Hn[..., :2, :] * s[..., None, None] + c[..., :, None] * Hn[..., 2:3, :]
     return torch.cat([row01, Hn[..., 2:3, :]], -2)
 
 
 def apply_homography(H: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """H: (..., 3, 3); pts: (..., N, 2) -> (..., N, 2)."""
-    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], -1)
-    q = torch.einsum("...ij,...nj->...ni", H, ph)
-    return q[..., :2] / q[..., 2:3]
+    """H: (..., 3, 3); pts: (..., N, 2) -> (..., N, 2); each coordinate is
+    (H[i, 0] * x + H[i, 1] * y) + H[i, 2], divided by the third."""
+    x, y = pts[..., 0], pts[..., 1]
+    q = [(H[..., i, 0, None] * x + H[..., i, 1, None] * y) + H[..., i, 2, None]
+         for i in range(3)]
+    return torch.stack([q[0] / q[2], q[1] / q[2]], -1)
+
+
+def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) @ (..., 3, 3), each entry (A[i, 0] B[0, j] + A[i, 1]
+    B[1, j]) + A[i, 2] B[2, j]."""
+    return ((A[..., :, 0:1] * B[..., 0:1, :] + A[..., :, 1:2] * B[..., 1:2, :])
+            + A[..., :, 2:3] * B[..., 2:3, :])
 
 
 def line_intersection(p1: torch.Tensor, d1: torch.Tensor, p2: torch.Tensor,
@@ -102,7 +178,7 @@ def inverse3x3(M: torch.Tensor) -> torch.Tensor:
     Hh = b * g - a * h
     I = a * e - b * d
     det = a * A + b * D + c * G
-    inv_det = 1.0 / torch.where(det.abs() < 1e-20, 1e-20, det)
+    inv_det = torch.reciprocal(torch.where(det.abs() < 1e-20, 1e-20, det))
     adj = torch.stack([torch.stack([A, B, C], -1),
                        torch.stack([D, E, F], -1),
                        torch.stack([G, Hh, I], -1)], -2)

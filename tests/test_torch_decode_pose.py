@@ -1,0 +1,310 @@
+"""Decode and pose: the plain versions of the tail kernels (csrc/tail.cu)
+against the JAX package, and their 8x8 solve.
+
+ops/decode.py::decode_quads and ops/pose.py::estimate_poses are written in
+the kernels' order (elementwise torch ops, each float sum in one fixed
+order), so the kernels match them bit for bit on the card
+(tests/test_torch_gpu.py, chip_smoke.py phase 26). Here the same inputs,
+made with seeded numpy, go through them and through the reference's
+decode_quads / estimate_poses (op by op on the CPU): ids, hamming, rotation
+and the rotated corners are equal, margins and poses agree within
+tests/test_torch_tail.py's tolerances (sums taken in another order). The
+wrappers run the plain versions on CPU tensors and launch nothing."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from chip_smoke import TAIL_EXTRA_QUADS, TAIL_K, TAIL_TAG_SIZE, tail_frame, tail_pose_corners
+from isaac_ros_apriltag_tpu.models.families import get_family as jget_family
+from isaac_ros_apriltag_tpu.ops import decode as jdec
+from isaac_ros_apriltag_tpu.ops import pose as jpose
+from isaac_ros_apriltag_tpu.utils import geometry as jgeo
+from isaac_ros_apriltag_tpu_torch.models.families import family_names, get_family
+from isaac_ros_apriltag_tpu_torch.ops import decode as tdec
+from isaac_ros_apriltag_tpu_torch.ops import pose as tpose
+from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as decode_kernel
+from isaac_ros_apriltag_tpu_torch.ops.cuda import launch_counts
+from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pose_kernel
+from isaac_ros_apriltag_tpu_torch.utils import geometry as tgeo
+
+torch.set_num_threads(2)
+
+K = np.array(TAIL_K, np.float32)
+TAG_SIZE = TAIL_TAG_SIZE
+# tail_frame's quads come without the quad wholly outside the frame: it
+# samples one clamped pixel, so its bits are the sign of rounding noise,
+# which another order of sums may flip (the card's tests hold the kernel to
+# the plain version there).
+NAN_QUAD, COLLINEAR_QUAD = (np.array(q, np.float32) for q in TAIL_EXTRA_QUADS[1:])
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_decode(name: str, max_hamming: int = 2, decode_sharpening: float = 0.25):
+    """The reference's decode_quads of family `name`, jitted (each case's
+    shapes compile once)."""
+    fam = jget_family(name)
+    return jax.jit(lambda g, c: jdec.decode_quads(g, c, fam, max_hamming=max_hamming,
+                                                  decode_sharpening=decode_sharpening))
+
+
+def decode_both(gray, corners, name: str, **kw):
+    """The reference's decode and the plain version's, on the same inputs."""
+    want = _reference_decode(name, **kw)(jnp.asarray(gray), jnp.asarray(corners))
+    got = tdec.decode_quads(torch.from_numpy(gray), torch.from_numpy(corners), get_family(name),
+                            **kw)
+    return want, got
+
+
+def assert_decode_matches(want, got):
+    """Ids, hamming, rotation, valid and the rotated corners equal (NaN equal
+    to NaN); margins within rtol 1e-4, atol 1e-3 (sums in another order)."""
+    for f in ("valid", "id", "hamming", "rotation", "corners"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(got.margin.numpy(), np.asarray(want.margin), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("name", family_names())
+def test_decode_matches_reference_on_every_family(name):
+    """One tag of each family (tagStandard41h12 and tagStandard52h13 put
+    bit cells on the sharpening grid's edge, where torch.roll wraps)."""
+    want, got = decode_both(*tail_frame(name), name)
+    assert_decode_matches(want, got)
+    assert bool(got.valid[0]) and int(got.id[0]) == 3
+
+
+@pytest.mark.parametrize("name", ["tag36h11", "tagStandard41h12"])
+def test_decode_without_sharpening(name):
+    want, got = decode_both(*tail_frame(name, seed=1), name, decode_sharpening=0.0)
+    assert_decode_matches(want, got)
+    assert int(got.id[0]) == 3
+
+
+@pytest.mark.parametrize("name", ["tag36h11", "tag16h5", "tagCircle49h12"])
+@pytest.mark.parametrize("largest", [False, True])
+def test_decode_max_hamming(name, largest):
+    """A code word with the family's largest correctable count of bits
+    flipped, (min_hamming - 1) // 2: valid under that max_hamming, not
+    under 0."""
+    flip = (get_family(name).min_hamming - 1) // 2
+    max_hamming = flip if largest else 0
+    want, got = decode_both(*tail_frame(name, flip=flip, seed=2), name, max_hamming=max_hamming)
+    assert_decode_matches(want, got)
+    assert int(got.hamming[0]) == flip and int(got.id[0]) == 3
+    assert bool(got.valid[0]) == largest
+
+
+@pytest.mark.parametrize("quad", ["nan", "collinear"])
+def test_decode_degenerate_quads(quad):
+    """A quad with NaN and infinite corners, and a collinear one, whose
+    homography is singular: non-finite H, valid False, no read out of the
+    frame (torch.gather raises on an index past it), the tag's lane
+    untouched."""
+    gray, corners = tail_frame("tag36h11", seed=3)
+    bad = NAN_QUAD if quad == "nan" else COLLINEAR_QUAD
+    both = np.concatenate([corners[:1], bad[None], corners[2:]])
+    H = tgeo.homography_from_correspondences(
+        torch.from_numpy(tdec._SQUARE).expand(1, 4, 2), torch.from_numpy(bad[None]))
+    assert not torch.isfinite(H).all()
+    want, got = decode_both(gray, both, "tag36h11")
+    assert_decode_matches(want, got)
+    assert not bool(got.valid[1]) and bool(got.valid[0])
+    _, one = decode_both(gray, corners, "tag36h11")
+    for f in got._fields:
+        for i in (0, 2):
+            assert torch.equal(getattr(got, f)[i], getattr(one, f)[i]), f
+
+
+def test_decode_batch_equals_each_frame():
+    """(B, C, 4, 2) against (B, H, W): each frame's quads sample their own
+    frame, bit for bit as that frame alone, and as the reference frame by
+    frame."""
+    frames = [tail_frame("tag36h11", seed=s, tag_id=s + 3) for s in range(3)]
+    gray = np.stack([g for g, _ in frames])
+    corners = np.stack([c for _, c in frames])
+    got = tdec.decode_quads(torch.from_numpy(gray), torch.from_numpy(corners),
+                            get_family("tag36h11"))
+    for b, (g, c) in enumerate(frames):
+        want, one = decode_both(g, c, "tag36h11")
+        for f in got._fields:
+            assert torch.equal(getattr(got, f)[b], getattr(one, f)), f
+        assert_decode_matches(want, one)
+        assert int(one.id[0]) == b + 3
+
+
+_reference_pose = jax.jit(lambda c, k: jpose.estimate_poses(c, k, TAG_SIZE))
+
+
+def assert_pose_matches(want, got):
+    for f in ("translation", "quaternion", "rotation"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   rtol=1e-5, atol=1e-4, err_msg=f)
+
+
+def test_pose_shared_k_matches_reference():
+    corners = tail_pose_corners([K] * 3, 4)
+    got = tpose.estimate_poses(torch.from_numpy(corners), torch.from_numpy(K), TAG_SIZE)
+    for b in range(3):
+        want = _reference_pose(jnp.asarray(corners[b]), jnp.asarray(K))
+        assert_pose_matches(want, Poses_at(got, b))
+        one = tpose.estimate_poses(torch.from_numpy(corners[b]), torch.from_numpy(K), TAG_SIZE)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f)[b], getattr(one, f)), f
+
+
+def Poses_at(p, b):
+    return type(p)(*(x[b] for x in p))
+
+
+def test_pose_batched_k_matches_reference():
+    """K (B, 3, 3), one per frame of corners (B, T, 4, 2), against jax.vmap
+    of the reference's estimate_poses."""
+    Ks = np.stack([K * np.array([[1 + 0.1 * b], [1 + 0.1 * b], [1]], np.float32)
+                   for b in range(3)])
+    corners = tail_pose_corners(Ks, 4, seed=6)
+    want = jax.jit(jax.vmap(_reference_pose))(jnp.asarray(corners), jnp.asarray(Ks))
+    got = tpose.estimate_poses(torch.from_numpy(corners), torch.from_numpy(Ks), TAG_SIZE)
+    assert_pose_matches(want, got)
+
+
+def _mirror_solve(A, b, pick: str = "first"):
+    """numpy float32 mirror of utils/geometry.py::solve_pivoted with the
+    pivot on ties taken from the first (its rule) or the last row."""
+    A, b = A.astype(np.float32).copy(), b.astype(np.float32).copy()
+    n = len(b)
+    for k in range(n):
+        col = np.abs(A[k:, k])
+        top = col.max()
+        rows = np.flatnonzero(col == top) if top == top else [0]
+        p = k + (rows[0] if pick == "first" else rows[-1])
+        A[[k, p]], b[[k, p]] = A[[p, k]], b[[p, k]]
+        for i in range(k + 1, n):
+            f = A[i, k] / A[k, k]
+            A[i, k + 1:] = A[i, k + 1:] - f * A[k, k + 1:]
+            b[i] = b[i] - f * b[k]
+    x = np.zeros(n, np.float32)
+    for j in range(n - 1, -1, -1):
+        x[j] = b[j] / A[j, j]
+        b[:j] = b[:j] - A[:j, j] * x[j]
+    return x
+
+
+def _dlt_systems(n: int, seed: int):
+    """The Hartley-normalized 8x8 DLT systems of n random quads."""
+    rng = np.random.default_rng(seed)
+    src = np.broadcast_to(tdec._SQUARE, (n, 4, 2))
+    dst = (tdec._SQUARE * rng.uniform(10, 80, (n, 1, 1)) + rng.normal(0, 8, (n, 4, 2))
+           + rng.uniform(50, 900, (n, 1, 2))).astype(np.float32)
+    c = dst.mean(1, keepdims=True)
+    s = np.abs(dst - c).mean((1, 2))[:, None, None]
+    u, v = ((dst - c) / s).transpose(2, 0, 1)
+    x, y = src[..., 0], src[..., 1]
+    z, o = np.zeros_like(x), np.ones_like(x)
+    A = np.concatenate([np.stack([x, y, o, z, z, z, -u * x, -u * y], -1),
+                        np.stack([z, z, z, x, y, o, -v * x, -v * y], -1)], 1)
+    return A.astype(np.float32), np.concatenate([u, v], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["dlt", "random"])
+def test_solve_pivoted_matches_linalg_solve(kind):
+    """On well-posed systems the explicit elimination equals
+    torch.linalg.solve to 1e-5 relative (both in f32, against the f64
+    solution), and the numpy mirror bit for bit."""
+    rng = np.random.default_rng(11)
+    if kind == "dlt":
+        A, b = _dlt_systems(64, 12)
+    else:
+        A = (rng.normal(0, 1, (64, 8, 8)) + 4 * np.eye(8)).astype(np.float32)
+        b = rng.normal(0, 1, (64, 8)).astype(np.float32)
+    got = tgeo.solve_pivoted(torch.from_numpy(A), torch.from_numpy(b)).numpy()
+    lib = torch.linalg.solve(torch.from_numpy(A), torch.from_numpy(b)).numpy()
+    exact = np.linalg.solve(A.astype(np.float64), b.astype(np.float64)[..., None])[..., 0]
+    scale = np.linalg.norm(exact, axis=-1)
+    assert (np.linalg.norm(got - exact, axis=-1) <= 1e-5 * scale).all()
+    assert (np.linalg.norm(got - lib, axis=-1) <= 1e-5 * scale).all()
+    for i in range(8):
+        np.testing.assert_array_equal(got[i], _mirror_solve(A[i], b[i]))
+
+
+def test_solve_pivoted_takes_the_first_largest_pivot():
+    """Columns whose largest |entry| is tied between rows (3 and -3 below
+    the diagonal): the elimination equals the mirror that pivots on the
+    first of them, bit for bit, and not the one that takes the last."""
+    rng = np.random.default_rng(13)
+    A = rng.integers(-9, 10, (32, 8, 8)).astype(np.float32) + rng.normal(0, 1e-3, (32, 8, 8))
+    A[:, :, 0] = [1.0, 3.0, 2.0, -3.0, 0.5, 1.5, -1.0, 2.5]
+    A = A.astype(np.float32)
+    b = rng.normal(0, 1, (32, 8)).astype(np.float32)
+    got = tgeo.solve_pivoted(torch.from_numpy(A), torch.from_numpy(b)).numpy()
+    differs = 0
+    for i in range(len(A)):
+        np.testing.assert_array_equal(got[i], _mirror_solve(A[i], b[i], "first"))
+        differs += not np.array_equal(got[i], _mirror_solve(A[i], b[i], "last"))
+    assert differs > 0
+
+
+def test_homography_matches_reference():
+    """The homography of the DLT quads against the reference's (an LU solve
+    in another order)."""
+    rng = np.random.default_rng(14)
+    dst = (tdec._SQUARE * 40 + rng.normal(0, 6, (32, 4, 2)) + 300).astype(np.float32)
+    src = np.broadcast_to(tdec._SQUARE, dst.shape).copy()
+    want = np.asarray(jgeo.homography_from_correspondences(jnp.asarray(src), jnp.asarray(dst)))
+    got = tgeo.homography_from_correspondences(torch.from_numpy(src), torch.from_numpy(dst))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
+
+
+def test_parent_forms_compute_the_same_function():
+    """chip_smoke.py phase 26's yardsticks, the parent's torch ops for
+    decode and pose, against the plain versions: ids, hamming, rotation and
+    corners equal, margins and poses within the reference's tolerances."""
+    gray, corners = tail_frame("tagStandard41h12", seed=5)
+    fam = get_family("tagStandard41h12")
+    g, c = torch.from_numpy(gray), torch.from_numpy(corners)
+    assert_decode_matches(chip_smoke.parent_decode_form(g, c, fam), tdec.decode_quads(g, c, fam))
+    pc, Kt = torch.from_numpy(tail_pose_corners([K, K], 3)), torch.from_numpy(K)
+    assert_pose_matches(chip_smoke.parent_pose_form(pc, Kt, TAG_SIZE),
+                        tpose.estimate_poses(pc, Kt, TAG_SIZE))
+
+
+def test_wrappers_run_the_plain_versions_on_the_cpu():
+    """On CPU tensors the kernels' wrappers return the plain versions'
+    results and launch nothing."""
+    before = launch_counts()
+    gray, corners = tail_frame("tag25h9", seed=4)
+    g, c, fam = torch.from_numpy(gray), torch.from_numpy(corners), get_family("tag25h9")
+    for a, b in zip(decode_kernel.decode_quads(g, c, fam), tdec.decode_quads(g, c, fam)):
+        assert torch.equal(a, b)
+    pc = torch.from_numpy(tail_pose_corners([K, K], 3))
+    for a, b in zip(pose_kernel.estimate_poses(pc, torch.from_numpy(K), TAG_SIZE),
+                    tpose.estimate_poses(pc, torch.from_numpy(K), TAG_SIZE)):
+        assert torch.equal(a, b)
+    assert launch_counts() == before
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    fam = get_family("tag36h11")
+    g = torch.zeros(2, 40, 50)
+    c = torch.zeros(2, 3, 4, 2)
+    for bad_g, bad_c in ((g.double(), c), (g, c.double()), (g, c[..., :1]), (g[0], c),
+                         (g[:1], c), (g.transpose(1, 2), c), (g, c.transpose(1, 2)),
+                         (g[:, :0], c), (g, c[:, :0])):
+        with pytest.raises(ValueError):
+            decode_kernel.decode_quads(bad_g, bad_c, fam)
+    big = dataclasses.replace(fam, width_at_border=16, total_width=18)
+    with pytest.raises(ValueError, match="past the kernel"):
+        decode_kernel.decode_quads(g, c, big)
+    Kt = torch.from_numpy(K)
+    for bad_c, bad_k in ((c.double(), Kt), (c, Kt.double()), (c[..., :1], Kt), (c, Kt[:2]),
+                         (c, Kt.expand(3, 3, 3).contiguous()), (c[0], Kt.expand(2, 3, 3)),
+                         (c, Kt.t()), (c[:, :0], Kt)):
+        with pytest.raises(ValueError):
+            pose_kernel.estimate_poses(bad_c, bad_k, TAG_SIZE)

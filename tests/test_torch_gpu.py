@@ -7,8 +7,8 @@ the streaming runner's upload ring against a slow reader, the rig's launch
 counts, no host sync on the detect path, and detect_checked; the captured
 detect call (CUDA graph replay) against the eager call; the CCL flow
 with pointer jumps, bundle adjustment of a 10k-tag map against the CPU, and
-the rig over a world of one NCCL process; the cluster, resolve and
-quad-fit kernels on chip_smoke.py's cases, the segment kernels on its
+the rig over a world of one NCCL process; the cluster, resolve,
+quad-fit, decode and pose kernels on chip_smoke.py's cases, the segment kernels on its
 synthetic sorted keys, the cluster sort's kernels on its synthetic rows
 and frames, and the count and map kernels on its count cases. They skip
 without a card.
@@ -32,13 +32,14 @@ import torch
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
                         LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES,
                         RESOLVE_FINAL_ONLY, RESOLVE_KERNELS,
-                        SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, THRESH_CASES,
-                        THRESH_MIN_DIFF, bench_inputs, check_cluster_case, check_count_case,
-                        check_map_case, check_quadfit_case, check_resolve_call,
-                        check_segment_row, check_sort_frame, check_sort_row, cluster_cases,
+                        SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, TAIL_CASE_NAMES,
+                        THRESH_CASES, THRESH_MIN_DIFF, bench_inputs, check_cluster_case,
+                        check_count_case, check_map_case, check_quadfit_case,
+                        check_resolve_call, check_segment_row, check_sort_frame,
+                        check_sort_row, check_tail_case, cluster_cases,
                         edge_batch,
                         free_port, map_problem, quadfit_cases, resolve_cases, scan_batch,
-                        scan_case, scan_case_id, thresh_case_id, thresh_input)
+                        scan_case, scan_case_id, tail_cases, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
                                           batched_detect_fn, build_spatial_front_fn,
@@ -48,6 +49,8 @@ from isaac_ros_apriltag_tpu_torch.parallel.slam import ba
 from isaac_ros_apriltag_tpu_torch import detector as tdetector
 from isaac_ros_apriltag_tpu_torch.ops.cuda import ccl, launch_counts, set_launch_counts
 from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cluster_kernels
+from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as decode_kernel
+from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pose_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as quadfit_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as resolve_kernels
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
@@ -376,9 +379,9 @@ def test_replay_equals_eager_call(cuda, config, batch, backend):
 def test_replay_counts_launches(cuda, backend):
     """A replay adds the launches its capture recorded: 1 / 14 / 14, two of
     each resolve kernel but the dense kernel's one (the final resolve's),
-    the cluster kernels' (one of each, one radix scatter a pass) and one
-    quad-fit search for backend 'cuda', none for the twins; the capture
-    itself adds none."""
+    the cluster kernels' (one of each, one radix scatter a pass), one
+    quad-fit search, one decode and one pose for backend 'cuda', none for
+    the twins; the capture itself adds none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
     n = 1 if backend == "cuda" else 0
@@ -391,7 +394,7 @@ def test_replay_counts_launches(cuda, backend):
                                    **{k: n * m for k, m in CLUSTER_KERNELS.items()},
                                    **{k: (1 if k in RESOLVE_FINAL_ONLY else 2) * n
                                       for k in RESOLVE_KERNELS},
-                                   "quadfit_search": n}
+                                   "quadfit_search": n, "decode": n, "pose": n}
 
 
 def test_streaming_over_captured_call_equals_eager(cuda):
@@ -720,6 +723,34 @@ def test_quadfit_kernel_refuses_what_it_does_not_take(cuda):
     for bad in (S.double(), S[..., :64], S.transpose(0, 1).contiguous().transpose(0, 1), S[:0]):
         with pytest.raises(ValueError):
             quadfit_kernel.quad_search(bad)
+
+
+_TAIL_CASES = {}
+
+
+@pytest.mark.parametrize("name", TAIL_CASE_NAMES)
+def test_tail_kernels_match_plain_versions(cuda, name):
+    """chip_smoke.py phase 26's checks on one case: the decode and pose
+    kernels against their plain versions bit for bit on every output, one
+    launch a call, two calls and a captured replay equal."""
+    if not _TAIL_CASES:
+        _TAIL_CASES.update(tail_cases(cuda))
+    check_tail_case(name, _TAIL_CASES[name])
+
+
+def test_tail_kernels_refuse_what_they_do_not_take(cuda):
+    fam = get_family("tag36h11")
+    g = torch.zeros((2, 40, 50), device=cuda)
+    c = torch.zeros((2, 3, 4, 2), device=cuda)
+    for bad_g, bad_c in ((g.double(), c), (g, c[..., :1]), (g[0], c), (g.cpu(), c),
+                         (g.transpose(1, 2), c), (g, c.transpose(1, 2)), (g, c[:, :0])):
+        with pytest.raises(ValueError):
+            decode_kernel.decode_quads(bad_g, bad_c, fam)
+    K = torch.eye(3, device=cuda)
+    for bad_c, bad_k in ((c.double(), K), (c, K.cpu()), (c, K.t()), (c[..., :1], K),
+                         (c, K.expand(3, 3, 3).contiguous()), (c[:, :0], K)):
+        with pytest.raises(ValueError):
+            pose_kernel.estimate_poses(bad_c, bad_k, 0.16)
 
 
 _RESOLVE_CASES = {}
