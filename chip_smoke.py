@@ -138,7 +138,9 @@ non-zero):
      alone at the same two shapes, eager, with no torch sort, scan or
      scatter/gather kernel (RESOLVE_LIBRARY_NAMES) among theirs; the count
      of every kernel in phase 21's two replays, and in the same replays
-     with decode and pose in the parent's torch form;
+     with the quad-fit epilogue, the picks, the dedupe and refine in the
+     parent's torch form; in each replay only TAIL_BETWEEN's kernels run
+     between the quad fit's launch and pose's;
  23. cluster moments: the cluster-moment kernels (csrc/cluster_moments.cu:
      the pair count, the kept pairs' compaction (count and write kernels)
      and radix sort (SORT_PASSES launches of the scatter kernel), the two
@@ -196,12 +198,15 @@ non-zero):
      valid cluster) and on synthetic clusters (tied maxima and 4-subsets,
      one to three candidates, a candidate at bin 63, an empty slot, random
      bins, an inf and a NaN): best, best_err and the six winner lines
-     bit-exact with its plain version, every Quads field of the fit on the
-     kernel equal to the plain fit's, one launch a call, two calls and a
-     captured replay equal; device ms of the kernel, its plain version, its
-     bound and the library yardstick (the parent's selector arc sums, one
-     torch.bmm a table), and of the stage (on the kernel, on the plain
-     search, in the parent's selector form);
+     bit-exact with its plain version; its fitting launch (the search and
+     the epilogue: corners, gates, winding, fit error) against the plain
+     search and fit_epilogue on every Quads field; each one launch a call,
+     two calls and a captured replay equal; device ms of the kernel, its
+     plain version, its bound and the library yardstick (the parent's
+     selector arc sums, one torch.bmm a table), of the fitting launch
+     against its bound, and of the stage (the prefix tables and the fitting
+     launch; the plain fit; the parent's form, the search kernel and the
+     epilogue's torch ops; the plain fit with the selector arc sums);
  26. tail: the decode and pose kernels (csrc/tail.cu) on what a detect call
      of torch_bench.py's 720p b1 and 1080p b8 inputs gives them (the top-2T
      refined candidates, the top-T tags) and on tail_frame's one-tag frames
@@ -211,12 +216,24 @@ non-zero):
      and a batch of three frames posed with a per-frame K: every output
      bit-exact with the plain version (ops/decode.py, ops/pose.py), one
      launch a call, two calls and a captured replay equal; device ms of
-     each kernel, its plain version, its bound and the parent's torch form.
+     each kernel, its plain version, its bound and the parent's torch form;
+ 27. tail glue: the refine, top-2T pick and dedupe/top-T kernels
+     (csrc/tail.cu: refine_kernel, tail_select_kernel, tail_finish_kernel)
+     on what a detect call of torch_bench.py's 720p b1 and 1080p b8 inputs
+     gives them and on glue_synthetic's cases (NaN and inf corners, no
+     valid quad, tied scores and margins, duplicate ids at equal margins,
+     max_tags < C/2, quad_decimate 1 and 3, a batch of 3): every output
+     bit-exact with the plain version (ops/refine.py, ops/tail.py), one
+     launch a call, two calls and a captured replay equal, a batch equal to
+     each frame alone; device ms of each kernel, its plain version, its
+     bound and the parent's torch form.
 Every path launches K1 once, K2 and K3 once a scan round, each resolve
 kernel once a resolve call (twice in the two-phase flow) but the dense
 kernel, once a final resolve, each cluster
 kernel once a call but the radix scatter, once a pass (CLUSTER_KERNELS),
-and the quad-fit search, decode and pose once a call. A path counted on an eager
+and the tail's kernels once a call: the quad fit's fitting launch, the
+top-2T pick, refine, decode, the dedupe and top-T pick, and pose. A path
+counted on an eager
 call reads the wrappers' counters, which each wrapper adds to where it
 launches its kernel; a replay adds the counts its capture recorded
 (capture.GraphedCall), which phase 22 holds against the profiler. The kernels line's `captured` path is phase 22's 720p b1 replay.
@@ -298,7 +315,10 @@ KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "resolve_scan": "resolve_scan_kernel", "resolve_slots": "resolve_slots_kernel",
                 "resolve_dense": "resolve_dense_kernel", "resolve_map": "resolve_map_kernel",
                 "quadfit_search": "qf_search_kernel",
+                "tail_select": "tail_select_kernel",
+                "refine": ("::refine_kernel(", "13refine_kernelE"),
                 "decode": ("::decode_kernel(", "13decode_kernelE"),
+                "tail_finish": "tail_finish_kernel",
                 "pose": ("::pose_kernel(", "11pose_kernelE")}
 SORT_PASSES = 4               # radix passes of the cluster stage's sort (ops/cluster_moments.py)
 # The cluster kernels' launches a detect call: each once, the radix scatter
@@ -476,6 +496,25 @@ TAIL_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES
                    + TAIL_FAMILIES + ("tag36h11, no sharpening", "tag36h11, max_hamming 0",
                                       "tagCircle49h12, 5 bits flipped, max_hamming 5",
                                       "tag36h11, a batch of 3 frames, per-frame K"))
+
+# Phase 27: the tail's per-quad refinement and per-frame picks (see
+# glue_cases), the reference's XLA code each kernel replaces (no Pallas
+# kernel there), and the f32 operations a bound counts: a profile sample
+# (its point on the normal, the clamps, floors and fractions, the four taps'
+# weights) and a gradient weight (the difference, its square, the two sums
+# and the offset); a pair of candidates in a frame's rank (a compare) and
+# in the dedupe (the center distance and the tests).
+GLUE_KERNELS = ("refine", "tail_select", "tail_finish")
+GLUE_REPLACES = {"refine": "isaac_ros_apriltag_tpu/ops/refine.py:61",
+                 "tail_select": "isaac_ros_apriltag_tpu/detector.py:234",
+                 "tail_finish": "isaac_ros_apriltag_tpu/detector.py:254"}
+GLUE_SAMPLE_FLOPS = 21
+GLUE_WEIGHT_FLOPS = 8
+GLUE_PAIR_FLOPS = {"tail_select": 1, "tail_finish": 12}
+GLUE_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES)
+                   + ("NaN and inf corners", "no valid quad", "tied scores and margins",
+                      "duplicate ids, equal margins", "max_tags < C/2", "quad_decimate 1",
+                      "quad_decimate 3", "a batch of 3 frames"))
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -1239,14 +1278,15 @@ def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict
     the contraction and the final resolve; 1 in the flat and jumps flows):
     K1 once, K2 and K3 once a round, the resolve kernels once a resolve call
     (RESOLVE_FINAL_ONLY's once, in the final resolve), the cluster kernels
-    as CLUSTER_KERNELS counts them, the quad-fit search, decode and pose
-    once (a rig whose cameras have their own K poses once a call, outside
-    its graph)."""
+    as CLUSTER_KERNELS counts them, and the tail's kernels once: the quad
+    fit's fitting launch, the top-2T pick, refine, decode, the dedupe and
+    top-T pick, pose (a rig whose cameras have their own K poses once a
+    call, outside its graph)."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
             **{k: n * frames for k, n in CLUSTER_KERNELS.items()},
             **{k: (1 if k in RESOLVE_FINAL_ONLY else resolves) * frames
-               for k in RESOLVE_KERNELS}, "quadfit_search": frames, "decode": frames,
-            "pose": frames}
+               for k in RESOLVE_KERNELS}, "quadfit_search": frames, "tail_select": frames,
+            "refine": frames, "decode": frames, "tail_finish": frames, "pose": frames}
 
 
 def _resolve_want(call: str) -> dict:
@@ -1282,6 +1322,37 @@ def _device_kernels(prof) -> list[str]:
     import torch
 
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+# The kernels that may run between the quad fit's launch and pose's in a
+# detect call on backend 'cuda' (phase 22 checks that nothing else does).
+TAIL_BETWEEN = ("tail_select", "refine", "decode", "tail_finish")
+
+
+def _kernel_key(name: str):
+    """The LAUNCH_COUNTERS name whose KERNEL_NAMES pattern matches a device
+    kernel's name, or None."""
+    for k, part in KERNEL_NAMES.items():
+        if any(p in name for p in ((part,) if isinstance(part, str) else part)):
+            return k
+    return None
+
+
+def tail_between(prof) -> list[str]:
+    """The device kernels that ran after the last quad-fit launch and
+    before the next pose launch in a torch.profiler trace, in start
+    order; raises unless both ran."""
+    import torch
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    keys = [_kernel_key(e.name) for e in events]
+    if "quadfit_search" not in keys or "pose" not in keys:
+        raise AssertionError("the trace holds no quad-fit or no pose launch")
+    first = len(keys) - 1 - keys[::-1].index("quadfit_search")
+    last = keys.index("pose", first)
+    return [e.name for e in events[first + 1:last]]
 
 
 def _profiled_kernels(prof) -> dict:
@@ -2780,9 +2851,11 @@ def check_quadfit_case(name: str, m, min_area: float) -> dict:
     """One of phase 25's cases: the kernel against its plain version on the
     prefix tables (best, best_err and the six winner lines bit-exact, NaN
     equal to NaN), one launch a call, two calls and a captured replay
-    equal; the quad fit on the kernel against the plain fit on every Quads
-    field. Raises on a difference; returns the tables, the kernel's result,
-    the quads and each cluster's count of candidates."""
+    equal; the fitting launch (search and epilogue) against the plain fit
+    (search_plain, fit_epilogue) on every Quads field, one launch a call,
+    two calls and a captured replay equal. Raises on a difference; returns
+    the tables, the kernel's result, the quads and each cluster's count of
+    candidates."""
     from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
 
@@ -2801,12 +2874,20 @@ def check_quadfit_case(name: str, m, min_area: float) -> dict:
     if not all(_same(a, b) for a, b in zip(qk.quad_search(S), got)):
         raise AssertionError(f"quad search kernel, {name}: two calls differ")
     _replay_equals(lambda: qk.quad_search(S), got, f"quad search kernel, {name}")
+    _reset_launches()
     qa = qk.fit_quads_from_moments(m, min_area=min_area)
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"quad fit, {name}: launches {counts} != {one}")
     qb = plain.fit_quads_from_moments(m, min_area=min_area)
     for f, a, b in zip(qb._fields, qa, qb):
         if not _same(a, b):
-            raise AssertionError(f"quad fit, {name}: {f} differs between the kernel and the "
-                                 "plain search")
+            raise AssertionError(f"quad fit, {name}: {f} of the fitting launch differs from "
+                                 "the plain search and epilogue")
+    if not all(_same(a, b) for a, b in zip(qk.fit_quads_from_moments(m, min_area=min_area), qa)):
+        raise AssertionError(f"quad fit, {name}: two calls differ")
+    _replay_equals(lambda: qk.fit_quads_from_moments(m, min_area=min_area), qa,
+                   f"quad fit, {name}")
     n_cand = (plain.candidates(S) < S.shape[-1] - 1).sum(-1)
     return dict(S=S, got=got, quads=qa, n_cand=n_cand)
 
@@ -2815,11 +2896,13 @@ def quadfit_phase(gpu: str) -> dict:
     """Phase 25: check_quadfit_case on each of quadfit_cases, and device
     times at torch_bench.py's two shapes of the kernel, its plain version,
     its bound and the library yardstick (_selector_arc_sums on the search's
-    arcs), and of the stage (the quad fit on the kernel, on the plain
-    search, and in the parent's form: the plain search with the selector
-    arc sums). Returns {max_abs_err (0: any difference raises), and for
-    'b1' (720p) and 'batch8' (1080p): shape, ms, plain_ms, bound_ms,
-    bound_by, library_ms, stage}."""
+    arcs), of the fitting launch alone against its bound, and of the stage
+    (the prefix tables and the fitting launch; the plain fit; the parent's
+    form, parent_fit_form: the search kernel and the epilogue's torch ops,
+    these two as captured replays; the plain fit with the selector arc
+    sums). Returns {max_abs_err (0: any difference raises), and for 'b1'
+    (720p) and 'batch8' (1080p): shape, ms, plain_ms, bound_ms, bound_by,
+    library_ms, fit, stage}."""
     import math
     from unittest import mock
 
@@ -2859,24 +2942,39 @@ def quadfit_phase(gpu: str) -> dict:
                  library_ms=_device_ms(lambda: (_selector_arc_sums(S, wa, wa + 4),
                                                 _selector_arc_sums(S, cidx + 1, c1 - 1)), 5))
         with mock.patch.object(plain, "_arc_sums", _selector_arc_sums):
-            parent_ms = _device_ms(lambda: plain.fit_quads_from_moments(m, min_area=min_area), 5)
+            selector_ms = _device_ms(lambda: plain.fit_quads_from_moments(m, min_area=min_area),
+                                     5)
+        # The fitting launch: the search's bound and the clusters' fields
+        # read, the Quads written.
+        fit_bytes = _bound_ms(S, m.centroid, m.scale, m.count, m.valid, *c["quads"][:2],
+                              *c["quads"][3:])
+        t["fit"] = dict(ms=_device_ms(lambda: qk.quad_fit(S, m, min_area=min_area), 20),
+                        bound_ms=max(fit_bytes, ops_ms),
+                        bound_by="bytes" if fit_bytes >= ops_ms else "operations")
         t["stage"] = {"kernel": _device_ms(lambda: qk.fit_quads_from_moments(
                           m, min_area=min_area), 20),
-                      "plain": _device_ms(lambda: plain.fit_quads_from_moments(
-                          m, min_area=min_area), 5),
-                      "parent_form": parent_ms}
+                      "plain": _graph_ms(lambda: plain.fit_quads_from_moments(
+                          m, min_area=min_area), 20),
+                      "parent_form": _graph_ms(lambda: parent_fit_form(m, min_area=min_area),
+                                               20),
+                      "selector_form": selector_ms}
         out["b1" if bench[name] == 1 else f"batch{bench[name]}"] = t
     torch.cuda.synchronize()
     print(f"[25 quad fit] qf_search_kernel (one launch a call) against its plain version "
           f"(best, best_err, the six winner lines bit-exact), two calls and a captured replay "
-          f"equal, the fit on the kernel against the plain fit on every Quads field: "
+          f"equal; its fitting launch (search and epilogue) against the plain search and "
+          f"fit_epilogue on every Quads field, one launch, two calls and a replay equal: "
           + "; ".join(lines) + f"; on {gpu}: device ms a call (kernel / plain / bound "
           "(by) / library: the selector arc sums), stage (kernel path / plain search / "
-          "parent's selector form) "
+          "parent's form: the search kernel and the epilogue's torch ops / the selector "
+          "form; plain and parent's form as captured replays), the fitting launch alone "
+          "(kernel / bound (by)) "
           + ", ".join(f"{k} {v['shape']}: {v['ms']:.4f} / {v['plain_ms']:.4f} / "
                       f"{v['bound_ms']:.5f} ({v['bound_by']}) / {v['library_ms']:.4f}, stage "
                       f"{v['stage']['kernel']:.4f} / {v['stage']['plain']:.4f} / "
-                      f"{v['stage']['parent_form']:.4f}"
+                      f"{v['stage']['parent_form']:.4f} / {v['stage']['selector_form']:.4f}, "
+                      f"fitting launch {v['fit']['ms']:.4f} / {v['fit']['bound_ms']:.5f} "
+                      f"({v['fit']['bound_by']})"
                       for k, v in out.items() if k != "max_abs_err"), flush=True)
     return out
 
@@ -3221,6 +3319,435 @@ def tail_phase(gpu: str) -> dict:
     return out
 
 
+def parent_refine_form(gray, corners, dark_inside, *, search_range: float = 2.0):
+    """The parent's refine_edges, phase 27's yardstick of the stage before
+    its kernel: torch ops on (..., 4, 12, P) profiles (vector_norm, float
+    sums over offsets and points), ~160 of them."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.refine import _bilinear
+    from isaac_ros_apriltag_tpu_torch.utils.geometry import line_intersection
+
+    dev = corners.device
+    p0, p1 = corners, torch.roll(corners, -1, -2)
+    centroid = corners.mean(-2, keepdim=True)
+    e = p1 - p0
+    e = e / torch.clamp(torch.linalg.vector_norm(e, dim=-1, keepdim=True), min=1e-6)
+    n = torch.stack([e[..., 1], -e[..., 0]], -1)
+    mid = 0.5 * (p0 + p1)
+    n = torch.where((n * (centroid - mid)).sum(-1, keepdim=True) >= 0, n, -n)
+    alphas = (1.0 + torch.arange(12, dtype=torch.float32, device=dev)) / 13
+    pts = p0[..., None, :] + alphas[:, None] * (p1 - p0)[..., None, :]
+    prof_offs = torch.arange(-search_range - 1.0, search_range + 1.0 + 0.25, 0.5,
+                             dtype=torch.float32, device=dev)
+    base = pts[..., None, :] + prof_offs[:, None] * n[..., None, None, :]
+    prof = _bilinear(gray, base[..., 0], base[..., 1])
+    g_in, g_out, offs = prof[..., 4:], prof[..., :prof.shape[-1] - 4], prof_offs[2:-2]
+    diff = torch.where(dark_inside[..., None, None, None], g_out - g_in, g_in - g_out)
+    w = torch.where(diff > 0, diff * diff, 0.0)
+    wsum = w.sum(-1)
+    n0 = (w * offs).sum(-1) / torch.clamp(wsum, min=1e-9)
+    sample_ok = wsum > 1e-3
+    q = pts + n0[..., None] * n[..., None, :]
+    sw = torch.where(sample_ok, wsum, 0.0)[..., None]
+    mean = (q * sw).sum(-2) / torch.clamp(sw.sum(-2), min=1e-9)
+    d = q - mean[..., None, :]
+    cxx = (sw[..., 0] * d[..., 0] * d[..., 0]).sum(-1)
+    cxy = (sw[..., 0] * d[..., 0] * d[..., 1]).sum(-1)
+    cyy = (sw[..., 0] * d[..., 1] * d[..., 1]).sum(-1)
+    lam = 0.5 * (cxx + cyy + torch.sqrt(torch.clamp((cxx - cyy) ** 2 + 4 * cxy * cxy, min=0.0)))
+    v1, v2 = torch.stack([cxy, lam - cxx], -1), torch.stack([lam - cyy, cxy], -1)
+    dirs = torch.where((v1 * v1).sum(-1, keepdim=True) > (v2 * v2).sum(-1, keepdim=True), v1, v2)
+    dirs = dirs / torch.clamp(torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-9)
+    good = ((sample_ok.sum(-1) >= 6) & (lam > 1e-9))[..., None]
+    mean, dirs = torch.where(good, mean, mid), torch.where(good, dirs, e)
+    new = line_intersection(torch.roll(mean, 1, -2), torch.roll(dirs, 1, -2), mean, dirs)
+    ok = torch.isfinite(new).all(-1) & (
+        torch.linalg.vector_norm(new - corners, dim=-1) < search_range + 0.5)
+    return torch.where(ok[..., None], new, corners)
+
+
+def parent_fit_form(m, *, max_line_fit_mse: float = 10.0, critical_cos: float = 0.985,
+                    min_area: float = 64.0):
+    """The parent's quad fit, phase 25's and 27's yardstick of the stage
+    before its epilogue moved into the kernel: the search kernel (its plain
+    version on the CPU), then torch ops on the (N, 4) winners (vector_norm,
+    float sums over the corners), ~100 of them."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
+    from isaac_ros_apriltag_tpu_torch.utils.geometry import line_intersection
+
+    lead = m.bw.shape[:-1]
+    centroid = m.centroid.reshape(-1, 2)
+    scale = torch.clamp(m.scale.reshape(-1, 1), min=1e-6)
+    q = qk.quad_search(plain.prefix_tables(m))
+    pts = torch.stack([q.ex, q.ey], -1)
+    dx, dy = plain._line_dir(q.cxx, q.cxy, q.cyy)
+    dirs = torch.stack([dx, dy], -1)
+    corners = line_intersection(torch.roll(pts, 1, 1), torch.roll(dirs, 1, 1), pts, dirs)
+    corners = corners * scale[..., None] + centroid[:, None, :]
+    scale2 = scale[..., 0] ** 2
+    x0, y0 = corners[..., 0], corners[..., 1]
+    area2 = (x0 * torch.roll(y0, -1, -1) - torch.roll(x0, -1, -1) * y0).sum(-1)
+    e_in = corners - torch.roll(corners, 1, 1)
+    e_out = torch.roll(corners, -1, 1) - corners
+    cosang = (e_in * e_out).sum(-1) / torch.clamp(
+        torch.linalg.vector_norm(e_in, dim=-1) * torch.linalg.vector_norm(e_out, dim=-1),
+        min=1e-9)
+    gates = torch.stack([torch.isfinite(q.best_err), q.aerr.amax(-1) * scale2 <= max_line_fit_mse,
+                         0.5 * area2.abs() >= min_area,
+                         torch.all(cosang.abs() < critical_cos, -1),
+                         torch.isfinite(corners).all(-1).all(-1), m.count.reshape(-1) >= 8,
+                         m.valid.reshape(-1)], -1)
+    flip = torch.roll(torch.flip(corners, (1,)), 1, 1)
+    corners = torch.where((area2 < 0)[:, None, None], flip, corners)
+    return plain.Quads(corners=corners.reshape(*lead, 4, 2), valid=gates.all(-1).reshape(lead),
+                       dark_inside=m.dark_inside, fit_err=(q.best_err * scale2).reshape(lead),
+                       gates=gates.reshape(*lead, -1))
+
+
+def parent_select_form(corners, valid, dark_inside, fit_err, *, want_dark: bool, k: int,
+                       decimate: int):
+    """The parent's top-2T pick, phase 27's yardstick of tail_select_kernel:
+    vector_norm and a float sum for the perimeter, torch.sort, gathers and
+    the upscale, ~17 torch ops."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.tail import Candidates, take, top, upscale_coords
+
+    qvalid = valid & (dark_inside == want_dark)
+    perim = torch.linalg.vector_norm(corners - torch.roll(corners, 1, -2), dim=-1).sum(-1)
+    top_s, top_i = top(torch.where(qvalid, perim / (1.0 + fit_err), -torch.inf), k)
+    return Candidates(corners=upscale_coords(take(corners, top_i), decimate),
+                      dark_inside=take(dark_inside, top_i), pre_valid=torch.isfinite(top_s),
+                      num_quads=qvalid.sum(-1).to(torch.int32))
+
+
+def parent_finish_form(dec, pre_valid, num_quads, overflow, *, k: int,
+                       min_decision_margin: float):
+    """The parent's dedupe, top-T pick, takes, center and counts, phase 27's
+    yardstick of tail_finish_kernel: ~68 torch ops (means, vector_norms and
+    (B, N, N) tests)."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.tail import Selection, take, top
+    from isaac_ros_apriltag_tpu_torch.utils.geometry import line_intersection
+
+    N = pre_valid.shape[-1]
+    valid = pre_valid & dec.valid & (dec.margin >= min_decision_margin)
+    c, ids, margin = dec.corners, dec.id, dec.margin
+    center = c.mean(-2)
+    edge = torch.linalg.vector_norm(c - torch.roll(c, 1, -2), dim=-1).mean(-1)
+    d = torch.linalg.vector_norm(center[:, :, None] - center[:, None, :], dim=-1)
+    near = d < 0.75 * torch.maximum(edge[:, :, None], edge[:, None, :])
+    idx = torch.arange(N, device=c.device)
+    better = (margin[:, :, None] > margin[:, None, :]) | (
+        (margin[:, :, None] == margin[:, None, :]) & (idx[:, None] < idx[None, :]))
+    valid = valid & ~torch.any(near & (ids[:, :, None] == ids[:, None, :])
+                               & valid[:, :, None] & valid[:, None, :] & better, 1)
+    top_s, top_f = top(torch.where(valid, margin, -torch.inf), k)
+    sel_valid = torch.isfinite(top_s)
+    corners = take(c, top_f)
+    c0, c1, c2, c3 = corners.unbind(-2)
+    return Selection(valid=sel_valid, id=torch.where(sel_valid, take(ids, top_f), -1),
+                     hamming=take(dec.hamming, top_f), margin=take(margin, top_f),
+                     center=line_intersection(c0, c2 - c0, c1, c3 - c1), corners=corners,
+                     num_detections=sel_valid.sum(-1).to(torch.int32),
+                     overflow=overflow | (num_quads > N))
+
+
+def _glue_stages() -> dict:
+    """Phase 27's stages: name -> (kernel wrapper, plain version, the
+    parent's form)."""
+    from isaac_ros_apriltag_tpu_torch.ops import refine as plain_refine
+    from isaac_ros_apriltag_tpu_torch.ops import tail as plain_tail
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as rk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tk
+
+    return {"refine": (rk.refine_edges, plain_refine.refine_edges, parent_refine_form),
+            "tail_select": (tk.select_candidates, plain_tail.select_candidates,
+                            parent_select_form),
+            "tail_finish": (tk.finish_detections, plain_tail.finish_detections,
+                            parent_finish_form)}
+
+
+def detect_glue_inputs(cfg, cam, images) -> dict:
+    """The inputs of the refine, select and finish kernels in an eager
+    detect call of a (B, H, W) uint8 batch on the card, backend 'cuda':
+    {stage: (args, keyword arguments)}."""
+    from unittest import mock
+
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as rk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tk
+    from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
+
+    seen = {}
+
+    def watch(stage, fn):
+        def watched(*args, **kw):
+            seen[stage] = (args, kw)
+            return fn(*args, **kw)
+        return watched
+
+    with contextlib.ExitStack() as stack:
+        for stage, (module, name) in {"refine": (rk, "refine_edges"),
+                                      "tail_select": (tk, "select_candidates"),
+                                      "tail_finish": (tk, "finish_detections")}.items():
+            stack.enter_context(mock.patch.object(module, name,
+                                                  watch(stage, getattr(module, name))))
+        batched_detect_fn(cfg, cam, "mono8", capture=False)(images)
+    return seen
+
+
+def glue_synthetic(name: str, dev) -> dict:
+    """One of phase 27's synthetic cases (GLUE_CASE_NAMES past the two bench
+    shapes), {stage: (args, keyword arguments)} on `dev`, made with seeded
+    numpy: C = 128 quads a frame in a 160x120 decimated image (random
+    centers, half sizes 4-30 px, turns, half of them wound backwards) to
+    select the top k from, the decoded candidates (ids from a few, margins
+    about the 10.0 gate, candidates valid before decode or not) to finish,
+    and tail_frame's one-tag frames (the tag's quad moved ~0.7 px, the
+    other quads, a dark or light inside) to refine at search range d + 1."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.decode import DecodeResult
+
+    seed = GLUE_CASE_NAMES.index(name)
+    rng = np.random.default_rng(seed)
+    B = 3 if name == "a batch of 3 frames" else 2
+    C, T, d = 128, 64, 2
+    if name == "max_tags < C/2":
+        T = 8
+    if name.startswith("quad_decimate"):
+        d = int(name[-1])
+    K = min(2 * T, C)
+    ties = name in ("tied scores and margins", "duplicate ids, equal margins")
+    nan = name == "NaN and inf corners"
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def quads(n, scale=1.0):
+        ctr = rng.uniform((12, 12), (148, 108), (B, n, 1, 2))
+        half = rng.uniform(4, 30, (B, n, 1, 1))
+        turn = np.where(ties, 0.0, rng.uniform(0, np.pi / 2, (B, n, 1)))
+        sq = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float64)
+        c, s_ = np.cos(turn)[..., None], np.sin(turn)[..., None]
+        q = ctr + half * np.stack([sq[:, 0] * c[..., 0] - sq[:, 1] * s_[..., 0],
+                                   sq[:, 0] * s_[..., 0] + sq[:, 1] * c[..., 0]], -1)
+        q = np.where(rng.random((B, n, 1, 1)) < 0.5, q, q[:, :, ::-1])
+        if ties:                          # integer corners: equal sizes tie exactly
+            q = np.round(q / 4) * 4
+        q = q * scale
+        if nan:
+            q[:, ::7, 1, 0] = np.nan
+            q[:, 3::11, 2, 1] = np.inf
+            q[:, 5::13, 0, 0] = -np.inf
+        return q.astype(np.float32)
+
+    valid = rng.random((B, C)) < (0.0 if name == "no valid quad" else 0.7)
+    if nan:
+        valid[:, ::7] = valid[:, 3::11] = valid[:, 5::13] = True
+    fit_err = (rng.integers(0, 4, (B, C)) * 0.25 if ties else rng.uniform(0, 3, (B, C)))
+    select = ((on(quads(C)), on(valid), on(rng.random((B, C)) < 0.8),
+               on(fit_err.astype(np.float32))), dict(want_dark=True, k=K, decimate=d))
+
+    corners = quads(K, float(d))
+    ids = rng.integers(0, 6, (B, K)).astype(np.int32)
+    margin = (rng.integers(5, 40, (B, K)) if ties else rng.uniform(0, 60, (B, K)))
+    margin = margin.astype(np.float32)
+    if name == "duplicate ids, equal margins":       # j + 1 a copy of j, 1 px over
+        corners[:, 1::2] = corners[:, ::2] + 1.0
+        ids[:, 1::2], margin[:, 1::2] = ids[:, ::2], margin[:, ::2]
+    if nan:
+        margin[:, ::9] = np.nan
+    dec = DecodeResult(valid=on(rng.random((B, K)) < 0.8), id=on(ids),
+                       hamming=on(rng.integers(0, 3, (B, K)).astype(np.int32)),
+                       margin=on(margin), rotation=on(np.zeros((B, K), np.int32)),
+                       corners=on(corners))
+    pre_valid = rng.random((B, K)) < (0.0 if name == "no valid quad" else 0.85)
+    finish = ((dec, on(pre_valid), on(rng.integers(0, 2 * K + 1, B).astype(np.int32)),
+               on(rng.random(B) < 0.3)), dict(k=T, min_decision_margin=10.0))
+
+    frames = [tail_frame("tag36h11", seed=seed + b, extra=True) for b in range(B)]
+    gray = np.stack([g for g, _ in frames])
+    rq = np.stack([q for _, q in frames])
+    rq[:, 0] += rng.normal(0, 0.7, rq[:, 0].shape).astype(np.float32)
+    dark = rng.random(rq.shape[:2]) < 0.5
+    dark[:, 0] = True
+    refine = ((on(gray), on(rq), on(dark)), dict(search_range=d + 1.0))
+    return {"refine": refine, "tail_select": select, "tail_finish": finish}
+
+
+def glue_cases(dev) -> dict:
+    """Phase 27's inputs, GLUE_CASE_NAMES -> {stage: (args, keyword
+    arguments)} on `dev`: the kernels' inputs in a detect call of
+    torch_bench.py's 720p b1 and 1080p b8 inputs (detect_glue_inputs), then
+    glue_synthetic's cases."""
+    cases = {}
+    for config, batch in CAPTURE_CASES:
+        cfg, cam, inputs = bench_inputs(config, batch, dev, calls=1)
+        cases[f"{config} b{batch}"] = detect_glue_inputs(cfg, cam, inputs[0])
+    for name in GLUE_CASE_NAMES[len(CAPTURE_CASES):]:
+        cases[name] = glue_synthetic(name, dev)
+    return cases
+
+
+def _frame_of(args, b: int):
+    """args (tensors and named tuples of tensors, leading dim B) cut to
+    frame b, as a batch of one."""
+    import torch
+
+    if isinstance(args, torch.Tensor):
+        return args[b:b + 1]
+    if isinstance(args, tuple):
+        cut = [_frame_of(a, b) for a in args]
+        return type(args)(*cut) if hasattr(args, "_fields") else tuple(cut)
+    return args
+
+
+def check_glue_case(name: str, case: dict) -> dict:
+    """One of phase 27's cases: each of the refine, select and finish
+    kernels against its plain version bit for bit on every output (NaN
+    equal to NaN), one launch a call, two calls and a captured replay
+    equal, and a batch equal to each frame alone. Raises on a difference;
+    returns {stage: the kernel's result}."""
+    import torch
+
+    out = {}
+    for stage, (kernel, plain, _) in _glue_stages().items():
+        args, kw = case[stage]
+        one = {k: int(k == stage) for k in _want()}
+        _reset_launches()
+        got = kernel(*args, **kw)
+        counts = _launches()
+        if counts != one:
+            raise AssertionError(f"{stage}, {name}: launches {counts} != {one}")
+        fields = got._fields if hasattr(got, "_fields") else ("out",)
+        gots = tuple(got) if hasattr(got, "_fields") else (got,)
+        want = plain(*args, **kw)
+        wants = tuple(want) if hasattr(want, "_fields") else (want,)
+        for f, a, b in zip(fields, gots, wants):
+            if not _same(a, b):
+                raise AssertionError(f"{stage} kernel, {name}: {f} differs from the plain "
+                                     f"version (max abs err {_max_abs_err(a, b)})")
+        again = kernel(*args, **kw)
+        if not all(_same(a, b) for a, b in zip(tuple(again) if fields != ("out",) else (again,),
+                                               gots)):
+            raise AssertionError(f"{stage} kernel, {name}: two calls differ")
+        _replay_equals(lambda: kernel(*args, **kw), got, f"{stage} kernel, {name}")
+        B = gots[0].shape[0]
+        for b in range(B if B > 1 else 0):
+            alone = kernel(*_frame_of(args, b), **kw)
+            alones = tuple(alone) if fields != ("out",) else (alone,)
+            if not all(_same(a, g[b:b + 1]) for a, g in zip(alones, gots)):
+                raise AssertionError(f"{stage} kernel, {name}: frame {b} alone differs from "
+                                     "the batch")
+        out[stage] = got
+    torch.cuda.synchronize()
+    return out
+
+
+def refine_bytes(gray, corners, dark, search_range: float, got) -> int:
+    """The bytes refine_kernel must move: each distinct (frame, row, column)
+    that the four taps of its profile samples read (neighbouring samples,
+    0.5 px apart, share most of them), once, plus the corners, dark flags
+    and refined corners."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.refine import sample_points, tap_indices
+
+    B, H, W = gray.shape
+    y0, x0, y1, x1, _, _ = tap_indices(H, W, *sample_points(corners, search_range))
+    frame = torch.arange(B, device=gray.device).view(B, *[1] * (y0.dim() - 1)) * (H * W)
+    taps = torch.stack([frame + y * W + x for y, x in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))])
+    return (torch.unique(taps).numel() * gray.element_size()
+            + sum(t.numel() * t.element_size() for t in (corners, dark, got)))
+
+
+def glue_bound(stage: str, args, kw, got) -> tuple[float, str]:
+    """(bound ms, 'bytes' or 'operations') of one of phase 27's kernels on
+    its inputs: each input and output once (refine: refine_bytes), or its
+    f32 operations at F32_OPS_PER_S, whichever is larger."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.refine import profile
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    gots = tuple(got) if isinstance(got, tuple) else (got,)
+    if stage == "refine":
+        gray, corners, dark = args
+        P = profile(kw["search_range"])[1]
+        n = corners.numel() // 8
+        samples = n * 4 * 12 * P
+        by = refine_bytes(gray, corners, dark, kw["search_range"], got)
+        ops = samples * GLUE_SAMPLE_FLOPS + n * 4 * 12 * max(P - 4, 0) * GLUE_WEIGHT_FLOPS
+    else:
+        flat = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
+                if isinstance(t, torch.Tensor)]
+        B, N = (args[0].shape[:2] if stage == "tail_select" else args[1].shape)
+        by = nbytes(*flat, *gots)
+        ops = B * N * N * GLUE_PAIR_FLOPS[stage]
+    by_ms, ops_ms = _bytes_ms(by), ops / F32_OPS_PER_S * 1e3
+    return (by_ms, "bytes") if by_ms >= ops_ms else (ops_ms, "operations")
+
+
+def glue_phase(gpu: str) -> dict:
+    """Phase 27: check_glue_case on each of glue_cases, and device times at
+    torch_bench.py's two shapes of each kernel, its plain version, its bound
+    (glue_bound) and the parent's form (parent_refine_form,
+    parent_select_form, parent_finish_form); the plain version and the
+    parent's form, tens to hundreds of small torch ops each, are timed as
+    captured replays (_graph_ms). No library call computes any of the three.
+    Returns {max_abs_err (0: any difference raises), and for 'b1' (720p)
+    and 'batch8' (1080p): {stage: shape, ms, plain_ms, bound_ms, bound_by,
+    library_ms, parent_ms}}."""
+    import torch
+
+    out = {"max_abs_err": 0.0}
+    lines = []
+    bench = {f"{config} b{batch}": batch for config, batch in CAPTURE_CASES}
+    stages = _glue_stages()
+    for name, case in glue_cases(torch.device("cuda")).items():
+        got = check_glue_case(name, case)
+        sel, fin = got["tail_select"], got["tail_finish"]
+        lines.append(f"{name}: {sel.pre_valid.shape[-1]} of "
+                     f"{case['tail_select'][0][0].shape[1]} quads picked "
+                     f"({int(sel.pre_valid.sum())} valid), "
+                     f"{got['refine'].numel() // 8} refined, "
+                     f"{int(fin.num_detections.sum())} tags of {fin.valid.numel()}")
+        if name not in bench:
+            continue
+        t = {}
+        for stage, (kernel, plain, parent) in stages.items():
+            args, kw = case[stage]
+            bound, by = glue_bound(stage, args, kw, got[stage])
+            shape = args[1].shape if stage == "refine" else (
+                args[0].shape if stage == "tail_select" else args[1].shape)
+            t[stage] = dict(shape=list(shape), ms=_device_ms(lambda: kernel(*args, **kw), 20),
+                            plain_ms=_graph_ms(lambda: plain(*args, **kw), 20),
+                            bound_ms=bound, bound_by=by, library_ms=None,
+                            parent_ms=_graph_ms(lambda: parent(*args, **kw), 20))
+        out["b1" if bench[name] == 1 else f"batch{bench[name]}"] = t
+    torch.cuda.synchronize()
+    print(f"[27 tail glue] refine_kernel, tail_select_kernel and tail_finish_kernel (one launch "
+          f"a call each) against their plain versions bit for bit on every output, two calls "
+          f"and a captured replay equal, a batch equal to each frame alone: "
+          + "; ".join(lines) + f"; on {gpu}: device ms a call (kernel / plain / bound (by) / "
+          "the parent's form, plain and parent's form as captured replays; no library call "
+          "computes any) "
+          + ", ".join(f"{k} {stage} {v['shape']}: {v['ms']:.4f} / {v['plain_ms']:.4f} / "
+                      f"{v['bound_ms']:.5f} ({v['bound_by']}, {v['bound_ms'] / v['ms']:.1%} of "
+                      f"bound) / {v['parent_ms']:.4f}"
+                      for k, per in out.items() if k != "max_abs_err"
+                      for stage, v in per.items()), flush=True)
+    return out
+
+
 def capture_phase(gpu: str) -> dict:
     """Phase 21: the captured detect call against the eager one."""
     import dataclasses
@@ -3303,16 +3830,20 @@ def profiled_replays() -> dict:
     contraction and the final resolve alone on those two inputs, eager and
     warm, where no kernel of RESOLVE_LIBRARY_NAMES may run. Returns the
     counts by path, and under "kernels_a_replay" the count of every kernel
-    in each bench replay and in the same replay with decode and pose in the
-    parent's form (parent_decode_form, parent_pose_form)."""
+    in each bench replay and in the same replay with the quad-fit epilogue,
+    the picks, the dedupe and refine in the parent's form (parent_fit_form,
+    parent_select_form, parent_refine_form, parent_finish_form), and the
+    count of kernels between the quad fit's launch and pose's in a bench
+    replay, which must be TAIL_BETWEEN's, in order (tail_between)."""
     from unittest import mock
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from isaac_ros_apriltag_tpu_torch import Detector, DetectorConfig, RigDetector, run_stream
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as rk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tk
     from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
 
     dev = torch.device("cuda")
@@ -3345,17 +3876,30 @@ def profiled_replays() -> dict:
         fn(inputs[0]), fn(inputs[1])
         with _counted(f"captured b{batch}", totals=totals) as out[f"captured_b{batch}"]:
             fn(inputs[2])
+        # Between the quad fit and pose only the tail's hand-written kernels run.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(inputs[2])
+            torch.cuda.synchronize()
+        between = tail_between(prof)
+        if [_kernel_key(n) for n in between] != list(TAIL_BETWEEN):
+            raise AssertionError(f"captured b{batch}: between the quad fit and pose ran "
+                                 f"{between}, not only {list(TAIL_BETWEEN)}")
+        totals[f"captured b{batch}, between the quad fit and pose"] = len(between)
         del fn
-        # The same replay with decode and pose in the parent's torch ops.
-        with mock.patch.object(dk, "decode_quads", parent_decode_form), \
-                mock.patch.object(pk, "estimate_poses", parent_pose_form):
+        # The same replay with the quad-fit epilogue, the picks, the dedupe
+        # and refine in the parent's torch ops.
+        with mock.patch.object(qk, "fit_quads_from_moments", parent_fit_form), \
+                mock.patch.object(tk, "select_candidates", parent_select_form), \
+                mock.patch.object(rk, "refine_edges", parent_refine_form), \
+                mock.patch.object(tk, "finish_detections", parent_finish_form):
             fn = batched_detect_fn(bcfg, bcam, "mono8")
             fn(inputs[0]), fn(inputs[1])
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 fn(inputs[2])
                 torch.cuda.synchronize()
-            totals[f"captured b{batch}, tail in the parent's form"] = len(_device_kernels(prof))
+            totals[f"captured b{batch}, tail glue in the parent's form"] = len(
+                _device_kernels(prof))
             del fn
     out["kernels_a_replay"] = totals
     from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
@@ -4109,6 +4653,9 @@ def main() -> int:
     # --- 26. the decode and pose kernels against their plain versions --------------------
     tail = tail_phase(gpu)
 
+    # --- 27. the refine, select and finish kernels against their plain versions ----------
+    glue = glue_phase(gpu)
+
     meta = {
         "threshold": ("isaac_ros_apriltag_tpu_torch/csrc/threshold.cu",
                       "isaac_ros_apriltag_tpu/ops/pallas/threshold.py:70"),
@@ -4180,6 +4727,9 @@ def main() -> int:
          "ms": quadfit["b1"]["ms"], "plain_ms": quadfit["b1"]["plain_ms"],
          "bound_ms": quadfit["b1"]["bound_ms"], "bound_by": quadfit["b1"]["bound_by"],
          "library_ms": quadfit["b1"]["library_ms"], "stage_ms": quadfit["b1"]["stage"],
+         "fit_ms": quadfit["b1"]["fit"]["ms"], "fit_bound_ms": quadfit["b1"]["fit"]["bound_ms"],
+         f"fit_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["fit"]["ms"],
+         f"fit_bound_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["fit"]["bound_ms"],
          f"shape_batch{BATCH}": quadfit[f"batch{BATCH}"]["shape"],
          f"ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["ms"],
          f"plain_ms_batch{BATCH}": quadfit[f"batch{BATCH}"]["plain_ms"],
@@ -4204,7 +4754,24 @@ def main() -> int:
          f"parent_form_ms_batch{BATCH}": tail[f"batch{BATCH}"][k]["parent_ms"],
          f"share_batch{BATCH}": (tail[f"batch{BATCH}"][k]["bound_ms"]
                                  / tail[f"batch{BATCH}"][k]["ms"])}
-        for k in ("decode", "pose")]}))
+        for k in ("decode", "pose")] + [
+        {"name": f"{k}_kernel", "route": "cuda",
+         "source": "isaac_ros_apriltag_tpu_torch/csrc/tail.cu", "replaces": GLUE_REPLACES[k],
+         "launches": sum(c[k] for c in paths.values()),
+         "launches_by_path": {p: c[k] for p, c in paths.items()},
+         "max_abs_err": glue["max_abs_err"], "shape": glue["b1"][k]["shape"],
+         "ms": glue["b1"][k]["ms"], "plain_ms": glue["b1"][k]["plain_ms"],
+         "bound_ms": glue["b1"][k]["bound_ms"], "bound_by": glue["b1"][k]["bound_by"],
+         "library_ms": None, "parent_form_ms": glue["b1"][k]["parent_ms"],
+         f"shape_batch{BATCH}": glue[f"batch{BATCH}"][k]["shape"],
+         f"ms_batch{BATCH}": glue[f"batch{BATCH}"][k]["ms"],
+         f"plain_ms_batch{BATCH}": glue[f"batch{BATCH}"][k]["plain_ms"],
+         f"bound_ms_batch{BATCH}": glue[f"batch{BATCH}"][k]["bound_ms"],
+         f"bound_by_batch{BATCH}": glue[f"batch{BATCH}"][k]["bound_by"],
+         f"parent_form_ms_batch{BATCH}": glue[f"batch{BATCH}"][k]["parent_ms"],
+         f"share_batch{BATCH}": (glue[f"batch{BATCH}"][k]["bound_ms"]
+                                 / glue[f"batch{BATCH}"][k]["ms"])}
+        for k in GLUE_KERNELS]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

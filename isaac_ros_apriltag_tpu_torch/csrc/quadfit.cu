@@ -11,7 +11,9 @@
 // six times. Here one block a cluster keeps its six tables (6 x 65 f32,
 // 1.5 KB) in shared memory and reads an arc's two or three entries from
 // there, so nothing but the tables and the winner leaves or enters device
-// memory.
+// memory. The reference's epilogue (:198-235: line directions, corner
+// intersections, gates and winding on the (C, 4) winners, some 100 small
+// XLA ops fused on a TPU) runs in the same block.
 //
 //   qf_search_kernel, one block a cluster:
 //     phase A, thread k of the first 64: the +-2-bin window's arc sums,
@@ -24,9 +26,18 @@
 //       combo_ok, and the combo's error in the plain version's add order;
 //       then a block argmin in torch.argmin's order (NaN first, then the
 //       least, ties to the lower combo);
-//     the first four threads fit the winner's arcs again and write them.
+//     the first four threads fit the winner's arcs again and write them;
+//     in the fitting launch (FIT) they keep each arc's point, direction
+//     (ops/quadfit.py::_line_dir) and error in shared memory instead, then
+//     intersect adjacent arcs into the four corners (to pixels by the
+//     cluster's scale and centroid), and thread 0 takes the gates (a combo,
+//     the worst arc's MSE, the area, the corner angles, finite corners, the
+//     point count, the cluster's validity), the winding and the fit error
+//     and writes the Quads fields (ops/quadfit.py::fit_epilogue), so no
+//     torch op runs on the (N, 4) winners.
 //
-// Against the plain version (ops/quadfit.py::search_plain): bit-exact. Every
+// Against the plain versions (ops/quadfit.py::search_plain, and
+// fit_epilogue after it for the fitting launch): bit-exact. Every
 // float step is the plain version's in its order (built with --fmad=false,
 // IEEE division and square root, clamps that pass NaN as torch.clamp does),
 // and an arc's sum takes the same entries in the same order: S[ib] - S[ia]
@@ -41,7 +52,10 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
+
+#include "torch_math.cuh"
 
 namespace {
 
@@ -88,14 +102,6 @@ __constant__ uint32_t kCombos[NCOMB] = {
     0x09080604u, 0x09080704u, 0x08070605u, 0x09070605u, 0x09080605u, 0x09080705u, 0x09080706u,
 };
 
-__device__ __forceinline__ bool is_nan(float v) { return v != v; }
-__device__ __forceinline__ bool is_finite(float v) { return fabsf(v) < INFINITY; }
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
-// torch.clamp(v, min=lo): NaN passes through.
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-    return is_nan(v) ? v : (v < lo ? lo : v);
-}
-
 // The six tables' sums over the circular bin range [a, b] (ops/quadfit.py::
 // _arc_sums): b < a is empty, b may pass K (wraps).
 __device__ __forceinline__ void arc_sums(const float* S, int a, int b, float* out) {
@@ -132,6 +138,32 @@ __device__ __forceinline__ Line line_fit(const float* m) {
     return l;
 }
 
+// ops/quadfit.py::_line_dir: the principal direction of a line's covariance.
+__device__ __forceinline__ void line_dir(const Line& l, float& dx, float& dy) {
+    const float dd = l.cxx - l.cyy;
+    const float disc = sqrtf(clamp_min(dd * dd + (4.0f * l.cxy) * l.cxy, 0.0f));
+    const float lam = 0.5f * ((l.cxx + l.cyy) + disc);
+    const float v1x = l.cxy, v1y = lam - l.cxx, v2x = lam - l.cyy, v2y = l.cxy;
+    const bool pick = v1x * v1x + v1y * v1y > v2x * v2x + v2y * v2y;
+    const float vx = pick ? v1x : v2x, vy = pick ? v1y : v2y;
+    const float vn = sqrtf(clamp_min(vx * vx + vy * vy, 1e-12f));
+    dx = vx / vn;
+    dy = vy / vn;
+}
+
+// The fitting launch's clusters (N each), its Quads outputs and its gates.
+struct FitArgs {
+    const float* centroid;    // (N, 2)
+    const float* scale;       // (N,)
+    const int* count;         // (N,)
+    const bool* valid;        // (N,)
+    float* corners;           // (N, 4, 2)
+    bool* quad_valid;         // (N,)
+    float* fit_err;           // (N,)
+    bool* gates;              // (N, 7)
+    float max_mse, critical_cos, min_area;
+};
+
 // Arc j of a combo with candidate bins c: from past corner j to before
 // corner j + 1, the last arc wrapping to the first corner + K.
 __device__ __forceinline__ void arc_bounds(const int* c, int j, int& a, int& b) {
@@ -152,9 +184,13 @@ __device__ __forceinline__ bool before(float v, int i, float w, int j) {
     return v < w || (v == w && i < j);
 }
 
+// FIT: the fitting launch, which writes the Quads fields (FitArgs) in
+// place of the winner and its lines.
+template <bool FIT>
 __global__ void __launch_bounds__(THREADS)
 qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_out,
-                 float* __restrict__ best_err_out, float* __restrict__ lines, int N) {
+                 float* __restrict__ best_err_out, float* __restrict__ lines, int N,
+                 FitArgs fit) {
     __shared__ float S[NT * K1];
     __shared__ float errs[K];
     __shared__ float max_errs[K];
@@ -163,6 +199,9 @@ qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_ou
     __shared__ float warp_v[WARPS];
     __shared__ int warp_i[WARPS];
     __shared__ int s_best;
+    __shared__ float s_best_err;
+    __shared__ float s_arc[4][5];      // FIT: arc j's point (x, y), direction (x, y), error
+    __shared__ float s_corner[4][2];   // FIT: corner j in pixels
     const int c = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const float* src = tables + (size_t)c * NT * K1;
     for (int i = tid; i < NT * K1; i += THREADS) S[i] = src[i];
@@ -234,8 +273,11 @@ qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_ou
         for (int w = 1; w < WARPS; ++w)
             if (before(warp_v[w], warp_i[w], v, i)) v = warp_v[w], i = warp_i[w];
         s_best = i;
-        best_out[c] = i;
-        best_err_out[c] = v;
+        s_best_err = v;
+        if (!FIT) {
+            best_out[c] = i;
+            best_err_out[c] = v;
+        }
     }
     __syncthreads();
 
@@ -247,10 +289,76 @@ qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_ou
         float m[NT];
         arc_sums(S, a, b, m);
         const Line l = line_fit(m);
-        const float out[NT] = {l.ex, l.ey, l.cxx, l.cxy, l.cyy, l.err};
-        const size_t plane = (size_t)N * 4;
+        if (FIT) {
+            float dx, dy;
+            line_dir(l, dx, dy);
+            s_arc[tid][0] = l.ex;
+            s_arc[tid][1] = l.ey;
+            s_arc[tid][2] = dx;
+            s_arc[tid][3] = dy;
+            s_arc[tid][4] = l.err;
+        } else {
+            const float out[NT] = {l.ex, l.ey, l.cxx, l.cxy, l.cyy, l.err};
+            const size_t plane = (size_t)N * 4;
 #pragma unroll
-        for (int f = 0; f < NT; ++f) lines[f * plane + (size_t)c * 4 + tid] = out[f];
+            for (int f = 0; f < NT; ++f) lines[f * plane + (size_t)c * 4 + tid] = out[f];
+        }
+    }
+    if (!FIT) return;
+
+    // --- the epilogue (ops/quadfit.py::fit_epilogue) ------------------------
+    const float s = clamp_min(fit.scale[c], 1e-6f);
+    __syncthreads();
+    if (tid < 4) {
+        // Corner j: arcs j - 1 and j intersected, to pixels.
+        const float* a = s_arc[(tid + 3) & 3];
+        const float* b = s_arc[tid];
+        float x, y;
+        intersect(a[0], a[1], a[2], a[3], b[0], b[1], b[2], b[3], x, y);
+        s_corner[tid][0] = x * s + fit.centroid[2 * c];
+        s_corner[tid][1] = y * s + fit.centroid[2 * c + 1];
+    }
+    __syncthreads();
+    if (tid == 0) {
+        float x[4], y[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[j] = s_corner[j][0], y[j] = s_corner[j][1];
+        const float scale2 = s * s;
+        const float amax = nan_max(nan_max(nan_max(s_arc[0][4], s_arc[1][4]), s_arc[2][4]),
+                                   s_arc[3][4]);
+        float t[4];
+        bool ang_ok = true, finite_ok = true;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int jn = (j + 1) & 3, jp = (j + 3) & 3;
+            t[j] = x[j] * y[jn] - x[jn] * y[j];
+            const float ix = x[j] - x[jp], iy = y[j] - y[jp], ox = x[jn] - x[j], oy = y[jn] - y[j];
+            const float cosang = (ix * ox + iy * oy)
+                                 / clamp_min(sqrtf(ix * ix + iy * iy) * sqrtf(ox * ox + oy * oy),
+                                             1e-9f);
+            ang_ok = ang_ok && fabsf(cosang) < fit.critical_cos;
+            finite_ok = finite_ok && is_finite(x[j]) && is_finite(y[j]);
+        }
+        const float area2 = ((t[0] + t[1]) + t[2]) + t[3];
+        const bool gates[7] = {is_finite(s_best_err), amax * scale2 <= fit.max_mse,
+                               0.5f * fabsf(area2) >= fit.min_area, ang_ok, finite_ok,
+                               fit.count[c] >= 8, fit.valid[c]};
+        bool all = true;
+#pragma unroll
+        for (int g = 0; g < 7; ++g) {
+            fit.gates[(size_t)c * 7 + g] = gates[g];
+            all = all && gates[g];
+        }
+        fit.quad_valid[c] = all;
+        fit.fit_err[c] = s_best_err * scale2;
+        // Positive signed area (y-down CCW): where negative, corners 0, 3, 2, 1.
+        const bool flip = area2 < 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int from = flip ? (4 - j) & 3 : j;
+            fit.corners[(size_t)c * 8 + 2 * j] = x[from];
+            fit.corners[(size_t)c * 8 + 2 * j + 1] = y[from];
+        }
     }
 }
 
@@ -259,7 +367,23 @@ qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_ou
 extern "C" int apriltag_quadfit_search(const void* tables, void* best, void* best_err,
                                        void* lines, int N, void* stream) {
     if (N < 1) return (int)cudaErrorInvalidValue;
-    qf_search_kernel<<<N, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)tables, (int64_t*)best, (float*)best_err, (float*)lines, N);
+    qf_search_kernel<false><<<N, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)tables, (int64_t*)best, (float*)best_err, (float*)lines, N, FitArgs{});
+    return (int)cudaGetLastError();
+}
+
+extern "C" int apriltag_quadfit_fit(const void* tables, const void* centroid, const void* scale,
+                                    const void* count, const void* valid, void* corners,
+                                    void* quad_valid, void* fit_err, void* gates, int N,
+                                    int mse_bits, int cos_bits, int area_bits, void* stream) {
+    if (N < 1) return (int)cudaErrorInvalidValue;
+    FitArgs fit{(const float*)centroid, (const float*)scale, (const int*)count,
+                (const bool*)valid, (float*)corners, (bool*)quad_valid, (float*)fit_err,
+                (bool*)gates, 0.0f, 0.0f, 0.0f};
+    memcpy(&fit.max_mse, &mse_bits, sizeof(float));
+    memcpy(&fit.critical_cos, &cos_bits, sizeof(float));
+    memcpy(&fit.min_area, &area_bits, sizeof(float));
+    qf_search_kernel<true><<<N, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)tables, nullptr, nullptr, nullptr, N, fit);
     return (int)cudaGetLastError();
 }

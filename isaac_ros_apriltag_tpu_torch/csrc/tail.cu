@@ -1,14 +1,31 @@
-// The detector's tail: decode of the top-2T candidate quads and pose of the
-// top-T tags.
+// The detector's tail after the quad fit: the top-2T candidate quads of
+// each frame, their edge refinement and decode, the dedupe and top-T tags,
+// and their pose.
 //
-// Replaces: isaac_ros_apriltag_tpu/ops/decode.py:105 (decode_quads) and
+// Replaces: isaac_ros_apriltag_tpu/detector.py:234-245 (the top-2T pick),
+// isaac_ros_apriltag_tpu/ops/refine.py:61 (refine_edges),
+// isaac_ros_apriltag_tpu/ops/decode.py:105 (decode_quads),
+// isaac_ros_apriltag_tpu/detector.py:80 and :254-310 (_dedupe, the top-T
+// pick, the takes, the center and the counts) and
 // isaac_ros_apriltag_tpu/ops/pose.py:38 (estimate_poses), XLA code with no
 // Pallas kernel there. On a TPU the whole tail is one jitted program; in
 // PyTorch each of its steps on the (B, 2T) quads and (B, T) tags is a kernel
-// of its own that does almost no work (~350 for decode and ~320 for pose a
-// call), so here each stage is one launch that keeps every intermediate in
-// registers or shared memory.
+// of its own that does almost no work (~160 for refine, ~350 for decode,
+// ~85 for the picks and ~320 for pose a call), so here each stage is one
+// launch that keeps every intermediate in registers or shared memory.
 //
+//   tail_select_kernel, one block a frame, thread i quad i (C <= 128): the
+//     quad's polarity gate and perimeter score (-inf where not valid), its
+//     rank by counting the quads that precede it in torch.sort(descending,
+//     stable)'s order (NaN first, ties to the lower index), and, in the top
+//     k, its corners upscaled to full resolution; the frame's valid count.
+//   refine_kernel, one block a quad, warp k edge k: lane s < 12 walks point
+//     s's intensity profile along the edge's normal, streamed through a ring
+//     of five samples (the gradient pairs samples j and j - 4), so any
+//     search range fits; the edge's weighted line fit is five half-warp sums
+//     (refine.py::_point_sum's order); lane 0 of warp k intersects edges
+//     k - 1 and k through shared memory and keeps the input corner where the
+//     result is not finite or moved too far.
 //   decode_kernel, one warp a quad (DECODE_WARPS quads a block):
 //     every lane solves the quad's unit-square homography (the same 8x8
 //     elimination, so no lane waits on another); lane l samples cell l and
@@ -21,28 +38,41 @@
 //     does; the bits' ballot gives each rotation's code by a bit reversal,
 //     the lanes stride over the codebook with __popcll and a warp min of
 //     (hamming << 24 | code index) gives the first minimum.
+//   tail_finish_kernel, one block a frame, thread j candidate j (2T <= 128):
+//     its validity after decode and the margin gate, the dedupe against
+//     every better candidate of the same id within 0.75 of the larger mean
+//     edge (centers and edges in shared memory), its rank by margin as
+//     tail_select_kernel ranks, and in the top k its fields and center; the
+//     frame's detection count and overflow.
 //   pose_kernel, one thread a tag: the tag-plane homography, K^-1 (K shared
 //     or one per frame), M = K^-1 H, the scale and its sign, the cross
 //     product, 4 Newton polar steps and the quaternion.
 //
-// Against the plain versions (ops/decode.py::decode_quads, ops/pose.py::
-// estimate_poses, utils/geometry.py): bit-exact. Every float step is theirs
-// in their order (built with --fmad=false, IEEE division and square root;
-// clamps, minimum and argmax treat NaN as torch does), a warp sum is their
-// _warp_sum (zeros past the set, x[:32] + x[32:], then halves), and the
+// Against the plain versions (ops/tail.py, ops/refine.py::refine_edges,
+// ops/decode.py::decode_quads, ops/pose.py::estimate_poses,
+// utils/geometry.py): bit-exact. Every float step is theirs in their order
+// (built with --fmad=false, IEEE division and square root; clamps, minimum,
+// maximum and argmax treat NaN as torch does), a warp sum is their
+// _warp_sum or _point_sum (zeros past the set, then halves), and the
 // elimination picks the first largest |pivot| of a column.
 //
-// What bounds them on an H100: bytes. decode reads each sample's four taps
-// (124 samples a quad at most), the corners and the codebook (once) and
-// writes ~60 bytes a quad: ~0.3 MB at B x 2T = 1024 quads, ~0.1 us at the
-// card's memory rate. pose reads 32 bytes of corners a tag and writes 64.
-// Both are far under a microsecond, so a launch is bound by its latency:
-// one wave of warps covers a call, and a warp's steps run one after another.
+// What bounds them on an H100: bytes, and all far under a microsecond, so a
+// launch is bound by its latency: one wave covers a call, and a warp's or a
+// thread's steps run one after another. refine reads each profile sample's
+// four taps (48 points x (4 search_range + 5) samples a quad: ~13 MB at
+// B x 2T = 1024 quads, ~4 us, before the L2 cache serves the taps that
+// neighbouring samples share); decode reads each sample's four taps (124
+// samples a quad at most), the corners and the codebook (once) and writes
+// ~60 bytes a quad: ~0.3 MB at 1024 quads; the picks read ~40 bytes a quad;
+// pose reads 32 bytes of corners a tag and writes 64. The picks' rank and
+// dedupe are C^2 compares a frame, ~16 K, latency again.
 
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
+
+#include "torch_math.cuh"
 
 namespace {
 
@@ -53,19 +83,10 @@ constexpr int MAX_GRID = 128;         // total_width^2 at most (11^2 = 121)
 constexpr int DECODE_WARPS = 4;       // quads a block
 constexpr int POSE_THREADS = 128;
 constexpr int CODE_BITS = 24;         // code index bits of a warp-min key
+constexpr int REFINE_POINTS = 12;     // points an edge (ops/refine.py::_NSAMPLES)
+constexpr int REFINE_THREADS = 4 * LANES;   // one warp an edge, one block a quad
+constexpr int TAIL_THREADS = 128;     // a frame's quads at most (max_clusters <= 128)
 
-__device__ __forceinline__ bool is_nan(float v) { return v != v; }
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
-// torch.clamp(v, min=lo): NaN passes through.
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-    return is_nan(v) ? v : (v < lo ? lo : v);
-}
-// torch.clamp(v, lo, hi): min(max(v, lo), hi), NaN passes through.
-__device__ __forceinline__ float clamp_lo_hi(float v, float lo, float hi) {
-    if (is_nan(v)) return v;
-    v = v < lo ? lo : v;
-    return v > hi ? hi : v;
-}
 // torch.argmax's order among the first i + 1 values: NaN is the largest,
 // ties go to the lower index.
 __device__ __forceinline__ bool beats(float v, float top) {
@@ -175,27 +196,46 @@ __device__ __forceinline__ void inverse3x3(const float (&M)[9], float (&out)[9])
     for (int k = 0; k < 9; ++k) out[k] = adj[k] * inv_det;
 }
 
+// ops/refine.py::bilinear_taps at (x, y) of one frame: clamp to [0, xmax] x
+// [0, ymax], NaN to index 0, indices clamped to the frame (no lane reads
+// outside it).
+struct Taps {
+    float v00, v01, v10, v11, fx, fy;
+};
+
+__device__ __forceinline__ Taps bilinear_taps(const float* __restrict__ img, int H, int W,
+                                              float xmax, float ymax, float x, float y) {
+    x = clamp_lo_hi(x, 0.0f, xmax);
+    y = clamp_lo_hi(y, 0.0f, ymax);
+    float x0f = floorf(x), y0f = floorf(y);
+    if (is_nan(x0f)) x0f = 0.0f;
+    if (is_nan(y0f)) y0f = 0.0f;
+    const int x0 = clampi((int)x0f, 0, W - 1), y0 = clampi((int)y0f, 0, H - 1);
+    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+    return {__ldg(img + (size_t)y0 * W + x0), __ldg(img + (size_t)y0 * W + x1),
+            __ldg(img + (size_t)y1 * W + x0), __ldg(img + (size_t)y1 * W + x1), x - x0f,
+            y - y0f};
+}
+
 // ops/decode.py's bilinear sample of one frame at H (u, v): apply_homography,
-// then refine.py::bilinear_taps (clamp, NaN to index 0, index clamps) and
-// decode.py's association of the four taps.
+// then the taps, associated as decode.py does.
 __device__ __forceinline__ float sample(const float* __restrict__ img, int H, int W,
                                         float xmax, float ymax, const float (&Hm)[9],
                                         float u, float v) {
     const float qx = (Hm[0] * u + Hm[1] * v) + Hm[2];
     const float qy = (Hm[3] * u + Hm[4] * v) + Hm[5];
     const float qw = (Hm[6] * u + Hm[7] * v) + Hm[8];
-    const float x = clamp_lo_hi(qx / qw, 0.0f, xmax);
-    const float y = clamp_lo_hi(qy / qw, 0.0f, ymax);
-    float x0f = floorf(x), y0f = floorf(y);
-    if (is_nan(x0f)) x0f = 0.0f;
-    if (is_nan(y0f)) y0f = 0.0f;
-    const float fx = x - x0f, fy = y - y0f;
-    const int x0 = clampi((int)x0f, 0, W - 1), y0 = clampi((int)y0f, 0, H - 1);
-    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
-    const float v00 = __ldg(img + (size_t)y0 * W + x0), v01 = __ldg(img + (size_t)y0 * W + x1);
-    const float v10 = __ldg(img + (size_t)y1 * W + x0), v11 = __ldg(img + (size_t)y1 * W + x1);
-    return v00 * (1.0f - fx) * (1.0f - fy) + v01 * fx * (1.0f - fy)
-           + v10 * (1.0f - fx) * fy + v11 * fx * fy;
+    const Taps t = bilinear_taps(img, H, W, xmax, ymax, qx / qw, qy / qw);
+    return t.v00 * (1.0f - t.fx) * (1.0f - t.fy) + t.v01 * t.fx * (1.0f - t.fy)
+           + t.v10 * (1.0f - t.fx) * t.fy + t.v11 * t.fx * t.fy;
+}
+
+// ops/refine.py::_bilinear: the taps at (x, y), associated as refine.py does.
+__device__ __forceinline__ float refine_sample(const float* __restrict__ img, int H, int W,
+                                               float xmax, float ymax, float x, float y) {
+    const Taps t = bilinear_taps(img, H, W, xmax, ymax, x, y);
+    return (t.v00 * (1.0f - t.fx) + t.v01 * t.fx) * (1.0f - t.fy)
+           + (t.v10 * (1.0f - t.fx) + t.v11 * t.fx) * t.fy;
 }
 
 // ops/decode.py::_warp_sum of a set whose cells lane and lane + 32 hold lo
@@ -473,6 +513,248 @@ pose_kernel(const float* __restrict__ corners, const float* __restrict__ K,
     for (int k = 0; k < 4; ++k) q_out[(size_t)n * 4 + k] = qv[k] * sign;
 }
 
+// ops/refine.py::_point_sum of an edge's point terms, held by lanes 0-11 of
+// the half warp (0 in lanes 12-15): the halves added pairwise; every lane of
+// the half warp gets the sum.
+__device__ __forceinline__ float point_sum(float v) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) v = v + __shfl_xor_sync(FULL, v, off);
+    return v;
+}
+
+__global__ void __launch_bounds__(REFINE_THREADS)
+refine_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
+              const bool* __restrict__ dark_inside, float* __restrict__ out, int C, int H, int W,
+              int P, float first, float limit) {
+    __shared__ float s_line[4][4];       // edge k: its point (x, y) and direction (x, y)
+    const int k = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+    const long long q = blockIdx.x;
+    const float* img = gray + (size_t)(q / C) * H * W;
+    const float* cq = corners + q * 8;
+    const float cx = (((cq[0] + cq[2]) + cq[4]) + cq[6]) * 0.25f;
+    const float cy = (((cq[1] + cq[3]) + cq[5]) + cq[7]) * 0.25f;
+    // Edge k, from corner k to corner k + 1, its unit direction and its
+    // normal, turned toward the centroid.
+    const float x0 = cq[2 * k], y0 = cq[2 * k + 1];
+    const float x1 = cq[2 * ((k + 1) & 3)], y1 = cq[2 * ((k + 1) & 3) + 1];
+    const float ex = x1 - x0, ey = y1 - y0;
+    const float den = clamp_min(sqrtf(ex * ex + ey * ey), 1e-6f);
+    const float ux = ex / den, uy = ey / den;
+    const float mx = 0.5f * (x0 + x1), my = 0.5f * (y0 + y1);
+    float nx = uy, ny = -ux;
+    if (!(nx * (cx - mx) + ny * (cy - my) >= 0.0f)) {
+        nx = -nx;
+        ny = -ny;
+    }
+    // torch.clamp's bound W - 1.001, a double rounded to float.
+    const float xmax = (float)((double)W - 1.001), ymax = (float)((double)H - 1.001);
+
+    // Lane s < 12: point s of the edge, its profile of P samples along the
+    // normal streamed through a ring of five (the gradient pairs samples j
+    // and j - 4 at the offset of j - 2), its gradient weights and offset.
+    const bool point = lane < REFINE_POINTS;
+    const bool dark = dark_inside[q];
+    float px = 0.0f, py = 0.0f, wsum = 0.0f, num = 0.0f;
+    if (point) {
+        const float alpha = (float)(lane + 1) / (float)(REFINE_POINTS + 1);
+        px = x0 + alpha * ex;
+        py = y0 + alpha * ey;
+        float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f, r3 = 0.0f;
+        for (int j = 0; j < P; ++j) {
+            const float off = first + 0.5f * (float)j;
+            const float v = refine_sample(img, H, W, xmax, ymax, px + off * nx, py + off * ny);
+            if (j >= 4) {
+                const float diff = dark ? r0 - v : v - r0;
+                const float w = diff > 0.0f ? diff * diff : 0.0f;
+                wsum = wsum + w;
+                num = num + w * (first + 0.5f * (float)(j - 2));
+            }
+            r0 = r1;
+            r1 = r2;
+            r2 = r3;
+            r3 = v;
+        }
+    }
+    const float n0 = num / clamp_min(wsum, 1e-9f);
+    const bool ok = point && wsum > 1e-3f;
+    const float qx = px + n0 * nx, qy = py + n0 * ny;
+
+    // The edge's weighted line fit over its points (half-warp sums).
+    const float sw = ok ? wsum : 0.0f;
+    const float tot = clamp_min(point_sum(sw), 1e-9f);
+    const float mean_x = point_sum(point ? qx * sw : 0.0f) / tot;
+    const float mean_y = point_sum(point ? qy * sw : 0.0f) / tot;
+    const float dx = qx - mean_x, dy = qy - mean_y;
+    const float cxx = point_sum(point ? (sw * dx) * dx : 0.0f);
+    const float cxy = point_sum(point ? (sw * dx) * dy : 0.0f);
+    const float cyy = point_sum(point ? (sw * dy) * dy : 0.0f);
+    const int n_ok = __popc(__ballot_sync(FULL, ok));
+    const float dd = cxx - cyy;
+    const float disc = sqrtf(clamp_min(dd * dd + (4.0f * cxy) * cxy, 0.0f));
+    const float lam = 0.5f * ((cxx + cyy) + disc);
+    const float v1x = cxy, v1y = lam - cxx, v2x = lam - cyy, v2y = cxy;
+    const bool pick = v1x * v1x + v1y * v1y > v2x * v2x + v2y * v2y;
+    const float vx = pick ? v1x : v2x, vy = pick ? v1y : v2y;
+    const float vn = clamp_min(sqrtf(vx * vx + vy * vy), 1e-9f);
+    const bool good = n_ok >= REFINE_POINTS / 2 && lam > 1e-9f;
+    if (lane == 0) {
+        s_line[k][0] = good ? mean_x : mx;
+        s_line[k][1] = good ? mean_y : my;
+        s_line[k][2] = good ? vx / vn : ux;
+        s_line[k][3] = good ? vy / vn : uy;
+    }
+    __syncthreads();
+    // Corner k: edges k - 1 and k intersected, kept if finite and near.
+    if (lane == 0) {
+        const int j = (k + 3) & 3;
+        float x, y;
+        intersect(s_line[j][0], s_line[j][1], s_line[j][2], s_line[j][3], s_line[k][0],
+                  s_line[k][1], s_line[k][2], s_line[k][3], x, y);
+        const float mvx = x - x0, mvy = y - y0;
+        const bool keep = is_finite(x) && is_finite(y) && sqrtf(mvx * mvx + mvy * mvy) < limit;
+        out[q * 8 + 2 * k] = keep ? x : x0;
+        out[q * 8 + 2 * k + 1] = keep ? y : y0;
+    }
+}
+
+// Whether (u at i) comes before (v at j) in torch.sort(descending=True,
+// stable=True): NaN first, then the larger value, ties to the lower index.
+__device__ __forceinline__ bool precedes(float u, int i, float v, int j) {
+    const bool un = is_nan(u), vn = is_nan(v);
+    if (un || vn) return un && (!vn || i < j);
+    return u > v || (u == v && i < j);
+}
+
+// ops/tail.py::_edge_lengths and _sum4: the four edges' lengths (edge k
+// from corner k - 1 to corner k) of corners c, summed in index order.
+__device__ __forceinline__ float edge_sum(const float (&c)[8]) {
+    float n[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int j = (k + 3) & 3;
+        const float ex = c[2 * k] - c[2 * j], ey = c[2 * k + 1] - c[2 * j + 1];
+        n[k] = sqrtf(ex * ex + ey * ey);
+    }
+    return ((n[0] + n[1]) + n[2]) + n[3];
+}
+
+__global__ void __launch_bounds__(TAIL_THREADS)
+tail_select_kernel(const float* __restrict__ corners, const bool* __restrict__ valid,
+                   const bool* __restrict__ dark, const float* __restrict__ fit_err,
+                   float* __restrict__ out_corners, bool* __restrict__ out_dark,
+                   bool* __restrict__ pre_valid, int* __restrict__ num_quads, int C, int K,
+                   int want_dark, int decimate) {
+    __shared__ float s_score[TAIL_THREADS];
+    const int b = blockIdx.x, i = threadIdx.x;
+    const bool in = i < C;
+    const size_t q = (size_t)b * C + i;
+    float c[8];
+    bool qvalid = false;
+    float score = -INFINITY;
+    if (in) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) c[k] = corners[q * 8 + k];
+        qvalid = valid[q] && dark[q] == (want_dark != 0);
+        score = qvalid ? edge_sum(c) / (1.0f + fit_err[q]) : -INFINITY;
+        s_score[i] = score;
+    }
+    const int n = __syncthreads_count(qvalid);
+    if (i == 0) num_quads[b] = n;
+    if (!in) return;
+    int rank = 0;
+    for (int j = 0; j < C; ++j) rank += precedes(s_score[j], j, score, i);
+    if (rank < K) {
+        const size_t o = (size_t)b * K + rank;
+        const float d = (float)decimate, half = 0.5f * (float)(decimate - 1);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) out_corners[o * 8 + k] = decimate == 1 ? c[k] : c[k] * d + half;
+        out_dark[o] = dark[q];
+        pre_valid[o] = is_finite(score);
+    }
+}
+
+__global__ void __launch_bounds__(TAIL_THREADS)
+tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ id,
+                   const int* __restrict__ hamming, const float* __restrict__ margin,
+                   const float* __restrict__ corners, const bool* __restrict__ pre_valid,
+                   const int* __restrict__ num_quads, const bool* __restrict__ overflow_in,
+                   bool* __restrict__ valid_out, int* __restrict__ id_out,
+                   int* __restrict__ ham_out, float* __restrict__ margin_out,
+                   float* __restrict__ center_out, float* __restrict__ corners_out,
+                   int* __restrict__ num_det, bool* __restrict__ overflow_out, int N, int K,
+                   float min_margin) {
+    __shared__ float s_cx[TAIL_THREADS], s_cy[TAIL_THREADS], s_edge[TAIL_THREADS];
+    __shared__ float s_margin[TAIL_THREADS], s_score[TAIL_THREADS];
+    __shared__ int s_id[TAIL_THREADS];
+    __shared__ bool s_valid[TAIL_THREADS];
+    const int b = blockIdx.x, j = threadIdx.x;
+    const bool in = j < N;
+    const size_t q = (size_t)b * N + j;
+    float c[8], m = 0.0f, cx = 0.0f, cy = 0.0f;
+    int my_id = 0;
+    bool v = false;
+    if (in) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) c[k] = corners[q * 8 + k];
+        m = margin[q];
+        my_id = id[q];
+        v = pre_valid[q] && dec_valid[q] && m >= min_margin;
+        cx = (((c[0] + c[2]) + c[4]) + c[6]) * 0.25f;
+        cy = (((c[1] + c[3]) + c[5]) + c[7]) * 0.25f;
+        s_cx[j] = cx;
+        s_cy[j] = cy;
+        s_edge[j] = edge_sum(c) * 0.25f;
+        s_margin[j] = m;
+        s_id[j] = my_id;
+        s_valid[j] = v;
+    }
+    __syncthreads();
+    // ops/tail.py::finish_detections' dedupe: a better candidate i of the
+    // same id near j suppresses j (torch.maximum passes NaN).
+    if (v) {
+        const float ej = s_edge[j];
+        for (int i = 0; i < N; ++i) {
+            if (!s_valid[i] || s_id[i] != my_id) continue;
+            const float mi = s_margin[i];
+            if (!(mi > m || (mi == m && i < j))) continue;
+            const float dx = s_cx[i] - cx, dy = s_cy[i] - cy, ei = s_edge[i];
+            const float reach = is_nan(ei) || is_nan(ej) ? ei + ej : (ei > ej ? ei : ej);
+            if (sqrtf(dx * dx + dy * dy) < 0.75f * reach) {
+                v = false;
+                break;
+            }
+        }
+    }
+    const float score = v ? m : -INFINITY;
+    if (in) s_score[j] = score;
+    __syncthreads();
+    int rank = N;
+    if (in) {
+        rank = 0;
+        for (int i = 0; i < N; ++i) rank += precedes(s_score[i], i, score, j);
+    }
+    const bool fin = is_finite(score);
+    const int n = __syncthreads_count(rank < K && fin);
+    if (j == 0) {
+        num_det[b] = n;
+        overflow_out[b] = overflow_in[b] || num_quads[b] > N;
+    }
+    if (rank < K) {
+        const size_t o = (size_t)b * K + rank;
+        valid_out[o] = fin;
+        id_out[o] = fin ? my_id : -1;
+        ham_out[o] = hamming[q];
+        margin_out[o] = m;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) corners_out[o * 8 + k] = c[k];
+        float x, y;
+        intersect(c[0], c[1], c[4] - c[0], c[5] - c[1], c[2], c[3], c[6] - c[2], c[7] - c[3], x,
+                  y);
+        center_out[o * 2] = x;
+        center_out[o * 2 + 1] = y;
+    }
+}
+
 }  // namespace
 
 extern "C" int apriltag_decode(const void* gray, const void* corners, const void* ftab,
@@ -508,5 +790,52 @@ extern "C" int apriltag_pose(const void* corners, const void* K, void* rotation,
                   (cudaStream_t)stream>>>(
         (const float*)corners, (const float*)K, (float*)rotation, (float*)translation,
         (float*)quaternion, N, per_frame, k_batched, half);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int apriltag_refine(const void* gray, const void* corners, const void* dark_inside,
+                               void* out, int B, int C, int H, int W, int P, int first_bits,
+                               int limit_bits, void* stream) {
+    const long long quads = (long long)B * C;
+    if (quads < 1 || quads > 0x7fffffffLL || H < 1 || W < 1 || P < 0)
+        return (int)cudaErrorInvalidValue;
+    float first, limit;
+    memcpy(&first, &first_bits, sizeof(float));
+    memcpy(&limit, &limit_bits, sizeof(float));
+    refine_kernel<<<(unsigned)quads, REFINE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)gray, (const float*)corners, (const bool*)dark_inside, (float*)out, C, H,
+        W, P, first, limit);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int apriltag_tail_select(const void* corners, const void* valid, const void* dark,
+                                    const void* fit_err, void* out_corners, void* out_dark,
+                                    void* pre_valid, void* num_quads, int B, int C, int K,
+                                    int want_dark, int decimate, void* stream) {
+    if (B < 1 || C < 1 || C > TAIL_THREADS || K < 1 || K > C || decimate < 1)
+        return (int)cudaErrorInvalidValue;
+    tail_select_kernel<<<B, TAIL_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)corners, (const bool*)valid, (const bool*)dark, (const float*)fit_err,
+        (float*)out_corners, (bool*)out_dark, (bool*)pre_valid, (int*)num_quads, C, K,
+        want_dark, decimate);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int apriltag_tail_finish(const void* dec_valid, const void* id, const void* hamming,
+                                    const void* margin, const void* corners,
+                                    const void* pre_valid, const void* num_quads,
+                                    const void* overflow_in, void* valid_out, void* id_out,
+                                    void* ham_out, void* margin_out, void* center_out,
+                                    void* corners_out, void* num_det, void* overflow_out, int B,
+                                    int N, int K, int min_margin_bits, void* stream) {
+    if (B < 1 || N < 1 || N > TAIL_THREADS || K < 1 || K > N) return (int)cudaErrorInvalidValue;
+    float min_margin;
+    memcpy(&min_margin, &min_margin_bits, sizeof(float));
+    tail_finish_kernel<<<B, TAIL_THREADS, 0, (cudaStream_t)stream>>>(
+        (const bool*)dec_valid, (const int*)id, (const int*)hamming, (const float*)margin,
+        (const float*)corners, (const bool*)pre_valid, (const int*)num_quads,
+        (const bool*)overflow_in, (bool*)valid_out, (int*)id_out, (int*)ham_out,
+        (float*)margin_out, (float*)center_out, (float*)corners_out, (int*)num_det,
+        (bool*)overflow_out, N, K, min_margin);
     return (int)cudaGetLastError();
 }

@@ -11,14 +11,18 @@ frame. Stages: grayscale, quad_decimate mean-pool, adaptive threshold
 (kernel K1), two-phase scan CCL (kernels K2 and K3, with the rank-space
 contraction between the phases; with ccl_phase2_rounds=0 one scan phase on
 flat-index labels; with ccl_flow='jumps' one scan phase with pointer jumps
-between rounds), resolve (four kernels a call around torch ops on the R
-slots, ops/cuda/resolve.py: the contraction and the final resolve), cluster
-moments (four kernels around one sort, ops/cuda/cluster_moments.py), quad
-fit (one search kernel, ops/cuda/quadfit.py), top-2T by fit quality, edge
-refinement, decode (one kernel, ops/cuda/decode.py), dedupe, top-T by
-decision margin, center and pose (one kernel, ops/cuda/pose.py).
-Backend 'cuda' runs the kernels; 'torch' runs their plain twins.
-Everything else is plain PyTorch on the detector's device.
+between rounds), resolve (ops/cuda/resolve.py, five kernels a call: count,
+tile sums, scan, slots and map, and the dense ranks in the final resolve;
+the contraction and the final resolve), cluster moments
+(ops/cuda/cluster_moments.py, ten kernels: the pair counts, the kept
+pairs' compaction and four radix passes, two segment kernels and the
+moments; no library sort), then the tail, one kernel a stage: quad fit
+(the prefix tables, then the search and its epilogue, ops/cuda/quadfit.py),
+top-2T by fit quality (ops/cuda/tail.py), edge refinement
+(ops/cuda/refine.py), decode (ops/cuda/decode.py), dedupe and top-T by
+decision margin with the center (ops/cuda/tail.py) and pose
+(ops/cuda/pose.py). Backend 'cuda' runs the kernels; 'torch' runs their
+plain versions. Everything else is plain PyTorch on the detector's device.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ from .ops.cuda import cluster_moments as cluster_kernels
 from .ops.cuda import decode as decode_kernel
 from .ops.cuda import pose as pose_kernel
 from .ops.cuda import quadfit as quadfit_kernel
+from .ops.cuda import refine as refine_kernel
 from .ops.cuda import resolve as resolve_kernels
+from .ops.cuda import tail as tail_kernels
 from .ops.cuda import threshold as threshold_kernel
 from .ops.decode import decode_quads
 from .ops.grayscale import grayscale
@@ -44,9 +50,10 @@ from .ops.pose import estimate_poses
 from .ops.quadfit import fit_quads_from_moments
 from .ops.refine import refine_edges
 from .ops.resolve import resolve_components, resolve_roots_rank
+from .ops.tail import finish_detections, select_candidates
+from .ops.tail import upscale_coords as _upscale_coords  # noqa: F401  (the reference's name)
 from .ops.threshold import adaptive_threshold
 from .types import Detections, FrameStats
-from .utils.geometry import line_intersection
 
 
 def _pad_to_tiles(gray: torch.Tensor, ts: int) -> torch.Tensor:
@@ -77,44 +84,6 @@ def _decimate(gray: torch.Tensor, d: int) -> torch.Tensor:
     for k in range(1, d):
         out = out + rows[..., k::d] * w
     return out
-
-
-def _upscale_coords(xy: torch.Tensor, d: int) -> torch.Tensor:
-    """Decimated-image pixel coords -> full-resolution pixel coords."""
-    if d == 1:
-        return xy
-    return xy * d + (d - 1) / 2.0
-
-
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[b, idx[b, i], ...] for x (B, N, ...) and idx (B, k)."""
-    B, k = idx.shape
-    trail = x.shape[2:]
-    return torch.gather(x, 1, idx.reshape(B, k, *[1] * len(trail)).expand(B, k, *trail))
-
-
-def _top(score: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-frame top-k of (B, N) like lax.top_k: descending, ties to the
-    lower index."""
-    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
-
-
-def _dedupe(valid, ids, margin, corners):
-    """Suppress duplicate detections of the same id with overlapping extent,
-    within each frame of (B, N); the best decision margin wins (ties: lower
-    index)."""
-    center = corners.mean(-2)
-    edge = torch.linalg.vector_norm(corners - torch.roll(corners, 1, -2), dim=-1).mean(-1)
-    d = torch.linalg.vector_norm(center[:, :, None] - center[:, None, :], dim=-1)
-    near = d < 0.75 * torch.maximum(edge[:, :, None], edge[:, None, :])
-    same = ids[:, :, None] == ids[:, None, :]
-    both = valid[:, :, None] & valid[:, None, :]
-    idx = torch.arange(ids.shape[1], device=ids.device)
-    better = (margin[:, :, None] > margin[:, None, :]) | (
-        (margin[:, :, None] == margin[:, None, :]) & (idx[:, None] < idx[None, :]))
-    suppressed = torch.any(near & same & both & better, 1)
-    return valid & ~suppressed
 
 
 def detect_tail(cfg: DetectorConfig, camera: CameraModel, family: TagFamily,
@@ -155,72 +124,52 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
                           with_pose: bool = True) -> tuple[Detections, FrameStats]:
     """(B, ...) cluster moments -> Detections and FrameStats. Quad fit,
     refine, decode and pose work per quad; the top-k picks and the dedupe
-    work within each frame. with_pose=False leaves translation, quaternion
-    and rotation zero (rotation too, not the identity)."""
-    fit = (quadfit_kernel.fit_quads_from_moments if cfg.backend == "cuda"
-           else fit_quads_from_moments)
-    quads = fit(clusters, min_area=64.0 / (cfg.quad_decimate ** 2))
-    want_dark = not family.reversed_border
-    qvalid = quads.valid & (quads.dark_inside == want_dark)
+    work within each frame. On backend 'cuda' each stage is one kernel
+    launch: the quad fit's search and epilogue, the top-2T pick, refine,
+    decode, the dedupe and top-T pick, pose. with_pose=False leaves
+    translation, quaternion and rotation zero (rotation too, not the
+    identity)."""
+    cuda = cfg.backend == "cuda"
+    fit = quadfit_kernel.fit_quads_from_moments if cuda else fit_quads_from_moments
+    select = tail_kernels.select_candidates if cuda else select_candidates
+    refine = refine_kernel.refine_edges if cuda else refine_edges
+    decode = decode_kernel.decode_quads if cuda else decode_quads
+    finish = tail_kernels.finish_detections if cuda else finish_detections
+    d = cfg.quad_decimate
+    quads = fit(clusters, min_area=64.0 / (d ** 2))
 
-    # Top-2T candidate quads by perimeter / (1 + fit error), decoded; then
-    # the top-T by decision margin.
-    T = cfg.max_tags
-    T2 = min(2 * T, quads.valid.shape[1])
-    perim = torch.linalg.vector_norm(
-        quads.corners - torch.roll(quads.corners, 1, -2), dim=-1).sum(-1)
-    qscore = torch.where(qvalid, perim / (1.0 + quads.fit_err), -torch.inf)
-    top_qs, top_i = _top(qscore, T2)
-    pre_valid = torch.isfinite(top_qs)
-    corners = refine_edges(gray,
-                           _upscale_coords(_take(quads.corners, top_i), cfg.quad_decimate),
-                           _take(quads.dark_inside, top_i),
-                           search_range=cfg.quad_decimate + 1.0)
-
-    decode = decode_kernel.decode_quads if cfg.backend == "cuda" else decode_quads
+    # Top-2T candidate quads by perimeter / (1 + fit error), refined and
+    # decoded; then the top-T by decision margin.
+    T2 = min(2 * cfg.max_tags, quads.valid.shape[1])
+    cand = select(quads.corners, quads.valid, quads.dark_inside, quads.fit_err,
+                  want_dark=not family.reversed_border, k=T2, decimate=d)
+    corners = refine(gray, cand.corners, cand.dark_inside, search_range=d + 1.0)
     dec = decode(gray, corners, family, max_hamming=cfg.max_hamming,
                  decode_sharpening=cfg.decode_sharpening)
-    dec_valid = pre_valid & dec.valid & (dec.margin >= cfg.min_decision_margin)
-    dec_valid = _dedupe(dec_valid, dec.id, dec.margin, dec.corners)
-
-    fscore = torch.where(dec_valid, dec.margin, -torch.inf)
-    top_fs, top_f = _top(fscore, T)
-    sel_valid = torch.isfinite(top_fs)
-    sel_corners = _take(dec.corners, top_f)                      # (B, T, 4, 2)
-    # Center = intersection of the two diagonals.
-    c0, c1, c2, c3 = sel_corners.unbind(-2)
-    center = line_intersection(c0, c2 - c0, c1, c3 - c1)
+    sel = finish(dec, cand.pre_valid, cand.num_quads, clusters.overflow, k=cfg.max_tags,
+                 min_decision_margin=cfg.min_decision_margin)
 
     if with_pose:
-        pose = pose_kernel.estimate_poses if cfg.backend == "cuda" else estimate_poses
-        poses = pose(sel_corners, camera.K, cfg.tag_size)
+        pose = pose_kernel.estimate_poses if cuda else estimate_poses
+        poses = pose(sel.corners, camera.K, cfg.tag_size)
         translation, quaternion, rotation = poses.translation, poses.quaternion, poses.rotation
     else:
-        lead = sel_corners.shape[:-2]
+        lead = sel.corners.shape[:-2]
         translation, quaternion, rotation = (
-            torch.zeros((*lead, *shape), dtype=torch.float32, device=sel_corners.device)
+            torch.zeros((*lead, *shape), dtype=torch.float32, device=sel.corners.device)
             for shape in ((3,), (4,), (3, 3)))
 
-    det = Detections(
-        valid=sel_valid,
-        id=torch.where(sel_valid, _take(dec.id, top_f), -1),
-        hamming=_take(dec.hamming, top_f),
-        decision_margin=_take(dec.margin, top_f),
-        center=center,
-        corners=sel_corners,
-        translation=translation,
-        quaternion=quaternion,
-        rotation=rotation,
-    )
-    n_quads = qvalid.sum(-1).to(torch.int32)
+    det = Detections(valid=sel.valid, id=sel.id, hamming=sel.hamming,
+                     decision_margin=sel.margin, center=sel.center, corners=sel.corners,
+                     translation=translation, quaternion=quaternion, rotation=rotation)
     stats = FrameStats(
         num_edge_points=clusters.num_edge_points,
         num_clusters=clusters.num_clusters,
-        num_quads=n_quads,
-        num_detections=sel_valid.sum(-1).to(torch.int32),
+        num_quads=cand.num_quads,
+        num_detections=sel.num_detections,
         edge_stride=clusters.edge_stride,
         ccl_converged=ccl_converged,
-        overflow=clusters.overflow | (n_quads > T2),
+        overflow=sel.overflow,
     )
     return det, stats
 

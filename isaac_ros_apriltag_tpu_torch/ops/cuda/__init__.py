@@ -7,7 +7,7 @@ LAUNCH_COUNTERS names every counter, so code that counts or replays launches
 
 from __future__ import annotations
 
-from . import ccl, cluster_moments, decode, pose, quadfit, resolve, threshold
+from . import ccl, cluster_moments, decode, pose, quadfit, refine, resolve, tail, threshold
 
 # kernel -> (wrapper module, name of its launch counter)
 LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launches"),
@@ -26,7 +26,9 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "resolve_dense": (resolve, "dense_launches"),
                    "resolve_map": (resolve, "map_launches"),
                    "quadfit_search": (quadfit, "launches"),
-                   "decode": (decode, "launches"), "pose": (pose, "launches")}
+                   "tail_select": (tail, "select_launches"), "refine": (refine, "launches"),
+                   "decode": (decode, "launches"), "tail_finish": (tail, "finish_launches"),
+                   "pose": (pose, "launches")}
 
 
 def launch_counts() -> dict[str, int]:

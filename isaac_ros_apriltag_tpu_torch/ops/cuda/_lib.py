@@ -5,7 +5,7 @@ and all at once, and linked into one shared library with a plain C
 interface, which is loaded with ``ctypes``. The library lives
 in ``isaac_ros_apriltag_tpu_torch/_build/<source hash>/`` (git-ignored), so a
 checkout builds everything from its own sources and rebuilds when a source
-changes. A build failure raises; there is no fallback.
+or a header they include (``_HEADERS``) changes. A build failure raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu", "resolve.cu", "quadfit.cu",
             "tail.cu")
+# Headers the sources include: part of the build hash, not compiled alone.
+_HEADERS = ("torch_math.cuh",)
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
 # (kept in build_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # (name, number of pointer args, number of int args); every entry point ends
 # with the stream pointer and returns cudaGetLastError().
-# Each takes the batch B (or the quad search's N clusters, the pose's N
+# Each takes the batch B (or the quad fit's N clusters, the pose's N
 # tags) first among its ints; a float travels as the int of its float32
 # bits (float_bits).
 _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
@@ -52,8 +54,12 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_resolve_slots", 9, 5),
                  ("apriltag_resolve_dense", 7, 3),
                  ("apriltag_quadfit_search", 4, 1),
+                 ("apriltag_quadfit_fit", 9, 4),
                  ("apriltag_decode", 11, 12),
-                 ("apriltag_pose", 5, 4))
+                 ("apriltag_pose", 5, 4),
+                 ("apriltag_refine", 4, 7),
+                 ("apriltag_tail_select", 8, 5),
+                 ("apriltag_tail_finish", 16, 4))
 
 MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame
 
@@ -70,7 +76,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

@@ -1,0 +1,123 @@
+"""Wrappers of the detector's per-frame picks (csrc/tail.cu:
+tail_select_kernel and tail_finish_kernel), one block a frame each.
+
+``select_candidates`` and ``finish_detections`` check their input, then on
+CPU tensors run the plain versions (ops/tail.py); on CUDA tensors they
+launch their kernel or raise and add one to ``select_launches`` or
+``finish_launches``. Each launches on the current stream, into outputs
+allocated here by torch.empty, with no host sync, so a detect call that
+runs them can be captured in a CUDA graph.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import tail as plain
+from ..decode import DecodeResult
+from ..tail import Candidates, Selection
+from . import _lib
+
+select_launches = 0    # tail_select_kernel launches made by select_candidates
+finish_launches = 0    # tail_finish_kernel launches made by finish_detections
+
+MAX_QUADS = 128        # a frame's quads a block takes (DetectorConfig's max_clusters cap)
+
+
+def _check(tensors: dict, B: int, N: int, what: str) -> torch.device:
+    """Each of `tensors` (name -> (tensor, dtype, trailing shape)) has that
+    dtype and shape (B, N, *trailing), is contiguous and lies on the first
+    one's device; 1 <= N <= MAX_QUADS. Returns the device."""
+    dev = next(iter(tensors.values()))[0].device
+    for name, (t, dtype, trail) in tensors.items():
+        if t.dtype != dtype or tuple(t.shape) != (B, N, *trail):
+            raise ValueError(f"{what}: {name} must be {dtype} {(B, N, *trail)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, not {dev}")
+    if not (1 <= B <= _lib.MAX_BATCH and 1 <= N <= MAX_QUADS):
+        raise ValueError(f"{what}: the kernel takes 1 to {_lib.MAX_BATCH} frames of 1 to "
+                         f"{MAX_QUADS} quads, got {B} of {N}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return dev
+
+
+def select_candidates(corners: torch.Tensor, valid: torch.Tensor, dark_inside: torch.Tensor,
+                      fit_err: torch.Tensor, *, want_dark: bool, k: int,
+                      decimate: int) -> Candidates:
+    """The plain version's signature and results, bit for bit: (B, C, 4, 2)
+    float32 corners, (B, C) valid and dark_inside (bool) and fit_err
+    (float32); 1 <= k <= C, decimate >= 1."""
+    global select_launches
+    if corners.ndim != 4:
+        raise ValueError(f"corners must be (B, C, 4, 2), got {tuple(corners.shape)}")
+    B, C = corners.shape[:2]
+    dev = _check({"corners": (corners, torch.float32, (4, 2)),
+                  "valid": (valid, torch.bool, ()), "dark_inside": (dark_inside, torch.bool, ()),
+                  "fit_err": (fit_err, torch.float32, ())}, B, C, "select_candidates")
+    if not (1 <= k <= C and decimate >= 1):
+        raise ValueError(f"select_candidates: k must be in [1, {C}] and decimate >= 1, got "
+                         f"{k} and {decimate}")
+    kw = dict(want_dark=want_dark, k=k, decimate=decimate)
+    if dev.type == "cpu":
+        return plain.select_candidates(corners, valid, dark_inside, fit_err, **kw)
+    out = Candidates(corners=torch.empty((B, k, 4, 2), dtype=torch.float32, device=dev),
+                     dark_inside=torch.empty((B, k), dtype=torch.bool, device=dev),
+                     pre_valid=torch.empty((B, k), dtype=torch.bool, device=dev),
+                     num_quads=torch.empty(B, dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_tail_select(
+            corners.data_ptr(), valid.data_ptr(), dark_inside.data_ptr(), fit_err.data_ptr(),
+            *(t.data_ptr() for t in out), B, C, k, int(want_dark), decimate,
+            torch.cuda.current_stream().cuda_stream)
+    _lib.check(status, "apriltag_tail_select")
+    select_launches += 1
+    return out
+
+
+def finish_detections(dec: DecodeResult, pre_valid: torch.Tensor, num_quads: torch.Tensor,
+                      overflow: torch.Tensor, *, k: int,
+                      min_decision_margin: float) -> Selection:
+    """The plain version's signature and results, bit for bit: the (B, N)
+    DecodeResult (bool valid, int32 id and hamming, float32 margin and
+    (B, N, 4, 2) corners), (B, N) bool pre_valid, (B,) int32 num_quads and
+    bool overflow; k >= 1 (min(k, N) tags a frame)."""
+    global finish_launches
+    if pre_valid.ndim != 2:
+        raise ValueError(f"pre_valid must be (B, N), got {tuple(pre_valid.shape)}")
+    B, N = pre_valid.shape
+    dev = _check({"pre_valid": (pre_valid, torch.bool, ()), "valid": (dec.valid, torch.bool, ()),
+                  "id": (dec.id, torch.int32, ()), "hamming": (dec.hamming, torch.int32, ()),
+                  "margin": (dec.margin, torch.float32, ()),
+                  "corners": (dec.corners, torch.float32, (4, 2))}, B, N, "finish_detections")
+    for name, t, dtype in (("num_quads", num_quads, torch.int32),
+                           ("overflow", overflow, torch.bool)):
+        if t.dtype != dtype or tuple(t.shape) != (B,) or t.device != dev:
+            raise ValueError(f"finish_detections: {name} must be {dtype} ({B},) on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if k < 1:
+        raise ValueError(f"finish_detections: k must be >= 1, got {k}")
+    if dev.type == "cpu":
+        return plain.finish_detections(dec, pre_valid, num_quads, overflow, k=k,
+                                       min_decision_margin=min_decision_margin)
+    T = min(k, N)
+    out = Selection(valid=torch.empty((B, T), dtype=torch.bool, device=dev),
+                    id=torch.empty((B, T), dtype=torch.int32, device=dev),
+                    hamming=torch.empty((B, T), dtype=torch.int32, device=dev),
+                    margin=torch.empty((B, T), dtype=torch.float32, device=dev),
+                    center=torch.empty((B, T, 2), dtype=torch.float32, device=dev),
+                    corners=torch.empty((B, T, 4, 2), dtype=torch.float32, device=dev),
+                    num_detections=torch.empty(B, dtype=torch.int32, device=dev),
+                    overflow=torch.empty(B, dtype=torch.bool, device=dev))
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_tail_finish(
+            dec.valid.data_ptr(), dec.id.data_ptr(), dec.hamming.data_ptr(),
+            dec.margin.data_ptr(), dec.corners.data_ptr(), pre_valid.data_ptr(),
+            num_quads.data_ptr(), overflow.data_ptr(), *(t.data_ptr() for t in out), B, N, T,
+            _lib.float_bits(min_decision_margin), torch.cuda.current_stream().cuda_stream)
+    _lib.check(status, "apriltag_tail_finish")
+    finish_launches += 1
+    return out

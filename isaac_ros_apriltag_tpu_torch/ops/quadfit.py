@@ -13,15 +13,15 @@ The reference reads an arc's sum from the prefix tables through a {-1, 0,
 here the two or three entries are gathered and added in one fixed order
 (``_arc_sums``), and every other float step is written in the order the
 CUDA kernel (csrc/quadfit.cu) takes, so ``search_plain`` is that kernel's
-plain version bit for bit. ``fit_quads_from_moments`` takes the search as
-an argument: ops/cuda/quadfit.py passes the kernel's wrapper.
+plain version bit for bit, and ``fit_epilogue`` (the winners' lines ->
+corners, gates and winding) that of the kernel's fitting launch.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -113,18 +113,6 @@ def _line_fit(msums: tuple, W: torch.Tensor):
     return ex, ey, cxx, cxy, cyy, err
 
 
-def _line_dir(cxx, cxy, cyy):
-    """Principal direction (largest-eigenvalue eigenvector) of the 2x2 cov."""
-    disc = torch.sqrt(torch.clamp((cxx - cyy) ** 2 + 4 * cxy * cxy, min=0.0))
-    lam = 0.5 * (cxx + cyy + disc)
-    v1 = torch.stack([cxy, lam - cxx], -1)
-    v2 = torch.stack([lam - cyy, cxy], -1)
-    n1 = (v1 * v1).sum(-1, keepdim=True)
-    n2 = (v2 * v2).sum(-1, keepdim=True)
-    v = torch.where(n1 > n2, v1, v2)
-    return v / torch.sqrt(torch.clamp((v * v).sum(-1, keepdim=True), min=1e-12))
-
-
 def candidates(S: torch.Tensor) -> torch.Tensor:
     """(N, 6, K+1) prefix tables -> (N, M) corner candidate bins, ascending,
     2K past the last: the circular local maxima of the +-2-bin line-fit
@@ -173,55 +161,88 @@ def search_plain(S: torch.Tensor) -> QuadSearch:
     return QuadSearch(best, best_err, *(take(x) for x in (ex, ey, cxx, cxy, cyy, aerr)))
 
 
-def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
-                           critical_cos: float = 0.985, min_area: float = 64.0,
-                           search: Callable[[torch.Tensor], QuadSearch] = search_plain
-                           ) -> Quads:
-    """Consumes ops.cluster_moments.ClusterMoments, of one frame (C, ...)
-    or of a batch (B, C, ...); the quads have the same leading dims.
-    `search` maps the prefix tables to the QuadSearch (search_plain, or the
-    kernel's wrapper ops/cuda/quadfit.py::quad_search)."""
-    lead, K = m.bw.shape[:-1], m.bw.shape[-1]
-    if K != _NBINS:
-        raise ValueError(f"expected {_NBINS} bins, got {K}")
-    centroid = m.centroid.reshape(-1, 2)
-    n, cluster_valid = m.count.reshape(-1), m.valid.reshape(-1)
-    C = centroid.shape[0]
-    cx = centroid[:, 0:1]
-    cy = centroid[:, 1:2]
-    scale = torch.clamp(m.scale.reshape(C, 1), min=1e-6)     # (C, 1)
-    q = search(prefix_tables(m))
+def _line_dir(cxx, cxy, cyy):
+    """Principal direction (largest-eigenvalue eigenvector) of the 2x2 cov,
+    as (x, y)."""
+    dd = cxx - cyy
+    disc = torch.sqrt(torch.clamp(dd * dd + (4 * cxy) * cxy, min=0.0))
+    lam = 0.5 * ((cxx + cyy) + disc)
+    v1x, v1y = cxy, lam - cxx
+    v2x, v2y = lam - cyy, cxy
+    pick = v1x * v1x + v1y * v1y > v2x * v2x + v2y * v2y
+    vx, vy = torch.where(pick, v1x, v2x), torch.where(pick, v1y, v2y)
+    vn = torch.sqrt(torch.clamp(vx * vx + vy * vy, min=1e-12))
+    return vx / vn, vy / vn
+
+
+def fit_epilogue(q: QuadSearch, centroid: torch.Tensor, scale: torch.Tensor,
+                 count: torch.Tensor, cluster_valid: torch.Tensor, *,
+                 max_line_fit_mse: float = 10.0, critical_cos: float = 0.985,
+                 min_area: float = 64.0) -> tuple[torch.Tensor, ...]:
+    """The winners' lines of N clusters -> (corners (N, 4, 2), valid (N,),
+    fit_err (N,), gates (N, 7)): the line directions, the corners as the
+    intersections of adjacent lines in the cluster's frame, the geometric
+    gates and the winding. centroid (N, 2), scale (N,), count (N,) and
+    cluster_valid (N,) are the clusters'. The plain version of the epilogue
+    of csrc/quadfit.cu's fitting launch, bit for bit: elementwise, every sum
+    over the four corners written out in index order."""
     have_combo = torch.isfinite(q.best_err)
-
-    # --- winning lines -> corners --------------------------------------------
-    pts = torch.stack([q.ex, q.ey], -1)                         # (C, 4, 2)
-    dirs = _line_dir(q.cxx, q.cxy, q.cyy)
+    s = torch.clamp(scale, min=1e-6)[:, None]                   # (N, 1)
+    dx, dy = _line_dir(q.cxx, q.cxy, q.cyy)                     # (N, 4) each
+    pts = torch.stack([q.ex, q.ey], -1)
+    dirs = torch.stack([dx, dy], -1)
     corners = line_intersection(torch.roll(pts, 1, 1), torch.roll(dirs, 1, 1), pts, dirs)
-    corners = corners * scale[..., None] + torch.stack([cx, cy], -1)
-
-    # --- gates ----------------------------------------------------------------
-    scale2 = scale[..., 0] ** 2
-    mse_ok = q.aerr.amax(-1) * scale2 <= max_line_fit_mse
-    x0, y0 = corners[..., 0], corners[..., 1]
+    x0 = corners[..., 0] * s + centroid[:, 0:1]                 # (N, 4)
+    y0 = corners[..., 1] * s + centroid[:, 1:2]
     x1, y1 = torch.roll(x0, -1, -1), torch.roll(y0, -1, -1)
-    area2 = (x0 * y1 - x1 * y0).sum(-1)
+
+    scale2 = s[:, 0] * s[:, 0]
+    a = q.aerr
+    amax = torch.maximum(torch.maximum(torch.maximum(a[:, 0], a[:, 1]), a[:, 2]), a[:, 3])
+    mse_ok = amax * scale2 <= max_line_fit_mse
+    t = x0 * y1 - x1 * y0
+    area2 = ((t[:, 0] + t[:, 1]) + t[:, 2]) + t[:, 3]
     area_ok = 0.5 * area2.abs() >= min_area
-    e_in = corners - torch.roll(corners, 1, 1)
-    e_out = torch.roll(corners, -1, 1) - corners
-    cosang = (e_in * e_out).sum(-1) / torch.clamp(
-        torch.linalg.vector_norm(e_in, dim=-1) * torch.linalg.vector_norm(e_out, dim=-1),
-        min=1e-9)
+    # Corner k's incoming edge (from k - 1) and outgoing edge (to k + 1).
+    ix, iy = x0 - torch.roll(x0, 1, -1), y0 - torch.roll(y0, 1, -1)
+    ox, oy = x1 - x0, y1 - y0
+    cosang = (ix * ox + iy * oy) / torch.clamp(
+        torch.sqrt(ix * ix + iy * iy) * torch.sqrt(ox * ox + oy * oy), min=1e-9)
     ang_ok = torch.all(cosang.abs() < critical_cos, -1)
-    finite_ok = torch.isfinite(corners).all(-1).all(-1)
+    finite_ok = torch.all(torch.isfinite(x0) & torch.isfinite(y0), -1)
     gates = torch.stack([have_combo, mse_ok, area_ok, ang_ok, finite_ok,
-                         n >= 8, cluster_valid], -1)
+                         count >= 8, cluster_valid], -1)
     valid = gates.all(-1)
 
     # Normalize winding: positive signed area (y-down CCW); reverse 1<->3.
     # Corners (0, 3, 2, 1) by flip and roll: an index list would be copied
     # to the device, and the host would wait for it.
+    corners = torch.stack([x0, y0], -1)
     flip = torch.roll(torch.flip(corners, (1,)), 1, 1)
     corners = torch.where((area2 < 0)[:, None, None], flip, corners)
+    return corners, valid, q.best_err * scale2, gates
+
+
+def fit_from_tables(S: torch.Tensor, m, *, max_line_fit_mse: float = 10.0,
+                    critical_cos: float = 0.985, min_area: float = 64.0) -> Quads:
+    """The prefix tables S of the ClusterMoments m -> its Quads: search_plain,
+    then fit_epilogue (ops/cuda/quadfit.py::quad_fit runs both in one
+    launch)."""
+    lead = m.bw.shape[:-1]
+    corners, valid, fit_err, gates = fit_epilogue(
+        search_plain(S), m.centroid.reshape(-1, 2), m.scale.reshape(-1), m.count.reshape(-1),
+        m.valid.reshape(-1), max_line_fit_mse=max_line_fit_mse, critical_cos=critical_cos,
+        min_area=min_area)
     return Quads(corners=corners.reshape(*lead, 4, 2), valid=valid.reshape(lead),
-                 dark_inside=m.dark_inside, fit_err=(q.best_err * scale2).reshape(lead),
+                 dark_inside=m.dark_inside, fit_err=fit_err.reshape(lead),
                  gates=gates.reshape(*lead, -1))
+
+
+def fit_quads_from_moments(m, *, max_line_fit_mse: float = 10.0,
+                           critical_cos: float = 0.985, min_area: float = 64.0) -> Quads:
+    """Consumes ops.cluster_moments.ClusterMoments, of one frame (C, ...)
+    or of a batch (B, C, ...); the quads have the same leading dims."""
+    if m.bw.shape[-1] != _NBINS:
+        raise ValueError(f"expected {_NBINS} bins, got {m.bw.shape[-1]}")
+    return fit_from_tables(prefix_tables(m), m, max_line_fit_mse=max_line_fit_mse,
+                           critical_cos=critical_cos, min_area=min_area)

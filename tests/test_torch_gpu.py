@@ -8,7 +8,8 @@ counts, no host sync on the detect path, and detect_checked; the captured
 detect call (CUDA graph replay) against the eager call; the CCL flow
 with pointer jumps, bundle adjustment of a 10k-tag map against the CPU, and
 the rig over a world of one NCCL process; the cluster, resolve,
-quad-fit, decode and pose kernels on chip_smoke.py's cases, the segment kernels on its
+quad-fit (search and fitting launch), decode, pose, refine, top-2T pick and
+dedupe kernels on chip_smoke.py's cases, the segment kernels on its
 synthetic sorted keys, the cluster sort's kernels on its synthetic rows
 and frames, and the count and map kernels on its count cases. They skip
 without a card.
@@ -30,15 +31,17 @@ import pytest
 import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
-                        LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES,
+                        GLUE_CASE_NAMES, LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES,
                         RESOLVE_FINAL_ONLY, RESOLVE_KERNELS,
                         SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, TAIL_CASE_NAMES,
                         THRESH_CASES, THRESH_MIN_DIFF, bench_inputs, check_cluster_case,
                         check_count_case, check_map_case, check_quadfit_case,
-                        check_resolve_call, check_segment_row, check_sort_frame,
+                        check_glue_case, check_resolve_call, check_segment_row,
+                        check_sort_frame,
                         check_sort_row, check_tail_case, cluster_cases,
                         edge_batch,
-                        free_port, map_problem, quadfit_cases, resolve_cases, scan_batch,
+                        free_port, glue_cases, map_problem, quadfit_cases, resolve_cases,
+                        scan_batch,
                         scan_case, scan_case_id, tail_cases, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
@@ -52,7 +55,9 @@ from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cluster_ker
 from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as decode_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pose_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as quadfit_kernel
+from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as refine_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as resolve_kernels
+from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tail_kernels
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
 from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
 from isaac_ros_apriltag_tpu_torch.utils.render import distort_image, render_tags, upright_pose
@@ -380,7 +385,8 @@ def test_replay_counts_launches(cuda, backend):
     """A replay adds the launches its capture recorded: 1 / 14 / 14, two of
     each resolve kernel but the dense kernel's one (the final resolve's),
     the cluster kernels' (one of each, one radix scatter a pass), one
-    quad-fit search, one decode and one pose for backend 'cuda', none for
+    each of the tail's kernels (the quad fit, the top-2T pick, refine,
+    decode, the dedupe and top-T pick, pose) for backend 'cuda', none for
     the twins; the capture itself adds none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
@@ -394,7 +400,8 @@ def test_replay_counts_launches(cuda, backend):
                                    **{k: n * m for k, m in CLUSTER_KERNELS.items()},
                                    **{k: (1 if k in RESOLVE_FINAL_ONLY else 2) * n
                                       for k in RESOLVE_KERNELS},
-                                   "quadfit_search": n, "decode": n, "pose": n}
+                                   "quadfit_search": n, "tail_select": n, "refine": n,
+                                   "decode": n, "tail_finish": n, "pose": n}
 
 
 def test_streaming_over_captured_call_equals_eager(cuda):
@@ -751,6 +758,39 @@ def test_tail_kernels_refuse_what_they_do_not_take(cuda):
                          (c, K.expand(3, 3, 3).contiguous()), (c[:, :0], K)):
         with pytest.raises(ValueError):
             pose_kernel.estimate_poses(bad_c, bad_k, 0.16)
+
+
+_GLUE_CASES = {}
+
+
+@pytest.mark.parametrize("name", GLUE_CASE_NAMES)
+def test_glue_kernels_match_plain_versions(cuda, name):
+    """chip_smoke.py phase 27's checks on one case: the refine, select and
+    finish kernels against their plain versions bit for bit on every
+    output, one launch a call, two calls and a captured replay equal, a
+    batch equal to each frame alone."""
+    if not _GLUE_CASES:
+        _GLUE_CASES.update(glue_cases(cuda))
+    check_glue_case(name, _GLUE_CASES[name])
+
+
+def test_glue_kernels_refuse_what_they_do_not_take(cuda):
+    g = torch.zeros((2, 40, 50), device=cuda)
+    c = torch.zeros((2, 3, 4, 2), device=cuda)
+    d = torch.zeros((2, 3), dtype=torch.bool, device=cuda)
+    for bad in ((g.double(), c, d), (g, c[..., :1], d), (g[0], c, d), (g.cpu(), c, d),
+                (g, c, d.cpu()), (g.transpose(1, 2), c, d), (g, c[:, :0], d[:, :0])):
+        with pytest.raises(ValueError):
+            refine_kernel.refine_edges(*bad)
+    f = torch.zeros((2, 3), device=cuda)
+    for bad in ((c.double(), d, d, f), (c, d, d, f.cpu()), (c, d.int(), d, f),
+                (torch.zeros((2, 129, 4, 2), device=cuda), *(torch.zeros(
+                    (2, 129), dtype=torch.bool, device=cuda),) * 2,
+                 torch.zeros((2, 129), device=cuda))):
+        with pytest.raises(ValueError):
+            tail_kernels.select_candidates(*bad, want_dark=True, k=2, decimate=2)
+    with pytest.raises(ValueError):
+        tail_kernels.select_candidates(c, d, d, f, want_dark=True, k=4, decimate=2)
 
 
 _RESOLVE_CASES = {}

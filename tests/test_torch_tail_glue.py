@@ -1,0 +1,459 @@
+"""The detection tail's refinement, quad-fit epilogue and per-frame picks:
+the plain versions of csrc/tail.cu's refine_kernel, tail_select_kernel and
+tail_finish_kernel and of the epilogue of csrc/quadfit.cu's fitting launch,
+on the CPU.
+
+Each plain version (ops/refine.py::refine_edges, ops/quadfit.py::
+fit_epilogue, ops/tail.py::select_candidates and finish_detections) is
+held to the parent's torch form (chip_smoke.py's parent_*_form, kept as the
+yardstick) and to the JAX package's code through jax.jit, on chip_smoke.py
+phase 27's synthetic cases (NaN and inf corners, no valid quad, tied scores
+and margins, duplicate ids at equal margins, max_tags < C/2, quad_decimate
+1 and 3, a batch of 3) and on rendered frames. Ids, indices and every
+boolean are exact. Coordinates agree with the parent's form within 1e-5 px
+or 5e-7 of their size (one float32 ulp is 3e-5 at 300 px, and the two sum
+in other orders), and with JAX at tests/test_torch_tail.py's tolerances
+(refine 1e-3 px, quad corners 0.1 px). The whole tail, from the moments
+of rendered frames to Detections and FrameStats, is held to the JAX
+package's own _detect_from_clusters at tests/test_torch_detector.py's
+gates. A batch equals each frame alone.
+The wrappers run the plain versions on CPU tensors, launch nothing, and
+refuse what their kernels do not take."""
+
+import dataclasses
+import functools
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import isaac_ros_apriltag_tpu as J
+from chip_smoke import GLUE_CASE_NAMES, glue_synthetic, tail_frame
+from isaac_ros_apriltag_tpu import detector as jdet
+from isaac_ros_apriltag_tpu.ops import cluster_moments as jcm
+from isaac_ros_apriltag_tpu.ops import quadfit as jqf
+from isaac_ros_apriltag_tpu.ops import refine as jref
+from isaac_ros_apriltag_tpu.utils import geometry as jgeo
+from isaac_ros_apriltag_tpu_torch.config import DetectorConfig
+from isaac_ros_apriltag_tpu_torch.convert import camera_from_reference, config_from_reference
+from isaac_ros_apriltag_tpu_torch.detector import _decimate, _detect_from_clusters, _pad_to_tiles
+from isaac_ros_apriltag_tpu_torch.models.families import get_family
+from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as tcm
+from isaac_ros_apriltag_tpu_torch.ops import quadfit as tqf
+from isaac_ros_apriltag_tpu_torch.ops import refine as tref
+from isaac_ros_apriltag_tpu_torch.ops import tail as ttail
+from isaac_ros_apriltag_tpu_torch.ops.cuda import launch_counts
+from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as quadfit_kernel
+from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as refine_kernel
+from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tail_kernels
+from isaac_ros_apriltag_tpu_torch.ops.cuda.ccl import ccl_scan
+from isaac_ros_apriltag_tpu_torch.ops.decode import DecodeResult
+from isaac_ros_apriltag_tpu_torch.ops.resolve import resolve_components, resolve_roots_rank
+from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
+
+torch.set_num_threads(2)
+
+SYNTHETIC = GLUE_CASE_NAMES[len(chip_smoke.CAPTURE_CASES):]
+PX_ATOL, PX_RTOL = 1e-5, 5e-7        # against the parent's form
+STAGES = {"refine": tref.refine_edges, "tail_select": ttail.select_candidates,
+          "tail_finish": ttail.finish_detections}
+
+
+@functools.lru_cache(maxsize=None)
+def case(name: str) -> dict:
+    return glue_synthetic(name, torch.device("cpu"))
+
+
+def fields(x) -> tuple:
+    return tuple(x) if isinstance(x, tuple) else (x,)
+
+
+def assert_px_close(got, want, what=""):
+    """Float fields within PX_ATOL + PX_RTOL |want| (NaN where NaN, inf
+    where inf); every other field exact."""
+    for i, (a, b) in enumerate(zip(fields(got), fields(want))):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, (what, i)
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=PX_RTOL, atol=PX_ATOL, err_msg=f"{what} {i}")
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{what} {i}")
+
+
+def assert_same(got, want):
+    """Bit for bit (NaN equal to NaN)."""
+    for a, b in zip(fields(got), fields(want)):
+        assert chip_smoke._same(a, b)
+
+
+# --- the plain versions against the parent's torch form ---------------------
+
+@pytest.mark.parametrize("name", SYNTHETIC)
+def test_refine_plain_equals_parent_form(name):
+    args, kw = case(name)["refine"]
+    got = tref.refine_edges(*args, **kw)
+    assert_px_close(got, chip_smoke.parent_refine_form(*args, **kw), name)
+    moved = (got - args[1]).abs().nan_to_num(0.0).amax((-2, -1))
+    assert (moved[:, 0] > 0).all(), "the tag's quad is refined"
+
+
+@pytest.mark.parametrize("name", SYNTHETIC)
+def test_select_plain_equals_parent_form(name):
+    args, kw = case(name)["tail_select"]
+    got = ttail.select_candidates(*args, **kw)
+    assert_px_close(got, chip_smoke.parent_select_form(*args, **kw), name)
+    if name == "no valid quad":
+        assert not got.pre_valid.any() and (got.num_quads == 0).all()
+    else:
+        assert got.pre_valid.any()
+
+
+@pytest.mark.parametrize("name", SYNTHETIC)
+def test_finish_plain_equals_parent_form(name):
+    args, kw = case(name)["tail_finish"]
+    got = ttail.finish_detections(*args, **kw)
+    assert_px_close(got, chip_smoke.parent_finish_form(*args, **kw), name)
+    assert torch.equal(got.num_detections, got.valid.sum(-1).to(torch.int32))
+    if name == "no valid quad":
+        assert not got.valid.any()
+
+
+@pytest.mark.parametrize("stage", list(STAGES))
+@pytest.mark.parametrize("name", ["a batch of 3 frames", "NaN and inf corners"])
+def test_batch_equals_each_frame_alone(stage, name):
+    args, kw = case(name)[stage]
+    got = STAGES[stage](*args, **kw)
+    B = fields(got)[0].shape[0]
+    for b in range(B):
+        one = STAGES[stage](*chip_smoke._frame_of(args, b), **kw)
+        for x, y in zip(fields(one), fields(got)):
+            assert chip_smoke._same(x, y[b:b + 1]), (stage, b)
+
+
+def test_select_ties_go_to_the_lower_index():
+    """Equal scores (integer squares, fit errors in quarters) keep their
+    index order, and NaN scores come first, as torch.sort(stable=True) and
+    lax.top_k take them."""
+    corners = torch.tensor([[[0, 0], [8, 0], [8, 8], [0, 8]]], dtype=torch.float32)
+    corners = (corners + torch.arange(6.0)[:, None, None] * 10)[None]     # (1, 6, 4, 2)
+    corners[0, 4, 1, 0] = torch.nan
+    valid = torch.ones((1, 6), dtype=torch.bool)
+    fit_err = torch.tensor([[0.5, 0.25, 0.5, 0.25, 0.0, 0.5]])
+    got = ttail.select_candidates(corners, valid, valid, fit_err, want_dark=True, k=5,
+                                  decimate=1)
+    # Scores 32/1.5, 32/1.25, 32/1.5, 32/1.25, NaN, 32/1.5: NaN, then 1, 3, then 0, 2
+    # (quad i has its first corner at (10 i, 10 i)).
+    assert got.corners[0, :, 0, 1].tolist() == [40.0, 10.0, 30.0, 0.0, 20.0]
+    assert got.pre_valid[0].tolist() == [False, True, True, True, True]
+    assert int(got.num_quads[0]) == 6
+
+
+def test_finish_duplicate_ids_keep_the_lower_index():
+    """Two candidates of one id, near each other, at equal margins: the one
+    at the lower index stays; at a larger margin the later one wins."""
+    sq = torch.tensor([[0, 0], [40, 0], [40, 40], [0, 40]], dtype=torch.float32)
+    corners = torch.stack([sq, sq + 2.0, sq + 100.0])[None]
+    ones = torch.ones((1, 3), dtype=torch.bool)
+    for margins, kept in (([20.0, 20.0, 15.0], [0, 2]), ([20.0, 25.0, 15.0], [1, 2])):
+        dec = DecodeResult(valid=ones, id=torch.tensor([[7, 7, 7]], dtype=torch.int32),
+                           hamming=torch.zeros((1, 3), dtype=torch.int32),
+                           margin=torch.tensor([margins]),
+                           rotation=torch.zeros((1, 3), dtype=torch.int32), corners=corners)
+        got = ttail.finish_detections(dec, ones, torch.tensor([3], dtype=torch.int32),
+                                      torch.tensor([False]), k=3, min_decision_margin=10.0)
+        want = corners[0, kept]
+        order = sorted(range(len(kept)), key=lambda i: -margins[kept[i]])
+        assert got.valid[0].tolist() == [True, True, False]
+        assert torch.equal(got.corners[0, :2], want[order])
+        assert int(got.num_detections[0]) == 2 and not bool(got.overflow[0])
+
+
+def test_epilogue_plain_equals_parent_form():
+    """The plain fit (search_plain, then fit_epilogue) against the parent's
+    torch epilogue on chip_smoke.py phase 25's synthetic clusters (ties,
+    few candidates, bin 63, an empty slot, NaN and inf) and on the clusters
+    of two rendered frames."""
+    for m in (chip_smoke.quadfit_synthetic(torch.device("cpu")), scene_moments()):
+        for min_area in (16.0, 64.0 / 9):
+            got = tqf.fit_quads_from_moments(m, min_area=min_area)
+            assert_px_close(got, chip_smoke.parent_fit_form(m, min_area=min_area))
+        assert got.gates.any() and not got.gates.all()
+    assert got.valid.any()
+
+
+# --- the plain versions against the JAX package -----------------------------
+
+def _frames(seeds):
+    """tail_frame's one-tag frames, their quads with the tag's moved ~0.7
+    px, and a dark inside for each quad."""
+    frames = [tail_frame("tag36h11", seed=s) for s in seeds]
+    rng = np.random.default_rng(7)
+    quads = np.stack([q for _, q in frames])
+    quads[:, 0] += rng.normal(0, 0.7, quads[:, 0].shape).astype(np.float32)
+    dark = np.ones(quads.shape[:2], bool)
+    dark[:, 1:] = rng.random((len(seeds), quads.shape[1] - 1)) < 0.5
+    return np.stack([g for g, _ in frames]), quads, dark
+
+
+@pytest.mark.parametrize("decimate", [1, 2, 3])
+def test_refine_matches_reference(decimate):
+    """search_range = quad_decimate + 1: profiles of 13, 17 and 21 samples."""
+    gray, quads, dark = _frames((0, 1))
+    sr = decimate + 1.0
+    ref = jax.jit(jax.vmap(lambda g, c, d: jref.refine_edges(g, c, d, search_range=sr)))
+    want = np.asarray(ref(jnp.asarray(gray), jnp.asarray(quads), jnp.asarray(dark)))
+    got = tref.refine_edges(torch.from_numpy(gray), torch.from_numpy(quads),
+                            torch.from_numpy(dark), search_range=sr).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert (np.abs(got[:, 0] - quads[:, 0]).max((-2, -1)) > 0.05).all()
+
+
+@pytest.mark.parametrize("name", ["NaN and inf corners", "quad_decimate 3"])
+def test_refine_cases_match_reference(name):
+    (gray, corners, dark), kw = case(name)["refine"]
+    ref = jax.jit(jax.vmap(lambda g, c, d: jref.refine_edges(g, c, d, **kw)))
+    want = np.asarray(ref(*(jnp.asarray(t.numpy()) for t in (gray, corners, dark))))
+    got = tref.refine_edges(gray, corners, dark, **kw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+@functools.lru_cache(maxsize=None)
+def scene_moments():
+    """The port's plain cluster moments of a batch of two one-tag frames
+    (the front on backend 'torch', quad_decimate 2)."""
+    gray, _, _ = _frames((3, 4))
+    cfg = DetectorConfig(backend="torch")
+    seg = _pad_to_tiles(_decimate(torch.from_numpy(gray), 2), 4)
+    tri = adaptive_threshold(seg, 4, 5)
+    valid = tri != 127
+    _, R = cfg.effective_capacities(*tri.shape[-2:])
+    lab, _ = ccl_scan(tri, 8, backend="torch")
+    rank_img, table, _ = resolve_roots_rank(lab, valid, max_components=R)
+    lab, _ = ccl_scan(tri, 6, backend="torch", label0=rank_img)
+    res = resolve_components(lab, valid, min_component_pixels=25, max_components=R,
+                             chain_steps=3, rank_table=table)
+    E = cfg.effective_capacities(*tri.shape[-2:])[0]
+    return tcm.extract_cluster_moments(tri, res.dense, comp_overflow=torch.zeros(2, dtype=bool),
+                                       max_edge_points=E, max_clusters=128,
+                                       min_cluster_pixels=24, max_cluster_points=1024)
+
+
+def test_fit_matches_reference():
+    """The plain fit against the JAX package's fit_quads_from_moments on the
+    same moments, frame by frame: validity exact; on the quads valid in
+    either, gates exact and corners within 0.1 px; the gates of at most 2%
+    of the other (noise) clusters may differ, where a near-collinear
+    corner's angle or area gate turns on less than the two packages' sums
+    in other orders (tests/test_torch_quadfit.py::NOISE_SHARE; measured 2
+    of 256)."""
+    m = scene_moments()
+    got = tqf.fit_quads_from_moments(m, min_area=16.0)
+    fit = jax.jit(lambda mm: jqf.fit_quads_from_moments(mm, min_area=16.0))
+    n_differ = 0
+    for b in range(2):
+        want = fit(jcm.ClusterMoments(*(jnp.asarray(x[b].numpy()) for x in m)))
+        v = np.asarray(want.valid)
+        np.testing.assert_array_equal(got.valid[b].numpy(), v)
+        assert v.sum() >= 1
+        same = (got.gates[b].numpy() == np.asarray(want.gates)).all(-1)
+        assert same[v].all()
+        n_differ += int((~same).sum())
+        np.testing.assert_allclose(got.corners[b].numpy()[v], np.asarray(want.corners)[v],
+                                   atol=0.1)
+    assert n_differ <= 0.02 * got.valid.numel()
+
+
+def _jax_select(corners, valid, dark, fit_err, *, want_dark, k, decimate):
+    """isaac_ros_apriltag_tpu/detector.py:230-245 on one frame."""
+    qvalid = valid & (dark == want_dark)
+    perim = jnp.sum(jnp.linalg.norm(corners - jnp.roll(corners, 1, 1), axis=-1), axis=-1)
+    top_qs, top_i = jax.lax.top_k(jnp.where(qvalid, perim / (1.0 + fit_err), -jnp.inf), k)
+    return (jdet._upscale_coords(corners[top_i], decimate), dark[top_i], jnp.isfinite(top_qs),
+            jnp.sum(qvalid.astype(jnp.int32)))
+
+
+def _jax_finish(dvalid, ids, ham, margin, corners, pre_valid, n_quads, overflow, *, k,
+                min_decision_margin):
+    """isaac_ros_apriltag_tpu/detector.py:254-310 on one frame: the dedupe
+    (_dedupe), the top-k by margin, the takes, the center and the counts."""
+    dec_valid = jdet._dedupe(pre_valid & dvalid & (margin >= min_decision_margin), ids,
+                             margin, corners)
+    top_fs, top_f = jax.lax.top_k(jnp.where(dec_valid, margin, -jnp.inf), k)
+    sel_valid = jnp.isfinite(top_fs)
+    sel = corners[top_f]
+    center = jgeo.line_intersection(sel[:, 0], sel[:, 2] - sel[:, 0], sel[:, 1],
+                                    sel[:, 3] - sel[:, 1])
+    return (sel_valid, jnp.where(sel_valid, ids[top_f], -1), ham[top_f], margin[top_f], center,
+            sel, jnp.sum(sel_valid.astype(jnp.int32)),
+            overflow | (n_quads > pre_valid.shape[0]))
+
+
+@pytest.mark.parametrize("name", SYNTHETIC)
+def test_select_matches_reference(name):
+    (corners, valid, dark, fit_err), kw = case(name)["tail_select"]
+    ref = jax.jit(jax.vmap(functools.partial(_jax_select, **kw)))
+    want = ref(*(jnp.asarray(t.numpy()) for t in (corners, valid, dark, fit_err)))
+    got = ttail.select_candidates(corners, valid, dark, fit_err, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-5,
+                                   err_msg=f"{name} {got._fields[i]}")
+
+
+@pytest.mark.parametrize("name", SYNTHETIC)
+def test_finish_matches_reference(name):
+    (dec, pre_valid, n_quads, overflow), kw = case(name)["tail_finish"]
+    ref = jax.jit(jax.vmap(functools.partial(_jax_finish, **kw)))
+    want = ref(*(jnp.asarray(t.numpy()) for t in (
+        dec.valid, dec.id, dec.hamming, dec.margin, dec.corners, pre_valid, n_quads, overflow)))
+    got = ttail.finish_detections(dec, pre_valid, n_quads, overflow, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4,
+                                   err_msg=f"{name} {got._fields[i]}")
+
+
+def test_tail_matches_reference_detect_from_clusters():
+    """The port's tail on backend 'torch' (detector.py::_detect_from_clusters:
+    fit, select, refine, decode, finish, pose) against the JAX package's
+    _detect_from_clusters, jitted, on the same moments of two rendered
+    one-tag frames, so no step is a transcription made for the test. Ids
+    (-1 past the detections), validity and every FrameStats field are
+    exact; on the detections, hamming is exact, corners and
+    centers within 0.1 px, translation within 1 cm and quaternion within
+    0.01 (tests/test_torch_detector.py's gates), the margin as
+    tests/test_torch_tail.py's decode."""
+    m = scene_moments()
+    gray, _, _ = _frames((3, 4))
+    H, W = gray.shape[-2:]
+    K = np.array(chip_smoke.TAIL_K, np.float32)
+    cfg_j = J.DetectorConfig(tag_size=chip_smoke.TAIL_TAG_SIZE)
+    cam_j = J.CameraModel.create(fx=K[0, 0], fy=K[1, 1], cx=K[0, 2], cy=K[1, 2], width=W,
+                                 height=H)
+    cfg_t = config_from_reference(dataclasses.asdict(cfg_j), backend="torch")
+    cam_t = camera_from_reference(np.asarray(cam_j.K), np.asarray(cam_j.dist), W, H)
+    got, got_stats = _detect_from_clusters(cfg_t, cam_t, get_family("tag36h11"),
+                                           torch.from_numpy(gray), m,
+                                           torch.ones(2, dtype=torch.bool))
+    fam_j = J.get_family("tag36h11")
+    ref = jax.jit(lambda g, cl: jdet._detect_from_clusters(cfg_j, cam_j, fam_j, g, cl,
+                                                           jnp.asarray(True)))
+    for b in range(2):
+        want, want_stats = ref(jnp.asarray(gray[b]),
+                               jcm.ClusterMoments(*(jnp.asarray(x[b].numpy()) for x in m)))
+        v = np.asarray(want.valid)
+        assert v.sum() >= 1
+        for f in ("valid", "id"):
+            np.testing.assert_array_equal(getattr(got, f)[b].numpy(),
+                                          np.asarray(getattr(want, f)), err_msg=f)
+        np.testing.assert_array_equal(got.hamming[b].numpy()[v], np.asarray(want.hamming)[v])
+        for f, atol in (("corners", 0.1), ("center", 0.1), ("translation", 0.01),
+                        ("quaternion", 0.01)):
+            np.testing.assert_allclose(getattr(got, f)[b].numpy()[v],
+                                       np.asarray(getattr(want, f))[v], atol=atol, err_msg=f)
+        np.testing.assert_allclose(got.decision_margin[b].numpy()[v],
+                                   np.asarray(want.decision_margin)[v], rtol=1e-4, atol=1e-3)
+        for f in (f.name for f in dataclasses.fields(got_stats)):
+            assert int(getattr(got_stats, f)[b]) == int(getattr(want_stats, f)), f
+
+
+@pytest.mark.parametrize("name", ["a batch of 3 frames", "quad_decimate 3"])
+def test_refine_bound_reads_each_pixel_once(name):
+    """chip_smoke.py's byte bound of refine_kernel counts each pixel its
+    samples' taps read once: the plain bilinear taps of an image that holds
+    each pixel's own index name the same pixels, and they are fewer than
+    four taps a sample."""
+    (gray, corners, dark), kw = case(name)["refine"]
+    got = tref.refine_edges(gray, corners, dark, **kw)
+    B, H, W = gray.shape
+    index = torch.arange(B * H * W, dtype=torch.float64).view(B, H, W)
+    taps = tref.bilinear_taps(index, *tref.sample_points(corners, kw["search_range"]))[:4]
+    pixels = torch.unique(torch.stack(taps)).numel()
+    rest = corners.numel() * 4 + dark.numel() + got.numel() * 4
+    assert chip_smoke.refine_bytes(gray, corners, dark, kw["search_range"], got) == \
+        pixels * 4 + rest
+    assert pixels < taps[0].numel() * 4
+
+
+# --- the wrappers on the CPU ------------------------------------------------
+
+def test_wrappers_run_the_plain_versions_on_the_cpu():
+    before = launch_counts()
+    c = case("a batch of 3 frames")
+    for stage, wrapper in (("refine", refine_kernel.refine_edges),
+                           ("tail_select", tail_kernels.select_candidates),
+                           ("tail_finish", tail_kernels.finish_detections)):
+        args, kw = c[stage]
+        assert_same(wrapper(*args, **kw), STAGES[stage](*args, **kw))
+    m = scene_moments()
+    assert_same(quadfit_kernel.fit_quads_from_moments(m, min_area=16.0),
+                tqf.fit_quads_from_moments(m, min_area=16.0))
+    assert_same(quadfit_kernel.quad_fit(tqf.prefix_tables(m), m, min_area=16.0),
+                tqf.fit_quads_from_moments(m, min_area=16.0))
+    assert launch_counts() == before
+
+
+def test_build_hash_tracks_the_shared_header(monkeypatch, tmp_path):
+    """quadfit.cu and tail.cu take their torch-semantics helpers from one
+    header, csrc/torch_math.cuh, and a change to it rebuilds the kernels."""
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import _lib
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_lib._CSRC, csrc)
+    for name in ("quadfit.cu", "tail.cu"):
+        assert '#include "torch_math.cuh"' in (csrc / name).read_text()
+    monkeypatch.setattr(_lib, "_CSRC", str(csrc))
+    before = _lib._source_hash()
+    header = csrc / "torch_math.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert _lib._source_hash() != before
+
+
+def test_refine_wrapper_refuses_what_its_kernel_does_not_take():
+    (g, c, d), kw = case("a batch of 3 frames")["refine"]
+    for bad in ((g.double(), c, d), (g, c.double(), d), (g, c, d.int()), (g, c[..., :1], d),
+                (g[0], c, d), (g[:1], c, d), (g, c, d[:, :2]), (g.transpose(1, 2), c, d),
+                (g, c.transpose(1, 2), d), (g[:, :0], c, d), (g, c[:, :0], d[:, :0]),
+                (g, c, d.to("meta"))):
+        with pytest.raises(ValueError):
+            refine_kernel.refine_edges(*bad, **kw)
+
+
+def test_pick_wrappers_refuse_what_their_kernels_do_not_take():
+    (c, v, d, f), kw = case("a batch of 3 frames")["tail_select"]
+    for bad in ((c.double(), v, d, f), (c, v.int(), d, f), (c, v, d[:, :5], f),
+                (c[0], v, d, f), (c, v, d, f.transpose(0, 1).contiguous().transpose(0, 1)),
+                (c, v, d, f[:2]), (c[:, :0], v[:, :0], d[:, :0], f[:, :0])):
+        with pytest.raises(ValueError):
+            tail_kernels.select_candidates(*bad, **kw)
+    big = torch.zeros((1, 129, 4, 2))
+    with pytest.raises(ValueError, match="128"):
+        tail_kernels.select_candidates(big, *(torch.zeros((1, 129), dtype=torch.bool),) * 2,
+                                       torch.zeros((1, 129)), **kw)
+    for k, d_ in ((0, 2), (c.shape[1] + 1, 2), (4, 0)):
+        with pytest.raises(ValueError):
+            tail_kernels.select_candidates(c, v, d, f, want_dark=True, k=k, decimate=d_)
+    (dec, pre, nq, ovf), kw = case("a batch of 3 frames")["tail_finish"]
+    for bad in ((dec._replace(id=dec.id.long()), pre, nq, ovf),
+                (dec._replace(margin=dec.margin[:, :3]), pre, nq, ovf),
+                (dec._replace(corners=dec.corners.double()), pre, nq, ovf),
+                (dec, pre.int(), nq, ovf), (dec, pre, nq.long(), ovf), (dec, pre, nq[:1], ovf),
+                (dec, pre, nq, ovf[None])):
+        with pytest.raises(ValueError):
+            tail_kernels.finish_detections(*bad, **kw)
+    with pytest.raises(ValueError):
+        tail_kernels.finish_detections(dec, pre, nq, ovf, **{**kw, "k": 0})
+
+
+def test_fit_wrapper_refuses_what_its_kernel_does_not_take():
+    m = scene_moments()
+    S = tqf.prefix_tables(m)
+    for bad in (m._replace(scale=m.scale.double()), m._replace(count=m.count.long()),
+                m._replace(valid=m.valid[:1]), m._replace(centroid=m.centroid[..., :1])):
+        with pytest.raises(ValueError):
+            quadfit_kernel.quad_fit(S, bad)
+    with pytest.raises(ValueError):
+        quadfit_kernel.quad_fit(S[:5], m)
+
