@@ -171,27 +171,31 @@ non-zero):
      torch.sort of the padded row, of the sort (the compaction and the
      passes with their memset) against torch.sort and its bound, and of the
      stage (kernel path, the plain version's one-hot formulation);
- 24. resolve: the six resolve kernels (csrc/resolve.cu: count, tile sums,
-     scan, slots, dense, map) on the phase-1 and phase-2 labels of
+ 24. resolve: the five resolve kernels (csrc/resolve.cu: count, tile sums,
+     scan, chain, map) on the phase-1 and phase-2 labels of
      torch_bench.py's 720p b1 and 1080p b8 inputs, the 1080p b8 input at
      R = RESOLVE_SMALL_R, a speckle batch whose phase-1 groups pass R,
      synthetic flat frames for the twin's slot R - 1 and its R = 65536
      clamp, and SLOT_ROWS' frames (see slot_rows: root slots no slot maps
      to, more groups than R, R = 65536, more than _KMAX eligible
      components, long chains, labels and rank-table pixels out of range, an
-     empty frame beside a full one, cycles walked past R + 1 hops) (and the
-     count and map kernels alone on COUNT_CASES: one label a frame, speckle,
-     labels at S - 1 and out of range, rows that take their scalar path):
-     the contraction, the rank-mode and the flat-mode resolve against the
-     twin bit for bit on every field, one launch of each kernel a call (the
-     dense kernel only in a final resolve), two calls and a captured replay
-     equal, each kernel against its plain version bit for bit, the slots
-     and dense kernels' tables against the parent's form (parent_slots_form,
-     parent_dense_form: pointer doubling and the roots' sort); device ms of
-     each kernel (its plain version, its bound, one library call computing
-     the same function where there is one, the parent's form for the slots
-     and dense kernels; the map's share of its bound beside its gather) and
-     of the stage against the twin;
+     empty frame beside a full one, cycles walked past R + 1 hops), random
+     labels at capacities that are not multiples of the chain kernel's
+     cluster (ODD_R) (and the count and map kernels alone on COUNT_CASES:
+     one label a frame, speckle, labels at S - 1 and out of range, rows
+     that take their scalar path): the contraction, the rank-mode and the
+     flat-mode resolve against the twin bit for bit on every field, one
+     launch of each kernel a call, two calls and a captured replay equal,
+     each kernel against its plain version bit for bit (the chain kernel:
+     slots_plain in the contraction, final_plain, dense_plain after
+     slots_plain, in a final resolve), the chain kernel's tables against
+     the parent's form (parent_slots_form, parent_dense_form: pointer
+     doubling and the roots' sort); device ms of each kernel (its plain
+     version, its bound, one library call computing the same function where
+     there is one, the parent's form for the chain kernel; the map's share
+     of its bound beside its gather) and of the stage against the twin, and
+     the chain kernel's clusters the card holds at once
+     (cudaOccupancyMaxActiveClusters);
  25. quad fit: the search kernel (csrc/quadfit.cu) on the cluster moments
      of torch_bench.py's 720p b1 and 1080p b8 inputs, of node-720p-b1's
      frame 23 at seed 1 (the capacity edge), of a blank 1080p b8 batch (no
@@ -228,8 +232,7 @@ non-zero):
      each frame alone; device ms of each kernel, its plain version, its
      bound and the parent's torch form.
 Every path launches K1 once, K2 and K3 once a scan round, each resolve
-kernel once a resolve call (twice in the two-phase flow) but the dense
-kernel, once a final resolve, each cluster
+kernel once a resolve call (twice in the two-phase flow), each cluster
 kernel once a call but the radix scatter, once a pass (CLUSTER_KERNELS),
 and the tail's kernels once a call: the quad fit's fitting launch, the
 top-2T pick, refine, decode, the dedupe and top-T pick, and pose. A path
@@ -312,8 +315,8 @@ KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "segment_top": "cm_seg_top_kernel", "moments": "cm_moments_kernel",
                 "resolve_count": "resolve_count_kernel",
                 "resolve_tiles": "resolve_tile_sums_kernel",
-                "resolve_scan": "resolve_scan_kernel", "resolve_slots": "resolve_slots_kernel",
-                "resolve_dense": "resolve_dense_kernel", "resolve_map": "resolve_map_kernel",
+                "resolve_scan": "resolve_scan_kernel", "resolve_chain": "resolve_chain_kernel",
+                "resolve_map": "resolve_map_kernel",
                 "quadfit_search": "qf_search_kernel",
                 "tail_select": "tail_select_kernel",
                 "refine": ("::refine_kernel(", "13refine_kernelE"),
@@ -409,21 +412,18 @@ SORT_FRAMES = ("an empty frame beside a checkerboard (stride 3)",
                "one key: a black half and a white half", "the largest dense ids",
                "K past E: a checkerboard at E 240 (stride 57)",
                "rows of 94 pixels (the pixel kernels' scalar path)")
-# Once a resolve call (twice a two-phase call), but RESOLVE_FINAL_ONLY's,
-# once a final resolve (the contraction does not launch them).
-RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan", "resolve_slots",
-                   "resolve_dense", "resolve_map")
-RESOLVE_FINAL_ONLY = ("resolve_dense",)
+# Once a resolve call (twice a two-phase call).
+RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan", "resolve_chain",
+                   "resolve_map")
 # The reference's XLA code each resolve kernel replaces (it has no Pallas
 # kernel there): the pixel sort whose groups the count finds, the cumsum of
 # group starts, the second sort that compacts the first R groups, the
-# chain doubling, the sizes and dense ranks (the sort of the roots), and the
-# packed-cummax broadcast with the unsort.
+# chain doubling with the sizes and dense ranks (the sort of the roots), and
+# the packed-cummax broadcast with the unsort.
 RESOLVE_REPLACES = {"resolve_count": "isaac_ros_apriltag_tpu/ops/resolve.py:145",
                     "resolve_tiles": "isaac_ros_apriltag_tpu/ops/resolve.py:150",
                     "resolve_scan": "isaac_ros_apriltag_tpu/ops/resolve.py:156",
-                    "resolve_slots": "isaac_ros_apriltag_tpu/ops/resolve.py:194",
-                    "resolve_dense": "isaac_ros_apriltag_tpu/ops/resolve.py:204",
+                    "resolve_chain": "isaac_ros_apriltag_tpu/ops/resolve.py:194",
                     "resolve_map": "isaac_ros_apriltag_tpu/ops/resolve.py:233"}
 # Phase 24: a capacity the 1080p b8 batch overflows, a speckle batch (the
 # tests' random trinary) whose phase-1 groups pass R = N / 8, and flat
@@ -446,10 +446,15 @@ SLOT_ROWS = ("a root slot that no slot maps to, min_component_pixels 0",
              "rank mode: rank table pixels and labels out of range",
              "a frame with no valid slot beside a full one",
              "cycles walked past R + 1 hops")
+# Phase 24's capacities that are not multiples of the chain kernel's
+# cluster of 8 blocks: 7 leaves blocks without a slot, 28801 (the 720p
+# capacity plus one) a short last block; random labels of a 200x200 frame.
+ODD_R = (7, 28801)
 RESOLVE_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES) + (
     f"1080p b8, R {RESOLVE_SMALL_R}", "speckle, phase-1 groups past R",
     *(f"slot R - 1, group {g} doubled, R {RESOLVE_SLOT_R}" for g, _ in RESOLVE_SLOT_CASES),
-    "R 65536 clamp, one chain", *(f"slot row: {name}" for name in SLOT_ROWS))
+    "R 65536 clamp, one chain", *(f"slot row: {name}" for name in SLOT_ROWS),
+    f"random labels, R {' and '.join(map(str, ODD_R))}")
 # Phase 24's inputs of the count kernel alone: name -> ((B, N), S, label
 # kind, share of valid pixels); see count_case. N = 518400 is the 1080p
 # segmentation frame; rows of 1001 and 12345 pixels take the kernel's
@@ -731,7 +736,7 @@ def _ranked_slots(parents, R: int, table_out: dict, out: dict):
 def slot_rows() -> dict:
     """SLOT_ROWS -> (labels (B, 2, G) int32, valid (B, 2, G) bool, R, chain
     steps, min_component_pixels, rank table (B, R) int32 or None): frames
-    whose slot tables reach the slots and dense kernels' edges, each with an
+    whose slot tables reach the chain kernel's edges, each with an
     inverted pair (see _inverted_parents), so components ranked by their
     first slot, not their root slot, come out in another order."""
     G = (1 << 16) + 50
@@ -764,7 +769,7 @@ def slot_rows() -> dict:
 
 
 def parent_slots_form(lab, inv, D, n_groups, steps: int, rank_table=None, cnt=None):
-    """The torch ops that resolve_slots_kernel replaced (ops/resolve.py's
+    """The torch ops that the chain walk replaced (ops/resolve.py's
     table functions between scan and map before it, up to the roots' sort):
     each slot's parent doubled `steps` times (_pointer_double). Without cnt
     the contraction's (map table, overflow); with cnt the final resolve's
@@ -797,7 +802,7 @@ def parent_slots_form(lab, inv, D, n_groups, steps: int, rank_table=None, cnt=No
 
 
 def parent_dense_form(root, cnt_k, n_groups, sent: int, min_component_pixels: int):
-    """The torch ops that resolve_dense_kernel replaced: the sizes, gate and
+    """The torch ops that the dense ranks replaced: the sizes, gate and
     dense ranks by the stable sort of the root labels and its cumsums
     (_dense_ranks), the R = 65536 tail and the map table: (table,
     n_eligible, overflow)."""
@@ -811,6 +816,20 @@ def parent_dense_form(root, cnt_k, n_groups, sent: int, min_component_pixels: in
             torch.full((B, 1), plain._KMAX, dtype=torch.int64, device=root.device))
     return (torch.cat([dense_k, tail], 1).to(torch.int32), n_eligible,
             (n_groups > R) | (n_eligible > plain._KMAX))
+
+
+def parent_chain_form(lab, inv, D, n_groups, steps: int, rank_table=None, cnt=None,
+                      min_component_pixels: int = 0):
+    """The chain kernel's pass in the parent's torch ops: without cnt the
+    contraction's (map table, overflow), parent_slots_form; with cnt the
+    final resolve's (map table, n_eligible, overflow, converged),
+    parent_slots_form then parent_dense_form."""
+    out = parent_slots_form(lab, inv, D, n_groups, steps, rank_table, cnt)
+    if cnt is None:
+        return out
+    root, cnt_k, converged = out
+    return (*parent_dense_form(root, cnt_k, n_groups, inv.shape[1] - 1, min_component_pixels),
+            converged)
 
 
 def count_case(name: str, seed: int = 0):
@@ -1276,25 +1295,23 @@ def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict
     """The launches of `frames` detect calls (or batched calls) of `rounds`
     scan rounds and `resolves` resolve calls each (2 in the two-phase flow,
     the contraction and the final resolve; 1 in the flat and jumps flows):
-    K1 once, K2 and K3 once a round, the resolve kernels once a resolve call
-    (RESOLVE_FINAL_ONLY's once, in the final resolve), the cluster kernels
+    K1 once, K2 and K3 once a round, the resolve kernels once a resolve call,
+    the cluster kernels
     as CLUSTER_KERNELS counts them, and the tail's kernels once: the quad
     fit's fitting launch, the top-2T pick, refine, decode, the dedupe and
     top-T pick, pose (a rig whose cameras have their own K poses once a
     call, outside its graph)."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
             **{k: n * frames for k, n in CLUSTER_KERNELS.items()},
-            **{k: (1 if k in RESOLVE_FINAL_ONLY else resolves) * frames
-               for k in RESOLVE_KERNELS}, "quadfit_search": frames, "tail_select": frames,
+            **{k: resolves * frames for k in RESOLVE_KERNELS},
+            "quadfit_search": frames, "tail_select": frames,
             "refine": frames, "decode": frames, "tail_finish": frames, "pose": frames}
 
 
-def _resolve_want(call: str) -> dict:
-    """The launches of one resolve call alone: 'roots_rank' (the
-    contraction) or 'components' (a final resolve)."""
-    return {k: int(k in RESOLVE_KERNELS and (call == "components"
-                                             or k not in RESOLVE_FINAL_ONLY))
-            for k in _want()}
+def _resolve_want() -> dict:
+    """The launches of one resolve call alone, the contraction or a final
+    resolve: each resolve kernel once."""
+    return {k: int(k in RESOLVE_KERNELS) for k in _want()}
 
 
 def _reset_launches() -> None:
@@ -2373,7 +2390,8 @@ def resolve_cases(dev) -> dict:
     RESOLVE_SLOT_CASES and the R = 65536 clamp frame (labels max(p - 1, 0),
     one chain: with min_component_pixels 0 every group's dense id is 0,
     also past group 65535); SLOT_ROWS' frames, the final resolve and (flat
-    rows) the contraction."""
+    rows) the contraction; a random frame's flat-mode resolve and
+    contraction at each of ODD_R."""
     import dataclasses
 
     import torch
@@ -2427,6 +2445,13 @@ def resolve_cases(dev) -> dict:
         cases.append([("components", kw, lab, valid, {})] + (
             [("roots_rank", dict(max_components=R, chain_steps=steps), lab, valid, {})]
             if table is None else []))
+    rng = np.random.default_rng(11)
+    lab = torch.from_numpy(rng.integers(0, 40000, (1, 200, 200), dtype=np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random((1, 200, 200)) < 0.8).to(dev)
+    cases.append([call for R in ODD_R for call in (
+        ("components", dict(min_component_pixels=2, max_components=R, chain_steps=3), lab, valid,
+         {}),
+        ("roots_rank", dict(max_components=R, chain_steps=5), lab, valid, {}))])
     return dict(zip(RESOLVE_CASE_NAMES, cases, strict=True))
 
 
@@ -2435,8 +2460,8 @@ def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) 
     for bit (every field; `facts`' n_eligible or dense id where given), one
     launch of each resolve kernel (_resolve_want), two calls and a captured
     replay equal, each kernel against its plain version on the inputs the
-    call gave it, and the slots and dense kernels' tables against the
-    parent's form. Raises on a difference; returns the kernels' inputs and
+    call gave it, and the chain kernel's tables against the parent's form.
+    Raises on a difference; returns the kernels' inputs and
     outputs (`log`), each launched kernel's largest difference from its
     plain version (`errs`), the results and the stage and twin as
     functions."""
@@ -2458,7 +2483,7 @@ def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) 
     def stage():
         return kern_fn(lab, valid, **kw)
 
-    one = _resolve_want(call)
+    one = _resolve_want()
     _reset_launches()
     got = stage()
     counts = _launches()
@@ -2477,34 +2502,32 @@ def check_resolve_call(what: str, call: str, kw: dict, lab, valid, facts: dict) 
         raise AssertionError(f"resolve {call}, {what}: two calls differ")
     _replay_equals(stage, got, f"resolve {call}, {what}")
     passes = plain.TablePasses(*(recorded(n, f) for n, f in (
-        ("count", rk.count), ("scan", rk.scan), ("slots", rk.slots), ("dense", rk.dense),
+        ("count", rk.count), ("scan", rk.scan), ("slots", rk.slots), ("final", rk.final),
         ("map", rk.map_pixels))))
     if not all(_same(a, b) for a, b in zip(tables(lab, valid, passes=passes, **kw), got)):
         raise AssertionError(f"resolve {call}, {what}: the recorded passes differ")
     (cl, cv, S), cnt = log["count"]
     (_, R), (inv, D, n_groups) = log["scan"]
-    sargs, slotted = log["slots"]
     (_, _, _, table, fill), mapped = log["map"]
     tsum = rk.tile_sums(cnt)
     log["tiles"] = ((cnt,), tsum)
-    splain = plain.slots_plain(*sargs)
+    # The chain kernel: the contraction's pass (slots) or the final resolve's (final).
+    cargs, chained = log["slots"] if rank else log["final"]
+    chain_fn, chain_plain = (rk.slots, plain.slots_plain) if rank else (rk.final,
+                                                                         plain.final_plain)
+    cplain = chain_plain(*cargs)
     checks = {"resolve_count": [(cnt, plain.count_plain(cl, cv, S))],
               "resolve_tiles": [(tsum, plain.tile_sums_plain(cnt))],
               "resolve_scan": list(zip(rk.scan_ranks(cnt, tsum, R), plain.scan_plain(cnt, R)))
               + list(zip((inv, D, n_groups), plain.scan_plain(cnt, R))),
-              "resolve_slots": list(zip(slotted, splain)) + list(zip(rk.slots(*sargs), splain)),
+              "resolve_chain": list(zip(chained, cplain)) + list(zip(chain_fn(*cargs), cplain)),
               "resolve_map": [(mapped, plain.map_plain(cl, cv, inv, table, fill))]}
-    parent = parent_slots_form(*sargs)
-    if rank:
-        tabled = slotted
-    else:
-        dargs, tabled = log["dense"]
-        dplain = plain.dense_plain(*dargs)
-        checks["resolve_dense"] = list(zip(tabled, dplain)) + list(zip(rk.dense(*dargs), dplain))
-        parent = (*parent_dense_form(parent[0], parent[1], n_groups, S, dargs[3]), parent[2])
-    if not all(_same(a, b) for a, b in zip(tabled, parent, strict=True)):
-        raise AssertionError(f"resolve {call}, {what}: the slot tables differ from the parent's "
-                             f"form")
+    if not rank:
+        composed = plain.dense_plain(*plain.slots_plain(*cargs[:7]), n_groups, cargs[7])
+        checks["resolve_chain"] += list(zip(chained, composed))
+    if not all(_same(a, b) for a, b in zip(chained, parent_chain_form(*cargs), strict=True)):
+        raise AssertionError(f"resolve {call}, {what}: the chain kernel's tables differ from the "
+                             f"parent's form")
     errs = {}
     for k, pairs in checks.items():
         errs[k] = max(_max_abs_err(a, b) for a, b in pairs)
@@ -2570,9 +2593,9 @@ def check_map_case(name: str, dev) -> float:
 
 def resolve_times(c: dict) -> dict:
     """Device ms of each resolve kernel the call launched (kernel, plain
-    version, bound, library call; for the slots and dense kernels the
-    parent's form of their step, `parent_ms`) on one call's inputs
-    (check_resolve_call's `log`)."""
+    version, bound, library call; for the chain kernel the parent's form of
+    its step, `parent_ms`) on one call's inputs (check_resolve_call's
+    `log`)."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
@@ -2583,17 +2606,21 @@ def resolve_times(c: dict) -> dict:
     (_, R), (inv, D, n_groups) = log["scan"]
     (_, _, _, table, fill), mapped = log["map"]
     tsum = log["tiles"][1]
-    sargs, slotted = log["slots"]
+    final = "final" in log
+    cargs, chained = log["final" if final else "slots"]
+    chain_fn, chain_plain = (rk.final, plain.final_plain) if final else (rk.slots,
+                                                                         plain.slots_plain)
     B = cl.shape[0]
-    # The slots kernel needs, a valid slot, its label (D), the pixel label
+    # The chain kernel needs, a valid slot, its label (D), the pixel label
     # its parent reads, that label's slot (inv) and in rank mode the rank
     # table's pixel, in the final resolve its count; the frames' group
-    # counts; and writes its outputs. The memo is scratch of the design.
+    # counts; and writes its outputs. Its rounds, totals and ranks stay in
+    # shared memory.
     nv = int(torch.clamp(n_groups, max=R).sum())
-    rank_table, slot_cnt = (tuple(sargs) + (None, None))[5:7]
-    per_slot = 4 * (3 + (rank_table is not None) + (slot_cnt is not None))
-    slots_ms = _bytes_ms(nv * per_slot + n_groups.numel() * 4
-                         + sum(t.numel() * t.element_size() for t in slotted))
+    rank_table = cargs[5] if len(cargs) > 5 else None
+    per_slot = 4 * (3 + (rank_table is not None) + final)
+    chain_ms = _bytes_ms(nv * per_slot + n_groups.numel() * 4
+                         + sum(t.numel() * t.element_size() for t in chained))
     # The library yardsticks: one scatter_add_ of the pixels' keys, one
     # cumsum of the presence table, one gather of a per-label table.
     key = torch.where(cv & (cl >= 0) & (cl < S), cl.to(torch.int64), S)
@@ -2615,16 +2642,9 @@ def resolve_times(c: dict) -> dict:
                         lambda: plain.map_plain(cl, cv, inv, table, fill),
                         _bound_ms(cl, cv, inv, table, mapped), lambda: torch.gather(lut, 1, pix)),
     }
-    timed["resolve_slots"] = (lambda: rk.slots(*sargs), lambda: plain.slots_plain(*sargs),
-                              slots_ms, None)
-    parent = {"resolve_slots": lambda: parent_slots_form(*sargs)}
-    if "dense" in log:
-        dargs, dense_out = log["dense"]
-        timed["resolve_dense"] = (lambda: rk.dense(*dargs), lambda: plain.dense_plain(*dargs),
-                                  _bound_ms(*dargs[:3], *dense_out), None)
-        root_labels, cnt_k, _ = parent_slots_form(*sargs)
-        parent["resolve_dense"] = lambda: parent_dense_form(root_labels, cnt_k, n_groups, S,
-                                                            dargs[3])
+    timed["resolve_chain"] = (lambda: chain_fn(*cargs), lambda: chain_plain(*cargs), chain_ms,
+                              None)
+    parent = {"resolve_chain": lambda: parent_chain_form(*cargs)}
     if not _same(torch.gather(lut, 1, pix).to(torch.int32), mapped):
         raise AssertionError("the map's library yardstick computes another function")
     out = {k: dict(ms=_device_ms(kern, 20), plain_ms=_device_ms(twin, 5), bound_ms=bound,
@@ -2636,6 +2656,7 @@ def resolve_times(c: dict) -> dict:
     starts = counted.clone()
     starts[:, 1:] &= key[:, 1:] != key[:, :-1]
     out["resolve_count"]["runs"] = int(starts.sum())
+    out["resolve_chain"]["R"] = R
     return out
 
 
@@ -2644,9 +2665,11 @@ def resolve_phase(gpu: str) -> dict:
     times at torch_bench.py's two shapes. Returns kernel -> {max_abs_err,
     and for 'b1' (720p) and 'batch8' (1080p): shape, ms, plain_ms,
     bound_ms, library_ms, each summed over a detect call's two resolve
-    calls (the contraction and the rank-mode resolve; the dense kernel's
-    from the latter alone), parent_ms for the slots and dense kernels, and
-    by_call}."""
+    calls (the contraction and the rank-mode resolve), parent_ms for the
+    chain kernel, and by_call}; the chain kernel's also
+    max_active_clusters (cudaOccupancyMaxActiveClusters, the frames the
+    card runs at once, by pass and R)."""
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
     import torch
 
     dev = torch.device("cuda")
@@ -2691,12 +2714,17 @@ def resolve_phase(gpu: str) -> dict:
                                                   check_count_case(name, dev))
         out["resolve_map"]["max_abs_err"] = max(out["resolve_map"]["max_abs_err"],
                                                 check_map_case(name, dev))
+    R_bench = sorted({out["resolve_chain"][t]["by_call"]["contraction"]["R"]
+                      for t in ("b1", f"batch{BATCH}")} | {1 << 16})
+    clusters = {f"{what} R {R}": rk.chain_clusters(what == "final", R)
+                for what in ("contraction", "final") for R in R_bench}
+    out["resolve_chain"]["max_active_clusters"] = clusters
     torch.cuda.synchronize()
     print(f"[24 resolve] the kernel path (one launch of each of {list(RESOLVE_KERNELS)} a "
-          f"resolve call, {list(RESOLVE_FINAL_ONLY)} only in a final resolve) against the twin "
-          f"bit for bit on every field, two calls and a captured replay equal, each kernel "
-          f"against its plain version bit for bit, the slots and dense kernels' tables equal to "
-          f"the parent's form: "
+          f"resolve call) against the twin bit for bit on every field, two calls and a captured "
+          f"replay equal, each kernel against its plain version bit for bit (the chain kernel "
+          f"in a final resolve also against dense_plain after slots_plain), the chain kernel's "
+          f"tables equal to the parent's form: "
           + " | ".join(lines) + f"; the count and map kernels alone on {list(COUNT_CASES)}: equal "
           f"to count_plain and map_plain, one launch, two calls and a captured replay equal; on "
           f"{gpu}: device "
@@ -2706,10 +2734,13 @@ def resolve_phase(gpu: str) -> dict:
           + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
                       f"{v[t]['bound_ms']:.4f} / {v[t]['library_ms']}"
                       for k, v in out.items() for t in ("b1", f"batch{BATCH}"))
-          + "; the slots and dense kernels against the parent's form of their step (kernel / "
-          "parent ms) " + ", ".join(f"{k} {t}: {out[k][t]['ms']:.4f} / {out[k][t]['parent_ms']:.4f}"
-                                    for k in ("resolve_slots", "resolve_dense")
-                                    for t in ("b1", f"batch{BATCH}"))
+          + "; the chain kernel against the parent's form of its step (kernel / parent ms, "
+          "share of bound) " + ", ".join(
+              f"{t}: {out['resolve_chain'][t]['ms']:.4f} / "
+              f"{out['resolve_chain'][t]['parent_ms']:.4f}, "
+              f"{out['resolve_chain'][t]['bound_ms'] / out['resolve_chain'][t]['ms']:.1%}"
+              for t in ("b1", f"batch{BATCH}"))
+          + f"; the chain kernel's clusters resident at once (8 blocks each) {clusters}"
           + "; resolve_map against its gather (kernel / gather ms, share of bound) "
           + ", ".join(f"{t}: {out['resolve_map'][t]['ms']:.4f} / "
                       f"{out['resolve_map'][t]['library_ms']:.4f}, "
@@ -3940,7 +3971,7 @@ def profiled_replays_phase(gpu: str) -> dict:
     want = {"frame": {k: v * len(SEEDS) for k, v in one.items()}, f"rig{RIG_CAMERAS}": one,
             "stream": {k: v * RIG_CAMERAS for k, v in one.items()},
             **{f"captured_b{b}": one for _, b in CAPTURE_CASES},
-            **{f"resolve_{call}_b{b}": _resolve_want(call) for _, b in CAPTURE_CASES
+            **{f"resolve_{call}_b{b}": _resolve_want() for _, b in CAPTURE_CASES
                for call in ("roots_rank", "components")}}
     if got != want:
         raise AssertionError(f"profiled replays: counts {got} != expected {want}")
@@ -4717,7 +4748,9 @@ def main() -> int:
          "parent_form_ms": resolve[k]["b1"]["parent_ms"],
          f"parent_form_ms_batch{BATCH}": resolve[k][f"batch{BATCH}"]["parent_ms"],
          f"share_batch{BATCH}": (resolve[k][f"batch{BATCH}"]["bound_ms"]
-                                 / resolve[k][f"batch{BATCH}"]["ms"])}
+                                 / resolve[k][f"batch{BATCH}"]["ms"]),
+         **({"max_active_clusters": resolve[k]["max_active_clusters"]}
+            if "max_active_clusters" in resolve[k] else {})}
         for k in RESOLVE_KERNELS] + [
         {"name": "quadfit_search", "route": "cuda",
          "source": "isaac_ros_apriltag_tpu_torch/csrc/quadfit.cu", "replaces": QUADFIT_REPLACES,

@@ -1,5 +1,5 @@
 // Component resolution: (B, N) labels -> per-frame label tables, the
-// tables' chains and dense ranks, and tables -> per-pixel values, in six
+// tables' chains and dense ranks, and tables -> per-pixel values, in five
 // kernels.
 //
 // Replaces: the sort-centric formulation of
@@ -38,42 +38,46 @@
 //       entry S), D[b, k] = the k-th present label for k < R (S past the
 //       frame's group count, filled by the frame's blocks together), and
 //       n_groups[b];
-//   resolve_slots_kernel  one thread a slot k of the (B, R + 1) slot
-//       tables (k = R the extra slot): f(k) is the slot of the label at
-//       pixel D[k] (in rank mode at pixel rank_table[D[k]]), and the thread
-//       follows f from k for 2^(s-1) hops, then as many again (s the chain
-//       steps), which is what s pointer doublings give, f^(2^s) beside
-//       f^(2^(s-1)), with no barrier across the grid: each slot's f is
-//       computed by whoever needs it first and kept, +1, in a memo table
-//       (zeroed by a memset on the stream; a stale 0 only means computing
-//       it again). A walk stops at a fixpoint, and a walk of more than
-//       R + 1 hops is on a cycle, whose length shortens the rest. The
-//       contraction writes the map's table (root & 0xFFFF, R at slot R) and
-//       the overflow flag; the final resolve writes each slot's root slot,
-//       adds its pixel count into its root's total by integer atomics (one
-//       a warp's slots of one root), and with more than R groups sums the
-//       counts of slots 0 .. R - 2, which slot R - 1 takes negated;
-//   resolve_dense_kernel  the final resolve, one block a frame: a root slot
-//       r < R is a component when a slot maps to it (its total is positive,
-//       or it is slot R - 1's root then) and eligible when its total
-//       reaches the area gate; r's dense id is the eligible root slots
+//   resolve_chain_kernel  one thread-block cluster of CLUSTER (8) blocks a
+//       frame, each block owning a contiguous range of ceil(R / 8) of the
+//       (B, R + 1) slot tables' slots in its shared memory (slot R, whose
+//       parent is itself, is stored nowhere). Each thread computes f(k) for
+//       its slots: the slot of the label at pixel D[k] (in rank mode at
+//       pixel rank_table[D[k]]), all its slots' loads of one level issued
+//       before the next. Then max(s, 1) rounds of f <- f o f (s the chain
+//       steps), as the reference's pointer doubling: each round reads one
+//       shared buffer, another block's slots through distributed shared
+//       memory, and writes the other, with a cluster barrier between
+//       rounds; a round that changes no entry of the frame ends them, since
+//       every later one would change nothing. The last buffer is f^(2^s),
+//       the one before f^(2^(s-1)). The contraction writes the map's table
+//       (root & 0xFFFF, R at slot R) and the overflow flag. The final
+//       resolve, in the same launch: each slot's pixel count into its root
+//       slot's total at the root's owner block (DSMEM integer atomics, one
+//       a warp's slots of one root; with more than R groups, slot R - 1
+//       takes minus the counts of slots 0 .. R - 2), then the area gate: a
+//       root slot r < R is a component when a slot maps to it (its total
+//       is positive, or it is slot R - 1's root then) and eligible when its
+//       total reaches the gate; r's dense id is the eligible root slots
 //       below r (D is increasing, so root slots order as the twin's root
-//       labels do), by ballots and one block scan, kept in shared memory
-//       as 16 bits; then the map's table, each slot's dense id through its
-//       root slot (_KMAX past 32766 or gated out; slot R takes slot 65535's
-//       at R = 65536), n_eligible, overflow and converged;
+//       labels do), by ballots in each block and the blocks' counts
+//       exchanged for their offsets, kept in shared memory as 16 bits; then
+//       the map's table, each slot's dense id through its root slot, read
+//       from the owner block (_KMAX past 32766 or gated out; slot R takes
+//       slot 65535's at R = 65536), n_eligible, overflow and converged;
 //   resolve_map_kernel  out[b, p] = table[b, inv[b, label[b, p]]] for a
 //       valid pixel labelled in [0, S), else fill: the contraction's rank
-//       image and the final resolve's dense ids, from the (B, R + 1)
-//       tables of the slots and dense kernels. A thread
-//       takes PT consecutive pixels as the count kernel does (vector loads
-//       and stores where the rows are aligned, PT 16 from 2^20 pixels a
-//       launch), gathers once a run of equal labels among them, and issues
-//       its inv gathers before its table gathers; the pixel rows are read
-//       and written with streaming hints, so inv and the table keep L2.
+//       image and the final resolve's dense ids, from the chain kernel's
+//       (B, R + 1) tables. A thread takes PT consecutive pixels as the
+//       count kernel does (vector loads and stores where the rows are
+//       aligned, PT 16 from 2^20 pixels a launch), gathers once a run of
+//       equal labels among them, and issues its inv gathers before its
+//       table gathers; the pixel rows are read and written with streaming
+//       hints, so inv and the table keep L2.
 //
 // Against the plain versions (ops/resolve.py::count_plain, scan_plain,
-// slots_plain, dense_plain, map_plain): bit-exact, all integer.
+// slots_plain, final_plain = dense_plain after slots_plain, map_plain):
+// bit-exact, all integer.
 //
 // What bounds it on an H100: bytes, but for count, whose integer atomics
 // bound it on labels that change every few pixels. count reads 5 B a pixel
@@ -82,14 +86,19 @@
 // an entry) and D; map reads 5 B a pixel, writes 4 B, and gathers from inv
 // and the table, which runs of equal labels keep in L1 and L2: its gathers
 // are dependent (the table's index is inv's entry), so it keeps many in
-// flight a thread. The slots kernel reads D, n_groups and its slots' pixel
-// labels and counts once and writes its (B, R + 1) outputs; its hops are
-// L2 reads of the memo, dependent, so a frame's longest chain sets its
-// time. The dense kernel reads the totals and root slots once and writes
-// the table; one block a frame, so at batch 1 one SM's rate bounds it.
+// flight a thread. The chain kernel reads D, n_groups and its slots' pixel
+// labels (and counts) once and writes its (B, R + 1) table: its gathers
+// are dependent, four levels deep, so a thread keeps its slots' loads of
+// one level in flight together; its doubling rounds, totals and ranks stay
+// in shared memory, and a frame's time follows the rounds (a DSMEM gather
+// and a cluster barrier each) and not its chains' lengths. At batch 1 one
+// cluster, 8 of the 132 SMs, does the frame.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -106,10 +115,16 @@ constexpr int32_t EDGE = -2;                 // the key beyond a block's ends: n
 constexpr int KBITS = 15;                    // dense ids: [0, 2^15) (ops/resolve.py::_KBITS)
 constexpr int KMAX = (1 << KBITS) - 1;       // the dense id of a gated-out slot
 constexpr int MAX_R = 1 << 16;               // slots a frame at most
-constexpr int DENSE_THREADS = 1024;
-constexpr int DENSE_WARPS = DENSE_THREADS / 32;
-constexpr int DENSE_ROUNDS = MAX_R / DENSE_THREADS;   // root slots a thread at most
-constexpr int DENSE_BATCH = 8;               // loads a thread keeps in flight
+constexpr int CLUSTER = 8;                   // blocks a frame: the portable cluster size
+constexpr int CHAIN_THREADS = 1024;
+constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
+constexpr int CHAIN_SLOTS = MAX_R / CLUSTER;           // slots a block at most
+constexpr int CHAIN_PER_THREAD = CHAIN_SLOTS / CHAIN_THREADS;
+static_assert(CHAIN_PER_THREAD * CHAIN_THREADS == CHAIN_SLOTS, "whole slots a thread");
+static_assert(CHAIN_PER_THREAD <= 32, "a bit a slot in a thread's mask");
+// Dynamic shared memory a block at most: two int32 buffers, the int32
+// totals and the 16-bit dense ids of CHAIN_SLOTS slots.
+constexpr int CHAIN_SMEM = CHAIN_SLOTS * 14;
 
 // A label's first slot in a hash table of 2^HBITS slots.
 template <int HBITS>
@@ -289,206 +304,279 @@ resolve_scan_kernel(const int32_t* __restrict__ cnt, const int32_t* __restrict__
     for (int k = ng + tile * THREADS + t; k < R; k += tiles * THREADS) D[k] = S;
 }
 
-// One frame's slot tables (the pointers at its rows) and its parent map f
-// over the slots [0, R]: ops/resolve.py::_slot_parents.
-struct Slots {
-    const int32_t* lab;          // (N,) pixel labels
-    const int32_t* inv;          // (S + 1,) a label's slot
-    const int32_t* D;            // (R,) a slot's label
-    const int32_t* rank_table;   // (S,) in rank mode a label's pixel, else null
-    int32_t* memo;               // (R + 1,) f(x) + 1, 0 where not yet known
-    int N, S, R, ng;
+// One frame's cluster: each of its CLUSTER blocks owns the slots [lo, hi),
+// P = ceil(R / CLUSTER) a block (the last blocks short or empty), in its
+// shared memory. Slot R is stored nowhere: f(R) = R.
+struct ChainSlots {
+    int P;
+    unsigned long long magic;    // ceil(2^32 / P): x / P = (x magic) >> 32 for x <= 2^16, P <= 2^13
 
-    // f(x): the slot of the label at pixel D[x] (rank_table[D[x]] in rank
-    // mode); a pixel outside [0, N) reads the sentinel label S, a label is
-    // clamped to [0, S], and a slot without a group (x >= n_groups, the
-    // extra slot R) points at R.
-    __device__ int parent(int x) const {
-        if (x >= ng || x >= R) return R;
-        const int d = __ldg(D + x);
-        const int p = rank_table ? __ldg(rank_table + d) : d;
-        const int l = p >= 0 && p < N ? __ldg(lab + p) : S;
-        return __ldg(inv + min(max(l, 0), S));
-    }
+    __device__ explicit ChainSlots(int P_) : P(P_), magic((0x100000000ull + P_ - 1) / P_) {}
 
-    // f(x) from the memo, computed and kept there where no thread has yet.
-    // The memo is read from L2 (__ldcg), since other SMs write it.
-    __device__ int hop(int x) const {
-        const int v = __ldcg(memo + x);
-        if (v) return v - 1;
-        const int f = parent(x);
-        __stcg(memo + x, f + 1);
-        return f;
-    }
+    __device__ int owner(int x) const { return (int)(((unsigned long long)x * magic) >> 32); }
 
-    // f^(2^e)(x), by following f: a fixpoint ends the walk; after R + 1
-    // hops over the R + 1 slots without one, x lies on a cycle, and the
-    // 2^e - (R + 1) hops left are taken modulo its length.
-    __device__ int walk(int x, int e) const {
-        const unsigned long long n = e < 63 ? 1ull << e : ~0ull;
-        for (unsigned long long i = 0; i < n; ++i) {
-            const int y = hop(x);
-            if (y == x) return x;
-            x = y;
-            if (i == (unsigned long long)R && i + 1 < n) {
-                unsigned long long len = 1;
-                for (int z = hop(x); z != x; z = hop(z)) ++len;
-                unsigned long long pw = 1 % len, sq = 2 % len;   // 2^e mod len
-                for (int q = e; q > 0; q >>= 1, sq = sq * sq % len)
-                    if (q & 1) pw = pw * sq % len;
-                for (unsigned long long rest = (pw + len - (unsigned long long)(R + 1) % len) % len;
-                     rest > 0; --rest)
-                    x = hop(x);
-                return x;
-            }
-        }
-        return x;
+    // &buf[x] of whichever block of the cluster owns slot x < R: the
+    // calling block's own shared memory when it is `rank`, else another
+    // block's through DSMEM, whose scattered accesses cost far more.
+    template <typename T>
+    __device__ T* at(cg::cluster_group& cluster, T* buf, int x, int rank) const {
+        const int q = owner(x);
+        return (q == rank ? buf : cluster.map_shared_rank(buf, q)) + (x - q * P);
     }
 };
 
-// One thread a slot k in [0, R] of frame blockIdx.y: half = f^(2^e)(k),
-// root = f^(2^(e+1))(k). FINAL (cnt given): root[k] for k < R, and into
-// acc (R + 2 a frame: the root slots' totals, the counts of slots
-// 0 .. R - 2 when n_groups > R, an unconverged flag) the slot's pixel
-// count at its root slot (not for root R, and not slot R - 1's when
-// n_groups > R). Else the contraction's map table, root & 0xFFFF (R at
-// slot R), and ovf[b] = n_groups > R.
-template <bool FINAL>
-__global__ void __launch_bounds__(THREADS)
-resolve_slots_kernel(const int32_t* __restrict__ lab, const int32_t* __restrict__ inv,
+// One cluster of CLUSTER blocks a frame (grid (CLUSTER, B)); slot
+// k = lo + j CHAIN_THREADS + t is thread t's j-th, j < JMAX (chain_kernel
+// takes 4 where a block owns at most 4096 slots, else 8). f(k): the slot
+// of the label at pixel D[k] (rank_table[D[k]] in rank mode), R past
+// n_groups; then max(steps, 1) = `rounds` rounds of f <- f o f, each reading one
+// shared buffer (another block's slots through DSMEM) and writing the
+// other, a cluster barrier between rounds; a round that changes no entry
+// of the frame ends them (f is then idempotent). root = the last buffer,
+// half = the one before: f^(2^s) and f^(2^(s-1)).
+// Contraction (!FINAL): table (B, R + 1) = root & 0xFFFF, R at slot R;
+// overflow[b] = n_groups > R.
+// Final resolve: each slot's count cnt[D[k]] into its root slot's total
+// (DSMEM atomics at the owner; not for root R, nor slot R - 1's when
+// n_groups > R, which takes minus slots 0 .. R - 2's), the area gate, the
+// dense ids of the eligible root slots in slot order (ballots in each
+// block, the blocks' counts exchanged for their offsets), then table (B,
+// R + 1) = each slot's id through its root slot (_KMAX when gated out or
+// past _KMAX - 1; slot R takes slot 65535's at R = 65536), n_eligible,
+// overflow and converged (half == root everywhere).
+template <bool FINAL, int JMAX>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(CHAIN_THREADS)
+resolve_chain_kernel(const int32_t* __restrict__ lab, const int32_t* __restrict__ inv,
                      const int32_t* __restrict__ D, const int32_t* __restrict__ n_groups,
                      const int32_t* __restrict__ rank_table, const int32_t* __restrict__ cnt,
-                     int32_t* memo, int32_t* __restrict__ out, int32_t* acc,
-                     uint8_t* __restrict__ ovf, int N, int S, int R, int e) {
-    const int b = blockIdx.y, k = blockIdx.x * THREADS + threadIdx.x, lane = threadIdx.x & 31;
-    const int ng = n_groups[b];
-    const Slots s{lab + (size_t)b * N, inv + (size_t)b * (S + 1), D + (size_t)b * R,
-                  rank_table ? rank_table + (size_t)b * S : nullptr, memo + (size_t)b * (R + 1),
-                  N, S, R, ng};
-    const bool live = k <= R;
-    int half = R, root = R;
-    if (live) {
-        half = s.walk(k, e);
-        root = s.walk(half, e);
-    }
-    if constexpr (!FINAL) {
-        if (live) out[(size_t)b * (R + 1) + k] = k == R ? R : root & 0xFFFF;
-        if (k == 0) ovf[b] = ng > R;
-    } else {
-        acc += (size_t)b * (R + 2);
-        if (k < R) {
-            out[(size_t)b * R + k] = root;
-            if (half != root) acc[R + 1] = 1;
-        }
-        const bool over = ng > R;
-        const int c = k < R && k < ng ? cnt[(size_t)b * S + __ldg(s.D + k)] : 0;
-        const bool adds = c != 0 && root < R && !(over && k == R - 1);
-        // The warp's slots of one root add once.
-        const unsigned peers = __match_any_sync(FULL, adds ? root : -1 - lane);
-        const int sum = __reduce_add_sync(peers, adds ? c : 0);
-        if (adds && lane == __ffs(peers) - 1) atomicAdd(acc + root, sum);
-        if (over) {                              // the same for every thread of the frame
-            const int m = __reduce_add_sync(FULL, k < R - 1 ? c : 0);
-            if (lane == 0 && m) atomicAdd(acc + R, m);
-        }
-    }
-}
-
-// One block a frame: the final resolve's map table (R + 1 a frame),
-// n_eligible (int64), overflow and converged (bytes), from the slots
-// kernel's root slots and acc. Root slot r = q DENSE_THREADS + t is thread
-// t's round q; a round's eligible slots are ranked by a ballot a warp and
-// an exclusive scan over (round, warp) in that order.
-__global__ void __launch_bounds__(DENSE_THREADS)
-resolve_dense_kernel(const int32_t* __restrict__ root, const int32_t* __restrict__ acc,
-                     const int32_t* __restrict__ n_groups, int32_t* __restrict__ table,
-                     long long* __restrict__ n_eligible, uint8_t* __restrict__ overflow,
-                     uint8_t* __restrict__ converged, int R, int min_px) {
-    extern __shared__ uint16_t dense_of[];       // (R,) a root slot's dense id
-    __shared__ int base[DENSE_ROUNDS * DENSE_WARPS];
-    __shared__ int wsum[DENSE_WARPS];
-    const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, w = t >> 5;
-    root += (size_t)b * R;
-    acc += (size_t)b * (R + 2);
-    table += (size_t)b * (R + 1);
+                     int32_t* __restrict__ table, long long* __restrict__ n_eligible,
+                     uint8_t* __restrict__ overflow, uint8_t* __restrict__ converged,
+                     int N, int S, int R, int rounds, int min_px) {
+    cg::cluster_group cluster = cg::this_cluster();
+    extern __shared__ int4 chain_smem[];
+    __shared__ int flag[2];                      // a round changed an entry (pushed by every block)
+    // Slots 0 .. R - 2's counts, the cluster's and a block's; half != root somewhere.
+    __shared__ int minus, part, unconv;
+    __shared__ int bcount[CLUSTER];              // each block's eligible root slots
+    __shared__ int base[JMAX * CHAIN_WARPS];
+    __shared__ int wsum[CHAIN_WARPS];
+    const int P = (R + CLUSTER - 1) / CLUSTER;
+    const ChainSlots sl(P);
+    int32_t* cur = reinterpret_cast<int32_t*>(chain_smem);   // (P,) f, then f^(2^i)
+    int32_t* nxt = cur + P;                                  // (P,) the other buffer
+    int32_t* tot = nxt + P;                                  // (P,) root slots' totals
+    uint16_t* ids = reinterpret_cast<uint16_t*>(tot + P);    // (P,) root slots' dense ids
+    const int rank = (int)cluster.block_rank(), b = blockIdx.y;
+    const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const int lo = min(rank * P, R), hi = min(lo + P, R);
     const int ng = n_groups[b];
     const bool over = ng > R;
-    const int sp = over ? root[R - 1] : -1;      // slot R - 1's root slot, which takes
-    const int minus = over ? acc[R] : 0;         // minus the counts of slots 0 .. R - 2
-    const int rounds = (R + DENSE_THREADS - 1) / DENSE_THREADS;
-    unsigned long long mine = 0;                 // bit q: root slot q DENSE_THREADS + t is eligible
-    for (int q0 = 0; q0 < rounds; q0 += DENSE_BATCH) {
-        int tot[DENSE_BATCH];
+    lab += (size_t)b * N;
+    inv += (size_t)b * (S + 1);
+    D += (size_t)b * R;
+    table += (size_t)b * (R + 1);
+    if (rank_table) rank_table += (size_t)b * S;
+
+    // Parents, each level's loads of all the thread's slots issued together.
+    int c[JMAX];                                 // FINAL: the slot's pixel count
+    {
+        int d[JMAX], p[JMAX];
 #pragma unroll
-        for (int j = 0; j < DENSE_BATCH; ++j) {
-            const int r = (q0 + j) * DENSE_THREADS + t;
-            tot[j] = q0 + j < rounds && r < R ? acc[r] : 0;
+        for (int j = 0; j < JMAX; ++j) {
+            const int k = lo + j * CHAIN_THREADS + t;
+            d[j] = k < hi && k < ng ? __ldg(D + k) : -1;
         }
 #pragma unroll
-        for (int j = 0; j < DENSE_BATCH; ++j) {
-            const int q = q0 + j, r = q * DENSE_THREADS + t;
-            if (q >= rounds) break;              // the same for every thread
-            const bool el = r < R && (tot[j] > 0 || r == sp)
-                            && tot[j] - (r == sp ? minus : 0) >= min_px;
-            mine |= (unsigned long long)el << q;
-            const unsigned m = __ballot_sync(FULL, el);
-            if (lane == 0) base[q * DENSE_WARPS + w] = __popc(m);
-        }
-    }
-    __syncthreads();
-    // Exclusive scan of base in (round, warp) order, two entries a thread.
-    const int n = rounds * DENSE_WARPS;
-    const int v0 = 2 * t < n ? base[2 * t] : 0, v1 = 2 * t + 1 < n ? base[2 * t + 1] : 0;
-    int inc = v0 + v1;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(FULL, inc, d);
-        if (lane >= d) inc += y;
-    }
-    if (lane == 31) wsum[w] = inc;
-    __syncthreads();
-    if (w == 0) {
-        int x = wsum[lane];
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int y = __shfl_up_sync(FULL, x, d);
-            if (lane >= d) x += y;
-        }
-        wsum[lane] = x;
-    }
-    __syncthreads();
-    const int ex = inc - v0 - v1 + (w ? wsum[w - 1] : 0);
-    const int total = wsum[DENSE_WARPS - 1];
-    if (2 * t < n) base[2 * t] = ex;
-    if (2 * t + 1 < n) base[2 * t + 1] = ex + v0;
-    __syncthreads();
-    for (int q = 0; q < rounds; ++q) {
-        const bool el = (mine >> q) & 1;
-        const unsigned m = __ballot_sync(FULL, el);
-        const int rank = base[q * DENSE_WARPS + w] + __popc(m & ((1u << lane) - 1u));
-        const int r = q * DENSE_THREADS + t;
-        if (r < R) dense_of[r] = el && rank < KMAX ? rank : KMAX;
-    }
-    __syncthreads();
-    for (int k0 = t; k0 < R; k0 += DENSE_BATCH * DENSE_THREADS) {
-        int rt[DENSE_BATCH];
-#pragma unroll
-        for (int j = 0; j < DENSE_BATCH; ++j) {
-            const int k = k0 + j * DENSE_THREADS;
-            rt[j] = k < R ? root[k] : R;
+        for (int j = 0; j < JMAX; ++j) {
+            p[j] = d[j] >= 0 && rank_table ? __ldg(rank_table + d[j]) : d[j];
+            if constexpr (FINAL) c[j] = d[j] >= 0 ? __ldg(cnt + (size_t)b * S + d[j]) : 0;
         }
 #pragma unroll
-        for (int j = 0; j < DENSE_BATCH; ++j) {
-            const int k = k0 + j * DENSE_THREADS;
-            if (k < R) table[k] = rt[j] < R ? dense_of[rt[j]] : KMAX;
+        for (int j = 0; j < JMAX; ++j) {
+            p[j] = d[j] < 0 ? -1 : p[j] >= 0 && p[j] < N ? __ldg(lab + p[j]) : S;
+        }
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int k = lo + j * CHAIN_THREADS + t;
+            if (k < hi) cur[k - lo] = d[j] < 0 ? R : __ldg(inv + min(max(p[j], 0), S));
         }
     }
+    if constexpr (FINAL)
+        for (int i = t; i < hi - lo; i += CHAIN_THREADS) tot[i] = 0;
     if (t == 0) {
-        const int last = root[R - 1];
-        table[R] = R == MAX_R && last < R ? dense_of[last] : KMAX;
-        n_eligible[b] = total;
-        overflow[b] = over || total > KMAX;
-        converged[b] = acc[R + 1] == 0;
+        flag[0] = flag[1] = 0;
+        minus = part = unconv = 0;
+    }
+    cluster.sync();
+
+    // Doubling: round i reads cur, writes nxt, and pushes "changed" into
+    // every block's flag[i & 1]; after the barrier each block reads its own.
+    // Its flag[(i + 1) & 1] was read in round i - 1 (the block barrier below
+    // orders that) and is reset here, before the barrier after which round
+    // i + 1 pushes into it. A slot whose entry x a round leaves unchanged
+    // (x = f_i(x), so x = f_i+1(x) = f_i+1(k) too) holds x in both buffers
+    // for good: later rounds neither read nor write it (bit j of `done`).
+    unsigned done = 0;
+    for (int i = 0; i < rounds; ++i) {
+        int x[JMAX], y[JMAX];
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int k = lo + j * CHAIN_THREADS + t;
+            x[j] = k < hi && !((done >> j) & 1) ? cur[k - lo] : R;
+        }
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            y[j] = x[j] < R ? *sl.at(cluster, cur, x[j], rank) : R;
+        }
+        bool changed = false;
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int k = lo + j * CHAIN_THREADS + t;
+            if (k < hi && !((done >> j) & 1)) {
+                nxt[k - lo] = y[j];
+                changed |= y[j] != x[j];
+                done |= (unsigned)(y[j] == x[j]) << j;
+            }
+        }
+        const int any = __syncthreads_or(changed);
+        if (t == 0) flag[(i + 1) & 1] = 0;
+        if (any && t < CLUSTER) *cluster.map_shared_rank(flag + (i & 1), t) = 1;   // to block t
+        cluster.sync();
+        int32_t* s = cur;
+        cur = nxt;
+        nxt = s;
+        if (!*(volatile int*)(flag + (i & 1))) break;     // the same in every block
+    }
+    // cur: root; nxt: half (equal to root after a round that changed nothing).
+
+    if constexpr (!FINAL) {
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int k = lo + j * CHAIN_THREADS + t;
+            if (k < hi) table[k] = cur[k - lo] & 0xFFFF;
+        }
+        if (rank == 0 && t == 0) {
+            table[R] = R;
+            overflow[b] = over;
+        }
+        // No block reads another's shared memory after the last barrier.
+    } else {
+        // Totals at the root slots' owners: a run of the warp's lanes with
+        // one root adds once, at its first lane (a segmented suffix sum by
+        // shuffles, in a warp that has such a run; __match_any_sync is far
+        // slower on this card); slot R - 1's minus; half != root.
+        int m = 0;
+        bool unc = false;
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int k = lo + j * CHAIN_THREADS + t;
+            const int root = k < hi ? cur[k - lo] : R;
+            unc |= k < hi && nxt[k - lo] != root;
+            const bool adds = c[j] != 0 && root < R && !(over && k == R - 1);
+            const int key = adds ? root : -1 - lane;
+            int sum = adds ? c[j] : 0;
+            const int below = __shfl_down_sync(FULL, key, 1);    // every lane shuffles
+            const int above = __shfl_up_sync(FULL, key, 1);
+            const bool joins = adds && lane > 0 && above == key;     // continues the run above
+            if (__any_sync(FULL, joins)) {                            // the same in the warp
+                int end = lane == 31 || below != key;                 // the run ends here
+#pragma unroll
+                for (int d = 1; d < 32; d <<= 1) {   // sum: this lane's to its run's end
+                    const int y = __shfl_down_sync(FULL, sum, d);
+                    const int e = __shfl_down_sync(FULL, end, d);
+                    if (!end) {
+                        sum += y;
+                        end = e;
+                    }
+                }
+            }
+            if (adds && !joins) atomicAdd(sl.at(cluster, tot, root, rank), sum);
+            m += k < R - 1 ? c[j] : 0;
+        }
+        if (over) {
+            m = __reduce_add_sync(FULL, m);
+            if (lane == 0 && m) atomicAdd(&part, m);
+        }
+        if (__syncthreads_or(unc) && t == 0) *cluster.map_shared_rank(&unconv, 0) = 1;
+        if (over && part && t < CLUSTER) atomicAdd(cluster.map_shared_rank(&minus, t), part);
+        cluster.sync();
+
+        // The gate on this block's root slots, ranked by a ballot a warp and
+        // an exclusive scan over (j, warp) in that order, which is slot order.
+        const int sp = over ? *sl.at(cluster, cur, R - 1, rank) : -1;   // slot R - 1's root slot
+        const int mn = *(volatile int*)&minus;
+        unsigned mine = 0;                       // bit j: the thread's j-th root slot is eligible
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int r = lo + j * CHAIN_THREADS + t;
+            const int tt = r < hi ? tot[r - lo] : 0;
+            const bool el = r < hi && (tt > 0 || r == sp) && tt - (r == sp ? mn : 0) >= min_px;
+            mine |= (unsigned)el << j;
+            const unsigned bal = __ballot_sync(FULL, el);
+            if (lane == 0) base[j * CHAIN_WARPS + w] = __popc(bal);
+        }
+        __syncthreads();
+        constexpr int NB = JMAX * CHAIN_WARPS;
+        static_assert(NB <= CHAIN_THREADS && NB % 32 == 0, "one base entry a thread");
+        const int v = t < NB ? base[t] : 0;
+        int inc = v;
+#pragma unroll
+        for (int dd = 1; dd < 32; dd <<= 1) {
+            const int y = __shfl_up_sync(FULL, inc, dd);
+            if (lane >= dd) inc += y;
+        }
+        if (lane == 31) wsum[w] = inc;
+        __syncthreads();
+        int before = 0, mine_total = 0;
+#pragma unroll
+        for (int u = 0; u < NB / 32; ++u) {
+            const int s = wsum[u];
+            before += u < w ? s : 0;
+            mine_total += s;
+        }
+        if (t < NB) base[t] = before + inc - v;
+        if (t < CLUSTER) cluster.map_shared_rank(bcount, t)[rank] = mine_total;
+        cluster.sync();
+        int off = 0, total = 0;
+#pragma unroll
+        for (int q = 0; q < CLUSTER; ++q) {
+            const int n = ((volatile int*)bcount)[q];
+            off += q < rank ? n : 0;
+            total += n;
+        }
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int r = lo + j * CHAIN_THREADS + t;
+            const bool el = (mine >> j) & 1;
+            const unsigned bal = __ballot_sync(FULL, el);
+            const int id = off + base[j * CHAIN_WARPS + w] + __popc(bal & ((1u << lane) - 1u));
+            if (r < hi) ids[r - lo] = el && id < KMAX ? id : KMAX;
+        }
+        cluster.sync();
+
+        // The map table: each slot's dense id through its root slot.
+        int root[JMAX], id[JMAX];
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int k = lo + j * CHAIN_THREADS + t;
+            root[j] = k < hi ? cur[k - lo] : R;
+        }
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            id[j] = root[j] < R ? *sl.at(cluster, ids, root[j], rank) : KMAX;
+        }
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) {
+            const int k = lo + j * CHAIN_THREADS + t;
+            if (k < hi) table[k] = id[j];
+            if (k == R - 1) table[R] = R == MAX_R ? id[j] : KMAX;
+        }
+        if (rank == 0 && t == 0) {
+            n_eligible[b] = total;
+            overflow[b] = over || total > KMAX;
+            converged[b] = *(volatile int*)&unconv == 0;
+        }
+        cluster.sync();                          // no block leaves while another reads its ids
     }
 }
 
@@ -632,53 +720,84 @@ extern "C" int apriltag_resolve_map(const void* label, const void* valid, const 
     return (int)cudaGetLastError();
 }
 
-// cnt null: the contraction (out (B, R + 1) map table, ovf (B,) bytes);
-// else the final resolve (out (B, R) root slots, acc after the memo in
-// scratch). scratch: the memo (B (R + 1) ints), then for the final resolve
-// acc (B (R + 2) ints), zeroed here by one memset. rank_table (B, S) or
-// null. steps: the chain steps (at least 1 is taken).
-extern "C" int apriltag_resolve_slots(const void* label, const void* inv, const void* D,
-                                      const void* n_groups, const void* rank_table,
-                                      const void* cnt, void* scratch, void* out, void* ovf,
-                                      int B, int N, int S, int R, int steps, void* stream) {
-    const bool final_ = cnt != nullptr;
-    if (B < 1 || N < 1 || S < 1 || R < 1 || R > MAX_R || (!final_ && ovf == nullptr))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    const size_t words = (size_t)B * (R + 1) + (final_ ? (size_t)B * (R + 2) : 0);
-    const cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(int32_t), st);
-    if (err != cudaSuccess) return (int)err;
-    int32_t* memo = (int32_t*)scratch;
-    const int e = max(steps, 1) - 1;
-    const dim3 grid((R + 1 + THREADS - 1) / THREADS, B);
-    auto kernel = final_ ? resolve_slots_kernel<true> : resolve_slots_kernel<false>;
-    kernel<<<grid, THREADS, 0, st>>>(
-        (const int32_t*)label, (const int32_t*)inv, (const int32_t*)D, (const int32_t*)n_groups,
-        (const int32_t*)rank_table, (const int32_t*)cnt, memo, (int32_t*)out,
-        final_ ? memo + (size_t)B * (R + 1) : nullptr, (uint8_t*)ovf, N, S, R, e);
-    return (int)cudaGetLastError();
+using ChainKernel = void (*)(const int32_t*, const int32_t*, const int32_t*, const int32_t*,
+                            const int32_t*, const int32_t*, int32_t*, long long*, uint8_t*,
+                            uint8_t*, int, int, int, int, int);
+
+// The chain kernel's instance for a pass at R slots a frame: JMAX 4 where a
+// block owns at most 4096 slots (R <= 32768), else 8.
+static ChainKernel chain_kernel(bool final_, int R) {
+    const bool small = (R + CLUSTER - 1) / CLUSTER <= CHAIN_SLOTS / 2;
+    return final_ ? (small ? resolve_chain_kernel<true, CHAIN_PER_THREAD / 2>
+                           : resolve_chain_kernel<true, CHAIN_PER_THREAD>)
+                  : (small ? resolve_chain_kernel<false, CHAIN_PER_THREAD / 2>
+                           : resolve_chain_kernel<false, CHAIN_PER_THREAD>);
 }
 
-// One block a frame; its dense ids take 2 R bytes of shared memory, past
-// the default 48 KB, which each device is told once.
-extern "C" int apriltag_resolve_dense(const void* root, const void* acc, const void* n_groups,
-                                      void* table, void* n_eligible, void* overflow,
-                                      void* converged, int B, int R, int min_px, void* stream) {
-    if (B < 1 || R < 1 || R > MAX_R) return (int)cudaErrorInvalidValue;
+// Each device is told once that the chain kernels may take CHAIN_SMEM
+// bytes of dynamic shared memory, past the default 48 KB.
+static cudaError_t size_chain_kernels() {
     static bool sized[256];
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 0 || dev >= 256) return (int)cudaErrorInvalidDevice;
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 256) return cudaErrorInvalidDevice;
     if (!sized[dev]) {
-        err = cudaFuncSetAttribute(resolve_dense_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   MAX_R * (int)sizeof(uint16_t));
-        if (err != cudaSuccess) return (int)err;
+        const ChainKernel kernels[4] = {chain_kernel(false, 1), chain_kernel(false, MAX_R),
+                                        chain_kernel(true, 1), chain_kernel(true, MAX_R)};
+        for (const ChainKernel k : kernels) {
+            err = cudaFuncSetAttribute((const void*)k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       CHAIN_SMEM);
+            if (err != cudaSuccess) return err;
+        }
         sized[dev] = true;
     }
-    resolve_dense_kernel<<<B, DENSE_THREADS, R * sizeof(uint16_t), (cudaStream_t)stream>>>(
-        (const int32_t*)root, (const int32_t*)acc, (const int32_t*)n_groups, (int32_t*)table,
-        (long long*)n_eligible, (uint8_t*)overflow, (uint8_t*)converged, R, min_px);
+    return cudaSuccess;
+}
+
+static size_t chain_smem_bytes(bool final_, int R) {
+    const size_t P = (R + CLUSTER - 1) / CLUSTER;
+    return P * (final_ ? 14 : 8);                // cur, nxt (int32); tot (int32), ids (uint16)
+}
+
+// One cluster of CLUSTER blocks a frame. cnt null: the contraction (table
+// (B, R + 1), overflow (B,) bytes; n_eligible and converged unused); else
+// the final resolve (table, n_eligible (B,) int64, overflow and converged
+// (B,) bytes). rank_table (B, S) or null. steps: the doubling rounds (at
+// least 1 is taken).
+extern "C" int apriltag_resolve_chain(const void* label, const void* inv, const void* D,
+                                      const void* n_groups, const void* rank_table,
+                                      const void* cnt, void* table, void* n_eligible,
+                                      void* overflow, void* converged, int B, int N, int S,
+                                      int R, int steps, int min_px, void* stream) {
+    const bool final_ = cnt != nullptr;
+    if (B < 1 || N < 1 || S < 1 || R < 1 || R > MAX_R || table == nullptr || overflow == nullptr
+        || (final_ && (n_eligible == nullptr || converged == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t err = size_chain_kernels();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(CLUSTER, B);
+    const ChainKernel kernel = chain_kernel(final_, R);
+    kernel<<<grid, CHAIN_THREADS, chain_smem_bytes(final_, R), (cudaStream_t)stream>>>(
+        (const int32_t*)label, (const int32_t*)inv, (const int32_t*)D, (const int32_t*)n_groups,
+        (const int32_t*)rank_table, (const int32_t*)cnt, (int32_t*)table,
+        (long long*)n_eligible, (uint8_t*)overflow, (uint8_t*)converged, N, S, R,
+        max(steps, 1), min_px);
     return (int)cudaGetLastError();
+}
+
+// *clusters = cudaOccupancyMaxActiveClusters of the chain kernel (final or
+// not) at R slots a frame: the frames the card runs at once.
+extern "C" int apriltag_resolve_chain_clusters(void* clusters, int final_, int R, void* stream) {
+    if (clusters == nullptr || R < 1 || R > MAX_R) return (int)cudaErrorInvalidValue;
+    cudaError_t err = size_chain_kernels();
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(CLUSTER, 1);
+    config.blockDim = dim3(CHAIN_THREADS);
+    config.dynamicSmemBytes = chain_smem_bytes(final_ != 0, R);
+    config.stream = (cudaStream_t)stream;
+    err = cudaOccupancyMaxActiveClusters((int*)clusters, (const void*)chain_kernel(final_, R),
+                                         &config);
+    return (int)err;
 }

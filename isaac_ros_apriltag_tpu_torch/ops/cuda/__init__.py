@@ -22,8 +22,7 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "resolve_count": (resolve, "count_launches"),
                    "resolve_tiles": (resolve, "tiles_launches"),
                    "resolve_scan": (resolve, "scan_launches"),
-                   "resolve_slots": (resolve, "slots_launches"),
-                   "resolve_dense": (resolve, "dense_launches"),
+                   "resolve_chain": (resolve, "chain_launches"),
                    "resolve_map": (resolve, "map_launches"),
                    "quadfit_search": (quadfit, "launches"),
                    "tail_select": (tail, "select_launches"), "refine": (refine, "launches"),

@@ -51,8 +51,8 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_resolve_tile_sums", 2, 3),
                  ("apriltag_resolve_scan", 5, 4),
                  ("apriltag_resolve_map", 5, 6),
-                 ("apriltag_resolve_slots", 9, 5),
-                 ("apriltag_resolve_dense", 7, 3),
+                 ("apriltag_resolve_chain", 10, 6),
+                 ("apriltag_resolve_chain_clusters", 1, 2),
                  ("apriltag_quadfit_search", 4, 1),
                  ("apriltag_quadfit_fit", 9, 4),
                  ("apriltag_decode", 11, 12),

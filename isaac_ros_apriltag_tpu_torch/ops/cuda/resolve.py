@@ -5,20 +5,23 @@ resolve stage: the table formulation of ops/resolve.py
 (resolve_roots_rank_tables, resolve_components_tables) with its five
 passes run by the kernels: ``count`` (one kernel), ``scan`` (the tile-sums
 kernel, ``tile_sums``, then the scan kernel, ``scan_ranks``), ``slots``
-(one kernel: the chain walk; the map table in the contraction, root slots
-and totals in the final resolve), ``dense`` (one kernel, the final resolve
-only: the area gate, the dense ranks and the map table) and ``map_pixels``
+(the contraction: one launch of the chain kernel, which doubles the slots'
+parent map in a thread-block cluster's shared memory and writes the map
+table), ``final`` (the final resolve: one launch of the chain kernel, which
+also sums the components, gates them and ranks them) and ``map_pixels``
 (one kernel). Each wrapper adds one to its kernel's counter where it
 launches it; on a CPU tensor it runs that pass's plain version
 (ops/resolve.py:: count_plain, tile_sums_plain, scan_plain, slots_plain,
-dense_plain, map_plain), so on the CPU the stage functions run the plain
+final_plain, map_plain), so on the CPU the stage functions run the plain
 composition, bit-exact with the twin. Every launch goes on the current
-stream (the count's table and the slots' scratch zeroed there by a
-memset), with outputs and scratch allocated here by torch.empty and no host
-sync, so the stage can be captured in a CUDA graph.
+stream (the count's table zeroed there by a memset), with outputs
+allocated here by torch.empty and no host sync, so the stage can be
+captured in a CUDA graph.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,14 +32,17 @@ count_launches = 0       # resolve_count_kernel launches made by count
 tiles_launches = 0       # resolve_tile_sums_kernel launches made by tile_sums
 scan_launches = 0        # resolve_scan_kernel launches made by scan_ranks
 map_launches = 0         # resolve_map_kernel launches made by map_pixels
-slots_launches = 0       # resolve_slots_kernel launches made by slots
-dense_launches = 0       # resolve_dense_kernel launches made by dense
+chain_launches = 0       # resolve_chain_kernel launches made by slots and final
 # The map kernel's blocks a launch (about four an SM), past which a block
 # takes every n-th chunk of its frame's pixels.
 MAP_GRID = 528
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
@@ -167,7 +173,7 @@ def map_pixels(label: torch.Tensor, valid: torch.Tensor, inv: torch.Tensor,
 
 def _check_slot_tables(label: torch.Tensor, inv: torch.Tensor, D: torch.Tensor,
                        n_groups: torch.Tensor) -> tuple[int, int, int, int]:
-    """Raise on slot tables the slots kernel does not take; return (B, N, S, R)."""
+    """Raise on slot tables the chain kernel does not take; return (B, N, S, R)."""
     if label.device.type != "cuda" or label.ndim != 2 or label.numel() == 0:
         raise ValueError("label must be a non-empty (B, N) tensor on a CUDA device")
     if inv.ndim != 2 or D.ndim != 2:
@@ -186,15 +192,11 @@ def _check_slot_tables(label: torch.Tensor, inv: torch.Tensor, D: torch.Tensor,
     return B, N, S, R
 
 
-def slots(label: torch.Tensor, inv: torch.Tensor, D: torch.Tensor, n_groups: torch.Tensor,
-          steps: int, rank_table: torch.Tensor | None = None,
-          cnt: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The slot tables' chains, as slots_plain: without cnt the contraction's
-    ((B, R + 1) map table, (B,) bool overflow); with cnt ((B, S) label
-    counts) the final resolve's ((B, R) root slots, (B, R + 2) acc)."""
-    global slots_launches
-    if label.device.type == "cpu":
-        return plain.slots_plain(label, inv, D, n_groups, steps, rank_table, cnt)
+def _chain(label, inv, D, n_groups, steps, rank_table, cnt, min_component_pixels):
+    """Launch the chain kernel: the contraction without cnt, else the final
+    resolve. Returns (table, n_eligible, overflow, converged); the
+    contraction's n_eligible and converged are None."""
+    global chain_launches
     B, N, S, R = _check_slot_tables(label, inv, D, n_groups)
     dev = label.device
     if rank_table is not None:
@@ -203,63 +205,68 @@ def slots(label: torch.Tensor, inv: torch.Tensor, D: torch.Tensor, n_groups: tor
         _check("cnt", cnt, (B, S), torch.int32, dev)
     if not -2**31 < steps < 2**31:
         raise ValueError(f"chain steps {steps} out of range")
-    i32 = dict(dtype=torch.int32, device=dev)
-    final = cnt is not None
-    # The walk's memo, then (final resolve) acc; zeroed by the launch.
-    scratch = torch.empty(B * (R + 1) + (B * (R + 2) if final else 0), **i32)
-    out = torch.empty((B, R) if final else (B, R + 1), **i32)
-    ovf = None if final else torch.empty(B, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        status = _lib.library().apriltag_resolve_slots(
-            label.data_ptr(), inv.data_ptr(), D.data_ptr(), n_groups.data_ptr(),
-            None if rank_table is None else rank_table.data_ptr(),
-            None if cnt is None else cnt.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            None if ovf is None else ovf.data_ptr(), B, N, S, R, int(steps), _stream())
-    _lib.check(status, "apriltag_resolve_slots")
-    slots_launches += 1
-    return (out, scratch[B * (R + 1):].view(B, R + 2)) if final else (out, ovf)
-
-
-def dense(root: torch.Tensor, acc: torch.Tensor, n_groups: torch.Tensor,
-          min_component_pixels: int):
-    """The final resolve's area gate and dense ranks, as dense_plain: ((B, R + 1)
-    int32 map table, (B,) int64 n_eligible, (B,) bool overflow, (B,) bool
-    converged) from slots' (B, R) root slots and (B, R + 2) acc."""
-    global dense_launches
-    if root.device.type == "cpu":
-        return plain.dense_plain(root, acc, n_groups, min_component_pixels)
-    if root.device.type != "cuda" or root.ndim != 2 or root.numel() == 0:
-        raise ValueError("root must be a non-empty (B, R) tensor on a CUDA device")
-    B, R = root.shape
-    dev = root.device
-    if B > _lib.MAX_BATCH or R > 1 << 16:
-        raise ValueError(f"(B, R) = {(B, R)} past the kernel's {_lib.MAX_BATCH} frames "
-                         f"or 65536 slots")
-    _check("root", root, (B, R), torch.int32, dev)
-    _check("acc", acc, (B, R + 2), torch.int32, dev)
-    _check("n_groups", n_groups, (B,), torch.int32, dev)
     # Totals lie in [-N, N], N < 2^31: a gate past int32 gates the same.
     gate = max(-2**31, min(int(min_component_pixels), 2**31 - 1))
+    final = cnt is not None
     table = torch.empty((B, R + 1), dtype=torch.int32, device=dev)
-    n_eligible = torch.empty(B, dtype=torch.int64, device=dev)
-    overflow, converged = (torch.empty(B, dtype=torch.bool, device=dev) for _ in range(2))
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    n_eligible = torch.empty(B, dtype=torch.int64, device=dev) if final else None
+    converged = torch.empty(B, dtype=torch.bool, device=dev) if final else None
     with torch.cuda.device(dev):
-        status = _lib.library().apriltag_resolve_dense(
-            root.data_ptr(), acc.data_ptr(), n_groups.data_ptr(), table.data_ptr(),
-            n_eligible.data_ptr(), overflow.data_ptr(), converged.data_ptr(), B, R, gate,
-            _stream())
-    _lib.check(status, "apriltag_resolve_dense")
-    dense_launches += 1
+        status = _lib.library().apriltag_resolve_chain(
+            label.data_ptr(), inv.data_ptr(), D.data_ptr(), n_groups.data_ptr(),
+            _ptr(rank_table), _ptr(cnt), table.data_ptr(), _ptr(n_eligible),
+            overflow.data_ptr(), _ptr(converged), B, N, S, R, int(steps), gate, _stream())
+    _lib.check(status, "apriltag_resolve_chain")
+    chain_launches += 1
     return table, n_eligible, overflow, converged
 
 
-PASSES = plain.TablePasses(count, scan, slots, dense, map_pixels)
+def slots(label: torch.Tensor, inv: torch.Tensor, D: torch.Tensor, n_groups: torch.Tensor,
+          steps: int, rank_table: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The contraction's pass, as slots_plain without cnt: ((B, R + 1) int32
+    map table, (B,) bool overflow), by the chain kernel."""
+    if label.device.type == "cpu":
+        return plain.slots_plain(label, inv, D, n_groups, steps, rank_table)
+    table, _, overflow, _ = _chain(label, inv, D, n_groups, steps, rank_table, None, 0)
+    return table, overflow
+
+
+def final(label: torch.Tensor, inv: torch.Tensor, D: torch.Tensor, n_groups: torch.Tensor,
+          steps: int, rank_table: torch.Tensor | None, cnt: torch.Tensor,
+          min_component_pixels: int):
+    """The final resolve's pass, as final_plain: the chains, totals, area
+    gate and dense ranks in one launch of the chain kernel, from (B, S)
+    int32 label counts cnt; ((B, R + 1) int32 map table, (B,) int64
+    n_eligible, (B,) bool overflow, (B,) bool converged)."""
+    if label.device.type == "cpu":
+        return plain.final_plain(label, inv, D, n_groups, steps, rank_table, cnt,
+                                 min_component_pixels)
+    if cnt is None:
+        raise ValueError("the final resolve needs the (B, S) label counts cnt")
+    return _chain(label, inv, D, n_groups, steps, rank_table, cnt, min_component_pixels)
+
+
+def chain_clusters(final_resolve: bool, R: int, device=None) -> int:
+    """cudaOccupancyMaxActiveClusters of the chain kernel at R slots a frame:
+    how many frames' clusters the card holds at once."""
+    if not 1 <= R <= 1 << 16:
+        raise ValueError(f"capacity {R} out of [1, 65536]")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        status = _lib.library().apriltag_resolve_chain_clusters(
+            ctypes.addressof(out), int(final_resolve), R, _stream())
+    _lib.check(status, "apriltag_resolve_chain_clusters")
+    return out.value
+
+
+PASSES = plain.TablePasses(count, scan, slots, final, map_pixels)
 
 
 def resolve_roots_rank(label: torch.Tensor, valid: torch.Tensor, *,
                        max_components: int = 1 << 16, chain_steps: int = 5):
     """ops/resolve.py::resolve_roots_rank's signature and results, bit for
-    bit: the contraction by the count, scan, slots and map kernels."""
+    bit: the contraction by the count, scan, chain and map kernels."""
     return plain.resolve_roots_rank_tables(label, valid, max_components=max_components,
                                            chain_steps=chain_steps, passes=PASSES)
 
@@ -269,8 +276,8 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
                        chain_steps: int = 4,
                        rank_table: torch.Tensor | None = None) -> plain.ResolvedComponents:
     """ops/resolve.py::resolve_components' signature and results (without
-    with_roots), bit for bit: the final resolve by the count, scan, slots,
-    dense and map kernels, in rank mode (with rank_table) or flat mode."""
+    with_roots), bit for bit: the final resolve by the count, scan, chain
+    and map kernels, in rank mode (with rank_table) or flat mode."""
     return plain.resolve_components_tables(
         label, valid, min_component_pixels=min_component_pixels,
         max_components=max_components, chain_steps=chain_steps, rank_table=rank_table,

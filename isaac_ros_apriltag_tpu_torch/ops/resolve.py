@@ -24,12 +24,14 @@ How the reference's primitives map to PyTorch:
   - the segmented sum over roots -> ``index_add_`` of int64 counts per group.
 
 Below the twin, the table formulation (resolve_roots_rank_tables,
-resolve_components_tables) gives the same results from count, scan, slots,
-dense and map passes over per-frame label tables, with no N-length sort,
-cumsum or cummax, and no sort of the slots. Its plain passes (count_plain,
-tile_sums_plain, scan_plain, slots_plain, dense_plain, map_plain) are the
-plain versions of csrc/resolve.cu's kernels, and ops/cuda/resolve.py runs
-it with the kernels (backend 'cuda'); backend 'torch' runs the twin.
+resolve_components_tables) gives the same results from count, scan, slots
+(the contraction) or final (the final resolve) and map passes over
+per-frame label tables, with no N-length sort, cumsum or cummax, and no
+sort of the slots. Its plain passes (count_plain, tile_sums_plain,
+scan_plain, slots_plain, final_plain, the composition of slots_plain and
+dense_plain, map_plain) are the plain versions of csrc/resolve.cu's
+kernels, and ops/cuda/resolve.py runs it with the kernels (backend
+'cuda'); backend 'torch' runs the twin.
 """
 
 from __future__ import annotations
@@ -326,7 +328,7 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
     return first_frame(out) if single else out
 
 
-# --- the table formulation: count, scan, slots, dense and map passes --------
+# --- the table formulation: count, scan, slots or final, and map passes -----
 #
 # The same results as resolve_roots_rank and resolve_components in rank mode
 # and flat mode, without an N-length sort, cumsum, cummax or unsort. Labels
@@ -336,11 +338,12 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
 #   count  cnt[b, L] = valid pixels labelled L (a pixel pass);
 #   scan   each present label's group rank, capped at R (inv), the first R
 #          present labels in order (D) and the group count (a pass over S);
-#   slots  each slot's parent slot, followed 2^s hops as s pointer
-#          doublings would take it: the contraction's map table, or the
-#          final resolve's root slots and each root slot's pixel total;
-#   dense  (final resolve) the area gate and each root slot's dense id in
-#          root order, and the map's table;
+#   slots  (the contraction) each slot's parent slot, followed 2^s hops as
+#          s pointer doublings would take it: the map's table;
+#   final  (the final resolve) the same chains, each root slot's pixel
+#          total, the area gate and each root slot's dense id in root
+#          order: the map's table (slots_plain's roots and totals, then
+#          dense_plain);
 #   map    each pixel's value from a (B, R + 1) table through inv (a pixel
 #          pass).
 # The five passes are arguments (TablePasses): PLAIN_PASSES here, the
@@ -351,8 +354,9 @@ def resolve_components(label: torch.Tensor, valid: torch.Tensor, *,
 class TablePasses(NamedTuple):
     count: Callable       # (label, valid, S) -> cnt
     scan: Callable        # (cnt, R) -> (inv, D, n_groups)
-    slots: Callable       # (label, inv, D, n_groups, steps[, rank_table, cnt]) -> see slots_plain
-    dense: Callable       # (root, acc, n_groups, min_component_pixels) -> see dense_plain
+    slots: Callable       # (label, inv, D, n_groups, steps) -> see slots_plain
+    final: Callable       # (label, inv, D, n_groups, steps, rank_table, cnt,
+                          #  min_component_pixels) -> see final_plain
     map: Callable         # (label, valid, inv, table, fill) -> out
 
 
@@ -429,10 +433,10 @@ WALK_CHECK = 16      # hops between slots_plain's checks that every walk has sto
 
 def _walk(f: torch.Tensor, x: torch.Tensor, e: int) -> torch.Tensor:
     """f^(2^e)(x) for (B, M) starts x into (B, R + 1) parent maps f, by
-    following f as resolve_slots_kernel does: a walk at a fixpoint stays
-    there (every WALK_CHECK hops, the walks stop if all are); after R + 1
-    hops over the R + 1 slots every walk is on a cycle, and the 2^e - (R + 1)
-    hops left are taken modulo its length."""
+    following f: a walk at a fixpoint stays there (every WALK_CHECK hops,
+    the walks stop if all are); after R + 1 hops over the R + 1 slots every
+    walk is on a cycle, and the 2^e - (R + 1) hops left are taken modulo its
+    length."""
     R = f.shape[-1] - 1
     n = 1 << e
     for i in range(min(n, R + 1)):
@@ -535,7 +539,17 @@ def dense_plain(root: torch.Tensor, acc: torch.Tensor, n_groups: torch.Tensor,
             over | (n_eligible > _KMAX), acc[:, R + 1] == 0)
 
 
-PLAIN_PASSES = TablePasses(count_plain, scan_plain, slots_plain, dense_plain, map_plain)
+def final_plain(lab: torch.Tensor, inv: torch.Tensor, D: torch.Tensor, n_groups: torch.Tensor,
+                steps: int, rank_table: torch.Tensor | None, cnt: torch.Tensor,
+                min_component_pixels: int):
+    """The final resolve's pass: slots_plain's root slots and totals (with
+    cnt), then dense_plain. Returns dense_plain's ((B, R + 1) int32 map
+    table, (B,) int64 n_eligible, (B,) bool overflow, (B,) bool converged)."""
+    return dense_plain(*slots_plain(lab, inv, D, n_groups, steps, rank_table, cnt), n_groups,
+                       min_component_pixels)
+
+
+PLAIN_PASSES = TablePasses(count_plain, scan_plain, slots_plain, final_plain, map_plain)
 
 
 def _pixels(label: torch.Tensor, valid: torch.Tensor, R_cap: int | None = None):
@@ -574,7 +588,7 @@ def resolve_components_tables(label: torch.Tensor, valid: torch.Tensor, *,
                               rank_table: torch.Tensor | None = None,
                               passes: TablePasses = PLAIN_PASSES) -> ResolvedComponents:
     """resolve_components' results (without with_roots), bit for bit, by the
-    count, scan, slots, dense and map passes. Two of the twin's behaviours
+    count, scan, final and map passes. Two of the twin's behaviours
     on a frame of more than R groups are kept on purpose:
       - slot R - 1's size is the twin's difference against the zero pad of
         its start positions: minus the pixels of slots 0 .. R - 2, so that
@@ -594,8 +608,8 @@ def resolve_components_tables(label: torch.Tensor, valid: torch.Tensor, *,
     SENT = R if rank_table is not None else N       # one past the largest label
     cnt = passes.count(lab, vflat, SENT)
     inv, D, n_groups = passes.scan(cnt, R)
-    root, acc = passes.slots(lab, inv, D, n_groups, chain_steps, rank_table, cnt)
-    table, n_eligible, overflow, converged = passes.dense(root, acc, n_groups,
+    table, n_eligible, overflow, converged = passes.final(lab, inv, D, n_groups, chain_steps,
+                                                          rank_table, cnt,
                                                           min_component_pixels)
     dense = passes.map(lab, vflat, inv, table, _KMAX).reshape(B, H, W)
     out = ResolvedComponents(dense=dense, n_eligible=n_eligible, overflow=overflow,

@@ -32,7 +32,7 @@ import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
                         GLUE_CASE_NAMES, LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES,
-                        RESOLVE_FINAL_ONLY, RESOLVE_KERNELS,
+                        RESOLVE_KERNELS,
                         SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, TAIL_CASE_NAMES,
                         THRESH_CASES, THRESH_MIN_DIFF, bench_inputs, check_cluster_case,
                         check_count_case, check_map_case, check_quadfit_case,
@@ -40,7 +40,8 @@ from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUN
                         check_sort_frame,
                         check_sort_row, check_tail_case, cluster_cases,
                         edge_batch,
-                        free_port, glue_cases, map_problem, quadfit_cases, resolve_cases,
+                        _replay_equals, free_port, glue_cases, map_problem, quadfit_cases,
+                        resolve_cases,
                         scan_batch,
                         scan_case, scan_case_id, tail_cases, thresh_case_id, thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
@@ -383,8 +384,8 @@ def test_replay_equals_eager_call(cuda, config, batch, backend):
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_replay_counts_launches(cuda, backend):
     """A replay adds the launches its capture recorded: 1 / 14 / 14, two of
-    each resolve kernel but the dense kernel's one (the final resolve's),
-    the cluster kernels' (one of each, one radix scatter a pass), one
+    each resolve kernel (the contraction's and the final resolve's), the
+    cluster kernels' (one of each, one radix scatter a pass), one
     each of the tail's kernels (the quad fit, the top-2T pick, refine,
     decode, the dedupe and top-T pick, pose) for backend 'cuda', none for
     the twins; the capture itself adds none."""
@@ -398,8 +399,7 @@ def test_replay_counts_launches(cuda, backend):
         torch.cuda.synchronize()
         assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n,
                                    **{k: n * m for k, m in CLUSTER_KERNELS.items()},
-                                   **{k: (1 if k in RESOLVE_FINAL_ONLY else 2) * n
-                                      for k in RESOLVE_KERNELS},
+                                   **{k: 2 * n for k in RESOLVE_KERNELS},
                                    "quadfit_search": n, "tail_select": n, "refine": n,
                                    "decode": n, "tail_finish": n, "pose": n}
 
@@ -801,8 +801,8 @@ def test_resolve_kernels_match_twin_and_plain_versions(cuda, name):
     """chip_smoke.py phase 24's checks on one case (SLOT_ROWS' among them):
     each resolve call by the kernels against the twin bit for bit on every
     field, one launch of each resolve kernel it runs, two calls and a
-    captured replay equal, each kernel against its plain version, the slots
-    and dense kernels' tables against the parent's form."""
+    captured replay equal, each kernel against its plain version, the chain
+    kernel's tables against the parent's form."""
     if not _RESOLVE_CASES:
         _RESOLVE_CASES.update(resolve_cases(cuda))
     for call, kw, lab, valid, facts in _RESOLVE_CASES[name]:
@@ -848,12 +848,42 @@ def test_resolve_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="D"):
         resolve_kernels.slots(label, inv, D.to(torch.int64), ng, 3)
     with pytest.raises(ValueError, match="rank_table"):
-        resolve_kernels.slots(label, inv, D, ng, 3, rank_table=D, cnt=cnt)
+        resolve_kernels.slots(label, inv, D, ng, 3, rank_table=D)
     with pytest.raises(ValueError, match="capacity"):
         resolve_kernels.slots(label, inv, torch.zeros((2, (1 << 16) + 1), dtype=torch.int32,
                                                       device=cuda), ng, 3)
-    root, acc = resolve_kernels.slots(label, inv, D, ng, 3, cnt=cnt)
-    with pytest.raises(ValueError, match="acc"):
-        resolve_kernels.dense(root, acc[:, :-1].contiguous(), ng, 1)
-    with pytest.raises(ValueError, match="root"):
-        resolve_kernels.dense(root.cpu().to(torch.int64).cuda(), acc, ng, 1)
+    # The final resolve's pass: a wrong dtype, shape or device, R past 65536.
+    with pytest.raises(ValueError, match="cnt"):
+        resolve_kernels.final(label, inv, D, ng, 3, None, cnt.to(torch.int64), 1)
+    with pytest.raises(ValueError, match="cnt"):
+        resolve_kernels.final(label, inv, D, ng, 3, None, cnt[:, :-1].contiguous(), 1)
+    with pytest.raises(ValueError, match="n_groups"):
+        resolve_kernels.final(label, inv, D, ng.cpu(), 3, None, cnt, 1)
+    with pytest.raises(ValueError, match="capacity"):
+        resolve_kernels.final(label, inv, torch.zeros((2, (1 << 16) + 1), dtype=torch.int32,
+                                                      device=cuda), ng, 3, None, cnt, 1)
+
+
+def test_final_pass_matches_the_plain_composition(cuda):
+    """The chain kernel's final resolve on a small random table (R 7, not a
+    multiple of the cluster, and R 40): bit-exact with dense_plain after
+    slots_plain, one launch, two calls and a captured replay equal."""
+    from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
+
+    rng = np.random.default_rng(3)
+    B, N = 3, 300
+    valid = torch.from_numpy(rng.random((B, N)) < 0.8).to(cuda)
+    label = torch.from_numpy(rng.integers(0, N, (B, N), dtype=np.int32)).to(cuda)
+    for R in (7, 40):
+        cnt = resolve_kernels.count(label, valid, N)
+        inv, D, ng = resolve_kernels.scan(cnt, R)
+        args = (label, inv, D, ng, 4, None, cnt, 2)
+        want = plain.dense_plain(*plain.slots_plain(*args[:7]), ng, 2)
+        before = resolve_kernels.chain_launches
+        got = resolve_kernels.final(*args)
+        assert resolve_kernels.chain_launches == before + 1
+        for a, b in zip(got, want, strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(resolve_kernels.final(*args), got):
+            assert torch.equal(a, b)
+        _replay_equals(lambda: resolve_kernels.final(*args), got, f"final pass, R {R}")
