@@ -142,8 +142,9 @@ non-zero):
      parent's torch form; in each replay only TAIL_BETWEEN's kernels run
      between the quad fit's launch and pose's;
  23. cluster moments: the cluster-moment kernels (csrc/cluster_moments.cu:
-     the pair count, the kept pairs' compaction (count and write kernels)
-     and radix sort (SORT_PASSES launches of the scatter kernel), the two
+     the pair count, the kept pairs' sort (the histogram pass, then
+     SORT_PASSES launches of the scatter kernel, the first of which builds
+     the pairs from the pixels), the two
      segment kernels, the moments kernel) on torch_bench.py's 720p b1 and
      1080p b8 inputs, tests/test_noise.py's max_clusters=16 scene and the
      1080p b8 batch with a slot budget it overflows, and a 1080p frame
@@ -158,19 +159,24 @@ non-zero):
      candidates than C, none, a zero size gate, a frame with no valid key, a
      16001-bin histogram) against top_segments_plain and each against its
      plain version, one launch each, two calls and a captured replay equal;
-     the radix passes alone on SORT_ROWS (all keys equal, keys at 2^30 - 1,
-     K = 0 beside a full row, K on tile boundaries of both tile sizes, K
-     past E in tiles of both sizes) against numpy's stable argsort and each
-     pass against its plain version, and the whole sort on SORT_FRAMES (an
-     empty frame beside a checkerboard at stride 3, one key, the largest
-     dense ids, K past E), also with num_edge cut to a quarter (more pairs
-     kept than num_edge), two calls and a captured replay equal; torch.profiler, in a child
+     the later radix passes alone on SORT_ROWS (all keys equal, keys at
+     2^30 - 1, K = 0 beside a full row, K on tile boundaries of both tile
+     sizes, K past E in tiles of both sizes), from the plain first pass,
+     against numpy's stable argsort and each pass against its plain
+     version, and the whole sort on SORT_FRAMES (an empty frame beside a
+     checkerboard at stride 3, one key, the largest dense ids, K past E,
+     rows of 94 pixels, one key over 48 pixel blocks), also with num_edge
+     cut to a quarter (more pairs kept than num_edge), two calls and a
+     captured replay equal;
+     torch.profiler, in a child
      process (`chip_smoke.py --cluster-profile`), sees no library sort or
      select kernel in the stage at both bench shapes; device ms of each
      kernel, its plain version, its bound and (the scatter kernel's row)
-     torch.sort of the padded row, of the sort (the compaction and the
-     passes with their memset) against torch.sort and its bound, and of the
-     stage (kernel path, the plain version's one-hot formulation);
+     torch.sort of the padded row (the scatter kernel's first and later
+     passes also apart), of the sort (the histogram pass and the passes
+     with their memset) at both digit widths against torch.sort, its fixed
+     yardstick bound and each form's own bound, and of the stage (kernel
+     path, the plain version's one-hot formulation);
  24. resolve: the five resolve kernels (csrc/resolve.cu: count, tile sums,
      scan, chain, map) on the phase-1 and phase-2 labels of
      torch_bench.py's 720p b1 and 1080p b8 inputs, the 1080p b8 input at
@@ -310,8 +316,8 @@ CAPTURE_TURN_CALLS = 20       # calls per timed turn
 # without matching another kernel's (pose_kernel is a tail of transpose_kernel).
 KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "col": "col_diag_kernel", "edge_count": "cm_edge_count_kernel",
-                "pair_count": "cm_pair_count_kernel", "pair_write": "cm_pair_write_kernel",
-                "radix_scatter": "cm_radix_scatter_kernel", "segment_tiles": "cm_seg_tiles_kernel",
+                "pair_count": "cm_pair_count_kernel", "radix_scatter": "cm_radix_scatter_kernel",
+                "segment_tiles": "cm_seg_tiles_kernel",
                 "segment_top": "cm_seg_top_kernel", "moments": "cm_moments_kernel",
                 "resolve_count": "resolve_count_kernel",
                 "resolve_tiles": "resolve_tile_sums_kernel",
@@ -325,10 +331,9 @@ KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "pose": ("::pose_kernel(", "11pose_kernelE")}
 SORT_PASSES = 4               # radix passes of the cluster stage's sort (ops/cluster_moments.py)
 # The cluster kernels' launches a detect call: each once, the radix scatter
-# once a pass.
-CLUSTER_KERNELS = {"edge_count": 1, "pair_count": 1, "pair_write": 1,
-                   "radix_scatter": SORT_PASSES, "segment_tiles": 1, "segment_top": 1,
-                   "moments": 1}
+# once a pass (the first from the pixels, the later ones over the rows).
+CLUSTER_KERNELS = {"edge_count": 1, "pair_count": 1, "radix_scatter": SORT_PASSES,
+                   "segment_tiles": 1, "segment_top": 1, "moments": 1}
 # Substrings of a device kernel's name that mark a library sort or select
 # (torch.sort, argsort, nonzero, masked_select; CUB's device-level ones),
 # none of which the cluster stage may launch on backend 'cuda'.
@@ -352,12 +357,11 @@ CLUSTER_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CAS
     f"{SLOT_OVERFLOW_MIN_PIXELS}",
     "1080p b1, quad_decimate 1")
 # The reference's XLA code each cluster kernel replaces (it has no Pallas
-# kernel there): the pair count, the hash gate, the gated key row, its
-# stable sort, the reverse cummin, the top-C sort, and the one-hot
-# per-cluster matmuls (with the cummax and second sort).
+# kernel there): the pair count, the hash gate, the gated key row's stable
+# sort, the reverse cummin, the top-C sort, and the one-hot per-cluster
+# matmuls (with the cummax and second sort).
 CLUSTER_REPLACES = {"edge_count": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:168",
                     "pair_count": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:176",
-                    "pair_write": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:179",
                     "radix_scatter": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:180",
                     "segment_tiles": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:202",
                     "segment_top": "isaac_ros_apriltag_tpu/ops/cluster_moments.py:214",
@@ -406,12 +410,14 @@ SORT_ROWS = {
         ((40000, "runs"), (20480, "equal"), (9000, "few"), (0, "none")), 1 << 20, 8192),
 }
 # Phase 23's synthetic frames for the whole sort (see sort_frames): 64x96
-# frames (64x94 for rows the pixel kernels cannot load 4 pixels at a time),
-# E at the detector's 3/4 of the pixels unless given.
+# frames (64x94 for rows the pixel kernels cannot load 4 pixels at a time;
+# 192x256 for one over many pixel blocks), E at the detector's 3/4 of the
+# pixels unless given.
 SORT_FRAMES = ("an empty frame beside a checkerboard (stride 3)",
                "one key: a black half and a white half", "the largest dense ids",
                "K past E: a checkerboard at E 240 (stride 57)",
-               "rows of 94 pixels (the pixel kernels' scalar path)")
+               "rows of 94 pixels (the pixel kernels' scalar path)",
+               "one key over 48 pixel blocks: diagonal stripes")
 # Once a resolve call (twice a two-phase call).
 RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan", "resolve_chain",
                    "resolve_map")
@@ -669,7 +675,10 @@ def sort_frames(seed: int = 0) -> dict:
     constant on 6x6 cells; the halves pair only across their border, every
     pair with key (0 << 15) | 1; the largest ids are 32764 to 32766 on a
     random trinary; at E 240 the checkerboard keeps 245 pairs; the 94-pixel
-    rows are the speckle's and the cells' first 94 columns."""
+    rows are the speckle's and the cells' first 94 columns; the 192x256
+    stripes (48 blocks of the first pass's 1024 pixels) pair right, down and
+    down-right across each border, every pair with key (0 << 15) | 1, so
+    the ties run through every tile of three offsets' look-back chains."""
     rng = np.random.default_rng(seed)
     H, W = 64, 96
     y, x = np.mgrid[:H, :W]
@@ -678,13 +687,16 @@ def sort_frames(seed: int = 0) -> dict:
     E = (3 * H * W) // 4
     halves = np.where(x < W // 2, 0, 255).astype(np.uint8)
     speckle = rng.choice(np.array([0, 255, 127], np.uint8), size=(H, W), p=[0.45, 0.45, 0.1])
+    sy, sx = np.mgrid[:192, :256]
+    stripes = np.where((sx + sy) // 4 % 2 == 0, 0, 255).astype(np.uint8)
     cases = ((np.stack([np.full((H, W), 127, np.uint8), checker]),
               np.stack([np.zeros((H, W), np.int32), cells]), E),
              (halves[None], (halves // 255).astype(np.int32)[None], E),
              (speckle[None], (32766 - rng.integers(0, 3, (1, H, W))).astype(np.int32), E),
              (checker[None], cells[None], 240),
              (np.ascontiguousarray(speckle[None, :, :94]),
-              np.ascontiguousarray(cells[None, :, :94]), (3 * H * 94) // 4))
+              np.ascontiguousarray(cells[None, :, :94]), (3 * H * 94) // 4),
+             (stripes[None], (stripes // 255).astype(np.int32)[None], (3 * 192 * 256) // 4))
     return dict(zip(SORT_FRAMES, cases, strict=True))
 
 
@@ -1835,14 +1847,14 @@ def cluster_cases(dev) -> dict:
         (dataclasses.replace(cfg8, quad_decimate=1), in8[0][:1]))))
 
 
-def _live_look(look, kept, tile: int):
-    """The passes' (SORT_PASSES, B, T, RADIX) look-back words on each frame's
-    first ceil(K / tile) sort tiles, 0 past them (the kernels leave those
-    undefined)."""
+def _live_look(plane, kept, tile: int):
+    """A later pass's (B, T, R) look-back words on each frame's first
+    ceil(K / tile) sort tiles (the ones the pass before zeroes), 0 past them
+    (the kernels leave those undefined)."""
     import torch
 
-    on = torch.arange(look.shape[2], device=kept.device) < ((kept + tile - 1) // tile)[:, None]
-    return torch.where(on[None, :, :, None], look, 0)
+    on = torch.arange(plane.shape[1], device=kept.device) < ((kept + tile - 1) // tile)[:, None]
+    return torch.where(on[:, :, None], plane, 0)
 
 
 def _live_rows(rows, kept) -> tuple:
@@ -1855,32 +1867,41 @@ def _live_rows(rows, kept) -> tuple:
 
 
 def radix_steps(rows, tiles, E: int):
-    """The SORT_PASSES radix passes on the card from `rows` (as pair_write
-    leaves them), each against radix_scatter_plain on the rows and digit
-    counts it was given (its rows and the next pass's digit counts).
-    Returns (sorted rows, [(got, want), ...])."""
+    """The later radix passes on the card from `rows` (as the first pass
+    leaves them), each against radix_scatter_plain on the rows it was given,
+    and the next pass's look-back words zeroed on the live tiles by each
+    pass but the last. Returns (sorted rows, [(got, want), ...])."""
+    import torch
+
     from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
 
+    B, N = rows.key.shape
+    tile = plain.sort_tile(B, N)
+    npass = tiles.ctl.shape[1]
     got, pairs, spare = _live_rows(rows, tiles.kept), [], None
-    for k in range(plain.SORT_PASSES):
-        given = plain.SortRows(*got), tiles._replace(digits=tiles.digits.clone())
+    for k in range(1, npass):
+        given = plain.SortRows(*got)
         moved = cmk.radix_scatter(rows, tiles, k, E=E, out=spare)
+        if k + 1 < npass:
+            zeroed = _live_look(tiles.look[k], tiles.kept, tile)
+            pairs.append((zeroed, torch.zeros_like(zeroed)))
         spare, rows = (rows.key, rows.pay), moved
         got = _live_rows(rows, tiles.kept)
-        want, nxt = plain.radix_scatter_plain(*given, k)
-        pairs += list(zip(got, _live_rows(want, tiles.kept)))
-        if nxt is not None:
-            pairs.append((tiles.digits[k + 1], nxt))
+        pairs += list(zip(got, _live_rows(plain.radix_scatter_plain(given, tiles, k), tiles.kept)))
     return rows, pairs
 
 
 def sort_steps(tri, dense, ne, E: int):
-    """The kept pairs' sort on the card kernel by kernel (pair_count,
-    pair_write, the radix passes), each against its plain version on the
-    inputs it was given, and the sorted rows against torch.sort(stable=True)
-    of the padded row (edge_pairs_plain): keys on [0, max(K, E)), pays on
-    [0, K). Returns (rows, PairTiles, {kernel: [(got, want), ...]})."""
+    """The kept pairs' sort on the card kernel by kernel (the histogram
+    pass, the first pass from the pixels, the later passes), each against
+    its plain version on the inputs it was given (the histogram pass's
+    digit counts, offset digits, tile counts and group sums, and kept
+    counts; the first pass's rows on [0, K) and pass 1's look-back words it
+    zeroes), and the sorted rows against
+    torch.sort(stable=True) of the padded row (edge_pairs_plain): keys on
+    [0, max(K, E)), pays on [0, K). Returns (rows, PairTiles, {kernel:
+    [(got, want), ...]})."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
@@ -1891,13 +1912,14 @@ def sort_steps(tri, dense, ne, E: int):
     tiles = cmk.pair_count(tri, dense, ne, E)
     want = plain.pair_count_plain(tri, dense, ne, E)
     kept = tiles.kept
-    pairs = {"pair_count": [(tiles.counts, want.counts), (tiles.digits.clone(), want.digits)]}
-    rows = cmk.pair_write(tri, dense, ne, tiles, E)
-    pairs["pair_write"] = [(kept, want.kept), (_live_look(tiles.look, want.kept, tile),
-                                               want.look)] + list(zip(_live_rows(rows, kept),
-                                                                      _live_rows(
-        plain.pair_write_plain(tri, dense, ne, want, E), kept)))
-    rows, pairs["radix_scatter"] = radix_steps(rows, tiles, E)
+    pairs = {"pair_count": [(getattr(tiles, f), getattr(want, f)) for f in (
+        "kept", "digits", "offset_digits", "tile_counts", "group_sums")]}
+    rows = cmk.radix_first(tri, dense, ne, tiles, E)
+    zeroed = _live_look(tiles.look[0], kept, tile)
+    pairs["radix_scatter"] = [(zeroed, torch.zeros_like(zeroed))] + list(zip(
+        _live_rows(rows, kept), _live_rows(plain.radix_first_plain(tri, dense, ne, want, E), kept)))
+    rows, later = radix_steps(rows, tiles, E)
+    pairs["radix_scatter"] += later
     key, pay = plain.edge_pairs_plain(tri, dense, ne, E)
     key_s, perm = torch.sort(key, dim=-1, stable=True)
     pos = torch.arange(key.shape[1], device=key.device)
@@ -1960,7 +1982,7 @@ def check_cluster_case(name: str, cfg, images) -> dict:
                              "ulp from the plain version's")
     errs["moments"] = max(errs["moments"], _max_abs_err(mom.table, momp.table))
     return dict(tri=tri, dense=dense, ovf=ovf, kw=kw, E=E, E2=E2, skw=skw, ne=ne, rows=rows,
-                kept=sorted_tiles.kept, counts=sorted_tiles.counts, tiles=tiles, seg=seg, mom=mom,
+                kept=sorted_tiles.kept, tiles=tiles, seg=seg, mom=mom,
                 got=got, differ=differ, cells=cells, errs=errs, stage=stage)
 
 
@@ -2035,60 +2057,65 @@ def check_segment_row(name: str, dev) -> dict:
 
 
 def sort_row_start(key, pay, kept):
-    """(B, N) int32 keys and pays and (B,) kept counts on the card as
-    pair_write leaves a sort: (SortRows, PairTiles with the kept counts,
-    the first pass's digit counts and zeroed look-back words and
-    counters)."""
+    """(B, N) int32 keys and pays and (B,) kept counts on the card as the
+    first pass leaves a sort: (SortRows stably sorted by the first digit
+    (radix_scatter_plain), PairTiles with the kept counts, every pass's
+    digit counts (none by offset: rows have no pixels) and zeroed look-back
+    words and counters)."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
 
     B, N = key.shape
     i32 = dict(dtype=torch.int32, device=key.device)
+    npass, R, R0 = SORT_PASSES, plain.RADIX, plain.FIRST_DIGITS
     T = -(-N // plain.sort_tile(B, N))
-    tiles = plain.PairTiles(counts=torch.zeros((B, 4), **i32), kept=kept,
-                            digits=torch.stack([plain.digit_counts_plain(key, kept, 0)] + [
-                                torch.zeros((B, plain.RADIX), **i32)] * (plain.SORT_PASSES - 1)),
-                            look=torch.zeros((plain.SORT_PASSES, B, T, plain.RADIX), **i32),
-                            ctl=torch.zeros((B, plain.CTL), **i32))
-    return plain.SortRows(key=key, pay=pay), tiles
+    tiles = plain.PairTiles(
+        kept=kept, digits=torch.stack([plain.digit_counts_plain(key, kept, k)
+                                       for k in range(npass)]),
+        offset_digits=torch.zeros((B, 4, R0), **i32), tile_counts=torch.zeros((B, 4, 1, R0), **i32),
+        group_sums=torch.zeros((B, 4, 1, R0), **i32),
+        look=torch.zeros((npass - 1, B, T, R), **i32), ctl=torch.zeros((B, npass), **i32))
+    return plain.radix_scatter_plain(plain.SortRows(key=key, pay=pay), tiles, 0), tiles
 
 
 def check_sort_row(name: str, dev) -> float:
-    """One of SORT_ROWS through the radix passes alone on the card:
-    SORT_PASSES launches of the scatter kernel, the sorted keys and pays
-    equal to numpy's stable argsort of each frame's keys, each pass against
-    radix_scatter_plain, two calls and a captured replay equal. Raises on a
-    difference; returns the largest one."""
+    """One of SORT_ROWS through the later radix passes alone on the card,
+    from the plain first pass: a launch of the scatter
+    kernel a pass, the sorted keys and pays equal to numpy's stable argsort
+    of each frame's keys, each pass against radix_scatter_plain, two calls
+    and a captured replay equal. Raises on a difference; returns the
+    largest one."""
     import torch
 
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
 
     keys, pays, kept, E = sort_rows()[name]
     key, pay, K = (torch.from_numpy(a).to(dev) for a in (keys, pays, kept))
-
-    def call():
-        rows, tiles = sort_row_start(key, pay, K)
-        spare = None
-        for k in range(SORT_PASSES):
-            moved = cmk.radix_scatter(rows, tiles, k, E=E, out=spare)
-            spare, rows = (rows.key, rows.pay), moved
-        return _live_rows(rows, K)
-
-    one = {k: SORT_PASSES * (k == "radix_scatter") for k in _want()}
-    _reset_launches()
-    got = call()
-    counts = _launches()
-    if counts != one:
-        raise AssertionError(f"sort rows, {name}: launches {counts} != {one}")
     want_key = np.full_like(keys, np.iinfo(np.int32).max)
     want_pay = np.zeros_like(pays)
     for b, n in enumerate(kept):
         order = np.argsort(keys[b, :n], kind="stable")
         want_key[b, :n], want_pay[b, :n] = keys[b, order], pays[b, order]
+    want = (torch.from_numpy(want_key).to(dev), torch.from_numpy(want_pay).to(dev))
+
+    def call():
+        rows, tiles = sort_row_start(key, pay, K)
+        spare = None
+        for k in range(1, SORT_PASSES):
+            moved = cmk.radix_scatter(rows, tiles, k, E=E, out=spare)
+            spare, rows = (rows.key, rows.pay), moved
+        return _live_rows(rows, K)
+
+    one = {k: (SORT_PASSES - 1) * (k == "radix_scatter") for k in _want()}
+    _reset_launches()
+    got = call()
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"sort rows, {name}: launches {counts} != {one}")
     _, pairs = radix_steps(*sort_row_start(key, pay, K), E)
-    pairs += list(zip(got, (torch.from_numpy(want_key).to(dev),
-                            torch.from_numpy(want_pay).to(dev))))
+    pairs += list(zip(got, want))
     if not all(_same(a, b) for a, b in pairs):
         raise AssertionError(f"sort rows, {name}: the passes differ from the plain passes or "
                              "from numpy's stable argsort")
@@ -2100,32 +2127,33 @@ def check_sort_row(name: str, dev) -> float:
 
 def check_sort_frame(name: str, dev) -> dict:
     """One of SORT_FRAMES through the whole sort on the card: one launch of
-    each compaction kernel and SORT_PASSES of the scatter kernel, each
-    kernel against its plain version and the rows against torch.sort of the
-    padded row (sort_steps), at the frames' num_edge and at a quarter of it,
-    two calls and a captured replay equal. Raises on a difference; returns
-    each kernel's largest difference and the frames' kept counts, num_edge
-    and E, and the kept counts and num_edge at the quarter."""
+    the histogram pass and one of the scatter kernel
+    a pass, each kernel against its plain version and the rows against
+    torch.sort of the padded row (sort_steps), at the frames' num_edge and
+    at a quarter of it, two calls and a captured replay equal. Raises on a
+    difference; returns each kernel's largest difference and the frames'
+    kept counts, num_edge and E, and the kept counts and num_edge at the
+    quarter."""
     import torch
 
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
 
     tri, dense, E = sort_frames()[name]
     tri, dense = torch.from_numpy(tri).to(dev), torch.from_numpy(dense).to(dev)
     ne = cmk.edge_count(tri, dense)
+    errs, kept = {}, {}
 
     def call():
         rows, kept = cmk.sort_pairs(tri, dense, ne, E)
         return _live_rows(rows, kept)
 
-    one = {k: {"pair_count": 1, "pair_write": 1, "radix_scatter": SORT_PASSES}.get(k, 0)
-           for k in _want()}
+    one = {k: {"pair_count": 1, "radix_scatter": SORT_PASSES}.get(k, 0) for k in _want()}
     _reset_launches()
     got = call()
     counts = _launches()
     if counts != one:
         raise AssertionError(f"sort frames, {name}: launches {counts} != {one}")
-    errs, kept = {}, {}
     # num_edge cut to a quarter: a smaller stride keeps more pairs than
     # num_edge says the frame holds, and the sort must still take them all.
     for cut in (1, 4):
@@ -2215,9 +2243,10 @@ def cluster_phase(gpu: str) -> dict:
     """Phase 23: check_cluster_case on each of cluster_cases, the segment
     kernels on SEGMENT_ROWS, the radix passes on SORT_ROWS and the whole sort
     on SORT_FRAMES, the profiler check of cluster_profile in a child
-    process, and device times at torch_bench.py's two shapes. Returns
-    kernel -> {max_abs_err, and for 'b1' (720p) and 'batch8' (1080p):
-    shape, ms, plain_ms, bound_ms, library_ms}."""
+    process, and device times at torch_bench.py's two shapes. Returns kernel -> {max_abs_err, and for 'b1' (720p)
+    and 'batch8' (1080p): shape, ms, plain_ms, bound_ms, library_ms; the
+    radix scatter's also `first` and `later`: the first pass's and the
+    later passes' ms, plain_ms, bound_ms}."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
@@ -2260,42 +2289,45 @@ def cluster_phase(gpu: str) -> dict:
         # look-back words (scratch of this design, which stay in L2).
         K, px = int(kept.sum()), B * H * W
         fill = 4 * int(torch.clamp(E - kept, min=0).sum())
-        head = 5 * px + 4 * c["counts"].numel()             # tri, dense; the tile counts
-        digit_bytes = 4 * plain.RADIX * B                  # a pass's digit counts
-        want_tiles = plain.pair_count_plain(tri, dense, ne, E)
-        given = [(plain.SortRows(*_live_rows(plain.pair_write_plain(
-            tri, dense, ne, want_tiles, E), kept)), want_tiles)]
-        for k in range(SORT_PASSES - 1):
-            moved, nxt = plain.radix_scatter_plain(*given[-1], k)
-            digits = given[-1][1].digits.clone()
-            digits[k + 1] = nxt
-            given.append((moved, given[-1][1]._replace(digits=digits)))
         key_pad = plain.edge_pairs_plain(tri, dense, ne, E)[0]
         torch_sort_ms = _device_ms(lambda: torch.sort(key_pad, dim=-1, stable=True), 10)
+        tag = "b1" if B == 1 else f"batch{B}"
         state = {}
         steps = [lambda: state.update(t=cmk.pair_count(tri, dense, ne, E)),
-                 lambda: state.update(r=cmk.pair_write(tri, dense, ne, state["t"], E))]
+                 lambda: state.update(r=cmk.radix_first(tri, dense, ne, state["t"], E))]
         steps += [lambda k=k: state.update(r=cmk.radix_scatter(state["r"], state["t"], k, E=E))
-                  for k in range(SORT_PASSES)]
-        chain = _chain_ms(steps, 20)
-        tag = "b1" if B == 1 else f"batch{B}"
-        by_pass[tag] = chain[2:]
+                  for k in range(1, SORT_PASSES)]
+        # The digit counts of the frames: the first pass's R0 a frame (and
+        # 4 R0 by offset), a later pass's R. The histogram pass reads tri
+        # and dense and writes every pass's digit counts, the first pass's by
+        # offset and K; the first pass reads the pixels, its digit counts (by
+        # offset too) and K and writes 8 bytes a kept pair; a later pass
+        # reads its digit counts and K, reads and writes 8 bytes a kept
+        # pair; the last also writes the fill to E. The first pass's tile
+        # counts and group sums are scratch of this design, in L2, and not
+        # counted.
+        first_bytes, later_bytes = 4 * plain.FIRST_DIGITS * B, 4 * plain.RADIX * B
+        bound = [(5 * px + 5 * first_bytes + (SORT_PASSES - 1) * later_bytes + 4 * B)
+                 / HBM_BYTES_PER_S * 1e3,
+                 (5 * px + 5 * first_bytes + 4 * B + 8 * K) / HBM_BYTES_PER_S * 1e3]
+        bound += [(later_bytes + 4 * B + 16 * K + (fill if k == SORT_PASSES - 1 else 0))
+                  / HBM_BYTES_PER_S * 1e3 for k in range(1, SORT_PASSES)]
+        main = dict(ms=_chain_ms(steps, 20), bound=bound,
+                    sort=_device_ms(lambda: cmk.sort_pairs(tri, dense, ne, E), 20))
+        by_pass[tag] = main["ms"]
+        want_tiles = plain.pair_count_plain(tri, dense, ne, E)
+        given = [plain.radix_first_plain(tri, dense, ne, want_tiles, E)]
+        for k in range(1, SORT_PASSES - 1):
+            given.append(plain.radix_scatter_plain(given[-1], want_tiles, k))
+        first_plain = _device_ms(lambda: plain.radix_first_plain(tri, dense, ne, want_tiles, E), 5)
+        later_plain = _device_ms(lambda: [plain.radix_scatter_plain(g, want_tiles, k)
+                                          for k, g in enumerate(given, 1)], 5)
         timed = {
             "edge_count": (None, lambda: plain.edge_count_plain(tri, dense),
                            _bound_ms(tri, dense, ne)),
-            # tri and dense; the tiles' counts and the first digit counts
-            "pair_count": (chain[0], lambda: plain.pair_count_plain(tri, dense, ne, E),
-                           (head + digit_bytes) / HBM_BYTES_PER_S * 1e3),
-            # tri, dense and the tiles' counts; K, 8 bytes a kept pair and the
-            # fill to E
-            "pair_write": (chain[1], lambda: plain.pair_write_plain(tri, dense, ne, want_tiles, E),
-                           (head + 4 * B + 8 * K + fill) / HBM_BYTES_PER_S * 1e3),
-            # a pass reads its digit counts, reads and writes 8 bytes a kept
-            # pair and (but the last) writes the next digit counts
-            "radix_scatter": (sum(chain[2:]), lambda: [plain.radix_scatter_plain(*g, k)
-                                                      for k, g in enumerate(given)],
-                              (SORT_PASSES * (16 * K + digit_bytes)
-                               + (SORT_PASSES - 1) * digit_bytes) / HBM_BYTES_PER_S * 1e3),
+            "pair_count": (main["ms"][0], lambda: plain.pair_count_plain(tri, dense, ne, E),
+                           main["bound"][0]),
+            "radix_scatter": (sum(main["ms"][1:]), None, sum(main["bound"][1:])),
             # the valid prefix of the sorted keys, 4 bytes a key; the tiles'
             # fields, histogram and valid keys, and 4 bytes a candidate
             "segment_tiles": (None, lambda: plain.segment_tiles_plain(rows.key, ne, **tkw),
@@ -2316,17 +2348,23 @@ def cluster_phase(gpu: str) -> dict:
                  "moments": lambda: cmk.slot_moments(rows.pay, seg.top_pos, seg.count, E2)}
         for k, (ms, twin, bound) in timed.items():
             out[k][tag] = dict(shape=[B, H, W], ms=ms if ms is not None else
-                               _device_ms(alone[k], 20), plain_ms=_device_ms(twin, 5),
-                               bound_ms=bound,
+                               _device_ms(alone[k], 20),
+                               plain_ms=first_plain + later_plain if twin is None
+                               else _device_ms(twin, 5), bound_ms=bound,
                                library_ms=torch_sort_ms if k == "radix_scatter" else None)
+        out["radix_scatter"][tag].update(
+            first=dict(ms=main["ms"][1], plain_ms=first_plain, bound_ms=main["bound"][1]),
+            later=dict(ms=sum(main["ms"][2:]), plain_ms=later_plain,
+                       bound_ms=sum(main["bound"][2:])))
         kw = c["kw"]
-        # The whole sort's yardstick bound: the compaction reads
-        # 5 bytes a pixel and writes 8 a kept pair; a pass reads 4 a kept
-        # pair for its histogram, then reads and writes 8.
+        # The whole sort's yardstick bound, fixed whatever the design (the
+        # compaction's 5 bytes a pixel and 8 a kept pair; a pass's 4 a kept
+        # pair for its histogram, then 8 read and 8 written); and the
+        # design's own bound, the sum of its kernels'.
         sort_bound = (5 * px + 8 * K + SORT_PASSES * 20 * K) / HBM_BYTES_PER_S * 1e3
-        sort_ms[tag] = dict(kernels=_device_ms(lambda: cmk.sort_pairs(tri, dense, ne, E), 20),
-                            torch_sort=torch_sort_ms, bound=sort_bound, kept=K)
-        sort_ms[tag]["share"] = sort_bound / sort_ms[tag]["kernels"]
+        sort_ms[tag] = dict(torch_sort=torch_sort_ms, bound=sort_bound, kept=K, ms=main["sort"],
+                            share=sort_bound / main["sort"], own_bound=sum(main["bound"]),
+                            own_share=sum(main["bound"]) / main["sort"])
         stage_ms[tag] = {
             "kernels": _device_ms(c["stage"], 10),
             "plain": _device_ms(lambda: plain.extract_cluster_moments(
@@ -2363,15 +2401,23 @@ def cluster_phase(gpu: str) -> dict:
           f"within one ulp); two calls and a captured replay equal: " + "; ".join(lines)
           + f"; the two segment kernels on the synthetic rows {list(SEGMENT_ROWS)}: equal to "
           f"top_segments_plain and each to its plain version, one launch each, two calls and a "
-          f"captured replay equal; the radix passes on the synthetic rows {list(SORT_ROWS)}: "
-          f"equal to numpy's stable argsort and each pass to its plain version, "
-          f"{SORT_PASSES} launches, two calls and a captured replay equal; the whole sort on the "
-          f"synthetic frames (kept pairs, num_edge, E) {frames}: each kernel equal to its plain "
-          f"version and the rows to torch.sort of the padded row; torch.profiler in a child "
-          f"process (kernels seen, cluster kernels, library sorts): {profiled}; on {gpu}: "
-          f"the sort (pair_count, pair_write, {SORT_PASSES} passes, with the memset; ms, "
-          f"torch.sort of the padded row, yardstick bound by bytes, share, kept pairs) "
-          f"{sort_ms}; the passes' ms {by_pass}; the two segment kernels summed {seg_ms} ms; "
+          f"captured replay equal; the later radix passes on the synthetic rows "
+          f"{list(SORT_ROWS)} from the plain first pass: equal to numpy's "
+          f"stable argsort and each pass to its plain version, a launch a pass, two calls and a "
+          f"captured replay equal; the whole sort on the synthetic frames (kept pairs, "
+          f"num_edge, E) {frames}: each kernel equal to its plain version "
+          f"and the rows to torch.sort of the padded row; torch.profiler in a child process "
+          f"(kernels seen, cluster kernels, library sorts): {profiled}; on {gpu}: the sort "
+          f"(pair_count, then the passes, with the memset; torch.sort of the padded row, the "
+          f"yardstick bound by bytes, kept pairs, ms, share of the yardstick, the design's own "
+          f"bound and share) {sort_ms}; each kernel's ms (histogram, first pass, later passes) "
+          f"{by_pass}; the radix scatter kernel's "
+          f"first and later passes (ms / plain / bound) "
+          + ", ".join(f"{t} {p}: {out['radix_scatter'][t][p]['ms']:.4f} / "
+                      f"{out['radix_scatter'][t][p]['plain_ms']:.4f} / "
+                      f"{out['radix_scatter'][t][p]['bound_ms']:.4f}"
+                      for t in ("b1", f"batch{BATCH}") for p in ("first", "later"))
+          + f"; the two segment kernels summed {seg_ms} ms; "
           f"device ms a call of the stage (kernel path, the plain version's one-hot GEMM "
           f"formulation) {stage_ms}; a kernel a call (kernel / plain / bound / library ms) "
           + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
@@ -4730,7 +4776,10 @@ def main() -> int:
          f"bound_ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["bound_ms"],
          f"library_ms_batch{BATCH}": cluster[k][f"batch{BATCH}"]["library_ms"],
          f"share_batch{BATCH}": (cluster[k][f"batch{BATCH}"]["bound_ms"]
-                                 / cluster[k][f"batch{BATCH}"]["ms"])}
+                                 / cluster[k][f"batch{BATCH}"]["ms"]),
+         **({f"{p}_pass{s}": cluster[k][t][p] for p in ("first", "later")
+             for t, s in (("b1", ""), (f"batch{BATCH}", f"_batch{BATCH}"))}
+            if k == "radix_scatter" else {})}
         for k in CLUSTER_KERNELS] + [
         {"name": k, "route": "cuda", "source": "isaac_ros_apriltag_tpu_torch/csrc/resolve.cu",
          "replaces": RESOLVE_REPLACES[k],

@@ -1,7 +1,8 @@
 // Cluster moments: (B, H, W) trinary + area-gated dense component ids ->
-// per-cluster angular moment tables, in ten launches: the pair count, the
-// kept pairs compacted (two kernels) and radix-sorted (four launches of one
-// kernel), the two segment kernels and the moments kernel.
+// per-cluster angular moment tables, in nine launches: the pair count, the
+// kept pairs' sort (one histogram pass, then four launches of one kernel, a
+// radix pass each, the first of which builds the pairs from the pixels), the
+// two segment kernels and the moments kernel.
 //
 // Replaces: the sort-centric formulation of
 // isaac_ros_apriltag_tpu/ops/cluster_moments.py (XLA, no Pallas kernel),
@@ -16,42 +17,47 @@
 // keys, and each top-C cluster is one such segment. So nothing after the
 // sort scans or sorts E elements again. The reference sorts the whole
 // padded row of 4 H W pair slots; here only the kept pairs are sorted, by a
-// stable compaction and a stable LSD radix sort written by hand, which
-// give the same order: keys ascending, ties in the padded layout's order
-// (offset o major, then pixel p).
+// stable LSD radix sort written by hand, which gives the same order: keys
+// ascending, ties in the padded layout's order (offset o major, then pixel
+// p).
 //
 //   cm_edge_count_kernel  the pairs of a frame (4 offsets a pixel, mask
 //       only): num_edge, by block sums and one integer atomic a block
 //       (exact in any order);
-//   cm_pair_count_kernel  a block 1024 pixels of a frame (4 a thread,
-//       their pairs found by byte compares and built only where they
-//       exist), its four tiles (offset o, the block) in o-major order: the
-//       pairs kept by the frame's stride (from num_edge and the budget) a
-//       tile; the first radix pass's digit counts of the kept keys (runs of
-//       one key merged across a thread's pixels and a warp's lanes, a
-//       shared-memory histogram a block, one integer atomic a nonzero bin;
-//       counters and digit counts zeroed by one memset on the stream);
-//   cm_pair_write_kernel  the same blocks: each tile's first position and
-//       the frame's kept count K from the tiles' counts (each block reads
-//       them all), then each kept pair's key and pay at its tile's first
-//       position plus its rank in the tile (a block prefix of the threads'
-//       counts), so the kept pairs lie in layout order in [0, K); I32MAX in
-//       [K, E); the passes' look-back words of the frame's ceil(K / tile)
-//       sort tiles zeroed;
-//   cm_radix_scatter_kernel<KPT>  four launches, one a RADIX_BITS digit of
-//       the key (keys are under 2^30: two 15-bit dense ids), ping-pong
-//       between two row pairs, in the onesweep form: a block a sort tile of
-//       256 KPT positions in [0, K) at a time, the tiles taken in order from
-//       the frame's counter. Each key's rank among the tile's keys of its
+//   cm_pair_count_kernel  the sort's one histogram pass: a block 1024
+//       pixels of a frame (4 a thread, their pairs found by byte compares
+//       and built only where they exist), each kept key counted into every
+//       pass's digit counts (runs of one key merged across a thread's
+//       pixels and a warp's lanes: a run has one digit in every pass; a
+//       shared-memory table a pass, the first pass's by offset; one integer
+//       atomic a nonzero bin), the kept count K, each first-pass tile's
+//       count of each first digit and their sums over groups of 16 tiles
+//       (the counters and sums zeroed by one memset on the stream);
+//   cm_radix_scatter_kernel<SRC, KPT>  one launch a pass, four passes: the
+//       first takes the key's low 6 bits, the later three 8 bits each (the
+//       key's 30 bits: two 15-bit dense ids). The first pass (SRC pixels)
+//       reads the pixels: a block a (frame, 1024-pixel block), its tiles
+//       (offset o, block); a kept pair goes to its digit's first position,
+//       plus its digit's keys at the offsets before o, plus those of the
+//       tiles before its own at o (the histogram pass's sums of the groups
+//       before the tile's group, then its group's tiles before it: a few
+//       loads, no look-back, so no block waits on another), plus its rank
+//       in its tile: the warps before its warp (their counts by digit), then
+//       its rank in its warp's pairs of its digit in pixel order (the warp's
+//       kept digits compacted in order, ranked 32 at a time by
+//       __match_any_sync). Key and pay go out from registers, and the pass
+//       zeroes pass 1's look-back words of the live tiles. A later pass
+//       (SRC rows) reads the rows in the onesweep form: a block a sort tile
+//       of 256 KPT positions in [0, K) at a time, the tiles taken in order
+//       from the frame's counter; a key's rank among the tile's keys of its
 //       digit is its rank in its warp's run of 32 KPT positions
-//       (__match_any_sync groups, taken chunk by chunk in position order)
-//       plus the counts of the warps before it, so equal digits keep their
-//       order (a stable pass); the keys of its digit in the tiles before
-//       come by decoupled look-back over the tiles' published counts; key
-//       and pay go to the digit's first position plus those counts. After
-//       the fourth pass [0, K) holds the kept pairs sorted, in the row the
-//       write kernel filled, so [K, E) reads I32MAX. Each pass but the last
-//       counts the next pass's digits as it writes;
+//       (__match_any_sync groups, chunk by chunk in position order) plus the
+//       counts of the warps before it, so equal digits keep their order;
+//       the keys of its digit in the tiles before come by decoupled
+//       look-back over the tiles' published counts. Each pass but the last
+//       zeroes the next pass's look-back words of the live tiles; the last
+//       writes I32MAX into [K, E) of its row, so [0, max(K, E)) reads as
+//       the reference's sorted padded row;
 //   cm_seg_tiles_kernel  many blocks a frame, one a tile of SEG_TILE sorted
 //       keys: the segment starts; each start's size from the next start in
 //       the tile (a block suffix minimum, no search), the tile's last start
@@ -82,10 +88,11 @@
 //       float atomics: a call gives the same bits every time, so a captured
 //       replay equals the eager call.
 //
-// In a radix pass a block waits only on tiles taken before its own, whose
-// blocks run and publish their own counts before they wait on anything.
-// The counts are integer adds, exact in any order, and every position comes
-// from counts and ranks, so the sort gives the same bits every call.
+// In a later radix pass a block waits only on tiles taken before its own,
+// whose blocks run and publish their own counts before they wait on
+// anything; in the first pass no block waits. The counts are integer adds, exact in any
+// order, and every position comes from counts and ranks, so the sort gives
+// the same bits every call.
 //
 // Against the plain version: the integer outputs, the centroid and the
 // scale are bit-exact (exact f64 sums, then the plain version's f32 and f64
@@ -96,19 +103,21 @@
 // keys and pays are those of torch.sort(stable=True) on the padded row, bit
 // for bit.
 //
-// What bounds it on an H100: bytes. The count and write kernels read 5 B a
-// pixel each (tri, dense; the neighbours from L1) and the write kernel
-// writes 8 B a kept pair; each radix pass reads and writes 8 B a kept pair
-// (its look-back words stay in L2); the tiles kernel reads
-// the valid prefix of the first E sorted keys once, in enough blocks to
-// fill the card (about 165 tiles at 720p); the top kernel reads 20 B a
-// tile and the candidates of the few tiles that reach T, but one block a
-// frame is a chain of loads and barriers, so latency bounds it; the
-// moments kernel reads each resident pair's pay (4 B) twice, the second
-// time from L1/L2. At 720p b1 each kernel is a few microseconds of launch
-// and latency, so the sort is written as few launches: the passes' digit
-// counts ride in the count kernel, and a pass needs no histogram kernel
-// or scan of its own.
+// What bounds it on an H100: bytes in principle, latency in fact. The
+// histogram and the first pass read 5 B a pixel each (tri, dense; the
+// neighbours from L1), the first pass writes 8 B a kept pair; each later
+// pass reads and writes 8 B a kept pair (the look-back words stay in L2);
+// the tiles kernel reads the valid prefix of the first E sorted keys once,
+// in enough blocks to fill the card (about 165 tiles at 720p); the top
+// kernel reads 20 B a tile and the candidates of the few tiles that reach
+// T, but one block a frame is a chain of loads and barriers, so latency
+// bounds it; the moments kernel reads each resident pair's pay (4 B) twice,
+// the second time from L1/L2. The pixel kernels run far from their bytes:
+// a block's loads, shuffles and barriers in a chain. So the sort is written
+// as few launches and passes over the data: the pixels are read twice, the
+// kept pairs written once in the first pass's order (no compaction in
+// layout order read back), every pass's digit counts come from the one
+// histogram pass, and a pass needs no histogram kernel or scan of its own.
 
 #include <climits>
 #include <cstdint>
@@ -141,24 +150,38 @@ static_assert(SEG_TILE <= (1 << SEG_POS_BITS) && SEG_MAX_PER < (1 << (31 - SEG_P
 static_assert(SEG_TILE_THREADS % 32 == 0 && TOP_THREADS >= MAX_C, "whole warps; a thread a slot");
 constexpr int MOM_THREADS = 256;
 constexpr int MOM_WARPS = MOM_THREADS / 32;
-// The compaction and the radix sort. A compaction block takes PAIR_BLOCK
-// pixels, 4 consecutive ones a thread: its tiles are (offset o, the block),
-// o-major. A sort tile is SORT_THREADS * KPT
+// The kept pairs' sort. The histogram pass and the first radix pass take
+// PAIR_BLOCK pixels a block, 4 consecutive ones a thread, so warp w holds
+// the block's pixels [128 w, 128 w + 128) in order. A frame's tiles of the
+// first pass are (offset o, pixel block), o-major, as the padded layout
+// orders the pairs. A later pass's sort tile is SORT_THREADS * KPT
 // positions, warp w's run of 32 KPT from w * 32 KPT, its i-th chunk of 32
-// at i * 32. Each pass's digit counts lie in digits[pass, b, digit], its
-// look-back words in look[pass, b, tile, digit], pass k's tile counter in
-// ctl[b, k].
+// at i * 32. The first pass takes the key's low FIRST_BITS bits (R0
+// digits: 4 R0 chains of (offset, digit), one a thread), each later pass k
+// the RADIX_BITS above: (key >> digit_shift(k)) & (RADIX - 1), one digit a
+// thread. Pass k's digit counts lie in digits[k, b, digit], the first
+// pass's by offset in odig[b, o, digit]; each first-pass tile's counts in
+// tcnt[b, o, block, digit] and their sums over groups of FIRST_GROUP tiles
+// in gsum[b, o, group, digit]; pass k's look-back words (k >= 1) in
+// look[k - 1, b, tile, digit], its tile counter in ctl[b, k].
 constexpr int PAIR_THREADS = 256;
 constexpr int PAIR_WARPS = PAIR_THREADS / 32;
-constexpr int PAIR_BLOCK = PAIR_THREADS * 4;    // pixels a block, 4 a thread
-constexpr int RADIX_BITS = 8;
-constexpr int RADIX = 1 << RADIX_BITS;
-constexpr int SORT_PASSES = 4;                 // keys are under 2^30 <= 2^(8 * 4)
+constexpr int PAIR_BLOCK = PAIR_THREADS * 4;   // pixels a block, 4 a thread
 constexpr int SORT_THREADS = 256;
 constexpr int SORT_WARPS = SORT_THREADS / 32;
-constexpr int CTL = SORT_PASSES;               // counters a frame: pass k's next tile
-static_assert(PAIR_THREADS == RADIX && SORT_THREADS == RADIX, "a thread a digit");
-static_assert(RADIX_BITS * SORT_PASSES >= 2 * KBITS, "the passes cover the key");
+constexpr int KEY_BITS = 2 * KBITS;            // keys are under 2^30: two 15-bit dense ids
+constexpr int RADIX_BITS = 8;                  // a later pass's digit
+constexpr int RADIX = 1 << RADIX_BITS;
+constexpr int SORT_PASSES = 4;
+constexpr int FIRST_BITS = KEY_BITS - (SORT_PASSES - 1) * RADIX_BITS;   // the first pass's: 6
+constexpr int R0 = 1 << FIRST_BITS;
+constexpr int FIRST_GROUP = 16;                // first-pass tiles a group of the prefix's sums
+static_assert(PAIR_THREADS == SORT_THREADS && RADIX == SORT_THREADS && 4 * R0 == SORT_THREADS,
+              "one block shape: a thread a later digit, a thread a first-pass chain");
+
+__host__ __device__ constexpr int digit_shift(int k) {   // pass k's digit's low bit
+    return k ? FIRST_BITS + (k - 1) * RADIX_BITS : 0;
+}
 
 struct Pair {
     bool m;
@@ -370,12 +393,11 @@ __device__ __forceinline__ bool kept_pair(const Pair& q, unsigned stride) {
     return q.m && hash % stride == 0;
 }
 
-// A look-back word of a radix pass: a sort tile's count of one digit (the
-// low 30 bits), the tile's own (LB_AGG) or with every tile before it
-// (LB_INCL); 0 until the tile's block publishes it. One word holds both, so
-// a word read is whole and needs no fence.
+// A look-back word of a radix pass: a tile's count of one digit (the low
+// 30 bits), the tile's own (LB_AGG) or with every tile before it in its
+// chain (LB_INCL); 0 until the tile's block publishes it. One word holds
+// both, so a word read is whole and needs no fence.
 constexpr int LB_AGG = 1 << 30, LB_INCL = INT_MIN, LB_COUNT = LB_AGG - 1;
-constexpr int LB_READS = 8;                    // words a thread reads at once
 
 __device__ __forceinline__ int load_relaxed(const int32_t* p) {
     int v;
@@ -387,11 +409,43 @@ __device__ __forceinline__ void store_relaxed(int32_t* p, int v) {
     asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// Decoupled look-back over one chain: the word of tile q at w + q step,
+// read LB_READS tiles at once from the nearest before `tile`, counts added
+// back to the first LB_INCL word (a word not yet published is read again;
+// before the first tile an inclusive 0). Returns the chain's count in the
+// tiles before `tile`. Every tile a reader waits on belongs to a block that
+// runs and publishes its own word before it waits on any.
+constexpr int LB_READS = 8;                    // words a thread reads at once
+
+__device__ __forceinline__ int look_back(const int32_t* w, size_t step, int tile) {
+    int before = 0;
+    for (int qt = tile - 1; qt >= 0;) {
+        int word[LB_READS];
+#pragma unroll
+        for (int u = 0; u < LB_READS; ++u)
+            word[u] = qt - u >= 0 ? load_relaxed(w + (size_t)(qt - u) * step) : LB_INCL;
+        int u = 0;
+        bool done = false;
+#pragma unroll
+        for (; u < LB_READS; ++u) {
+            if (word[u] == 0) break;            // not published yet: read again from here
+            before += word[u] & LB_COUNT;
+            if (word[u] & LB_INCL) {
+                done = true;
+                break;
+            }
+        }
+        if (done) break;
+        qt -= u;
+    }
+    return before;
+}
+
 // A warp's lanes each hold at most one run of `len` equal keys (key < 0:
-// none), consecutive lanes in the keys' order: each segment of lanes that
-// hold one key adds its runs' lengths, once, by its last lane, into the
-// shared histogram h at the key's low digit.
-__device__ __forceinline__ void count_lane_runs(int* h, int32_t key, int len) {
+// none), consecutive lanes in the keys' order: the last lane of each
+// segment of lanes that hold one key gets the segment's summed length (the
+// others 0), so each segment is counted once.
+__device__ __forceinline__ int lane_run_total(int32_t key, int len) {
     const int lane = threadIdx.x & 31;
     const int32_t key_before = __shfl_up_sync(FULL, key, 1);   // every lane takes part
     const unsigned heads = __ballot_sync(FULL, lane == 0 || key_before != key);
@@ -404,39 +458,62 @@ __device__ __forceinline__ void count_lane_runs(int* h, int32_t key, int len) {
     const int first = 31 - __clz(heads & ((2u << lane) - 1u));
     const int ahead = __shfl_sync(FULL, incl, first > 0 ? first - 1 : 0);
     const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
-    if (tail && key >= 0) atomicAdd(&h[key & (RADIX - 1)], incl - (first > 0 ? ahead : 0));
+    return tail && key >= 0 ? incl - (first > 0 ? ahead : 0) : 0;
 }
 
-// A block PAIR_BLOCK pixels of frame blockIdx.y, 4 consecutive ones a
-// thread: counts[b, o, blk] = the kept pairs of tile (o, blk); the first
-// radix pass's digit counts of the frame's kept keys (a thread's runs of
-// equal keys at one offset merged, then a segment of lanes that hold one
-// key: one shared atomic a segment into the block's histogram, then one
-// integer atomic a nonzero bin into digits[0, b], zeroed by the launcher).
+// The histogram pass's shared tables: the first pass's digit by offset,
+// then each later pass's digit.
+struct HistTables {
+    int first[4][R0];
+    int later[SORT_PASSES - 1][RADIX];
+};
+
+// A run of `len` kept keys equal to `key` at offset o into every pass's
+// table (a run of equal keys has equal digits in every pass).
+__device__ __forceinline__ void add_run(HistTables& h, int o, int32_t key, int len) {
+    atomicAdd(&h.first[o][key & (R0 - 1)], len);
+#pragma unroll
+    for (int k = 1; k < SORT_PASSES; ++k)
+        atomicAdd(&h.later[k - 1][(key >> digit_shift(k)) & (RADIX - 1)], len);
+}
+
+// The histogram pass, the sort's only one: a block PAIR_BLOCK pixels of
+// frame blockIdx.y, 4 consecutive ones a thread. Each kept pair's key adds
+// into every pass's digit count: a thread's runs of equal kept keys at one
+// offset merged, then a segment of lanes that hold one key (a horizontal
+// edge spans many), one shared atomic a run and pass; then one integer
+// atomic a nonzero bin into odig[b, o] (the first pass's digits by offset),
+// digits[0, b] (their sum over o) and digits[k, b], and one a block into
+// kept[b]; all zeroed by the launcher's memset. The block's pixels are the
+// first pass's tile (o, blockIdx.x) at each offset: the block writes the
+// tile's count of each first digit (tcnt) and adds it into its group's
+// sums (gsum, integer atomics), so the first pass finds the keys of the
+// tiles before its own in a few loads and never waits on another block.
 template <bool VEC>
 __global__ void __launch_bounds__(PAIR_THREADS)
 cm_pair_count_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ dense,
-                     const int32_t* __restrict__ num_edge, int32_t* __restrict__ counts,
-                     int32_t* __restrict__ digits, int H, int W, int budget) {
-    __shared__ int red[4][PAIR_WARPS];
-    __shared__ int dh[RADIX];
-    const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+                     const int32_t* __restrict__ num_edge, int32_t* __restrict__ digits,
+                     int32_t* __restrict__ odig, int32_t* __restrict__ gsum,
+                     int32_t* __restrict__ kept, int32_t* __restrict__ tcnt, int H, int W,
+                     int budget) {
+    __shared__ HistTables hist;
+    __shared__ int red[PAIR_WARPS];
+    const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x, B = gridDim.y;
     const int t = threadIdx.x, lane = t & 31, w = t >> 5;
     const int HW = H * W;
     tri += (size_t)b * HW;
     dense += (size_t)b * HW;
-    dh[t] = 0;
-    const int ne = num_edge[b];
-    const unsigned stride = edge_stride(ne, budget);
+    for (int i = t; i < (int)(sizeof(hist) / 4); i += PAIR_THREADS)
+        reinterpret_cast<int*>(&hist)[i] = 0;
+    const unsigned stride = edge_stride(num_edge[b], budget);
     __syncthreads();
-    int c[4] = {0, 0, 0, 0};
     Pair q[4][4];
     quad_pairs<VEC>(tri, dense, H, W, HW, blk * PAIR_BLOCK + 4 * t, q);
+    int n_kept = 0;
 #pragma unroll
     for (int o = 0; o < 4; ++o) {
-        // The thread's runs of equal kept keys: a run starts where the
-        // key differs from the last kept one; its length counted from
-        // the back.
+        // The thread's runs of equal kept keys: a run starts where the key
+        // differs from the last kept one; its length counted from the back.
         bool kp[4], st[4];
         int len[4], n = 0, n_runs = 0;
         int32_t last = -1;
@@ -450,7 +527,7 @@ cm_pair_count_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict_
                 ++n;
             }
         }
-        c[o] += n;
+        n_kept += n;
         if (!__any_sync(FULL, n)) continue;   // the warp keeps no pair here
         int32_t nk = -1;
         int nl = 0;
@@ -466,179 +543,289 @@ cm_pair_count_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict_
         if (n_runs > 1) {
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-                if (st[i]) atomicAdd(&dh[q[o][i].key & (RADIX - 1)], len[i]);
+                if (st[i]) add_run(hist, o, q[o][i].key, len[i]);
         }
-        // A thread of one run joins the lanes around it that hold the
-        // same key (a horizontal edge spans many).
-        count_lane_runs(dh, n_runs == 1 ? last : -1, n_runs == 1 ? n : 0);
+        // A thread of one run joins the lanes around it that hold the same
+        // key.
+        const int tot = lane_run_total(n_runs == 1 ? last : -1, n_runs == 1 ? n : 0);
+        if (tot) add_run(hist, o, last, tot);
+    }
+    n_kept = __reduce_add_sync(FULL, n_kept);
+    if (lane == 0) red[w] = n_kept;
+    __syncthreads();
+    if (t == 0) {
+        int s = 0;
+        for (int u = 0; u < PAIR_WARPS; ++u) s += red[u];
+        if (s) atomicAdd(kept + b, s);
+    }
+    const int ng = (nblk + FIRST_GROUP - 1) / FIRST_GROUP;
+    {   // a thread a chain (offset o, digit d)
+        const int o = t / R0, d = t & (R0 - 1), c = hist.first[o][d];
+        tcnt[(((size_t)b * 4 + o) * nblk + blk) * R0 + d] = c;
+        if (c) {
+            atomicAdd(odig + ((size_t)b * 4 + o) * R0 + d, c);
+            atomicAdd(gsum + (((size_t)b * 4 + o) * ng + blk / FIRST_GROUP) * R0 + d, c);
+        }
+    }
+    if (t < R0) {
+        const int s = hist.first[0][t] + hist.first[1][t] + hist.first[2][t] + hist.first[3][t];
+        if (s) atomicAdd(digits + (size_t)b * RADIX + t, s);
     }
 #pragma unroll
-    for (int o = 0; o < 4; ++o) {
-        const int s = __reduce_add_sync(FULL, c[o]);
-        if (lane == 0) red[o][w] = s;
+    for (int k = 1; k < SORT_PASSES; ++k) {   // a thread a digit
+        const int c = hist.later[k - 1][t];
+        if (c) atomicAdd(digits + ((size_t)k * B + b) * RADIX + t, c);
     }
-    __syncthreads();
-    if (t < 4) {
-        int s = 0;
-        for (int u = 0; u < PAIR_WARPS; ++u) s += red[t][u];
-        counts[((size_t)b * 4 + t) * nblk + blk] = s;
-    }
-    if (dh[t]) atomicAdd(digits + (size_t)b * RADIX + t, dh[t]);
 }
 
-// The count kernel's blocks again: each tile's first position from the
-// tiles' counts (the pairs of the earlier offsets, and of the earlier
-// blocks at its offset: a block reads the frame's counts, so no kernel
-// scans them and none waits for the last block), and the frame's kept
-// count K (kept[b]); each kept pair's key and pay at its tile's first
-// position plus the kept pairs before it in the tile (the block's pixels in
-// order are its threads in order, 4 pixels a thread: a block prefix of the
-// threads' counts, two offsets packed in an int), so the kept pairs lie in
-// layout order in [0, K) of the frame's rows; I32MAX in [K, E) of key_out.
-// The frame's look-back words of its first ceil(K / 2^tshift) sort tiles,
-// the ones the radix passes read, zeroed in every pass's plane.
+// A radix pass's arguments: the first pass reads the pixels (tri, dense,
+// num_edge, H, W, budget), a later one the rows (key_in, pay_in); N = 4 H W
+// slots a row, T sort tiles of a later pass a row, `tile` their positions,
+// E the pair budget.
+struct PassArgs {
+    const uint8_t* tri;
+    const int32_t* dense;
+    const int32_t* num_edge;
+    const int32_t* key_in;
+    const int32_t* pay_in;
+    const int32_t* kept;
+    const int32_t* digits;
+    const int32_t* odig;
+    const int32_t* tcnt;
+    const int32_t* gsum;
+    int32_t* look;
+    int32_t* ctl;
+    int32_t* key_out;
+    int32_t* pay_out;
+    int H, W, budget, N, T, tile, E, pass;
+};
+
+enum PassSource { SRC_ROWS = 0, SRC_PIXELS_VEC = 1, SRC_PIXELS = 2 };
+
+// The first pass's shared memory: wcnt[4][SORT_WARPS][R0] (uint16), dst[4][R0],
+// base[R0], then a warp's compacted first digits (int, 128) and each
+// offset's ranks (uint16, 4 x 128 a warp).
+constexpr size_t FIRST_SMEM = (size_t)4 * SORT_WARPS * R0 * 2 + (size_t)5 * R0 * 4
+                              + (size_t)SORT_WARPS * 128 * 4 + (size_t)4 * SORT_WARPS * 128 * 2;
+
+// The pay of pixel (x, y)'s pair at offset (dx, dy), the pixel black or not
+// (pair_of's).
+__device__ __forceinline__ int32_t pair_pay(int x, int y, int dx, int dy, bool black) {
+    const int sgn = black ? 1 : -1;
+    const int g = (dx * sgn + 1) | ((dy * sgn + 1) << 2);
+    return (2 * x + dx) | ((2 * y + dy) << 12) | (g << 24);
+}
+
+// The first radix pass, from the pixels: block (frame blockIdx.x, tile
+// blockIdx.y) takes the frame's PAIR_BLOCK pixels of that tile.
+// A kept pair of offset o and first digit d goes to the digit's first
+// position (a block scan of the frame's digit counts), plus the keys of
+// digit d at the offsets before o (odig), plus those of the tiles (o,
+// block') before its own, plus its rank in its tile (o, block): the order
+// of a stable pass over the padded layout, offset-major, then pixel. The
+// tiles before come from the histogram pass's counts: the sums of the
+// groups of FIRST_GROUP tiles before the tile's group, then its group's
+// tiles before it (a chain an offset and digit, one a thread; at most
+// ceil(blocks / FIRST_GROUP) + FIRST_GROUP - 1 loads, none waiting on
+// another block, so the pass needs no look-back and no block waits). Then
+// one walk: each warp builds its 128 pixels' pairs and, offset by offset,
+// compacts its kept pairs' digits in pixel order into shared memory (a
+// prefix of the lanes' counts by three ballots) and ranks them 32 at a time
+// (a __match_any_sync group of one digit reads the warp's count of it, its
+// lowest lane adds the group's size) into shared memory. The pairs' threads
+// keep only the keys (a pay is rebuilt from its pixel at the write, so the
+// block holds few registers and more blocks share an SM) and write key and
+// pay to the tile's place of the digit plus the warps before theirs plus
+// the rank. The block then zeroes pass 1's look-back words of the frame's
+// live sort tiles.
 template <bool VEC>
-__global__ void __launch_bounds__(PAIR_THREADS)
-cm_pair_write_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ dense,
-                     const int32_t* __restrict__ num_edge, const int32_t* __restrict__ counts,
-                     int32_t* __restrict__ kept, int32_t* __restrict__ key_out,
-                     int32_t* __restrict__ pay_out, int32_t* __restrict__ look, int H, int W,
-                     int budget, int E, int tshift, int T) {
-    __shared__ int buf[PAIR_WARPS];
-    __shared__ int red[8][PAIR_WARPS];
-    const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x, B = gridDim.y;
-    const int t = threadIdx.x;
-    const int lane = t & 31, w = t >> 5;
-    const int HW = H * W;
-    tri += (size_t)b * HW;
-    dense += (size_t)b * HW;
-    key_out += (size_t)b * 4 * HW;
-    pay_out += (size_t)b * 4 * HW;
-    const unsigned stride = edge_stride(num_edge[b], budget);
-    // Each offset's kept pairs in the frame and in the blocks before this
-    // one: the tile's first place is every earlier offset's pairs plus the
-    // earlier blocks' at its offset.
-    const int32_t* cs = counts + (size_t)b * 4 * nblk;
-    int row[4] = {0, 0, 0, 0}, ahead[4] = {0, 0, 0, 0};
-    for (int i = t; i < nblk; i += PAIR_THREADS) {
+__device__ __forceinline__ void first_pass(const PassArgs& a, unsigned char* smem) {
+    auto wcnt = reinterpret_cast<uint16_t (*)[SORT_WARPS][R0]>(smem);
+    auto dst = reinterpret_cast<int (*)[R0]>(smem + (size_t)4 * SORT_WARPS * R0 * 2);
+    int* sbase = reinterpret_cast<int*>(dst + 4);
+    int32_t* sdig = sbase + R0;                       // [SORT_WARPS][128]
+    auto srank = reinterpret_cast<uint16_t (*)[SORT_WARPS][128]>(sdig + SORT_WARPS * 128);
+    __shared__ int scan_buf[SORT_WARPS];
+    const int b = blockIdx.x, tile = blockIdx.y, nb = gridDim.y;
+    const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const unsigned lt = (1u << lane) - 1u;
+    const int H = a.H, W = a.W, HW = H * W;
+    const uint8_t* tri = a.tri + (size_t)b * HW;
+    // Thread t's chain: offset o_t, digit d_t. Its keys in the tiles before
+    // this one: the sums of the whole groups before its group, then the
+    // tiles of its group before it (loads that wait on nothing).
+    const int o_t = t / R0, d_t = t & (R0 - 1);
+    const int g = tile / FIRST_GROUP, ng = (nb + FIRST_GROUP - 1) / FIRST_GROUP;
+    const int32_t* gs = a.gsum + ((size_t)b * 4 + o_t) * ng * R0 + d_t;
+    const int32_t* tc = a.tcnt + ((size_t)b * 4 + o_t) * nb * R0 + d_t;
+    int before = 0, v[FIRST_GROUP];
+    for (int u0 = 0; u0 < g; u0 += FIRST_GROUP) {   // loads issued together
 #pragma unroll
-        for (int o = 0; o < 4; ++o) {
-            const int c = cs[o * nblk + i];
-            row[o] += c;
-            ahead[o] += i < blk ? c : 0;
-        }
+        for (int k = 0; k < FIRST_GROUP; ++k) v[k] = u0 + k < g ? gs[(size_t)(u0 + k) * R0] : 0;
+#pragma unroll
+        for (int k = 0; k < FIRST_GROUP; ++k) before += v[k];
     }
 #pragma unroll
+    for (int k = 0; k < FIRST_GROUP; ++k)
+        v[k] = g * FIRST_GROUP + k < tile ? tc[(size_t)(g * FIRST_GROUP + k) * R0] : 0;
+#pragma unroll
+    for (int k = 0; k < FIRST_GROUP; ++k) before += v[k];
+    int ahead = 0;                           // the digit's keys at the offsets before o_t
+    for (int o = 0; o < o_t; ++o) ahead += a.odig[((size_t)b * 4 + o) * R0 + d_t];
+    uint32_t* wz = reinterpret_cast<uint32_t*>(smem);
+    for (int i = t; i < 4 * SORT_WARPS * R0 / 2; i += SORT_THREADS) wz[i] = 0;
+    {   // the first digits' first positions (the scan's barriers publish wcnt's zeros)
+        int total;
+        const int base = block_scan<SORT_THREADS>(t < R0 ? a.digits[(size_t)b * RADIX + t] : 0,
+                                                  scan_buf, &total);
+        if (t < R0) sbase[t] = base;
+    }
+    // The walk: the warp's pairs, ranked by first digit in pixel order.
+    const int p0 = tile * PAIR_BLOCK + 4 * t;
+    const unsigned stride = edge_stride(a.num_edge[b], a.budget);
+    int32_t key[4][4];
+    unsigned m = 0, pre = 0;                 // bit 4 o + i: kept; byte o: the thread's first slot
+    {
+        Pair q[4][4];
+        quad_pairs<VEC>(tri, a.dense + (size_t)b * HW, H, W, HW, p0, q);
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                key[o][i] = q[o][i].key;
+                m |= (unsigned)kept_pair(q[o][i], stride) << (4 * o + i);
+            }
+    }
+    int32_t* sd = sdig + w * 128;
+#pragma unroll
     for (int o = 0; o < 4; ++o) {
-        const int r = __reduce_add_sync(FULL, row[o]), a = __reduce_add_sync(FULL, ahead[o]);
-        if (lane == 0) {
-            red[o][w] = r;
-            red[4 + o][w] = a;
+        const unsigned mo = (m >> (4 * o)) & 15u;
+        const unsigned has = __ballot_sync(FULL, mo != 0);
+        if (!has) continue;
+        const int c = __popc(mo);
+        const unsigned b0 = __ballot_sync(FULL, c & 1), b1 = __ballot_sync(FULL, c & 2),
+                       b2 = __ballot_sync(FULL, c & 4);
+        const int first = __popc(b0 & lt) + 2 * __popc(b1 & lt) + 4 * __popc(b2 & lt);
+        const int n_all = __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
+        pre |= (unsigned)first << (8 * o);
+        int at = first;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            if ((mo >> i) & 1u) sd[at++] = key[o][i] & (R0 - 1);
+        __syncwarp();
+        for (int j0 = 0; j0 < n_all; j0 += 32) {
+            const int j = j0 + lane;
+            const int d = j < n_all ? sd[j] : R0;
+            const unsigned grp = __match_any_sync(FULL, d);
+            const int cnt = d < R0 ? wcnt[o][w][d] : 0;
+            __syncwarp();
+            if (d < R0) {
+                srank[o][w][j] = (uint16_t)(cnt + __popc(grp & lt));
+                if (lane == __ffs(grp) - 1) wcnt[o][w][d] = (uint16_t)(cnt + __popc(grp));
+            }
+            __syncwarp();
         }
     }
     __syncthreads();
-    int at0[4], K = 0;                      // each offset's first place in the block's tile
+    // Each warp's first place among the tile's keys of a digit, and each
+    // digit's place in the tile's output.
+    {
+        int s = 0;
 #pragma unroll
-    for (int o = 0; o < 4; ++o) {
-        int r = 0, a = 0;
-#pragma unroll
-        for (int u = 0; u < PAIR_WARPS; ++u) {
-            r += red[o][u];
-            a += red[4 + o][u];
+        for (int u = 0; u < SORT_WARPS; ++u) {
+            const int c = wcnt[o_t][u][d_t];
+            wcnt[o_t][u][d_t] = (uint16_t)s;
+            s += c;
         }
-        at0[o] = K + a;
-        K += r;
+        dst[o_t][d_t] = sbase[d_t] + ahead + before;
     }
-    if (blk == 0 && t == 0) kept[b] = K;
-    Pair q[4][4];
-    quad_pairs<VEC>(tri, dense, H, W, HW, blk * PAIR_BLOCK + 4 * t, q);
-    unsigned m[4];                      // bit i: pixel i's pair at offset o is kept
-#pragma unroll
-    for (int o = 0; o < 4; ++o) {
-        m[o] = 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) m[o] |= (unsigned)kept_pair(q[o][i], stride) << i;
-    }
-    int all;
-    const int b01 = block_scan<PAIR_THREADS>(__popc(m[0]) | __popc(m[1]) << 16, buf, &all);
-    const int b23 = block_scan<PAIR_THREADS>(__popc(m[2]) | __popc(m[3]) << 16, buf, &all);
-    const int before[4] = {b01 & 0xFFFF, b01 >> 16, b23 & 0xFFFF, b23 >> 16};
-#pragma unroll
-    for (int o = 0; o < 4; ++o) {
-        int at = at0[o] + before[o];
+    __syncthreads();
+    if (m) {
+        int32_t* key_out = a.key_out + (size_t)b * a.N;
+        int32_t* pay_out = a.pay_out + (size_t)b * a.N;
+        unsigned black = 0;                  // bit i: pixel i is black
+        int x[4], y[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            if ((m[o] >> i) & 1u) {
-                key_out[at] = q[o][i].key;
-                pay_out[at] = q[o][i].pay;
-                ++at;
+            const int pi = min(p0 + i, HW - 1);
+            y[i] = pi / W;
+            x[i] = pi - y[i] * W;
+            black |= (unsigned)(tri[pi] == 0) << i;
+        }
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+            int at = (pre >> (8 * o)) & 255u;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if ((m >> (4 * o + i)) & 1u) {
+                    const int d = key[o][i] & (R0 - 1);
+                    const int to = dst[o][d] + wcnt[o][w][d] + srank[o][w][at++];
+                    key_out[to] = key[o][i];
+                    pay_out[to] = pair_pay(x[i], y[i], off_dx(o), off_dy(o), (black >> i) & 1u);
+                }
             }
         }
     }
-    for (int i = K + blk * PAIR_THREADS + t; i < E; i += nblk * PAIR_THREADS) key_out[i] = I32MAX;
-    const int live = ((K + (1 << tshift) - 1) >> tshift) * RADIX;
-    const size_t plane = (size_t)B * T * RADIX;
-    int32_t* lz = look + (size_t)b * T * RADIX;
-    for (int i = blk * PAIR_THREADS + t; i < live; i += nblk * PAIR_THREADS)
-#pragma unroll
-        for (int k = 0; k < SORT_PASSES; ++k) lz[k * plane + i] = 0;
+    const int live = (a.kept[b] + a.tile - 1) / a.tile * RADIX;
+    int32_t* lz = a.look + (size_t)b * a.T * RADIX;          // plane 0: pass 1's
+    for (int i = tile * SORT_THREADS + t; i < live; i += nb * SORT_THREADS) lz[i] = 0;
 }
 
-// One radix pass over the frame's kept pairs [0, K), a block a sort tile
-// of SORT_THREADS * KPT positions at a time, the tiles taken in order from
-// the frame's counter (so every tile before a block's is held by a block
-// that runs). A key's destination is its digit's first position (a block
-// scan of the pass's digit counts), plus the keys of its digit in the
-// tiles before its tile, plus those before it in its tile: the warps
-// before its warp, and its rank in its warp's run, counted chunk by chunk
-// in position order (a __match_any_sync group's lanes read the warp's
-// count of the digit, then its lowest lane adds the group's size). So the
-// pass is stable. The
-// tiles before come by decoupled look-back: a block publishes its tile's
-// count of each digit (LB_AGG) before it waits on any other tile; each
-// thread then reads its digit's words of the tiles before, LB_READS at
-// once from the nearest, adding counts back to the first LB_INCL word (a
-// word not yet published is read again), and publishes its inclusive
-// count. A tile of 4096 is laid out by digit in shared memory first, so its
-// stores go out as runs of consecutive places (a tile of 1024, at small
-// launches, goes out from registers: the staging costs more latency than
-// it saves there); as they go, the block counts the next pass's digits (a
-// segment of lanes with one next digit at a time) and adds its counts into
-// digits[pass + 1, b] when it has no more tiles.
+// A later pass's shared memory: wcnt[SORT_WARPS][RADIX], tstart[RADIX],
+// dstart[RADIX], then (a staged tile) the tile's keys and pays by digit.
 template <int KPT>
-__global__ void __launch_bounds__(SORT_THREADS)
-cm_radix_scatter_kernel(const int32_t* __restrict__ key_in, const int32_t* __restrict__ pay_in,
-                        const int32_t* __restrict__ kept, int32_t* __restrict__ digits,
-                        int32_t* __restrict__ look, int32_t* __restrict__ ctl,
-                        int32_t* __restrict__ key_out, int32_t* __restrict__ pay_out, int N,
-                        int T, int pass) {
+constexpr size_t rows_smem() {
+    return ((size_t)SORT_WARPS + 2) * RADIX * 4
+           + (KPT > 4 ? (size_t)2 * SORT_THREADS * KPT * 4 : 0);
+}
+
+// A later radix pass (pass >= 1) over the frame's kept pairs [0, K), a
+// block a sort tile of SORT_THREADS * KPT positions at a time, the tiles
+// taken in order from the frame's counter (so every tile before a block's
+// is held by a block that runs). A key's destination is its digit's first
+// position (a block scan of the pass's digit counts, from the histogram
+// pass), plus the keys of its digit in the tiles before its tile, plus
+// those before it in its tile: the warps before its warp, and its rank in
+// its warp's run, counted chunk by chunk in position order (a
+// __match_any_sync group's lanes read the warp's count of the digit, then
+// its lowest lane adds the group's size). So the pass is stable. The tiles
+// before come by decoupled look-back (look_back: the block publishes its
+// tile's counts first). A tile of 4096 is laid out by digit in shared
+// memory first, so its stores go out as runs of consecutive places (a tile
+// of 1024, at small launches, goes out from registers: the staging costs
+// more latency than it saves there). When it has no more tiles, the block
+// zeroes its share of the next pass's look-back words on the live tiles,
+// or, in the last pass, writes I32MAX into its share of [K, E).
+template <int KPT>
+__device__ __forceinline__ void rows_pass(const PassArgs& a, unsigned char* smem) {
+    constexpr int R = RADIX;
     constexpr int TILE = SORT_THREADS * KPT;
     constexpr bool STAGED = KPT > 4;         // large tiles go out through shared memory
-    __shared__ int wcnt[SORT_WARPS][RADIX];  // a digit's keys a warp, then those before it
-    __shared__ int tstart[RADIX];            // a digit's first place in the tile
-    __shared__ int dstart[RADIX];            // its keys' destination less their tile place
-    __shared__ int32_t skey[STAGED ? TILE : 1], spay[STAGED ? TILE : 1];   // the tile by digit
-    __shared__ int next_count[RADIX];        // the block's keys a next-pass digit
+    auto wcnt = reinterpret_cast<int (*)[R]>(smem);   // a digit's keys a warp, then those before it
+    int* tstart = reinterpret_cast<int*>(smem) + SORT_WARPS * R;   // a digit's first place in tile
+    int* dstart = tstart + R;                // its keys' destination less their tile place
+    int32_t* skey = dstart + R;              // the tile by digit (STAGED)
+    int32_t* spay = skey + TILE;
     __shared__ int scan_buf[SORT_WARPS];
     __shared__ int s_tile;
     const int b = blockIdx.y, B = gridDim.y, t = threadIdx.x, lane = t & 31, w = t >> 5;
-    const int K = kept[b], tiles = (K + TILE - 1) / TILE;
-    const int shift = RADIX_BITS * pass;
-    key_in += (size_t)b * N;
-    pay_in += (size_t)b * N;
-    key_out += (size_t)b * N;
-    pay_out += (size_t)b * N;
-    int32_t* lk = look + ((size_t)pass * B + b) * T * RADIX + t;   // tile q's word: lk[q RADIX]
-    int32_t* next_tile = ctl + b * CTL + pass;
+    const int pass = a.pass, N = a.N;
+    const int K = a.kept[b], tiles = (K + TILE - 1) / TILE;
+    const int shift = digit_shift(pass);
+    const int32_t* key_in = a.key_in + (size_t)b * N;
+    const int32_t* pay_in = a.pay_in + (size_t)b * N;
+    int32_t* key_out = a.key_out + (size_t)b * N;
+    int32_t* pay_out = a.pay_out + (size_t)b * N;
+    // a thread a digit: tile q's word of digit t at lw[q R]
+    int32_t* lw = a.look + ((size_t)(pass - 1) * B + b) * a.T * R + t;
+    int32_t* next_tile = a.ctl + b * SORT_PASSES + pass;
     const unsigned lt = (1u << lane) - 1u;
-    int total;                              // a thread a digit: its first position
-    const int dbase = block_scan<SORT_THREADS>(digits[((size_t)pass * B + b) * RADIX + t],
+    int total;                               // digit t's first position
+    const int dbase = block_scan<SORT_THREADS>(a.digits[((size_t)pass * B + b) * R + t],
                                                scan_buf, &total);
-    const bool more = pass + 1 < SORT_PASSES;
-    next_count[t] = 0;
     for (;;) {
         if (t == 0) s_tile = atomicAdd(next_tile, 1);
-        for (int i = t; i < SORT_WARPS * RADIX; i += SORT_THREADS) (&wcnt[0][0])[i] = 0;
+        for (int i = t; i < SORT_WARPS * R; i += SORT_THREADS) (&wcnt[0][0])[i] = 0;
         __syncthreads();
         const int tile = s_tile;
         if (tile >= tiles) break;
@@ -653,47 +840,28 @@ cm_radix_scatter_kernel(const int32_t* __restrict__ key_in, const int32_t* __res
         }
 #pragma unroll
         for (int i = 0; i < KPT; ++i) {
-            const int d = k[i] >= 0 ? (k[i] >> shift) & (RADIX - 1) : RADIX;
+            const int d = k[i] >= 0 ? (k[i] >> shift) & (R - 1) : R;
             const unsigned grp = __match_any_sync(FULL, d);
-            const int c = d < RADIX ? wcnt[w][d] : 0;
+            const int c = d < R ? wcnt[w][d] : 0;
             r[i] = c + __popc(grp & lt);
             __syncwarp();
-            if (d < RADIX && lane == __ffs(grp) - 1) wcnt[w][d] = c + __popc(grp);
+            if (d < R && lane == __ffs(grp) - 1) wcnt[w][d] = c + __popc(grp);
             __syncwarp();
         }
         __syncthreads();
-        int s = 0;
+        int own = 0;
         for (int u = 0; u < SORT_WARPS; ++u) {
             const int c = wcnt[u][t];
-            wcnt[u][t] = s;
-            s += c;
+            wcnt[u][t] = own;
+            own += c;
         }
-        int32_t* mine = lk + (size_t)tile * RADIX;
-        store_relaxed(mine, (tile == 0 ? LB_INCL : LB_AGG) | s);
+        int32_t* mine = lw + (size_t)tile * R;
+        store_relaxed(mine, (tile == 0 ? LB_INCL : LB_AGG) | own);
         int tile_keys;
-        const int first = block_scan<SORT_THREADS>(s, scan_buf, &tile_keys);
+        const int first = block_scan<SORT_THREADS>(own, scan_buf, &tile_keys);
         tstart[t] = first;
-        int before = 0;
-        for (int qt = tile - 1; qt >= 0;) {
-            int word[LB_READS];
-#pragma unroll
-            for (int u = 0; u < LB_READS; ++u)    // before the first tile: an inclusive 0
-                word[u] = qt - u >= 0 ? load_relaxed(lk + (size_t)(qt - u) * RADIX) : LB_INCL;
-            int u = 0;
-            bool done = false;
-#pragma unroll
-            for (; u < LB_READS; ++u) {
-                if (word[u] == 0) break;        // not published yet: read again from here
-                before += word[u] & LB_COUNT;
-                if (word[u] & LB_INCL) {
-                    done = true;
-                    break;
-                }
-            }
-            if (done) break;
-            qt -= u;
-        }
-        if (tile > 0) store_relaxed(mine, LB_INCL | (before + s));
+        const int before = look_back(lw, R, tile);
+        if (tile > 0) store_relaxed(mine, LB_INCL | (before + own));
         dstart[t] = dbase + before - first;
         __syncthreads();
         if constexpr (STAGED) {
@@ -702,45 +870,52 @@ cm_radix_scatter_kernel(const int32_t* __restrict__ key_in, const int32_t* __res
 #pragma unroll
             for (int i = 0; i < KPT; ++i) {
                 if (k[i] >= 0) {
-                    const int d = (k[i] >> shift) & (RADIX - 1);
+                    const int d = (k[i] >> shift) & (R - 1);
                     const int at = tstart[d] + wcnt[w][d] + r[i];
                     skey[at] = k[i];
                     spay[at] = v[i];
                 }
             }
             __syncthreads();
-            for (int j0 = 0; j0 < tile_keys; j0 += SORT_THREADS) {
-                const int j = j0 + t;
-                const int32_t key = j < tile_keys ? skey[j] : -1;
-                if (key >= 0) {
-                    const int at = dstart[(key >> shift) & (RADIX - 1)] + j;
-                    key_out[at] = key;
-                    pay_out[at] = spay[j];
-                }
-                // The next pass's digit counts, a segment of lanes with one
-                // next digit at a time (equal keys lie together here).
-                if (more)
-                    count_lane_runs(next_count, key >= 0 ? key >> (shift + RADIX_BITS) : -1, 1);
+            for (int j = t; j < tile_keys; j += SORT_THREADS) {
+                const int32_t key = skey[j];
+                const int at = dstart[(key >> shift) & (R - 1)] + j;
+                key_out[at] = key;
+                pay_out[at] = spay[j];
             }
         } else {
 #pragma unroll
             for (int i = 0; i < KPT; ++i) {
                 if (k[i] >= 0) {
-                    const int d = (k[i] >> shift) & (RADIX - 1);
+                    const int d = (k[i] >> shift) & (R - 1);
                     const int at = dstart[d] + tstart[d] + wcnt[w][d] + r[i];
                     key_out[at] = k[i];
                     pay_out[at] = v[i];
                 }
-                if (more)                  // a chunk's lanes hold consecutive keys
-                    count_lane_runs(next_count, k[i] >= 0 ? k[i] >> (shift + RADIX_BITS) : -1, 1);
             }
         }
         if (tiles <= (int)gridDim.x) break; // every tile went in the first round
         __syncthreads();                    // the shared arrays are written again
     }
-    __syncthreads();
-    if (more && next_count[t])
-        atomicAdd(digits + ((size_t)(pass + 1) * B + b) * RADIX + t, next_count[t]);
+    const int nb = gridDim.x, i0 = blockIdx.x * SORT_THREADS + t;
+    if (pass + 1 < SORT_PASSES) {
+        int32_t* lz = a.look + ((size_t)pass * B + b) * a.T * R;   // pass + 1's words
+        for (int i = i0; i < tiles * R; i += nb * SORT_THREADS) lz[i] = 0;
+    } else {
+        for (int i = K + i0; i < a.E; i += nb * SORT_THREADS) key_out[i] = I32MAX;
+    }
+}
+
+// Every radix pass is this kernel: SRC_ROWS a later pass (KPT keys a
+// thread), SRC_PIXELS_VEC or SRC_PIXELS the first (the pixel kernels' vector
+// or scalar loads; KPT 0).
+template <int SRC, int KPT>
+__global__ void __launch_bounds__(SORT_THREADS, SRC == SRC_ROWS ? 1 : 4)
+cm_radix_scatter_kernel(const PassArgs a) {
+    static_assert((SRC == SRC_ROWS) == (KPT > 0), "KPT keys a thread in a later pass only");
+    extern __shared__ __align__(16) unsigned char smem[];
+    if constexpr (SRC == SRC_ROWS) rows_pass<KPT>(a, smem);
+    else first_pass<SRC == SRC_PIXELS_VEC>(a, smem);
 }
 
 // One block a tile of SEG_TILE sorted keys [s, e), e = min(s + SEG_TILE, E),
@@ -1235,8 +1410,8 @@ extern "C" int apriltag_cm_count(const void* tri, const void* dense, void* num_e
     return (int)cudaGetLastError();
 }
 
-// The sort's tiles: 2^tshift positions, 1024 or 4096; T of them a frame's
-// row of 4 H W pair slots.
+// The later passes' sort tiles: 2^tshift positions, 1024 or 4096; T of
+// them a frame's row of 4 H W pair slots.
 static bool sort_shape_ok(long long N, int tshift, int T) {
     return (tshift == 10 || tshift == 12) && T == (int)((N + (1LL << tshift) - 1) >> tshift);
 }
@@ -1247,59 +1422,89 @@ static bool quads_vec(const void* tri, const void* dense, int W) {
     return W % 4 == 0 && (uintptr_t)tri % 4 == 0 && (uintptr_t)dense % 16 == 0;
 }
 
-// block: the pixels a compaction block, by which the caller sized the
-// tiles' counts; PAIR_BLOCK.
+// ctl (B, P), digits (P, B, RADIX), odig (B, 4, R0), gsum (B, 4, groups,
+// R0) and kept (B) are one buffer in that order, zeroed by one memset, P =
+// SORT_PASSES; tcnt is (B, 4, blocks, R0), written whole by the kernel;
+// blocks = ceil(H W / PAIR_BLOCK), groups = ceil(blocks / FIRST_GROUP).
 extern "C" int apriltag_cm_pair_count(const void* tri, const void* dense, const void* num_edge,
-                                      void* counts, void* digits, void* ctl, int B, int H,
-                                      int W, int budget, int block, void* stream) {
-    if (B < 1 || H < 1 || W < 1 || budget < 1 || block != PAIR_BLOCK)
+                                      void* ctl, void* digits, void* odig, void* gsum,
+                                      void* kept, void* tcnt, int B, int H, int W, int budget,
+                                      void* stream) {
+    if (B < 1 || H < 1 || W < 1 || budget < 1) return (int)cudaErrorInvalidValue;
+    constexpr size_t P = SORT_PASSES;
+    const size_t nblk = ((size_t)H * W + PAIR_BLOCK - 1) / PAIR_BLOCK;
+    const size_t ng = (nblk + FIRST_GROUP - 1) / FIRST_GROUP;
+    int32_t* z = (int32_t*)ctl;
+    if ((int32_t*)digits != z + (size_t)B * P
+        || (int32_t*)odig != (int32_t*)digits + P * B * RADIX
+        || (int32_t*)gsum != (int32_t*)odig + B * 4 * R0
+        || (int32_t*)kept != (int32_t*)gsum + B * 4 * ng * R0)
         return (int)cudaErrorInvalidValue;
-    // ctl and digits are one buffer, digits right after ctl: one memset.
-    if ((int32_t*)digits != (int32_t*)ctl + (size_t)B * CTL) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const cudaError_t e = cudaMemsetAsync(
-        ctl, 0, (size_t)B * (CTL + SORT_PASSES * RADIX) * sizeof(int32_t), st);
+        ctl, 0,
+        ((size_t)B * P + P * B * RADIX + B * 4 * R0 + B * 4 * ng * R0 + B) * sizeof(int32_t), st);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((H * W + PAIR_BLOCK - 1) / PAIR_BLOCK, B);
     auto kernel = quads_vec(tri, dense, W) ? cm_pair_count_kernel<true>
                                            : cm_pair_count_kernel<false>;
     kernel<<<grid, PAIR_THREADS, 0, st>>>((const uint8_t*)tri, (const int32_t*)dense,
-                                          (const int32_t*)num_edge, (int32_t*)counts,
-                                          (int32_t*)digits, H, W, budget);
+                                          (const int32_t*)num_edge, (int32_t*)digits,
+                                          (int32_t*)odig, (int32_t*)gsum, (int32_t*)kept,
+                                          (int32_t*)tcnt, H, W, budget);
     return (int)cudaGetLastError();
 }
 
-extern "C" int apriltag_cm_pair_write(const void* tri, const void* dense, const void* num_edge,
-                                      const void* counts, void* kept, void* key, void* pay,
-                                      void* look, int B, int H, int W, int budget, int E,
-                                      int block, int tshift, int T, void* stream) {
-    if (B < 1 || H < 1 || W < 1 || budget < 1 || E < 1 || E > 4LL * H * W
-        || block != PAIR_BLOCK || !sort_shape_ok(4LL * H * W, tshift, T))
+template <int SRC, int KPT>
+static int launch_pass(const PassArgs& a, dim3 grid, cudaStream_t st) {
+    auto kernel = cm_radix_scatter_kernel<SRC, KPT>;
+    const size_t smem = SRC == SRC_ROWS ? rows_smem<KPT>() : FIRST_SMEM;
+    if (smem > 48 * 1024) {                 // past 48 KB the kernel must opt in
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<grid, SORT_THREADS, smem, st>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// The first pass: a block a (frame, pixel block); T and kpt are the later
+// passes' tiles, whose pass-1 look-back words it zeroes.
+extern "C" int apriltag_cm_radix_first(const void* tri, const void* dense, const void* num_edge,
+                                       const void* kept, const void* digits, const void* odig,
+                                       const void* tcnt, const void* gsum, void* look,
+                                       void* key_out, void* pay_out, int B, int H, int W,
+                                       int budget, int T, int kpt, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || budget < 1 || (kpt != 4 && kpt != 16)
+        || !sort_shape_ok(4LL * H * W, kpt == 16 ? 12 : 10, T))
         return (int)cudaErrorInvalidValue;
-    const dim3 grid((H * W + PAIR_BLOCK - 1) / PAIR_BLOCK, B);
-    auto kernel = quads_vec(tri, dense, W) ? cm_pair_write_kernel<true>
-                                           : cm_pair_write_kernel<false>;
-    kernel<<<grid, PAIR_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)tri, (const int32_t*)dense, (const int32_t*)num_edge,
-        (const int32_t*)counts, (int32_t*)kept, (int32_t*)key, (int32_t*)pay, (int32_t*)look, H,
-        W, budget, E, tshift, T);
-    return (int)cudaGetLastError();
+    PassArgs a{(const uint8_t*)tri, (const int32_t*)dense, (const int32_t*)num_edge, nullptr,
+               nullptr, (const int32_t*)kept, (const int32_t*)digits, (const int32_t*)odig,
+               (const int32_t*)tcnt, (const int32_t*)gsum, (int32_t*)look, nullptr,
+               (int32_t*)key_out, (int32_t*)pay_out, H, W, budget, 4 * H * W, T,
+               SORT_THREADS * kpt, 0, 0};
+    const dim3 grid(B, (H * W + PAIR_BLOCK - 1) / PAIR_BLOCK);
+    return quads_vec(tri, dense, W)
+               ? launch_pass<SRC_PIXELS_VEC, 0>(a, grid, (cudaStream_t)stream)
+               : launch_pass<SRC_PIXELS, 0>(a, grid, (cudaStream_t)stream);
 }
 
+// A later pass (1 <= pass < SORT_PASSES) over rows of N slots; `blocks` a
+// frame.
 extern "C" int apriltag_cm_radix_scatter(const void* key_in, const void* pay_in, const void* kept,
-                                         void* digits, void* look, void* ctl, void* key_out,
-                                         void* pay_out, int B, int N, int T, int blocks, int pass,
-                                         int kpt, void* stream) {
-    if (B < 1 || N < 1 || blocks < 1 || pass < 0 || pass >= SORT_PASSES
+                                         const void* digits, void* look, void* ctl,
+                                         void* key_out, void* pay_out, int B, int N, int T,
+                                         int blocks, int pass, int kpt, int E, void* stream) {
+    if (B < 1 || N < 1 || blocks < 1 || pass < 1 || pass >= SORT_PASSES || E < 1 || E > N
         || (kpt != 4 && kpt != 16) || !sort_shape_ok(N, kpt == 16 ? 12 : 10, T))
         return (int)cudaErrorInvalidValue;
+    PassArgs a{nullptr, nullptr, nullptr, (const int32_t*)key_in, (const int32_t*)pay_in,
+               (const int32_t*)kept, (const int32_t*)digits, nullptr, nullptr, nullptr,
+               (int32_t*)look, (int32_t*)ctl, (int32_t*)key_out, (int32_t*)pay_out, 0, 0, 0, N,
+               T, SORT_THREADS * kpt, E, pass};
     const dim3 grid(blocks, B);
-    auto kernel = kpt == 16 ? cm_radix_scatter_kernel<16> : cm_radix_scatter_kernel<4>;
-    kernel<<<grid, SORT_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)key_in, (const int32_t*)pay_in, (const int32_t*)kept,
-        (int32_t*)digits, (int32_t*)look, (int32_t*)ctl, (int32_t*)key_out,
-        (int32_t*)pay_out, N, T, pass);
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    return kpt == 16 ? launch_pass<SRC_ROWS, 16>(a, grid, st) : launch_pass<SRC_ROWS, 4>(a, grid, st);
 }
 
 extern "C" int apriltag_cm_seg_tiles(const void* key_s, const void* num_edge, void* stats,

@@ -32,10 +32,13 @@ frame sees another's pairs.
 extract_cluster_moments is the plain twin of the CUDA path
 (ops/cuda/cluster_moments.py). The plain versions of that path's kernels
 are here too, on the formulation the kernels use: the kept pairs alone
-compacted in layout order and sorted by a stable LSD radix sort
-(pair_count_plain, pair_write_plain and radix_scatter_plain, composed by
-sort_pairs_plain, which equals the reference's stable sort of the padded
-row, edge_pairs_plain); after the sort each (black, white) segment is a
+sorted by a stable LSD radix sort, every pass's digit counts from one
+histogram pass (pair_count_plain), the first pass over the kept pairs in
+layout order (radix_first_plain: radix_scatter_plain over pair_write_plain,
+the plain statement of that order), then the later passes
+(radix_scatter_plain), composed by sort_pairs_plain, which equals the
+reference's stable sort of the padded row, edge_pairs_plain; after the sort
+each (black, white) segment is a
 contiguous range of the sorted keys, and each top-C cluster one such range,
 cut at E2 by the sizes of the slots before it (edge_count_plain,
 segment_tiles_plain and segment_top_plain (which together give
@@ -166,50 +169,58 @@ def edge_pairs_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch
     """(B, 4 H W) int32 keys, decimated by the stride that num_edge and the
     budget E give, and pays, in the padded layout the reference sorts
     (offset-major; _I32MAX where no pair is kept). The kernels sort only the
-    kept pairs (pair_count_plain, pair_write_plain, radix_scatter_plain);
+    kept pairs (pair_count_plain, radix_first_plain, radix_scatter_plain);
     sort_pairs_plain is held to torch.sort(stable=True) of this row."""
     key, pay, mask = _pairs(trinary, dense)
     return _gate(key, pay, mask, _edge_stride(num_edge, E)), pay
 
 
-# The kept pairs' compaction and stable LSD radix sort (csrc/cluster_moments.cu:
-# cm_pair_count_kernel, cm_pair_write_kernel, cm_radix_scatter_kernel).
-PAIR_BLOCK = 1024      # pixels a compaction block (a tile is one offset of them)
-RADIX_BITS = 8         # a radix pass's digit
+# The kept pairs' sort (csrc/cluster_moments.cu: cm_pair_count_kernel, the
+# histogram pass; cm_radix_scatter_kernel, the first pass from the pixels and
+# the later passes over the rows).
+PAIR_BLOCK = 1024      # pixels a block of the histogram and the first pass (a first-pass tile
+#                        is one offset of them)
+KEY_BITS = 30          # keys are two 15-bit dense ids: under 2^30
+RADIX_BITS = 8         # a later radix pass's digit
 RADIX = 1 << RADIX_BITS
-SORT_PASSES = 4        # keys are two 15-bit dense ids: under 2^30
+SORT_PASSES = 4        # the first pass's digit of the key's low 6 bits, then three of 8
+FIRST_BITS = KEY_BITS - (SORT_PASSES - 1) * RADIX_BITS
+FIRST_DIGITS = 1 << FIRST_BITS
 SORT_BIG = 1 << 22     # pair slots a launch (B 4 H W) from which a sort tile holds 4096
-CTL = SORT_PASSES      # tile counters a frame, one a radix pass
+FIRST_GROUP = 16       # first-pass tiles a group of the first pass's prefix sums
 
 
 def sort_tile(B: int, N: int) -> int:
-    """Positions a sort tile for B rows of N pair slots: 4096 from SORT_BIG
-    slots a launch, else 1024, so a 720p frame's few kept pairs still span
-    many blocks."""
+    """Positions a later pass's sort tile for B rows of N pair slots: 4096
+    from SORT_BIG slots a launch, else 1024, so a 720p frame's few kept pairs
+    still span many blocks."""
     return 4096 if B * N >= SORT_BIG else 1024
 
 
 class PairTiles(NamedTuple):
-    """The compaction's count pass: each (offset, pixel block) tile's kept
-    pairs, and the sort's digit counts and scratch."""
+    """The histogram pass: each frame's kept count and every pass's digit
+    counts, and the sort's scratch (the radix passes' look-back words and
+    tile counters, zero before the passes that use them)."""
 
-    counts: torch.Tensor   # (B, 4 nblk) int32 each tile's kept pairs, offset-major
-    kept: torch.Tensor     # (B,) int32 the frame's kept pairs K (the kernels: written by
-    #                        the write pass)
-    digits: torch.Tensor   # (SORT_PASSES, B, RADIX) int32 pass k's count of each digit k
-    #                        among the kept keys: plane 0 from this pass, plane k + 1
-    #                        filled by pass k (0 until then)
-    look: torch.Tensor     # (SORT_PASSES, B, T, RADIX) int32 the passes' look-back words
-    #                        (scratch), zeroed by the write pass on a frame's first
-    #                        ceil(K / tile) tiles
-    ctl: torch.Tensor      # (B, CTL) int32 the passes' tile counters (scratch), zero
+    kept: torch.Tensor           # (B,) int32 the frame's kept pairs K
+    digits: torch.Tensor         # (P, B, R) int32 pass k's count of each digit k among the kept
+    #                              keys (R = RADIX, P = SORT_PASSES; the first pass's R0 =
+    #                              FIRST_DIGITS digits in [0, R0), 0 past them)
+    offset_digits: torch.Tensor  # (B, 4, R0) int32 the first pass's digit counts by offset
+    tile_counts: torch.Tensor    # (B, 4, nblk, R0) int32 each first-pass tile's (offset, block of
+    #                              PAIR_BLOCK pixels) count of each first digit
+    group_sums: torch.Tensor     # (B, 4, ceil(nblk / FIRST_GROUP), R0) int32 their sums over
+    #                              groups of FIRST_GROUP tiles
+    look: torch.Tensor           # (P - 1, B, T, R) int32 the later passes' look-back words (plane
+    #                              k - 1 pass k's, zeroed on a frame's ceil(K / tile) live tiles
+    #                              by the pass before)
+    ctl: torch.Tensor            # (B, P) int32 the passes' tile counters, zero
 
 
 class SortRows(NamedTuple):
     """A frame's kept pairs in one pass's order, in rows of 4 H W slots."""
 
-    key: torch.Tensor    # (B, N) int32 [0, K) the keys; [K, E) _I32MAX in the row the write
-    #                      pass fills, which the passes that write that row keep (the
+    key: torch.Tensor    # (B, N) int32 [0, K) the keys; [K, E) _I32MAX after the last pass (the
     #                      kernels leave the rest undefined; _I32MAX here)
     pay: torch.Tensor    # (B, N) int32 [0, K) each key's pay (the rest undefined; 0 here)
 
@@ -220,18 +231,23 @@ def _kept_pairs(trinary, dense, num_edge, E):
 
 
 def _digit(key: torch.Tensor, k: int) -> torch.Tensor:
-    return (key.to(torch.int64) >> (RADIX_BITS * k)) & (RADIX - 1)
+    """Digit k of the keys: the first pass's their low FIRST_BITS bits, pass
+    k's the RADIX_BITS above the digits before it."""
+    key = key.to(torch.int64)
+    if k == 0:
+        return key & (FIRST_DIGITS - 1)
+    return (key >> (FIRST_BITS + (k - 1) * RADIX_BITS)) & (RADIX - 1)
 
 
 def _digit_counts(key: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
-    """(SORT_PASSES, B, RADIX) int32: each pass's count of each digit among
-    the live keys."""
-    B = key.shape[0]
+    """(P, ..., R) int32: each pass's count of each digit among the live
+    keys, over the last dim of (..., N) keys."""
+    R = RADIX
     out = []
     for k in range(SORT_PASSES):
-        at = torch.where(live, _digit(key, k), RADIX)
-        out.append(torch.zeros((B, RADIX + 1), dtype=torch.int64, device=key.device).scatter_add_(
-            1, at, torch.ones_like(at))[:, :RADIX])
+        at = torch.where(live, _digit(key, k), R)
+        zero = torch.zeros((*key.shape[:-1], R + 1), dtype=torch.int64, device=key.device)
+        out.append(zero.scatter_add_(-1, at, torch.ones_like(at))[..., :R])
     return torch.stack(out).to(torch.int32)
 
 
@@ -243,69 +259,61 @@ def digit_counts_plain(key: torch.Tensor, kept: torch.Tensor, k: int) -> torch.T
 
 
 def pair_count_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
-                     E: int, *, block: int | None = None, tile: int | None = None) -> PairTiles:
-    """The compaction count kernel's plain version: the kept pairs of each
-    (offset o, block of `block` pixels) tile, in o-major order, each frame's
-    kept count, and the first radix pass's digit counts of the kept keys
-    (the other passes' planes 0)."""
+                     E: int, *, tile: int | None = None) -> PairTiles:
+    """The histogram pass's plain version: each frame's kept count, every
+    pass's digit counts of the kept keys, the first pass's by offset, by
+    (offset, pixel block) tile and summed over groups of FIRST_GROUP tiles;
+    the scratch zero. `tile`: the later passes' sort tile (sort_tile)."""
     B, H, W = trinary.shape
     HW = H * W
-    block = block or PAIR_BLOCK
     tile = tile or sort_tile(B, 4 * HW)
     key, _, keep = _kept_pairs(trinary, dense, num_edge, E)
-    nblk = -(-HW // block)
-    cnt = torch.nn.functional.pad(keep.reshape(B, 4, HW).to(torch.int64),
-                                  (0, nblk * block - HW)).reshape(B, 4 * nblk, block).sum(-1)
-    T = -(-4 * HW // tile)
+    P, R, R0 = SORT_PASSES, RADIX, FIRST_DIGITS
     i32 = dict(dtype=torch.int32, device=trinary.device)
-    digits = torch.zeros((SORT_PASSES, B, RADIX), **i32)
-    digits[0] = _digit_counts(key, keep)[0]
-    return PairTiles(counts=cnt.to(torch.int32), kept=cnt.sum(-1).to(torch.int32), digits=digits,
-                     look=torch.zeros((SORT_PASSES, B, T, RADIX), **i32),
-                     ctl=torch.zeros((B, CTL), **i32))
+    nblk = -(-HW // PAIR_BLOCK)
+    pad = (0, nblk * PAIR_BLOCK - HW)
+    tiled = [torch.nn.functional.pad(x.reshape(B, 4, HW), pad).reshape(B, 4, nblk, PAIR_BLOCK)
+             for x in (key, keep)]
+    counts = _digit_counts(*tiled)[0][..., :R0]                    # (B, 4, nblk, R0)
+    ng = -(-nblk // FIRST_GROUP)
+    groups = torch.nn.functional.pad(counts, (0, 0, 0, ng * FIRST_GROUP - nblk)).reshape(
+        B, 4, ng, FIRST_GROUP, R0).sum(3, dtype=torch.int32)
+    return PairTiles(kept=keep.sum(-1).to(torch.int32), digits=_digit_counts(key, keep),
+                     offset_digits=counts.sum(2, dtype=torch.int32), tile_counts=counts,
+                     group_sums=groups,
+                     look=torch.zeros((P - 1, B, -(-4 * HW // tile), R), **i32),
+                     ctl=torch.zeros((B, P), **i32))
 
 
 def pair_write_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
-                     tiles: PairTiles, E: int, *, block: int | None = None) -> SortRows:
-    """The compaction write kernel's plain version: each tile's first
-    position from the tiles' counts (tiles.counts, scanned in o-major
-    order), and each kept pair's key and pay there plus the kept pairs
-    before it in the tile, so [0, K) holds the kept pairs in layout order
-    (offset-major, then pixel)."""
-    B, H, W = trinary.shape
-    HW, N = H * W, 4 * H * W
-    block = block or PAIR_BLOCK
+                     E: int) -> SortRows:
+    """The kept pairs in layout order (offset-major, then pixel) in [0, K)
+    of each frame's row, _I32MAX and 0 past K: the plain statement of the
+    order the first radix pass is stable over (no kernel computes it)."""
     key, pay, keep = _kept_pairs(trinary, dense, num_edge, E)
-    nblk = -(-HW // block)
-    tiled = torch.nn.functional.pad(keep.reshape(B, 4, HW).to(torch.int64),
-                                    (0, nblk * block - HW)).reshape(B, 4 * nblk, block)
-    cnt = tiles.counts.to(torch.int64)
-    at = (torch.cumsum(cnt, -1) - cnt)[..., None] + torch.cumsum(tiled, -1) - 1
-    at = at.reshape(B, 4, -1)[..., :HW].reshape(B, N)
-    at = torch.where(keep, at, N)
+    B, N = key.shape
+    at = torch.where(keep, torch.cumsum(keep.to(torch.int64), -1) - 1, N)
     key_c = torch.full((B, N + 1), _I32MAX, dtype=torch.int32,
                        device=key.device).scatter_(1, at, key)[:, :N]
     pay_c = torch.zeros((B, N + 1), dtype=torch.int32, device=key.device).scatter_(
         1, at, pay.to(torch.int32))[:, :N]
-    return SortRows(key=key_c, pay=pay_c)
+    return SortRows(key=key_c.contiguous(), pay=pay_c.contiguous())
 
 
-def radix_scatter_plain(rows: SortRows, tiles: PairTiles,
-                        k: int) -> tuple[SortRows, torch.Tensor | None]:
+def radix_scatter_plain(rows: SortRows, tiles: PairTiles, k: int) -> SortRows:
     """The radix scatter kernel's plain version, pass k: each key of [0, K)
     to its digit's first position (the keys of smaller digits, from
     tiles.digits[k]) plus the keys of its digit before it, so [0, K) is
-    stably sorted by the key's k-th digit. Returns (rows, the (B, RADIX)
-    counts of the next pass's digit, None after the last pass), as the
-    kernel fills tiles.digits[k + 1]."""
+    stably sorted by the key's k-th digit; _I32MAX and 0 past K."""
     B, N = rows.key.shape
+    R = RADIX
     kept = tiles.kept
     dev = kept.device
     live = torch.arange(N, device=dev) < kept[:, None]
-    d = torch.where(live, _digit(rows.key, k), RADIX)
+    d = torch.where(live, _digit(rows.key, k), R)
     order = torch.sort(d, dim=-1, stable=True).indices
     rank = torch.empty_like(order).scatter_(1, order, torch.arange(N, device=dev).expand(B, N))
-    h = torch.zeros((B, RADIX + 1), dtype=torch.int64, device=dev).scatter_add_(
+    h = torch.zeros((B, R + 1), dtype=torch.int64, device=dev).scatter_add_(
         1, d, torch.ones_like(d))
     first = torch.gather(torch.cumsum(h, -1) - h, 1, d)      # the digit's first, sorted
     counts = tiles.digits[k].to(torch.int64)
@@ -316,26 +324,27 @@ def radix_scatter_plain(rows: SortRows, tiles: PairTiles,
         1, at, rows.key)[:, :N]
     pay = torch.zeros((B, N + 1), dtype=torch.int32, device=dev).scatter_(
         1, at, rows.pay)[:, :N]
-    nxt = digit_counts_plain(key, kept, k + 1) if k + 1 < SORT_PASSES else None
-    return SortRows(key=key, pay=pay), nxt
+    return SortRows(key=key.contiguous(), pay=pay.contiguous())
+
+
+def radix_first_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+                      tiles: PairTiles, E: int) -> SortRows:
+    """The first radix pass's plain version: pass 0 over the kept pairs in
+    layout order, radix_scatter_plain(pair_write_plain(..), tiles, 0)."""
+    return radix_scatter_plain(pair_write_plain(trinary, dense, num_edge, E), tiles, 0)
 
 
 def sort_pairs_plain(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
-                     E: int, *, block: int | None = None,
-                     tile: int | None = None) -> tuple[SortRows, torch.Tensor]:
+                     E: int, *, tile: int | None = None) -> tuple[SortRows, torch.Tensor]:
     """The kept pairs sorted by key, ties in layout order, as the kernels
-    compose them: pair_count_plain, pair_write_plain, then SORT_PASSES
-    radix_scatter_plain passes, each pass's digit counts from the one
-    before. Returns (rows, (B,) kept counts): rows.key equals
-    torch.sort(edge_pairs_plain(..)[0], stable=True)'s values, and
-    rows.pay[:, :K] its permutation of the pays."""
-    tiles = pair_count_plain(trinary, dense, num_edge, E, block=block, tile=tile)
-    rows = pair_write_plain(trinary, dense, num_edge, tiles, E, block=block)
-    digits = tiles.digits.clone()
-    for k in range(SORT_PASSES):
-        rows, nxt = radix_scatter_plain(rows, tiles._replace(digits=digits), k)
-        if nxt is not None:
-            digits[k + 1] = nxt
+    compose them: pair_count_plain, radix_first_plain, then the later
+    radix_scatter_plain passes, SORT_PASSES in all. Returns (rows, (B,)
+    kept counts): rows.key equals torch.sort(edge_pairs_plain(..)[0],
+    stable=True)'s values, and rows.pay[:, :K] its permutation of the pays."""
+    tiles = pair_count_plain(trinary, dense, num_edge, E, tile=tile)
+    rows = radix_first_plain(trinary, dense, num_edge, tiles, E)
+    for k in range(1, SORT_PASSES):
+        rows = radix_scatter_plain(rows, tiles, k)
     return rows, tiles.kept
 
 

@@ -14,7 +14,6 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "col": (ccl, "col_diag_launches"),
                    "edge_count": (cluster_moments, "count_launches"),
                    "pair_count": (cluster_moments, "pair_count_launches"),
-                   "pair_write": (cluster_moments, "pair_write_launches"),
                    "radix_scatter": (cluster_moments, "scatter_launches"),
                    "segment_tiles": (cluster_moments, "seg_tiles_launches"),
                    "segment_top": (cluster_moments, "seg_top_launches"),

@@ -41,9 +41,9 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_ccl_row", 3, 3),
                  ("apriltag_ccl_col_diag", 3, 3),
                  ("apriltag_cm_count", 3, 3),
-                 ("apriltag_cm_pair_count", 6, 5),
-                 ("apriltag_cm_pair_write", 8, 8),
-                 ("apriltag_cm_radix_scatter", 8, 6),
+                 ("apriltag_cm_pair_count", 9, 4),
+                 ("apriltag_cm_radix_first", 11, 6),
+                 ("apriltag_cm_radix_scatter", 8, 7),
                  ("apriltag_cm_seg_tiles", 6, 7),
                  ("apriltag_cm_seg_top", 14, 8),
                  ("apriltag_cm_moments", 7, 4),

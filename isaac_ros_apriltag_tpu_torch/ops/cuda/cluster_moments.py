@@ -1,29 +1,30 @@
 """Wrappers of the cluster-moment kernels (csrc/cluster_moments.cu).
 
-``extract_cluster_moments`` is the CUDA path of the stage, ten launches in
+``extract_cluster_moments`` is the CUDA path of the stage, nine launches in
 this order: the pair-count kernel (``edge_count``: num_edge); the kept
-pairs' sort (``sort_pairs``): the compaction's count and write kernels
-(``pair_count``: each (offset, pixel block) tile's kept pairs and the
-first radix pass's digit counts; ``pair_write``: each tile's first
-position, the kept count K and the kept pairs' keys and pays in layout
-order) and SORT_PASSES stable radix passes (``radix_scatter``, one launch
-a digit, ping-pong between two row pairs); the two segment kernels
-(``segment_tiles``, many blocks a frame: segment sizes, the size gate,
-each tile's candidates and a size histogram; ``segment_top``, one block a
-frame: the segments that cross tiles, the top-C; together
+pairs' sort (``sort_pairs``): the histogram pass (``pair_count``: each
+frame's kept count K, every radix pass's digit counts, the first pass's by
+offset, and each first-pass tile's counts and their sums over groups of
+tiles) and SORT_PASSES stable radix passes, one launch a digit
+(``radix_first``: the first, which builds the pairs from the pixels, takes
+each tile's place from the histogram pass's tile counts and group sums,
+writes the pairs in its order and zeroes pass 1's look-back words;
+``radix_scatter``: the later ones, ping-pong between two row pairs, the
+last filling [K, E) with int32 max); the two
+segment kernels (``segment_tiles``, many blocks a frame: segment sizes, the
+size gate, each tile's candidates and a size histogram; ``segment_top``,
+one block a frame: the segments that cross tiles, the top-C; together
 ``top_segments``) and the moments kernel (one block a frame and slot:
-centroid, scale, dark side and the bin tables, from the pays the sort
-left beside the keys). No torch.sort runs. A CPU
-tensor runs the plain version (ops/cluster_moments.py::
-extract_cluster_moments); a CUDA tensor launches the kernels or raises.
-Each kernel's wrapper adds one to its own counter where it launches; on a
-CPU tensor it runs that kernel's plain version, also in
-ops/cluster_moments.py. Every launch goes on the current stream, with
-outputs, scratch and the sort's ping-pong rows allocated here by
-torch.empty (the sort's counters and digit counts zeroed by one memset) and
-no host sync, so the stage can be captured in a CUDA graph: the grids are
-sized for the padded rows and the frames' work follows their kept counts on
-the card.
+centroid, scale, dark side and the bin tables, from the pays the sort left
+beside the keys). No torch.sort runs. A CPU tensor runs the plain version
+(ops/cluster_moments.py::extract_cluster_moments); a CUDA tensor launches
+the kernels or raises. Each kernel's wrapper adds one to its own counter
+where it launches; on a CPU tensor it runs that kernel's plain version, also
+in ops/cluster_moments.py. Every launch goes on the current stream, with
+outputs, scratch and the sort's ping-pong rows allocated here by torch.empty
+(the sort's counters and digit counts zeroed by one memset) and no host
+sync, so the stage can be captured in a CUDA graph: the grids are sized for
+the padded rows and the frames' work follows their kept counts on the card.
 """
 
 from __future__ import annotations
@@ -32,15 +33,14 @@ import torch
 
 from .. import cluster_moments as plain
 from ..batch import batch_first, first_frame
-from ..cluster_moments import (CTL, NBINS, PAIR_BLOCK, RADIX, SEG_TILE, SORT_PASSES,
-                               ClusterMoments, PairTiles, SegmentTiles, SlotMoments, SortRows,
-                               TopSegments, sort_tile)
+from ..cluster_moments import (FIRST_DIGITS, FIRST_GROUP, NBINS, PAIR_BLOCK, RADIX, SEG_TILE,
+                               SORT_PASSES, ClusterMoments, PairTiles, SegmentTiles, SlotMoments,
+                               SortRows, TopSegments, sort_tile)
 from . import _lib
 
 count_launches = 0        # cm_edge_count_kernel launches made by edge_count
 pair_count_launches = 0   # cm_pair_count_kernel launches made by pair_count
-pair_write_launches = 0   # cm_pair_write_kernel launches made by pair_write
-scatter_launches = 0      # cm_radix_scatter_kernel launches made by radix_scatter
+scatter_launches = 0      # cm_radix_scatter_kernel launches made by radix_first and radix_scatter
 seg_tiles_launches = 0    # cm_seg_tiles_kernel launches made by segment_tiles
 seg_top_launches = 0      # cm_seg_top_kernel launches made by segment_top
 moments_launches = 0      # cm_moments_kernel launches made by slot_moments
@@ -98,31 +98,33 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
 
 def pair_count(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
                E: int) -> PairTiles:
-    """(B, H, W) uint8 trinary + int32 dense ids, (B,) num_edge -> each
-    (offset, pixel block) tile's kept pairs, the first radix pass's digit
-    counts, and the passes' counters; kept and the look-back words are left
-    to pair_write (ops/cluster_moments.py::PairTiles)."""
+    """(B, H, W) uint8 trinary + int32 dense ids, (B,) num_edge -> the
+    histogram pass (ops/cluster_moments.py::PairTiles): each frame's kept
+    count, every pass's digit counts, the first pass's by offset, by tile
+    and by group of tiles, and the sort's scratch (the counters and sums
+    zeroed by one memset)."""
     global pair_count_launches
     if trinary.device.type == "cpu":
         return plain.pair_count_plain(trinary, dense, num_edge, E)
     B, H, W = _check_front(trinary, dense)
     dev = trinary.device
     _check_num_edge(num_edge, B, dev, E)
-    N = 4 * H * W
-    tile = sort_tile(B, N)
-    T = -(-N // tile)
+    N, P, R, R0 = 4 * H * W, SORT_PASSES, RADIX, FIRST_DIGITS
+    T, nblk = -(-N // sort_tile(B, N)), -(-H * W // PAIR_BLOCK)
+    ng = -(-nblk // FIRST_GROUP)
     i32 = dict(dtype=torch.int32, device=dev)
-    zeroed = torch.empty(B * CTL + SORT_PASSES * B * RADIX, **i32)   # one memset: ctl, digits
-    out = PairTiles(counts=torch.empty((B, 4 * -(-H * W // PAIR_BLOCK)), **i32),
-                    kept=torch.empty(B, **i32),
-                    digits=zeroed[B * CTL:].view(SORT_PASSES, B, RADIX),
-                    look=torch.empty((SORT_PASSES, B, T, RADIX), **i32),
-                    ctl=zeroed[:B * CTL].view(B, CTL))
+    # One buffer, one memset: ctl, digits, offset digits, group sums, kept.
+    sizes = (B * P, P * B * R, B * 4 * R0, B * 4 * ng * R0, B)
+    ctl, digits, odig, groups, kept = torch.empty(sum(sizes), **i32).split(sizes)
+    out = PairTiles(kept=kept, digits=digits.view(P, B, R), offset_digits=odig.view(B, 4, R0),
+                    tile_counts=torch.empty((B, 4, nblk, R0), **i32),
+                    group_sums=groups.view(B, 4, ng, R0),
+                    look=torch.empty((P - 1, B, T, R), **i32), ctl=ctl.view(B, P))
     with torch.cuda.device(dev):
         status = _lib.library().apriltag_cm_pair_count(
-            trinary.data_ptr(), dense.data_ptr(), num_edge.data_ptr(), out.counts.data_ptr(),
-            out.digits.data_ptr(), out.ctl.data_ptr(), B, H, W, (9 * E) // 10, PAIR_BLOCK,
-            _stream())
+            trinary.data_ptr(), dense.data_ptr(), num_edge.data_ptr(), out.ctl.data_ptr(),
+            out.digits.data_ptr(), out.offset_digits.data_ptr(), out.group_sums.data_ptr(),
+            out.kept.data_ptr(), out.tile_counts.data_ptr(), B, H, W, (9 * E) // 10, _stream())
     _lib.check(status, "apriltag_cm_pair_count")
     pair_count_launches += 1
     return out
@@ -130,27 +132,31 @@ def pair_count(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tenso
 
 def _check_tiles(tiles: PairTiles, B: int, N: int, dev: torch.device,
                  hw: tuple[int, int] | None = None) -> None:
-    """Raise on a PairTiles the write (frames of shape hw) or scatter kernel
-    does not take."""
+    """Raise on a PairTiles the first pass (frames of shape hw) or a later
+    pass does not take."""
+    P, R, R0 = SORT_PASSES, RADIX, FIRST_DIGITS
     T = -(-N // sort_tile(B, N))
-    fields = [("kept", tiles.kept, (B,)), ("digits", tiles.digits, (SORT_PASSES, B, RADIX)),
-              ("look", tiles.look, (SORT_PASSES, B, T, RADIX)), ("ctl", tiles.ctl, (B, CTL))]
+    fields = [("kept", tiles.kept, (B,)), ("digits", tiles.digits, (P, B, R)),
+              ("offset_digits", tiles.offset_digits, (B, 4, R0)),
+              ("look", tiles.look, (P - 1, B, T, R)), ("ctl", tiles.ctl, (B, P))]
     if hw is not None:
-        fields.append(("counts", tiles.counts, (B, 4 * -(-N // 4 // PAIR_BLOCK))))
+        nblk = -(-hw[0] * hw[1] // PAIR_BLOCK)
+        fields += [("tile_counts", tiles.tile_counts, (B, 4, nblk, R0)),
+                   ("group_sums", tiles.group_sums, (B, 4, -(-nblk // FIRST_GROUP), R0))]
     for name, t, shape in fields:
         _check_tensor(name, t, shape, torch.int32, dev)
 
 
-def pair_write(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
-               tiles: PairTiles, E: int) -> SortRows:
-    """pair_count's tiles -> (B, 4 H W) rows holding each frame's kept
-    pairs' keys and pays in layout order in [0, K) (keys _I32MAX in [K, E);
-    the rest of the rows undefined) (ops/cluster_moments.py::SortRows), each
-    frame's K into tiles.kept, and the look-back words of the frame's first
-    ceil(K / tile) sort tiles zeroed, the ones the radix passes read."""
-    global pair_write_launches
+def radix_first(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+                tiles: PairTiles, E: int) -> SortRows:
+    """The first radix pass, from the pixels: (B, 4 H W) rows holding each
+    frame's kept pairs stably sorted by their first digit in [0, K) (the
+    rest undefined) (ops/cluster_moments.py::radix_first_plain), and pass
+    1's look-back words zeroed on the frame's live tiles. Runs once after
+    pair_count, whose tiles it reads."""
+    global scatter_launches
     if trinary.device.type == "cpu":
-        return plain.pair_write_plain(trinary, dense, num_edge, tiles, E)
+        return plain.radix_first_plain(trinary, dense, num_edge, tiles, E)
     B, H, W = _check_front(trinary, dense)
     dev = trinary.device
     _check_num_edge(num_edge, B, dev, E)
@@ -162,31 +168,31 @@ def pair_write(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tenso
     pay = torch.empty_like(key)
     tile = sort_tile(B, N)
     with torch.cuda.device(dev):
-        status = _lib.library().apriltag_cm_pair_write(
-            trinary.data_ptr(), dense.data_ptr(), num_edge.data_ptr(), tiles.counts.data_ptr(),
-            tiles.kept.data_ptr(), key.data_ptr(), pay.data_ptr(), tiles.look.data_ptr(), B, H,
-            W, (9 * E) // 10, E, PAIR_BLOCK, tile.bit_length() - 1, -(-N // tile), _stream())
-    _lib.check(status, "apriltag_cm_pair_write")
-    pair_write_launches += 1
+        status = _lib.library().apriltag_cm_radix_first(
+            trinary.data_ptr(), dense.data_ptr(), num_edge.data_ptr(), tiles.kept.data_ptr(),
+            tiles.digits.data_ptr(), tiles.offset_digits.data_ptr(), tiles.tile_counts.data_ptr(),
+            tiles.group_sums.data_ptr(), tiles.look.data_ptr(), key.data_ptr(), pay.data_ptr(), B,
+            H, W, (9 * E) // 10, -(-N // tile), tile // 256, _stream())
+    _lib.check(status, "apriltag_cm_radix_first")
+    scatter_launches += 1
     return SortRows(key=key, pay=pay)
 
 
 def radix_scatter(rows: SortRows, tiles: PairTiles, k: int, *, E: int,
                   out: tuple[torch.Tensor, torch.Tensor] | None = None) -> SortRows:
-    """Radix pass k (digit k of RADIX_BITS): rows' [0, K) stably sorted by
-    that digit into `out` (two (B, N) int32 rows, key and pay; allocated
-    here when None), and the next pass's digit counts into tiles.digits[k +
-    1]. Only [0, K) of the out rows is written. Each pass runs once after
-    pair_write, whose look-back words it uses with pair_count's counters.
-    The grid holds ceil(E / tile) blocks a frame (at most the row's tiles),
-    which take the frame's tiles in order, so a frame whose K passes E
-    takes more tiles a block."""
+    """A later radix pass k (1 <= k < SORT_PASSES):
+    rows' [0, K) stably sorted by that digit into `out` (two (B, N) int32
+    rows, key and pay; allocated here when None). Only [0, K) of the out
+    rows is written, and, in the last pass, I32MAX into [K, E); the pass
+    before the last zeroes the next one's look-back words. Each pass runs
+    once, in order, after radix_first. The grid holds ceil(E / tile) blocks
+    a frame (at most the row's tiles), which take the frame's tiles in
+    order, so a frame whose K passes E takes more tiles a block."""
     global scatter_launches
+    if not 1 <= k < SORT_PASSES:
+        raise ValueError(f"pass {k} out of [1, {SORT_PASSES}): pass 0 is radix_first")
     if rows.key.device.type == "cpu":
-        moved, nxt = plain.radix_scatter_plain(rows, tiles, k)
-        if nxt is not None:
-            tiles.digits[k + 1] = nxt
-        return moved
+        return plain.radix_scatter_plain(rows, tiles, k)
     dev = rows.key.device
     if rows.key.ndim != 2:
         raise ValueError("the rows must be (B, N) tensors")
@@ -194,8 +200,8 @@ def radix_scatter(rows: SortRows, tiles: PairTiles, k: int, *, E: int,
     if B > _lib.MAX_BATCH or N % 4:
         raise ValueError(f"rows of {B} frames of {N} slots: at most {_lib.MAX_BATCH} frames of "
                          "4 H W slots")
-    if not 0 <= k < SORT_PASSES:
-        raise ValueError(f"pass {k} out of [0, {SORT_PASSES})")
+    if not 1 <= E <= N:
+        raise ValueError(f"E={E} out of [1, {N}]")
     for name, t in (("key", rows.key), ("pay", rows.pay)):
         _check_tensor(name, t, (B, N), torch.int32, dev)
     _check_tiles(tiles, B, N, dev)
@@ -212,7 +218,7 @@ def radix_scatter(rows: SortRows, tiles: PairTiles, k: int, *, E: int,
             rows.key.data_ptr(), rows.pay.data_ptr(), tiles.kept.data_ptr(),
             tiles.digits.data_ptr(), tiles.look.data_ptr(), tiles.ctl.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), B, N, T, min(T, max(1, -(-E // tile))), k,
-            tile // 256, _stream())
+            tile // 256, E, _stream())
     _lib.check(status, "apriltag_cm_radix_scatter")
     scatter_launches += 1
     return SortRows(key=out[0], pay=out[1])
@@ -220,16 +226,17 @@ def radix_scatter(rows: SortRows, tiles: PairTiles, k: int, *, E: int,
 
 def sort_pairs(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
                E: int) -> tuple[SortRows, torch.Tensor]:
-    """The kept pairs sorted by key, ties in layout order: pair_count,
-    pair_write, then SORT_PASSES radix_scatter passes between the write's
-    rows and one other pair of rows, ending in the write's. Returns (rows,
-    (B,) kept counts K): keys bit-exact with torch.sort(stable=True) of
-    edge_pairs_plain's padded row on [0, max(K, E)) and pays on [0, K)
-    (sort_pairs_plain); nothing reads a row past those."""
+    """The kept pairs sorted by key, ties in layout order: pair_count, the
+    first pass radix_first, then the later radix_scatter passes between its
+    rows and one other pair of rows, SORT_PASSES passes in all.
+    Returns (rows, (B,) kept counts K): keys bit-exact with
+    torch.sort(stable=True) of edge_pairs_plain's padded row on [0, max(K,
+    E)) and pays on [0, K) (sort_pairs_plain); nothing reads a row past
+    those."""
     tiles = pair_count(trinary, dense, num_edge, E)
-    rows = pair_write(trinary, dense, num_edge, tiles, E)
+    rows = radix_first(trinary, dense, num_edge, tiles, E)
     spare = None
-    for k in range(SORT_PASSES):
+    for k in range(1, SORT_PASSES):
         moved = radix_scatter(rows, tiles, k, E=E, out=spare)
         spare, rows = (rows.key, rows.pay), moved
     return rows, tiles.kept

@@ -292,8 +292,8 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(frames, stages):
     tri, dense, ovf = frames["tri"], frames["dense"], frames["ovf"]
     st = stages["default"]
     kw = dict(max_edge_points=st["kw"]["E"], max_clusters=128, min_cluster_pixels=MIN_PIX)
-    counters = ("count_launches", "pair_count_launches", "pair_write_launches",
-                "scatter_launches", "seg_tiles_launches", "seg_top_launches", "moments_launches")
+    counters = ("count_launches", "pair_count_launches", "scatter_launches",
+                "seg_tiles_launches", "seg_top_launches", "moments_launches")
     counts = [getattr(K, c) for c in counters]
     got = K.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw)
     for f in got._fields:

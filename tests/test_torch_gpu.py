@@ -637,17 +637,19 @@ def test_cluster_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("name", list(SORT_ROWS))
 def test_radix_passes_on_synthetic_rows(cuda, name):
-    """chip_smoke.py phase 23's synthetic rows of kept pairs: the radix
-    passes against numpy's stable argsort and each against its plain
-    version, two calls and a captured replay equal."""
+    """chip_smoke.py phase 23's synthetic rows of kept pairs: the later
+    radix passes, from the plain first pass, against numpy's stable
+    argsort and each against its plain version, two
+    calls and a captured replay equal."""
     check_sort_row(name, cuda)
 
 
 @pytest.mark.parametrize("name", SORT_FRAMES)
 def test_sort_kernels_on_synthetic_frames(cuda, name):
-    """chip_smoke.py phase 23's synthetic frames: the compaction and the
-    radix passes, each kernel against its plain version, the rows against
-    torch.sort of the padded row, two calls and a captured replay equal."""
+    """chip_smoke.py phase 23's synthetic frames: the histogram pass and
+    the radix passes, each kernel against its plain
+    version, the rows against torch.sort of the padded row, two calls and a
+    captured replay equal."""
     check_sort_frame(name, cuda)
 
 
@@ -660,19 +662,21 @@ def test_sort_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="budget"):
         cluster_kernels.pair_count(tri, dense, ne, 1)
     tiles = cluster_kernels.pair_count(tri, dense, ne, 512)
-    with pytest.raises(ValueError, match="counts"):
-        cluster_kernels.pair_write(tri, dense, ne, tiles._replace(counts=tiles.counts[:1]), 512)
+    with pytest.raises(ValueError, match="tile_counts"):
+        cluster_kernels.radix_first(tri, dense, ne,
+                                    tiles._replace(tile_counts=tiles.tile_counts[:1]), 512)
     with pytest.raises(ValueError, match="E="):
-        cluster_kernels.pair_write(tri, dense, ne, tiles, 4 * 16 * 16 + 1)
-    rows = cluster_kernels.pair_write(tri, dense, ne, tiles, 512)
-    with pytest.raises(ValueError, match="pass"):
-        cluster_kernels.radix_scatter(rows, tiles, 4, E=512)
+        cluster_kernels.radix_first(tri, dense, ne, tiles, 4 * 16 * 16 + 1)
+    rows = cluster_kernels.radix_first(tri, dense, ne, tiles, 512)
+    for k in (0, 4):                               # pass 0 reads the pixels: radix_first
+        with pytest.raises(ValueError, match="pass"):
+            cluster_kernels.radix_scatter(rows, tiles, k, E=512)
     with pytest.raises(ValueError, match="reads"):
-        cluster_kernels.radix_scatter(rows, tiles, 0, E=512, out=(rows.key, rows.pay))
+        cluster_kernels.radix_scatter(rows, tiles, 1, E=512, out=(rows.key, rows.pay))
     with pytest.raises(ValueError, match="pay"):
-        cluster_kernels.radix_scatter(rows._replace(pay=rows.pay.to(torch.int64)), tiles, 0,
+        cluster_kernels.radix_scatter(rows._replace(pay=rows.pay.to(torch.int64)), tiles, 1,
                                       E=512)
-    rows = cluster_kernels.radix_scatter(rows, tiles, 0, E=512)
+    rows = cluster_kernels.radix_scatter(rows, tiles, 1, E=512)
     assert int(tiles.kept.sum()) == 0
     top = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="pay_s"):

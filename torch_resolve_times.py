@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Device time of the resolve stage's kernels of one checkout, to compare
-two trees on one card in one call.
+"""Device time of one stage's kernels of one checkout, to compare two
+trees on one card in one call.
 
-    python3 torch_resolve_times.py [--root DIR]
+    python3 torch_resolve_times.py [--root DIR] [--stage resolve|sort]
 
 Builds the kernels of the package under DIR (default: this checkout) and
 prints one JSON line: the card's nvidia-smi name and power limit, DIR, and
 for each of chip_smoke.py's CAPTURE_CASES (torch_bench.py's 720p b1 and
-bench b8 inputs) and each resolve call of a detect call (the contraction on
-the phase-1 labels, the rank-mode final resolve on the phase-2 labels):
-READINGS readings of the call's device ms (chip_smoke.py's _device_ms) and
-of each device op's ms a call by name (torch.profiler over ITERS calls:
-kernels and memsets). Compare a parent and a change in turns: parent,
-change, change, parent. Without a CUDA device it exits 1 and prints
-nothing.
+bench b8 inputs) and each call of the stage: READINGS readings of the
+call's device ms (chip_smoke.py's _device_ms) and of each device op's ms a
+call by name (torch.profiler over ITERS calls: kernels and memsets). The
+resolve stage's calls (the default) are those of a detect call: the
+contraction on the phase-1 labels and the rank-mode final resolve on the
+phase-2 labels. The sort's call is the cluster stage's sort of the kept
+pairs (sort_pairs, its memset included), given with the kept pairs. Compare
+a parent and a change in turns: parent, change, change, parent. Without a
+CUDA device it exits 1 and prints nothing.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    parser.add_argument("--stage", choices=("resolve", "sort"), default="resolve")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_resolve_times: no CUDA device; nothing was run", file=sys.stderr)
@@ -59,26 +62,35 @@ def main() -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from isaac_ros_apriltag_tpu_torch.ops.cuda import _lib
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
 
     # Imported after the package under --root, which chip_smoke's own path
     # entry must not shadow.
-    from chip_smoke import (CAPTURE_CASES, _device_ms, _gpu_info, bench_inputs, front_trinary,
-                            labels_of)
+    from chip_smoke import (CAPTURE_CASES, _device_ms, _gpu_info, bench_inputs, cluster_inputs,
+                            front_trinary, labels_of)
 
     _lib.library()
     dev = torch.device("cuda")
-    out = {"gpu": _gpu_info(), "root": root}
+    out = {"gpu": _gpu_info(), "root": root, "stage": args.stage}
     for config, batch in CAPTURE_CASES:
         cfg, _, inputs = bench_inputs(config, batch, dev, calls=1)
-        valid, lab1, lab2, table, R, _ = labels_of(cfg, front_trinary(cfg, inputs[0]))
-        calls = {"contraction": lambda: rk.resolve_roots_rank(
-                     lab1, valid, max_components=R, chain_steps=cfg.ccl_contraction_steps),
-                 "final": lambda: rk.resolve_components(
-                     lab2, valid, min_component_pixels=cfg.min_component_pixels,
-                     max_components=R, chain_steps=cfg.ccl_resolve_steps, rank_table=table)}
+        if args.stage == "sort":
+            tri, dense, _, kw = cluster_inputs(cfg, inputs[0])
+            E = min(kw["max_edge_points"], 4 * tri.shape[1] * tri.shape[2])
+            ne = cmk.edge_count(tri, dense)
+            size = {"kept": int(cmk.sort_pairs(tri, dense, ne, E)[1].sum())}
+            calls = {"sort": lambda: cmk.sort_pairs(tri, dense, ne, E)}
+        else:
+            valid, lab1, lab2, table, R, _ = labels_of(cfg, front_trinary(cfg, inputs[0]))
+            size = {"R": R}
+            calls = {"contraction": lambda: rk.resolve_roots_rank(
+                         lab1, valid, max_components=R, chain_steps=cfg.ccl_contraction_steps),
+                     "final": lambda: rk.resolve_components(
+                         lab2, valid, min_component_pixels=cfg.min_component_pixels,
+                         max_components=R, chain_steps=cfg.ccl_resolve_steps, rank_table=table)}
         out[f"{config} b{batch}"] = {
-            call: {"R": R, "call_ms": [_device_ms(fn, ITERS) for _ in range(READINGS)],
+            call: {**size, "call_ms": [_device_ms(fn, ITERS) for _ in range(READINGS)],
                    "ops_ms": [op_ms(fn, ITERS) for _ in range(READINGS)]}
             for call, fn in calls.items()}
     print(json.dumps(out))
