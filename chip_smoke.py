@@ -419,6 +419,19 @@ SORT_FRAMES = ("an empty frame beside a checkerboard (stride 3)",
                "rows of 94 pixels (the pixel kernels' scalar path)",
                "one key over 48 pixel blocks: diagonal stripes")
 # Once a resolve call (twice a two-phase call).
+# Phase 23's synthetic frames for the pair count alone (see count_frames):
+# each runs through the vector path (W % 4 == 0, aligned) and, from a view
+# one element into a larger buffer, the scalar path.
+COUNT_FRAMES = ("speckle, W 4", "speckle, W 158", "one row", "one column", "all ids KMAX",
+                "pairs on every frame edge, W 16", "pairs on every frame edge, W 18",
+                "speckle, batch 8, W 960")
+# Phase 23's synthetic rows for the moments kernel alone (see moment_rows):
+# slots past 8 warps of 64 pairs, of one bin, of two alternating bins, of
+# one pair and empty; the same out of size order; a cut at E2 in a slot's
+# middle; a batch of 8 frames of ring slots.
+MOMENT_ROWS = ("past 8 warps, one bin, two bins, one pair, empty",
+               "the same slots out of size order", "a slot cut at E2 in its middle",
+               "a batch of 8 frames of ring slots")
 RESOLVE_KERNELS = ("resolve_count", "resolve_tiles", "resolve_scan", "resolve_chain",
                    "resolve_map")
 # The reference's XLA code each resolve kernel replaces (it has no Pallas
@@ -698,6 +711,87 @@ def sort_frames(seed: int = 0) -> dict:
               np.ascontiguousarray(cells[None, :, :94]), (3 * H * 94) // 4),
              (stripes[None], (stripes // 255).astype(np.int32)[None], (3 * 192 * 256) // 4))
     return dict(zip(SORT_FRAMES, cases, strict=True))
+
+
+def _random_front(shape, seed: int, p_kmax: float = 0.2):
+    """A speckle trinary and ids in [0, 40), a share p_kmax of them KMAX."""
+    rng = np.random.default_rng(seed)
+    tri = rng.choice(np.array([0, 127, 255], np.uint8), size=shape, p=[0.4, 0.2, 0.4])
+    dense = rng.integers(0, 40, size=shape).astype(np.int32)
+    dense[rng.random(shape) < p_kmax] = (1 << 15) - 1
+    return tri, dense
+
+
+def _edge_checkerboard(H: int, W: int):
+    """Black and white 1-pixel checks, each pixel its own id: every pixel
+    pairs with its right and down neighbours, the frame's last row and
+    column too."""
+    yy, xx = np.mgrid[:H, :W]
+    tri = np.where((yy + xx) % 2 == 0, 0, 255).astype(np.uint8)[None]
+    return tri, (yy * W + xx).astype(np.int32)[None]
+
+
+def count_frames(seed: int = 0) -> dict:
+    """COUNT_FRAMES as numpy inputs: name -> ((B, H, W) uint8 trinary, int32
+    dense ids)."""
+    tri, dense = _random_front((2, 48, 160), seed)
+    return dict(zip(COUNT_FRAMES, (
+        _random_front((3, 9, 4), seed + 1), (tri[..., :158].copy(), dense[..., :158].copy()),
+        _random_front((2, 1, 64), seed + 2), _random_front((2, 64, 1), seed + 3),
+        (tri, np.full_like(dense, (1 << 15) - 1)), _edge_checkerboard(12, 16),
+        _edge_checkerboard(12, 18), _random_front((8, 36, 960), seed + 4)), strict=True))
+
+
+def _ring_pays(n: int, cx: float, cy: float, radius: float, seed: int) -> np.ndarray:
+    """n pays on a noisy ring about (cx, cy) (pixels), in raster order."""
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0, 2 * np.pi, n)
+    X = np.clip(np.round(2 * cx + 2 * radius * np.cos(th)), 0, 4095).astype(np.int64)
+    Y = np.clip(np.round(2 * cy + 2 * radius * np.sin(th)), 0, 4095).astype(np.int64)
+    order = np.lexsort((X, Y))
+    g = rng.integers(0, 16, n)
+    return (X[order] | (Y[order] << 12) | (g << 24)).astype(np.int32)
+
+
+def _slot_row(slots, C: int):
+    """Slots' pays laid end to end: ((1, N) pays, (1, C) top_pos, (1, C) count)."""
+    row = np.concatenate(slots)
+    top, cnt = np.zeros((1, C), np.int32), np.zeros((1, C), np.int32)
+    top[0, :len(slots)] = np.cumsum([0] + [len(s) for s in slots[:-1]])
+    cnt[0, :len(slots)] = [len(s) for s in slots]
+    return row[None], top, cnt
+
+
+def moment_rows(seed: int = 0) -> dict:
+    """MOMENT_ROWS as numpy inputs: name -> ((B, N) int32 pays in sorted
+    order, (B, C) int32 top_pos, (B, C) int32 count, E2). One bin: 700 pairs
+    at one position (each at the centroid, bin 0); two bins: 600 pairs at
+    two positions in turn (bins 0 and 32), as a boundary's two sides come
+    in raster order; past 8 warps: a 2600-pair ring (8 warps of 325)."""
+    def at(x: int, y: int, g: int) -> int:
+        return (2 * x) | ((2 * y) << 12) | (g << 24)
+
+    slots = [_ring_pays(2600, 300.0, 200.0, 90.0, seed + 1),
+             np.full(700, at(50, 60, 5), np.int32),
+             np.tile(np.array([at(40, 80, 1), at(90, 80, 9)], np.int32), 300),
+             np.array([at(7, 9, 6)], np.int32), _ring_pays(40, 20.0, 30.0, 5.0, seed + 2)]
+    row, top, cnt = _slot_row(slots, 8)
+    perm = np.array([3, 0, 4, 1, 2, 5, 6, 7])
+    rng = np.random.default_rng(seed + 3)
+    frames = []
+    for b in range(8):
+        sizes = np.sort(rng.integers(1, 1200, 16))[::-1]
+        sizes[0] += 1500 * (b % 2)
+        frames.append(_slot_row([_ring_pays(int(n), 100.0 + 10 * b, 80.0 + i, 12.0 + n / 40,
+                                            seed + 10 * b + i) for i, n in enumerate(sizes)],
+                                16))
+    N = max(f[0].shape[1] for f in frames)
+    pays = np.stack([np.pad(f[0][0], (0, N - f[0].shape[1])) for f in frames])
+    batch = (pays, np.concatenate([f[1] for f in frames]),
+             np.concatenate([f[2] for f in frames]), 16 * 1024)
+    return dict(zip(MOMENT_ROWS, (
+        (row, top, cnt, row.shape[1]), (row, top[:, perm], cnt[:, perm], row.shape[1]),
+        (row, top, cnt, int(cnt[0, :2].sum() + cnt[0, 2] // 2)), batch), strict=True))
 
 
 def _inverted_parents(G: int, a: int, **over) -> np.ndarray:
@@ -1847,6 +1941,79 @@ def cluster_cases(dev) -> dict:
         (dataclasses.replace(cfg8, quad_decimate=1), in8[0][:1]))))
 
 
+def _misaligned(x):
+    """A contiguous copy of x one element into a larger buffer: its rows
+    are not 16-byte aligned, so the pixel kernels take their scalar path."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def check_count_frame(name: str, dev) -> int:
+    """One of COUNT_FRAMES on the card: the pair count (one launch) against
+    edge_count_plain, bit-exact, on the frames as given and on a misaligned
+    copy (the scalar path), two calls and a captured replay equal. Raises on
+    a difference; returns the pairs counted."""
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+    import torch
+
+    tri, dense = (torch.from_numpy(a).to(dev) for a in count_frames()[name])
+    want = plain.edge_count_plain(tri, dense)
+    for path, (t, d) in (("as given", (tri, dense)),
+                         ("misaligned", (_misaligned(tri), _misaligned(dense)))):
+        one = {k: int(k == "edge_count") for k in _want()}
+        _reset_launches()
+        got = cmk.edge_count(t, d)
+        counts = _launches()
+        if counts != one:
+            raise AssertionError(f"count frames, {name}, {path}: launches {counts} != {one}")
+        if not _same(got, want):
+            raise AssertionError(f"count frames, {name}, {path}: {got.tolist()} != "
+                                 f"edge_count_plain's {want.tolist()}")
+        if not _same(cmk.edge_count(t, d), got):
+            raise AssertionError(f"count frames, {name}, {path}: two calls differ")
+        _replay_equals(lambda: cmk.edge_count(t, d), got, f"count frames, {name}, {path}")
+    return int(want.sum())
+
+
+def check_moment_row(name: str, dev) -> tuple[int, int]:
+    """One of MOMENT_ROWS on the card: the moments kernel (one launch)
+    against slot_moments_plain (centroid, scale, dark side and the weight
+    column bit-exact, the other columns within one f32 ulp), two calls and a
+    captured replay equal. Raises on a difference; returns (table cells
+    apart, cells)."""
+    from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+    import torch
+
+    pay, top, cnt, E2 = moment_rows()[name]
+    pay, top, cnt = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pay, top, cnt))
+
+    def call():
+        return tuple(cmk.slot_moments(pay, top, cnt, E2))
+
+    one = {k: int(k == "moments") for k in _want()}
+    _reset_launches()
+    got = call()
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"moment rows, {name}: launches {counts} != {one}")
+    want = plain.slot_moments_plain(pay, top, cnt, E2)
+    for f, a, b in zip(want._fields, got, want):
+        exact = f != "table"
+        if not (_same(a, b) if exact else _same(a[..., 0], b[..., 0]) and _within_one_ulp(a, b)):
+            raise AssertionError(f"moment rows, {name}: {f} differs from slot_moments_plain "
+                                 f"(max abs err {_max_abs_err(a, b)})")
+    if not all(_same(a, b) for a, b in zip(call(), got)):
+        raise AssertionError(f"moment rows, {name}: two calls differ")
+    _replay_equals(call, got, f"moment rows, {name}")
+    return int((got[0] != want.table).sum()), got[0].numel()
+
+
 def _live_look(plane, kept, tile: int):
     """A later pass's (B, T, R) look-back words on each frame's first
     ceil(K / tile) sort tiles (the ones the pass before zeroes), 0 past them
@@ -2385,6 +2552,8 @@ def cluster_phase(gpu: str) -> dict:
         raise AssertionError(f"{SORT_FRAMES[3]}: the frame must keep more pairs than E")
     if not any(k > n for f in frames.values() for k, n in zip(f["kept_cut"], f["num_edge_cut"])):
         raise AssertionError("no synthetic frame keeps more pairs than its cut num_edge")
+    counted = {name: check_count_frame(name, dev) for name in COUNT_FRAMES}
+    apart = {name: check_moment_row(name, dev) for name in MOMENT_ROWS}
     child = subprocess.run([sys.executable, os.path.abspath(__file__), "--cluster-profile"],
                            cwd=ROOT, capture_output=True, text=True, timeout=600)
     if child.returncode != 0:
@@ -2406,7 +2575,12 @@ def cluster_phase(gpu: str) -> dict:
           f"stable argsort and each pass to its plain version, a launch a pass, two calls and a "
           f"captured replay equal; the whole sort on the synthetic frames (kept pairs, "
           f"num_edge, E) {frames}: each kernel equal to its plain version "
-          f"and the rows to torch.sort of the padded row; torch.profiler in a child process "
+          f"and the rows to torch.sort of the padded row; the pair count on the synthetic "
+          f"frames (pairs; vector and scalar paths, one launch, bit-exact with "
+          f"edge_count_plain, two calls and a captured replay equal) {counted}; the moments "
+          f"kernel on the synthetic slot rows (table cells one ulp apart, of; the rest "
+          f"bit-exact, one launch, two calls and a captured replay equal) {apart}; "
+          f"torch.profiler in a child process "
           f"(kernels seen, cluster kernels, library sorts): {profiled}; on {gpu}: the sort "
           f"(pair_count, then the passes, with the memset; torch.sort of the padded row, the "
           f"yardstick bound by bytes, kept pairs, ms, share of the yardstick, the design's own "
@@ -2419,9 +2593,11 @@ def cluster_phase(gpu: str) -> dict:
                       for t in ("b1", f"batch{BATCH}") for p in ("first", "later"))
           + f"; the two segment kernels summed {seg_ms} ms; "
           f"device ms a call of the stage (kernel path, the plain version's one-hot GEMM "
-          f"formulation) {stage_ms}; a kernel a call (kernel / plain / bound / library ms) "
+          f"formulation) {stage_ms}; a kernel a call (kernel / plain / bound / library ms, "
+          f"share of the bound) "
           + ", ".join(f"{k} {t} {v[t]['shape']}: {v[t]['ms']:.4f} / {v[t]['plain_ms']:.4f} / "
-                      f"{v[t]['bound_ms']:.4f} / {v[t]['library_ms']}" for k, v in out.items()
+                      f"{v[t]['bound_ms']:.4f} / {v[t]['library_ms']}, "
+                      f"{v[t]['bound_ms'] / v[t]['ms']:.1%}" for k, v in out.items()
                       for t in ("b1", f"batch{BATCH}")), flush=True)
     return out
 

@@ -21,9 +21,15 @@
 // ascending, ties in the padded layout's order (offset o major, then pixel
 // p).
 //
-//   cm_edge_count_kernel  the pairs of a frame (4 offsets a pixel, mask
-//       only): num_edge, by block sums and one integer atomic a block
-//       (exact in any order);
+//   cm_edge_count_kernel<VEC>  the pairs of a frame (4 offsets a pixel,
+//       mask only): num_edge. 4 pixels a thread through the histogram
+//       pass's loader (load_quad: where W % 4 == 0, the pixels' row and
+//       the row below as vector loads); a pair is a byte compare
+//       (quad_pair_bits) and its two ids' != KMAX a bit mask of the 5 ids
+//       of the row and the 6 below, counted by __popc, no pair built (else
+//       each pixel reads its own neighbours). A fixed grid of one wave
+//       strides over each frame's 1024-pixel blocks; one integer atomic a
+//       block (exact in any order);
 //   cm_pair_count_kernel  the sort's one histogram pass: a block 1024
 //       pixels of a frame (4 a thread, their pairs found by byte compares
 //       and built only where they exist), each kept key counted into every
@@ -74,19 +80,28 @@
 //       from the tiles that hold a size >= T, ties at T to the lower
 //       position (the plain version's stable sort), then ranked by (size
 //       descending, position);
-//   cm_moments_kernel  one block a (frame, slot): the slot's resident pairs
-//       are sorted positions [top_pos, top_pos + n), n = its size cut at E2
+//   cm_moments_kernel  the slots' moments: a slot's resident pairs are
+//       sorted positions [top_pos, top_pos + n), n = its size cut at E2
 //       less the sizes of the slots before it (the plain version's second
 //       sort and cut at E2; the count stays the uncut size), their pays
-//       read where the sort left them. Pass 1 sums the
-//       seven centroid terms in f64, exact whatever the order (each term is
-//       a multiple of 1/4 under 2^24, a slot has at most 2^14 pairs). Pass 2
-//       bins each pair about the centroid and adds its six f32 terms into
-//       per-warp f64 tables in a fixed order: the lanes of one bin are
-//       grouped by __match_any_sync and added by the group's lowest lane in
-//       lane order; then the warps' tables are summed in warp order. No
-//       float atomics: a call gives the same bits every time, so a captured
-//       replay equals the eager call.
+//       read where the sort left them. A slot takes w = ceil(n / per)
+//       rounded up to a power of two warps (at most 8), each an equal range
+//       of its pairs (per 64 at one or two frames a launch, else 128); a
+//       frame's slots take consecutive warps of 8-warp blocks in slot
+//       order, so a slot lies in one block (the top-C ranks slots by size,
+//       so w never grows from slot to slot; where it does, slot j takes
+//       block j alone). Pass 1 sums the seven centroid terms as integers
+//       (2 x, 2 y, 4 (x^2 + y^2) as rounded in f32, ...): the plain
+//       version's f64 sums, which are exact whatever the order; each warp
+//       of a slot finds the centroid from them. Pass 2 takes a warp's
+//       pairs 32 at a time, a pair a lane: each lane bins its pair about
+//       the centroid, the lanes are ranked by bin (ballots) and stage
+//       their five f32 terms in that order, a segmented tree of f64
+//       shuffles sums each bin's segment, and its head adds the sums into
+//       the warp's f64 table (add_bins: no serial chain, one add a bin);
+//       then the slot's warp tables are summed in warp order. No float
+//       atomics, and the order is fixed: a call gives the same bits every
+//       time, so a captured replay equals the eager call.
 //
 // In a later radix pass a block waits only on tiles taken before its own,
 // whose blocks run and publish their own counts before they wait on
@@ -112,8 +127,10 @@
 // kernel reads 20 B a tile and the candidates of the few tiles that reach
 // T, but one block a frame is a chain of loads and barriers, so latency
 // bounds it; the moments kernel reads each resident pair's pay (4 B) twice,
-// the second time from L1/L2. The pixel kernels run far from their bytes:
-// a block's loads, shuffles and barriers in a chain. So the sort is written
+// the second time from L1, in blocks whose warps are sized to the slots, and
+// a block is a chain of loads, shuffles and barriers too. The pixel kernels
+// run far from their bytes: a block's loads, shuffles and barriers in a
+// chain. So the sort is written
 // as few launches and passes over the data: the pixels are read twice, the
 // kept pairs written once in the first pass's order (no compaction in
 // layout order read back), every pass's digit counts come from the one
@@ -150,6 +167,13 @@ static_assert(SEG_TILE <= (1 << SEG_POS_BITS) && SEG_MAX_PER < (1 << (31 - SEG_P
 static_assert(SEG_TILE_THREADS % 32 == 0 && TOP_THREADS >= MAX_C, "whole warps; a thread a slot");
 constexpr int MOM_THREADS = 256;
 constexpr int MOM_WARPS = MOM_THREADS / 32;
+// Resident pairs a warp of the moments kernel, about: 64 at one or two
+// frames a launch (the card has warps to spare: shorter chains), 128 from
+// three on (fewer blocks: about one wave at 8 frames).
+constexpr int MOM_FEW_FRAMES = 2;
+constexpr int MOM_LANE_PAIRS = 4;              // a lane's loads at once in pass 1
+static_assert(MAX_C <= 4 * 32 && (MOM_WARPS & (MOM_WARPS - 1)) == 0,
+              "the moments kernel's warp 0 reads 4 slots a lane; warps a slot are powers of two");
 // The kept pairs' sort. The histogram pass and the first radix pass take
 // PAIR_BLOCK pixels a block, 4 consecutive ones a thread, so warp w holds
 // the block's pixels [128 w, 128 w + 128) in order. A frame's tiles of the
@@ -220,12 +244,66 @@ __device__ __forceinline__ Pair make_pair(const uint8_t* tri, const int32_t* den
                    in ? dense[(size_t)ny * W + nx] : KMAX, y, x, dx, dy);
 }
 
+// The 4 pixels p .. p + 3 of one row and their neighbours, as the pixel
+// kernels' vector path loads them (W % 4 == 0 and p % 4 == 0, so the 4
+// pixels lie in one row, and tri and dense rows are 4- and 16-byte aligned):
+// the pixels' row and the row below as vector loads, the columns beside
+// them as scalars. `a` holds the pixels' trinary bytes, nb[o] byte i the
+// trinary of pixel p + i's neighbour at offset o (127 outside the frame);
+// d0 the ids of row y at x .. x + 4, d1 those of row y + 1 at x - 1 .. x + 4
+// (KMAX outside the frame).
+struct Quad {
+    int y, x;
+    uint32_t a, nb[4];
+    int32_t d0[5], d1[6];
+};
+
+__device__ __forceinline__ void load_quad(const uint8_t* tri, const int32_t* dense, int H, int W,
+                                          int p, Quad& q) {
+    q.y = p / W;
+    q.x = p - q.y * W;
+    const bool right = q.x + 4 < W, left = q.x > 0, down = q.y + 1 < H;
+    q.a = *reinterpret_cast<const uint32_t*>(tri + p);
+    const int4 da = *reinterpret_cast<const int4*>(dense + p);
+    q.d0[0] = da.x; q.d0[1] = da.y; q.d0[2] = da.z; q.d0[3] = da.w;
+    const uint32_t r0 = right ? tri[p + 4] : 127u;
+    q.d0[4] = right ? dense[p + 4] : KMAX;
+    uint32_t c = 0x7F7F7F7Fu, l1 = 127u, r1 = 127u;   // the row below (127: outside the frame)
+    if (down) {
+        c = *reinterpret_cast<const uint32_t*>(tri + p + W);
+        const int4 dc = *reinterpret_cast<const int4*>(dense + p + W);
+        q.d1[1] = dc.x; q.d1[2] = dc.y; q.d1[3] = dc.z; q.d1[4] = dc.w;
+        l1 = left ? tri[p + W - 1] : 127u;
+        q.d1[0] = left ? dense[p + W - 1] : KMAX;
+        r1 = right ? tri[p + W + 4] : 127u;
+        q.d1[5] = right ? dense[p + W + 4] : KMAX;
+    } else {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) q.d1[i] = KMAX;
+    }
+    q.nb[0] = (q.a >> 8) | (r0 << 24);
+    q.nb[1] = c;
+    q.nb[2] = (c << 8) | l1;
+    q.nb[3] = (c >> 8) | (r1 << 24);
+}
+
+// Trinary values are 0, 127 or 255, so two pixels pair (sum 255) exactly
+// when their bytes XOR to 0xFF: bit i of the result is set when pixel p + i
+// pairs with its neighbour at offset o, whatever their ids.
+__device__ __forceinline__ unsigned quad_pair_bits(const Quad& q, int o) {
+    const uint32_t pm = __vcmpeq4(q.a ^ q.nb[o], 0xFFFFFFFFu) & 0x01010101u;
+    return (pm | pm >> 7 | pm >> 14 | pm >> 21) & 0xFu;
+}
+
+// The id of pixel p + i's neighbour at offset o.
+__device__ __forceinline__ int32_t quad_nb_id(const Quad& q, int o, int i) {
+    return o == 0 ? q.d0[i + 1] : q.d1[o == 1 ? i + 1 : (o == 2 ? i : i + 2)];
+}
+
 // The 16 pairs q[o][i] of the 4 pixels p + i of a frame (offset o of
-// pixel p + i; q.m false past the frame). VEC: W % 4 == 0 and p % 4 == 0,
-// so the 4 pixels lie in one row, and tri and dense rows are 4- and
-// 16-byte aligned: the pixels' row and the row below come as vector loads,
-// the columns beside them as scalars. Else each pixel reads its own
-// neighbours.
+// pixel p + i; q.m false past the frame). VEC: the 4 pixels come by
+// load_quad, and only the pairs its byte compares find are built. Else each
+// pixel reads its own neighbours.
 template <bool VEC>
 __device__ __forceinline__ void quad_pairs(const uint8_t* tri, const int32_t* dense, int H, int W,
                                            int HW, int p, Pair (&q)[4][4]) {
@@ -237,49 +315,17 @@ __device__ __forceinline__ void quad_pairs(const uint8_t* tri, const int32_t* de
                 for (int i = 0; i < 4; ++i) q[o][i] = Pair{false, I32MAX, 0};
             return;
         }
-        const int y = p / W, x = p - y * W;
-        const bool right = x + 4 < W, left = x > 0, down = y + 1 < H;
-        int v0[5], v1[6];                   // rows y (x .. x + 4) and y + 1 (x - 1 .. x + 4)
-        int32_t d0[5], d1[6];
-        const uint32_t a = *reinterpret_cast<const uint32_t*>(tri + p);
-        const int4 da = *reinterpret_cast<const int4*>(dense + p);
-        v0[0] = a & 0xFF; v0[1] = (a >> 8) & 0xFF; v0[2] = (a >> 16) & 0xFF; v0[3] = a >> 24;
-        d0[0] = da.x; d0[1] = da.y; d0[2] = da.z; d0[3] = da.w;
-        v0[4] = right ? tri[p + 4] : 127;
-        d0[4] = right ? dense[p + 4] : KMAX;
-        uint32_t c = 0x7F7F7F7Fu;           // the row below (127: outside the frame)
-        if (down) {
-            c = *reinterpret_cast<const uint32_t*>(tri + p + W);
-            const int4 dc = *reinterpret_cast<const int4*>(dense + p + W);
-            v1[1] = c & 0xFF; v1[2] = (c >> 8) & 0xFF; v1[3] = (c >> 16) & 0xFF; v1[4] = c >> 24;
-            d1[1] = dc.x; d1[2] = dc.y; d1[3] = dc.z; d1[4] = dc.w;
-            v1[0] = left ? tri[p + W - 1] : 127;
-            d1[0] = left ? dense[p + W - 1] : KMAX;
-            v1[5] = right ? tri[p + W + 4] : 127;
-            d1[5] = right ? dense[p + W + 4] : KMAX;
-        } else {
-#pragma unroll
-            for (int i = 0; i < 6; ++i) {
-                v1[i] = 127;
-                d1[i] = KMAX;
-            }
-        }
-        // Trinary values are 0, 127 or 255, so two pixels pair (sum 255)
-        // exactly when their bytes XOR to 0xFF: one compare a byte finds the
-        // 4 pixels' pairs at an offset, and only those are built.
-        const uint32_t nb[4] = {(a >> 8) | ((uint32_t)v0[4] << 24), c,
-                                (c << 8) | (uint32_t)v1[0], (c >> 8) | ((uint32_t)v1[5] << 24)};
+        Quad qd;
+        load_quad(tri, dense, H, W, p, qd);
 #pragma unroll
         for (int o = 0; o < 4; ++o) {
-            const uint32_t pm = __vcmpeq4(a ^ nb[o], 0xFFFFFFFFu);
+            const unsigned pm = quad_pair_bits(qd, o);
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
                 q[o][i] = Pair{false, I32MAX, 0};
-                if ((pm >> (8 * i)) & 1u) {
-                    const int j = o == 0 ? i + 1 : (o == 1 ? i + 1 : (o == 2 ? i : i + 2));
-                    q[o][i] = o == 0 ? pair_of(v0[i], d0[i], v0[j], d0[j], y, x + i, 1, 0)
-                                     : pair_of(v0[i], d0[i], v1[j], d1[j], y, x + i, off_dx(o), 1);
-                }
+                if ((pm >> i) & 1u)
+                    q[o][i] = pair_of((qd.a >> (8 * i)) & 0xFF, qd.d0[i], (qd.nb[o] >> (8 * i)) & 0xFF,
+                                      quad_nb_id(qd, o, i), qd.y, qd.x + i, off_dx(o), off_dy(o));
             }
         }
     } else {
@@ -305,6 +351,40 @@ __device__ __forceinline__ int edge_stride(int num_edge, int budget) {
     return max(1, (num_edge + budget - 1) / budget);
 }
 
+// The pairs of 4 pixels p .. p + 3 (p < H W): VEC, from load_quad's bytes
+// and ids, without building a pair: a pair exists where the byte compare
+// finds it and neither id is KMAX, a bit mask of the 4 + 1 ids of row y and
+// the 6 of row y + 1; else from quad_pairs' masks.
+template <bool VEC>
+__device__ __forceinline__ int quad_count(const uint8_t* tri, const int32_t* dense, int H, int W,
+                                          int HW, int p) {
+    int c = 0;
+    if constexpr (VEC) {
+        Quad q;
+        load_quad(tri, dense, H, W, p, q);
+        unsigned k0 = 0, k1 = 0;     // bit i: d0[i] != KMAX; bit j: d1[j] != KMAX
+#pragma unroll
+        for (int i = 0; i < 5; ++i) k0 |= (unsigned)(q.d0[i] != KMAX) << i;
+#pragma unroll
+        for (int j = 0; j < 6; ++j) k1 |= (unsigned)(q.d1[j] != KMAX) << j;
+        const unsigned kn[4] = {k0 >> 1, k1 >> 1, k1, k1 >> 2};   // the neighbour's, by pixel
+#pragma unroll
+        for (int o = 0; o < 4; ++o) c += __popc(quad_pair_bits(q, o) & k0 & kn[o]);
+    } else {
+        Pair q[4][4];
+        quad_pairs<false>(tri, dense, H, W, HW, p, q);
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) c += q[o][i].m;
+    }
+    return c;
+}
+
+// A fixed grid of gridDim.x blocks a frame (a few an SM in all) strides over
+// the frame's 1024-pixel blocks, 4 pixels a thread, so a frame takes
+// gridDim.x integer atomics.
+template <bool VEC>
 __global__ void __launch_bounds__(PIX_THREADS)
 cm_edge_count_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict__ dense,
                      int32_t* __restrict__ num_edge, int H, int W) {
@@ -312,16 +392,10 @@ cm_edge_count_kernel(const uint8_t* __restrict__ tri, const int32_t* __restrict_
     const int HW = H * W;
     tri += (size_t)b * HW;
     dense += (size_t)b * HW;
-    const int p = blockIdx.x * PIX_THREADS + threadIdx.x;
     int c = 0;
-    if (p < HW) {
-        const int y = p / W, x = p - y * W;
-        const int v0 = tri[p];
-        const int32_t d0 = dense[p];
-#pragma unroll
-        for (int o = 0; o < 4; ++o)
-            c += make_pair(tri, dense, H, W, y, x, v0, d0, off_dx(o), off_dy(o)).m;
-    }
+    for (int p = 4 * (blockIdx.x * PIX_THREADS + threadIdx.x); p < HW;
+         p += 4 * PIX_THREADS * gridDim.x)
+        c += quad_count<VEC>(tri, dense, H, W, HW, p);
     __shared__ int warp_sum[PIX_THREADS / 32];
     c = __reduce_add_sync(FULL, c);
     if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = c;
@@ -1274,141 +1348,284 @@ __device__ __forceinline__ void pair_terms(int32_t pv, float& x, float& y, float
 }
 
 // The plain version's _diamond_bin: a monotone circular angle surrogate.
+// The quadrant picks the numerator and the offset, so every lane divides
+// once, on one path.
 __device__ __forceinline__ int diamond_bin(float dx, float dy) {
     const float tiny = (float)1e-12;
     const float ax = fabsf(dx), ay = fabsf(dy);
     float den = __fadd_rn(ax, ay);
     if (den < tiny) den = tiny;
-    float a;
-    if (dy >= 0.0f) a = dx >= 0.0f ? __fdiv_rn(dy, den) : __fadd_rn(1.0f, __fdiv_rn(ax, den));
-    else a = dx < 0.0f ? __fadd_rn(2.0f, __fdiv_rn(ay, den)) : __fadd_rn(3.0f, __fdiv_rn(dx, den));
+    const bool up = dy >= 0.0f, right = dx >= 0.0f;
+    const float num = up ? (right ? dy : ax) : (right ? dx : ay);
+    const float off = up ? (right ? 0.0f : 1.0f) : (right ? 3.0f : 2.0f);
+    const float f = __fdiv_rn(num, den);
+    const float a = up && right ? f : __fadd_rn(off, f);
     const int bin = (int)__fmul_rn(a, (float)(NBINS / 4));
     return min(max(bin, 0), NBINS - 1);
 }
 
-__global__ void __launch_bounds__(MOM_THREADS)
+// The warps a slot of n resident pairs takes: ceil(n / per) rounded up to
+// a power of two, at most MOM_WARPS (at least 1).
+__device__ __forceinline__ int slot_warps(int n, int per) {
+    const int k = max(1, (n + per - 1) / per);
+    return k >= MOM_WARPS ? MOM_WARPS : 1 << (32 - __clz(k - 1));
+}
+
+// One step of pass 2 for a warp: lane l holds a pair (has) of bin `bin`
+// and its five f32 terms t. The lanes are ranked by (bin, lane) (a radix
+// rank by ballots: no pair sorts last), and each writes its terms to that
+// rank in the warp's staging (stg, 5 x 32 floats; sbin, 32 bins), so each
+// bin's pairs lie in one segment; a segmented sum over the staged order
+// (lane r adds lane r + d's sum while r + d is in its segment, d = 1, 2, 4,
+// ...: a fixed tree, in f64) leaves each bin's sums at its segment's head,
+// which adds them and its pair count into the warp's table tab. Every bin
+// has one head, so no two lanes add into one cell.
+__device__ __forceinline__ void add_bins(bool has, int bin, const float (&t)[NQ - 1],
+                                         double* tab, float* stg, int* sbin, int lane) {
+    const int key = has ? bin : NBINS;
+    unsigned eq = FULL;
+    int less = 0;
+#pragma unroll
+    for (int k = 6; k >= 0; --k) {          // keys are under 2^7
+        const bool bit = (key >> k) & 1;
+        const unsigned bb = __ballot_sync(FULL, bit);
+        if (bit) {
+            less += __popc(eq & ~bb);
+            eq &= bb;
+        } else {
+            eq &= ~bb;
+        }
+    }
+    const int at = less + __popc(eq & ((1u << lane) - 1u));
+    sbin[at] = key;
+#pragma unroll
+    for (int q = 0; q < NQ - 1; ++q) stg[q * 32 + at] = t[q];
+    __syncwarp();
+    const int b = sbin[lane];
+    const bool head = lane == 0 || sbin[lane - 1] != b;
+    const unsigned heads = __ballot_sync(FULL, head);
+    const unsigned after = heads & ~((2u << lane) - 1u);
+    const int end = after ? __ffs(after) - 1 : 32;   // the end of lane's segment
+    double v[NQ - 1];
+#pragma unroll
+    for (int q = 0; q < NQ - 1; ++q) v[q] = stg[q * 32 + lane];
+    const int most = (int)__reduce_max_sync(FULL, head && b < NBINS ? (unsigned)(end - lane) : 1u);
+    for (int d = 1; d < most; d <<= 1) {
+#pragma unroll
+        for (int q = 0; q < NQ - 1; ++q) {
+            const double o = __shfl_down_sync(FULL, v[q], d);
+            if (lane + d < end) v[q] = __dadd_rn(v[q], o);
+        }
+    }
+    if (head && b < NBINS) {
+        double* cell = tab + b * NQ;
+        cell[0] = __dadd_rn(cell[0], (double)(end - lane));
+#pragma unroll
+        for (int q = 0; q < NQ - 1; ++q) cell[q + 1] = __dadd_rn(cell[q + 1], v[q]);
+    }
+    __syncwarp();
+}
+
+// A block of MOM_WARPS warps; warp u of block k is the frame's warp
+// MOM_WARPS k + u, and works on the slot whose warps hold it (see
+// slot_warps and the comment at the top).
+__global__ void __launch_bounds__(MOM_THREADS, 4)
 cm_moments_kernel(const int32_t* __restrict__ pay_s, const int32_t* __restrict__ top_pos,
                   const int32_t* __restrict__ count, float* __restrict__ table,
                   float* __restrict__ centroid, float* __restrict__ scale,
                   uint8_t* __restrict__ dark, int row, int C, int E2) {
-    __shared__ double wt[MOM_WARPS][NBINS * NQ];
-    __shared__ float stage[MOM_WARPS][32][NQ];
-    __shared__ double part[MOM_WARPS][7];
-    __shared__ float s_cx, s_cy, s_inv;
-    __shared__ int s_n, s_p;
-    const int j = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t & 31, w = t >> 5;
-    const size_t slot = (size_t)b * C + j;
-    if (w == 0) {                           // pairs of the slots before this one
-        int o = 0;
-        for (int k = lane; k < j; k += 32) o += count[(size_t)b * C + k];
-        o = __reduce_add_sync(FULL, o);
-        if (lane == 0) {
-            s_n = max(0, min(count[slot], E2 - o));
-            s_p = top_pos[slot];
-        }
-    }
-    for (int c = t; c < MOM_WARPS * NBINS * NQ; c += MOM_THREADS) (&wt[0][0])[c] = 0.0;
-    __syncthreads();
-    const int n = s_n;
-    const int32_t* py = pay_s + (size_t)b * row + s_p;
-
-    // Pass 1: the seven centroid terms, summed exactly in f64.
-    double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-    for (int i = t; i < n; i += MOM_THREADS) {
-        float x, y, gx, gy;
-        pair_terms(py[i], x, y, gx, gy);
-        acc[0] += 1.0;
-        acc[1] += x;
-        acc[2] += y;
-        acc[3] += __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
-        acc[4] += gx;
-        acc[5] += gy;
-        acc[6] += __fadd_rn(__fmul_rn(x, gx), __fmul_rn(y, gy));
-    }
+    const int per = gridDim.x <= MOM_FEW_FRAMES ? 64 : 128;   // pairs a warp, about
+    __shared__ double wt[MOM_WARPS][NBINS * NQ];   // a warp's table
+    __shared__ long long part[MOM_WARPS][6];       // a warp's pass-1 sums
+    __shared__ int s_slot[MOM_WARPS], s_rank[MOM_WARPS], s_parts[MOM_WARPS], s_n[MOM_WARPS],
+        s_p[MOM_WARPS];
+    __shared__ float stage[MOM_WARPS][(NQ - 1) * 32];   // a warp's pass-2 terms in bin order
+    __shared__ int stage_bin[MOM_WARPS][32];
+    const int b = blockIdx.x, k = blockIdx.y, t = threadIdx.x, lane = t & 31, u = t >> 5;
+    if (u == 0) {
+        // Lane l: slots 4 l .. 4 l + 3. Resident pairs n (the count cut at
+        // E2 less the slots before), warps w, first warp (the prefix of w,
+        // or MOM_WARPS j when w grows somewhere).
+        int c[4], top[4], sum = 0;
 #pragma unroll
-    for (int q = 0; q < 7; ++q) {
-        for (int d = 16; d > 0; d >>= 1) acc[q] += __shfl_down_sync(FULL, acc[q], d);
-        if (lane == 0) part[w][q] = acc[q];
-    }
-    __syncthreads();
-    if (t == 0) {
-        double c[7];
-        float f[7];
-        for (int q = 0; q < 7; ++q) {
-            c[q] = part[0][q];
-            for (int u = 1; u < MOM_WARPS; ++u) c[q] = __dadd_rn(c[q], part[u][q]);
-            f[q] = __double2float_rn(c[q]);
+        for (int i = 0; i < 4; ++i) {
+            const int j = 4 * lane + i;
+            c[i] = j < C ? count[(size_t)b * C + j] : 0;
+            top[i] = j < C ? top_pos[(size_t)b * C + j] : 0;
+            sum += c[i];
         }
-        const float safe = f[0] < 1.0f ? 1.0f : f[0];
-        const float cx = __fdiv_rn(f[1], safe), cy = __fdiv_rn(f[2], safe);
-        const double s64 = (double)safe;
-        const double m1 = __ddiv_rn(c[1], s64), m2 = __ddiv_rn(c[2], s64);
-        float r2 = __double2float_rn(
-            __dsub_rn(__dsub_rn(__ddiv_rn(c[3], s64), __dmul_rn(m1, m1)), __dmul_rn(m2, m2)));
-        const float tiny = (float)1e-12;
-        if (r2 < tiny) r2 = tiny;
-        const float mean_dot = __fdiv_rn(
-            __fsub_rn(__fsub_rn(f[6], __fmul_rn(cx, f[4])), __fmul_rn(cy, f[5])), safe);
-        centroid[2 * slot] = cx;
-        centroid[2 * slot + 1] = cy;
-        scale[slot] = __fsqrt_rn(r2);
-        dark[slot] = mean_dot > 0.0f;
-        s_cx = cx;
-        s_cy = cy;
-        s_inv = rsqrtf(r2);
-    }
-    __syncthreads();
-    const float cx = s_cx, cy = s_cy, inv = s_inv;
-
-    // Pass 2: each pair's six terms into its warp's table at its bin, in
-    // (iteration, lane) order; inactive lanes form a group of their own.
-    for (int base = 0; base < n; base += MOM_THREADS) {
-        const int i = base + t;
-        int bin = NBINS;
-        if (i < n) {
-            float x, y, gx, gy;
-            pair_terms(py[i], x, y, gx, gy);
-            const float dx = __fsub_rn(x, cx), dy = __fsub_rn(y, cy);
-            bin = diamond_bin(dx, dy);
-            const float sx = __fmul_rn(dx, inv), sy = __fmul_rn(dy, inv);
-            float* st = stage[w][lane];
-            st[0] = 1.0f;
-            st[1] = sx;
-            st[2] = sy;
-            st[3] = __fmul_rn(sx, sx);
-            st[4] = __fmul_rn(sx, sy);
-            st[5] = __fmul_rn(sy, sy);
+        if (lane < MOM_WARPS) s_slot[lane] = -1;
+        int before = sum;
+        for (int d = 1; d < 32; d <<= 1) {
+            const int v = __shfl_up_sync(FULL, before, d);
+            if (lane >= d) before += v;
         }
+        before -= sum;
+        int n[4], w[4], wsum = 0;
+        bool grows = false;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            n[i] = max(0, min(c[i], E2 - before));
+            before += c[i];
+            w[i] = slot_warps(n[i], per);
+            wsum += w[i];
+            if (i) grows |= w[i] > w[i - 1];
+        }
+        const int w_prev = __shfl_up_sync(FULL, w[3], 1);
+        grows |= lane > 0 && 4 * lane < C && w[0] > w_prev;
+        const bool packed = !__any_sync(FULL, grows);
+        int first = wsum;
+        for (int d = 1; d < 32; d <<= 1) {
+            const int v = __shfl_up_sync(FULL, first, d);
+            if (lane >= d) first += v;
+        }
+        first -= wsum;
         __syncwarp();
-        const unsigned grp = __match_any_sync(FULL, bin);
-        if (bin < NBINS && lane == __ffs(grp) - 1) {
-            double* cell = wt[w] + bin * NQ;
-            for (unsigned m = grp; m; m &= m - 1) {
-                const float* st = stage[w][__ffs(m) - 1];
 #pragma unroll
-                for (int q = 0; q < NQ; ++q) cell[q] = __dadd_rn(cell[q], (double)st[q]);
+        for (int i = 0; i < 4; ++i) {
+            const int j = 4 * lane + i, at = packed ? first : MOM_WARPS * j;
+            if (j < C && at / MOM_WARPS == k)
+                for (int r = 0; r < w[i]; ++r) {
+                    const int v = at % MOM_WARPS + r;
+                    s_slot[v] = j;
+                    s_rank[v] = r;
+                    s_parts[v] = w[i];
+                    s_n[v] = n[i];
+                    s_p[v] = top[i];
+                }
+            first += w[i];
+        }
+    }
+    __syncthreads();
+    if (s_slot[0] < 0) return;              // a block past the frame's warps (uniform)
+    const int j = s_slot[u], r = s_rank[u], parts = s_parts[u], lead = u - r;
+    const bool live = j >= 0;
+    int lo = 0, hi = 0;
+    const int32_t* py = pay_s + (size_t)b * row;
+    if (live) {
+        const int n = s_n[u];
+        lo = r * n / parts;
+        hi = (r + 1) * n / parts;
+        py += s_p[u];
+    }
+    double* tab = wt[u];
+    for (int c = lane; c < NBINS * NQ; c += 32) tab[c] = 0.0;
+
+    // Pass 1: the centroid terms as integers (2 x, 2 y, 4 (x^2 + y^2) as
+    // the plain version rounds it in f32, gx, gy, 2 (x gx + y gy)), exact:
+    // the plain version's f64 sums, which are exact too.
+    long long s3 = 0;
+    int sx = 0, sy = 0, sgx = 0, sgy = 0, s6 = 0;
+    for (int base = lo; base < hi; base += 32 * MOM_LANE_PAIRS) {
+        int32_t pv[MOM_LANE_PAIRS];
+#pragma unroll
+        for (int q = 0; q < MOM_LANE_PAIRS; ++q) {
+            const int i = base + lane + 32 * q;
+            pv[q] = i < hi ? py[i] : 0;
+        }
+#pragma unroll
+        for (int q = 0; q < MOM_LANE_PAIRS; ++q) {
+            if (base + lane + 32 * q >= hi) continue;
+            const int X = pv[q] & 0xFFF, Y = (pv[q] >> 12) & 0xFFF, gp = pv[q] >> 24;
+            const int gx = (gp & 0x3) - 1, gy = ((gp >> 2) & 0x3) - 1;
+            const float x = __fmul_rn((float)X, 0.5f), y = __fmul_rn((float)Y, 0.5f);
+            s3 += (long long)__fmul_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), 4.0f);
+            sx += X;
+            sy += Y;
+            sgx += gx;
+            sgy += gy;
+            s6 += X * gx + Y * gy;
+        }
+    }
+    sx = __reduce_add_sync(FULL, sx);
+    sy = __reduce_add_sync(FULL, sy);
+    sgx = __reduce_add_sync(FULL, sgx);
+    sgy = __reduce_add_sync(FULL, sgy);
+    s6 = __reduce_add_sync(FULL, s6);
+    for (int d = 16; d > 0; d >>= 1) s3 += __shfl_down_sync(FULL, s3, d);
+    if (lane == 0) {
+        part[u][0] = sx;
+        part[u][1] = sy;
+        part[u][2] = s3;
+        part[u][3] = sgx;
+        part[u][4] = sgy;
+        part[u][5] = s6;
+    }
+    __syncthreads();
+    // Every warp of a slot finds its centroid from the slot's pass-1 sums
+    // (lane 0; the slot's first warp writes it out).
+    float cx = 0.0f, cy = 0.0f, inv = 0.0f;
+    if (live) {
+        if (lane == 0) {
+            long long q6[6] = {0, 0, 0, 0, 0, 0};
+            for (int v = 0; v < parts; ++v)
+                for (int q = 0; q < 6; ++q) q6[q] += part[lead + v][q];
+            const double c[7] = {(double)s_n[u], 0.5 * (double)q6[0], 0.5 * (double)q6[1],
+                                 0.25 * (double)q6[2], (double)q6[3], (double)q6[4],
+                                 0.5 * (double)q6[5]};
+            float f[7];
+            for (int q = 0; q < 7; ++q) f[q] = __double2float_rn(c[q]);
+            const float safe = f[0] < 1.0f ? 1.0f : f[0];
+            cx = __fdiv_rn(f[1], safe);
+            cy = __fdiv_rn(f[2], safe);
+            const double s64 = (double)safe;
+            const double m1 = __ddiv_rn(c[1], s64), m2 = __ddiv_rn(c[2], s64);
+            float r2 = __double2float_rn(__dsub_rn(
+                __dsub_rn(__ddiv_rn(c[3], s64), __dmul_rn(m1, m1)), __dmul_rn(m2, m2)));
+            const float tiny = (float)1e-12;
+            if (r2 < tiny) r2 = tiny;
+            inv = rsqrtf(r2);
+            if (r == 0) {
+                const float mean_dot = __fdiv_rn(
+                    __fsub_rn(__fsub_rn(f[6], __fmul_rn(cx, f[4])), __fmul_rn(cy, f[5])), safe);
+                const size_t slot = (size_t)b * C + j;
+                centroid[2 * slot] = cx;
+                centroid[2 * slot + 1] = cy;
+                scale[slot] = __fsqrt_rn(r2);
+                dark[slot] = mean_dot > 0.0f;
             }
         }
-        __syncwarp();
+        cx = __shfl_sync(FULL, cx, 0);
+        cy = __shfl_sync(FULL, cy, 0);
+        inv = __shfl_sync(FULL, inv, 0);
+    }
+
+    // Pass 2: 32 pairs of the warp's range at a time, a pair a lane, each
+    // bin's lanes summed and added once (add_bins).
+    if (live) {
+        for (int base = lo; base < hi; base += 32) {
+            const int i = base + lane;
+            int bin = 0;
+            float tq[NQ - 1] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+            if (i < hi) {
+                float x, y, gx, gy;
+                pair_terms(py[i], x, y, gx, gy);
+                const float dx = __fsub_rn(x, cx), dy = __fsub_rn(y, cy);
+                bin = diamond_bin(dx, dy);
+                const float ux = __fmul_rn(dx, inv), uy = __fmul_rn(dy, inv);
+                tq[0] = ux;
+                tq[1] = uy;
+                tq[2] = __fmul_rn(ux, ux);
+                tq[3] = __fmul_rn(ux, uy);
+                tq[4] = __fmul_rn(uy, uy);
+            }
+            add_bins(i < hi, bin, tq, tab, stage[u], stage_bin[u], lane);
+        }
     }
     __syncthreads();
-    float* out = table + slot * NBINS * NQ;
-    for (int c = t; c < NBINS * NQ; c += MOM_THREADS) {
-        double s = wt[0][c];
-        for (int u = 1; u < MOM_WARPS; ++u) s = __dadd_rn(s, wt[u][c]);
-        out[c] = __double2float_rn(s);
+
+    // The slot's table: its warps' tables summed in warp order.
+    if (live) {
+        float* out = table + ((size_t)b * C + j) * NBINS * NQ;
+        for (int c = 32 * r + lane; c < NBINS * NQ; c += 32 * parts) {
+            double sum = wt[lead][c];
+            for (int v = 1; v < parts; ++v) sum = __dadd_rn(sum, wt[lead + v][c]);
+            out[c] = __double2float_rn(sum);
+        }
     }
 }
 
 }  // namespace
-
-extern "C" int apriltag_cm_count(const void* tri, const void* dense, void* num_edge, int B,
-                                 int H, int W, void* stream) {
-    const dim3 grid((H * W + PIX_THREADS - 1) / PIX_THREADS, B);
-    cm_edge_count_kernel<<<grid, PIX_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)tri, (const int32_t*)dense, (int32_t*)num_edge, H, W);
-    return (int)cudaGetLastError();
-}
 
 // The later passes' sort tiles: 2^tshift positions, 1024 or 4096; T of
 // them a frame's row of 4 H W pair slots.
@@ -1420,6 +1637,45 @@ static bool sort_shape_ok(long long N, int tshift, int T) {
 // and dense 16-byte aligned.
 static bool quads_vec(const void* tri, const void* dense, int W) {
     return W % 4 == 0 && (uintptr_t)tri % 4 == 0 && (uintptr_t)dense % 16 == 0;
+}
+
+// Blocks of the pair count the card holds at once: its SMs times the
+// kernel's resident blocks an SM (read at the first call).
+template <bool VEC>
+static cudaError_t count_fill(int* fill) {
+    static int cached = 0;
+    if (!cached) {
+        int dev = 0, sms = 0, occ = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, cm_edge_count_kernel<VEC>,
+                                                              PIX_THREADS, 0);
+        if (e != cudaSuccess) return e;
+        cached = max(1, sms * occ);
+    }
+    *fill = cached;
+    return cudaSuccess;
+}
+
+// One wave: each frame's blocks of 4 PIX_THREADS pixels split evenly over
+// ceil(blocks / iters) blocks of the grid, iters the fewest that fit the
+// batch in the blocks the card holds at once (one block a frame at least).
+extern "C" int apriltag_cm_count(const void* tri, const void* dense, void* num_edge, int B,
+                                 int H, int W, void* stream) {
+    if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+    const bool vec = quads_vec(tri, dense, W);
+    int fill = 0;
+    const cudaError_t e = vec ? count_fill<true>(&fill) : count_fill<false>(&fill);
+    if (e != cudaSuccess) return (int)e;
+    const long long nblk = ((long long)H * W + 4 * PIX_THREADS - 1) / (4 * PIX_THREADS);
+    const long long most = max(1, fill / B);          // blocks a frame in one wave
+    const long long iters = (nblk + most - 1) / most;
+    const dim3 grid((unsigned)((nblk + iters - 1) / iters), B);
+    auto kernel = vec ? cm_edge_count_kernel<true> : cm_edge_count_kernel<false>;
+    kernel<<<grid, PIX_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)tri, (const int32_t*)dense, (int32_t*)num_edge, H, W);
+    return (int)cudaGetLastError();
 }
 
 // ctl (B, P), digits (P, B, RADIX), odig (B, 4, R0), gsum (B, 4, groups,
@@ -1552,8 +1808,10 @@ extern "C" int apriltag_cm_seg_top(const void* stats, const void* cand, const vo
 extern "C" int apriltag_cm_moments(const void* pay_s, const void* top_pos, const void* count,
                                    void* table, void* centroid, void* scale, void* dark, int B,
                                    int row, int C, int E2, void* stream) {
-    if (C < 1 || C > MAX_C) return (int)cudaErrorInvalidValue;
-    const dim3 grid(C, B);
+    if (B < 1 || C < 1 || C > MAX_C) return (int)cudaErrorInvalidValue;
+    // Frames along x, a frame's blocks along y: the blocks that hold slots
+    // (the low y) start first. A frame needs at most C blocks.
+    const dim3 grid(B, C);
     cm_moments_kernel<<<grid, MOM_THREADS, 0, (cudaStream_t)stream>>>(
         (const int32_t*)pay_s, (const int32_t*)top_pos, (const int32_t*)count, (float*)table,
         (float*)centroid, (float*)scale, (uint8_t*)dark, row, C, E2);

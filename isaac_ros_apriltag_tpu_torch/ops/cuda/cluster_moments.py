@@ -1,7 +1,8 @@
 """Wrappers of the cluster-moment kernels (csrc/cluster_moments.cu).
 
 ``extract_cluster_moments`` is the CUDA path of the stage, nine launches in
-this order: the pair-count kernel (``edge_count``: num_edge); the kept
+this order: the pair-count kernel (``edge_count``: num_edge, four pixels
+a thread, a fixed grid of one wave); the kept
 pairs' sort (``sort_pairs``): the histogram pass (``pair_count``: each
 frame's kept count K, every radix pass's digit counts, the first pass's by
 offset, and each first-pass tile's counts and their sums over groups of
@@ -14,9 +15,10 @@ last filling [K, E) with int32 max); the two
 segment kernels (``segment_tiles``, many blocks a frame: segment sizes, the
 size gate, each tile's candidates and a size histogram; ``segment_top``,
 one block a frame: the segments that cross tiles, the top-C; together
-``top_segments``) and the moments kernel (one block a frame and slot:
-centroid, scale, dark side and the bin tables, from the pays the sort left
-beside the keys). No torch.sort runs. A CPU tensor runs the plain version
+``top_segments``) and the moments kernel (a power of two of warps a slot,
+sized to its pairs, packed into 8-warp blocks: centroid, scale, dark side
+and the bin tables, from the pays the sort left beside the keys). No
+torch.sort runs. A CPU tensor runs the plain version
 (ops/cluster_moments.py::extract_cluster_moments); a CUDA tensor launches
 the kernels or raises. Each kernel's wrapper adds one to its own counter
 where it launches; on a CPU tensor it runs that kernel's plain version, also

@@ -31,11 +31,13 @@ import pytest
 import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
-                        GLUE_CASE_NAMES, LONG_SHAPES, QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES,
+                        COUNT_FRAMES, GLUE_CASE_NAMES, LONG_SHAPES, MOMENT_ROWS,
+                        QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES,
                         RESOLVE_KERNELS,
                         SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, TAIL_CASE_NAMES,
                         THRESH_CASES, THRESH_MIN_DIFF, bench_inputs, check_cluster_case,
-                        check_count_case, check_map_case, check_quadfit_case,
+                        check_count_case, check_count_frame, check_map_case,
+                        check_moment_row, check_quadfit_case,
                         check_glue_case, check_resolve_call, check_segment_row,
                         check_sort_frame,
                         check_sort_row, check_tail_case, cluster_cases,
@@ -613,6 +615,24 @@ def test_cluster_kernels_match_plain_version(cuda, name):
     if not _CLUSTER_CASES:
         _CLUSTER_CASES.update(cluster_cases(cuda))
     check_cluster_case(name, *_CLUSTER_CASES[name])
+
+
+@pytest.mark.parametrize("name", COUNT_FRAMES)
+def test_pair_count_on_synthetic_frames(cuda, name):
+    """chip_smoke.py phase 23's synthetic frames: the pair count bit-exact
+    with edge_count_plain through its vector and scalar paths (an aligned
+    and a misaligned copy), one launch, two calls and a captured replay
+    equal."""
+    check_count_frame(name, cuda)
+
+
+@pytest.mark.parametrize("name", MOMENT_ROWS)
+def test_moments_kernel_on_synthetic_rows(cuda, name):
+    """chip_smoke.py phase 23's synthetic slot rows: the moments kernel
+    against slot_moments_plain (centroid, scale, dark side and the weight
+    column bit-exact, the other columns within one f32 ulp), one launch,
+    two calls and a captured replay equal."""
+    check_moment_row(name, cuda)
 
 
 def test_cluster_kernels_refuse_what_they_do_not_take(cuda):

@@ -2,7 +2,7 @@
 """Device time of one stage's kernels of one checkout, to compare two
 trees on one card in one call.
 
-    python3 torch_resolve_times.py [--root DIR] [--stage resolve|sort]
+    python3 torch_resolve_times.py [--root DIR] [--stage resolve|sort|edge_count|moments]
 
 Builds the kernels of the package under DIR (default: this checkout) and
 prints one JSON line: the card's nvidia-smi name and power limit, DIR, and
@@ -13,7 +13,11 @@ call by name (torch.profiler over ITERS calls: kernels and memsets). The
 resolve stage's calls (the default) are those of a detect call: the
 contraction on the phase-1 labels and the rank-mode final resolve on the
 phase-2 labels. The sort's call is the cluster stage's sort of the kept
-pairs (sort_pairs, its memset included), given with the kept pairs. Compare
+pairs (sort_pairs, its memset included), given with the kept pairs; the
+edge_count call the stage's pair count (edge_count, with its zeroed
+output), given with the pixels; the moments call the moments kernel on
+the slots the stage's sort and segment kernels give it (slot_moments),
+given with the resident pairs. Compare
 a parent and a change in turns: parent, change, change, parent. Without a
 CUDA device it exits 1 and prints nothing.
 """
@@ -54,7 +58,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    parser.add_argument("--stage", choices=("resolve", "sort"), default="resolve")
+    parser.add_argument("--stage", choices=("resolve", "sort", "edge_count", "moments"),
+                        default="resolve")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_resolve_times: no CUDA device; nothing was run", file=sys.stderr)
@@ -75,12 +80,27 @@ def main() -> int:
     out = {"gpu": _gpu_info(), "root": root, "stage": args.stage}
     for config, batch in CAPTURE_CASES:
         cfg, _, inputs = bench_inputs(config, batch, dev, calls=1)
-        if args.stage == "sort":
-            tri, dense, _, kw = cluster_inputs(cfg, inputs[0])
-            E = min(kw["max_edge_points"], 4 * tri.shape[1] * tri.shape[2])
+        if args.stage in ("sort", "edge_count", "moments"):
+            tri, dense, ovf, kw = cluster_inputs(cfg, inputs[0])
+            B, H, W = tri.shape
+            E = min(kw["max_edge_points"], 4 * H * W)
             ne = cmk.edge_count(tri, dense)
-            size = {"kept": int(cmk.sort_pairs(tri, dense, ne, E)[1].sum())}
-            calls = {"sort": lambda: cmk.sort_pairs(tri, dense, ne, E)}
+            rows, kept = cmk.sort_pairs(tri, dense, ne, E)
+            if args.stage == "sort":
+                size = {"kept": int(kept.sum())}
+                calls = {"sort": lambda: cmk.sort_pairs(tri, dense, ne, E)}
+            elif args.stage == "edge_count":
+                size = {"pixels": B * H * W}
+                calls = {"edge_count": lambda: cmk.edge_count(tri, dense)}
+            else:
+                E2 = min(cfg.max_clusters * cfg.max_cluster_points, E)
+                seg = cmk.top_segments(rows.key, ne, ovf, E=E, E2=E2,
+                                       max_clusters=cfg.max_clusters,
+                                       min_cluster_pixels=cfg.min_cluster_pixels,
+                                       max_perimeter=4 * (W + H))
+                size = {"resident": int(torch.clamp(seg.count.sum(-1), max=E2).sum())}
+                calls = {"moments": lambda: cmk.slot_moments(rows.pay, seg.top_pos, seg.count,
+                                                             E2)}
         else:
             valid, lab1, lab2, table, R, _ = labels_of(cfg, front_trinary(cfg, inputs[0]))
             size = {"R": R}
