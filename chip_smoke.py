@@ -207,7 +207,9 @@ non-zero):
      frame 23 at seed 1 (the capacity edge), of a blank 1080p b8 batch (no
      valid cluster) and on synthetic clusters (tied maxima and 4-subsets,
      one to three candidates, a candidate at bin 63, an empty slot, random
-     bins, an inf and a NaN): best, best_err and the six winner lines
+     bins, an inf and a NaN; 39 clusters of exactly 4, 5 and 10 candidates,
+     also turned to candidates at bins 0 and 63; one cluster alone): best,
+     best_err and the six winner lines
      bit-exact with its plain version; its fitting launch (the search and
      the epilogue: corners, gates, winding, fit error) against the plain
      search and fit_epilogue on every Quads field; each one launch a call,
@@ -232,7 +234,10 @@ non-zero):
      on what a detect call of torch_bench.py's 720p b1 and 1080p b8 inputs
      gives them and on glue_synthetic's cases (NaN and inf corners, no
      valid quad, tied scores and margins, duplicate ids at equal margins,
-     max_tags < C/2, quad_decimate 1 and 3, a batch of 3): every output
+     max_tags < C/2, quad_decimate 1 and 3, a batch of 3), refine also on
+     refine_synthetic's (search ranges 0.5 to 5 and 40: profiles of 7 to
+     165 samples, one to seven staged chunks; quads across the frame's
+     edges): every output
      bit-exact with the plain version (ops/refine.py, ops/tail.py), one
      launch a call, two calls and a captured replay equal, a batch equal to
      each frame alone; device ms of each kernel, its plain version, its
@@ -492,7 +497,10 @@ COUNT_CASES = {"one label a frame": ((3, 518400), 518400, "one", 1.0),
 # adds or subtracts, 2 clamps and a square root.
 QUADFIT_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES) + (
     "720p frame 23, seed 1 (capacity edge)", "blank 1080p b8 (no valid cluster)",
-    "synthetic: ties, few candidates, bin 63, empty, NaN")
+    "synthetic: ties, few candidates, bin 63, empty, NaN",
+    "synthetic: 4, 5 and 10 candidates, at bins 0 and 63, ties, NaN and inf (39 clusters)",
+    "one cluster (5 candidates)")
+QUADFIT_COUNTS = (4, 5, 10)   # candidates of quadfit_counted's clusters
 QUADFIT_REPLACES = "isaac_ros_apriltag_tpu/ops/quadfit.py:56"
 QUADFIT_EDGE = ("tag36h11-720p-node", 23, 1)          # config, frame, seed
 ARC_FLOPS = 12 + 22
@@ -539,6 +547,12 @@ GLUE_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES
                    + ("NaN and inf corners", "no valid quad", "tied scores and margins",
                       "duplicate ids, equal margins", "max_tags < C/2", "quad_decimate 1",
                       "quad_decimate 3", "a batch of 3 frames"))
+# Phase 27's refine-only cases (refine_synthetic): search ranges whose
+# profiles are 7, 9, 13, 17, 24 and 25 samples (refine_kernel stages 24 a
+# point at once) and 165 (seven chunks), and quads across the frame's edges.
+REFINE_CASE_NAMES = ("search range 0.5", "search range 1", "search range 2", "search range 3",
+                     "search range 4.75", "search range 5", "search range 40",
+                     "profiles leaving the frame")
 
 # Lines past 4096 pixels: K2 keeps rows up to 4096 in shared memory and
 # walks longer ones through the output row (csrc/ccl.cu).
@@ -3009,38 +3023,88 @@ def prefix_of_bins(bins):
     return torch.cat([torch.zeros(*b.shape[:-1], 1), torch.cumsum(b, -1)], -1)
 
 
-def quadfit_synthetic(dev, K: int = 64):
-    """Phase 25's synthetic clusters as ClusterMoments on `dev`: integer
-    bins that repeat every 4 or 8 bins (exact f32 sums: sixteen or eight
-    tied maxima, tied 4-subsets), every 16 bins turned so a candidate sits
-    at bin 63 (the arc after it starts at K), flat bins with three bins
-    moved (one to three candidates), empty bins (an invalid slot), random
-    bins, and bins holding an inf (one a NaN 4-subset error) or a NaN."""
-    import torch
-
+def quadfit_synthetic_rows(rng, K: int = 64) -> dict:
+    """Phase 25's first synthetic clusters, kind -> (n, 6, K) float64 bin
+    tables: integer bins that repeat every 4 or 8 bins (exact f32 sums:
+    sixteen or eight tied maxima, tied 4-subsets), every 16 bins turned so a
+    candidate sits at bin 63 (the arc after it starts at K), flat bins with
+    three bins moved (one to three candidates), empty bins (an invalid
+    slot), random bins (drawn from `rng`), and bins holding an inf (one a
+    NaN 4-subset error) or a NaN."""
     from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
-    from isaac_ros_apriltag_tpu_torch.ops.cluster_moments import ClusterMoments
 
-    rows = [periodic_bins(seed, p, K) for p in (4, 8) for seed in range(4)]
+    rows = {"ties": [periodic_bins(seed, p, K) for p in (4, 8) for seed in range(4)],
+            "bin 63": []}
     for seed in range(4):
         b = periodic_bins(seed, 16, K)
         first = int(plain.candidates(prefix_of_bins(b[None]))[0, 0])
-        rows.append(np.roll(b, (K - 1 - first) % 16, -1))
-    rows += [moved_bins(seed, K) for seed in range(6)]
-    empty = len(rows)
-    rows.append(np.zeros((6, K)))
-    rng = np.random.default_rng(9)
-    rows += [rng.normal(0.0, 3.0, (6, K)) for _ in range(4)]
-    rows += [synthetic_bins(rng.integers(1, 6, K), rng.normal(0, 1, K), rng.normal(0, 1, K), K)
-             for _ in range(4)]
+        rows["bin 63"].append(np.roll(b, (K - 1 - first) % 16, -1))
+    rows["few candidates"] = [moved_bins(seed, K) for seed in range(6)]
+    rows["empty"] = [np.zeros((6, K))]
+    rows["random"] = [rng.normal(0.0, 3.0, (6, K)) for _ in range(4)]
+    rows["random"] += [synthetic_bins(rng.integers(1, 6, K), rng.normal(0, 1, K),
+                                      rng.normal(0, 1, K), K) for _ in range(4)]
+    rows["NaN and inf"] = []
     for bad, f in ((np.inf, 1), (np.nan, 0), (np.inf, 3)):
         b = periodic_bins(5, 8, K)
         b[f, 21] = bad
+        rows["NaN and inf"].append(b)
+    return {k: np.stack(v) for k, v in rows.items()}
+
+
+def counted_bins(n: int, K: int = 64, start: int = 0) -> tuple[np.ndarray, int]:
+    """(synthetic_bins of flat bins with 7 to 13 bins moved to random
+    integer points, whose clusters have exactly n corner candidates and a
+    valid 4-subset; the seed after the one taken), from seed `start` on."""
+    from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
+
+    for seed in range(start, start + 10000):
+        rng = np.random.default_rng(seed)
+        moved = rng.choice(K, 7 + seed % 7, replace=False)
+        px, py = np.zeros(K), np.zeros(K)
+        px[moved], py[moved] = rng.integers(-9, 10, (2, len(moved)))
+        b = synthetic_bins(2.0, px, py, K)
+        S = prefix_of_bins(b[None])
+        if (int((plain.candidates(S) < K).sum()) == n
+                and bool(plain.search_plain(S).best_err.isfinite().all())):
+            return b, seed + 1
+    raise AssertionError(f"no seed gives {n} candidates")
+
+
+def quadfit_counted(K: int = 64) -> np.ndarray:
+    """Phase 25's second synthetic clusters, (39, 6, K) float64 bin tables:
+    for each of QUADFIT_COUNTS, four clusters with that many candidates
+    (counted_bins), each also turned so that its first candidate sits at bin
+    0 and so that its last sits at bin 63; then tied maxima (bins repeating
+    every 16: four tied periods), and an inf and a NaN bin.
+    39 clusters: no multiple of the kernel's clusters a block."""
+    from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain
+
+    rows, seed = [], 0
+    for n in QUADFIT_COUNTS:
+        for _ in range(4):
+            b, seed = counted_bins(n, K, seed)
+            cand = plain.candidates(prefix_of_bins(b[None]))[0, :n]
+            rows += [b, np.roll(b, -int(cand[0]), -1), np.roll(b, K - 1 - int(cand[-1]), -1)]
+    rows.append(periodic_bins(3, 16, K))
+    for bad, f in ((np.inf, 2), (np.nan, 4)):
+        b = periodic_bins(6, 8, K)
+        b[f, 40] = bad
         rows.append(b)
-    b = torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev)
+    return np.stack(rows)
+
+
+def bins_moments(bins, dev, rng):
+    """(N, 6, K) bin tables -> ClusterMoments on `dev`: count 128 and valid
+    where any bin holds weight, else count 0 and not valid; centroids and
+    scales drawn from `rng`."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.cluster_moments import ClusterMoments
+
+    b = torch.from_numpy(np.asarray(bins, np.float32)).to(dev)
     N = b.shape[0]
-    valid = torch.ones(N, dtype=torch.bool, device=dev)
-    valid[empty] = False
+    valid = (b[:, 0] != 0).any(-1)
     z = torch.zeros(N, dtype=torch.int32, device=dev)
     return ClusterMoments(
         *b.unbind(1), count=torch.where(valid, 128, 0).to(torch.int32),
@@ -3050,12 +3114,20 @@ def quadfit_synthetic(dev, K: int = 64):
         num_edge_points=z, edge_stride=z, overflow=z.bool())
 
 
+def quadfit_synthetic(dev, K: int = 64):
+    """Phase 25's first synthetic clusters (quadfit_synthetic_rows, in its
+    order) as ClusterMoments on `dev`."""
+    rng = np.random.default_rng(9)
+    return bins_moments(np.concatenate(list(quadfit_synthetic_rows(rng, K).values())), dev, rng)
+
+
 def quadfit_cases(dev) -> dict:
     """Phase 25's inputs, QUADFIT_CASE_NAMES -> (cluster moments on `dev`,
     min_area): the cluster stage's moments (kernel path) of torch_bench.py's
     720p b1 and 1080p b8 inputs, of node-720p-b1's frame 23 at seed 1 (the
-    capacity edge, ROADMAP Queue 3) and of 8 blank 1080p frames; and
-    quadfit_synthetic."""
+    capacity edge, ROADMAP Queue 3) and of 8 blank 1080p frames;
+    quadfit_synthetic, quadfit_counted, and one cluster of five candidates
+    alone."""
     import torch
 
     import torch_bench
@@ -3073,7 +3145,9 @@ def quadfit_cases(dev) -> dict:
     edge = torch.from_numpy(torch_bench.render_frame(cam, frame, seed)[1])[None].to(dev)
     return dict(zip(QUADFIT_CASE_NAMES, (
         moments(cfg1, in1[0]), moments(cfg8, in8[0]), moments(cfg1, edge),
-        moments(cfg8, torch.zeros_like(in8[0])), (quadfit_synthetic(dev), 16.0))))
+        moments(cfg8, torch.zeros_like(in8[0])), (quadfit_synthetic(dev), 16.0),
+        (bins_moments(quadfit_counted(), dev, np.random.default_rng(10)), 16.0),
+        (bins_moments(counted_bins(5)[0][None], dev, np.random.default_rng(11)), 16.0))))
 
 
 def _selector_arc_sums(S, a, b):
@@ -3834,17 +3908,58 @@ def glue_synthetic(name: str, dev) -> dict:
     return {"refine": refine, "tail_select": select, "tail_finish": finish}
 
 
+def refine_synthetic(name: str, dev) -> dict:
+    """One of phase 27's refine-only cases (REFINE_CASE_NAMES), {'refine':
+    (args, keyword arguments)} on `dev`, made with seeded numpy: two of
+    tail_frame's one-tag frames (the tag's quad moved ~0.7 px, the other
+    quads, a dark or light inside) at the named search range, or, for
+    'profiles leaving the frame', with 12 more quads of half sizes 6-40 px
+    centred within 8 px of the frame's edges, at search range 3."""
+    import torch
+
+    seed = REFINE_CASE_NAMES.index(name)
+    rng = np.random.default_rng(100 + seed)
+    frames = [tail_frame("tag36h11", seed=seed + b, extra=True) for b in range(2)]
+    gray = np.stack([g for g, _ in frames])
+    rq = np.stack([q for _, q in frames])
+    rq[:, 0] += rng.normal(0, 0.7, rq[:, 0].shape).astype(np.float32)
+    search_range = 3.0
+    if name == "profiles leaving the frame":
+        H, W = TAIL_SIZE
+        n = 12
+        edge = rng.integers(0, 4, (2, n))                  # top, bottom, left, right
+        along, across = rng.uniform(0, 1, (2, n)), rng.uniform(-8, 8, (2, n))
+        ctr = np.stack([np.where(edge < 2, along * (W - 1), np.where(edge == 2, 0, W - 1) + across),
+                        np.where(edge < 2, np.where(edge == 0, 0, H - 1) + across,
+                                 along * (H - 1))], -1)
+        half = rng.uniform(6, 40, (2, n, 1, 1))
+        sq = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float64)
+        rq = np.concatenate([rq, (ctr[:, :, None] + half * sq).astype(np.float32)], 1)
+    else:
+        search_range = float(name.split()[-1])
+    dark = rng.random(rq.shape[:2]) < 0.5
+    dark[:, 0] = True
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return {"refine": ((on(gray), on(rq), on(dark)), dict(search_range=search_range))}
+
+
 def glue_cases(dev) -> dict:
-    """Phase 27's inputs, GLUE_CASE_NAMES -> {stage: (args, keyword
-    arguments)} on `dev`: the kernels' inputs in a detect call of
-    torch_bench.py's 720p b1 and 1080p b8 inputs (detect_glue_inputs), then
-    glue_synthetic's cases."""
+    """Phase 27's inputs, GLUE_CASE_NAMES and REFINE_CASE_NAMES -> {stage:
+    (args, keyword arguments)} on `dev`: the kernels' inputs in a detect
+    call of torch_bench.py's 720p b1 and 1080p b8 inputs
+    (detect_glue_inputs), then glue_synthetic's and refine_synthetic's
+    cases."""
     cases = {}
     for config, batch in CAPTURE_CASES:
         cfg, cam, inputs = bench_inputs(config, batch, dev, calls=1)
         cases[f"{config} b{batch}"] = detect_glue_inputs(cfg, cam, inputs[0])
     for name in GLUE_CASE_NAMES[len(CAPTURE_CASES):]:
         cases[name] = glue_synthetic(name, dev)
+    for name in REFINE_CASE_NAMES:
+        cases[name] = refine_synthetic(name, dev)
     return cases
 
 
@@ -3863,14 +3978,16 @@ def _frame_of(args, b: int):
 
 def check_glue_case(name: str, case: dict) -> dict:
     """One of phase 27's cases: each of the refine, select and finish
-    kernels against its plain version bit for bit on every output (NaN
-    equal to NaN), one launch a call, two calls and a captured replay
-    equal, and a batch equal to each frame alone. Raises on a difference;
-    returns {stage: the kernel's result}."""
+    kernels that the case holds inputs for against its plain version bit
+    for bit on every output (NaN equal to NaN), one launch a call, two
+    calls and a captured replay equal, and a batch equal to each frame
+    alone. Raises on a difference; returns {stage: the kernel's result}."""
     import torch
 
     out = {}
     for stage, (kernel, plain, _) in _glue_stages().items():
+        if stage not in case:
+            continue
         args, kw = case[stage]
         one = {k: int(k == stage) for k in _want()}
         _reset_launches()
@@ -3961,12 +4078,20 @@ def glue_phase(gpu: str) -> dict:
     library_ms, parent_ms}}."""
     import torch
 
+    from isaac_ros_apriltag_tpu_torch.ops.refine import profile
+
     out = {"max_abs_err": 0.0}
     lines = []
     bench = {f"{config} b{batch}": batch for config, batch in CAPTURE_CASES}
     stages = _glue_stages()
     for name, case in glue_cases(torch.device("cuda")).items():
         got = check_glue_case(name, case)
+        if name in REFINE_CASE_NAMES:
+            (_, corners, _), kw = case["refine"]
+            moved = (got["refine"] != corners).any(-1).any(-1)
+            lines.append(f"{name}: {int(moved.sum())} of {moved.numel()} quads refined, "
+                         f"{profile(kw['search_range'])[1]} samples a profile")
+            continue
         sel, fin = got["tail_select"], got["tail_finish"]
         lines.append(f"{name}: {sel.pre_valid.shape[-1]} of "
                      f"{case['tail_select'][0][0].shape[1]} quads picked "

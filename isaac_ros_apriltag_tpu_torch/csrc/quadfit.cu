@@ -8,33 +8,44 @@
 // (P = 64 windows, then 210 combos x 4 arcs), since per-element gathers
 // serialise on a TPU, and the top-k, sort and argmin around it are XLA ops.
 // At C = 1024 clusters the combos' selector alone is 224 MB built and read
-// six times. Here one block a cluster keeps its six tables (6 x 65 f32,
-// 1.5 KB) in shared memory and reads an arc's two or three entries from
-// there, so nothing but the tables and the winner leaves or enters device
-// memory. The reference's epilogue (:198-235: line directions, corner
-// intersections, gates and winding on the (C, 4) winners, some 100 small
-// XLA ops fused on a TPU) runs in the same block.
+// six times. Here one block of four warps a cluster keeps its six tables
+// (6 x 65 f32, 1.5 KB) in shared memory and reads an arc's two or three
+// entries from there, so nothing but the tables and the winner leaves or
+// enters device memory. The reference's epilogue (:198-235: line
+// directions, corner intersections, gates and winding on the (C, 4)
+// winners, some 100 small XLA ops fused on a TPU) runs in the same block.
 //
-//   qf_search_kernel, one block a cluster:
-//     phase A, thread k of the first 64: the +-2-bin window's arc sums,
-//       line fit and error (-inf under a weight of 4); the circular local
-//       maximum test; the top 10 by rank (the count of greater values plus
-//       equal values at a lower bin: the plain version's stable descending
-//       sort); the candidates' ascending list by ballots, 2K past the last;
-//     phase B, thread t of the first 210: combo t of _COMBOS (kCombos, in
-//       itertools order), its four arcs' sums and line fits, arc_ok and
-//       combo_ok, and the combo's error in the plain version's add order;
-//       then a block argmin in torch.argmin's order (NaN first, then the
-//       least, ties to the lower combo);
-//     the first four threads fit the winner's arcs again and write them;
-//     in the fitting launch (FIT) they keep each arc's point, direction
-//     (ops/quadfit.py::_line_dir) and error in shared memory instead, then
-//     intersect adjacent arcs into the four corners (to pixels by the
-//     cluster's scale and centroid), and thread 0 takes the gates (a combo,
-//     the worst arc's MSE, the area, the corner angles, finite corners, the
-//     point count, the cluster's validity), the winding and the fit error
-//     and writes the Quads fields (ops/quadfit.py::fit_epilogue), so no
-//     torch op runs on the (N, 4) winners.
+//   qf_search_kernel, one block of 128 threads a cluster, seven barriers:
+//     phase A, thread k < 64: bin k's +-2-bin window's arc sums, line fit
+//       and error (-inf under a weight of 4); the circular local maximum
+//       test against its neighbours' errors; at most 10 maxima are all
+//       candidates, else each is ranked by counting the maxima before it
+//       (greater, or equal at a lower bin: the plain version's stable
+//       descending sort) and the first 10 kept; the candidates' ascending
+//       list by ballots, 2K past the last;
+//     the arc table: a combo's arcs are direct arcs between two of its
+//       candidates p < q (past c[p] to before c[q]) and one wrapped arc
+//       (past c[q] to before c[p] + K), so the n candidates' n (n - 1)
+//       arcs (90 at most, where each combo fitted its own four: 840) are
+//       summed and fitted once, one a thread: the error and arc_ok in a
+//       10 x 10 table (direct at (p, q), wrapped at (q, p));
+//     combos t and t + 128 of _COMBOS (kCombos, itertools order): combo_ok
+//       (every candidate valid) and the four arcs' arc_ok from the table,
+//       the error ((e01 + e12) + e23) + e30 in the plain version's add
+//       order; an arc's fit is a function of its bins alone, so each
+//       combo's error is the plain version's bit for bit; then a warp
+//       argmin (shuffles) and warp 0 over the four in torch.argmin's order
+//       (NaN first, then the least, ties to the lower combo; inf at combo 0
+//       where none is valid);
+//     lanes 0-3 of warp 0 fit the winner's arcs again and write them; in
+//       the fitting launch (FIT) they keep each arc's point, direction
+//       (ops/quadfit.py::_line_dir) and error in shared memory instead,
+//       then intersect adjacent arcs into the four corners (to pixels by
+//       the cluster's scale and centroid), and lane 0 takes the gates (a
+//       combo, the worst arc's MSE, the area, the corner angles, finite
+//       corners, the point count, the cluster's validity), the winding and
+//       the fit error and writes the Quads fields (ops/quadfit.py::
+//       fit_epilogue), so no torch op runs on the (N, 4) winners.
 //
 // Against the plain versions (ops/quadfit.py::search_plain, and
 // fit_epilogue after it for the fitting launch): bit-exact. Every
@@ -46,9 +57,14 @@
 //
 // What bounds it on an H100: bytes (6 x 65 + 27 words a cluster, ~1.7 MB at
 // C = 1024) and the f32 operations of 64 + 4 x (valid combos) line fits a
-// cluster; both are far under a microsecond, so in practice a launch is
-// bound by its latency: the phases of a block run one after another behind
-// barriers. One wave of blocks covers a b8 call (1024 blocks).
+// cluster as the plain version counts them; both are far under a
+// microsecond, so in practice a launch is bound by its latency: a block's
+// steps run one after another. The arc table cuts a cluster's fits from
+// 64 + 840 to 64 + 90 at most, and four warps a cluster keep a block's
+// chain short at 128 clusters yet fill the card at 1024 (kernel ms,
+// torch_resolve_times.py --stage quadfit, NVIDIA H100 80GB HBM3, 700.00 W:
+// one warp a cluster 0.0100 at 720p b1 against four warps' 0.0077; a block
+// of 256 0.0140 at b8 against one warp's 0.0106).
 
 #include <cmath>
 #include <cstdint>
@@ -65,11 +81,14 @@ constexpr int K1 = K + 1;             // prefix-table entries
 constexpr int NT = 6;                 // tables: w, x, y, xx, xy, yy
 constexpr int MAXIMA = 10;            // corner candidates
 constexpr int NCOMB = 210;            // C(10, 4)
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int WARPS = 4;              // a block: one cluster
+constexpr int THREADS = WARPS * 32;
+constexpr int ROUNDS = (NCOMB + THREADS - 1) / THREADS;   // combos a thread
 
-// _COMBOS in itertools.combinations order, candidate j of combo t in byte j.
-__constant__ uint32_t kCombos[NCOMB] = {
+// _COMBOS in itertools.combinations order, candidate j of combo t in byte j
+// (device memory: a warp's lanes read 32 neighbouring words at once, where
+// the constant cache would serve 32 different words one after another).
+__device__ const uint32_t kCombos[NCOMB] = {
     0x03020100u, 0x04020100u, 0x05020100u, 0x06020100u, 0x07020100u, 0x08020100u, 0x09020100u,
     0x04030100u, 0x05030100u, 0x06030100u, 0x07030100u, 0x08030100u, 0x09030100u, 0x05040100u,
     0x06040100u, 0x07040100u, 0x08040100u, 0x09040100u, 0x06050100u, 0x07050100u, 0x08050100u,
@@ -184,6 +203,47 @@ __device__ __forceinline__ bool before(float v, int i, float w, int j) {
     return v < w || (v == w && i < j);
 }
 
+// A cluster's shared memory: its tables, the window errors and the maxima's,
+// the maxima's and candidates' bit masks, the arc table, the warps'
+// argmins and, in the fitting launch, the winner's arcs and corners.
+struct ClusterMem {
+    float S[NT * K1];
+    float err[K];                      // bin k's window error
+    float max_err[K];                  // the same where k is a local maximum
+    uint32_t maxima[2], cands[2];      // bins 0-31 and 32-63
+    float arc_err[MAXIMA][MAXIMA];     // (p, q), p < q: the direct arc; (q, p): the wrapped one
+    uint8_t arc_ok[MAXIMA][MAXIMA];
+    int cand[MAXIMA];
+    float warp_v[WARPS];               // each warp's argmin
+    int warp_i[WARPS];
+    float arc[4][5];                   // FIT: arc j's point (x, y), direction (x, y), error
+    float corner[4][2];                // FIT: corner j in pixels
+};
+
+// Arc u of the n candidates' n (n - 1) arcs: pair u of the first
+// A = n (n - 1) / 2 in colex order ((0, 1), (0, 2), (1, 2), (0, 3), ...)
+// direct, from past candidate p to before candidate q, and pair u - A past
+// A wrapped, from past q to before p + K; its table cell and bins.
+__device__ __forceinline__ void arc_of(const int* cand, int u, int A, int& row, int& col,
+                                       int& a, int& b) {
+    const bool wrapped = u >= A;
+    const int t = wrapped ? u - A : u;
+    int q = (int)((1.0f + sqrtf(1.0f + 8.0f * (float)t)) * 0.5f);
+    q -= q * (q - 1) / 2 > t;
+    q += (q + 1) * q / 2 <= t;
+    const int p = t - q * (q - 1) / 2;
+    row = wrapped ? q : p;
+    col = wrapped ? p : q;
+    a = cand[row] + 1;
+    b = wrapped ? cand[p] + K - 1 : cand[q] - 1;
+}
+
+// Whether the maximum u at bin j ranks before v at bin k: the greater
+// first, ties to the lower bin (candidates()' stable descending sort).
+__device__ __forceinline__ int outranks(float u, int j, float v, int k) {
+    return (u > v) || (u == v && j < k);
+}
+
 // FIT: the fitting launch, which writes the Quads fields (FitArgs) in
 // place of the winner and its lines.
 template <bool FIT>
@@ -191,141 +251,152 @@ __global__ void __launch_bounds__(THREADS)
 qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_out,
                  float* __restrict__ best_err_out, float* __restrict__ lines, int N,
                  FitArgs fit) {
-    __shared__ float S[NT * K1];
-    __shared__ float errs[K];
-    __shared__ float max_errs[K];
-    __shared__ int cand[MAXIMA];
-    __shared__ unsigned cand_mask[2];
-    __shared__ float warp_v[WARPS];
-    __shared__ int warp_i[WARPS];
-    __shared__ int s_best;
-    __shared__ float s_best_err;
-    __shared__ float s_arc[4][5];      // FIT: arc j's point (x, y), direction (x, y), error
-    __shared__ float s_corner[4][2];   // FIT: corner j in pixels
-    const int c = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const float* src = tables + (size_t)c * NT * K1;
-    for (int i = tid; i < NT * K1; i += THREADS) S[i] = src[i];
-    if (tid < MAXIMA) cand[tid] = 2 * K;
-    __syncthreads();
-
-    // --- phase A: the per-bin corner error, local maxima, top 10 ------------
-    if (tid < K) {
-        const int a = (tid + K - 2) % K;
-        float m[NT];
-        arc_sums(S, a, a + 4, m);
-        const float e = line_fit(m).err;
-        errs[tid] = m[0] >= 4.0f ? e : -INFINITY;
-    }
-    __syncthreads();
-    if (tid < K) {
-        const float e = errs[tid];
-        const bool is_max = e > errs[(tid + K - 1) % K] && e >= errs[(tid + 1) % K] && is_finite(e);
-        max_errs[tid] = is_max ? e : -INFINITY;
-    }
-    __syncthreads();
-    bool is_cand = false;
-    if (tid < K) {
-        const float v = max_errs[tid];
-        int rank = 0;
-        for (int j = 0; j < K; ++j) {
-            const float u = max_errs[j];
-            rank += (u > v) || (u == v && j < tid);
-        }
-        is_cand = is_finite(v) && rank < MAXIMA;
-        const unsigned mask = __ballot_sync(FULL, is_cand);
-        if (lane == 0) cand_mask[warp] = mask;
-    }
-    __syncthreads();
-    if (is_cand)
-        cand[(warp ? __popc(cand_mask[0]) : 0) + __popc(cand_mask[warp] & ((1u << lane) - 1u))] = tid;
-    __syncthreads();
-
-    // --- phase B: every 4-subset, then the block argmin ---------------------
-    float v = INFINITY;
-    if (tid < NCOMB) {
-        int cb[4];
-        combo_bins(cand, tid, cb);
-        if (cb[0] < K && cb[1] < K && cb[2] < K && cb[3] < K) {
-            float ae[4];
-            bool ok = true;
+    __shared__ ClusterMem w;
+    const int c = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    // The combos' candidate bytes, in flight while phase A runs.
+    uint32_t combo[ROUNDS];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                int a, b;
-                arc_bounds(cb, j, a, b);
-                float m[NT];
-                arc_sums(S, a, b, m);
-                ae[j] = line_fit(m).err;
-                ok = ok && b - a + 1 >= 1 && m[0] >= 3.0f;
-            }
-            if (ok) v = ((ae[0] + ae[1]) + ae[2]) + ae[3];
+    for (int r = 0; r < ROUNDS; ++r) {
+        const int u = t + THREADS * r;
+        combo[r] = u < NCOMB ? __ldg(&kCombos[u]) : 0u;
+    }
+    const float* src = tables + (size_t)c * NT * K1;
+#pragma unroll
+    for (int r = 0; r < (NT * K1 + THREADS - 1) / THREADS; ++r) {
+        const int i = t + THREADS * r;
+        if (i < NT * K1) w.S[i] = src[i];
+    }
+    if (t < MAXIMA) w.cand[t] = 2 * K;
+    __syncthreads();
+
+    // --- phase A: bin t of warps 0-1; local maxima; the top 10 ---------------
+    float e = -INFINITY;
+    if (t < K) {
+        const int a = (t + K - 2) % K;
+        float m[NT];
+        arc_sums(w.S, a, a + 4, m);
+        const float err = line_fit(m).err;
+        e = m[0] >= 4.0f ? err : -INFINITY;
+        w.err[t] = e;
+    }
+    __syncthreads();
+    const bool is_max = t < K && e > w.err[(t + K - 1) % K] && e >= w.err[(t + 1) % K]
+                        && is_finite(e);
+    if (is_max) w.max_err[t] = e;
+    unsigned bits = __ballot_sync(FULL, is_max);
+    if (lane == 0 && warp < 2) w.maxima[warp] = bits;
+    __syncthreads();
+    const uint64_t maxima = w.maxima[0] | (uint64_t)w.maxima[1] << 32;
+    // At most 10 maxima are all candidates; else each is ranked by the
+    // maxima before it (only maxima are finite, every other bin is -inf).
+    bool is_cand = is_max;
+    if (__popcll(maxima) > MAXIMA && is_max) {
+        int rank = 0;
+        for (uint64_t rest = maxima; rest; rest &= rest - 1) {
+            const int j = __ffsll((long long)rest) - 1;
+            rank += outranks(w.max_err[j], j, e, t);
+        }
+        is_cand = rank < MAXIMA;
+    }
+    bits = __ballot_sync(FULL, is_cand);
+    if (lane == 0 && warp < 2) w.cands[warp] = bits;
+    __syncthreads();
+    const uint64_t cands = w.cands[0] | (uint64_t)w.cands[1] << 32;
+    const int n = __popcll(cands);
+    if (is_cand) w.cand[__popcll(cands & ((1ull << t) - 1))] = t;
+    __syncthreads();
+
+    // --- the arc table: each arc between two candidates, fitted once ---------
+    const int A = n * (n - 1) / 2;
+    if (t < 2 * A) {
+        int row, col, a, b;
+        arc_of(w.cand, t, A, row, col, a, b);
+        float m[NT];
+        arc_sums(w.S, a, b, m);
+        w.arc_err[row][col] = line_fit(m).err;
+        w.arc_ok[row][col] = b - a + 1 >= 1 && m[0] >= 3.0f;
+    }
+    __syncthreads();
+
+    // --- every 4-subset from the table, then the argmin ----------------------
+    // (inf, combo 0) is what a cluster without a valid combo returns.
+    float v = INFINITY;
+    int best = 0;
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+        const int u = t + THREADS * r;
+        const int i0 = combo[r] & 0xff, i1 = (combo[r] >> 8) & 0xff;
+        const int i2 = (combo[r] >> 16) & 0xff, i3 = combo[r] >> 24;
+        if (u < NCOMB && i3 < n) {
+            const bool ok = w.arc_ok[i0][i1] && w.arc_ok[i1][i2] && w.arc_ok[i2][i3]
+                            && w.arc_ok[i3][i0];
+            const float err = ((w.arc_err[i0][i1] + w.arc_err[i1][i2]) + w.arc_err[i2][i3])
+                              + w.arc_err[i3][i0];
+            if (ok && before(err, u, v, best)) v = err, best = u;
         }
     }
-    int i = tid;
 #pragma unroll
     for (int off = 16; off; off >>= 1) {
-        const float w = __shfl_down_sync(FULL, v, off);
-        const int j = __shfl_down_sync(FULL, i, off);
-        if (before(w, j, v, i)) v = w, i = j;
+        const float o = __shfl_xor_sync(FULL, v, off);
+        const int j = __shfl_xor_sync(FULL, best, off);
+        if (before(o, j, v, best)) v = o, best = j;
     }
-    if (lane == 0) warp_v[warp] = v, warp_i[warp] = i;
+    if (lane == 0) w.warp_v[warp] = v, w.warp_i[warp] = best;
     __syncthreads();
-    if (tid == 0) {
-        for (int w = 1; w < WARPS; ++w)
-            if (before(warp_v[w], warp_i[w], v, i)) v = warp_v[w], i = warp_i[w];
-        s_best = i;
-        s_best_err = v;
-        if (!FIT) {
-            best_out[c] = i;
-            best_err_out[c] = v;
-        }
+    if (warp) return;
+#pragma unroll
+    for (int k = 1; k < WARPS; ++k)
+        if (before(w.warp_v[k], w.warp_i[k], v, best)) v = w.warp_v[k], best = w.warp_i[k];
+    if (!FIT && lane == 0) {
+        best_out[c] = best;
+        best_err_out[c] = v;
     }
-    __syncthreads();
 
     // --- the winner's four arcs ----------------------------------------------
-    if (tid < 4) {
+    if (lane < 4) {
         int cb[4], a, b;
-        combo_bins(cand, s_best, cb);
-        arc_bounds(cb, tid, a, b);
+        combo_bins(w.cand, best, cb);
+        arc_bounds(cb, lane, a, b);
         float m[NT];
-        arc_sums(S, a, b, m);
+        arc_sums(w.S, a, b, m);
         const Line l = line_fit(m);
         if (FIT) {
             float dx, dy;
             line_dir(l, dx, dy);
-            s_arc[tid][0] = l.ex;
-            s_arc[tid][1] = l.ey;
-            s_arc[tid][2] = dx;
-            s_arc[tid][3] = dy;
-            s_arc[tid][4] = l.err;
+            w.arc[lane][0] = l.ex;
+            w.arc[lane][1] = l.ey;
+            w.arc[lane][2] = dx;
+            w.arc[lane][3] = dy;
+            w.arc[lane][4] = l.err;
         } else {
             const float out[NT] = {l.ex, l.ey, l.cxx, l.cxy, l.cyy, l.err};
             const size_t plane = (size_t)N * 4;
 #pragma unroll
-            for (int f = 0; f < NT; ++f) lines[f * plane + (size_t)c * 4 + tid] = out[f];
+            for (int f = 0; f < NT; ++f) lines[f * plane + (size_t)c * 4 + lane] = out[f];
         }
     }
     if (!FIT) return;
 
     // --- the epilogue (ops/quadfit.py::fit_epilogue) ------------------------
     const float s = clamp_min(fit.scale[c], 1e-6f);
-    __syncthreads();
-    if (tid < 4) {
+    __syncwarp();
+    if (lane < 4) {
         // Corner j: arcs j - 1 and j intersected, to pixels.
-        const float* a = s_arc[(tid + 3) & 3];
-        const float* b = s_arc[tid];
+        const float* a = w.arc[(lane + 3) & 3];
+        const float* b = w.arc[lane];
         float x, y;
         intersect(a[0], a[1], a[2], a[3], b[0], b[1], b[2], b[3], x, y);
-        s_corner[tid][0] = x * s + fit.centroid[2 * c];
-        s_corner[tid][1] = y * s + fit.centroid[2 * c + 1];
+        w.corner[lane][0] = x * s + fit.centroid[2 * c];
+        w.corner[lane][1] = y * s + fit.centroid[2 * c + 1];
     }
-    __syncthreads();
-    if (tid == 0) {
+    __syncwarp();
+    if (lane == 0) {
         float x[4], y[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) x[j] = s_corner[j][0], y[j] = s_corner[j][1];
+        for (int j = 0; j < 4; ++j) x[j] = w.corner[j][0], y[j] = w.corner[j][1];
         const float scale2 = s * s;
-        const float amax = nan_max(nan_max(nan_max(s_arc[0][4], s_arc[1][4]), s_arc[2][4]),
-                                   s_arc[3][4]);
+        const float amax = nan_max(nan_max(nan_max(w.arc[0][4], w.arc[1][4]), w.arc[2][4]),
+                                   w.arc[3][4]);
         float t[4];
         bool ang_ok = true, finite_ok = true;
 #pragma unroll
@@ -340,7 +411,7 @@ qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_ou
             finite_ok = finite_ok && is_finite(x[j]) && is_finite(y[j]);
         }
         const float area2 = ((t[0] + t[1]) + t[2]) + t[3];
-        const bool gates[7] = {is_finite(s_best_err), amax * scale2 <= fit.max_mse,
+        const bool gates[7] = {is_finite(v), amax * scale2 <= fit.max_mse,
                                0.5f * fabsf(area2) >= fit.min_area, ang_ok, finite_ok,
                                fit.count[c] >= 8, fit.valid[c]};
         bool all = true;
@@ -350,7 +421,7 @@ qf_search_kernel(const float* __restrict__ tables, int64_t* __restrict__ best_ou
             all = all && gates[g];
         }
         fit.quad_valid[c] = all;
-        fit.fit_err[c] = s_best_err * scale2;
+        fit.fit_err[c] = v * scale2;
         // Positive signed area (y-down CCW): where negative, corners 0, 3, 2, 1.
         const bool flip = area2 < 0.0f;
 #pragma unroll

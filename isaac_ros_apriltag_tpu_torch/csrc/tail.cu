@@ -19,10 +19,16 @@
 //     rank by counting the quads that precede it in torch.sort(descending,
 //     stable)'s order (NaN first, ties to the lower index), and, in the top
 //     k, its corners upscaled to full resolution; the frame's valid count.
-//   refine_kernel, one block a quad, warp k edge k: lane s < 12 walks point
-//     s's intensity profile along the edge's normal, streamed through a ring
-//     of five samples (the gradient pairs samples j and j - 4), so any
-//     search range fits; the edge's weighted line fit is five half-warp sums
+//   refine_kernel, one block a quad, warp k edge k: the 12 points' profiles
+//     along the edge's normal, 12 x P samples (204 at P = 17), go to all 32
+//     lanes (lane l sample l, l + 32, ... of the 12 points' samples taken
+//     a profile step at a time, each point's place on the edge shuffled
+//     from its lane), every sample's four taps issued before any is used,
+//     and are staged in shared memory in chunks of up to REFINE_CHUNK
+//     samples a point; lane s < 12 then streams point s's staged samples
+//     through a ring of five (the gradient pairs samples j and j - 4), in j
+//     order, the ring carried from chunk to chunk, so any search range
+//     fits; the edge's weighted line fit is five half-warp sums
 //     (refine.py::_point_sum's order); lane 0 of warp k intersects edges
 //     k - 1 and k through shared memory and keeps the input corner where the
 //     result is not finite or moved too far.
@@ -58,13 +64,15 @@
 //
 // What bounds them on an H100: bytes, and all far under a microsecond, so a
 // launch is bound by its latency: one wave covers a call, and a warp's or a
-// thread's steps run one after another. refine reads each profile sample's
-// four taps (48 points x (4 search_range + 5) samples a quad: ~13 MB at
-// B x 2T = 1024 quads, ~4 us, before the L2 cache serves the taps that
-// neighbouring samples share); decode reads each sample's four taps (124
-// samples a quad at most), the corners and the codebook (once) and writes
-// ~60 bytes a quad: ~0.3 MB at 1024 quads; the picks read ~40 bytes a quad;
-// pose reads 32 bytes of corners a tag and writes 64. The picks' rank and
+// thread's steps run one after another (refine issues a chunk's tap loads
+// in one round).
+// refine reads each profile sample's four taps (48 points x (4 search_range
+// + 5) samples a quad: ~13 MB at B x 2T = 1024 quads, ~4 us, before the L2
+// cache serves the taps that neighbouring samples share); decode reads each
+// sample's four taps (124 samples a quad at most), the corners and the
+// codebook (once) and writes ~60 bytes a quad: ~0.3 MB at 1024 quads; the
+// picks read ~40 bytes a quad; pose reads 32 bytes of corners a tag and
+// writes 64. The picks' rank and
 // dedupe are C^2 compares a frame, ~16 K, latency again.
 
 #include <cmath>
@@ -85,6 +93,8 @@ constexpr int POSE_THREADS = 128;
 constexpr int CODE_BITS = 24;         // code index bits of a warp-min key
 constexpr int REFINE_POINTS = 12;     // points an edge (ops/refine.py::_NSAMPLES)
 constexpr int REFINE_THREADS = 4 * LANES;   // one warp an edge, one block a quad
+constexpr int REFINE_CHUNK = 24;      // profile samples a point staged at once (P <= 21 on the path)
+constexpr int REFINE_ROUNDS = REFINE_POINTS * REFINE_CHUNK / LANES;   // samples a lane a chunk
 constexpr int TAIL_THREADS = 128;     // a frame's quads at most (max_clusters <= 128)
 
 // torch.argmax's order among the first i + 1 values: NaN is the largest,
@@ -527,6 +537,8 @@ refine_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
               const bool* __restrict__ dark_inside, float* __restrict__ out, int C, int H, int W,
               int P, float first, float limit) {
     __shared__ float s_line[4][4];       // edge k: its point (x, y) and direction (x, y)
+    // Edge k's staged samples, a point's row padded to an odd stride (no bank conflict).
+    __shared__ float s_prof[4][REFINE_POINTS][REFINE_CHUNK + 1];
     const int k = threadIdx.x / LANES, lane = threadIdx.x % LANES;
     const long long q = blockIdx.x;
     const float* img = gray + (size_t)(q / C) * H * W;
@@ -549,31 +561,60 @@ refine_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
     // torch.clamp's bound W - 1.001, a double rounded to float.
     const float xmax = (float)((double)W - 1.001), ymax = (float)((double)H - 1.001);
 
-    // Lane s < 12: point s of the edge, its profile of P samples along the
-    // normal streamed through a ring of five (the gradient pairs samples j
-    // and j - 4 at the offset of j - 2), its gradient weights and offset.
+    // Point s of the edge: its place, and lane s < 12's gradient weights and
+    // offset, streamed over its profile of P samples along the normal
+    // through a ring of five (the gradient pairs samples j and j - 4 at the
+    // offset of j - 2), in chunks of up to REFINE_CHUNK samples a point.
     const bool point = lane < REFINE_POINTS;
     const bool dark = dark_inside[q];
-    float px = 0.0f, py = 0.0f, wsum = 0.0f, num = 0.0f;
-    if (point) {
-        const float alpha = (float)(lane + 1) / (float)(REFINE_POINTS + 1);
-        px = x0 + alpha * ex;
-        py = y0 + alpha * ey;
-        float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f, r3 = 0.0f;
-        for (int j = 0; j < P; ++j) {
-            const float off = first + 0.5f * (float)j;
-            const float v = refine_sample(img, H, W, xmax, ymax, px + off * nx, py + off * ny);
-            if (j >= 4) {
-                const float diff = dark ? r0 - v : v - r0;
-                const float w = diff > 0.0f ? diff * diff : 0.0f;
-                wsum = wsum + w;
-                num = num + w * (first + 0.5f * (float)(j - 2));
+    const float alpha = (float)(lane + 1) / (float)(REFINE_POINTS + 1);
+    const float px = point ? x0 + alpha * ex : 0.0f, py = point ? y0 + alpha * ey : 0.0f;
+    float wsum = 0.0f, num = 0.0f;
+    float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f, r3 = 0.0f;
+    float (*prof)[REFINE_CHUNK + 1] = s_prof[k];
+    for (int j0 = 0; j0 < P; j0 += REFINE_CHUNK) {
+        // The chunk's len samples of each of the 12 points, sample j of
+        // point s at i = 12 j + s, spread over the warp's lanes: every tap
+        // load issued before any sample is used.
+        const int len = min(REFINE_CHUNK, P - j0);
+        const int total = REFINE_POINTS * len;
+        float v[REFINE_ROUNDS] = {};
+#pragma unroll
+        for (int r = 0; r < REFINE_ROUNDS; ++r) {
+            const int i = lane + LANES * r, s = i % REFINE_POINTS;
+            // Point s's place on the edge, from lane s.
+            const float sx = __shfl_sync(FULL, px, s), sy = __shfl_sync(FULL, py, s);
+            if (i < total) {
+                const float off = first + 0.5f * (float)(j0 + i / REFINE_POINTS);
+                v[r] = refine_sample(img, H, W, xmax, ymax, sx + off * nx, sy + off * ny);
             }
-            r0 = r1;
-            r1 = r2;
-            r2 = r3;
-            r3 = v;
         }
+#pragma unroll
+        for (int r = 0; r < REFINE_ROUNDS; ++r) {
+            const int i = lane + LANES * r;
+            if (i < total) prof[i % REFINE_POINTS][i / REFINE_POINTS] = v[r];
+        }
+        __syncwarp();
+        if (point) {
+#pragma unroll
+            for (int jj = 0; jj < REFINE_CHUNK; ++jj) {
+                if (jj < len) {
+                    const int j = j0 + jj;
+                    const float u = prof[lane][jj];
+                    if (j >= 4) {
+                        const float diff = dark ? r0 - u : u - r0;
+                        const float w = diff > 0.0f ? diff * diff : 0.0f;
+                        wsum = wsum + w;
+                        num = num + w * (first + 0.5f * (float)(j - 2));
+                    }
+                    r0 = r1;
+                    r1 = r2;
+                    r2 = r3;
+                    r3 = u;
+                }
+            }
+        }
+        __syncwarp();
     }
     const float n0 = num / clamp_min(wsum, 1e-9f);
     const bool ok = point && wsum > 1e-3f;

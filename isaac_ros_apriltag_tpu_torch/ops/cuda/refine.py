@@ -5,8 +5,9 @@ version (ops/refine.py::refine_edges); on CUDA tensors it launches the
 kernel or raises and adds one to ``launches``. One launch refines every
 quad of the call, on the current stream, into an output allocated here by
 torch.empty, with no host sync, so a detect call that runs it can be
-captured in a CUDA graph. The kernel streams each point's profile, so it
-takes any search range the plain version takes.
+captured in a CUDA graph. The kernel stages the profiles in chunks and
+carries each point's sums from chunk to chunk, so it takes any search
+range the plain version takes.
 """
 
 from __future__ import annotations

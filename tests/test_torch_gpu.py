@@ -32,7 +32,7 @@ import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
                         COUNT_FRAMES, GLUE_CASE_NAMES, LONG_SHAPES, MOMENT_ROWS,
-                        QUADFIT_CASE_NAMES, RESOLVE_CASE_NAMES,
+                        QUADFIT_CASE_NAMES, REFINE_CASE_NAMES, RESOLVE_CASE_NAMES,
                         RESOLVE_KERNELS,
                         SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, TAIL_CASE_NAMES,
                         THRESH_CASES, THRESH_MIN_DIFF, bench_inputs, check_cluster_case,
@@ -787,12 +787,14 @@ def test_tail_kernels_refuse_what_they_do_not_take(cuda):
 _GLUE_CASES = {}
 
 
-@pytest.mark.parametrize("name", GLUE_CASE_NAMES)
+@pytest.mark.parametrize("name", GLUE_CASE_NAMES + REFINE_CASE_NAMES)
 def test_glue_kernels_match_plain_versions(cuda, name):
     """chip_smoke.py phase 27's checks on one case: the refine, select and
-    finish kernels against their plain versions bit for bit on every
-    output, one launch a call, two calls and a captured replay equal, a
-    batch equal to each frame alone."""
+    finish kernels (refine alone on REFINE_CASE_NAMES: search ranges whose
+    profiles span one or several staged chunks, quads across the frame's
+    edges) against their plain versions bit for bit on every output, one
+    launch a call, two calls and a captured replay equal, a batch equal to
+    each frame alone."""
     if not _GLUE_CASES:
         _GLUE_CASES.update(glue_cases(cuda))
     check_glue_case(name, _GLUE_CASES[name])

@@ -7,9 +7,11 @@ on torch_bench.py's noisy 720p scene at batch 2; every arc the fit can
 form against a float64 sum of its bins; the selection rules on synthetic
 moments (tied maxima, too few candidates, all-invalid clusters, tied
 combos); numpy mirrors of the kernel's rank rule and argmin order against
-the torch ops they replace; the kernel's combo table; and the wrapper
-ops/cuda/quadfit.py on CPU tensors."""
+the torch ops they replace; the kernel's combo table; its arc table (each
+arc between two candidates fitted once) against the plain search's
+per-combo fits; and the wrapper ops/cuda/quadfit.py on CPU tensors."""
 
+import functools
 import os
 import re
 
@@ -127,14 +129,20 @@ def _at_tag(corners: np.ndarray, truth: list) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _scene_moments(scene: str):
+    """(the reference's ClusterMoments of each frame of a scene, each
+    frame's truth)."""
+    frames, truths = SCENES[scene]()
+    return _moments(frames, DetectorConfig(tag_size=0.16, backend="torch")), truths
+
+
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def fits(request):
     """(scene, JAX quads of each frame, the port's quads of the batch, each
     frame's truth) on the same moments, min_area 64 / 2^2 as the detector
     passes it."""
-    cfg = DetectorConfig(tag_size=0.16, backend="torch")
-    frames, truths = SCENES[request.param]()
-    mj = _moments(frames, cfg)
+    mj, truths = _scene_moments(request.param)
     fit = jax.jit(lambda m: jqf.fit_quads_from_moments(m, min_area=16.0))
     want = [fit(m) for m in mj]
     mt = tcm.ClusterMoments(*[torch.from_numpy(np.stack([np.asarray(getattr(m, f)) for m in mj]))
@@ -267,14 +275,20 @@ def test_all_invalid_clusters():
 
 
 def _rank_candidates(max_errs: np.ndarray) -> np.ndarray:
-    """csrc/quadfit.cu's phase A selection, in numpy: bin k is a candidate
-    when finite and fewer than 10 bins are greater or equal at a lower bin;
-    the candidates ascending, 2K past the last."""
+    """csrc/quadfit.cu's phase A selection, in numpy: at most 10 finite
+    bins are all candidates; else bin k is one when finite and fewer than
+    10 finite bins are greater, or equal at a lower bin (the kernel counts
+    over the maxima's bits only: every other bin is -inf); the candidates
+    ascending, 2K past the last."""
     out = np.full((max_errs.shape[0], tqf._MAXIMA), 2 * K)
     for n, v in enumerate(max_errs):
-        idx = np.arange(K)
-        rank = np.array([((v > v[k]) | ((v == v[k]) & (idx < k))).sum() for k in range(K)])
-        cand = np.nonzero(np.isfinite(v) & (rank < tqf._MAXIMA))[0]
+        finite = np.nonzero(np.isfinite(v))[0]
+        if len(finite) <= tqf._MAXIMA:
+            cand = finite
+        else:
+            rank = np.array([sum((v[j] > v[k]) | ((v[j] == v[k]) & (j < k)) for j in finite)
+                             for k in range(K)])
+            cand = np.nonzero(np.isfinite(v) & (rank < tqf._MAXIMA))[0]
         out[n, :len(cand)] = cand
     return out
 
@@ -300,22 +314,26 @@ def _before(v, i, w, j) -> bool:
     return bool(v < w or (v == w and i < j))
 
 
-def _block_argmin(row) -> int:
-    """csrc/quadfit.cu's block argmin, in Python: 256 lanes (the combos,
-    then inf), a shuffle-down tree in each warp of 32, then lane 0 of warp 0
-    over the warps in order."""
-    v = list(row) + [np.float32(np.inf)] * (256 - len(row))
-    i = list(range(256))
+def _block_argmin(row, valid=None) -> int:
+    """csrc/quadfit.cu's block argmin, in Python: thread t of 128 starts at
+    (inf, combo 0) and takes combos t and t + 128 in turn where valid (all
+    where `valid` is None), then a shuffle-xor tree in each warp of 32, then
+    warp 0 over warps 1-3 in order."""
+    threads = []
+    for t in range(128):
+        bv, bi = np.float32(np.inf), 0
+        for u in range(t, len(row), 128):
+            if (valid is None or valid[u]) and _before(row[u], u, bv, bi):
+                bv, bi = row[u], u
+        threads.append((bv, bi))
     warps = []
-    for w in range(8):
-        wv, wi = v[32 * w:32 * w + 32], i[32 * w:32 * w + 32]
+    for w in range(4):
+        lanes = threads[32 * w:32 * w + 32]
         for off in (16, 8, 4, 2, 1):
-            nv, ni = wv[:], wi[:]
-            for lane in range(32 - off):
-                if _before(wv[lane + off], wi[lane + off], wv[lane], wi[lane]):
-                    nv[lane], ni[lane] = wv[lane + off], wi[lane + off]
-            wv, wi = nv, ni
-        warps.append((wv[0], wi[0]))
+            lanes = [lanes[lane ^ off] if _before(*lanes[lane ^ off], *lanes[lane])
+                     else lanes[lane] for lane in range(32)]
+        assert len(set(i for _, i in lanes)) == 1
+        warps.append(lanes[0])
     bv, bi = warps[0]
     for wv, wi in warps[1:]:
         if _before(wv, wi, bv, bi):
@@ -399,3 +417,114 @@ def test_combo_error_adds_the_arcs_in_order():
     ok = torch.isfinite(r.best_err)
     assert torch.equal((((a0 + a1) + a2) + a3)[ok], r.best_err[ok])
     assert ((a0 + (a1 + (a2 + a3)))[ok] != r.best_err[ok]).any()
+
+
+# --- the kernel's arc table --------------------------------------------------
+
+def _arc_of(u: int, A: int) -> tuple[int, int, bool]:
+    """csrc/quadfit.cu's arc_of: arc u of n (n - 1) -> (row, col, wrapped)
+    of its table cell: pair u (u < A) or u - A in colex order, its q
+    unranked by an f32 square root as the kernel does."""
+    wrapped = u >= A
+    t = u - A if wrapped else u
+    q = int(np.float32((np.float32(1) + np.sqrt(np.float32(1) + np.float32(8) * np.float32(t)))
+                       * np.float32(0.5)))
+    q -= q * (q - 1) // 2 > t
+    q += (q + 1) * q // 2 <= t
+    p = t - q * (q - 1) // 2
+    return (q, p, True) if wrapped else (p, q, False)
+
+
+def _table_search(S):
+    """The kernel's search by its arc table, in torch ops: the candidates,
+    each of the n (n - 1) arcs between them summed (_arc_sums) and fitted
+    (_line_fit) once into a 10 x 10 error and arc_ok table, each combo's
+    error from four cells in the kernel's add order, its validity from the
+    four cells' arc_ok and every candidate below K. Returns (per-combo
+    error, inf where not valid; valid; winner by _block_argmin; its error)."""
+    M = tqf._MAXIMA
+    cand = tqf.candidates(S)
+    N = S.shape[0]
+    err = torch.full((N, M, M), torch.nan)
+    ok = torch.zeros((N, M, M), dtype=torch.bool)
+    for c in range(N):
+        n = int((cand[c] < K).sum())
+        A = n * (n - 1) // 2
+        cells = [_arc_of(u, A) for u in range(2 * A)]
+        if not cells:
+            continue
+        row = torch.tensor([r for r, _, _ in cells])
+        col = torch.tensor([q for _, q, _ in cells])
+        wrap = torch.tensor([w for _, _, w in cells])
+        a = cand[c, row] + 1
+        b = torch.where(wrap, cand[c, col] + K, cand[c, col]) - 1
+        Wn, *ms = tqf._arc_sums(S[c:c + 1], a[None], b[None])
+        err[c, row, col] = tqf._line_fit(tuple(ms), Wn)[-1][0]
+        ok[c, row, col] = ((b - a + 1 >= 1) & (Wn[0] >= 3.0))
+    i0, i1, i2, i3 = torch.as_tensor(tqf._COMBOS).unbind(-1)
+    e = ((err[:, i0, i1] + err[:, i1, i2]) + err[:, i2, i3]) + err[:, i3, i0]
+    valid = ((cand[:, i3] < K) & ok[:, i0, i1] & ok[:, i1, i2] & ok[:, i2, i3]
+             & ok[:, i3, i0])
+    combo_err = torch.where(valid, e, torch.inf)
+    best = torch.tensor([_block_argmin(r, v) for r, v in zip(combo_err.numpy(),
+                                                             valid.numpy())])
+    return combo_err, valid, best, combo_err[torch.arange(N), best]
+
+
+def _combo_search(S):
+    """ops/quadfit.py::search_plain's per-combo step, written out: each
+    combo's four arcs summed and fitted, (per-combo error, inf where not
+    valid; valid)."""
+    cidx = tqf.candidates(S)[:, tqf._combos(S.device)]
+    c1 = torch.roll(cidx, -1, -1) + torch.where(torch.arange(4) == 3, K, 0)
+    a, b = cidx + 1, c1 - 1
+    Wn, *ms = tqf._arc_sums(S, a, b)
+    aerr = tqf._line_fit(tuple(ms), Wn)[-1]
+    valid = torch.all(cidx < K, -1) & torch.all((b - a + 1 >= 1) & (Wn >= 3.0), -1)
+    a0, a1, a2, a3 = aerr.unbind(-1)
+    return torch.where(valid, ((a0 + a1) + a2) + a3, torch.inf), valid
+
+
+def _phase_a_max_errs(S) -> np.ndarray:
+    """(N, K) window errors at the circular local maxima, -inf elsewhere,
+    as the kernel's phase A finds them (a lane's two bins, its neighbour
+    lanes' errors)."""
+    kb = torch.arange(K)[None]
+    Wn, *ms = tqf._arc_sums(S, (kb - 2) % K, (kb - 2) % K + 4)
+    e = torch.where(Wn >= 4.0, tqf._line_fit(tuple(ms), Wn)[-1], -torch.inf).numpy()
+    with np.errstate(invalid="ignore"):
+        is_max = (e > np.roll(e, 1, -1)) & (e >= np.roll(e, -1, -1)) & np.isfinite(e)
+    return np.where(is_max, e, -np.inf)
+
+
+def _table_cases() -> dict:
+    rows = chip_smoke.quadfit_synthetic_rows(np.random.default_rng(9), K)
+    rows["4, 5 and 10 candidates, bins 0 and 63, ties, NaN and inf"] = chip_smoke.quadfit_counted(K)
+    return rows
+
+
+TABLE_CASES = ("ties", "bin 63", "few candidates", "empty", "random", "NaN and inf",
+               "4, 5 and 10 candidates, bins 0 and 63, ties, NaN and inf", "node-720p frame 0")
+
+
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_arc_table_equals_the_plain_search(case):
+    """The kernel's arc table (90 arcs at most, fitted once each) gives
+    every combo's error and validity, the winner and its error bit for bit
+    as the plain search's fits of each combo's four arcs do, on
+    chip_smoke.py phase 25's synthetic clusters and node-720p-b1's frame 0
+    (the cluster stage's moments, here the reference's)."""
+    if case == "node-720p frame 0":
+        m = _scene_moments("bench720p_b2")[0][0]
+        S = chip_smoke.prefix_of_bins(np.stack([np.asarray(getattr(m, f)) for f in
+                                                ("bw", "bx", "by", "bxx", "bxy", "byy")], 1))
+    else:
+        S = chip_smoke.prefix_of_bins(_table_cases()[case])
+    got_err, got_ok, best, best_err = _table_search(S)
+    want_err, want_ok = _combo_search(S)
+    assert torch.equal(got_ok, want_ok)
+    assert chip_smoke._same(got_err, want_err)
+    r = tqf.search_plain(S)
+    assert torch.equal(best, r.best) and chip_smoke._same(best_err, r.best_err)
+    max_errs = _phase_a_max_errs(S)
+    np.testing.assert_array_equal(_rank_candidates(max_errs), tqf.candidates(S).numpy())

@@ -9,7 +9,9 @@ held to the parent's torch form (chip_smoke.py's parent_*_form, kept as the
 yardstick) and to the JAX package's code through jax.jit, on chip_smoke.py
 phase 27's synthetic cases (NaN and inf corners, no valid quad, tied scores
 and margins, duplicate ids at equal margins, max_tags < C/2, quad_decimate
-1 and 3, a batch of 3) and on rendered frames. Ids, indices and every
+1 and 3, a batch of 3) and on rendered frames; refine also at search
+ranges 7.5 and 40 (profiles past the kernel's staged chunk) and on quads
+across the frame's edges, against JAX. Ids, indices and every
 boolean are exact. Coordinates agree with the parent's form within 1e-5 px
 or 5e-7 of their size (one float32 ulp is 3e-5 at 300 px, and the two sum
 in other orders), and with JAX at tests/test_torch_tail.py's tolerances
@@ -22,6 +24,8 @@ refuse what their kernels do not take."""
 
 import dataclasses
 import functools
+import os
+import re
 import shutil
 
 import jax
@@ -32,7 +36,7 @@ import torch
 
 import chip_smoke
 import isaac_ros_apriltag_tpu as J
-from chip_smoke import GLUE_CASE_NAMES, glue_synthetic, tail_frame
+from chip_smoke import GLUE_CASE_NAMES, glue_synthetic, refine_synthetic, tail_frame
 from isaac_ros_apriltag_tpu import detector as jdet
 from isaac_ros_apriltag_tpu.ops import cluster_moments as jcm
 from isaac_ros_apriltag_tpu.ops import quadfit as jqf
@@ -46,7 +50,7 @@ from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as tcm
 from isaac_ros_apriltag_tpu_torch.ops import quadfit as tqf
 from isaac_ros_apriltag_tpu_torch.ops import refine as tref
 from isaac_ros_apriltag_tpu_torch.ops import tail as ttail
-from isaac_ros_apriltag_tpu_torch.ops.cuda import launch_counts
+from isaac_ros_apriltag_tpu_torch.ops.cuda import _lib, launch_counts
 from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as quadfit_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as refine_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tail_kernels
@@ -210,6 +214,55 @@ def test_refine_matches_reference(decimate):
                             torch.from_numpy(dark), search_range=sr).numpy()
     np.testing.assert_allclose(got, want, atol=1e-3)
     assert (np.abs(got[:, 0] - quads[:, 0]).max((-2, -1)) > 0.05).all()
+
+
+def test_refine_long_range_matches_reference():
+    """search_range 7.5: profiles of 35 samples, past the 24 that
+    refine_kernel stages at once."""
+    gray, quads, dark = _frames((0, 1))
+    ref = jax.jit(jax.vmap(lambda g, c, d: jref.refine_edges(g, c, d, search_range=7.5)))
+    want = np.asarray(ref(jnp.asarray(gray), jnp.asarray(quads), jnp.asarray(dark)))
+    got = tref.refine_edges(torch.from_numpy(gray), torch.from_numpy(quads),
+                            torch.from_numpy(dark), search_range=7.5).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert (np.abs(got[:, 0] - quads[:, 0]).max((-2, -1)) > 0.05).all()
+
+
+@pytest.mark.parametrize("name", ["search range 40", "profiles leaving the frame"])
+def test_refine_only_cases_match_reference(name):
+    """chip_smoke.py phase 27's refine-only cases: 165 samples a profile,
+    and quads across the frame's edges."""
+    (gray, corners, dark), kw = refine_synthetic(name, torch.device("cpu"))["refine"]
+    ref = jax.jit(jax.vmap(lambda g, c, d: jref.refine_edges(g, c, d, **kw)))
+    want = np.asarray(ref(*(jnp.asarray(t.numpy()) for t in (gray, corners, dark))))
+    got = tref.refine_edges(gray, corners, dark, **kw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+@pytest.mark.parametrize("P", [0, 7, 13, 17, 21, 24, 25, 48, 165])
+def test_refine_kernel_stages_each_sample_once(P):
+    """csrc/tail.cu::refine_kernel's staging, in Python: chunks of up to
+    REFINE_CHUNK samples a point, lane l holding i = l + 32 r of a chunk's
+    12 len samples (sample j of point s at i = 12 j + s), REFINE_ROUNDS
+    rounds a lane; every (point, sample) of the profile is staged once, and
+    lanes 0-11 read them back in j order."""
+    with open(os.path.join(_lib._CSRC, "tail.cu")) as f:
+        src = f.read()
+    chunk = int(re.search(r"constexpr int REFINE_CHUNK = (\d+);", src).group(1))
+    rounds = 12 * chunk // 32
+    seen = []
+    for j0 in range(0, P, chunk):
+        ln = min(chunk, P - j0)
+        staged = {}
+        for lane in range(32):
+            for r in range(rounds):
+                i = lane + 32 * r
+                if i < 12 * ln:
+                    assert (i % 12, i // 12) not in staged
+                    staged[(i % 12, i // 12)] = (i % 12, j0 + i // 12)
+        assert len(staged) == 12 * ln
+        seen += [staged[(s, jj)] for s in range(12) for jj in range(ln)]
+    assert sorted(seen) == [(s, j) for s in range(12) for j in range(P)]
 
 
 @pytest.mark.parametrize("name", ["NaN and inf corners", "quad_decimate 3"])

@@ -573,10 +573,10 @@ def breakdown(dev: list, host: list, n: int, wall_ms: float, seg: tuple | None) 
     (name, start us, end us) on one clock, over `wall_ms` of host time:
     device busy ms (the union of the device ops' spans) and the idle share
     of the wall, device ops and kernels a call, the TOP_OPS device ops with
-    the most time, the TOP_GAPS longest gaps between device ops, each with
-    the innermost host op in progress at its middle and the device op that
-    ended it, and with seg = (B, h, w) K1, K2 and K3's ms a launch against
-    their bound there."""
+    the most time (and every device op, in the record only), the TOP_GAPS
+    longest gaps between device ops, each with the innermost host op in
+    progress at its middle and the device op that ended it, and with seg =
+    (B, h, w) K1, K2 and K3's ms a launch against their bound there."""
     dev = sorted(dev, key=lambda e: e[1])
     by_name: dict[str, list] = {}
     gaps, end = [], None
@@ -602,7 +602,8 @@ def breakdown(dev: list, host: list, n: int, wall_ms: float, seg: tuple | None) 
            "device_busy_ms_per_call": busy / 1e3 / n, "idle_share": 1 - busy / 1e3 / wall_ms,
            "device_ops_per_call": len(dev) / n,
            "kernels_per_call": sum(not e[0].startswith(("Memcpy", "Memset")) for e in dev) / n,
-           "top_device_ops_ms_and_calls": top[:TOP_OPS], "idle_gaps": gap_rows}
+           "top_device_ops_ms_and_calls": top[:TOP_OPS], "device_ops_ms_and_calls": top,
+           "idle_gaps": gap_rows}
     if seg is not None:
         for k, (part, bytes_px) in KERNELS.items():
             ms = [(b - a) / 1e3 for name, a, b in dev if part in name]

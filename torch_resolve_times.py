@@ -2,7 +2,8 @@
 """Device time of one stage's kernels of one checkout, to compare two
 trees on one card in one call.
 
-    python3 torch_resolve_times.py [--root DIR] [--stage resolve|sort|edge_count|moments]
+    python3 torch_resolve_times.py [--root DIR]
+        [--stage resolve|sort|edge_count|moments|quadfit|refine]
 
 Builds the kernels of the package under DIR (default: this checkout) and
 prints one JSON line: the card's nvidia-smi name and power limit, DIR, and
@@ -17,7 +18,11 @@ pairs (sort_pairs, its memset included), given with the kept pairs; the
 edge_count call the stage's pair count (edge_count, with its zeroed
 output), given with the pixels; the moments call the moments kernel on
 the slots the stage's sort and segment kernels give it (slot_moments),
-given with the resident pairs. Compare
+given with the resident pairs; the quadfit calls the quad fit's fitting
+launch (quad_fit) and its search alone (quad_search) on the prefix tables
+of the cluster stage's moments, given with the clusters; the refine call
+the edge refinement (refine_edges) on the candidate quads a detect call
+gives it, given with the quads and the profile's samples. Compare
 a parent and a change in turns: parent, change, change, parent. Without a
 CUDA device it exits 1 and prints nothing.
 """
@@ -58,29 +63,44 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    parser.add_argument("--stage", choices=("resolve", "sort", "edge_count", "moments"),
-                        default="resolve")
+    parser.add_argument("--stage", default="resolve",
+                        choices=("resolve", "sort", "edge_count", "moments", "quadfit", "refine"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_resolve_times: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain_quadfit
     from isaac_ros_apriltag_tpu_torch.ops.cuda import _lib
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
-    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as fk
+    from isaac_ros_apriltag_tpu_torch.ops.refine import profile
 
     # Imported after the package under --root, which chip_smoke's own path
     # entry must not shadow.
     from chip_smoke import (CAPTURE_CASES, _device_ms, _gpu_info, bench_inputs, cluster_inputs,
-                            front_trinary, labels_of)
+                            detect_glue_inputs, front_trinary, labels_of)
 
     _lib.library()
     dev = torch.device("cuda")
     out = {"gpu": _gpu_info(), "root": root, "stage": args.stage}
     for config, batch in CAPTURE_CASES:
-        cfg, _, inputs = bench_inputs(config, batch, dev, calls=1)
-        if args.stage in ("sort", "edge_count", "moments"):
+        cfg, cam, inputs = bench_inputs(config, batch, dev, calls=1)
+        if args.stage == "quadfit":
+            tri, dense, ovf, kw = cluster_inputs(cfg, inputs[0])
+            m = cmk.extract_cluster_moments(tri, dense, comp_overflow=ovf, **kw)
+            S = plain_quadfit.prefix_tables(m)
+            min_area = 64.0 / cfg.quad_decimate ** 2
+            size = {"clusters": S.shape[0]}
+            calls = {"quad_fit": lambda: qk.quad_fit(S, m, min_area=min_area),
+                     "quad_search": lambda: qk.quad_search(S)}
+        elif args.stage == "refine":
+            (gray, corners, dark), kw = detect_glue_inputs(cfg, cam, inputs[0])["refine"]
+            size = {"quads": corners.numel() // 8, "samples": profile(kw["search_range"])[1]}
+            calls = {"refine": lambda: fk.refine_edges(gray, corners, dark, **kw)}
+        elif args.stage in ("sort", "edge_count", "moments"):
             tri, dense, ovf, kw = cluster_inputs(cfg, inputs[0])
             B, H, W = tri.shape
             E = min(kw["max_edge_points"], 4 * H * W)
