@@ -396,6 +396,26 @@ SEGMENT_ROWS = {
         (None, [26] * 30 + [1000] + [24] * 5), 4096, 4000, 4000, 8, 24, 2000, (), (0,)),
     "a histogram of 16001 bins": (
         ([40] * 20 + [13000] + [30] * 10,), 16384, 16384, 16384, 16, 24, 16000, (), (0,)),
+    # The top kernel's own edges: T in the last, partial coarse bin of 32
+    # sizes (601 bins); ties straddling T inside a coarse bin, with equal
+    # sizes above T at other positions; more entries (candidates of the
+    # tiles that reach T) than a round of its 256 threads takes (2048);
+    # more tiles than its chunk of 1024, crossing segments on the chunk's
+    # edge, min_cluster_pixels below 0; a segment cut at E, E not a
+    # multiple of the tile.
+    "T in the last coarse bin": (
+        ([40] * 30 + [590, 600, 585, 12] + [30] * 20,), 4096, 4096, 4096, 2, 24, 600, (), ()),
+    "ties straddling T inside a coarse bin": (
+        ([45] * 6 + [50, 50] + [30] * 10 + [45] * 8 + [50] + [20] * 3 + [45] * 4,),
+        2048, 2048, 2048, 10, 24, 600, (), ()),
+    "entries past one round of the top kernel": (
+        ([24] * 1400 + [100] + [24] * 1400 + [100],), 69632, 68001, 68001, 128, 24, 600, (),
+        ()),
+    "tiles past one chunk of the top kernel": (
+        ([500] * 1049 + [510] + [500] * 50 + [520],), 552960, 551000, 551000, 16, -1, 600,
+        (), ()),
+    "min_cluster_pixels -1, a segment cut at E": (
+        ([30] * 50 + [1000],), 4096, 2000, 2000, 8, -1, 800, (), ()),
 }
 # Phase 23's synthetic rows of kept pairs for the radix passes alone:
 # name -> (each frame's (kept count K, key kind), row length N, E; see
@@ -522,12 +542,28 @@ TAIL_QUADS = (((10, 10), (50, 12), (48, 50), (12, 48)),
 TAIL_EXTRA_QUADS = (((400, -50), (450, -50), (450, -10), (400, -10)),
                     ((np.nan, 1.0), (np.inf, -np.inf), (1e30, -1e30), (0.0, np.nan)),
                     ((0.0, 0.0), (1.0, 0.0), (2.0, 0.0), (3.0, 0.0)))
+# Phase 26's codebooks past the STAGED_CODES = 4096 codes that decode_kernel
+# stages in shared memory (csrc/tail.cu; the rest it reads from global
+# memory): LARGE_CODES random codes of tag36h11's 36 bits, with tag36h11's
+# code of tail_frame's tag (id 3), as read, or with bits flipped, at the
+# indices given: kind -> ({index: bits flipped}, the tag's expected (id,
+# hamming)). "past the staged codes": the code itself past 4096 (twice: the
+# first wins) beats one-bit neighbours among the staged ones; "a tie across
+# the staged codes": one-bit neighbours on both sides of 4096, the first
+# (staged) one wins.
+LARGE_CODES = 5000
+LARGE_CODEBOOKS = {"the tag's past the staged codes": ({100: (0,), 4095: (7,), 4500: (),
+                                                        4900: ()}, (4500, 0)),
+                   "a tie across the staged codes": ({4000: (1, 2), 4095: (5,), 4096: (9,),
+                                                      4600: (3,)}, (4095, 1))}
 TAIL_FAMILIES = ("tag36h11", "tag36h10", "tag25h9", "tag16h5", "tagCircle21h7",
                  "tagCircle49h12", "tagCustom48h12", "tagStandard41h12", "tagStandard52h13")
 TAIL_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES)
                    + TAIL_FAMILIES + ("tag36h11, no sharpening", "tag36h11, max_hamming 0",
                                       "tagCircle49h12, 5 bits flipped, max_hamming 5",
-                                      "tag36h11, a batch of 3 frames, per-frame K"))
+                                      "tag36h11, a batch of 3 frames, per-frame K",
+                                      "tag36h11, 3 quads: an idle warp in the last block")
+                   + tuple(f"{LARGE_CODES} codes, {kind}" for kind in LARGE_CODEBOOKS))
 
 # Phase 27: the tail's per-quad refinement and per-frame picks (see
 # glue_cases), the reference's XLA code each kernel replaces (no Pallas
@@ -2533,6 +2569,12 @@ def cluster_phase(gpu: str) -> dict:
                                plain_ms=first_plain + later_plain if twin is None
                                else _device_ms(twin, 5), bound_ms=bound,
                                library_ms=torch_sort_ms if k == "radix_scatter" else None)
+        # segment_top's library call: the one stable sort of the (B, E)
+        # gated row that _top_c runs (the selection alone, not the crossing
+        # segments' sizes or the gate).
+        gated = plain.segment_gated_plain(tiles, ne, **tkw)[0]
+        out["segment_top"][tag]["library_ms"] = _device_ms(
+            lambda: torch.sort(-gated, dim=-1, stable=True), 10)
         out["radix_scatter"][tag].update(
             first=dict(ms=main["ms"][1], plain_ms=first_plain, bound_ms=main["bound"][1]),
             later=dict(ms=sum(main["ms"][2:]), plain_ms=later_plain,
@@ -3335,6 +3377,22 @@ def tail_frame(name: str, flip: int = 0, seed: int = 0, tag_id: int = 3,
     return gray.astype(np.float32), np.concatenate([tag[None], quads]).astype(np.float32)
 
 
+def large_codebook_family(kind: str, family=None):
+    """tag36h11 with LARGE_CODEBOOKS[kind]'s codebook of LARGE_CODES codes
+    (seeded), as a copy of `family` (default: the port's tag36h11; the
+    tests pass the reference's)."""
+    import dataclasses
+
+    from isaac_ros_apriltag_tpu_torch.models.families import get_family
+
+    fam = get_family("tag36h11") if family is None else family
+    rng = np.random.default_rng(17)
+    codes = rng.integers(0, 1 << fam.nbits, LARGE_CODES, dtype=np.uint64)
+    for at, bits in LARGE_CODEBOOKS[kind][0].items():
+        codes[at] = fam.codes[3] ^ np.uint64(sum(1 << b for b in bits))
+    return dataclasses.replace(fam, name=f"tag36h11, {LARGE_CODES} codes", codes=codes)
+
+
 def tail_pose_corners(Ks, n_tags: int, seed: int = 5) -> np.ndarray:
     """(B, n_tags, 4, 2) float32 corners of tags at random poses (0.4 to
     1.5 m, in-plane turns up to 0.8 rad) seen through Ks[b], with 0.2 px
@@ -3387,9 +3445,12 @@ def tail_cases(dev) -> dict:
     1080p b8 inputs (detect_tail_inputs); tail_frame's frame of every family
     with TAIL_EXTRA_QUADS (its six quads also posed, with TAIL_K); tag36h11
     without sharpening and at max_hamming 0; tagCircle49h12 with its largest
-    correctable count of bits flipped, at that max_hamming; and a batch of
+    correctable count of bits flipped, at that max_hamming; a batch of
     three tag36h11 frames, whose pose takes tail_pose_corners through a
-    (3, 3, 3) K, one per frame."""
+    (3, 3, 3) K, one per frame; a tag36h11 frame of three quads (the last
+    block of two quads has one idle warp); and tag36h11's frame decoded
+    with each of LARGE_CODEBOOKS, whose tag's (id, hamming) is also given
+    as "expect"."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.models.families import get_family
@@ -3410,7 +3471,8 @@ def tail_cases(dev) -> dict:
 
     for name in TAIL_FAMILIES:
         cases[name] = frame_case(name, tail_frame(name, extra=True))
-    sharp0, ham0, flipped, batch = TAIL_CASE_NAMES[len(CAPTURE_CASES) + len(TAIL_FAMILIES):]
+    sharp0, ham0, flipped, batch, odd = TAIL_CASE_NAMES[
+        len(CAPTURE_CASES) + len(TAIL_FAMILIES):-len(LARGE_CODEBOOKS)]
     cases[sharp0] = frame_case("tag36h11", tail_frame("tag36h11", seed=1, extra=True),
                                decode_sharpening=0.0)
     cases[ham0] = frame_case("tag36h11", tail_frame("tag36h11", seed=2, extra=True),
@@ -3425,6 +3487,12 @@ def tail_cases(dev) -> dict:
     cases[batch] = {"decode": (on(np.stack([g for g, _ in frames])),
                                on(np.stack([q for _, q in frames])), get_family("tag36h11"), {}),
                     "pose": (on(tail_pose_corners(Ks, 4)), on(Ks), TAIL_TAG_SIZE)}
+    cases[odd] = frame_case("tag36h11", tail_frame("tag36h11", seed=3))
+    gray, quads = tail_frame("tag36h11", extra=True)
+    for kind, (_, expect) in LARGE_CODEBOOKS.items():
+        cases[f"{LARGE_CODES} codes, {kind}"] = {
+            "decode": (on(gray), on(quads), large_codebook_family(kind), {}),
+            "pose": (on(quads), K, TAIL_TAG_SIZE), "expect": expect}
     return cases
 
 
@@ -3552,7 +3620,8 @@ def parent_pose_form(corners, K, tag_size: float):
 def check_tail_case(name: str, case: dict) -> dict:
     """One of phase 26's cases: each tail kernel against its plain version
     bit for bit on every output (NaN equal to NaN), one launch a call, two
-    calls and a captured replay equal. Raises on a difference; returns
+    calls and a captured replay equal, and the tag's decoded (id, hamming)
+    where the case gives them ("expect"). Raises on a difference; returns
     {"decode": DecodeResult, "pose": Poses} of the kernels."""
     from isaac_ros_apriltag_tpu_torch.ops import decode as plain_decode
     from isaac_ros_apriltag_tpu_torch.ops import pose as plain_pose
@@ -3578,6 +3647,11 @@ def check_tail_case(name: str, case: dict) -> dict:
         if not all(_same(a, b) for a, b in zip(kernel(*args, **kwargs), got)):
             raise AssertionError(f"{stage} kernel, {name}: two calls differ")
         _replay_equals(lambda: kernel(*args, **kwargs), got, f"{stage} kernel, {name}")
+        if stage == "decode" and "expect" in case:
+            seen = (int(got.id.flatten()[0]), int(got.hamming.flatten()[0]))
+            if seen != case["expect"]:
+                raise AssertionError(f"decode kernel, {name}: the tag decoded as (id, hamming) "
+                                     f"{seen}, not {case['expect']}")
         out[stage] = got
     return out
 
@@ -3634,7 +3708,8 @@ def tail_phase(gpu: str) -> dict:
         out["b1" if bench[name] == 1 else f"batch{bench[name]}"] = t
     torch.cuda.synchronize()
     print(f"[26 tail] decode_kernel and pose_kernel (one launch a call each) against their "
-          f"plain versions bit for bit on every output, two calls and a captured replay equal: "
+          f"plain versions bit for bit on every output, two calls and a captured replay equal, "
+          "the tag's id and hamming as expected past the 4096 staged codes: "
           + "; ".join(lines) + f"; on {gpu}: device ms a call (kernel / plain / bound (bytes) "
           "/ the parent's form, plain and parent's form as captured replays; no library call "
           "computes either) "

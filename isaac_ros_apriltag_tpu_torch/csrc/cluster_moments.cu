@@ -72,14 +72,21 @@
 //       integer atomic a candidate into the frame's size histogram (zeroed
 //       by a memset on the stream); the tile's counts, first start, largest
 //       candidate and crossing start;
-//   cm_seg_top_kernel  one block a frame over the tiles' fields: each
-//       crossing segment's size from the first start of a later tile (a
-//       suffix minimum over tiles) into a copy of the histogram in shared
-//       memory (opted in past 48 KB); the
-//       threshold size T of the top C; the winners taken in position order
-//       from the tiles that hold a size >= T, ties at T to the lower
-//       position (the plain version's stable sort), then ranked by (size
-//       descending, position);
+//   cm_seg_top_kernel  one block of 256 threads a frame over the tiles'
+//       fields, four tiles a thread: the histogram loaded into shared
+//       memory (opted in past 48 KB) with the fields in one round, each
+//       warp's 32 bins of a round summed into a coarse bin; each crossing
+//       segment's size from the first start of a later tile (a suffix
+//       minimum over tiles: one barrier) into both histograms; the
+//       threshold size T of the top C found by every warp alone (the coarse
+//       bin by a warp scan, then T by a warp scan of its 32 bins); the
+//       candidates of the tiles that hold a size >= T laid out in position
+//       order by a block scan and loaded in one round, a run of them a
+//       thread; ties at T to the lower position by a block scan of the
+//       size-T entries, each winner at T ranked ngt + its place there, the
+//       ngt winners above T ranked by (size descending, position) against
+//       their list in shared memory. Six barriers of 8 warps and two
+//       rounds of dependent loads a frame;
 //   cm_moments_kernel  the slots' moments: a slot's resident pairs are
 //       sorted positions [top_pos, top_pos + n), n = its size cut at E2
 //       less the sizes of the slots before it (the plain version's second
@@ -126,7 +133,7 @@
 // in enough blocks to fill the card (about 165 tiles at 720p); the top
 // kernel reads 20 B a tile and the candidates of the few tiles that reach
 // T, but one block a frame is a chain of loads and barriers, so latency
-// bounds it; the moments kernel reads each resident pair's pay (4 B) twice,
+// bounds it, and its design is that chain made short; the moments kernel reads each resident pair's pay (4 B) twice,
 // the second time from L1, in blocks whose warps are sized to the slots, and
 // a block is a chain of loads, shuffles and barriers too. The pixel kernels
 // run far from their bytes: a block's loads, shuffles and barriers in a
@@ -139,6 +146,8 @@
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "stamps.cuh"
 
 namespace {
 
@@ -160,8 +169,14 @@ constexpr int SEG_MAX_PER = (1 << 15) - 1;    // the largest max_per: the top ke
 // their largest size, its first start (INT_MAX: none), and its crossing
 // start (-1: none).
 constexpr int ST_STARTS = 0, ST_CANDS = 1, ST_MAX = 2, ST_FIRST = 3, ST_CROSS = 4, SEG_STATS = 5;
-constexpr int TOP_THREADS = 1024;
+constexpr int TOP_THREADS = 256;
 constexpr int TOP_WARPS = TOP_THREADS / 32;
+constexpr int TOP_TPT = 4;                     // tiles a thread of cm_seg_top_kernel
+constexpr int TOP_CHUNK = TOP_THREADS * TOP_TPT;   // tiles a chunk: 2^19 keys
+constexpr int TOP_BIN = 32;                    // sizes a coarse bin: a warp's bins of a round
+constexpr int TOP_HIST_ROUND = 24;             // histogram bins a thread loads at once
+constexpr int TOP_PER = 8;                     // pass-2 entries a thread a round
+constexpr int TOP_CPL = 8;                     // coarse bins a lane holds in registers
 static_assert(SEG_TILE <= (1 << SEG_POS_BITS) && SEG_MAX_PER < (1 << (31 - SEG_POS_BITS)),
               "a candidate's offset and size must fit its fields");
 static_assert(SEG_TILE_THREADS % 32 == 0 && TOP_THREADS >= MAX_C, "whole warps; a thread a slot");
@@ -429,34 +444,6 @@ __device__ __forceinline__ int block_scan(int v, int* buf, int* total) {
     *total = all;
     __syncthreads();                        // buf is free for the next scan
     return before + inc - v;
-}
-
-// Block-wide exclusive suffix minimum (NT threads, every thread calls it):
-// the least v of the threads after this one, INT_MAX for the last; *all
-// gets the block's least v.
-template <int NT>
-__device__ __forceinline__ int block_suffix_min(int v, int* buf, int* all) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    int inc = v;                            // the least of lanes lane .. 31
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int n = __shfl_down_sync(FULL, inc, d);
-        if (lane + d < 32) inc = min(inc, n);
-    }
-    int after = __shfl_down_sync(FULL, inc, 1);
-    if (lane == 31) after = INT_MAX;
-    if (lane == 0) buf[w] = inc;
-    __syncthreads();
-    int m = INT_MAX;
-#pragma unroll
-    for (int u = 0; u < NT / 32; ++u) {
-        const int s = buf[u];
-        if (u > w) after = min(after, s);
-        m = min(m, s);
-    }
-    *all = m;
-    __syncthreads();
-    return after;
 }
 
 // A pair is kept when its hash is a multiple of the frame's stride: bits
@@ -1139,18 +1126,33 @@ cm_seg_tiles_kernel(const int32_t* __restrict__ key_s, const int32_t* __restrict
     }
 }
 
-// One block a frame over the tiles' fields, the histogram copied into
-// shared memory (hist itself is not written). Pass 1, last tiles first:
-// each tile's five fields in one load; a crossing start's segment ends at
-// the first start of a later tile (an exclusive suffix minimum over the
-// tiles) or at nv; its size is gated and counted into the copy. The
-// threshold size T of the top want = min(C, candidates) from the copy; then
-// pass 2, tiles in order (the first TOP_THREADS tiles' fields still in
-// registers): the candidates of the tiles that hold a size >= T, in
-// position order (each tile's compacted candidates, then its crossing one),
-// every size above T and the first `ties` of size T taken (the plain
-// version's stable sort), and the winners ranked by (size descending,
-// position ascending), 8 threads a winner.
+// One block of TOP_THREADS a frame over the tiles' fields, thread t the
+// TOP_TPT tiles from t TOP_TPT of a chunk of TOP_CHUNK (one chunk up to
+// 2^19 keys); hist itself is not written.
+// - The histogram is loaded into shared memory in one round with the
+//   fields, thread t bin t + TOP_THREADS k, so a warp's 32 bins of a round
+//   are one coarse bin, summed by one warp reduction.
+// - Pass 1, chunks from the last: each crossing start's segment ends at the
+//   first start of a later tile (the thread's later tiles, then a warp and
+//   a block suffix minimum over the threads: one barrier) or at nv; its
+//   gated size is added into both histograms by shared atomics.
+// - The threshold size T of the top want = min(C, candidates): every warp
+//   finds T's coarse bin (a warp scan of the lanes' coarse sums from the
+//   top, then the one lane's walk) and T in it (a warp scan of its 32
+//   bins), so no barrier.
+// - Pass 2, chunks in order: the tiles that hold a size >= T are listed
+//   with their first entry by a block scan (their candidates, compacted,
+//   then the crossing one: position order); thread t takes TOP_PER
+//   consecutive entries a round, finds the first one's tile by one binary
+//   search of the list and the rest from the next TOP_PER list entries
+//   (each listed tile holds an entry), and loads them in one round. The
+//   sizes above T go to a shared list of keys size << 32 | ~position, one
+//   atomic a warp; a block scan of the size-T entries in entry order gives
+//   each its place among the ties, and the first `ties` take rank ngt +
+//   place. Each listed winner (ngt < C) takes as its rank the number of
+//   listed keys above its own (two lanes a winner, half the list each):
+//   (size descending, position ascending). The winners are staged by rank
+//   in shared memory and written out at once after one more barrier.
 __global__ void __launch_bounds__(TOP_THREADS)
 cm_seg_top_kernel(const int32_t* __restrict__ stats, const int32_t* __restrict__ cand,
                   const int32_t* __restrict__ hist, const int32_t* __restrict__ nv_in,
@@ -1161,182 +1163,369 @@ cm_seg_top_kernel(const int32_t* __restrict__ stats, const int32_t* __restrict__
                   int32_t* __restrict__ n_eligible, int32_t* __restrict__ edge_stride_out,
                   uint8_t* __restrict__ overflow, int tiles, int E, int E2, int C, int min_pix,
                   int max_per, int budget) {
-    extern __shared__ int hb[];             // the frame's histogram, max_per + 1 bins
-    __shared__ int buf[TOP_WARPS], buf2[TOP_WARPS];
-    __shared__ int s_off[TOP_THREADS], s_nc[TOP_THREADS], s_cs[TOP_THREADS], s_ls[TOP_THREADS];
-    __shared__ int s_T, s_ngt;
-    __shared__ int win_pos[MAX_C], win_size[MAX_C], win_rank[MAX_C];
+    extern __shared__ int s_fine[];         // max_per + 1 bins, then the coarse bins
+    __shared__ int s_wmin[2][TOP_WARPS], s_wred[2][TOP_WARPS], s_wscan[2][TOP_WARPS];
+    __shared__ int s_weq[2][TOP_WARPS];
+    // Pass 2's listed tiles: first entry (and the total past the last); the
+    // first entry, first position, candidates and crossing size; the
+    // crossing start.
+    __shared__ int s_ro[TOP_CHUNK + 1];
+    __shared__ int4 s_rinfo[TOP_CHUNK];
+    __shared__ int s_rls[TOP_CHUNK];
+    __shared__ unsigned long long s_gt_key[MAX_C];
+    __shared__ int s_top_pos[MAX_C], s_top_size[MAX_C];   // the winners by rank
+    __shared__ int s_gtn, s_gtsum;
     const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, w = t >> 5;
     const int32_t* st = stats + (size_t)b * SEG_STATS * tiles;
     const int32_t* cd = cand + (size_t)b * tiles * SEG_TILE;
+    const int32_t* hb = hist + (size_t)b * (max_per + 1);
     int32_t* cr = cross + (size_t)b * tiles;
-    const int ne = num_edge[b], stride = edge_stride(ne, budget), nv = nv_in[b];
-    const int NB = max_per + 1;
-    for (int x = t; x < NB; x += TOP_THREADS) hb[x] = hist[(size_t)b * NB + x];
-    if (t < MAX_C) win_rank[t] = 0;
+    const int NB = max_per + 1, NCB = (NB + TOP_BIN - 1) / TOP_BIN;
+    int* s_c = s_fine + NB;
+    STAMP(0, t);
     if (t == 0) {
-        s_T = INT_MAX;
-        s_ngt = 0;
+        s_gtn = 0;
+        s_gtsum = 0;
     }
-
-    // Pass 1; the first chunk's fields stay in registers for pass 2.
-    int n_first = 0, n_cand = 0, nc = 0, cs = 0, ls = -1, mx = 0;
-    int later = nv;                         // the first start past the chunk, or nv
-    for (int c0 = (tiles - 1) / TOP_THREADS * TOP_THREADS; c0 >= 0; c0 -= TOP_THREADS) {
-        const int u = c0 + t;
-        const bool in = u < tiles;
-        int fs = INT_MAX, ns = 0;
-        nc = 0, cs = 0, ls = -1, mx = 0;
-        if (in) {
-            ns = st[ST_STARTS * tiles + u];
-            nc = st[ST_CANDS * tiles + u];
-            mx = st[ST_MAX * tiles + u];
-            fs = st[ST_FIRST * tiles + u];
-            ls = st[ST_CROSS * tiles + u];
-        }
-        int all;
-        const int next = min(block_suffix_min<TOP_THREADS>(fs, buf, &all), later);
-        later = min(later, all);
-        if (ls >= 0) {
-            const int cnt = next - ls;
-            const long long true_size = (long long)cnt * stride;
-            if (true_size >= min_pix && true_size <= max_per) {
-                cs = cnt;
-                atomicAdd(hb + cnt, 1);
+    const bool chunked = tiles > TOP_CHUNK;
+    const int last_c0 = (tiles - 1) / TOP_CHUNK * TOP_CHUNK;
+    int ns[TOP_TPT], nc[TOP_TPT], mx[TOP_TPT], fs[TOP_TPT], ls[TOP_TPT], cs[TOP_TPT];
+    auto load_fields = [&](int c0, bool all) {
+#pragma unroll
+        for (int k = 0; k < TOP_TPT; ++k) {
+            const int u = c0 + t * TOP_TPT + k;
+            const bool in = u < tiles;
+            nc[k] = in ? st[ST_CANDS * tiles + u] : 0;
+            mx[k] = in ? st[ST_MAX * tiles + u] : 0;
+            ls[k] = in ? st[ST_CROSS * tiles + u] : -1;
+            if (all) {
+                ns[k] = in ? st[ST_STARTS * tiles + u] : 0;
+                fs[k] = in ? st[ST_FIRST * tiles + u] : INT_MAX;
+            } else {
+                cs[k] = in ? __ldcg(cr + u) : 0;
             }
         }
-        if (in) cr[u] = cs;
-        n_first += ns;
-        n_cand += nc + (cs > 0);
+    };
+    load_fields(last_c0, true);
+    const int ne = num_edge[b], stride = edge_stride(ne, budget), nv = nv_in[b];
+    for (int x0 = 0; x0 < NB; x0 += TOP_THREADS * TOP_HIST_ROUND) {
+        int v[TOP_HIST_ROUND];
+#pragma unroll
+        for (int r = 0; r < TOP_HIST_ROUND; ++r) {
+            const int x = x0 + r * TOP_THREADS + t;
+            v[r] = x < NB ? __ldg(hb + x) : 0;
+        }
+#pragma unroll
+        for (int r = 0; r < TOP_HIST_ROUND; ++r) {
+            const int x = x0 + r * TOP_THREADS + t, cb = (x0 + r * TOP_THREADS) / TOP_BIN + w;
+            if (x < NB) s_fine[x] = v[r];
+            const int cv = __reduce_add_sync(FULL, v[r]);
+            if (lane == 0 && cb < NCB) s_c[cb] = cv;
+        }
+    }
+
+    // Pass 1.
+    int n_first = 0, n_cand = 0, later = nv, par = 0;
+    for (int c0 = last_c0; c0 >= 0; c0 -= TOP_CHUNK, par ^= 1) {
+        if (c0 != last_c0) load_fields(c0, true);
+        int mine = INT_MAX;
+#pragma unroll
+        for (int k = 0; k < TOP_TPT; ++k) mine = min(mine, fs[k]);
+        int inc = mine;                     // the least of lanes lane .. 31
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int n = __shfl_down_sync(FULL, inc, d);
+            if (lane + d < 32) inc = min(inc, n);
+        }
+        int next = __shfl_down_sync(FULL, inc, 1);
+        if (lane == 31) next = INT_MAX;
+        if (lane == 0) s_wmin[par][w] = inc;
+        __syncthreads();
+        int all = INT_MAX;
+#pragma unroll
+        for (int u = 0; u < TOP_WARPS; ++u) {
+            const int m = s_wmin[par][u];
+            if (u > w) next = min(next, m);
+            all = min(all, m);
+        }
+        STAMP(1, all);
+        next = min(next, later);
+        later = min(later, all);
+#pragma unroll
+        for (int k = TOP_TPT - 1; k >= 0; --k) {
+            cs[k] = 0;
+            if (ls[k] >= 0) {
+                const int cnt = next - ls[k];
+                const long long true_size = (long long)cnt * stride;
+                if (true_size >= min_pix && true_size <= max_per) cs[k] = cnt;
+            }
+            if (cs[k] > 0) {
+                atomicAdd(s_fine + cs[k], 1);
+                atomicAdd(s_c + cs[k] / TOP_BIN, 1);
+            }
+            next = min(next, fs[k]);
+            n_first += ns[k];
+            n_cand += nc[k] + (cs[k] > 0);
+            const int u = c0 + t * TOP_TPT + k;
+            if (chunked && u < tiles) cr[u] = cs[k];
+        }
     }
     n_first = __reduce_add_sync(FULL, n_first);
     n_cand = __reduce_add_sync(FULL, n_cand);
     if (lane == 0) {
-        buf[w] = n_first;
-        buf2[w] = n_cand;
+        s_wred[0][w] = n_first;
+        s_wred[1][w] = n_cand;
     }
     __syncthreads();
     int tot_first = 0, tot_cand = 0;
 #pragma unroll
     for (int u = 0; u < TOP_WARPS; ++u) {
-        tot_first += buf[u];
-        tot_cand += buf2[u];
+        tot_first += s_wred[0][u];
+        tot_cand += s_wred[1][u];
     }
-    __syncthreads();
+    STAMP(2, tot_cand);
     // The invalid positions' and non-starts' size 0 passes the gate too.
     const int tot_elig = tot_cand + (min_pix <= 0 ? E - tot_first : 0);
 
-    // The threshold size T of the top `want`: thread t holds bins [lo, hi),
-    // hi = NB - t per, so a scan in thread order runs from the largest down.
+    // The threshold size T of the top `want`, and ngt, the candidates above
+    // it. Lane l holds the coarse bins [lo, hi), hi = NCB - l cpl, so a scan
+    // in lane order runs from the largest size down.
     const int want = min(C, tot_cand);
-    const int per = (NB + TOP_THREADS - 1) / TOP_THREADS;
-    const int hi = NB - t * per, lo = max(0, hi - per);
-    int mine = 0;
-    for (int x = lo; x < hi; ++x) mine += hb[x];
-    int tot_h;
-    const int above = block_scan<TOP_THREADS>(mine, buf, &tot_h);
-    if (want > 0 && above < want && above + mine >= want) {
-        int acc = above;
-        for (int x = hi - 1; x >= lo; --x) {
-            if (acc + hb[x] >= want) {
-                s_T = x;
-                s_ngt = acc;
-                break;
-            }
-            acc += hb[x];
+    int T = INT_MAX, ngt = 0;
+    if (want > 0) {
+        const int cpl = (NCB + 31) / 32, hi = NCB - lane * cpl, lo = max(0, hi - cpl);
+        int sum = 0, cv[TOP_CPL];               // the lane's bins from the top, up to TOP_CPL
+#pragma unroll
+        for (int i = 0; i < TOP_CPL; ++i) {
+            cv[i] = hi - 1 - i >= lo ? s_c[hi - 1 - i] : 0;
+            sum += cv[i];
         }
+        for (int x = hi - 1 - TOP_CPL; x >= lo; --x) sum += s_c[x];
+        int inc = sum;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int n = __shfl_up_sync(FULL, inc, d);
+            if (lane >= d) inc += n;
+        }
+        const int L = __ffs(__ballot_sync(FULL, inc >= want)) - 1;
+        int G = 0, above = 0;
+        if (lane == L) {
+            int acc = inc - sum;
+            bool found = false;
+#pragma unroll
+            for (int i = 0; i < TOP_CPL; ++i) {
+                if (!found && acc + cv[i] >= want) {
+                    G = hi - 1 - i;
+                    above = acc;
+                    found = true;
+                }
+                acc += found ? 0 : cv[i];
+            }
+            for (int x = hi - 1 - TOP_CPL; x >= lo && !found; --x) {
+                if (acc + s_c[x] >= want) {
+                    G = x;
+                    above = acc;
+                    found = true;
+                }
+                acc += s_c[x];
+            }
+        }
+        G = __shfl_sync(FULL, G, L);
+        above = __shfl_sync(FULL, above, L);
+        const int x = G * TOP_BIN + TOP_BIN - 1 - lane;
+        const int v = x < NB ? s_fine[x] : 0;
+        int finc = v;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int n = __shfl_up_sync(FULL, finc, d);
+            if (lane >= d) finc += n;
+        }
+        const int F = __ffs(__ballot_sync(FULL, above + finc >= want)) - 1;
+        T = G * TOP_BIN + TOP_BIN - 1 - F;
+        ngt = above + __shfl_sync(FULL, finc - v, F);
     }
-    __syncthreads();
-    const int T = s_T, ties = want - s_ngt;
-
-    // Pass 2: the winners in position order.
-    int n_win = 0, n_tie = 0;
-    for (int c0 = 0; c0 < tiles && n_win < want; c0 += TOP_THREADS) {
-        const int u = c0 + t;
-        if (c0 > 0) {
-            nc = 0, cs = 0, ls = -1, mx = 0;
-            if (u < tiles) {
-                nc = st[ST_CANDS * tiles + u];
-                mx = st[ST_MAX * tiles + u];
-                ls = st[ST_CROSS * tiles + u];
-                cs = __ldcg(cr + u);
+    const int ties = want - ngt;
+    STAMP(3, T);
+    // Pass 2: the entries of the tiles that hold a size >= T, in position
+    // order. Those tiles are listed (r: their order in the chunk) with their
+    // first entry s_ro[r], so a thread's run of entries, which crosses a
+    // listed tile at each step at most, walks the list from one search.
+    int eq_base = 0, epar = 0;
+    for (int c0 = 0; c0 < tiles; c0 += TOP_CHUNK) {
+        if (c0 > 0) load_fields(c0, false);
+        int n[TOP_TPT], my = 0, rel = 0;
+#pragma unroll
+        for (int k = 0; k < TOP_TPT; ++k) {
+            n[k] = max(mx[k], cs[k]) >= T ? nc[k] + (cs[k] > 0) : 0;
+            my += n[k];
+            rel += n[k] > 0;
+        }
+        int inc = my, rinc = rel;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int m = __shfl_up_sync(FULL, inc, d), mr = __shfl_up_sync(FULL, rinc, d);
+            if (lane >= d) {
+                inc += m;
+                rinc += mr;
             }
         }
-        const int n = max(mx, cs) >= T ? nc + (cs > 0) : 0;
-        int tot;
-        s_off[t] = block_scan<TOP_THREADS>(n, buf, &tot);
-        s_nc[t] = nc;
-        s_cs[t] = cs;
-        s_ls[t] = ls;
+        if (lane == 31) {
+            s_wscan[0][w] = inc;
+            s_wscan[1][w] = rinc;
+        }
         __syncthreads();
-        for (int f0 = 0; f0 < tot && n_win < want; f0 += TOP_THREADS) {
-            const int f = f0 + t;
-            int size = 0, pos = 0;
-            if (f < tot) {
-                int a = 0, z = TOP_THREADS - 1;    // the last tile v with s_off[v] <= f
-                while (a < z) {
-                    const int mid = (a + z + 1) >> 1;
-                    if (s_off[mid] <= f) a = mid;
-                    else z = mid - 1;
-                }
-                const int j = f - s_off[a], tl = c0 + a;
-                if (j < s_nc[a]) {
-                    const int v = cd[(size_t)tl * SEG_TILE + j];
-                    size = v >> SEG_POS_BITS;
-                    pos = tl * SEG_TILE + (v & ((1 << SEG_POS_BITS) - 1));
-                } else {
-                    size = s_cs[a];
-                    pos = s_ls[a];
-                }
-            }
-            int tt, tw;
-            const int tie_at = n_tie + block_scan<TOP_THREADS>(size == T, buf, &tt);
-            const bool take = size > T || (size == T && tie_at < ties);
-            const int win_at = n_win + block_scan<TOP_THREADS>(take, buf, &tw);
-            if (take) {
-                win_pos[win_at] = pos;
-                win_size[win_at] = size;
-            }
-            n_tie += tt;
-            n_win += tw;
+        int off = inc - my, r = rinc - rel, tot = 0, R = 0;
+#pragma unroll
+        for (int u = 0; u < TOP_WARPS; ++u) {
+            const int s = s_wscan[0][u], sr = s_wscan[1][u];
+            off += u < w ? s : 0;
+            r += u < w ? sr : 0;
+            tot += s;
+            R += sr;
         }
-        __syncthreads();                    // s_off .. s_ls are written again
+#pragma unroll
+        for (int k = 0; k < TOP_TPT; ++k) {
+            if (n[k] > 0) {
+                s_ro[r] = off;
+                s_rinfo[r] = make_int4(off, (c0 + t * TOP_TPT + k) * SEG_TILE, nc[k], cs[k]);
+                s_rls[r] = ls[k];
+                ++r;
+                off += n[k];
+            }
+        }
+        if (t == 0) s_ro[R] = tot;
+        const int top_step = R > 1 ? 1 << (31 - __clz(R - 1)) : 0;   // the search's first step
+        __syncthreads();
+        STAMP(4, tot);
+        for (int f0 = 0; f0 < tot; f0 += TOP_THREADS * TOP_PER, epar ^= 1) {
+            const int first = f0 + t * TOP_PER;
+            int size[TOP_PER], pos[TOP_PER], g = 0, e = 0, gsum = 0;
+            if (first < tot) {
+                int a = 0;                      // the last listed tile with s_ro[a] <= first
+                for (int step = top_step; step > 0; step >>= 1) {
+                    const int c = min(a + step, R);     // s_ro[R] = tot > first
+                    a = s_ro[c] <= first ? c : a;
+                }
+                int ends[TOP_PER], at[TOP_PER], raw[TOP_PER];
+                int4 info[TOP_PER];
+#pragma unroll
+                for (int i = 0; i < TOP_PER; ++i) ends[i] = s_ro[min(a + 1 + i, R)];
+#pragma unroll
+                for (int i = 0; i < TOP_PER; ++i) {
+                    at[i] = a;
+#pragma unroll
+                    for (int h = 0; h < TOP_PER; ++h) at[i] += h <= i && first + i >= ends[h];
+                    info[i] = s_rinfo[min(at[i], R - 1)];
+                    pos[i] = first + i - info[i].x;     // the entry's place in its tile
+                }
+                // Every load in range (an entry past the tile's candidates
+                // reads one and drops it), so all are issued at once.
+#pragma unroll
+                for (int i = 0; i < TOP_PER; ++i)
+                    raw[i] = __ldg(cd + (size_t)info[i].y + min(pos[i], SEG_TILE - 1));
+#pragma unroll
+                for (int i = 0; i < TOP_PER; ++i) {
+                    size[i] = -1;
+                    if (first + i < tot) {
+                        if (pos[i] < info[i].z) {
+                            size[i] = raw[i] >> SEG_POS_BITS;
+                            pos[i] = info[i].y + (raw[i] & ((1 << SEG_POS_BITS) - 1));
+                        } else {
+                            size[i] = info[i].w;
+                            pos[i] = s_rls[min(at[i], R - 1)];
+                        }
+                    }
+                    g += size[i] > T;
+                    gsum += size[i] > T ? size[i] : 0;
+                    e += size[i] == T;
+                }
+            }
+            // The sizes above T go to the list, one shared atomic a warp; the
+            // size-T entries' places come from a block scan.
+            int ginc = g, einc = e;
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+                const int m = __shfl_up_sync(FULL, ginc, d), me = __shfl_up_sync(FULL, einc, d);
+                if (lane >= d) {
+                    ginc += m;
+                    einc += me;
+                }
+            }
+            const int gsum_w = __reduce_add_sync(FULL, gsum);
+            int base = 0;
+            if (lane == 31) {
+                s_weq[epar][w] = einc;
+                if (ginc > 0) {
+                    base = atomicAdd(&s_gtn, ginc);
+                    atomicAdd(&s_gtsum, gsum_w);
+                }
+            }
+            base = __shfl_sync(FULL, base, 31) + ginc - g;
+            if (g > 0) {
+#pragma unroll
+                for (int i = 0; i < TOP_PER; ++i) {
+                    if (size[i] > T) {
+                        s_gt_key[base++] = (unsigned long long)size[i] << 32
+                                           | (0xffffffffu - (unsigned)pos[i]);
+                    }
+                }
+            }
+            __syncthreads();
+            int place = eq_base + einc - e;
+#pragma unroll
+            for (int u = 0; u < TOP_WARPS; ++u) {
+                const int s = s_weq[epar][u];
+                place += u < w ? s : 0;
+                eq_base += s;
+            }
+            STAMP(5, eq_base);
+            if (e > 0) {
+#pragma unroll
+                for (int i = 0; i < TOP_PER; ++i) {
+                    if (size[i] == T) {
+                        if (place < ties) s_top_pos[ngt + place] = pos[i];
+                        ++place;
+                    }
+                }
+            }
+        }
+        if (c0 + TOP_CHUNK < tiles) __syncthreads();    // the list is written again
     }
 
-    // Rank the winners by (size descending, position ascending): winner i's
-    // rank counts the winners before it, TOP_THREADS / MAX_C threads a winner.
-    constexpr int PARTS = TOP_THREADS / MAX_C;
-    const int i = t % MAX_C, part = t / MAX_C;
-    if (i < want) {
-        const int pos = win_pos[i], size = win_size[i];
-        int r = 0;
-        for (int u = part; u < want; u += PARTS) {
-            const int su = win_size[u];
-            r += su > size || (su == size && win_pos[u] < pos);
-        }
-        if (r) atomicAdd(win_rank + i, r);
+    // The winners above T (every one listed before the last barrier), two
+    // neighbouring lanes each, a half of the list each: a winner's rank
+    // counts the listed keys above its own, a key being size << 32 |
+    // ~position, so (size descending, position ascending). The winners are
+    // staged by rank in shared memory and written out together.
+    const int wi = t >> 1, half = t & 1;
+    int above = 0;
+    unsigned long long key = 0;
+    if (wi < ngt) {
+        key = s_gt_key[wi];
+#pragma unroll 8
+        for (int u = half; u < ngt; u += 2) above += s_gt_key[u] > key;
+    }
+    above += __shfl_xor_sync(FULL, above, 1);
+    if (wi < ngt && half == 0) {
+        s_top_pos[above] = (int)(0xffffffffu - (unsigned)key);
+        s_top_size[above] = (int)(key >> 32);
     }
     __syncthreads();
-    int size = 0;
-    if (t < want) {
-        const int r = win_rank[t];
-        size = win_size[t];
-        top_pos[(size_t)b * C + r] = win_pos[t];
-        count[(size_t)b * C + r] = size;
-        valid[(size_t)b * C + r] = 1;
-    } else if (t < C) {
-        top_pos[(size_t)b * C + t] = 0;
-        count[(size_t)b * C + t] = 0;
-        valid[(size_t)b * C + t] = 0;
+    if (t < C) {
+        const bool won = t < want;
+        top_pos[(size_t)b * C + t] = won ? s_top_pos[t] : 0;
+        count[(size_t)b * C + t] = won ? (t < ngt ? s_top_size[t] : T) : 0;
+        valid[(size_t)b * C + t] = won;
     }
-    int tot_size;
-    block_scan<TOP_THREADS>(size, buf, &tot_size);
+    STAMP(6, above);
     if (t == 0) {
+        const int tot_size = want > 0 ? s_gtsum + ties * T : 0;
         n_clusters[b] = tot_first;
         n_eligible[b] = tot_elig;
         edge_stride_out[b] = stride;
         overflow[b] = ne > E || comp_overflow[b] || tot_elig > C || tot_size > E2;
     }
+    STAMP(7, t);
 }
 
 __device__ __forceinline__ void pair_terms(int32_t pv, float& x, float& y, float& gx, float& gy) {
@@ -1789,9 +1978,9 @@ extern "C" int apriltag_cm_seg_top(const void* stats, const void* cand, const vo
     if (budget < 1 || C < 1 || C > MAX_C || E < 1 || max_per < 0 || max_per > SEG_MAX_PER
         || tiles != (E + SEG_TILE - 1) / SEG_TILE)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(max_per + 1) * sizeof(int32_t);
-    // Past 48 KB with the static arrays (about 18 KB) the kernel must opt in.
-    if (smem > 28 * 1024) {
+    const size_t smem = (size_t)(max_per + 1 + (max_per + TOP_BIN) / TOP_BIN) * sizeof(int32_t);
+    // Past 48 KB with the static arrays (about 26 KB) the kernel must opt in.
+    if (smem > 20 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             cm_seg_top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;

@@ -32,18 +32,26 @@
 //     (refine.py::_point_sum's order); lane 0 of warp k intersects edges
 //     k - 1 and k through shared memory and keeps the input corner where the
 //     result is not finite or moved too far.
-//   decode_kernel, one warp a quad (DECODE_WARPS quads a block):
-//     every lane solves the quad's unit-square homography (the same 8x8
-//     elimination, so no lane waits on another); lane l samples cell l and
-//     cell l + 32 of the border ring, the outer ring and the bit cells
-//     (bilinear, with bilinear_taps' clamps and NaN-to-index-0 rule, so no
-//     lane reads outside its frame); the gray models' sums and the margin's
-//     class sums are warp sums (a lane's two cells, then a butterfly), the
+//   decode_kernel, one warp a quad, DECODE_WARPS = 2 quads a block (64
+//     blocks for 720p b1's 128 quads): the block stages the codebook in
+//     shared memory by cp.async, under the rest; the family's tables and
+//     the corners are read before the quad's unit-square homography, which
+//     every lane solves alone (homography(): the unit square's corners are
+//     constants, so the compiler folds the elimination's first six columns
+//     and their pivots, and what is left is a short chain; a form that
+//     solved it once a warp, lanes 0-7 a row with warp max, min and ballot
+//     for each pivot and shuffles for each pivot row, took ~3 us more on
+//     the card); lane l's samples are cells l and l + 32 of the border
+//     ring, the outer ring and the bit cells, and all their taps are
+//     issued in one round before any is used (bilinear, with
+//     bilinear_taps' clamps and NaN-to-index-0 rule, so no lane reads
+//     outside its frame); the gray models' sums and the margin's class
+//     sums are warp sums (a lane's two cells, then a butterfly), the
 //     inverse normal matrices are family tables; sharpening reads the
 //     (tw, tw) grid from the warp's shared memory, wrapping as torch.roll
 //     does; the bits' ballot gives each rotation's code by a bit reversal,
-//     the lanes stride over the codebook with __popcll and a warp min of
-//     (hamming << 24 | code index) gives the first minimum.
+//     the lanes stride over the staged codebook with __popcll and a warp
+//     min of (hamming << 24 | code index) gives the first minimum.
 //   tail_finish_kernel, one block a frame, thread j candidate j (2T <= 128):
 //     its validity after decode and the margin gate, the dedupe against
 //     every better candidate of the same id within 0.75 of the larger mean
@@ -64,22 +72,25 @@
 //
 // What bounds them on an H100: bytes, and all far under a microsecond, so a
 // launch is bound by its latency: one wave covers a call, and a warp's or a
-// thread's steps run one after another (refine issues a chunk's tap loads
-// in one round).
+// thread's steps run one after another. So each kernel issues its loads in
+// as few rounds as it can: refine a chunk's tap loads at once, decode its
+// tables and codebook before the homography and every sample's taps after
+// it in one round.
 // refine reads each profile sample's four taps (48 points x (4 search_range
 // + 5) samples a quad: ~13 MB at B x 2T = 1024 quads, ~4 us, before the L2
 // cache serves the taps that neighbouring samples share); decode reads each
-// sample's four taps (124 samples a quad at most), the corners and the
-// codebook (once) and writes ~60 bytes a quad: ~0.3 MB at 1024 quads; the
-// picks read ~40 bytes a quad; pose reads 32 bytes of corners a tag and
-// writes 64. The picks' rank and
-// dedupe are C^2 compares a frame, ~16 K, latency again.
+// sample's four taps (100 samples a tag36h11 quad), the corners and the
+// codebook (once a block) and writes ~60 bytes a quad: ~0.3 MB at 1024
+// quads; the picks read ~40 bytes a quad; pose reads 32 bytes of corners a
+// tag and writes 64. The picks' rank and dedupe are C^2 compares a frame,
+// ~16 K, latency again.
 
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "stamps.cuh"
 #include "torch_math.cuh"
 
 namespace {
@@ -88,7 +99,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int LANES = 32;
 constexpr int MAX_CELLS = 2 * LANES;  // cells a sample set holds at most
 constexpr int MAX_GRID = 128;         // total_width^2 at most (11^2 = 121)
-constexpr int DECODE_WARPS = 4;       // quads a block
+constexpr int DECODE_WARPS = 2;       // quads a block of decode_kernel
+constexpr int DECODE_SLOTS = 6;       // a lane's samples: 2 cells of each of 3 sets
+constexpr int STAGED_CODES = 4096;    // codes a decode block stages in shared memory
 constexpr int POSE_THREADS = 128;
 constexpr int CODE_BITS = 24;         // code index bits of a warp-min key
 constexpr int REFINE_POINTS = 12;     // points an edge (ops/refine.py::_NSAMPLES)
@@ -228,14 +241,18 @@ __device__ __forceinline__ Taps bilinear_taps(const float* __restrict__ img, int
 }
 
 // ops/decode.py's bilinear sample of one frame at H (u, v): apply_homography,
-// then the taps, associated as decode.py does.
-__device__ __forceinline__ float sample(const float* __restrict__ img, int H, int W,
-                                        float xmax, float ymax, const float (&Hm)[9],
-                                        float u, float v) {
+// then the taps (decode_taps issues the loads; decode_value uses them,
+// associated as decode.py does).
+__device__ __forceinline__ Taps decode_taps(const float* __restrict__ img, int H, int W,
+                                            float xmax, float ymax, const float (&Hm)[9],
+                                            float u, float v) {
     const float qx = (Hm[0] * u + Hm[1] * v) + Hm[2];
     const float qy = (Hm[3] * u + Hm[4] * v) + Hm[5];
     const float qw = (Hm[6] * u + Hm[7] * v) + Hm[8];
-    const Taps t = bilinear_taps(img, H, W, xmax, ymax, qx / qw, qy / qw);
+    return bilinear_taps(img, H, W, xmax, ymax, qx / qw, qy / qw);
+}
+
+__device__ __forceinline__ float decode_value(const Taps& t) {
     return t.v00 * (1.0f - t.fx) * (1.0f - t.fy) + t.v01 * t.fx * (1.0f - t.fy)
            + t.v10 * (1.0f - t.fx) * t.fy + t.v11 * t.fx * t.fy;
 }
@@ -257,33 +274,18 @@ __device__ __forceinline__ float warp_sum(float lo, float hi) {
     return s;
 }
 
-// ops/decode.py::_fit_gray_model of the n cells at uv (n <= 64) with the
-// set's inverse normal matrix minv: the model (a, b, c).
-__device__ __forceinline__ void gray_model(const float* __restrict__ img, int H, int W,
-                                           float xmax, float ymax, const float (&Hm)[9],
-                                           const float* __restrict__ uv, int n,
-                                           const float* __restrict__ minv, int lane,
-                                           float (&m)[3]) {
-    float t[2][3];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-        const int i = lane + s * LANES;
-        t[s][0] = t[s][1] = t[s][2] = 0.0f;
-        if (i < n) {
-            const float u = uv[2 * i], v = uv[2 * i + 1];
-            const float val = sample(img, H, W, xmax, ymax, Hm, u, v);
-            t[s][0] = val;
-            t[s][1] = u * val;
-            t[s][2] = v * val;
-        }
-    }
-    const float atb[3] = {warp_sum(t[0][0], t[1][0]), warp_sum(t[0][1], t[1][1]),
-                          warp_sum(t[0][2], t[1][2])};
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-        m[i] = (minv[3 * i] * atb[0] + minv[3 * i + 1] * atb[1]) + minv[3 * i + 2] * atb[2];
+// 8 bytes from global to shared memory without registers (cp.async).
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+    const unsigned at = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(at), "l"(gmem));
 }
 
+// One warp a quad, DECODE_WARPS quads a block. The block first stages the
+// codebook (its first STAGED_CODES codes) in shared memory by cp.async, which
+// runs under the rest. Lane l's samples are cells l and l + 32 of the border
+// ring, the outer ring and the bits (slot s: set s / 2, cell l + 32 (s % 2)):
+// all their taps are issued in one round once H is known (an idle slot loads
+// the quad's center), then the sums and thresholds run on registers.
 __global__ void __launch_bounds__(DECODE_WARPS * LANES)
 decode_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
               const float* __restrict__ ftab, const int* __restrict__ itab,
@@ -293,64 +295,116 @@ decode_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
               float* __restrict__ corners_out, int B, int C, int H, int W, int nb, int no,
               int nbits, int tw, int ncodes, int max_hamming, int sharpen_on,
               float sharpen) {
-    __shared__ float sgrid[DECODE_WARPS][MAX_GRID];
+    extern __shared__ unsigned long long dsm[];     // the staged codes, then the warps' grids
+    const int staged = min(ncodes, STAGED_CODES);
+    unsigned long long* s_codes = dsm;
+    for (int j = threadIdx.x; j < staged; j += blockDim.x) cp_async8(s_codes + j, codes + j);
+    asm volatile("cp.async.commit_group;\n" ::);
+    STAMP(0, staged);
+
     const int warp = threadIdx.x / LANES, lane = threadIdx.x % LANES;
-    const long long q = (long long)blockIdx.x * DECODE_WARPS + warp;
-    if (q >= (long long)B * C) return;       // the whole warp leaves together
+    // A warp past the last quad decodes the last one again and stores
+    // nothing, so every thread reaches the block's one barrier.
+    const long long n_quads = (long long)B * C;
+    const long long q_at = (long long)blockIdx.x * DECODE_WARPS + warp;
+    const bool live = q_at < n_quads;
+    const long long q = live ? q_at : n_quads - 1;
     const float* img = gray + (size_t)(q / C) * H * W;
     const float* cq = corners + q * 8;
-    const float sx[4] = {-1.0f, 1.0f, 1.0f, -1.0f}, sy[4] = {-1.0f, -1.0f, 1.0f, 1.0f};
     float dx[4], dy[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
         dx[k] = cq[2 * k];
         dy[k] = cq[2 * k + 1];
     }
-    float Hm[9];
-    homography(sx, sy, dx, dy, Hm);
 
-    // The family's tables (ops/decode.py::_tables).
-    const float* uv_border = ftab;
-    const float* uv_outer = uv_border + 2 * nb;
-    const float* uv_bits = uv_outer + 2 * no;
-    const float* minv_in = uv_bits + 2 * nbits;
+    // The family's tables (ops/decode.py::_tables), read before H is known.
+    const float* uv_set[3] = {ftab, ftab + 2 * nb, ftab + 2 * (nb + no)};
+    const int n_set[3] = {nb, no, nbits};
+    const float* minv_in = ftab + 2 * (nb + no + nbits);
     const float* minv_out = minv_in + 9;
     const int* lin = itab;
     const int* perms = itab + nbits;
-    // torch.clamp's bound W - 1.001, a double rounded to float.
-    const float xmax = (float)((double)W - 1.001), ymax = (float)((double)H - 1.001);
-
-    float m_in[3], m_out[3];
-    gray_model(img, H, W, xmax, ymax, Hm, uv_border, nb, minv_in, lane, m_in);
-    gray_model(img, H, W, xmax, ymax, Hm, uv_outer, no, minv_out, lane, m_out);
-
-    // Lane l holds bits l and l + 32: their samples and thresholds.
-    float vb[2] = {0.0f, 0.0f}, th[2] = {0.0f, 0.0f};
+    float su[DECODE_SLOTS], sv[DECODE_SLOTS];
+#pragma unroll
+    for (int s = 0; s < DECODE_SLOTS; ++s) {
+        const int i = lane + (s & 1) * LANES;
+        const bool in = i < n_set[s >> 1];
+        su[s] = in ? __ldg(uv_set[s >> 1] + 2 * i) : 0.0f;
+        sv[s] = in ? __ldg(uv_set[s >> 1] + 2 * i + 1) : 0.0f;
+    }
+    float mi[9], mo[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+        mi[k] = __ldg(minv_in + k);
+        mo[k] = __ldg(minv_out + k);
+    }
+    int gl[2], pr[4][2];
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
         const int i = lane + s * LANES;
-        if (i < nbits) {
-            const float u = uv_bits[2 * i], v = uv_bits[2 * i + 1];
-            vb[s] = sample(img, H, W, xmax, ymax, Hm, u, v);
+        gl[s] = i < nbits ? __ldg(lin + i) : 0;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pr[r][s] = i < nbits ? __ldg(perms + r * nbits + i) : 0;
+    }
+
+    const float sx[4] = {-1.0f, 1.0f, 1.0f, -1.0f}, sy[4] = {-1.0f, -1.0f, 1.0f, 1.0f};
+    float Hm[9];
+    homography(sx, sy, dx, dy, Hm);
+    STAMP(1, Hm[0]);
+
+    // One round of tap loads: every slot's four taps, then their values.
+    // torch.clamp's bound W - 1.001, a double rounded to float.
+    const float xmax = (float)((double)W - 1.001), ymax = (float)((double)H - 1.001);
+    Taps tp[DECODE_SLOTS];
+#pragma unroll
+    for (int s = 0; s < DECODE_SLOTS; ++s)
+        tp[s] = decode_taps(img, H, W, xmax, ymax, Hm, su[s], sv[s]);
+    float val[DECODE_SLOTS];
+#pragma unroll
+    for (int s = 0; s < DECODE_SLOTS; ++s)
+        val[s] = lane + (s & 1) * LANES < n_set[s >> 1] ? decode_value(tp[s]) : 0.0f;
+    STAMP(2, val[0] + val[5]);
+
+    // ops/decode.py::_fit_gray_model of the border (slots 0-1) and outer
+    // (slots 2-3) rings: the sums of val, u val and v val, then minv.
+    float m_in[3], m_out[3];
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+        const float atb[3] = {warp_sum(val[2 * g], val[2 * g + 1]),
+                              warp_sum(su[2 * g] * val[2 * g], su[2 * g + 1] * val[2 * g + 1]),
+                              warp_sum(sv[2 * g] * val[2 * g], sv[2 * g + 1] * val[2 * g + 1])};
+        const float* minv = g ? mo : mi;
+        float* m = g ? m_out : m_in;
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+            m[i] = (minv[3 * i] * atb[0] + minv[3 * i + 1] * atb[1]) + minv[3 * i + 2] * atb[2];
+    }
+
+    // Lane l holds bits l and l + 32 (slots 4-5): their samples and thresholds.
+    float vb[2], th[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        vb[s] = val[4 + s];
+        if (lane + s * LANES < nbits) {
+            const float u = su[4 + s], v = sv[4 + s];
             th[s] = 0.5f * (((m_in[0] + m_in[1] * u) + m_in[2] * v)
                             + ((m_out[0] + m_out[1] * u) + m_out[2] * v));
         }
     }
     if (sharpen_on) {
-        float* g = sgrid[warp];
+        float* g = reinterpret_cast<float*>(dsm + staged) + warp * MAX_GRID;
         for (int i = lane; i < tw * tw; i += LANES) g[i] = 0.0f;
         __syncwarp();
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
-            const int i = lane + s * LANES;
-            if (i < nbits) g[lin[i]] = vb[s];
+            if (lane + s * LANES < nbits) g[gl[s]] = vb[s];
         }
         __syncwarp();
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
-            const int i = lane + s * LANES;
-            if (i < nbits) {
-                const int gi = lin[i], gy = gi / tw, gx = gi % tw;
+            if (lane + s * LANES < nbits) {
+                const int gi = gl[s], gy = gi / tw, gx = gi % tw;
                 const float c = g[gi];
                 const float up = g[((gy + tw - 1) % tw) * tw + gx];
                 const float down = g[((gy + 1) % tw) * tw + gx];
@@ -389,23 +443,30 @@ decode_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
     unsigned long long code[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-        const int* pr = perms + r * nbits;
-        const bool plo = lane < nbits && ((mask >> pr[lane]) & 1ull);
-        const bool phi = lane + LANES < nbits && ((mask >> pr[lane + LANES]) & 1ull);
+        const bool plo = lane < nbits && ((mask >> pr[r][0]) & 1ull);
+        const bool phi = lane + LANES < nbits && ((mask >> pr[r][1]) & 1ull);
         const unsigned long long m = (unsigned long long)__ballot_sync(FULL, plo)
                                      | ((unsigned long long)__ballot_sync(FULL, phi) << 32);
         code[r] = __brevll(m) >> (64 - nbits);
     }
-    // First minimum over the codes (torch.argmin), per rotation.
+    // First minimum over the codes (torch.argmin), per rotation; the staged
+    // codes from shared memory, any past them from global memory.
+    STAMP(3, (unsigned)code[0] ^ (unsigned)code[3]);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    STAMP(4, staged);
     unsigned key[4] = {~0u, ~0u, ~0u, ~0u};
+#pragma unroll 4
     for (int j = lane; j < ncodes; j += LANES) {
-        const unsigned long long cw = (unsigned long long)__ldg(codes + j);
+        const unsigned long long cw =
+            j < staged ? s_codes[j] : (unsigned long long)__ldg(codes + j);
 #pragma unroll
         for (int r = 0; r < 4; ++r)
             key[r] = min(key[r], ((unsigned)__popcll(code[r] ^ cw) << CODE_BITS) | (unsigned)j);
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) key[r] = __reduce_min_sync(FULL, key[r]);
+    STAMP(5, key[0] ^ key[3]);
     // First minimum over the rotations.
     int best = 0;
     unsigned best_key = key[0];
@@ -416,6 +477,7 @@ decode_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
             best_key = key[r];
         }
     }
+    if (!live) return;
     const int ham = (int)(best_key >> CODE_BITS);
     if (lane == 0) {
         valid_out[q] = ham <= max_hamming;
@@ -429,6 +491,7 @@ decode_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
         const int k = lane >> 1, roll = (6 - best) & 3;
         corners_out[q * 8 + lane] = cq[((k + roll) & 3) * 2 + (lane & 1)];
     }
+    STAMP(6, best);
 }
 
 __global__ void __launch_bounds__(POSE_THREADS)
@@ -813,7 +876,10 @@ extern "C" int apriltag_decode(const void* gray, const void* corners, const void
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     float sharpen;
     memcpy(&sharpen, &sharpen_bits, sizeof(float));
-    decode_kernel<<<(unsigned)blocks, DECODE_WARPS * LANES, 0, (cudaStream_t)stream>>>(
+    // The staged codes and the warps' sharpening grids: under 48 KB.
+    const size_t smem = (size_t)min(ncodes, STAGED_CODES) * sizeof(unsigned long long)
+                        + (size_t)DECODE_WARPS * MAX_GRID * sizeof(float);
+    decode_kernel<<<(unsigned)blocks, DECODE_WARPS * LANES, smem, (cudaStream_t)stream>>>(
         (const float*)gray, (const float*)corners, (const float*)ftab, (const int*)itab,
         (const long long*)codes, (bool*)valid, (int*)id, (int*)hamming, (float*)margin,
         (int*)rotation, (float*)corners_out, B, C, H, W, nb, no, nbits, tw, ncodes,

@@ -461,8 +461,19 @@ def segment_top_plain(tiles: SegmentTiles, num_edge: torch.Tensor, comp_overflow
                       max_perimeter: int) -> TopSegments:
     """The segment-top kernel's plain version: a crossing start's segment
     ends at the first start of a later tile or at nv; its gated size and
-    the tiles' candidates are set at their starts and the top C taken by
-    _top_c. The histogram is not read."""
+    the tiles' candidates are set at their starts (segment_gated_plain) and
+    the top C taken by _top_c. The histogram is not read."""
+    gated, first, n_eligible, stride = segment_gated_plain(
+        tiles, num_edge, E=E, min_cluster_pixels=min_cluster_pixels, max_perimeter=max_perimeter)
+    return _top_c(gated, first, n_eligible, num_edge, comp_overflow, stride, E=E, E2=E2,
+                  max_clusters=max_clusters)
+
+
+def segment_gated_plain(tiles: SegmentTiles, num_edge: torch.Tensor, *, E: int,
+                        min_cluster_pixels: int, max_perimeter: int):
+    """(B, E) int64 gated segment sizes at their starts from the tiles'
+    fields, with each frame's segments, eligible positions and stride: what
+    segment_top_plain hands to _top_c."""
     stats, cand, _, nv = tiles
     B, _, T = stats.shape
     dev = stats.device
@@ -483,8 +494,7 @@ def segment_top_plain(tiles: SegmentTiles, num_edge: torch.Tensor, comp_overflow
     gated.scatter_(1, torch.where(ccand, ls, E), torch.where(ccand, csize, 0))
     first = n_starts.sum(-1)
     n_eligible = n_cand.sum(-1) + ccand.sum(-1) + (E - first if min_cluster_pixels <= 0 else 0)
-    return _top_c(gated[:, :E], first, n_eligible, num_edge, comp_overflow, stride, E=E, E2=E2,
-                  max_clusters=max_clusters)
+    return gated[:, :E], first, n_eligible, stride
 
 
 class SlotMoments(NamedTuple):

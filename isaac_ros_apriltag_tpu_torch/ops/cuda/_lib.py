@@ -26,7 +26,7 @@ _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("threshold.cu", "ccl.cu", "cluster_moments.cu", "resolve.cu", "quadfit.cu",
             "tail.cu")
 # Headers the sources include: part of the build hash, not compiled alone.
-_HEADERS = ("torch_math.cuh",)
+_HEADERS = ("torch_math.cuh", "stamps.cuh")
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
 # (kept in build_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

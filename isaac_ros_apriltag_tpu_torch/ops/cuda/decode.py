@@ -3,9 +3,9 @@
 ``decode_quads`` checks its input, then on CPU tensors runs the plain
 version (ops/decode.py::decode_quads); on CUDA tensors it launches the
 kernel or raises and adds one to ``launches``. One launch decodes every
-quad of the call, on the current stream, into outputs allocated here by
-torch.empty, with no host sync, so a detect call that runs it can be
-captured in a CUDA graph.
+quad of the call, one warp a quad and two quads a block, on the current
+stream, into outputs allocated here by torch.empty, with no host
+sync, so a detect call that runs it can be captured in a CUDA graph.
 """
 
 from __future__ import annotations

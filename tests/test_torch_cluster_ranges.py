@@ -416,7 +416,12 @@ CATCHES = {"a segment across many tiles": ("ties_high", "cut_crossing"),
            "no candidates": ("cut_crossing",),
            "min_cluster_pixels 0, nv < E": ("ties_high", "cut_crossing"),
            "a frame with no valid key": ("ties_high", "cut_crossing"),
-           "a histogram of 16001 bins": ("ties_high", "cut_crossing")}
+           "a histogram of 16001 bins": ("ties_high", "cut_crossing"),
+           "T in the last coarse bin": ("cut_crossing",),
+           "ties straddling T inside a coarse bin": ("ties_high", "cut_crossing"),
+           "entries past one round of the top kernel": ("ties_high", "cut_crossing"),
+           "tiles past one chunk of the top kernel": ("ties_high", "cut_crossing"),
+           "min_cluster_pixels -1, a segment cut at E": ("ties_high", "cut_crossing")}
 
 
 @pytest.mark.parametrize("name", list(ROWS))
@@ -471,3 +476,238 @@ def test_wrappers_compose_the_plain_segment_versions(stages, case):
     got = K.top_segments(st["key_s"], st["num_edge"], st["ovf"], **kw)
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# The segment-top kernel's own steps (cm_seg_top_kernel): TOP_THREADS
+# threads of TOP_TPT tiles a chunk, coarse bins of 32 sizes (a warp's bins
+# of a round), TOP_PER consecutive entries a thread a round.
+TOP_THREADS, TOP_TPT, TOP_PER, TOP_BIN = 256, 4, 8, 32
+# Layouts that take the kernel's chunk and round loops more than once on
+# small rows: (threads, tiles a thread, entries a thread a round).
+TOP_LAYOUTS = {"kernel": (TOP_THREADS, TOP_TPT, TOP_PER), "chunks of 8 tiles": (4, 2, 8),
+               "rounds of 6 entries": (3, 4, 2)}
+# Wrong on purpose: ties at T to the higher position; the coarse bins
+# floor((max_per + 1) / 32), dropping the last, partial one; T's coarse bin
+# read past the last size (where the coarse bins follow in shared memory);
+# the crossing segments left out of the histograms; T taken at its coarse
+# bin's lowest size; the winners above T tied by position descending.
+TOP_WRONG = ("ties_high", "coarse_floor", "fine_unmasked", "no_cross_hist", "coarse_threshold",
+             "gt_pos_desc")
+
+
+def mirror_top_kernel(tiles, num_edge, comp_overflow, *, E, E2, C, min_pix, max_per,
+                      layout=TOP_LAYOUTS["kernel"], wrong=None):
+    """cm_seg_top_kernel's steps in numpy, frame by frame, on a
+    SegmentTiles: the histogram and its coarse bins; pass 1 over chunks from
+    the last (each crossing start's end from the later tiles' first starts,
+    the gated size added into both histograms); T's coarse bin by the
+    lanes' sums from the top and one lane's walk, then T among its 32 bins;
+    pass 2 over chunks in order: the entries of the tiles that reach T laid
+    out by their offsets, taken a run a thread a round (a binary search
+    each), the sizes above T listed, the size-T entries placed in entry
+    order. Returns the TopSegments fields as numpy arrays."""
+    threads, tpt, per = layout
+    chunk = threads * tpt
+    stats, cand, hist, nv = (x.numpy().astype(np.int64) for x in tiles)
+    B, _, T = stats.shape
+    budget = (9 * E) // 10
+    NB = max_per + 1
+    NCB = NB // TOP_BIN if wrong == "coarse_floor" else -(-NB // TOP_BIN)
+    top_pos, count = np.zeros((B, C), np.int32), np.zeros((B, C), np.int32)
+    fields = {k: np.zeros(B, np.int64) for k in ("n_clusters", "n_eligible", "stride")}
+    overflow = np.zeros(B, bool)
+    for b in range(B):
+        ns, nc, mx, fs, ls = stats[b]
+        stride = max(1, (int(num_edge[b]) + budget - 1) // budget)
+        fine = hist[b].copy()
+        coarse = np.array([fine[g * TOP_BIN:(g + 1) * TOP_BIN].sum() for g in range(NCB)])
+        cs = np.zeros(T, np.int64)
+        later = int(nv[b])
+        for c0 in range((T - 1) // chunk * chunk, -1, -chunk):
+            u = np.arange(c0, min(c0 + chunk, T))
+            after = np.minimum.accumulate(np.r_[fs[u][1:], I32MAX][::-1])[::-1]
+            nxt = np.minimum(after, later)
+            later = min(later, int(fs[u].min()))
+            cnt = nxt - ls[u]
+            keep = (ls[u] >= 0) & (cnt * stride >= min_pix) & (cnt * stride <= max_per)
+            cs[u] = np.where(keep, cnt, 0)
+            if wrong != "no_cross_hist":
+                for c in cs[u][keep]:
+                    fine[c] += 1
+                    if c // TOP_BIN < NCB:
+                        coarse[c // TOP_BIN] += 1
+        tot_first = int(ns.sum())
+        tot_cand = int(nc.sum() + (cs > 0).sum())
+        tot_elig = tot_cand + (E - tot_first if min_pix <= 0 else 0)
+        want = min(C, tot_cand)
+        Tsz, ngt = I32MAX, 0
+        if want > 0:
+            cpl = -(-NCB // 32)
+            sums, spans = [], []
+            for lane in range(32):
+                hi = NCB - lane * cpl
+                lo = max(0, hi - cpl)
+                spans.append((lo, hi))
+                sums.append(int(coarse[lo:hi].sum()) if hi > lo else 0)
+            inc = np.cumsum(sums)
+            hits = np.flatnonzero(inc >= want)
+            if len(hits):          # a wrong histogram may hold fewer than want: no T
+                L = int(hits[0])
+                acc = int(inc[L] - sums[L])
+                lo, hi = spans[L]
+                for x in range(hi - 1, lo - 1, -1):
+                    if acc + coarse[x] >= want:
+                        G, above = x, acc
+                        break
+                    acc += int(coarse[x])
+                xs = G * TOP_BIN + TOP_BIN - 1 - np.arange(TOP_BIN)
+                # Past the last bin the kernel reads 0; the unmasked read
+                # would find the coarse bins that follow the bins in memory.
+                past = coarse[np.clip(xs - NB, 0, NCB - 1)] if wrong == "fine_unmasked" else 0
+                v = np.where(xs < NB, fine[np.minimum(xs, NB - 1)], past)
+                finc = np.cumsum(v)
+                hits = np.flatnonzero(above + finc >= want)
+                F = int(hits[0]) if len(hits) else TOP_BIN - 1
+                Tsz = G * TOP_BIN if wrong == "coarse_threshold" else int(xs[F])
+                ngt = above + int((v[xs > Tsz]).sum())
+        ties = want - ngt
+        gt, eq_base = [], 0
+        for c0 in range(0, T, chunk):
+            u = np.arange(c0, min(c0 + chunk, T))
+            n = np.where(np.maximum(mx[u], cs[u]) >= Tsz, nc[u] + (cs[u] > 0), 0)
+            off = np.cumsum(n) - n
+            tot = int(n.sum())
+            for f0 in range(0, tot, threads * per):
+                f = np.arange(f0, min(f0 + threads * per, tot))
+                a = np.searchsorted(off, f, side="right") - 1     # the last tile with off <= f
+                j = f - off[a]
+                own = j < nc[u[a]]
+                raw = cand[b, u[a] * P.SEG_TILE + np.where(own, j, 0)]
+                size = np.where(own, raw >> P.SEG_POS_BITS, cs[u[a]])
+                pos = np.where(own, u[a] * P.SEG_TILE + (raw & ((1 << P.SEG_POS_BITS) - 1)),
+                               ls[u[a]])
+                gt += list(zip(size[size > Tsz], pos[size > Tsz]))
+                at_T = np.flatnonzero(size == Tsz)
+                place = eq_base + np.arange(len(at_T))
+                if wrong == "ties_high":
+                    place = place[::-1]
+                for i, p in zip(at_T, place):
+                    if 0 <= p < ties:
+                        top_pos[b, ngt + p], count[b, ngt + p] = pos[i], Tsz
+                eq_base += len(at_T)
+        # The kernel lists ngt < C sizes above T and ranks them into [0, ngt):
+        # a wrong T that lists more, or ranks past C, leaves the frame undefined.
+        assert wrong is not None or len(gt) == ngt < C or want == 0
+        for sz, p in gt:
+            r = sum(s > sz or (s == sz and (q > p if wrong == "gt_pos_desc" else q < p))
+                    for s, q in gt)
+            if r >= C or len(gt) != ngt:
+                top_pos[b], count[b] = -1, -1
+                break
+            top_pos[b, r], count[b, r] = p, sz
+        tot_size = int(sum(s for s, _ in gt)) + ties * Tsz if want > 0 else 0
+        fields["n_clusters"][b], fields["n_eligible"][b], fields["stride"][b] = (
+            tot_first, tot_elig, stride)
+        overflow[b] = bool(num_edge[b] > E or comp_overflow[b] or tot_elig > C or tot_size > E2)
+    return dict(top_pos=top_pos, count=count, valid=count > 0, overflow=overflow,
+                **{k: v.astype(np.int32) for k, v in fields.items()})
+
+
+def _top_kernel_inputs(keys, num_edge, ovf, kw):
+    k, ne, ov = torch.from_numpy(keys), torch.from_numpy(num_edge), torch.from_numpy(ovf)
+    tiles = P.segment_tiles_plain(k, ne, E=kw["E"], min_cluster_pixels=kw["min_cluster_pixels"],
+                                  max_perimeter=kw["max_perimeter"])
+    return k, ne, ov, tiles
+
+
+def _assert_top_mirror(got: dict, want, what: str) -> None:
+    for f, m in SEG_FIELDS:
+        np.testing.assert_array_equal(getattr(want, f).numpy(), got[m], err_msg=f"{what}: {f}")
+
+
+@pytest.mark.parametrize("layout", list(TOP_LAYOUTS))
+@pytest.mark.parametrize("name", list(ROWS))
+def test_top_kernel_mirror_on_synthetic_rows(name, layout):
+    """The segment-top kernel's mirror, on segment_tiles_plain's tiles of
+    chip_smoke.py's synthetic rows, equals segment_top_plain (its _top_c:
+    the stable descending sort) and top_segments_plain on every field, at
+    the kernel's layout and at layouts that loop over chunks and rounds."""
+    keys, num_edge, ovf, kw = ROWS[name]
+    k, ne, ov, tiles = _top_kernel_inputs(keys, num_edge, ovf, kw)
+    got = mirror_top_kernel(tiles, num_edge, ovf, layout=TOP_LAYOUTS[layout], **_mirror_kw(kw))
+    _assert_top_mirror(got, P.segment_top_plain(tiles, ne, ov, **kw), "segment_top_plain")
+    _assert_top_mirror(got, P.top_segments_plain(k, ne, ov, **kw), "top_segments_plain")
+
+
+@pytest.mark.parametrize("layout", list(TOP_LAYOUTS))
+@pytest.mark.parametrize("case", list(CASES))
+def test_top_kernel_mirror_on_scenes(stages, case, layout):
+    """The same mirror on the scenes' sorted keys (E cut, ties, eligible
+    past C, slot overflow) equals segment_top_plain."""
+    st = stages[case]
+    kw = _top_kw(st["kw"])
+    tiles = P.segment_tiles_plain(st["key_s"], st["num_edge"], E=kw["E"],
+                                  min_cluster_pixels=kw["min_cluster_pixels"],
+                                  max_perimeter=kw["max_perimeter"])
+    got = mirror_top_kernel(tiles, st["num_edge"].numpy(), st["ovf"].numpy(),
+                            layout=TOP_LAYOUTS[layout], **_mirror_kw(kw))
+    _assert_top_mirror(got, P.segment_top_plain(tiles, st["num_edge"], st["ovf"], **kw),
+                       "segment_top_plain")
+
+
+# The wrong top-kernel mirrors each synthetic row of the top kernel's own
+# edges must expose.
+TOP_CATCHES = {"T in the last coarse bin": ("coarse_floor", "fine_unmasked", "no_cross_hist"),
+               "ties straddling T inside a coarse bin": ("ties_high", "coarse_threshold",
+                                                         "gt_pos_desc"),
+               "entries past one round of the top kernel": ("ties_high", "coarse_threshold"),
+               "tiles past one chunk of the top kernel": ("ties_high", "coarse_threshold",
+                                                          "no_cross_hist"),
+               "min_cluster_pixels -1, a segment cut at E": ("ties_high", "coarse_threshold"),
+               "a segment across many tiles": ("no_cross_hist",)}
+
+
+@pytest.mark.parametrize("name", list(TOP_CATCHES))
+def test_top_kernel_rows_expose_wrong_mirrors(name):
+    """Each of these rows reaches the top kernel's edge it is named for: the
+    wrong mirrors of TOP_WRONG named for it give other results there."""
+    keys, num_edge, ovf, kw = ROWS[name]
+    _, ne, ov, tiles = _top_kernel_inputs(keys, num_edge, ovf, kw)
+    want = P.segment_top_plain(tiles, ne, ov, **kw)
+    for wrong in TOP_CATCHES[name]:
+        assert wrong in TOP_WRONG
+        got = mirror_top_kernel(tiles, num_edge, ovf, wrong=wrong, **_mirror_kw(kw))
+        assert any(not np.array_equal(getattr(want, f).numpy(), got[m]) for f, m in SEG_FIELDS), \
+            f"{name}: the {wrong} mirror agrees"
+
+
+def test_top_kernel_rows_reach_their_edges():
+    """The top kernel's rows hold what they are named for: T in the last,
+    partial coarse bin; T inside a coarse bin with ties straddling it and
+    equal sizes above it; more entries than a round (2048); more tiles
+    than a chunk (1024) with crossing segments on its edge; want 0; a
+    segment cut at E under a negative size gate."""
+    def top(name):
+        keys, num_edge, ovf, kw = ROWS[name]
+        _, ne, ov, tiles = _top_kernel_inputs(keys, num_edge, ovf, kw)
+        return P.segment_top_plain(tiles, ne, ov, **kw), tiles, kw
+
+    seg, _, kw = top("T in the last coarse bin")
+    T = int(seg.count[0, -1])
+    assert T // TOP_BIN == kw["max_perimeter"] // TOP_BIN and (kw["max_perimeter"] + 1) % TOP_BIN
+    seg, _, _ = top("ties straddling T inside a coarse bin")
+    c = seg.count[0].tolist()
+    assert c[:3] == [50, 50, 50] and c[-1] == 45 and 45 % TOP_BIN and int(seg.num_eligible[0]) > 21
+    seg, tiles, kw = top("entries past one round of the top kernel")
+    T = int(seg.count[0, -1])
+    # Every tile with a candidate reaches T = 24, the least size that passes.
+    assert int(tiles.stats[0, 1].sum()) > TOP_THREADS * TOP_PER and T == kw["min_cluster_pixels"]
+    assert kw["E"] % P.SEG_TILE
+    seg, tiles, kw = top("tiles past one chunk of the top kernel")
+    chunk = TOP_THREADS * TOP_TPT
+    assert tiles.stats.shape[-1] > chunk and int(tiles.stats[0, 4, chunk - 1]) >= 0
+    assert kw["min_cluster_pixels"] < 0 and bool(seg.overflow[0])
+    seg, _, _ = top("no candidates")
+    assert not seg.valid.any()
+    seg, tiles, kw = top("min_cluster_pixels -1, a segment cut at E")
+    assert int(seg.count[0, 0]) == kw["E"] - 1500 and kw["E"] % P.SEG_TILE

@@ -102,6 +102,22 @@ def test_decode_max_hamming(name, largest):
     assert bool(got.valid[0]) == largest
 
 
+@pytest.mark.parametrize("kind", list(chip_smoke.LARGE_CODEBOOKS))
+def test_decode_past_the_staged_codes_matches_reference(kind):
+    """chip_smoke.py phase 26's codebooks of 5000 codes (the decode kernel
+    stages 4096 in shared memory and reads the rest from global memory):
+    the tag decodes as the case expects (the first minimum, wherever it
+    lies), equal to the reference given the same codebook."""
+    fam = chip_smoke.large_codebook_family(kind)
+    jfam = chip_smoke.large_codebook_family(kind, jget_family("tag36h11"))
+    gray, corners = tail_frame("tag36h11")
+    want = jax.jit(lambda g, c: jdec.decode_quads(g, c, jfam))(jnp.asarray(gray),
+                                                               jnp.asarray(corners))
+    got = tdec.decode_quads(torch.from_numpy(gray), torch.from_numpy(corners), fam)
+    assert_decode_matches(want, got)
+    assert (int(got.id[0]), int(got.hamming[0])) == chip_smoke.LARGE_CODEBOOKS[kind][1]
+
+
 @pytest.mark.parametrize("quad", ["nan", "collinear"])
 def test_decode_degenerate_quads(quad):
     """A quad with NaN and infinite corners, and a collinear one, whose
@@ -242,6 +258,25 @@ def test_solve_pivoted_takes_the_first_largest_pivot():
     A = rng.integers(-9, 10, (32, 8, 8)).astype(np.float32) + rng.normal(0, 1e-3, (32, 8, 8))
     A[:, :, 0] = [1.0, 3.0, 2.0, -3.0, 0.5, 1.5, -1.0, 2.5]
     A = A.astype(np.float32)
+    b = rng.normal(0, 1, (32, 8)).astype(np.float32)
+    got = tgeo.solve_pivoted(torch.from_numpy(A), torch.from_numpy(b)).numpy()
+    differs = 0
+    for i in range(len(A)):
+        np.testing.assert_array_equal(got[i], _mirror_solve(A[i], b[i], "first"))
+        differs += not np.array_equal(got[i], _mirror_solve(A[i], b[i], "last"))
+    assert differs > 0
+
+
+def test_solve_pivoted_takes_the_first_largest_pivot_after_a_swap():
+    """Column 1 tied, after column 0's pivot moved row 0 to place 3,
+    between the row at place 1 (-4) and row 0 (4): the elimination takes
+    place 1, as the first-tie mirror does, and not the last."""
+    rng = np.random.default_rng(23)
+    A = rng.normal(0, 1, (32, 8, 8)).astype(np.float32)
+    A[:, :, 0] = 0.0
+    A[:, 3, 0] = 5.0
+    A[:, 0, 1], A[:, 1, 1], A[:, 2, 1] = 4.0, -4.0, 1.0
+    A[:, 4:, 1] = np.clip(A[:, 4:, 1], -3.0, 3.0)
     b = rng.normal(0, 1, (32, 8)).astype(np.float32)
     got = tgeo.solve_pivoted(torch.from_numpy(A), torch.from_numpy(b)).numpy()
     differs = 0

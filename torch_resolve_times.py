@@ -3,7 +3,7 @@
 trees on one card in one call.
 
     python3 torch_resolve_times.py [--root DIR]
-        [--stage resolve|sort|edge_count|moments|quadfit|refine]
+        [--stage resolve|sort|edge_count|moments|segment_top|quadfit|refine|decode]
 
 Builds the kernels of the package under DIR (default: this checkout) and
 prints one JSON line: the card's nvidia-smi name and power limit, DIR, and
@@ -18,11 +18,15 @@ pairs (sort_pairs, its memset included), given with the kept pairs; the
 edge_count call the stage's pair count (edge_count, with its zeroed
 output), given with the pixels; the moments call the moments kernel on
 the slots the stage's sort and segment kernels give it (slot_moments),
-given with the resident pairs; the quadfit calls the quad fit's fitting
+given with the resident pairs; the segment_top call the top kernel
+(segment_top) on the tiles the stage's tiles kernel gives it, given with
+the tiles and candidates; the quadfit calls the quad fit's fitting
 launch (quad_fit) and its search alone (quad_search) on the prefix tables
 of the cluster stage's moments, given with the clusters; the refine call
 the edge refinement (refine_edges) on the candidate quads a detect call
-gives it, given with the quads and the profile's samples. Compare
+gives it, given with the quads and the profile's samples; the decode
+call the decode kernel (decode_quads) on the refined candidates a detect
+call gives it, given with the quads. Compare
 a parent and a change in turns: parent, change, change, parent. Without a
 CUDA device it exits 1 and prints nothing.
 """
@@ -64,7 +68,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     parser.add_argument("--stage", default="resolve",
-                        choices=("resolve", "sort", "edge_count", "moments", "quadfit", "refine"))
+                        choices=("resolve", "sort", "edge_count", "moments", "segment_top",
+                                 "quadfit", "refine", "decode"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_resolve_times: no CUDA device; nothing was run", file=sys.stderr)
@@ -74,14 +79,16 @@ def main() -> int:
     from isaac_ros_apriltag_tpu_torch.ops import quadfit as plain_quadfit
     from isaac_ros_apriltag_tpu_torch.ops.cuda import _lib
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as fk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
     from isaac_ros_apriltag_tpu_torch.ops.refine import profile
 
     # Imported after the package under --root, which chip_smoke's own path
     # entry must not shadow.
     from chip_smoke import (CAPTURE_CASES, _device_ms, _gpu_info, bench_inputs, cluster_inputs,
-                            detect_glue_inputs, front_trinary, labels_of)
+                            detect_glue_inputs, detect_tail_inputs, front_trinary, labels_of)
 
     _lib.library()
     dev = torch.device("cuda")
@@ -100,7 +107,11 @@ def main() -> int:
             (gray, corners, dark), kw = detect_glue_inputs(cfg, cam, inputs[0])["refine"]
             size = {"quads": corners.numel() // 8, "samples": profile(kw["search_range"])[1]}
             calls = {"refine": lambda: fk.refine_edges(gray, corners, dark, **kw)}
-        elif args.stage in ("sort", "edge_count", "moments"):
+        elif args.stage == "decode":
+            gray, corners, family, kw = detect_tail_inputs(cfg, cam, inputs[0])["decode"]
+            size = {"quads": corners.numel() // 8}
+            calls = {"decode": lambda: dk.decode_quads(gray, corners, family, **kw)}
+        elif args.stage in ("sort", "edge_count", "moments", "segment_top"):
             tri, dense, ovf, kw = cluster_inputs(cfg, inputs[0])
             B, H, W = tri.shape
             E = min(kw["max_edge_points"], 4 * H * W)
@@ -109,6 +120,14 @@ def main() -> int:
             if args.stage == "sort":
                 size = {"kept": int(kept.sum())}
                 calls = {"sort": lambda: cmk.sort_pairs(tri, dense, ne, E)}
+            elif args.stage == "segment_top":
+                E2 = min(cfg.max_clusters * cfg.max_cluster_points, E)
+                tkw = dict(E=E, min_cluster_pixels=cfg.min_cluster_pixels,
+                           max_perimeter=4 * (W + H))
+                tiles = cmk.segment_tiles(rows.key, ne, **tkw)
+                size = {"tiles": tiles.stats.shape[-1], "candidates": int(tiles.stats[:, 1].sum())}
+                calls = {"segment_top": lambda: cmk.segment_top(
+                    tiles, ne, ovf, E2=E2, max_clusters=cfg.max_clusters, **tkw)}
             elif args.stage == "edge_count":
                 size = {"pixels": B * H * W}
                 calls = {"edge_count": lambda: cmk.edge_count(tri, dense)}
