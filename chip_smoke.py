@@ -499,6 +499,17 @@ RESOLVE_CASE_NAMES = tuple(f"{config} b{batch}" for config, batch in CAPTURE_CAS
     *(f"slot R - 1, group {g} doubled, R {RESOLVE_SLOT_R}" for g, _ in RESOLVE_SLOT_CASES),
     "R 65536 clamp, one chain", *(f"slot row: {name}" for name in SLOT_ROWS),
     f"random labels, R {' and '.join(map(str, ODD_R))}")
+# Phase 24's label count tables of the scan pass alone (scan_rows): name ->
+# ((B, S), R, share of present entries; None: frame 0 empty, the last full).
+# The scan kernel takes tiles of 4096 entries, 16 a thread, over S + 1 of
+# them, and fills D past the group count from every tile of the frame.
+SCAN_ROWS = {"S 4097, not a multiple of 4, R 300": ((2, 4097), 300, 0.5),
+             "S + 1 = 8192, two whole tiles": ((2, 8191), 5000, 0.6),
+             "S + 1 = 8193, one entry into a third tile": ((2, 8192), 5000, 0.6),
+             "groups past R, R 1000 (not a multiple of 256)": ((2, 20000), 1000, 0.3),
+             "an empty frame beside a full one": ((2, 10000), 12000, None),
+             "every entry present, R 65536": ((1, 12289), 1 << 16, 1.0),
+             "3 frames of 518400 entries, S + 1 odd": ((3, 518400), 64800, 0.05)}
 # Phase 24's inputs of the count kernel alone: name -> ((B, N), S, label
 # kind, share of valid pixels); see count_case. N = 518400 is the 1080p
 # segmentation frame; rows of 1001 and 12345 pixels take the kernel's
@@ -571,7 +582,8 @@ TAIL_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES
 # (its point on the normal, the clamps, floors and fractions, the four taps'
 # weights) and a gradient weight (the difference, its square, the two sums
 # and the offset); a pair of candidates in a frame's rank (a compare) and
-# in the dedupe (the center distance and the tests).
+# in the dedupe (the center distance and the tests): the select ranks all
+# its pairs, the finish tests and ranks its valid candidates' pairs only.
 GLUE_KERNELS = ("refine", "tail_select", "tail_finish")
 GLUE_REPLACES = {"refine": "isaac_ros_apriltag_tpu/ops/refine.py:61",
                  "tail_select": "isaac_ros_apriltag_tpu/detector.py:234",
@@ -583,6 +595,13 @@ GLUE_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES
                    + ("NaN and inf corners", "no valid quad", "tied scores and margins",
                       "duplicate ids, equal margins", "max_tags < C/2", "quad_decimate 1",
                       "quad_decimate 3", "a batch of 3 frames"))
+# Phase 27's finish-only cases (finish_synthetic): margins at +-inf and NaN,
+# a gate of -inf (valid candidates scored -inf), one id on 128 valid
+# candidates in a cluster, N not a multiple of 32 with k < N / 2, and NaN
+# edges (two corners at +inf) beside candidates of the same id.
+FINISH_CASE_NAMES = ("inf and NaN margins", "min_decision_margin -inf",
+                     "one id, 128 valid candidates", "100 candidates, k 7",
+                     "NaN edges beside candidates of the same id")
 # Phase 27's refine-only cases (refine_synthetic): search ranges whose
 # profiles are 7, 9, 13, 17, 24 and 25 samples (refine_kernel stages 24 a
 # point at once) and 165 (seven chunks), and quads across the frame's edges.
@@ -986,6 +1005,21 @@ def parent_chain_form(lab, inv, D, n_groups, steps: int, rank_table=None, cnt=No
     root, cnt_k, converged = out
     return (*parent_dense_form(root, cnt_k, n_groups, inv.shape[1] - 1, min_component_pixels),
             converged)
+
+
+def scan_rows(seed: int = 0) -> dict:
+    """SCAN_ROWS as numpy inputs of the scan pass: name -> ((B, S) int32
+    label counts, R); a present entry's count is 1 to 5."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, ((B, S), R, share) in SCAN_ROWS.items():
+        if share is None:
+            present = np.zeros((B, S), bool)
+            present[-1] = True
+        else:
+            present = rng.random((B, S)) < share
+        out[name] = (np.where(present, rng.integers(1, 6, (B, S)), 0).astype(np.int32), R)
+    return out
 
 
 def count_case(name: str, seed: int = 0):
@@ -2869,6 +2903,31 @@ def check_map_case(name: str, dev) -> float:
     return _max_abs_err(got, want)
 
 
+def check_scan_row(name: str, cnt_np, R: int, dev) -> float:
+    """One of SCAN_ROWS through the scan pass alone (its tile sums and scan
+    launches): one launch of each, every output equal to scan_plain, two
+    calls and a captured replay equal. Raises on a difference; returns the
+    largest one."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops import resolve as plain
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+
+    cnt = torch.from_numpy(cnt_np).to(dev)
+    one = {k: int(k in ("resolve_tiles", "resolve_scan")) for k in _want()}
+    _reset_launches()
+    got = rk.scan(cnt, R)
+    counts = _launches()
+    if counts != one:
+        raise AssertionError(f"scan, {name}: launches {counts} != {one}")
+    want = plain.scan_plain(cnt, R)
+    if not (all(_same(a, b) for a, b in zip(got, want))
+            and all(_same(a, b) for a, b in zip(rk.scan(cnt, R), want))):
+        raise AssertionError(f"scan kernels, {name}: differ from scan_plain")
+    _replay_equals(lambda: rk.scan(cnt, R), want, f"scan kernels, {name}")
+    return max(_max_abs_err(a, b) for a, b in zip(got, want))
+
+
 def resolve_times(c: dict) -> dict:
     """Device ms of each resolve kernel the call launched (kernel, plain
     version, bound, library call; for the chain kernel the parent's form of
@@ -2987,6 +3046,12 @@ def resolve_phase(gpu: str) -> dict:
                         acc[f] = (acc[f] or 0.0) + t[f]
                 acc["by_call"][mode] = t
         lines.append(f"{name}: " + "; ".join(facts))
+    scanned = {}
+    for name, (cnt, R) in scan_rows().items():
+        e = check_scan_row(name, cnt, R, dev)
+        for k in ("resolve_tiles", "resolve_scan"):
+            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], e)
+        scanned[name] = int((cnt > 0).sum())
     for name in COUNT_CASES:
         out["resolve_count"]["max_abs_err"] = max(out["resolve_count"]["max_abs_err"],
                                                   check_count_case(name, dev))
@@ -3003,7 +3068,10 @@ def resolve_phase(gpu: str) -> dict:
           f"replay equal, each kernel against its plain version bit for bit (the chain kernel "
           f"in a final resolve also against dense_plain after slots_plain), the chain kernel's "
           f"tables equal to the parent's form: "
-          + " | ".join(lines) + f"; the count and map kernels alone on {list(COUNT_CASES)}: equal "
+          + " | ".join(lines) + f"; the scan pass alone (tile sums and scan) on the synthetic "
+          f"tables (present entries) {scanned}: equal to scan_plain, one launch each, two calls "
+          f"and a captured replay equal"
+          + f"; the count and map kernels alone on {list(COUNT_CASES)}: equal "
           f"to count_plain and map_plain, one launch, two calls and a captured replay equal; on "
           f"{gpu}: device "
           f"ms a call of the stage "
@@ -3983,6 +4051,60 @@ def glue_synthetic(name: str, dev) -> dict:
     return {"refine": refine, "tail_select": select, "tail_finish": finish}
 
 
+def finish_synthetic(name: str, dev) -> dict:
+    """One of phase 27's finish-only cases (FINISH_CASE_NAMES), {'tail_finish':
+    (args, keyword arguments)} on `dev`, made with seeded numpy: B = 2
+    frames of N = 128 decoded candidates (100 in '100 candidates, k 7';
+    squares of half size 4-20 px about random centers, ids from a few,
+    every other candidate a copy of the one before it 1 px over, with its
+    id and margin), k = 64 tags (7) at a gate of 10 (-inf in
+    'min_decision_margin -inf')."""
+    import torch
+
+    from isaac_ros_apriltag_tpu_torch.ops.decode import DecodeResult
+
+    rng = np.random.default_rng(100 + FINISH_CASE_NAMES.index(name))
+    B, N, k, gate = 2, 128, 64, 10.0
+    if name == "100 candidates, k 7":
+        N, k = 100, 7
+    one_id = name == "one id, 128 valid candidates"
+    ctr = rng.uniform(60, 100, (B, N, 1, 2)) if one_id else rng.uniform(20, 140, (B, N, 1, 2))
+    half = rng.uniform(4, 20, (B, N, 1, 1))
+    sq = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float64)
+    corners = (ctr + half * sq).astype(np.float32)
+    ids = rng.integers(0, 4, (B, N))
+    margin = rng.uniform(0, 60, (B, N)).astype(np.float32)
+    valid = rng.random((B, N)) < 0.8
+    pre_valid = rng.random((B, N)) < 0.85
+    corners[:, 1::2] = corners[:, ::2] + 1.0
+    ids[:, 1::2], margin[:, 1::2] = ids[:, ::2], margin[:, ::2]
+    if name == "inf and NaN margins":
+        margin[:, ::5] = np.inf
+        margin[:, 1::7] = -np.inf
+        margin[:, 2::9] = np.nan
+    elif name == "min_decision_margin -inf":
+        gate = -np.inf
+        margin[:, ::4] = -np.inf
+        margin[:, 1::6] = np.inf
+        margin[:, 2::11] = np.nan
+    elif one_id:
+        ids[:] = 3
+        valid[:] = pre_valid[:] = True
+        margin = rng.integers(10, 20, (B, N)).astype(np.float32)      # ties
+    elif name == "NaN edges beside candidates of the same id":
+        corners[:, ::3, 0, 0] = corners[:, ::3, 1, 0] = np.inf
+    dec = DecodeResult(valid=torch.from_numpy(valid).to(dev),
+                       id=torch.from_numpy(ids.astype(np.int32)).to(dev),
+                       hamming=torch.from_numpy(rng.integers(0, 3, (B, N)).astype(np.int32)).to(dev),
+                       margin=torch.from_numpy(margin).to(dev),
+                       rotation=torch.zeros((B, N), dtype=torch.int32, device=dev),
+                       corners=torch.from_numpy(corners).to(dev))
+    args = (dec, torch.from_numpy(pre_valid).to(dev),
+            torch.from_numpy(rng.integers(0, 2 * N + 1, B).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.random(B) < 0.3).to(dev))
+    return {"tail_finish": (args, dict(k=k, min_decision_margin=gate))}
+
+
 def refine_synthetic(name: str, dev) -> dict:
     """One of phase 27's refine-only cases (REFINE_CASE_NAMES), {'refine':
     (args, keyword arguments)} on `dev`, made with seeded numpy: two of
@@ -4022,11 +4144,11 @@ def refine_synthetic(name: str, dev) -> dict:
 
 
 def glue_cases(dev) -> dict:
-    """Phase 27's inputs, GLUE_CASE_NAMES and REFINE_CASE_NAMES -> {stage:
-    (args, keyword arguments)} on `dev`: the kernels' inputs in a detect
-    call of torch_bench.py's 720p b1 and 1080p b8 inputs
-    (detect_glue_inputs), then glue_synthetic's and refine_synthetic's
-    cases."""
+    """Phase 27's inputs, GLUE_CASE_NAMES, REFINE_CASE_NAMES and
+    FINISH_CASE_NAMES -> {stage: (args, keyword arguments)} on `dev`: the
+    kernels' inputs in a detect call of torch_bench.py's 720p b1 and 1080p
+    b8 inputs (detect_glue_inputs), then glue_synthetic's,
+    refine_synthetic's and finish_synthetic's cases."""
     cases = {}
     for config, batch in CAPTURE_CASES:
         cfg, cam, inputs = bench_inputs(config, batch, dev, calls=1)
@@ -4035,6 +4157,8 @@ def glue_cases(dev) -> dict:
         cases[name] = glue_synthetic(name, dev)
     for name in REFINE_CASE_NAMES:
         cases[name] = refine_synthetic(name, dev)
+    for name in FINISH_CASE_NAMES:
+        cases[name] = finish_synthetic(name, dev)
     return cases
 
 
@@ -4136,7 +4260,14 @@ def glue_bound(stage: str, args, kw, got) -> tuple[float, str]:
                 if isinstance(t, torch.Tensor)]
         B, N = (args[0].shape[:2] if stage == "tail_select" else args[1].shape)
         by = nbytes(*flat, *gots)
-        ops = B * N * N * GLUE_PAIR_FLOPS[stage]
+        if stage == "tail_select":
+            ops = B * N * N * GLUE_PAIR_FLOPS[stage]
+        else:
+            # The dedupe tests the frame's valid pairs; the rank compares
+            # the ones scored above -inf (at most the valid ones).
+            dec, pre_valid = args[0], args[1]
+            nv = (pre_valid & dec.valid & (dec.margin >= kw["min_decision_margin"])).sum(-1)
+            ops = int((nv * nv).sum()) * (GLUE_PAIR_FLOPS[stage] + 1)
     by_ms, ops_ms = _bytes_ms(by), ops / F32_OPS_PER_S * 1e3
     return (by_ms, "bytes") if by_ms >= ops_ms else (ops_ms, "operations")
 
@@ -4161,6 +4292,13 @@ def glue_phase(gpu: str) -> dict:
     stages = _glue_stages()
     for name, case in glue_cases(torch.device("cuda")).items():
         got = check_glue_case(name, case)
+        if name in FINISH_CASE_NAMES:
+            fin = got["tail_finish"]
+            (dec, pre_valid, _, _), kw = case["tail_finish"]
+            nv = pre_valid & dec.valid & (dec.margin >= kw["min_decision_margin"])
+            lines.append(f"{name}: {int(nv.sum())} valid of {nv.numel()} candidates, "
+                         f"{int(fin.num_detections.sum())} tags of {fin.valid.numel()}")
+            continue
         if name in REFINE_CASE_NAMES:
             (_, corners, _), kw = case["refine"]
             moved = (got["refine"] != corners).any(-1).any(-1)

@@ -31,13 +31,15 @@
 //       Integer atomics: the counts are exact in any order;
 //   resolve_tile_sums_kernel  the present labels (cnt > 0) of each tile of
 //       4096 table entries;
-//   resolve_scan_kernel  many blocks a frame, one a tile: the tile's offset
-//       is the sum of the tile sums before it; a warp ballot and a block
-//       pass rank the tile's present labels. Writes inv[b, L] = the group
-//       rank of a present label capped at R (R for an absent label and for
-//       entry S), D[b, k] = the k-th present label for k < R (S past the
-//       frame's group count, filled by the frame's blocks together), and
-//       n_groups[b];
+//   resolve_scan_kernel  many blocks a frame, one a tile, thread t entries
+//       t + 256 j of it: every load of the tile and, in each warp, of the
+//       frame's tile sums in one round (the tile's offset and the group
+//       count by two warp sums), a ballot a round, one barrier, and each
+//       warp's scan of the tile's 128 (round, warp) counts rank the tile's
+//       present labels. Writes inv[b, L] = the group rank of a present label
+//       capped at R (R for an absent label and for entry S), D[b, k] = the
+//       k-th present label for k < R (S past the frame's group count,
+//       filled by the frame's blocks together), and n_groups[b];
 //   resolve_chain_kernel  one thread-block cluster of CLUSTER (8) blocks a
 //       frame, each block owning a contiguous range of ceil(R / 8) of the
 //       (B, R + 1) slot tables' slots in its shared memory (slot R, whose
@@ -83,7 +85,12 @@
 // bound it on labels that change every few pixels. count reads 5 B a pixel
 // and writes the 4 B a table entry (the memset; the atomics then meet the
 // table in L2); tile sums read the table once; scan reads it again and writes inv (4 B
-// an entry) and D; map reads 5 B a pixel, writes 4 B, and gathers from inv
+// an entry) and D: at batch 1 its 8-57 blocks leave most SMs idle, so a
+// block's latency chain is the launch's time, and the scan keeps it to one
+// round of loads, one barrier and coalesced stores (a single-pass
+// look-back that also took the tile sums' launch was slower at both bench
+// shapes: its ticket, status words' memset and look-back cost more than
+// that launch); map reads 5 B a pixel, writes 4 B, and gathers from inv
 // and the table, which runs of equal labels keep in L1 and L2: its gathers
 // are dependent (the table's index is inv's entry), so it keeps many in
 // flight a thread. The chain kernel reads D, n_groups and its slots' pixel
@@ -97,6 +104,8 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "stamps.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -261,47 +270,82 @@ resolve_tile_sums_kernel(const int32_t* __restrict__ cnt, int32_t* __restrict__ 
     if (t == 0) tile_sum[(size_t)b * tiles + tile] = c;
 }
 
+// One block a tile of SCAN_TILE table entries of one frame (grid (tiles,
+// B)); thread t's j-th entry is base + j THREADS + t, so each of its
+// SCAN_PER_THREAD loads and inv stores is a warp's 128 contiguous bytes,
+// whatever the row's alignment. Every load is issued at once: the tile's
+// entries and, in each warp, the frame's tile sums (lane l sums tiles l, l +
+// 32, ...: the tile's offset and the frame's group count by two warp sums).
+// A ballot a round gives the (round, warp) counts, which one barrier
+// publishes; each warp then scans the 128 counts (four a lane, in round-
+// major order, which is entry order) and takes its rounds' offsets by
+// shuffles, so the entries' ranks need no second barrier.
 __global__ void __launch_bounds__(THREADS)
 resolve_scan_kernel(const int32_t* __restrict__ cnt, const int32_t* __restrict__ tile_sum,
                     int32_t* __restrict__ inv, int32_t* __restrict__ D,
                     int32_t* __restrict__ n_groups, int S, int R, int tiles) {
-    __shared__ int buf[WARPS];
-    __shared__ int wsum[WARPS];
+    constexpr int COUNTS = SCAN_PER_THREAD * WARPS;          // (round, warp) counts, round-major
+    static_assert(COUNTS == 4 * 32, "four counts a lane");
+    __shared__ int4 counts[COUNTS / 4];
     const int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, lane = t & 31, w = t >> 5;
+    STAMP(0, t);
     cnt += (size_t)b * S;
     inv += (size_t)b * (S + 1);
     D += (size_t)b * R;
     tile_sum += (size_t)b * tiles;
+    const int base = tile * SCAN_TILE + t;
+    int c[SCAN_PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < SCAN_PER_THREAD; ++j) {
+        const int e = base + j * THREADS;
+        c[j] = e < S ? __ldg(cnt + e) : 0;
+    }
     int before = 0, all = 0;                     // present labels before this tile, in all
-    for (int i = t; i < tiles; i += THREADS) {
-        const int v = tile_sum[i];
+#pragma unroll 4
+    for (int i = lane; i < tiles; i += 32) {
+        const int v = __ldg(tile_sum + i);
         all += v;
         before += i < tile ? v : 0;
     }
-    int off = block_sum(before, buf);
-    const int ng = block_sum(all, buf);
-    const int base = tile * SCAN_TILE;
-    for (int j = 0; j < SCAN_PER_THREAD; ++j) {
-        const int e = base + j * THREADS + t;
-        const bool present = e < S && cnt[e] > 0;
-        const unsigned m = __ballot_sync(FULL, present);
-        if (lane == 0) wsum[w] = __popc(m);
-        __syncthreads();
-        int before_w = 0, in_round = 0;
+    before = __reduce_add_sync(FULL, before);
+    all = __reduce_add_sync(FULL, all);
+    STAMP(1, before + all);
+    unsigned m[SCAN_PER_THREAD];
 #pragma unroll
-        for (int u = 0; u < WARPS; ++u) {
-            const int c = wsum[u];
-            before_w += u < w ? c : 0;
-            in_round += c;
-        }
-        const int rank = off + before_w + __popc(m & ((1u << lane) - 1u));
+    for (int j = 0; j < SCAN_PER_THREAD; ++j) m[j] = __ballot_sync(FULL, c[j] > 0);
+    if (lane == 0) {
+        int* flat = reinterpret_cast<int*>(counts);
+#pragma unroll
+        for (int j = 0; j < SCAN_PER_THREAD; ++j) flat[j * WARPS + w] = __popc(m[j]);
+    }
+    __syncthreads();
+    // Lane l holds counts 4l .. 4l + 3 (round l / 2, warps 4 (l & 1) .. + 3).
+    const int4 q = counts[lane];
+    const int x1 = q.x, x2 = x1 + q.y, x3 = x2 + q.z, x4 = x3 + q.w;
+    int inc = x4;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(FULL, inc, d);
+        if (lane >= d) inc += y;
+    }
+    // At lane l: the counts before 4l + (w & 3), the index of (round l / 2,
+    // warp 4 (l & 1) + (w & 3)); this warp's round j is index 4 (2j + (w >> 2)) + (w & 3).
+    const int sub = w & 3;
+    const int pre = before + inc - x4 + (sub == 0 ? 0 : sub == 1 ? x1 : sub == 2 ? x2 : x3);
+    const unsigned below = (1u << lane) - 1u;
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < SCAN_PER_THREAD; ++j) {
+        rank = __shfl_sync(FULL, pre, 2 * j + (w >> 2)) + __popc(m[j] & below);
+        const int e = base + j * THREADS;
+        const bool present = c[j] > 0;
         if (e <= S) inv[e] = present ? min(rank, R) : R;
         if (present && rank < R) D[rank] = e;
-        off += in_round;
-        __syncthreads();                         // wsum is written again
     }
-    if (tile == 0 && t == 0) n_groups[b] = ng;
-    for (int k = ng + tile * THREADS + t; k < R; k += tiles * THREADS) D[k] = S;
+    STAMP(2, rank);
+    if (tile == 0 && t == 0) n_groups[b] = all;
+    for (int k = all + tile * THREADS + t; k < R; k += tiles * THREADS) D[k] = S;
+    STAMP(3, all);
 }
 
 // One frame's cluster: each of its CLUSTER blocks owns the slots [lo, hi),

@@ -53,11 +53,14 @@
 //     the lanes stride over the staged codebook with __popcll and a warp
 //     min of (hamming << 24 | code index) gives the first minimum.
 //   tail_finish_kernel, one block a frame, thread j candidate j (2T <= 128):
-//     its validity after decode and the margin gate, the dedupe against
-//     every better candidate of the same id within 0.75 of the larger mean
-//     edge (centers and edges in shared memory), its rank by margin as
-//     tail_select_kernel ranks, and in the top k its fields and center; the
-//     frame's detection count and overflow.
+//     its validity after decode and the margin gate, as four warp ballots
+//     in shared memory; the dedupe against every better valid candidate of
+//     the same id within 0.75 of the larger mean edge (centers and edges in
+//     shared memory), walking the valid masks' set bits only; its rank by
+//     margin as tail_select_kernel ranks, by compares over the candidates
+//     scored above -inf (a second ballot) only, a -inf candidate's rank
+//     being their count plus its -inf predecessors; and in the top k its
+//     fields and center; the frame's detection count and overflow.
 //   pose_kernel, one thread a tag: the tag-plane homography, K^-1 (K shared
 //     or one per frame), M = K^-1 H, the scale and its sign, the cross
 //     product, 4 Newton polar steps and the quaternion.
@@ -82,8 +85,10 @@
 // sample's four taps (100 samples a tag36h11 quad), the corners and the
 // codebook (once a block) and writes ~60 bytes a quad: ~0.3 MB at 1024
 // quads; the picks read ~40 bytes a quad; pose reads 32 bytes of corners a
-// tag and writes 64. The picks' rank and dedupe are C^2 compares a frame,
-// ~16 K, latency again.
+// tag and writes 64. The select's rank is C^2 compares a frame, ~16 K,
+// latency again: a thread's 128 steps. The finish's dedupe and rank walk
+// only the set bits of its masks: a bench frame's handful of valid
+// candidates, not 2T steps each.
 
 #include <cmath>
 #include <cstdint>
@@ -777,6 +782,13 @@ tail_select_kernel(const float* __restrict__ corners, const bool* __restrict__ v
     }
 }
 
+// One block a frame, thread j candidate j (N <= TAIL_THREADS). The valid
+// candidates are the set bits of four warp ballots in shared memory, and
+// both the dedupe and the rank walk set bits only: a bench frame holds a
+// handful of valid candidates among its 2T. A score is -inf or a valid
+// margin (>= min_margin, so never NaN), so a -inf candidate's rank in
+// torch.sort(descending, stable) order is the count of scores above -inf
+// plus the -inf candidates below it, and only the others compare.
 __global__ void __launch_bounds__(TAIL_THREADS)
 tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ id,
                    const int* __restrict__ hamming, const float* __restrict__ margin,
@@ -787,11 +799,13 @@ tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ i
                    float* __restrict__ center_out, float* __restrict__ corners_out,
                    int* __restrict__ num_det, bool* __restrict__ overflow_out, int N, int K,
                    float min_margin) {
+    constexpr int MASKS = TAIL_THREADS / LANES;
     __shared__ float s_cx[TAIL_THREADS], s_cy[TAIL_THREADS], s_edge[TAIL_THREADS];
-    __shared__ float s_margin[TAIL_THREADS], s_score[TAIL_THREADS];
+    __shared__ float s_margin[TAIL_THREADS];
     __shared__ int s_id[TAIL_THREADS];
-    __shared__ bool s_valid[TAIL_THREADS];
-    const int b = blockIdx.x, j = threadIdx.x;
+    __shared__ unsigned s_valid[MASKS], s_ranked[MASKS];   // valid; valid with a score above -inf
+    const int b = blockIdx.x, j = threadIdx.x, lane = j & 31, w = j >> 5;
+    STAMP(0, j);
     const bool in = j < N;
     const size_t q = (size_t)b * N + j;
     float c[8], m = 0.0f, cx = 0.0f, cy = 0.0f;
@@ -810,35 +824,62 @@ tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ i
         s_edge[j] = edge_sum(c) * 0.25f;
         s_margin[j] = m;
         s_id[j] = my_id;
-        s_valid[j] = v;
     }
+    const unsigned vm = __ballot_sync(FULL, v);
+    if (lane == 0) s_valid[w] = vm;
     __syncthreads();
-    // ops/tail.py::finish_detections' dedupe: a better candidate i of the
-    // same id near j suppresses j (torch.maximum passes NaN).
+    STAMP(1, s_valid[0]);
+    // ops/tail.py::finish_detections' dedupe: a better valid candidate i of
+    // the same id near j suppresses j (torch.maximum passes NaN).
     if (v) {
         const float ej = s_edge[j];
-        for (int i = 0; i < N; ++i) {
-            if (!s_valid[i] || s_id[i] != my_id) continue;
-            const float mi = s_margin[i];
-            if (!(mi > m || (mi == m && i < j))) continue;
-            const float dx = s_cx[i] - cx, dy = s_cy[i] - cy, ei = s_edge[i];
-            const float reach = is_nan(ei) || is_nan(ej) ? ei + ej : (ei > ej ? ei : ej);
-            if (sqrtf(dx * dx + dy * dy) < 0.75f * reach) {
-                v = false;
-                break;
+        for (int u = 0; u < MASKS && v; ++u) {
+            for (unsigned bits = s_valid[u]; bits; bits &= bits - 1) {
+                const int i = u * LANES + __ffs(bits) - 1;
+                if (s_id[i] != my_id) continue;
+                const float mi = s_margin[i];
+                if (!(mi > m || (mi == m && i < j))) continue;
+                const float dx = s_cx[i] - cx, dy = s_cy[i] - cy, ei = s_edge[i];
+                const float reach = is_nan(ei) || is_nan(ej) ? ei + ej : (ei > ej ? ei : ej);
+                if (sqrtf(dx * dx + dy * dy) < 0.75f * reach) {
+                    v = false;
+                    break;
+                }
             }
         }
     }
     const float score = v ? m : -INFINITY;
-    if (in) s_score[j] = score;
+    const bool ranked = score > -INFINITY;
+    const unsigned rm = __ballot_sync(FULL, ranked);
+    if (lane == 0) s_ranked[w] = rm;
     __syncthreads();
+    STAMP(2, s_ranked[0]);
+    // The rank in tail_select_kernel's order (precedes), no score being NaN.
     int rank = N;
     if (in) {
-        rank = 0;
-        for (int i = 0; i < N; ++i) rank += precedes(s_score[i], i, score, j);
+        int above = 0, below = 0;                // ranked candidates in all, below j
+#pragma unroll
+        for (int u = 0; u < MASKS; ++u) {
+            const unsigned r = s_ranked[u];
+            above += __popc(r);
+            below += u < w ? __popc(r) : u == w ? __popc(r & ((1u << lane) - 1u)) : 0;
+        }
+        if (!ranked) {
+            rank = above + j - below;
+        } else {
+            rank = 0;
+            for (int u = 0; u < MASKS; ++u) {
+                for (unsigned bits = s_ranked[u]; bits; bits &= bits - 1) {
+                    const int i = u * LANES + __ffs(bits) - 1;
+                    const float si = s_margin[i];
+                    rank += si > score || (si == score && i < j);
+                }
+            }
+        }
     }
     const bool fin = is_finite(score);
     const int n = __syncthreads_count(rank < K && fin);
+    STAMP(3, n);
     if (j == 0) {
         num_det[b] = n;
         overflow_out[b] = overflow_in[b] || num_quads[b] > N;
@@ -857,6 +898,7 @@ tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ i
         center_out[o * 2] = x;
         center_out[o * 2 + 1] = y;
     }
+    STAMP(4, n);
 }
 
 }  // namespace

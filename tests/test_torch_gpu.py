@@ -31,21 +31,25 @@ import pytest
 import torch
 
 from chip_smoke import (CAPTURE_CASES, CLUSTER_CASE_NAMES, CLUSTER_KERNELS, COUNT_CASES,
-                        COUNT_FRAMES, GLUE_CASE_NAMES, LONG_SHAPES, MOMENT_ROWS,
+                        COUNT_FRAMES, FINISH_CASE_NAMES, GLUE_CASE_NAMES, LONG_SHAPES,
+                        MOMENT_ROWS,
                         QUADFIT_CASE_NAMES, REFINE_CASE_NAMES, RESOLVE_CASE_NAMES,
                         RESOLVE_KERNELS,
-                        SCAN_CASES, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS, TAIL_CASE_NAMES,
+                        SCAN_CASES, SCAN_ROWS, SEGMENT_ROWS, SORT_FRAMES, SORT_ROWS,
+                        TAIL_CASE_NAMES,
                         THRESH_CASES, THRESH_MIN_DIFF, bench_inputs, check_cluster_case,
                         check_count_case, check_count_frame, check_map_case,
                         check_moment_row, check_quadfit_case,
-                        check_glue_case, check_resolve_call, check_segment_row,
+                        check_glue_case, check_resolve_call, check_scan_row,
+                        check_segment_row,
                         check_sort_frame,
                         check_sort_row, check_tail_case, cluster_cases,
                         edge_batch,
                         _replay_equals, free_port, glue_cases, map_problem, quadfit_cases,
                         resolve_cases,
                         scan_batch,
-                        scan_case, scan_case_id, tail_cases, thresh_case_id, thresh_input)
+                        scan_case, scan_case_id, scan_rows, tail_cases, thresh_case_id,
+                        thresh_input)
 from isaac_ros_apriltag_tpu_torch import (CameraModel, Detector, DetectorConfig, GraphPipeline,
                                           RigDetector, SpatialDetector, StreamingRunner,
                                           batched_detect_fn, build_spatial_front_fn,
@@ -787,11 +791,13 @@ def test_tail_kernels_refuse_what_they_do_not_take(cuda):
 _GLUE_CASES = {}
 
 
-@pytest.mark.parametrize("name", GLUE_CASE_NAMES + REFINE_CASE_NAMES)
+@pytest.mark.parametrize("name", GLUE_CASE_NAMES + REFINE_CASE_NAMES + FINISH_CASE_NAMES)
 def test_glue_kernels_match_plain_versions(cuda, name):
     """chip_smoke.py phase 27's checks on one case: the refine, select and
     finish kernels (refine alone on REFINE_CASE_NAMES: search ranges whose
     profiles span one or several staged chunks, quads across the frame's
+    edges; the finish alone on FINISH_CASE_NAMES: margins at +-inf and NaN,
+    a gate of -inf, one id on 128 valid candidates, N 100 and k 7, NaN
     edges) against their plain versions bit for bit on every output, one
     launch a call, two calls and a captured replay equal, a batch equal to
     each frame alone."""
@@ -833,6 +839,17 @@ def test_resolve_kernels_match_twin_and_plain_versions(cuda, name):
         _RESOLVE_CASES.update(resolve_cases(cuda))
     for call, kw, lab, valid, facts in _RESOLVE_CASES[name]:
         check_resolve_call(name, call, dict(kw), lab, valid, facts)
+
+
+@pytest.mark.parametrize("name", list(SCAN_ROWS))
+def test_scan_kernels_on_synthetic_tables(cuda, name):
+    """chip_smoke.py phase 24's scan rows (S not a multiple of 4, S + 1 on
+    and one past a tile's end, groups past R, an empty frame beside a full
+    one, every entry present, three frames of odd S + 1): the scan pass's
+    two kernels against scan_plain, one launch each, two calls and a
+    captured replay equal."""
+    cnt, R = scan_rows()[name]
+    check_scan_row(name, cnt, R, cuda)
 
 
 @pytest.mark.parametrize("name", list(COUNT_CASES))

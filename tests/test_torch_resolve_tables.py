@@ -7,11 +7,14 @@ flat mode: real CCL labels of small rendered scenes (one frame and a batch
 of 3), noise, all-invalid frames, several capacities and chain steps, the
 twin's two behaviours on frames of more than R groups (slot R - 1's size,
 the 16-bit group-rank clamp at R = 65536), labels that read out of range;
-a subset against the JAX package; and the CUDA wrappers
-(ops/cuda/resolve.py) routing CPU tensors to the plain versions."""
+a subset against the JAX package; a numpy mirror of resolve_scan_kernel's
+blocked scan against scan_plain on chip_smoke.SCAN_ROWS; and the CUDA
+wrappers (ops/cuda/resolve.py) routing CPU tensors to the plain
+versions."""
 
 import functools
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -311,3 +314,80 @@ def test_tables_reject_bad_capacity():
     with pytest.raises(ValueError, match="capacity mismatch"):
         tres.resolve_components_tables(lab, valid, min_component_pixels=1, max_components=64,
                                        rank_table=torch.zeros(32, dtype=torch.int32))
+
+
+# --- the scan kernel's blocked formulation, in numpy -------------------------
+
+_SCAN_TILE, _SCAN_THREADS, _SCAN_PER_THREAD = 4096, 256, 16    # csrc/resolve.cu
+_SCAN_WARPS = _SCAN_THREADS // 32
+
+
+def _scan_mirror(cnt: np.ndarray, R: int, round_major: bool = True):
+    """resolve_scan_kernel in numpy, a block a (frame, tile): thread t's j-th
+    entry is tile * 4096 + 256 j + t; a ballot a (round j, warp w); the
+    (round, warp) counts at 8 j + w (round-major; warp-major when not
+    `round_major`, a wrong mirror), four a lane, scanned over the lanes; a
+    warp's round j takes its offset from lane 2 j + (w >> 2), element
+    w & 3; the tile's offset and the frame's group count from the tile
+    sums. Returns (inv, D, n_groups) as int32 arrays."""
+    B, S = cnt.shape
+    T = -(-(S + 1) // _SCAN_TILE)
+    present = np.zeros((B, T * _SCAN_TILE), bool)
+    present[:, :S] = cnt > 0
+    tile_sum = present.reshape(B, T, _SCAN_TILE).sum(-1)
+    inv = np.full((B, S + 1), R, np.int64)
+    D = np.full((B, R), S, np.int64)
+    lanes, warps = np.arange(32), np.arange(_SCAN_WARPS)
+    for b in range(B):
+        for tile in range(T):
+            before = int(tile_sum[b, :tile].sum())
+            p = present[b, tile * _SCAN_TILE:(tile + 1) * _SCAN_TILE]
+            m = p.reshape(_SCAN_PER_THREAD, _SCAN_WARPS, 32)                 # [j, w, lane]
+            counts = m.sum(-1)
+            flat = counts.reshape(-1) if round_major else counts.T.reshape(-1)
+            x = np.cumsum(flat.reshape(32, 4), 1)                              # x1 .. x4 a lane
+            excl = np.cumsum(x[:, 3]) - x[:, 3]
+            part = np.concatenate([np.zeros((32, 1), np.int64), x[:, :3]], 1)
+            pre = before + excl[None, :] + part[:, warps & 3].T                # [w, lane]
+            src = 2 * np.arange(_SCAN_PER_THREAD)[:, None] + (warps >> 2)[None, :]
+            base = pre[warps[None, :], src]                                    # [j, w]
+            rank = base[..., None] + np.cumsum(m, -1) - m
+            e = (tile * _SCAN_TILE + _SCAN_THREADS * np.arange(_SCAN_PER_THREAD)[:, None, None]
+                 + 32 * warps[None, :, None] + lanes[None, None, :])
+            inside = e <= S
+            inv[b, e[inside]] = np.where(m, np.minimum(rank, R), R)[inside]
+            put = m & (rank < R)
+            D[b, rank[put]] = e[put]
+    return inv.astype(np.int32), D.astype(np.int32), tile_sum.sum(-1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_rows():
+    return chip_smoke.scan_rows()
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.SCAN_ROWS))
+def test_scan_kernel_mirror_equals_scan_plain(name):
+    """The scan kernel's formulation equals scan_plain on every field of
+    chip_smoke.py's SCAN_ROWS (S not a multiple of 4, S + 1 on a tile's end
+    and one past it, groups past R at R not a multiple of 256, an empty
+    frame beside a full one, every entry present, three frames of odd
+    S + 1), and so does the wrapper on CPU tensors."""
+    cnt, R = _scan_rows()[name]
+    want = tres.scan_plain(torch.from_numpy(cnt), R)
+    for got in (_scan_mirror(cnt, R), rk.scan(torch.from_numpy(cnt), R)):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    if "past R" in name:
+        assert (want[2] > R).all()
+
+
+def test_scan_kernel_mirror_is_held_by_the_rows():
+    """A mirror that scans the (round, warp) counts warp-major, not in
+    entry order, differs from scan_plain on a row of SCAN_ROWS."""
+    wrong = []
+    for name, (cnt, R) in _scan_rows().items():
+        want = tres.scan_plain(torch.from_numpy(cnt), R)
+        got = _scan_mirror(cnt, R, round_major=False)
+        wrong.append(not all(np.array_equal(a, b.numpy()) for a, b in zip(got, want)))
+    assert any(wrong)

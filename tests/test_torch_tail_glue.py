@@ -18,7 +18,12 @@ in other orders), and with JAX at tests/test_torch_tail.py's tolerances
 (refine 1e-3 px, quad corners 0.1 px). The whole tail, from the moments
 of rendered frames to Detections and FrameStats, is held to the JAX
 package's own _detect_from_clusters at tests/test_torch_detector.py's
-gates. A batch equals each frame alone.
+gates. A batch equals each frame alone. A numpy mirror of
+tail_finish_kernel's mask formulation (the dedupe and rank over the
+valid candidates' set bits, a -inf candidate ranked by counts) equals
+finish_detections on those cases and on chip_smoke.FINISH_CASE_NAMES
+(+-inf and NaN margins, a gate of -inf, one id on 128 valid candidates,
+N 100 with k 7, NaN edges), which the plain version also holds to JAX.
 The wrappers run the plain versions on CPU tensors, launch nothing, and
 refuse what their kernels do not take."""
 
@@ -70,6 +75,16 @@ STAGES = {"refine": tref.refine_edges, "tail_select": ttail.select_candidates,
 @functools.lru_cache(maxsize=None)
 def case(name: str) -> dict:
     return glue_synthetic(name, torch.device("cpu"))
+
+
+FINISH_CASES = SYNTHETIC + chip_smoke.FINISH_CASE_NAMES
+
+
+@functools.lru_cache(maxsize=None)
+def finish_case(name: str) -> tuple:
+    if name in chip_smoke.FINISH_CASE_NAMES:
+        return chip_smoke.finish_synthetic(name, torch.device("cpu"))["tail_finish"]
+    return case(name)["tail_finish"]
 
 
 def fields(x) -> tuple:
@@ -356,9 +371,9 @@ def test_select_matches_reference(name):
                                    err_msg=f"{name} {got._fields[i]}")
 
 
-@pytest.mark.parametrize("name", SYNTHETIC)
+@pytest.mark.parametrize("name", FINISH_CASES)
 def test_finish_matches_reference(name):
-    (dec, pre_valid, n_quads, overflow), kw = case(name)["tail_finish"]
+    (dec, pre_valid, n_quads, overflow), kw = finish_case(name)
     ref = jax.jit(jax.vmap(functools.partial(_jax_finish, **kw)))
     want = ref(*(jnp.asarray(t.numpy()) for t in (
         dec.valid, dec.id, dec.hamming, dec.margin, dec.corners, pre_valid, n_quads, overflow)))
@@ -428,6 +443,96 @@ def test_refine_bound_reads_each_pixel_once(name):
     assert chip_smoke.refine_bytes(gray, corners, dark, kw["search_range"], got) == \
         pixels * 4 + rest
     assert pixels < taps[0].numel() * 4
+
+
+# --- the finish kernel's mask formulation, in numpy --------------------------
+
+def _finish_mirror(dec, pre_valid, num_quads, overflow, *, k, min_decision_margin,
+                   rank_valid=False):
+    """tail_finish_kernel in numpy, frame by frame: the valid candidates as
+    four 32-bit masks; the dedupe walking their set bits in index order; the
+    rank of a candidate scored above -inf by compares over those only, of any
+    other by their count plus its -inf predecessors; then the top-k's
+    fields, center and counts. With `rank_valid` (a wrong mirror) every
+    valid candidate is ranked by compares, -inf scores too."""
+    from isaac_ros_apriltag_tpu_torch.utils.geometry import line_intersection
+
+    c = dec.corners.numpy()
+    m, ids = dec.margin.numpy(), dec.id.numpy()
+    B, N = m.shape
+    K = min(k, N)
+    f32 = np.float32
+    v = pre_valid.numpy() & dec.valid.numpy() & (m >= f32(min_decision_margin))
+    pick = np.zeros((B, K), np.int64)
+    scores = np.zeros((B, K), f32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        cx = (((c[..., 0, 0] + c[..., 1, 0]) + c[..., 2, 0]) + c[..., 3, 0]) * f32(0.25)
+        cy = (((c[..., 0, 1] + c[..., 1, 1]) + c[..., 2, 1]) + c[..., 3, 1]) * f32(0.25)
+        e = c - np.roll(c, 1, -2)
+        n = np.sqrt(e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1])
+        edge = (((n[..., 0] + n[..., 1]) + n[..., 2]) + n[..., 3]) * f32(0.25)
+        for b in range(B):
+            masks = [sum(1 << L for L in range(32) if 32 * u + L < N and v[b, 32 * u + L])
+                     for u in range(4)]
+            bits = [32 * u + L for u in range(4) for L in range(32) if masks[u] >> L & 1]
+            keep = v[b].copy()
+            for j in bits:
+                for i in bits:
+                    mi, mj = m[b, i], m[b, j]
+                    if ids[b, i] != ids[b, j] or not (mi > mj or (mi == mj and i < j)):
+                        continue
+                    dx, dy = cx[b, i] - cx[b, j], cy[b, i] - cy[b, j]
+                    ei, ej = edge[b, i], edge[b, j]
+                    reach = ei + ej if np.isnan(ei) or np.isnan(ej) else max(ei, ej)
+                    if np.sqrt(dx * dx + dy * dy) < f32(0.75) * reach:
+                        keep[j] = False
+                        break
+            score = np.where(keep, m[b], -np.inf).astype(f32)
+            ranked = keep if rank_valid else score > -np.inf
+            above = int(ranked.sum())
+            for j in range(N):
+                if ranked[j]:
+                    r = sum(int(score[i] > score[j] or (score[i] == score[j] and i < j))
+                            for i in np.flatnonzero(ranked))
+                else:
+                    r = above + j - int(ranked[:j].sum())
+                if r < K:
+                    pick[b, r], scores[b, r] = j, score[j]
+    take = torch.from_numpy(pick)
+    sel_valid = torch.from_numpy(np.isfinite(scores))
+    corners = ttail.take(dec.corners, take)
+    c0, c1, c2, c3 = corners.unbind(-2)
+    return ttail.Selection(
+        valid=sel_valid, id=torch.where(sel_valid, ttail.take(dec.id, take), -1),
+        hamming=ttail.take(dec.hamming, take), margin=ttail.take(dec.margin, take),
+        center=line_intersection(c0, c2 - c0, c1, c3 - c1), corners=corners,
+        num_detections=sel_valid.sum(-1).to(torch.int32), overflow=overflow | (num_quads > N))
+
+
+@pytest.mark.parametrize("name", FINISH_CASES)
+def test_finish_kernel_mirror_equals_finish_detections(name):
+    """The finish kernel's formulation equals finish_detections bit for bit
+    on every Selection field, on phase 27's synthetic cases and
+    FINISH_CASE_NAMES (tied margins, +-inf and NaN margins, a gate of -inf,
+    NaN edges, one id on 128 valid candidates, no valid candidate, N not a
+    multiple of 32, k < N / 2)."""
+    (dec, pre_valid, n_quads, overflow), kw = finish_case(name)
+    want = ttail.finish_detections(dec, pre_valid, n_quads, overflow, **kw)
+    assert_same(_finish_mirror(dec, pre_valid, n_quads, overflow, **kw), want)
+    if name == "no valid quad":
+        assert not want.valid.any()
+    if name == "one id, 128 valid candidates":
+        assert int(want.num_detections.sum()) < pre_valid.numel() // 4
+
+
+def test_finish_kernel_mirror_is_held_by_the_cases():
+    """A mirror that ranks every valid candidate by compares, -inf scores
+    among them, picks other candidates than finish_detections on the -inf
+    gate's case."""
+    (dec, pre_valid, n_quads, overflow), kw = finish_case("min_decision_margin -inf")
+    want = ttail.finish_detections(dec, pre_valid, n_quads, overflow, **kw)
+    got = _finish_mirror(dec, pre_valid, n_quads, overflow, rank_valid=True, **kw)
+    assert not chip_smoke._same(got.corners, want.corners)
 
 
 # --- the wrappers on the CPU ------------------------------------------------

@@ -3,7 +3,7 @@
 trees on one card in one call.
 
     python3 torch_resolve_times.py [--root DIR]
-        [--stage resolve|sort|edge_count|moments|segment_top|quadfit|refine|decode]
+        [--stage resolve|sort|edge_count|moments|segment_top|quadfit|refine|decode|finish]
 
 Builds the kernels of the package under DIR (default: this checkout) and
 prints one JSON line: the card's nvidia-smi name and power limit, DIR, and
@@ -13,7 +13,8 @@ call's device ms (chip_smoke.py's _device_ms) and of each device op's ms a
 call by name (torch.profiler over ITERS calls: kernels and memsets). The
 resolve stage's calls (the default) are those of a detect call: the
 contraction on the phase-1 labels and the rank-mode final resolve on the
-phase-2 labels. The sort's call is the cluster stage's sort of the kept
+phase-2 labels, then the scan pass alone (ops/cuda/resolve.py::scan: its
+tile sums and scan launches) on the label counts of each of the two. The sort's call is the cluster stage's sort of the kept
 pairs (sort_pairs, its memset included), given with the kept pairs; the
 edge_count call the stage's pair count (edge_count, with its zeroed
 output), given with the pixels; the moments call the moments kernel on
@@ -26,7 +27,9 @@ of the cluster stage's moments, given with the clusters; the refine call
 the edge refinement (refine_edges) on the candidate quads a detect call
 gives it, given with the quads and the profile's samples; the decode
 call the decode kernel (decode_quads) on the refined candidates a detect
-call gives it, given with the quads. Compare
+call gives it, given with the quads; the finish call the dedupe and top-T
+kernel (finish_detections) on the decoded candidates a detect call gives
+it, given with the candidates and the valid ones among them. Compare
 a parent and a change in turns: parent, change, change, parent. Without a
 CUDA device it exits 1 and prints nothing.
 """
@@ -69,7 +72,7 @@ def main() -> int:
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     parser.add_argument("--stage", default="resolve",
                         choices=("resolve", "sort", "edge_count", "moments", "segment_top",
-                                 "quadfit", "refine", "decode"))
+                                 "quadfit", "refine", "decode", "finish"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_resolve_times: no CUDA device; nothing was run", file=sys.stderr)
@@ -83,6 +86,7 @@ def main() -> int:
     from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as fk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tk
     from isaac_ros_apriltag_tpu_torch.ops.refine import profile
 
     # Imported after the package under --root, which chip_smoke's own path
@@ -111,6 +115,12 @@ def main() -> int:
             gray, corners, family, kw = detect_tail_inputs(cfg, cam, inputs[0])["decode"]
             size = {"quads": corners.numel() // 8}
             calls = {"decode": lambda: dk.decode_quads(gray, corners, family, **kw)}
+        elif args.stage == "finish":
+            fargs, fkw = detect_glue_inputs(cfg, cam, inputs[0])["tail_finish"]
+            dec, pre_valid = fargs[0], fargs[1]
+            ok = pre_valid & dec.valid & (dec.margin >= fkw["min_decision_margin"])
+            size = {"candidates": pre_valid.numel(), "valid": int(ok.sum())}
+            calls = {"finish": lambda: tk.finish_detections(*fargs, **fkw)}
         elif args.stage in ("sort", "edge_count", "moments", "segment_top"):
             tri, dense, ovf, kw = cluster_inputs(cfg, inputs[0])
             B, H, W = tri.shape
@@ -142,12 +152,18 @@ def main() -> int:
                                                              E2)}
         else:
             valid, lab1, lab2, table, R, _ = labels_of(cfg, front_trinary(cfg, inputs[0]))
+            B = valid.shape[0]
+            flat = [t.reshape(B, -1).contiguous() for t in (lab1, lab2, valid)]
+            N = flat[0].shape[1]
+            cnt1, cnt2 = rk.count(flat[0], flat[2], N), rk.count(flat[1], flat[2], R)
             size = {"R": R}
             calls = {"contraction": lambda: rk.resolve_roots_rank(
                          lab1, valid, max_components=R, chain_steps=cfg.ccl_contraction_steps),
                      "final": lambda: rk.resolve_components(
                          lab2, valid, min_component_pixels=cfg.min_component_pixels,
-                         max_components=R, chain_steps=cfg.ccl_resolve_steps, rank_table=table)}
+                         max_components=R, chain_steps=cfg.ccl_resolve_steps, rank_table=table),
+                     "scan_contraction": lambda: rk.scan(cnt1, R),
+                     "scan_final": lambda: rk.scan(cnt2, R)}
         out[f"{config} b{batch}"] = {
             call: {**size, "call_ms": [_device_ms(fn, ITERS) for _ in range(READINGS)],
                    "ops_ms": [op_ms(fn, ITERS) for _ in range(READINGS)]}

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of the segment-top kernel and the decode kernel goes, on
-the inputs a detect call gives them, by clock stamps.
+"""Where the time of the segment-top, decode, resolve scan and finish
+kernels goes, on the inputs a detect call gives them, by clock stamps.
 
     python3 torch_stamp_split.py [--out FILE]
 
 Prints one JSON line: the card's nvidia-smi name and power limit, and for
 torch_bench.py's 720p b1 and bench b8 inputs (chip_smoke.py's
-CAPTURE_CASES), "segment_top" and "decode": the package's own kernels,
+CAPTURE_CASES), "segment_top", "decode", "scan_contraction",
+"scan_final" and "finish": the package's own kernels,
 built alone from csrc/ with -DKERNEL_STAMPS (csrc/stamps.cuh: thread 0 of
 each block records %globaltimer and clock64 once a step's value is known),
 called through their wrappers: device ms unstamped (the package's build)
@@ -18,7 +19,12 @@ pass 1 to its barrier; the crossing sizes and the reductions; T; pass 2's
 layout; its rounds; the winners' rank; the output. The decode steps (a
 block's first quad): H; every tap's value; the sums, thresholds,
 sharpening, bits and codes; the barrier on the staged codebook; the
-codebook's search; the output.
+codebook's search; the output. The scan steps (the scan pass of the
+contraction and of the rank-mode final resolve, its tile sums and scan
+launches; the scan kernel's blocks, a tile of a frame each): the tile's
+offset and the frame's group count; the tile's ranks and their inv and D
+stores; D's fill past the group count. The finish steps (a frame's
+block): the candidates' loads; the dedupe; the rank; the top-T stores.
 Without a CUDA device it exits 1 and prints nothing.
 """
 
@@ -39,7 +45,9 @@ STAMP_BLOCKS, STAMP_STEPS = 1024, 8          # csrc/stamps.cuh
 STEPS = {"segment_top": ("hist_and_pass1", "crossings_and_reductions", "threshold",
                          "pass2_layout", "pass2_rounds", "rank", "output"),
          "decode": ("homography", "tap_values", "sums_bits_codes", "codebook_barrier",
-                    "codebook_search", "output")}
+                    "codebook_search", "output"),
+         "scan": ("tile_offsets", "ranks", "d_fill"),
+         "finish": ("loads", "dedupe", "rank", "stores")}
 
 
 def build_stamped(source: str, out_dir: str) -> ctypes.CDLL:
@@ -60,12 +68,15 @@ def build_stamped(source: str, out_dir: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     so.apriltag_read_stamps.argtypes = [ctypes.c_void_p]
     so.apriltag_read_stamps.restype = ctypes.c_int
+    so.apriltag_clear_stamps.argtypes = []
+    so.apriltag_clear_stamps.restype = ctypes.c_int
     return so
 
 
 def stamped_steps(so, call, kernel: str) -> dict:
     """Device ms of `call` through the package's library and through the
-    stamped one, and its steps' times from the stamps of one stamped call."""
+    stamped one, and its steps' times from the stamps of one stamped call
+    after the timed ones, on a cleared table."""
     from unittest import mock
 
     import torch
@@ -78,7 +89,11 @@ def stamped_steps(so, call, kernel: str) -> dict:
     with mock.patch.object(_lib, "library", lambda: so):
         ms["stamped"] = _device_ms(call, ITERS)
         torch.cuda.synchronize()
-        table = np.zeros((STAMP_BLOCKS, STAMP_STEPS, 2), np.int64)   # the last call's stamps
+        if so.apriltag_clear_stamps():
+            raise RuntimeError("apriltag_clear_stamps failed")
+        call()
+        torch.cuda.synchronize()
+        table = np.zeros((STAMP_BLOCKS, STAMP_STEPS, 2), np.int64)   # that call's stamps
         if so.apriltag_read_stamps(table.ctypes.data):
             raise RuntimeError("apriltag_read_stamps failed")
     n = len(STEPS[kernel]) + 1
@@ -130,19 +145,34 @@ def main() -> int:
 
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tk
 
-    from chip_smoke import detect_tail_inputs
+    from chip_smoke import detect_glue_inputs, detect_tail_inputs, front_trinary, labels_of
 
     dev = torch.device("cuda")
     out_dir = os.path.join(ROOT, "isaac_ros_apriltag_tpu_torch", "_build", "stamp_split")
     stamped = {"segment_top": build_stamped("cluster_moments.cu", out_dir),
-               "decode": build_stamped("tail.cu", out_dir)}
+               "decode": build_stamped("tail.cu", out_dir),
+               "scan": build_stamped("resolve.cu", out_dir)}
+    stamped["finish"] = stamped["decode"]
     out = {"gpu": _gpu_info()}
     for config, batch in CAPTURE_CASES:
         cfg, cam, inputs = bench_inputs(config, batch, dev, calls=1)
         tiles, ne, ovf, kw = top_inputs(cfg, inputs[0])
         gray, corners, family, dkw = detect_tail_inputs(cfg, cam, inputs[0])["decode"]
-        out[f"{config} b{batch}"] = {
+        fargs, fkw = detect_glue_inputs(cfg, cam, inputs[0])["tail_finish"]
+        valid, lab1, lab2, _, R, _ = labels_of(cfg, front_trinary(cfg, inputs[0]))
+        B = valid.shape[0]
+        lab1, lab2, valid = (t.reshape(B, -1).contiguous() for t in (lab1, lab2, valid))
+        counts = {"scan_contraction": rk.count(lab1, valid, lab1.shape[1]),
+                  "scan_final": rk.count(lab2, valid, R)}
+        scans = {k: dict(S=cnt.shape[1], R=R, **stamped_steps(
+                     stamped["scan"], lambda cnt=cnt: rk.scan(cnt, R), "scan"))
+                 for k, cnt in counts.items()}
+        out[f"{config} b{batch}"] = {**scans,
+            "finish": dict(candidates=fargs[1].numel(), **stamped_steps(
+                stamped["finish"], lambda: tk.finish_detections(*fargs, **fkw), "finish")),
             "segment_top": stamped_steps(stamped["segment_top"],
                                          lambda: cmk.segment_top(tiles, ne, ovf, **kw),
                                          "segment_top"),
