@@ -140,7 +140,7 @@ non-zero):
      of every kernel in phase 21's two replays, and in the same replays
      with the quad-fit epilogue, the picks, the dedupe and refine in the
      parent's torch form; in each replay only TAIL_BETWEEN's kernels run
-     between the quad fit's launch and pose's;
+     between the quad fit's launch and the finish's, which poses the tags;
  23. cluster moments: the cluster-moment kernels (csrc/cluster_moments.cu:
      the pair count, the kept pairs' sort (the histogram pass, then
      SORT_PASSES launches of the scatter kernel, the first of which builds
@@ -221,7 +221,7 @@ non-zero):
      epilogue's torch ops; the plain fit with the selector arc sums);
  26. tail: the decode and pose kernels (csrc/tail.cu) on what a detect call
      of torch_bench.py's 720p b1 and 1080p b8 inputs gives them (the top-2T
-     refined candidates, the top-T tags) and on tail_frame's one-tag frames
+     refined candidates, the top-T tags the finish poses) and on tail_frame's one-tag frames
      of all nine families with a blank quad, one past the frame's corner,
      one outside it, a NaN and a collinear one (also posed), without
      sharpening, at max_hamming 0, with the largest correctable bit flips,
@@ -230,15 +230,18 @@ non-zero):
      launch a call, two calls and a captured replay equal; device ms of
      each kernel, its plain version, its bound and the parent's torch form;
  27. tail glue: the refine, top-2T pick and dedupe/top-T kernels
-     (csrc/tail.cu: refine_kernel, tail_select_kernel, tail_finish_kernel)
-     on what a detect call of torch_bench.py's 720p b1 and 1080p b8 inputs
-     gives them and on glue_synthetic's cases (NaN and inf corners, no
+     (csrc/tail.cu: refine_kernel, tail_select_kernel, tail_finish_kernel,
+     and finish_pose_kernel, the dedupe/top-T with the tags' pose, the
+     detect path's launch, with TAIL_K, one a frame for a batch, where a
+     case holds no K) on what a detect call of torch_bench.py's 720p b1 and
+     1080p b8 inputs gives them and on glue_synthetic's cases (NaN and inf corners, no
      valid quad, tied scores and margins, duplicate ids at equal margins,
      max_tags < C/2, quad_decimate 1 and 3, a batch of 3), refine also on
      refine_synthetic's (search ranges 0.5 to 5 and 40: profiles of 7 to
      165 samples, one to seven staged chunks; quads across the frame's
      edges): every output
-     bit-exact with the plain version (ops/refine.py, ops/tail.py), one
+     bit-exact with the plain version (ops/refine.py, ops/tail.py, then
+     ops/pose.py for the fused launch), one
      launch a call, two calls and a captured replay equal, a batch equal to
      each frame alone; device ms of each kernel, its plain version, its
      bound and the parent's torch form.
@@ -246,7 +249,9 @@ Every path launches K1 once, K2 and K3 once a scan round, each resolve
 kernel once a resolve call (twice in the two-phase flow), each cluster
 kernel once a call but the radix scatter, once a pass (CLUSTER_KERNELS),
 and the tail's kernels once a call: the quad fit's fitting launch, the
-top-2T pick, refine, decode, the dedupe and top-T pick, and pose. A path
+top-2T pick, refine, decode, and the dedupe and top-T pick with the pose
+in one launch (a rig whose cameras have their own K: the pick alone, and
+pose once a call outside its graph). A path
 counted on an eager
 call reads the wrappers' counters, which each wrapper adds to where it
 launches its kernel; a replay adds the counts its capture recorded
@@ -260,6 +265,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -318,7 +324,8 @@ CAPTURE_CALLS = 5             # calls kept, each on its own input
 CAPTURE_TURN_CALLS = 20       # calls per timed turn
 # Substrings of the kernels' names in a torch.profiler trace (csrc/*.cu); a
 # tuple holds alternatives: the tail kernels' names, demangled or mangled,
-# without matching another kernel's (pose_kernel is a tail of transpose_kernel).
+# without matching another kernel's (pose_kernel is a tail of transpose_kernel
+# and of finish_pose_kernel).
 KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "col": "col_diag_kernel", "edge_count": "cm_edge_count_kernel",
                 "pair_count": "cm_pair_count_kernel", "radix_scatter": "cm_radix_scatter_kernel",
@@ -333,7 +340,8 @@ KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "refine": ("::refine_kernel(", "13refine_kernelE"),
                 "decode": ("::decode_kernel(", "13decode_kernelE"),
                 "tail_finish": "tail_finish_kernel",
-                "pose": ("::pose_kernel(", "11pose_kernelE")}
+                "finish_pose": ("::finish_pose_kernel<", "18finish_pose_kernelI"),
+                "pose": ("::pose_kernel<", "11pose_kernelI")}
 SORT_PASSES = 4               # radix passes of the cluster stage's sort (ops/cluster_moments.py)
 # The cluster kernels' launches a detect call: each once, the radix scatter
 # once a pass (the first from the pixels, the later ones over the rows).
@@ -573,7 +581,8 @@ TAIL_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES
                    + TAIL_FAMILIES + ("tag36h11, no sharpening", "tag36h11, max_hamming 0",
                                       "tagCircle49h12, 5 bits flipped, max_hamming 5",
                                       "tag36h11, a batch of 3 frames, per-frame K",
-                                      "tag36h11, 3 quads: an idle warp in the last block")
+                                      "tag36h11, 3 quads: an idle warp in the last block",
+                                      "tag36h11, posed at tag size 0: no fixed pivots")
                    + tuple(f"{LARGE_CODES} codes, {kind}" for kind in LARGE_CODEBOOKS))
 
 # Phase 27: the tail's per-quad refinement and per-frame picks (see
@@ -584,13 +593,20 @@ TAIL_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES
 # and the offset); a pair of candidates in a frame's rank (a compare) and
 # in the dedupe (the center distance and the tests): the select ranks all
 # its pairs, the finish tests and ranks its valid candidates' pairs only.
-GLUE_KERNELS = ("refine", "tail_select", "tail_finish")
+# The finish with the pose (finish_pose_kernel, the detect path's launch)
+# also counts each top-T tag's pose: about POSE_FLOPS f32 operations a tag,
+# counted from csrc/tail.cu::pose_one (the 8x8 elimination and back
+# substitution 428, the rest of the homography ~90, K^-1 and M ~90, the
+# scale and axes ~50, the Newton steps ~250, the quaternion ~50).
+GLUE_KERNELS = ("refine", "tail_select", "tail_finish", "finish_pose")
 GLUE_REPLACES = {"refine": "isaac_ros_apriltag_tpu/ops/refine.py:61",
                  "tail_select": "isaac_ros_apriltag_tpu/detector.py:234",
-                 "tail_finish": "isaac_ros_apriltag_tpu/detector.py:254"}
+                 "tail_finish": "isaac_ros_apriltag_tpu/detector.py:254",
+                 "finish_pose": "isaac_ros_apriltag_tpu/detector.py:254"}
 GLUE_SAMPLE_FLOPS = 21
 GLUE_WEIGHT_FLOPS = 8
-GLUE_PAIR_FLOPS = {"tail_select": 1, "tail_finish": 12}
+GLUE_PAIR_FLOPS = {"tail_select": 1, "tail_finish": 12, "finish_pose": 12}
+POSE_FLOPS = 950
 GLUE_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES)
                    + ("NaN and inf corners", "no valid quad", "tied scores and margins",
                       "duplicate ids, equal margins", "max_tags < C/2", "quad_decimate 1",
@@ -1481,21 +1497,24 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2) -> dict:
+def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2,
+          rig_k: bool = False) -> dict:
     """The launches of `frames` detect calls (or batched calls) of `rounds`
     scan rounds and `resolves` resolve calls each (2 in the two-phase flow,
     the contraction and the final resolve; 1 in the flat and jumps flows):
     K1 once, K2 and K3 once a round, the resolve kernels once a resolve call,
     the cluster kernels
     as CLUSTER_KERNELS counts them, and the tail's kernels once: the quad
-    fit's fitting launch, the top-2T pick, refine, decode, the dedupe and
-    top-T pick, pose (a rig whose cameras have their own K poses once a
-    call, outside its graph)."""
+    fit's fitting launch, the top-2T pick, refine, decode, and the dedupe
+    and top-T pick with the tags' pose in one launch (finish_pose); with
+    rig_k (a rig whose cameras have their own K), the dedupe and top-T pick
+    alone (tail_finish) and pose once a call, outside its graph."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
             **{k: n * frames for k, n in CLUSTER_KERNELS.items()},
             **{k: resolves * frames for k in RESOLVE_KERNELS},
-            "quadfit_search": frames, "tail_select": frames,
-            "refine": frames, "decode": frames, "tail_finish": frames, "pose": frames}
+            "quadfit_search": frames, "tail_select": frames, "refine": frames,
+            "decode": frames, "tail_finish": frames * rig_k, "finish_pose": frames * (not rig_k),
+            "pose": frames * rig_k}
 
 
 def _resolve_want() -> dict:
@@ -1531,9 +1550,10 @@ def _device_kernels(prof) -> list[str]:
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-# The kernels that may run between the quad fit's launch and pose's in a
-# detect call on backend 'cuda' (phase 22 checks that nothing else does).
-TAIL_BETWEEN = ("tail_select", "refine", "decode", "tail_finish")
+# The kernels that may run between the quad fit's launch and the finish's
+# (with the pose) in a detect call on backend 'cuda' (phase 22 checks that
+# nothing else does).
+TAIL_BETWEEN = ("tail_select", "refine", "decode")
 
 
 def _kernel_key(name: str):
@@ -1547,18 +1567,18 @@ def _kernel_key(name: str):
 
 def tail_between(prof) -> list[str]:
     """The device kernels that ran after the last quad-fit launch and
-    before the next pose launch in a torch.profiler trace, in start
-    order; raises unless both ran."""
+    before the next finish and pose launch in a torch.profiler trace, in
+    start order; raises unless both ran."""
     import torch
 
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     keys = [_kernel_key(e.name) for e in events]
-    if "quadfit_search" not in keys or "pose" not in keys:
-        raise AssertionError("the trace holds no quad-fit or no pose launch")
+    if "quadfit_search" not in keys or "finish_pose" not in keys:
+        raise AssertionError("the trace holds no quad-fit or no finish and pose launch")
     first = len(keys) - 1 - keys[::-1].index("quadfit_search")
-    last = keys.index("pose", first)
+    last = keys.index("finish_pose", first)
     return [e.name for e in events[first + 1:last]]
 
 
@@ -1846,7 +1866,7 @@ def mesh_phase(gpu: str, cfg, rigs: dict, rig_cams, rig_frames, sp_cam, sp_frame
         _reset_launches()
         got = mrigs["cuda"].detect(rig_frames)
         counts = _launches()
-        want = _want()
+        want = _want(rig_k=True)
         if counts != want:
             raise AssertionError(f"mesh rig launch counts {counts} != expected {want}")
         _all_same(got, rigs["cuda"].detect(rig_frames), "mesh rig (cuda) and the one-card rig")
@@ -3482,15 +3502,17 @@ def detect_tail_inputs(cfg, cam, images) -> dict:
     """The decode and pose kernels' inputs in an eager detect call of a
     (B, H, W) uint8 batch on the card, backend 'cuda': {"decode": (gray,
     the top-2T refined candidates, family, keyword arguments), "pose": (the
-    top-T tags' corners, K, tag size)}."""
+    top-T tags' corners, K, tag size), which the detect path poses in the
+    finish's launch (finish_and_pose)}."""
     from unittest import mock
 
     from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tk
     from isaac_ros_apriltag_tpu_torch.pipeline import batched_detect_fn
 
     seen = {}
-    decode, pose = dk.decode_quads, pk.estimate_poses
+    decode, pose, finish_pose = dk.decode_quads, pk.estimate_poses, tk.finish_and_pose
 
     def seen_decode(gray, corners, family, **kw):
         seen["decode"] = (gray, corners, family, kw)
@@ -3500,8 +3522,14 @@ def detect_tail_inputs(cfg, cam, images) -> dict:
         seen["pose"] = (corners, K, tag_size)
         return pose(corners, K, tag_size)
 
+    def seen_finish_pose(*args, **kw):
+        sel, poses = finish_pose(*args, **kw)
+        seen["pose"] = (sel.corners, args[4], args[5])
+        return sel, poses
+
     with mock.patch.object(dk, "decode_quads", seen_decode), \
-            mock.patch.object(pk, "estimate_poses", seen_pose):
+            mock.patch.object(pk, "estimate_poses", seen_pose), \
+            mock.patch.object(tk, "finish_and_pose", seen_finish_pose):
         batched_detect_fn(cfg, cam, "mono8", capture=False)(images)
     return seen
 
@@ -3539,7 +3567,7 @@ def tail_cases(dev) -> dict:
 
     for name in TAIL_FAMILIES:
         cases[name] = frame_case(name, tail_frame(name, extra=True))
-    sharp0, ham0, flipped, batch, odd = TAIL_CASE_NAMES[
+    sharp0, ham0, flipped, batch, odd, nopiv = TAIL_CASE_NAMES[
         len(CAPTURE_CASES) + len(TAIL_FAMILIES):-len(LARGE_CODEBOOKS)]
     cases[sharp0] = frame_case("tag36h11", tail_frame("tag36h11", seed=1, extra=True),
                                decode_sharpening=0.0)
@@ -3556,6 +3584,10 @@ def tail_cases(dev) -> dict:
                                on(np.stack([q for _, q in frames])), get_family("tag36h11"), {}),
                     "pose": (on(tail_pose_corners(Ks, 4)), on(Ks), TAIL_TAG_SIZE)}
     cases[odd] = frame_case("tag36h11", tail_frame("tag36h11", seed=3))
+    # Tag size 0: the elimination's pivots are not the structural ones
+    # (ops/cuda/pose.py::standard_pivots), so pose_kernel<false> runs.
+    cases[nopiv] = frame_case("tag36h11", tail_frame("tag36h11", seed=4, extra=True))
+    cases[nopiv]["pose"] = (*cases[nopiv]["pose"][:2], 0.0)
     gray, quads = tail_frame("tag36h11", extra=True)
     for kind, (_, expect) in LARGE_CODEBOOKS.items():
         cases[f"{LARGE_CODES} codes, {kind}"] = {
@@ -3936,17 +3968,46 @@ def _glue_stages() -> dict:
     from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as rk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tk
 
+    from isaac_ros_apriltag_tpu_torch.ops import pose as plain_pose
+    from isaac_ros_apriltag_tpu_torch.ops.pose import Poses
+    from isaac_ros_apriltag_tpu_torch.ops.tail import Selection
+
+    # The fused launch's results as one named tuple: the selection's fields,
+    # then the poses'.
+    fused = collections.namedtuple("FinishPose", Selection._fields + Poses._fields)
+
+    def plain_finish_pose(dec, pre_valid, num_quads, overflow, K, tag_size, **kw):
+        sel = plain_tail.finish_detections(dec, pre_valid, num_quads, overflow, **kw)
+        return fused(*sel, *plain_pose.estimate_poses(sel.corners, K, tag_size))
+
     return {"refine": (rk.refine_edges, plain_refine.refine_edges, parent_refine_form),
             "tail_select": (tk.select_candidates, plain_tail.select_candidates,
                             parent_select_form),
             "tail_finish": (tk.finish_detections, plain_tail.finish_detections,
-                            parent_finish_form)}
+                            parent_finish_form),
+            "finish_pose": (lambda *a, **kw: fused(*(t for part in tk.finish_and_pose(*a, **kw)
+                                                     for t in part)),
+                            plain_finish_pose,
+                            lambda *a, **kw: fused(*(t for part in parent_finish_pose_form(
+                                *a, **kw) for t in part)))}
+
+
+def parent_finish_pose_form(dec, pre_valid, num_quads, overflow, K, tag_size: float, *, k: int,
+                            min_decision_margin: float):
+    """The parent's finish and pose, phase 27's yardstick of
+    finish_pose_kernel: parent_finish_form, then parent_pose_form of its
+    corners."""
+    sel = parent_finish_form(dec, pre_valid, num_quads, overflow, k=k,
+                             min_decision_margin=min_decision_margin)
+    return sel, parent_pose_form(sel.corners, K, tag_size)
 
 
 def detect_glue_inputs(cfg, cam, images) -> dict:
     """The inputs of the refine, select and finish kernels in an eager
     detect call of a (B, H, W) uint8 batch on the card, backend 'cuda':
-    {stage: (args, keyword arguments)}."""
+    {stage: (args, keyword arguments)}; the detect path's fused finish and
+    pose (finish_and_pose) gives "finish_pose" and, its first four
+    arguments, "tail_finish"."""
     from unittest import mock
 
     from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as rk
@@ -3958,13 +4019,16 @@ def detect_glue_inputs(cfg, cam, images) -> dict:
     def watch(stage, fn):
         def watched(*args, **kw):
             seen[stage] = (args, kw)
+            if stage == "finish_pose":      # the finish's own inputs, K and the size left out
+                seen["tail_finish"] = (args[:4], kw)
             return fn(*args, **kw)
         return watched
 
     with contextlib.ExitStack() as stack:
         for stage, (module, name) in {"refine": (rk, "refine_edges"),
                                       "tail_select": (tk, "select_candidates"),
-                                      "tail_finish": (tk, "finish_detections")}.items():
+                                      "tail_finish": (tk, "finish_detections"),
+                                      "finish_pose": (tk, "finish_and_pose")}.items():
             stack.enter_context(mock.patch.object(module, name,
                                                   watch(stage, getattr(module, name))))
         batched_detect_fn(cfg, cam, "mono8", capture=False)(images)
@@ -4148,7 +4212,9 @@ def glue_cases(dev) -> dict:
     FINISH_CASE_NAMES -> {stage: (args, keyword arguments)} on `dev`: the
     kernels' inputs in a detect call of torch_bench.py's 720p b1 and 1080p
     b8 inputs (detect_glue_inputs), then glue_synthetic's,
-    refine_synthetic's and finish_synthetic's cases."""
+    refine_synthetic's and finish_synthetic's cases; each case's finish
+    also with the pose (finish_pose; "max_tags < C/2" at tag size 0, so
+    finish_pose_kernel<false> runs)."""
     cases = {}
     for config, batch in CAPTURE_CASES:
         cfg, cam, inputs = bench_inputs(config, batch, dev, calls=1)
@@ -4159,6 +4225,20 @@ def glue_cases(dev) -> dict:
         cases[name] = refine_synthetic(name, dev)
     for name in FINISH_CASE_NAMES:
         cases[name] = finish_synthetic(name, dev)
+    # The finish with the pose where a case holds the finish alone: TAIL_K,
+    # one a frame (scaled) for a batch.
+    import torch
+
+    K = torch.tensor(TAIL_K, dtype=torch.float32)
+    for name, case in cases.items():
+        if "tail_finish" in case and "finish_pose" not in case:
+            args, kw = case["tail_finish"]
+            B = args[1].shape[0]
+            Ks = K if B == 1 else torch.stack([K * torch.tensor([[1 + 0.1 * b], [1 + 0.1 * b],
+                                                                 [1.0]]) for b in range(B)])
+            # One case at tag size 0, whose pivots are not the fixed ones.
+            size = 0.0 if name == "max_tags < C/2" else TAIL_TAG_SIZE
+            case["finish_pose"] = ((*args, Ks.to(dev), size), kw)
     return cases
 
 
@@ -4209,7 +4289,10 @@ def check_glue_case(name: str, case: dict) -> dict:
         _replay_equals(lambda: kernel(*args, **kw), got, f"{stage} kernel, {name}")
         B = gots[0].shape[0]
         for b in range(B if B > 1 else 0):
-            alone = kernel(*_frame_of(args, b), **kw)
+            cut = _frame_of(args, b)
+            if stage == "finish_pose" and args[4].ndim == 2:    # a shared K stays whole
+                cut = (*cut[:4], *args[4:])
+            alone = kernel(*cut, **kw)
             alones = tuple(alone) if fields != ("out",) else (alone,)
             if not all(_same(a, g[b:b + 1]) for a, g in zip(alones, gots)):
                 raise AssertionError(f"{stage} kernel, {name}: frame {b} alone differs from "
@@ -4264,10 +4347,13 @@ def glue_bound(stage: str, args, kw, got) -> tuple[float, str]:
             ops = B * N * N * GLUE_PAIR_FLOPS[stage]
         else:
             # The dedupe tests the frame's valid pairs; the rank compares
-            # the ones scored above -inf (at most the valid ones).
+            # the ones scored above -inf (at most the valid ones); the
+            # fused launch poses each top-T tag.
             dec, pre_valid = args[0], args[1]
             nv = (pre_valid & dec.valid & (dec.margin >= kw["min_decision_margin"])).sum(-1)
             ops = int((nv * nv).sum()) * (GLUE_PAIR_FLOPS[stage] + 1)
+            if stage == "finish_pose":
+                ops += B * min(kw["k"], N) * POSE_FLOPS
     by_ms, ops_ms = _bytes_ms(by), ops / F32_OPS_PER_S * 1e3
     return (by_ms, "bytes") if by_ms >= ops_ms else (ops_ms, "operations")
 
@@ -4325,8 +4411,9 @@ def glue_phase(gpu: str) -> dict:
                             parent_ms=_graph_ms(lambda: parent(*args, **kw), 20))
         out["b1" if bench[name] == 1 else f"batch{bench[name]}"] = t
     torch.cuda.synchronize()
-    print(f"[27 tail glue] refine_kernel, tail_select_kernel and tail_finish_kernel (one launch "
-          f"a call each) against their plain versions bit for bit on every output, two calls "
+    print(f"[27 tail glue] refine_kernel, tail_select_kernel, tail_finish_kernel and "
+          f"finish_pose_kernel (the finish with the pose; one launch a call each) against their "
+          f"plain versions bit for bit on every output, two calls "
           f"and a captured replay equal, a batch equal to each frame alone: "
           + "; ".join(lines) + f"; on {gpu}: device ms a call (kernel / plain / bound (by) / "
           "the parent's form, plain and parent's form as captured replays; no library call "
@@ -4423,9 +4510,10 @@ def profiled_replays() -> dict:
     counts by path, and under "kernels_a_replay" the count of every kernel
     in each bench replay and in the same replay with the quad-fit epilogue,
     the picks, the dedupe and refine in the parent's form (parent_fit_form,
-    parent_select_form, parent_refine_form, parent_finish_form), and the
-    count of kernels between the quad fit's launch and pose's in a bench
-    replay, which must be TAIL_BETWEEN's, in order (tail_between)."""
+    parent_select_form, parent_refine_form, parent_finish_form, and the
+    finish and pose as parent_finish_pose_form), and the count of kernels
+    between the quad fit's launch and the finish's (with the pose) in a
+    bench replay, which must be TAIL_BETWEEN's, in order (tail_between)."""
     from unittest import mock
 
     import torch
@@ -4467,22 +4555,24 @@ def profiled_replays() -> dict:
         fn(inputs[0]), fn(inputs[1])
         with _counted(f"captured b{batch}", totals=totals) as out[f"captured_b{batch}"]:
             fn(inputs[2])
-        # Between the quad fit and pose only the tail's hand-written kernels run.
+        # Between the quad fit and the finish (with the pose) only the
+        # tail's hand-written kernels run.
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn(inputs[2])
             torch.cuda.synchronize()
         between = tail_between(prof)
         if [_kernel_key(n) for n in between] != list(TAIL_BETWEEN):
-            raise AssertionError(f"captured b{batch}: between the quad fit and pose ran "
+            raise AssertionError(f"captured b{batch}: between the quad fit and the finish ran "
                                  f"{between}, not only {list(TAIL_BETWEEN)}")
-        totals[f"captured b{batch}, between the quad fit and pose"] = len(between)
+        totals[f"captured b{batch}, between the quad fit and the finish"] = len(between)
         del fn
         # The same replay with the quad-fit epilogue, the picks, the dedupe
         # and refine in the parent's torch ops.
         with mock.patch.object(qk, "fit_quads_from_moments", parent_fit_form), \
                 mock.patch.object(tk, "select_candidates", parent_select_form), \
                 mock.patch.object(rk, "refine_edges", parent_refine_form), \
-                mock.patch.object(tk, "finish_detections", parent_finish_form):
+                mock.patch.object(tk, "finish_detections", parent_finish_form), \
+                mock.patch.object(tk, "finish_and_pose", parent_finish_pose_form):
             fn = batched_detect_fn(bcfg, bcam, "mono8")
             fn(inputs[0]), fn(inputs[1])
             torch.cuda.synchronize()
@@ -4528,7 +4618,8 @@ def profiled_replays_phase(gpu: str) -> dict:
     got = json.loads(out.stdout.strip().splitlines()[-1])
     kernels = got.pop("kernels_a_replay")
     one = _want()
-    want = {"frame": {k: v * len(SEEDS) for k, v in one.items()}, f"rig{RIG_CAMERAS}": one,
+    want = {"frame": {k: v * len(SEEDS) for k, v in one.items()},
+            f"rig{RIG_CAMERAS}": _want(rig_k=True),
             "stream": {k: v * RIG_CAMERAS for k, v in one.items()},
             **{f"captured_b{b}": one for _, b in CAPTURE_CASES},
             **{f"resolve_{call}_b{b}": _resolve_want() for _, b in CAPTURE_CASES
@@ -4909,8 +5000,8 @@ def main() -> int:
     _reset_launches()
     rig_replay = rigs["cuda"].detect(rig_frames)
     counts_rig = _launches()
-    if counts_rig != want1:
-        raise AssertionError(f"rig launch counts {counts_rig} != expected {want1}")
+    if counts_rig != _want(rig_k=True):
+        raise AssertionError(f"rig launch counts {counts_rig} != expected {_want(rig_k=True)}")
     _all_same(rig_replay, (rdet, rst), "rig replay and eager call")
     worst_rig = max(_truth_error(rdet.frame(c), rig_scenes[c][1], rig_cams[c].K.numpy())
                     for c in range(RIG_CAMERAS))

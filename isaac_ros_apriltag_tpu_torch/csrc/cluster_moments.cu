@@ -64,14 +64,17 @@
 //       zeroes the next pass's look-back words of the live tiles; the last
 //       writes I32MAX into [K, E) of its row, so [0, max(K, E)) reads as
 //       the reference's sorted padded row;
-//   cm_seg_tiles_kernel  many blocks a frame, one a tile of SEG_TILE sorted
-//       keys: the segment starts; each start's size from the next start in
-//       the tile (a block suffix minimum, no search), the tile's last start
-//       left to the top kernel when its segment runs past the tile; the
-//       size gate; the tile's candidates compacted in position order; one
+//   cm_seg_tiles_kernel  a tile of SEG_TILE sorted keys a warp (16 a lane,
+//       four int4 loads at once), a grid of one wave whose warps walk a
+//       frame's tiles with the next tile's loads in flight: the segment
+//       starts; each start's size from the next start in the tile (a warp
+//       suffix minimum, no search, no barrier), the tile's last start left
+//       to the top kernel when its segment runs past the tile; the size
+//       gate; the tile's candidates compacted in position order; one
 //       integer atomic a candidate into the frame's size histogram (zeroed
-//       by a memset on the stream); the tile's counts, first start, largest
-//       candidate and crossing start;
+//       by the sort's memset in the stage); the tile's counts, first start,
+//       largest candidate and crossing start; a walk's first tile past the
+//       valid prefix writes its later tiles' fields at once;
 //   cm_seg_top_kernel  one block of 256 threads a frame over the tiles'
 //       fields, four tiles a thread: the histogram loaded into shared
 //       memory (opted in past 48 KB) with the fields in one round, each
@@ -130,7 +133,8 @@
 // neighbours from L1), the first pass writes 8 B a kept pair; each later
 // pass reads and writes 8 B a kept pair (the look-back words stay in L2);
 // the tiles kernel reads the valid prefix of the first E sorted keys once,
-// in enough blocks to fill the card (about 165 tiles at 720p); the top
+// a tile a warp's short chain, so it runs as one wave of warps with no
+// barrier, each warp's next tile loading under its current one; the top
 // kernel reads 20 B a tile and the candidates of the few tiles that reach
 // T, but one block a frame is a chain of loads and barriers, so latency
 // bounds it, and its design is that chain made short; the moments kernel reads each resident pair's pay (4 B) twice,
@@ -160,9 +164,10 @@ constexpr int NQ = 6;                          // terms a bin
 constexpr int MAX_C = 128;
 constexpr int PIX_THREADS = 256;
 constexpr int SEG_TILE = 512;                  // sorted keys a tile of cm_seg_tiles_kernel
-constexpr int SEG_TILE_THREADS = SEG_TILE / 4;  // 4 keys a thread
-constexpr int SEG_TILE_WARPS = SEG_TILE_THREADS / 32;
 constexpr int SEG_POS_BITS = 10;               // a candidate's offset in its tile, under its size
+constexpr int SEG_KPT = SEG_TILE / 32;         // keys a lane of a tile's warp: four int4 loads
+constexpr int SEG_THREADS = 128;               // threads a block of cm_seg_tiles_kernel
+constexpr int SEG_WARPS = SEG_THREADS / 32;
 constexpr int SEG_MAX_PER = (1 << 15) - 1;    // the largest max_per: the top kernel's
                                                // histogram in 128 KB of shared memory
 // A tile's fields (stats[b, f, tile]): its starts, its compacted candidates,
@@ -179,7 +184,8 @@ constexpr int TOP_PER = 8;                     // pass-2 entries a thread a roun
 constexpr int TOP_CPL = 8;                     // coarse bins a lane holds in registers
 static_assert(SEG_TILE <= (1 << SEG_POS_BITS) && SEG_MAX_PER < (1 << (31 - SEG_POS_BITS)),
               "a candidate's offset and size must fit its fields");
-static_assert(SEG_TILE_THREADS % 32 == 0 && TOP_THREADS >= MAX_C, "whole warps; a thread a slot");
+static_assert(SEG_KPT == 16 && SEG_THREADS % 32 == 0 && TOP_THREADS >= MAX_C,
+              "a tile's four int4 loads a lane (its start mask under 32 bits); a thread a slot");
 constexpr int MOM_THREADS = 256;
 constexpr int MOM_WARPS = MOM_THREADS / 32;
 // Resident pairs a warp of the moments kernel, about: 64 at one or two
@@ -979,152 +985,190 @@ cm_radix_scatter_kernel(const PassArgs a) {
     else first_pass<SRC == SRC_PIXELS_VEC>(a, smem);
 }
 
-// One block a tile of SEG_TILE sorted keys [s, e), e = min(s + SEG_TILE, E),
-// 4 keys a thread. A key at i is a segment start when it is valid (< I32MAX)
-// and differs from the key at i - 1; the valid keys are a prefix, of length
-// nv. A start's segment ends at the next start in the tile (an exclusive
-// suffix minimum of the threads' first starts) or, for the tile's last
-// start, at the tile's valid end s + vt, unless the tile is all valid and
-// its last key's segment runs on into the next tile (`open_end`): that
-// crossing start is left to cm_seg_top_kernel, which knows the next tile's
-// first start. Writes the tile's fields (stats[b, f, tile]: ST_STARTS,
-// ST_CANDS, ST_MAX, ST_FIRST, ST_CROSS), its gated in-tile segments
-// (candidates) compacted in position order from cand[b, s] as
-// size << SEG_POS_BITS | (start - s), one histogram atomic a candidate
-// (hist zeroed by the launcher), and, from the one tile that holds the end
-// of the valid prefix, nv[b]. A tile past the prefix reads one key.
-__global__ void __launch_bounds__(SEG_TILE_THREADS)
+// A tile of SEG_TILE sorted keys [s, e), e = min(s + SEG_TILE, E), is one
+// warp's work, SEG_KPT consecutive keys a lane, loaded by four int4 loads
+// issued in one round. A key at i is a segment start when it is valid
+// (< I32MAX) and differs from the key at i - 1; the valid keys are a
+// prefix, of length nv. A start's segment ends at the next start in the
+// tile or, for the tile's last start, at the tile's valid end s + vt,
+// unless the tile is all valid and its last key's segment runs on into the
+// next tile (`open_end`): that crossing start is left to cm_seg_top_kernel,
+// which knows the next tile's first start. A lane's starts are a bit mask,
+// so each start's next one is its lowest bit above (or, past the lane's
+// last, the warp's suffix minimum of the lanes' first starts) and every
+// size, gate and candidate's place (a popcount) is found at once. Writes
+// the tile's fields (stats[b, f, tile]: ST_STARTS, ST_CANDS, ST_MAX,
+// ST_FIRST, ST_CROSS), its gated in-tile segments (candidates) compacted
+// in position order from cand[b, s] as size << SEG_POS_BITS | (start - s),
+// one histogram atomic a candidate (hist zeroed before the launch), and,
+// from the one tile that holds the end of the valid prefix, nv[b].
+// The grid is one wave: `warps` warps a frame (warp blockIdx.x SEG_WARPS +
+// its place in the block), warp g walking tiles g, g + warps, ... with the
+// next tile's loads issued before the current tile's work; no warp waits
+// on another, and no barrier or shared memory is used. The first tile of a
+// walk past the valid prefix (its first key I32MAX) ends the walk: the
+// warp writes that tile's fields and those of its later tiles at once.
+// Replaces the reverse cummin of isaac_ros_apriltag_tpu/ops/
+// cluster_moments.py:202 (XLA; no Pallas kernel). Bound: bytes, the valid
+// prefix read once (~9 MB, 0.0027 ms at 1080p b8); a tile is a short chain
+// (loads, scans, sizes, stores), so its latency rules, which the one round
+// of loads, the next tile's loads in flight and the independent sizes
+// shorten.
+struct SegKeys {
+    int4 v[SEG_KPT / 4];                 // the lane's keys
+    int32_t prev, first, last, end;      // the keys at i0 - 1 (lane 0), s, e - 1, e
+};
+
+__device__ __forceinline__ void seg_load(const int32_t* __restrict__ ks, int u, int E, int lane,
+                                         SegKeys& K) {
+    const int s = u * SEG_TILE, e = min(s + SEG_TILE, E), i0 = s + SEG_KPT * lane;
+    if (i0 + SEG_KPT <= e) {
+#pragma unroll
+        for (int q = 0; q < SEG_KPT / 4; ++q) K.v[q] = reinterpret_cast<const int4*>(ks + i0)[q];
+    } else {
+        int32_t k[SEG_KPT];
+#pragma unroll
+        for (int j = 0; j < SEG_KPT; ++j) k[j] = i0 + j < e ? ks[i0 + j] : I32MAX;
+#pragma unroll
+        for (int q = 0; q < SEG_KPT / 4; ++q)
+            K.v[q] = make_int4(k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
+    }
+    K.prev = lane == 0 && s > 0 ? ks[s - 1] : -1;
+    K.first = ks[s];
+    K.last = ks[e - 1];
+    K.end = e < E ? ks[e] : I32MAX;
+}
+
+// Stamps of a block's first warp's first tile (torch_stamp_split.py).
+#define SEG_STAMP(k, anchor)             \
+    do {                                 \
+        if (u == warp) STAMP(k, anchor); \
+    } while (0)
+
+__global__ void __launch_bounds__(SEG_THREADS)
 cm_seg_tiles_kernel(const int32_t* __restrict__ key_s, const int32_t* __restrict__ num_edge,
                     int32_t* __restrict__ stats, int32_t* __restrict__ cand,
                     int32_t* __restrict__ hist, int32_t* __restrict__ nv_out, int row, int E,
-                    int tiles, int min_pix, int max_per, int budget) {
-    __shared__ int red[6][SEG_TILE_WARPS];
-    const int tile = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t & 31, w = t >> 5;
+                    int tiles, int warps, int min_pix, int max_per, int budget) {
+    const int b = blockIdx.y, lane = threadIdx.x & 31;
+    const int warp = blockIdx.x * SEG_WARPS + threadIdx.x / 32;
+    if (warp >= warps) return;
     const int32_t* ks = key_s + (size_t)b * row;
-    int32_t* st = stats + (size_t)b * SEG_STATS * tiles + tile;    // field f at st[f * tiles]
-    const int s = tile * SEG_TILE, e = min(s + SEG_TILE, E);
-    if (tile > 0 && ks[s] == I32MAX) {      // past the valid prefix: no keys
-        if (t == 0) {
-            st[ST_STARTS * tiles] = 0;
-            st[ST_CANDS * tiles] = 0;
-            st[ST_MAX * tiles] = 0;
-            st[ST_FIRST * tiles] = INT_MAX;
-            st[ST_CROSS * tiles] = -1;
-        }
-        return;
-    }
-    const int32_t k_last = ks[e - 1], k_end = e < E ? ks[e] : I32MAX;
-    const int stride = edge_stride(num_edge[b], budget);
-    const int i0 = s + 4 * t;
-    int32_t k[4];
-    if (i0 + 3 < e) {
-        const int4 v = *reinterpret_cast<const int4*>(ks + i0);
-        k[0] = v.x; k[1] = v.y; k[2] = v.z; k[3] = v.w;
-    } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) k[j] = i0 + j < e ? ks[i0 + j] : I32MAX;
-    }
-    int32_t prev = __shfl_up_sync(FULL, k[3], 1);
-    if (lane == 0) prev = i0 > 0 && i0 < e ? ks[i0 - 1] : -1;
-    bool start[4];
-    int first = INT_MAX, last = -1, n_start = 0, n_valid = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const bool v = k[j] < I32MAX;
-        start[j] = v && k[j] != (j ? k[j - 1] : prev);
-        n_valid += v;
-        if (start[j]) {
-            first = min(first, i0 + j);
-            last = i0 + j;
-            ++n_start;
-        }
-    }
-    // The first start after this thread's keys; the tile's valid keys,
-    // starts, first and last start.
-    int inc = first;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int n = __shfl_down_sync(FULL, inc, d);
-        if (lane + d < 32) inc = min(inc, n);
-    }
-    int next = __shfl_down_sync(FULL, inc, 1);
-    if (lane == 31) next = INT_MAX;
-    const int wv = __reduce_add_sync(FULL, n_valid), ws = __reduce_add_sync(FULL, n_start);
-    const int wl = __reduce_max_sync(FULL, last);
-    if (lane == 0) {
-        red[0][w] = inc;
-        red[1][w] = wv;
-        red[2][w] = ws;
-        red[3][w] = wl;
-    }
-    __syncthreads();
-    int vt = 0, n_starts = 0, fs = INT_MAX, ls = -1;
-#pragma unroll
-    for (int u = 0; u < SEG_TILE_WARPS; ++u) {
-        if (u > w) next = min(next, red[0][u]);
-        fs = min(fs, red[0][u]);
-        vt += red[1][u];
-        n_starts += red[2][u];
-        ls = max(ls, red[3][u]);
-    }
-    const int vend = s + vt;                // the tile's valid end
-    const bool full = vend == e;
-    const bool open_end = full && e < E && k_end == k_last;
-
-    // Each start's size, from the last one back; the gate; the candidates.
-    int sz[4], nc = 0, mx = 0;
-#pragma unroll
-    for (int j = 3; j >= 0; --j) {
-        sz[j] = 0;
-        if (start[j]) {
-            const int i = i0 + j;
-            const bool tail = next == INT_MAX;     // the tile's last start
-            if (!(tail && open_end)) {
-                const int cnt = (tail ? vend : next) - i;
-                const long long true_size = (long long)cnt * stride;
-                if (true_size >= min_pix && true_size <= max_per) sz[j] = cnt;
-            }
-            next = i;
-        }
-        nc += sz[j] > 0;
-        mx = max(mx, sz[j]);
-    }
-    int cinc = nc;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int n = __shfl_up_sync(FULL, cinc, d);
-        if (lane >= d) cinc += n;
-    }
-    const int wm = __reduce_max_sync(FULL, mx);
-    if (lane == 31) red[4][w] = cinc;
-    if (lane == 0) red[5][w] = wm;
-    __syncthreads();
-    int before = 0, n_cand = 0, tile_max = 0;
-#pragma unroll
-    for (int u = 0; u < SEG_TILE_WARPS; ++u) {
-        before += u < w ? red[4][u] : 0;
-        n_cand += red[4][u];
-        tile_max = max(tile_max, red[5][u]);
-    }
-    int at = before + cinc - nc;
-    int32_t* cd = cand + (size_t)b * tiles * SEG_TILE + s;
+    int32_t* st = stats + (size_t)b * SEG_STATS * tiles;     // field f of tile u at st[f tiles + u]
     int32_t* hb = hist + (size_t)b * (max_per + 1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        if (sz[j]) {
-            cd[at++] = (sz[j] << SEG_POS_BITS) | (i0 + j - s);
-            atomicAdd(hb + sz[j], 1);
+    const int stride = edge_stride(num_edge[b], budget);
+    SegKeys cur;
+    seg_load(ks, warp, E, lane, cur);
+    for (int u = warp; u < tiles; u += warps) {
+        SEG_STAMP(0, u);
+        if (u > 0 && cur.first == I32MAX) {      // past the valid prefix, and so are the later
+            for (int v = u + lane * warps; v < tiles; v += 32 * warps) {
+                st[ST_STARTS * tiles + v] = 0;
+                st[ST_CANDS * tiles + v] = 0;
+                st[ST_MAX * tiles + v] = 0;
+                st[ST_FIRST * tiles + v] = INT_MAX;
+                st[ST_CROSS * tiles + v] = -1;
+            }
+            return;
         }
-    }
-    if (t == 0) {
-        st[ST_STARTS * tiles] = n_starts;
-        st[ST_CANDS * tiles] = n_cand;
-        st[ST_MAX * tiles] = tile_max;
-        st[ST_FIRST * tiles] = fs;
-        st[ST_CROSS * tiles] = open_end && n_starts > 0 ? ls : -1;
-        if (!full || e == E || k_end == I32MAX) nv_out[b] = vend;
+        const bool more = u + warps < tiles;
+        SegKeys nxt;
+        if (more) seg_load(ks, u + warps, E, lane, nxt);   // in flight under this tile's work
+        const int s = u * SEG_TILE, e = min(s + SEG_TILE, E), i0 = s + SEG_KPT * lane;
+        int32_t k[SEG_KPT];
+#pragma unroll
+        for (int q = 0; q < SEG_KPT / 4; ++q) {
+            k[4 * q] = cur.v[q].x;
+            k[4 * q + 1] = cur.v[q].y;
+            k[4 * q + 2] = cur.v[q].z;
+            k[4 * q + 3] = cur.v[q].w;
+        }
+        SEG_STAMP(1, k[0] ^ k[SEG_KPT - 1] ^ cur.end);
+        int32_t prev = __shfl_up_sync(FULL, k[SEG_KPT - 1], 1);
+        if (lane == 0) prev = cur.prev;
+        unsigned sm = 0;                     // bit j: key i0 + j starts a segment
+        int n_valid = 0;
+#pragma unroll
+        for (int j = 0; j < SEG_KPT; ++j) {
+            const bool v = k[j] < I32MAX;
+            sm |= (unsigned)(v && k[j] != (j ? k[j - 1] : prev)) << j;
+            n_valid += v;
+        }
+        const int first = sm ? i0 + __ffs(sm) - 1 : INT_MAX;
+        const int last = sm ? i0 + 31 - __clz(sm) : -1;
+        // The first start after this lane's keys; the tile's valid keys,
+        // starts, first and last start.
+        int inc = first;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int n = __shfl_down_sync(FULL, inc, d);
+            if (lane + d < 32) inc = min(inc, n);
+        }
+        int next = __shfl_down_sync(FULL, inc, 1);
+        if (lane == 31) next = INT_MAX;
+        const int vt = __reduce_add_sync(FULL, n_valid);
+        const int n_starts = __reduce_add_sync(FULL, __popc(sm));
+        const int ls = __reduce_max_sync(FULL, last), fs = __shfl_sync(FULL, inc, 0);
+        SEG_STAMP(2, ls + vt + next);
+        const int vend = s + vt;            // the tile's valid end
+        const bool full = vend == e;
+        const bool open_end = full && e < E && cur.end == cur.last;
+
+        // Each start's size, all at once: its segment ends at the lowest
+        // start bit above it in the lane, else at `next`; the gate; the
+        // candidates (bit j of cm).
+        int sz[SEG_KPT], mx = 0;
+        unsigned cm = 0;
+#pragma unroll
+        for (int j = 0; j < SEG_KPT; ++j) {
+            sz[j] = 0;
+            if ((sm >> j) & 1u) {
+                const unsigned above = sm >> (j + 1);
+                const int nx = above ? i0 + j + __ffs(above) : next;
+                const bool tail = nx == INT_MAX;       // the tile's last start
+                if (!(tail && open_end)) {
+                    const int cnt = (tail ? vend : nx) - (i0 + j);
+                    const long long true_size = (long long)cnt * stride;
+                    if (true_size >= min_pix && true_size <= max_per) sz[j] = cnt;
+                }
+            }
+            cm |= (unsigned)(sz[j] > 0) << j;
+            mx = max(mx, sz[j]);
+        }
+        const int nc = __popc(cm);
+        int cinc = nc;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int n = __shfl_up_sync(FULL, cinc, d);
+            if (lane >= d) cinc += n;
+        }
+        const int n_cand = __shfl_sync(FULL, cinc, 31), tile_max = __reduce_max_sync(FULL, mx);
+        SEG_STAMP(3, n_cand + tile_max);
+        const int at = cinc - nc;             // the lane's first candidate's place
+        int32_t* cd = cand + (size_t)b * tiles * SEG_TILE + s;
+#pragma unroll
+        for (int j = 0; j < SEG_KPT; ++j) {
+            if ((cm >> j) & 1u) {
+                cd[at + __popc(cm & ((1u << j) - 1u))] = (sz[j] << SEG_POS_BITS) | (i0 + j - s);
+                atomicAdd(hb + sz[j], 1);
+            }
+        }
+        SEG_STAMP(4, at);
+        if (lane < SEG_STATS) {             // field `lane` of the tile
+            st[lane * tiles + u] = lane == ST_STARTS ? n_starts
+                                   : lane == ST_CANDS ? n_cand
+                                   : lane == ST_MAX   ? tile_max
+                                   : lane == ST_FIRST ? fs
+                                                      : (open_end && n_starts > 0 ? ls : -1);
+        }
+        if (lane == 0 && (!full || e == E || cur.end == I32MAX)) nv_out[b] = vend;
+        SEG_STAMP(5, n_cand);
+        if (!more) break;
+        cur = nxt;
     }
 }
+
+#undef SEG_STAMP
 
 // One block of TOP_THREADS a frame over the tiles' fields, thread t the
 // TOP_TPT tiles from t TOP_TPT of a chunk of TOP_CHUNK (one chunk up to
@@ -1874,8 +1918,8 @@ extern "C" int apriltag_cm_count(const void* tri, const void* dense, void* num_e
 extern "C" int apriltag_cm_pair_count(const void* tri, const void* dense, const void* num_edge,
                                       void* ctl, void* digits, void* odig, void* gsum,
                                       void* kept, void* tcnt, int B, int H, int W, int budget,
-                                      void* stream) {
-    if (B < 1 || H < 1 || W < 1 || budget < 1) return (int)cudaErrorInvalidValue;
+                                      int extra, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || budget < 1 || extra < 0) return (int)cudaErrorInvalidValue;
     constexpr size_t P = SORT_PASSES;
     const size_t nblk = ((size_t)H * W + PAIR_BLOCK - 1) / PAIR_BLOCK;
     const size_t ng = (nblk + FIRST_GROUP - 1) / FIRST_GROUP;
@@ -1886,9 +1930,12 @@ extern "C" int apriltag_cm_pair_count(const void* tri, const void* dense, const 
         || (int32_t*)kept != (int32_t*)gsum + B * 4 * ng * R0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
+    // `extra` more ints past kept (the stage's segment-tiles histogram) in the same memset.
     const cudaError_t e = cudaMemsetAsync(
         ctl, 0,
-        ((size_t)B * P + P * B * RADIX + B * 4 * R0 + B * 4 * ng * R0 + B) * sizeof(int32_t), st);
+        ((size_t)B * P + P * B * RADIX + B * 4 * R0 + B * 4 * ng * R0 + B + extra)
+            * sizeof(int32_t),
+        st);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((H * W + PAIR_BLOCK - 1) / PAIR_BLOCK, B);
     auto kernel = quads_vec(tri, dense, W) ? cm_pair_count_kernel<true>
@@ -1952,19 +1999,43 @@ extern "C" int apriltag_cm_radix_scatter(const void* key_in, const void* pay_in,
     return kpt == 16 ? launch_pass<SRC_ROWS, 16>(a, grid, st) : launch_pass<SRC_ROWS, 4>(a, grid, st);
 }
 
+// The tiles kernel's warps of one wave on the current device: SMs times
+// its resident blocks an SM times SEG_WARPS (asked once a device).
+static int seg_wave_warps() {
+    static int wave[64] = {};
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 0;
+    if (dev < 64 && wave[dev] > 0) return wave[dev];
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cm_seg_tiles_kernel,
+                                                         SEG_THREADS, 0) != cudaSuccess)
+        return 0;
+    const int n = max(1, sms * per_sm) * SEG_WARPS;
+    if (dev < 64) wave[dev] = n;
+    return n;
+}
+
+// `zeroed`: hist is already zero (the sort's memset); else it is zeroed here.
 extern "C" int apriltag_cm_seg_tiles(const void* key_s, const void* num_edge, void* stats,
                                      void* cand, void* hist, void* nv, int B, int row, int E,
-                                     int tiles, int min_pix, int max_per, int budget,
+                                     int tiles, int min_pix, int max_per, int budget, int zeroed,
                                      void* stream) {
-    if (budget < 1 || E < 1 || E > row || row % 4 || max_per < 0 || max_per > SEG_MAX_PER
-        || tiles != (E + SEG_TILE - 1) / SEG_TILE)
+    if (B < 1 || budget < 1 || E < 1 || E > row || row % 4 || max_per < 0
+        || max_per > SEG_MAX_PER || tiles != (E + SEG_TILE - 1) / SEG_TILE)
         return (int)cudaErrorInvalidValue;
-    const cudaError_t e = cudaMemsetAsync(hist, 0, (size_t)B * (max_per + 1) * sizeof(int32_t),
-                                          (cudaStream_t)stream);
-    if (e != cudaSuccess) return (int)e;
-    cm_seg_tiles_kernel<<<dim3(tiles, B), SEG_TILE_THREADS, 0, (cudaStream_t)stream>>>(
+    if (!zeroed) {
+        const cudaError_t e = cudaMemsetAsync(
+            hist, 0, (size_t)B * (max_per + 1) * sizeof(int32_t), (cudaStream_t)stream);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int wave = seg_wave_warps();
+    if (wave < 1) return (int)cudaErrorInvalidValue;
+    const int warps = min(tiles, max(1, wave / B));    // a frame's
+    const dim3 grid((warps + SEG_WARPS - 1) / SEG_WARPS, B);
+    cm_seg_tiles_kernel<<<grid, SEG_THREADS, 0, (cudaStream_t)stream>>>(
         (const int32_t*)key_s, (const int32_t*)num_edge, (int32_t*)stats, (int32_t*)cand,
-        (int32_t*)hist, (int32_t*)nv, row, E, tiles, min_pix, max_per, budget);
+        (int32_t*)hist, (int32_t*)nv, row, E, tiles, warps, min_pix, max_per, budget);
     return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,7 @@
 #pragma once
 
 #ifdef KERNEL_STAMPS
-constexpr int STAMP_BLOCKS = 1024, STAMP_STEPS = 8;
+constexpr int STAMP_BLOCKS = 8192, STAMP_STEPS = 8;
 __device__ long long kernel_stamps[STAMP_BLOCKS][STAMP_STEPS][2];
 #define STAMP(k, anchor)                                                              \
     do {                                                                              \

@@ -61,9 +61,21 @@
 //     scored above -inf (a second ballot) only, a -inf candidate's rank
 //     being their count plus its -inf predecessors; and in the top k its
 //     fields and center; the frame's detection count and overflow.
-//   pose_kernel, one thread a tag: the tag-plane homography, K^-1 (K shared
-//     or one per frame), M = K^-1 H, the scale and its sign, the cross
-//     product, 4 Newton polar steps and the quaternion.
+//   pose_kernel, one thread a tag (pose_one): the tag-plane homography,
+//     K^-1 (K shared or one per frame), M = K^-1 H, the scale and its sign,
+//     the cross product, 4 Newton polar steps and the quaternion. A tag is
+//     one thread's chain of ~950 dependent f32 operations, and the 8x8
+//     elimination was three quarters of it: its pivot search, predicated
+//     row exchanges and 28 divisions. Columns 0-5 of the system hold only
+//     the tag's own corners, so at a size whose pivots there are the
+//     structural ones the host reduces them once (ops/cuda/pose.py::
+//     pose_constants; PoseConsts) and a thread eliminates only the data
+//     columns by those multipliers (solve8_fixed), bit for bit solve8.
+//   finish_pose_kernel, tail_finish_kernel's block with pose_one after it:
+//     the thread that writes top-T slot r poses that tag (K^-1 of the
+//     frame's K computed while the candidates load), so the detect path's
+//     pose takes no launch of its own; pose_kernel serves the other callers
+//     (a rig whose cameras have their own K).
 //
 // Against the plain versions (ops/tail.py, ops/refine.py::refine_edges,
 // ops/decode.py::decode_quads, ops/pose.py::estimate_poses,
@@ -88,7 +100,9 @@
 // tag and writes 64. The select's rank is C^2 compares a frame, ~16 K,
 // latency again: a thread's 128 steps. The finish's dedupe and rank walk
 // only the set bits of its masks: a bench frame's handful of valid
-// candidates, not 2T steps each.
+// candidates, not 2T steps each. Pose's bytes are ~0 against its latency,
+// a thread's chain, which the host's constants shorten and the finish's
+// launch hosts.
 
 #include <cmath>
 #include <cstdint>
@@ -166,11 +180,75 @@ __device__ __forceinline__ void solve8(float (&A)[8][8], float (&b)[8], float (&
     }
 }
 
+// The part of a tag-plane homography's elimination that depends on the
+// tag's half size alone (ops/cuda/pose.py::pose_constants, float32 on the
+// host, as solve8 computes it): columns 0-5 of its system hold only the
+// tag's corners (+-half, 0, 1), so at a size whose pivots there are the
+// structural (0, 1, 2, 4, 5, 6) (rows u0, u1, u2, v0, v1, v2, then u3 and
+// v3, in that order) their multipliers f (k < 6, i > k, k-major) and
+// their reduced rows u (k <= j < 6, k-major) are the same for every tag.
+struct PoseConsts {
+    float f[27];
+    float u[21];
+};
+
+// solve8 on a tag-plane homography's system, given PoseConsts: only the
+// data columns 6 and 7 and b (rows in pivot order) are eliminated, by the
+// host's multipliers (no division, no pivot search in columns 0-5), then
+// column 6 pivots between rows 6 and 7 as solve8 does, and the back
+// substitution reads columns 0-5 from u. Each float operation is the one
+// solve8 makes on the same values, so x is solve8's to the bit.
+__device__ __forceinline__ void solve8_fixed(const PoseConsts& pc, float (&c6)[8],
+                                             float (&c7)[8], float (&b)[8], float (&x)[8]) {
+    int m = 0;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+#pragma unroll
+        for (int i = k + 1; i < 8; ++i) {
+            const float f = pc.f[m++];
+            c6[i] = c6[i] - f * c6[k];
+            c7[i] = c7[i] - f * c7[k];
+            b[i] = b[i] - f * b[k];
+        }
+    }
+    if (fabsf(c6[7]) > fabsf(c6[6])) {
+        float t = c6[6];
+        c6[6] = c6[7];
+        c6[7] = t;
+        t = c7[6];
+        c7[6] = c7[7];
+        c7[7] = t;
+        t = b[6];
+        b[6] = b[7];
+        b[7] = t;
+    }
+    {
+        const float f = c6[7] / c6[6];
+        c7[7] = c7[7] - f * c7[6];
+        b[7] = b[7] - f * b[6];
+    }
+    x[7] = b[7] / c7[7];
+#pragma unroll
+    for (int i = 0; i < 7; ++i) b[i] = b[i] - c7[i] * x[7];
+    x[6] = b[6] / c6[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) b[i] = b[i] - c6[i] * x[6];
+    // u's row k starts at entry k (11 - k) / 2 + k: rows of 6 - k entries.
+#pragma unroll
+    for (int j = 5; j >= 0; --j) {
+        x[j] = b[j] / pc.u[j * (13 - j) / 2];
+#pragma unroll
+        for (int i = 0; i < j; ++i) b[i] = b[i] - pc.u[i * (13 - i) / 2 + (j - i)] * x[j];
+    }
+}
+
 // utils/geometry.py::homography_from_correspondences: the 3x3 H (row-major)
-// taking the src corners (sx, sy) to the dst corners (dx, dy).
+// taking the src corners (sx, sy) to the dst corners (dx, dy). FIXED: the
+// src corners are the tag's at the size of pc, solved by solve8_fixed.
+template <bool FIXED = false>
 __device__ __forceinline__ void homography(const float (&sx)[4], const float (&sy)[4],
                                            const float (&dx)[4], const float (&dy)[4],
-                                           float (&Hm)[9]) {
+                                           float (&Hm)[9], const PoseConsts* pc = nullptr) {
     const float cx = (((dx[0] + dx[1]) + dx[2]) + dx[3]) * 0.25f;
     const float cy = (((dy[0] + dy[1]) + dy[2]) + dy[3]) * 0.25f;
     float ex[4], ey[4];
@@ -187,21 +265,38 @@ __device__ __forceinline__ void homography(const float (&sx)[4], const float (&s
         s = s + fabsf(ey[k]);
     }
     s = clamp_min(s * 0.125f, 1e-6f);
-    float A[8][8], b[8], h[8];
+    float h[8];
+    if constexpr (FIXED) {
+        // Rows in pivot order: u0, u1, u2, v0, v1, v2, u3, v3.
+        float c6[8], c7[8], b[8];
+        constexpr int corner[8] = {0, 1, 2, 0, 1, 2, 3, 3};
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const float u = ex[k] / s, v = ey[k] / s;
-        const float ru[8] = {sx[k], sy[k], 1.0f, 0.0f, 0.0f, 0.0f, -u * sx[k], -u * sy[k]};
-        const float rv[8] = {0.0f, 0.0f, 0.0f, sx[k], sy[k], 1.0f, -v * sx[k], -v * sy[k]};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            A[k][j] = ru[j];
-            A[4 + k][j] = rv[j];
+        for (int r = 0; r < 8; ++r) {
+            const int k = corner[r];
+            const bool v_row = (r >= 3 && r < 6) || r == 7;
+            const float w = v_row ? ey[k] / s : ex[k] / s;
+            c6[r] = -w * sx[k];
+            c7[r] = -w * sy[k];
+            b[r] = w;
         }
-        b[k] = u;
-        b[4 + k] = v;
+        solve8_fixed(*pc, c6, c7, b, h);
+    } else {
+        float A[8][8], b[8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const float u = ex[k] / s, v = ey[k] / s;
+            const float ru[8] = {sx[k], sy[k], 1.0f, 0.0f, 0.0f, 0.0f, -u * sx[k], -u * sy[k]};
+            const float rv[8] = {0.0f, 0.0f, 0.0f, sx[k], sy[k], 1.0f, -v * sx[k], -v * sy[k]};
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                A[k][j] = ru[j];
+                A[4 + k][j] = rv[j];
+            }
+            b[k] = u;
+            b[4 + k] = v;
+        }
+        solve8(A, b, h);
     }
-    solve8(A, b, h);
     const float Hn[9] = {h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], 1.0f};
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -499,28 +594,24 @@ decode_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
     STAMP(6, best);
 }
 
-__global__ void __launch_bounds__(POSE_THREADS)
-pose_kernel(const float* __restrict__ corners, const float* __restrict__ K,
-            float* __restrict__ rot_out, float* __restrict__ t_out, float* __restrict__ q_out,
-            int N, int per_frame, int k_batched, float half) {
-    const int n = blockIdx.x * POSE_THREADS + threadIdx.x;
-    if (n >= N) return;
-    const float* cq = corners + (size_t)n * 8;
-    const float* Kp = K + (k_batched ? (size_t)(n / per_frame) * 9 : 0);
+// ops/pose.py::estimate_poses of one tag: its corners (dx, dy), K^-1 and
+// the tag's half size -> rotation X (row-major), translation t and
+// quaternion q. The tag-plane homography (FIXED: by solve8_fixed with pc),
+// M = K^-1 H, the scale and its sign, the cross product, 4 Newton polar
+// steps and the quaternion; K^-1 comes in, so a caller computes it beside
+// the homography (no dependence between them). STAMPED: thread 0 of a block
+// stamps steps 2-6 (pose_kernel's split).
+template <bool FIXED, bool STAMPED>
+__device__ __forceinline__ void pose_one(const float (&dx)[4], const float (&dy)[4],
+                                         const float (&Kinv)[9], float half,
+                                         const PoseConsts& pc, float (&X)[9], float (&t)[3],
+                                         float (&q)[4]) {
     // TAG_CORNERS * (tag_size / 2).
     const float sx[4] = {-1.0f * half, 1.0f * half, 1.0f * half, -1.0f * half};
     const float sy[4] = {-1.0f * half, -1.0f * half, 1.0f * half, 1.0f * half};
-    float dx[4], dy[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        dx[k] = cq[2 * k];
-        dy[k] = cq[2 * k + 1];
-    }
-    float Hm[9], Km[9], Kinv[9];
-    homography(sx, sy, dx, dy, Hm);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) Km[k] = Kp[k];
-    inverse3x3(Km, Kinv);
+    float Hm[9];
+    homography<FIXED>(sx, sy, dx, dy, Hm, &pc);
+    if (STAMPED) STAMP(2, Hm[0] + Hm[8]);
     // M = K^-1 H (utils/geometry.py::matmul3).
     float M[9];
 #pragma unroll
@@ -529,6 +620,7 @@ pose_kernel(const float* __restrict__ corners, const float* __restrict__ K,
         for (int j = 0; j < 3; ++j)
             M[3 * i + j] = (Kinv[3 * i] * Hm[j] + Kinv[3 * i + 1] * Hm[3 + j])
                            + Kinv[3 * i + 2] * Hm[6 + j];
+    if (STAMPED) STAMP(3, M[0] + M[8]);
     const float n1 = sqrtf((M[0] * M[0] + M[3] * M[3]) + M[6] * M[6]);
     const float n2 = sqrtf((M[1] * M[1] + M[4] * M[4]) + M[7] * M[7]);
     float scale = (1.0f / clamp_min(n1 + n2, 1e-12f)) * 2.0f;
@@ -536,11 +628,15 @@ pose_kernel(const float* __restrict__ corners, const float* __restrict__ K,
     scale = scale * ((z > 0.0f ? 1.0f : 0.0f) - (z < 0.0f ? 1.0f : 0.0f));   // positive depth
     const float r1[3] = {M[0] * scale, M[3] * scale, M[6] * scale};
     const float r2[3] = {M[1] * scale, M[4] * scale, M[7] * scale};
-    const float t[3] = {M[2] * scale, M[5] * scale, M[8] * scale};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) t[k] = M[3 * k + 2] * scale;
     const float r3[3] = {r1[1] * r2[2] - r1[2] * r2[1], r1[2] * r2[0] - r1[0] * r2[2],
                          r1[0] * r2[1] - r1[1] * r2[0]};
     // Columns r1, r2, r3; then 4 Newton polar steps X <- (X + X^-T) / 2.
-    float X[9] = {r1[0], r2[0], r3[0], r1[1], r2[1], r3[1], r1[2], r2[2], r3[2]};
+    const float X0[9] = {r1[0], r2[0], r3[0], r1[1], r2[1], r3[1], r1[2], r2[2], r3[2]};
+#pragma unroll
+    for (int k = 0; k < 9; ++k) X[k] = X0[k];
+    if (STAMPED) STAMP(4, X[0] + X[8] + t[2]);
 #pragma unroll
     for (int it = 0; it < 4; ++it) {
         float Xi[9];
@@ -550,6 +646,7 @@ pose_kernel(const float* __restrict__ corners, const float* __restrict__ K,
 #pragma unroll
             for (int j = 0; j < 3; ++j) X[3 * i + j] = 0.5f * (X[3 * i + j] + Xi[3 * j + i]);
     }
+    if (STAMPED) STAMP(5, X[0] + X[8]);
     // utils/geometry.py::quat_from_rotmat.
     const float m00 = X[0], m01 = X[1], m02 = X[2], m10 = X[3], m11 = X[4], m12 = X[5],
                 m20 = X[6], m21 = X[7], m22 = X[8];
@@ -584,11 +681,53 @@ pose_kernel(const float* __restrict__ corners, const float* __restrict__ K,
     for (int i = 1; i < 4; ++i) lv = lead == i ? qv[i] : lv;
     const float sign = lv < 0.0f ? -1.0f : 1.0f;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) rot_out[(size_t)n * 9 + k] = X[k];
+    for (int k = 0; k < 4; ++k) q[k] = qv[k] * sign;
+    if (STAMPED) STAMP(6, q[0]);
+}
+
+// A tag's outputs at slot n.
+__device__ __forceinline__ void pose_store(size_t n, const float (&X)[9], const float (&t)[3],
+                                           const float (&q)[4], float* __restrict__ rot_out,
+                                           float* __restrict__ t_out, float* __restrict__ q_out) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) t_out[(size_t)n * 3 + k] = t[k];
+    for (int k = 0; k < 9; ++k) rot_out[n * 9 + k] = X[k];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) q_out[(size_t)n * 4 + k] = qv[k] * sign;
+    for (int k = 0; k < 3; ++k) t_out[n * 3 + k] = t[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q_out[n * 4 + k] = q[k];
+}
+
+// One thread a tag: its corners (two float4 loads where the row is 16-byte
+// aligned) and K in one round, K^-1 beside the homography, then pose_one.
+template <bool FIXED>
+__global__ void __launch_bounds__(POSE_THREADS)
+pose_kernel(const float* __restrict__ corners, const float* __restrict__ K,
+            float* __restrict__ rot_out, float* __restrict__ t_out, float* __restrict__ q_out,
+            int N, int per_frame, int k_batched, float half, const PoseConsts pc) {
+    const int n = blockIdx.x * POSE_THREADS + threadIdx.x;
+    STAMP(0, n);
+    if (n >= N) return;
+    const float* cq = corners + (size_t)n * 8;
+    const float* Kp = K + (k_batched ? (size_t)(n / per_frame) * 9 : 0);
+    float c[8], Km[9];
+    if ((reinterpret_cast<uintptr_t>(corners) & 15) == 0) {
+        const float4 lo = reinterpret_cast<const float4*>(cq)[0];
+        const float4 hi = reinterpret_cast<const float4*>(cq)[1];
+        c[0] = lo.x; c[1] = lo.y; c[2] = lo.z; c[3] = lo.w;
+        c[4] = hi.x; c[5] = hi.y; c[6] = hi.z; c[7] = hi.w;
+    } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) c[k] = cq[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) Km[k] = Kp[k];
+    const float dx[4] = {c[0], c[2], c[4], c[6]}, dy[4] = {c[1], c[3], c[5], c[7]};
+    STAMP(1, dx[0] + dy[3] + Km[0] + Km[8]);
+    float Kinv[9], X[9], t[3], q[4];
+    inverse3x3(Km, Kinv);
+    pose_one<FIXED, true>(dx, dy, Kinv, half, pc, X, t, q);
+    pose_store(n, X, t, q, rot_out, t_out, q_out);
+    STAMP(7, n);
 }
 
 // ops/refine.py::_point_sum of an edge's point terms, held by lanes 0-11 of
@@ -782,23 +921,38 @@ tail_select_kernel(const float* __restrict__ corners, const bool* __restrict__ v
     }
 }
 
+// finish_pose_kernel's pose: K ((3, 3), or one a frame with k_batched),
+// the outputs, and the tag's half size.
+struct FinishPose {
+    const float* __restrict__ K;
+    float* __restrict__ rot;
+    float* __restrict__ t;
+    float* __restrict__ q;
+    int k_batched;
+    float half;
+    PoseConsts pc;
+};
+
 // One block a frame, thread j candidate j (N <= TAIL_THREADS). The valid
 // candidates are the set bits of four warp ballots in shared memory, and
 // both the dedupe and the rank walk set bits only: a bench frame holds a
 // handful of valid candidates among its 2T. A score is -inf or a valid
 // margin (>= min_margin, so never NaN), so a -inf candidate's rank in
 // torch.sort(descending, stable) order is the count of scores above -inf
-// plus the -inf candidates below it, and only the others compare.
-__global__ void __launch_bounds__(TAIL_THREADS)
-tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ id,
-                   const int* __restrict__ hamming, const float* __restrict__ margin,
-                   const float* __restrict__ corners, const bool* __restrict__ pre_valid,
-                   const int* __restrict__ num_quads, const bool* __restrict__ overflow_in,
-                   bool* __restrict__ valid_out, int* __restrict__ id_out,
-                   int* __restrict__ ham_out, float* __restrict__ margin_out,
-                   float* __restrict__ center_out, float* __restrict__ corners_out,
-                   int* __restrict__ num_det, bool* __restrict__ overflow_out, int N, int K,
-                   float min_margin) {
+// plus the -inf candidates below it, and only the others compare. POSE
+// (finish_pose_kernel): each top-T slot's thread then poses the tag it has
+// just written (pose_one on its corners, with K^-1 of the frame's K,
+// computed while the candidates load), so pose takes no launch of its own.
+template <bool POSE, bool FIXED>
+__device__ __forceinline__ void finish_block(
+    const bool* __restrict__ dec_valid, const int* __restrict__ id,
+    const int* __restrict__ hamming, const float* __restrict__ margin,
+    const float* __restrict__ corners, const bool* __restrict__ pre_valid,
+    const int* __restrict__ num_quads, const bool* __restrict__ overflow_in,
+    bool* __restrict__ valid_out, int* __restrict__ id_out, int* __restrict__ ham_out,
+    float* __restrict__ margin_out, float* __restrict__ center_out,
+    float* __restrict__ corners_out, int* __restrict__ num_det, bool* __restrict__ overflow_out,
+    int N, int K, float min_margin, const FinishPose& fp) {
     constexpr int MASKS = TAIL_THREADS / LANES;
     __shared__ float s_cx[TAIL_THREADS], s_cy[TAIL_THREADS], s_edge[TAIL_THREADS];
     __shared__ float s_margin[TAIL_THREADS];
@@ -808,6 +962,14 @@ tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ i
     STAMP(0, j);
     const bool in = j < N;
     const size_t q = (size_t)b * N + j;
+    float Kinv[9];
+    if constexpr (POSE) {
+        const float* Kp = fp.K + (fp.k_batched ? (size_t)b * 9 : 0);
+        float Km[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) Km[k] = Kp[k];
+        inverse3x3(Km, Kinv);
+    }
     float c[8], m = 0.0f, cx = 0.0f, cy = 0.0f;
     int my_id = 0;
     bool v = false;
@@ -897,8 +1059,54 @@ tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ i
                   y);
         center_out[o * 2] = x;
         center_out[o * 2 + 1] = y;
+        if constexpr (POSE) {
+            const float dx[4] = {c[0], c[2], c[4], c[6]}, dy[4] = {c[1], c[3], c[5], c[7]};
+            float X[9], t[3], qv[4];
+            pose_one<FIXED, false>(dx, dy, Kinv, fp.half, fp.pc, X, t, qv);
+            pose_store(o, X, t, qv, fp.rot, fp.t, fp.q);
+        }
     }
     STAMP(4, n);
+    if constexpr (POSE) {
+#ifdef KERNEL_STAMPS
+        __syncthreads();                    // stamped builds: the block's last pose
+#endif
+        STAMP(5, n);
+    }
+}
+
+__global__ void __launch_bounds__(TAIL_THREADS)
+tail_finish_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ id,
+                   const int* __restrict__ hamming, const float* __restrict__ margin,
+                   const float* __restrict__ corners, const bool* __restrict__ pre_valid,
+                   const int* __restrict__ num_quads, const bool* __restrict__ overflow_in,
+                   bool* __restrict__ valid_out, int* __restrict__ id_out,
+                   int* __restrict__ ham_out, float* __restrict__ margin_out,
+                   float* __restrict__ center_out, float* __restrict__ corners_out,
+                   int* __restrict__ num_det, bool* __restrict__ overflow_out, int N, int K,
+                   float min_margin) {
+    finish_block<false, false>(dec_valid, id, hamming, margin, corners, pre_valid, num_quads,
+                               overflow_in, valid_out, id_out, ham_out, margin_out, center_out,
+                               corners_out, num_det, overflow_out, N, K, min_margin,
+                               FinishPose{});
+}
+
+// The finish and the pose of its top-T tags in one launch (detector.py's
+// detect path with pose).
+template <bool FIXED>
+__global__ void __launch_bounds__(TAIL_THREADS)
+finish_pose_kernel(const bool* __restrict__ dec_valid, const int* __restrict__ id,
+                   const int* __restrict__ hamming, const float* __restrict__ margin,
+                   const float* __restrict__ corners, const bool* __restrict__ pre_valid,
+                   const int* __restrict__ num_quads, const bool* __restrict__ overflow_in,
+                   bool* __restrict__ valid_out, int* __restrict__ id_out,
+                   int* __restrict__ ham_out, float* __restrict__ margin_out,
+                   float* __restrict__ center_out, float* __restrict__ corners_out,
+                   int* __restrict__ num_det, bool* __restrict__ overflow_out, int N, int K,
+                   float min_margin, const FinishPose fp) {
+    finish_block<true, FIXED>(dec_valid, id, hamming, margin, corners, pre_valid, num_quads,
+                            overflow_in, valid_out, id_out, ham_out, margin_out, center_out,
+                            corners_out, num_det, overflow_out, N, K, min_margin, fp);
 }
 
 }  // namespace
@@ -929,16 +1137,25 @@ extern "C" int apriltag_decode(const void* gray, const void* corners, const void
     return (int)cudaGetLastError();
 }
 
+// consts: host memory holding the PoseConsts of the half size
+// (ops/cuda/pose.py::pose_constants), copied into the launch's parameters,
+// or null where the size has none (then pose_kernel<false> solves it all).
+static PoseConsts pose_consts(const void* consts) {
+    PoseConsts pc{};
+    if (consts) memcpy(&pc, consts, sizeof(pc));
+    return pc;
+}
+
 extern "C" int apriltag_pose(const void* corners, const void* K, void* rotation,
-                             void* translation, void* quaternion, int N, int per_frame,
-                             int k_batched, int half_bits, void* stream) {
+                             void* translation, void* quaternion, const void* consts, int N,
+                             int per_frame, int k_batched, int half_bits, void* stream) {
     if (N < 1 || (k_batched && per_frame < 1)) return (int)cudaErrorInvalidValue;
     float half;
     memcpy(&half, &half_bits, sizeof(float));
-    pose_kernel<<<(N + POSE_THREADS - 1) / POSE_THREADS, POSE_THREADS, 0,
-                  (cudaStream_t)stream>>>(
+    auto kernel = consts ? pose_kernel<true> : pose_kernel<false>;
+    kernel<<<(N + POSE_THREADS - 1) / POSE_THREADS, POSE_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)corners, (const float*)K, (float*)rotation, (float*)translation,
-        (float*)quaternion, N, per_frame, k_batched, half);
+        (float*)quaternion, N, per_frame, k_batched, half, pose_consts(consts));
     return (int)cudaGetLastError();
 }
 
@@ -986,5 +1203,28 @@ extern "C" int apriltag_tail_finish(const void* dec_valid, const void* id, const
         (const bool*)overflow_in, (bool*)valid_out, (int*)id_out, (int*)ham_out,
         (float*)margin_out, (float*)center_out, (float*)corners_out, (int*)num_det,
         (bool*)overflow_out, N, K, min_margin);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int apriltag_tail_finish_pose(
+    const void* dec_valid, const void* id, const void* hamming, const void* margin,
+    const void* corners, const void* pre_valid, const void* num_quads, const void* overflow_in,
+    void* valid_out, void* id_out, void* ham_out, void* margin_out, void* center_out,
+    void* corners_out, void* num_det, void* overflow_out, const void* K, void* rotation,
+    void* translation, void* quaternion, const void* consts, int B, int N, int Kt,
+    int min_margin_bits, int k_batched, int half_bits, void* stream) {
+    if (B < 1 || N < 1 || N > TAIL_THREADS || Kt < 1 || Kt > N) return (int)cudaErrorInvalidValue;
+    float min_margin, half;
+    memcpy(&min_margin, &min_margin_bits, sizeof(float));
+    memcpy(&half, &half_bits, sizeof(float));
+    const FinishPose fp{(const float*)K, (float*)rotation, (float*)translation, (float*)quaternion,
+                        k_batched, half, pose_consts(consts)};
+    auto kernel = consts ? finish_pose_kernel<true> : finish_pose_kernel<false>;
+    kernel<<<B, TAIL_THREADS, 0, (cudaStream_t)stream>>>(
+        (const bool*)dec_valid, (const int*)id, (const int*)hamming, (const float*)margin,
+        (const float*)corners, (const bool*)pre_valid, (const int*)num_quads,
+        (const bool*)overflow_in, (bool*)valid_out, (int*)id_out, (int*)ham_out,
+        (float*)margin_out, (float*)center_out, (float*)corners_out, (int*)num_det,
+        (bool*)overflow_out, N, Kt, min_margin, fp);
     return (int)cudaGetLastError();
 }

@@ -12,16 +12,16 @@ frame. Stages: grayscale, quad_decimate mean-pool, adaptive threshold
 contraction between the phases; with ccl_phase2_rounds=0 one scan phase on
 flat-index labels; with ccl_flow='jumps' one scan phase with pointer jumps
 between rounds), resolve (ops/cuda/resolve.py, five kernels a call: count,
-tile sums, scan, slots and map, and the dense ranks in the final resolve;
-the contraction and the final resolve), cluster moments
-(ops/cuda/cluster_moments.py, ten kernels: the pair counts, the kept
-pairs' compaction and four radix passes, two segment kernels and the
-moments; no library sort), then the tail, one kernel a stage: quad fit
-(the prefix tables, then the search and its epilogue, ops/cuda/quadfit.py),
-top-2T by fit quality (ops/cuda/tail.py), edge refinement
-(ops/cuda/refine.py), decode (ops/cuda/decode.py), dedupe and top-T by
-decision margin with the center (ops/cuda/tail.py) and pose
-(ops/cuda/pose.py). Backend 'cuda' runs the kernels; 'torch' runs their
+tile sums, scan, the chain walk and map; the contraction and the final
+resolve), cluster moments (ops/cuda/cluster_moments.py, nine kernels: the
+pair count, the kept pairs' histogram pass and four radix passes, two
+segment kernels and the moments; no library sort), then the tail, one
+kernel a stage: quad fit (the prefix tables, then the search and its
+epilogue, ops/cuda/quadfit.py), top-2T by fit quality (ops/cuda/tail.py),
+edge refinement (ops/cuda/refine.py), decode (ops/cuda/decode.py), and the
+dedupe and top-T by decision margin with the center and the tags' pose in
+one launch (ops/cuda/tail.py::finish_and_pose; with_pose=False: the
+finish alone). Backend 'cuda' runs the kernels; 'torch' runs their
 plain versions. Everything else is plain PyTorch on the detector's device.
 """
 
@@ -38,7 +38,6 @@ from .ops.cluster_moments import extract_cluster_moments
 from .ops.cuda import ccl as ccl_ops
 from .ops.cuda import cluster_moments as cluster_kernels
 from .ops.cuda import decode as decode_kernel
-from .ops.cuda import pose as pose_kernel
 from .ops.cuda import quadfit as quadfit_kernel
 from .ops.cuda import refine as refine_kernel
 from .ops.cuda import resolve as resolve_kernels
@@ -126,7 +125,7 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
     refine, decode and pose work per quad; the top-k picks and the dedupe
     work within each frame. On backend 'cuda' each stage is one kernel
     launch: the quad fit's search and epilogue, the top-2T pick, refine,
-    decode, the dedupe and top-T pick, pose. with_pose=False leaves
+    decode, the dedupe and top-T pick with pose. with_pose=False leaves
     translation, quaternion and rotation zero (rotation too, not the
     identity)."""
     cuda = cfg.backend == "cuda"
@@ -146,12 +145,15 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
     corners = refine(gray, cand.corners, cand.dark_inside, search_range=d + 1.0)
     dec = decode(gray, corners, family, max_hamming=cfg.max_hamming,
                  decode_sharpening=cfg.decode_sharpening)
-    sel = finish(dec, cand.pre_valid, cand.num_quads, clusters.overflow, k=cfg.max_tags,
-                 min_decision_margin=cfg.min_decision_margin)
-
-    if with_pose:
-        pose = pose_kernel.estimate_poses if cuda else estimate_poses
-        poses = pose(sel.corners, camera.K, cfg.tag_size)
+    fkw = dict(k=cfg.max_tags, min_decision_margin=cfg.min_decision_margin)
+    if with_pose and cuda:      # the finish and the pose in one launch
+        sel, poses = tail_kernels.finish_and_pose(dec, cand.pre_valid, cand.num_quads,
+                                                  clusters.overflow, camera.K, cfg.tag_size,
+                                                  **fkw)
+    else:
+        sel = finish(dec, cand.pre_valid, cand.num_quads, clusters.overflow, **fkw)
+        poses = estimate_poses(sel.corners, camera.K, cfg.tag_size) if with_pose else None
+    if poses is not None:
         translation, quaternion, rotation = poses.translation, poses.quaternion, poses.rotation
     else:
         lead = sel.corners.shape[:-2]

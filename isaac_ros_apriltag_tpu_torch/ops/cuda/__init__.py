@@ -26,7 +26,7 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "quadfit_search": (quadfit, "launches"),
                    "tail_select": (tail, "select_launches"), "refine": (refine, "launches"),
                    "decode": (decode, "launches"), "tail_finish": (tail, "finish_launches"),
-                   "pose": (pose, "launches")}
+                   "finish_pose": (tail, "finish_pose_launches"), "pose": (pose, "launches")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -41,10 +41,10 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_ccl_row", 3, 3),
                  ("apriltag_ccl_col_diag", 3, 3),
                  ("apriltag_cm_count", 3, 3),
-                 ("apriltag_cm_pair_count", 9, 4),
+                 ("apriltag_cm_pair_count", 9, 5),
                  ("apriltag_cm_radix_first", 11, 6),
                  ("apriltag_cm_radix_scatter", 8, 7),
-                 ("apriltag_cm_seg_tiles", 6, 7),
+                 ("apriltag_cm_seg_tiles", 6, 8),
                  ("apriltag_cm_seg_top", 14, 8),
                  ("apriltag_cm_moments", 7, 4),
                  ("apriltag_resolve_count", 3, 3),
@@ -56,10 +56,11 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_quadfit_search", 4, 1),
                  ("apriltag_quadfit_fit", 9, 4),
                  ("apriltag_decode", 11, 12),
-                 ("apriltag_pose", 5, 4),
+                 ("apriltag_pose", 6, 4),
                  ("apriltag_refine", 4, 7),
                  ("apriltag_tail_select", 8, 5),
-                 ("apriltag_tail_finish", 16, 4))
+                 ("apriltag_tail_finish", 16, 4),
+                 ("apriltag_tail_finish_pose", 21, 6))
 
 MAX_BATCH = 65535   # frames a launch takes: the grid dimension that holds the frame
 

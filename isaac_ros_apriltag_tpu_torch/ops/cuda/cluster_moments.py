@@ -105,9 +105,16 @@ def pair_count(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tenso
     count, every pass's digit counts, the first pass's by offset, by tile
     and by group of tiles, and the sort's scratch (the counters and sums
     zeroed by one memset)."""
-    global pair_count_launches
     if trinary.device.type == "cpu":
         return plain.pair_count_plain(trinary, dense, num_edge, E)
+    return _pair_count(trinary, dense, num_edge, E, 0)[0]
+
+
+def _pair_count(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor, E: int,
+                hist_bins: int) -> tuple[PairTiles, torch.Tensor | None]:
+    """pair_count on the card, and (B, hist_bins) int32 zeros from the same
+    memset (None for 0 bins): the stage's segment-tiles histogram."""
+    global pair_count_launches
     B, H, W = _check_front(trinary, dense)
     dev = trinary.device
     _check_num_edge(num_edge, B, dev, E)
@@ -115,9 +122,9 @@ def pair_count(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tenso
     T, nblk = -(-N // sort_tile(B, N)), -(-H * W // PAIR_BLOCK)
     ng = -(-nblk // FIRST_GROUP)
     i32 = dict(dtype=torch.int32, device=dev)
-    # One buffer, one memset: ctl, digits, offset digits, group sums, kept.
-    sizes = (B * P, P * B * R, B * 4 * R0, B * 4 * ng * R0, B)
-    ctl, digits, odig, groups, kept = torch.empty(sum(sizes), **i32).split(sizes)
+    # One buffer, one memset: ctl, digits, offset digits, group sums, kept, hist.
+    sizes = (B * P, P * B * R, B * 4 * R0, B * 4 * ng * R0, B, B * hist_bins)
+    ctl, digits, odig, groups, kept, hist = torch.empty(sum(sizes), **i32).split(sizes)
     out = PairTiles(kept=kept, digits=digits.view(P, B, R), offset_digits=odig.view(B, 4, R0),
                     tile_counts=torch.empty((B, 4, nblk, R0), **i32),
                     group_sums=groups.view(B, 4, ng, R0),
@@ -126,10 +133,11 @@ def pair_count(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tenso
         status = _lib.library().apriltag_cm_pair_count(
             trinary.data_ptr(), dense.data_ptr(), num_edge.data_ptr(), out.ctl.data_ptr(),
             out.digits.data_ptr(), out.offset_digits.data_ptr(), out.group_sums.data_ptr(),
-            out.kept.data_ptr(), out.tile_counts.data_ptr(), B, H, W, (9 * E) // 10, _stream())
+            out.kept.data_ptr(), out.tile_counts.data_ptr(), B, H, W, (9 * E) // 10,
+            B * hist_bins, _stream())
     _lib.check(status, "apriltag_cm_pair_count")
     pair_count_launches += 1
-    return out
+    return out, hist.view(B, hist_bins) if hist_bins else None
 
 
 def _check_tiles(tiles: PairTiles, B: int, N: int, dev: torch.device,
@@ -236,12 +244,19 @@ def sort_pairs(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tenso
     E)) and pays on [0, K) (sort_pairs_plain); nothing reads a row past
     those."""
     tiles = pair_count(trinary, dense, num_edge, E)
+    return _radix_passes(trinary, dense, num_edge, tiles, E), tiles.kept
+
+
+def _radix_passes(trinary: torch.Tensor, dense: torch.Tensor, num_edge: torch.Tensor,
+                  tiles: PairTiles, E: int) -> SortRows:
+    """sort_pairs' passes after pair_count: radix_first, then the later
+    radix_scatter passes between its rows and one other pair of rows."""
     rows = radix_first(trinary, dense, num_edge, tiles, E)
     spare = None
     for k in range(1, SORT_PASSES):
         moved = radix_scatter(rows, tiles, k, E=E, out=spare)
         spare, rows = (rows.key, rows.pay), moved
-    return rows, tiles.kept
+    return rows
 
 
 def _check_segments(E: int, max_perimeter: int) -> int:
@@ -255,10 +270,13 @@ def _check_segments(E: int, max_perimeter: int) -> int:
 
 
 def segment_tiles(key_s: torch.Tensor, num_edge: torch.Tensor, *, E: int,
-                  min_cluster_pixels: int, max_perimeter: int) -> SegmentTiles:
+                  min_cluster_pixels: int, max_perimeter: int,
+                  hist: torch.Tensor | None = None) -> SegmentTiles:
     """(B, N >= E) int32 sorted keys -> each tile's fields, candidates, the
     size histogram and the valid keys (ops/cluster_moments.py::
-    SegmentTiles)."""
+    SegmentTiles). `hist`, where given, is a zeroed (B, max_perimeter + 1)
+    int32 buffer (the sort's memset zeroes it in the stage) that becomes
+    the histogram; else the launcher zeroes one of its own."""
     global seg_tiles_launches
     if key_s.device.type == "cpu":
         return plain.segment_tiles_plain(key_s, num_edge, E=E,
@@ -278,13 +296,17 @@ def segment_tiles(key_s: torch.Tensor, num_edge: torch.Tensor, *, E: int,
             or not num_edge.is_contiguous()):
         raise ValueError(f"num_edge must be a contiguous ({B},) int32 tensor on {dev}")
     i32 = dict(dtype=torch.int32, device=dev)
+    zeroed = hist is not None
+    if zeroed:
+        _check_tensor("hist", hist, (B, max_perimeter + 1), torch.int32, dev)
     out = SegmentTiles(stats=torch.empty((B, 5, tiles), **i32),
                        cand=torch.empty((B, tiles * SEG_TILE), **i32),
-                       hist=torch.empty((B, max_perimeter + 1), **i32), nv=torch.empty(B, **i32))
+                       hist=hist if zeroed else torch.empty((B, max_perimeter + 1), **i32),
+                       nv=torch.empty(B, **i32))
     with torch.cuda.device(dev):
         status = _lib.library().apriltag_cm_seg_tiles(
             key_s.data_ptr(), num_edge.data_ptr(), *(t.data_ptr() for t in out), B, N, E, tiles,
-            min_cluster_pixels, max_perimeter, (9 * E) // 10, _stream())
+            min_cluster_pixels, max_perimeter, (9 * E) // 10, int(zeroed), _stream())
     _lib.check(status, "apriltag_cm_seg_tiles")
     seg_tiles_launches += 1
     return out
@@ -336,12 +358,12 @@ def segment_top(tiles: SegmentTiles, num_edge: torch.Tensor, comp_overflow: torc
 
 def top_segments(key_s: torch.Tensor, num_edge: torch.Tensor, comp_overflow: torch.Tensor, *,
                  E: int, E2: int, max_clusters: int, min_cluster_pixels: int,
-                 max_perimeter: int) -> TopSegments:
+                 max_perimeter: int, hist: torch.Tensor | None = None) -> TopSegments:
     """(B, N >= E) int32 sorted keys -> each frame's top-C segments, counts,
-    stride and overflow, as top_segments_plain: segment_tiles, then
-    segment_top."""
+    stride and overflow, as top_segments_plain: segment_tiles (into `hist`
+    where given: zeros), then segment_top."""
     tiles = segment_tiles(key_s, num_edge, E=E, min_cluster_pixels=min_cluster_pixels,
-                          max_perimeter=max_perimeter)
+                          max_perimeter=max_perimeter, hist=hist)
     return segment_top(tiles, num_edge, comp_overflow, E=E, E2=E2, max_clusters=max_clusters,
                        min_cluster_pixels=min_cluster_pixels, max_perimeter=max_perimeter)
 
@@ -403,9 +425,13 @@ def extract_cluster_moments(trinary: torch.Tensor, dense: torch.Tensor, *,
     trinary, dense = trinary.contiguous(), dense.to(torch.int32).contiguous()
     comp_overflow = comp_overflow.to(torch.bool).expand(B).contiguous()
     num_edge = edge_count(trinary, dense)
-    rows, _ = sort_pairs(trinary, dense, num_edge, E)
+    max_perimeter = 4 * (W + H)
+    # The sort's memset also zeroes the segment-tiles kernel's histogram.
+    tiles, hist = _pair_count(trinary, dense, num_edge, E, max_perimeter + 1)
+    rows = _radix_passes(trinary, dense, num_edge, tiles, E)
     seg = top_segments(rows.key, num_edge, comp_overflow, E=E, E2=E2, max_clusters=max_clusters,
-                       min_cluster_pixels=min_cluster_pixels, max_perimeter=4 * (W + H))
+                       min_cluster_pixels=min_cluster_pixels, max_perimeter=max_perimeter,
+                       hist=hist)
     mom = slot_moments(rows.pay, seg.top_pos, seg.count, E2)
     bw, bx, by, bxx, bxy, byy = (mom.table[..., i] for i in range(6))
     out = ClusterMoments(

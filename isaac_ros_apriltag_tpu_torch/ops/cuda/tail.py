@@ -1,25 +1,32 @@
 """Wrappers of the detector's per-frame picks (csrc/tail.cu:
-tail_select_kernel and tail_finish_kernel), one block a frame each.
+tail_select_kernel, tail_finish_kernel and finish_pose_kernel), one block a
+frame each.
 
-``select_candidates`` and ``finish_detections`` check their input, then on
-CPU tensors run the plain versions (ops/tail.py); on CUDA tensors they
-launch their kernel or raise and add one to ``select_launches`` or
-``finish_launches``. Each launches on the current stream, into outputs
-allocated here by torch.empty, with no host sync, so a detect call that
-runs them can be captured in a CUDA graph.
+``select_candidates``, ``finish_detections`` and ``finish_and_pose`` (the
+finish, then the pose of its top-T tags, in one launch: the detect path's)
+check their input, then on CPU tensors run the plain versions
+(ops/tail.py, ops/pose.py); on CUDA tensors they launch their kernel or
+raise and add one to ``select_launches``, ``finish_launches`` or
+``finish_pose_launches``. Each launches on the current stream, into
+outputs allocated here by torch.empty, with no host sync, so a detect call
+that runs them can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import pose as plain_pose
 from .. import tail as plain
 from ..decode import DecodeResult
+from ..pose import Poses
 from ..tail import Candidates, Selection
 from . import _lib
+from .pose import _consts_ptr
 
 select_launches = 0    # tail_select_kernel launches made by select_candidates
 finish_launches = 0    # tail_finish_kernel launches made by finish_detections
+finish_pose_launches = 0   # finish_pose_kernel launches made by finish_and_pose
 
 MAX_QUADS = 128        # a frame's quads a block takes (DetectorConfig's max_clusters cap)
 
@@ -78,14 +85,9 @@ def select_candidates(corners: torch.Tensor, valid: torch.Tensor, dark_inside: t
     return out
 
 
-def finish_detections(dec: DecodeResult, pre_valid: torch.Tensor, num_quads: torch.Tensor,
-                      overflow: torch.Tensor, *, k: int,
-                      min_decision_margin: float) -> Selection:
-    """The plain version's signature and results, bit for bit: the (B, N)
-    DecodeResult (bool valid, int32 id and hamming, float32 margin and
-    (B, N, 4, 2) corners), (B, N) bool pre_valid, (B,) int32 num_quads and
-    bool overflow; k >= 1 (min(k, N) tags a frame)."""
-    global finish_launches
+def _check_finish(dec: DecodeResult, pre_valid: torch.Tensor, num_quads: torch.Tensor,
+                  overflow: torch.Tensor, k: int) -> tuple[int, int, torch.device]:
+    """Raise on what the finish kernels do not take; return (B, N, device)."""
     if pre_valid.ndim != 2:
         raise ValueError(f"pre_valid must be (B, N), got {tuple(pre_valid.shape)}")
     B, N = pre_valid.shape
@@ -100,24 +102,76 @@ def finish_detections(dec: DecodeResult, pre_valid: torch.Tensor, num_quads: tor
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if k < 1:
         raise ValueError(f"finish_detections: k must be >= 1, got {k}")
+    return B, N, dev
+
+
+def _selection(B: int, T: int, dev: torch.device) -> Selection:
+    return Selection(valid=torch.empty((B, T), dtype=torch.bool, device=dev),
+                     id=torch.empty((B, T), dtype=torch.int32, device=dev),
+                     hamming=torch.empty((B, T), dtype=torch.int32, device=dev),
+                     margin=torch.empty((B, T), dtype=torch.float32, device=dev),
+                     center=torch.empty((B, T, 2), dtype=torch.float32, device=dev),
+                     corners=torch.empty((B, T, 4, 2), dtype=torch.float32, device=dev),
+                     num_detections=torch.empty(B, dtype=torch.int32, device=dev),
+                     overflow=torch.empty(B, dtype=torch.bool, device=dev))
+
+
+def _finish_ptrs(dec: DecodeResult, pre_valid, num_quads, overflow, out: Selection) -> list:
+    return [dec.valid.data_ptr(), dec.id.data_ptr(), dec.hamming.data_ptr(),
+            dec.margin.data_ptr(), dec.corners.data_ptr(), pre_valid.data_ptr(),
+            num_quads.data_ptr(), overflow.data_ptr(), *(t.data_ptr() for t in out)]
+
+
+def finish_detections(dec: DecodeResult, pre_valid: torch.Tensor, num_quads: torch.Tensor,
+                      overflow: torch.Tensor, *, k: int,
+                      min_decision_margin: float) -> Selection:
+    """The plain version's signature and results, bit for bit: the (B, N)
+    DecodeResult (bool valid, int32 id and hamming, float32 margin and
+    (B, N, 4, 2) corners), (B, N) bool pre_valid, (B,) int32 num_quads and
+    bool overflow; k >= 1 (min(k, N) tags a frame)."""
+    global finish_launches
+    B, N, dev = _check_finish(dec, pre_valid, num_quads, overflow, k)
     if dev.type == "cpu":
         return plain.finish_detections(dec, pre_valid, num_quads, overflow, k=k,
                                        min_decision_margin=min_decision_margin)
-    T = min(k, N)
-    out = Selection(valid=torch.empty((B, T), dtype=torch.bool, device=dev),
-                    id=torch.empty((B, T), dtype=torch.int32, device=dev),
-                    hamming=torch.empty((B, T), dtype=torch.int32, device=dev),
-                    margin=torch.empty((B, T), dtype=torch.float32, device=dev),
-                    center=torch.empty((B, T, 2), dtype=torch.float32, device=dev),
-                    corners=torch.empty((B, T, 4, 2), dtype=torch.float32, device=dev),
-                    num_detections=torch.empty(B, dtype=torch.int32, device=dev),
-                    overflow=torch.empty(B, dtype=torch.bool, device=dev))
+    out = _selection(B, min(k, N), dev)
     with torch.cuda.device(dev):
         status = _lib.library().apriltag_tail_finish(
-            dec.valid.data_ptr(), dec.id.data_ptr(), dec.hamming.data_ptr(),
-            dec.margin.data_ptr(), dec.corners.data_ptr(), pre_valid.data_ptr(),
-            num_quads.data_ptr(), overflow.data_ptr(), *(t.data_ptr() for t in out), B, N, T,
+            *_finish_ptrs(dec, pre_valid, num_quads, overflow, out), B, N, min(k, N),
             _lib.float_bits(min_decision_margin), torch.cuda.current_stream().cuda_stream)
     _lib.check(status, "apriltag_tail_finish")
     finish_launches += 1
     return out
+
+
+def finish_and_pose(dec: DecodeResult, pre_valid: torch.Tensor, num_quads: torch.Tensor,
+                    overflow: torch.Tensor, K: torch.Tensor, tag_size: float, *, k: int,
+                    min_decision_margin: float) -> tuple[Selection, Poses]:
+    """finish_detections, then estimate_poses(selection.corners, K,
+    tag_size) (K (3, 3), or (B, 3, 3) one a frame), bit for bit the plain
+    versions', in one launch on the card: each top-T slot's thread poses the
+    tag it writes."""
+    global finish_pose_launches
+    B, N, dev = _check_finish(dec, pre_valid, num_quads, overflow, k)
+    T = min(k, N)
+    if (K.dtype != torch.float32 or not K.is_contiguous() or K.device != dev
+            or tuple(K.shape) not in ((3, 3), (B, 3, 3))):
+        raise ValueError(f"K must be a contiguous float32 (3, 3) or ({B}, 3, 3) tensor on "
+                         f"{dev}, got {K.dtype} {tuple(K.shape)} on {K.device}")
+    if dev.type == "cpu":
+        sel = plain.finish_detections(dec, pre_valid, num_quads, overflow, k=k,
+                                      min_decision_margin=min_decision_margin)
+        return sel, plain_pose.estimate_poses(sel.corners, K, tag_size)
+    out = _selection(B, T, dev)
+    poses = Poses(rotation=torch.empty((B, T, 3, 3), dtype=torch.float32, device=dev),
+                  translation=torch.empty((B, T, 3), dtype=torch.float32, device=dev),
+                  quaternion=torch.empty((B, T, 4), dtype=torch.float32, device=dev))
+    with torch.cuda.device(dev):
+        status = _lib.library().apriltag_tail_finish_pose(
+            *_finish_ptrs(dec, pre_valid, num_quads, overflow, out), K.data_ptr(),
+            *(t.data_ptr() for t in poses), _consts_ptr(tag_size * 0.5), B, N, T,
+            _lib.float_bits(min_decision_margin), int(K.ndim == 3),
+            _lib.float_bits(tag_size * 0.5), torch.cuda.current_stream().cuda_stream)
+    _lib.check(status, "apriltag_tail_finish_pose")
+    finish_pose_launches += 1
+    return out, poses

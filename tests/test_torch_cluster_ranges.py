@@ -711,3 +711,142 @@ def test_top_kernel_rows_reach_their_edges():
     assert not seg.valid.any()
     seg, tiles, kw = top("min_cluster_pixels -1, a segment cut at E")
     assert int(seg.count[0, 0]) == kw["E"] - 1500 and kw["E"] % P.SEG_TILE
+
+
+SEG_KPT = 16        # keys a lane of cm_seg_tiles_kernel (csrc/cluster_moments.cu)
+WALK_GROUPS = (1, 3, None)   # groups a frame of the mirror's walk (None: a group a tile)
+
+
+def mirror_tile_walk(key_s, num_edge, *, E, min_pix, max_per, groups=None, tile=P.SEG_TILE,
+                     prev_minus_one=False, stale_keys=False):
+    """cm_seg_tiles_kernel in numpy, frame by frame: `groups` groups a frame
+    (None: one a tile), group g walking tiles g, g + groups, ...; a tile's
+    keys SEG_KPT consecutive ones a lane; a lane's first key compared with
+    the previous lane's last (lane 0: the key before the tile); each lane's
+    starts sized from the first start of the lanes after it (a suffix
+    minimum) and its own from the last back; the candidates compacted by a
+    prefix over the lanes; the walk ended at the first tile past the valid
+    prefix, whose fields and those of the group's later tiles are written at
+    once. Returns segment_tiles_plain's fields as numpy, the candidate
+    entries the kernel leaves unwritten 0. `prev_minus_one` (every lane's
+    first key compared with -1) and `stale_keys` (a walk's later tiles read
+    with its first tile's keys) are wrong on purpose."""
+    B = key_s.shape[0]
+    T = -(-E // tile)
+    G = T if groups is None else min(groups, T)
+    budget = (9 * E) // 10
+    stats = np.zeros((B, 5, T), np.int64)
+    cand = np.zeros((B, T * tile), np.int64)
+    hist = np.zeros((B, max_per + 1), np.int64)
+    nv = np.full(B, -1, np.int64)
+    lane_no = np.arange(tile // SEG_KPT)
+    for b in range(B):
+        ks = key_s[b].astype(np.int64)
+        stride = max(1, (int(num_edge[b]) + budget - 1) // budget)
+        for g in range(G):
+            first_keys = None
+            for u in range(g, T, G):
+                s, e = u * tile, min(u * tile + tile, E)
+                if u > 0 and ks[s] == I32MAX:
+                    stats[b, :, u::G] = np.array([0, 0, 0, I32MAX, -1])[:, None]
+                    break
+                k = np.full(tile, I32MAX, np.int64)
+                k[:e - s] = ks[s:e]
+                if stale_keys and first_keys is not None:
+                    k = first_keys
+                first_keys = k if first_keys is None else first_keys
+                lanes = k.reshape(-1, SEG_KPT)
+                i0 = s + SEG_KPT * lane_no
+                prev = np.r_[ks[s - 1] if s > 0 else -1, lanes[:-1, -1]]
+                if prev_minus_one:
+                    prev = np.full_like(prev, -1)
+                valid = lanes < I32MAX
+                start = valid & (lanes != np.concatenate([prev[:, None], lanes[:, :-1]], 1))
+                pos = i0[:, None] + np.arange(SEG_KPT)
+                first = np.where(start.any(1), np.where(start, pos, I32MAX).min(1), I32MAX)
+                after = np.r_[np.minimum.accumulate(first[::-1])[::-1][1:], I32MAX]
+                vend = s + int(valid.sum())
+                full = vend == e
+                k_end = ks[e] if e < E else I32MAX
+                open_end = full and e < E and k_end == ks[e - 1]
+                sizes = np.zeros_like(lanes)
+                for lane in range(len(lanes)):
+                    nxt = after[lane]
+                    for j in range(SEG_KPT - 1, -1, -1):
+                        if start[lane, j]:
+                            i = int(pos[lane, j])
+                            tail = nxt == I32MAX
+                            if not (tail and open_end):
+                                cnt = (vend if tail else nxt) - i
+                                if min_pix <= cnt * stride <= max_per:
+                                    sizes[lane, j] = cnt
+                            nxt = i
+                own = sizes.reshape(-1) > 0
+                at = np.cumsum(own) - 1
+                cand[b, s + at[own]] = (sizes.reshape(-1)[own] << P.SEG_POS_BITS) | (
+                    pos.reshape(-1)[own] - s)
+                np.add.at(hist[b], sizes.reshape(-1)[own], 1)
+                n_starts = int(start.sum())
+                ls = int(pos[start].max()) if n_starts else -1
+                stats[b, :, u] = (n_starts, int(own.sum()), int(sizes.max()), first.min(),
+                                  ls if open_end and n_starts else -1)
+                if not full or e == E or k_end == I32MAX:
+                    nv[b] = vend
+    return dict(stats=stats, cand=cand, hist=hist, nv=nv)
+
+
+def _walk_tiles(m: dict):
+    return P.SegmentTiles(stats=torch.from_numpy(m["stats"]).to(torch.int32),
+                          cand=torch.from_numpy(m["cand"]).to(torch.int32),
+                          hist=torch.from_numpy(m["hist"]).to(torch.int32),
+                          nv=torch.from_numpy(m["nv"]).to(torch.int32))
+
+
+def _assert_walk_matches(keys, num_edge, ovf, kw, groups) -> None:
+    k, ne, ov = torch.from_numpy(keys), torch.from_numpy(num_edge), torch.from_numpy(ovf)
+    tkw = dict(E=kw["E"], min_cluster_pixels=kw["min_cluster_pixels"],
+               max_perimeter=kw["max_perimeter"])
+    m = mirror_tile_walk(keys, num_edge, E=kw["E"], min_pix=kw["min_cluster_pixels"],
+                         max_per=kw["max_perimeter"], groups=groups)
+    want = P.segment_tiles_plain(k, ne, **tkw)
+    for f in want._fields:
+        np.testing.assert_array_equal(m[f], getattr(want, f).numpy(), err_msg=f)
+    got = P.segment_top_plain(_walk_tiles(m), ne, ov, **kw)
+    for f, a, w in zip(got._fields, got, P.top_segments_plain(k, ne, ov, **kw)):
+        assert torch.equal(a, w), f
+
+
+@pytest.mark.parametrize("groups", WALK_GROUPS)
+@pytest.mark.parametrize("name", list(ROWS))
+def test_tile_walk_mirror_on_synthetic_rows(name, groups):
+    """The tiles kernel's walk (a warp a 512-key tile, 16 keys a lane, the
+    tiles of a frame walked by 1, 3 or one group a tile) lays out
+    segment_tiles_plain's fields, candidates, histogram and valid keys on
+    chip_smoke.py's rows, and segment_top_plain on them gives
+    top_segments_plain's results."""
+    keys, num_edge, ovf, kw = ROWS[name]
+    _assert_walk_matches(keys, num_edge, ovf, kw, groups)
+
+
+@pytest.mark.parametrize("groups", WALK_GROUPS)
+@pytest.mark.parametrize("case", list(CASES))
+def test_tile_walk_mirror_on_scenes(stages, case, groups):
+    st = stages[case]
+    _assert_walk_matches(st["key_s"].numpy(), st["num_edge"].numpy(), st["ovf"].numpy(),
+                         _top_kw(st["kw"]), groups)
+
+
+@pytest.mark.parametrize("name", list(ROWS))
+def test_synthetic_rows_expose_wrong_walks(name):
+    """Every row exposes a walk that compares each lane's first key with -1
+    and one whose later tiles keep the first tile's keys (one group a
+    frame)."""
+    keys, num_edge, ovf, kw = ROWS[name]
+    want = P.segment_tiles_plain(torch.from_numpy(keys), torch.from_numpy(num_edge), E=kw["E"],
+                                 min_cluster_pixels=kw["min_cluster_pixels"],
+                                 max_perimeter=kw["max_perimeter"])
+    for wrong in ("prev_minus_one", "stale_keys"):
+        m = mirror_tile_walk(keys, num_edge, E=kw["E"], min_pix=kw["min_cluster_pixels"],
+                             max_per=kw["max_perimeter"], groups=1, **{wrong: True})
+        assert any(not np.array_equal(m[f], getattr(want, f).numpy()) for f in want._fields), \
+            f"{name}: the {wrong} walk agrees"

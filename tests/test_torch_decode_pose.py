@@ -191,9 +191,10 @@ def test_pose_batched_k_matches_reference():
     assert_pose_matches(want, got)
 
 
-def _mirror_solve(A, b, pick: str = "first"):
+def _mirror_solve(A, b, pick: str = "first", pivots: list | None = None):
     """numpy float32 mirror of utils/geometry.py::solve_pivoted with the
-    pivot on ties taken from the first (its rule) or the last row."""
+    pivot on ties taken from the first (its rule) or the last row; the
+    pivot rows go to `pivots` where given."""
     A, b = A.astype(np.float32).copy(), b.astype(np.float32).copy()
     n = len(b)
     for k in range(n):
@@ -201,6 +202,8 @@ def _mirror_solve(A, b, pick: str = "first"):
         top = col.max()
         rows = np.flatnonzero(col == top) if top == top else [0]
         p = k + (rows[0] if pick == "first" else rows[-1])
+        if pivots is not None:
+            pivots.append(int(p))
         A[[k, p]], b[[k, p]] = A[[p, k]], b[[p, k]]
         for i in range(k + 1, n):
             f = A[i, k] / A[k, k]
@@ -343,3 +346,160 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                          (c, Kt.t()), (c[:, :0], Kt)):
         with pytest.raises(ValueError):
             pose_kernel.estimate_poses(bad_c, bad_k, TAG_SIZE)
+
+
+def _pose_system(dst, half: float):
+    """The 8x8 system of the tag-plane homography of quad `dst` (4, 2)
+    (utils/geometry.py::homography_from_correspondences: the tag's corners
+    TAG_CORNERS * half, the quad Hartley-normalized)."""
+    from isaac_ros_apriltag_tpu_torch.utils.render import TAG_CORNERS
+
+    src = (np.asarray(TAG_CORNERS, np.float32) * np.float32(half)).astype(np.float32)
+    c = ((dst[0] + dst[1]) + dst[2]) + dst[3]
+    c = (c * np.float32(0.25)).astype(np.float32)
+    e = (dst - c).astype(np.float32)
+    s = np.float32(max(np.float32(np.abs(e).reshape(-1).sum() * np.float32(0.125)), 1e-6))
+    u, v = (e / s).astype(np.float32).T
+    x, y = src[:, 0], src[:, 1]
+    z, o = np.zeros(4, np.float32), np.ones(4, np.float32)
+    A = np.concatenate([np.stack([x, y, o, z, z, z, -u * x, -u * y], -1),
+                        np.stack([z, z, z, x, y, o, -v * x, -v * y], -1)])
+    return A.astype(np.float32), np.concatenate([u, v]).astype(np.float32)
+
+
+def _pivots(A, b, pick: str = "first"):
+    """The rows _mirror_solve pivots on, column by column."""
+    got = []
+    _mirror_solve(A, b, pick, pivots=got)
+    return got
+
+
+HALF_SIZES = (TAG_SIZE / 2, 0.08, 0.5, 1e-3, 1e-40, -0.08, 3e38, 0.0, float("inf"),
+              float("nan"))
+
+
+@pytest.mark.parametrize("half", HALF_SIZES)
+def test_standard_pivots_follow_the_elimination(half):
+    """ops/cuda/pose.py::standard_pivots(half) (the host's choice of the
+    pose kernels' fixed pivots) says whether the elimination of the tag's
+    homography pivots on STANDARD_PIVOTS in columns 0-5, ties to the first
+    row, also after the swap at column 3; those pivots do not depend on
+    the quad, NaN corners and collinear ones included. At a normal size a
+    mirror that takes the last of a tie pivots elsewhere."""
+    rng = np.random.default_rng(31)
+    quads = [(np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float32) * rng.uniform(8, 60)
+              + rng.normal(0, 4, (4, 2)) + rng.uniform(40, 600, 2)).astype(np.float32)
+             for _ in range(6)]
+    quads += [NAN_QUAD, COLLINEAR_QUAD]
+    std = pose_kernel.standard_pivots(half)
+    assert std == (half == TAG_SIZE / 2 or 0 < abs(half) < 1e38)
+    for q in quads:
+        with np.errstate(all="ignore"):
+            A, b = _pose_system(q, half)
+            first, last = _pivots(A, b), _pivots(A, b, "last")
+        assert (tuple(first[:6]) == pose_kernel.STANDARD_PIVOTS) == std
+        assert not std or tuple(last[:6]) != pose_kernel.STANDARD_PIVOTS
+
+
+POSE_CASES = ("a NaN corner", "collinear corners", "per-frame K, a NaN and a collinear quad")
+
+
+@pytest.mark.parametrize("name", POSE_CASES)
+def test_pose_degenerate_quads_match_reference(name):
+    """estimate_poses with a quad of NaN and infinite corners or a collinear
+    one (a singular homography) beside well-posed tags, with a shared K and
+    one a frame: the well-posed tags as the reference poses them and bit for
+    bit as posed without the bad quad; the bad quad's translation not
+    finite in either."""
+    Ks = np.stack([K * np.array([[1 + 0.1 * b], [1 + 0.1 * b], [1]], np.float32)
+                   for b in range(2)])
+    batched = name.startswith("per-frame")
+    corners = tail_pose_corners(Ks if batched else [K], 3, seed=8)
+    bad = np.zeros(corners.shape[:2], bool)
+    if batched:
+        corners[0, 1], corners[1, 2] = NAN_QUAD, COLLINEAR_QUAD
+        bad[0, 1] = bad[1, 2] = True
+        Kin = Ks
+        want = jax.jit(jax.vmap(_reference_pose))(jnp.asarray(corners), jnp.asarray(Ks))
+    else:
+        corners[0, 1] = NAN_QUAD if name == "a NaN corner" else COLLINEAR_QUAD
+        bad[0, 1] = True
+        Kin = K
+        want = jax.jit(jax.vmap(_reference_pose, (0, None)))(jnp.asarray(corners), jnp.asarray(K))
+    got = tpose.estimate_poses(torch.from_numpy(corners), torch.from_numpy(Kin), TAG_SIZE)
+    good = ~bad
+    for f in ("translation", "quaternion", "rotation"):
+        np.testing.assert_allclose(getattr(got, f).numpy()[good], np.asarray(getattr(want, f))[good],
+                                   rtol=1e-5, atol=1e-4, err_msg=f)
+    assert not np.isfinite(got.translation.numpy()[bad]).all(axis=-1).any()
+    assert not np.isfinite(np.asarray(want.translation)[bad]).all(axis=-1).any()
+    clean = corners.copy()
+    clean[bad] = corners[good][0]
+    alone = tpose.estimate_poses(torch.from_numpy(clean), torch.from_numpy(Kin), TAG_SIZE)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f)[torch.from_numpy(good)],
+                           getattr(alone, f)[torch.from_numpy(good)]), f
+
+
+def _fixed_mirror(A, b, consts, swap6: bool = True):
+    """numpy float32 mirror of csrc/tail.cu::solve8_fixed on a tag-plane
+    system (A, b in solve_pivoted's row order): the data columns 6 and 7
+    and b in PIVOT_ROWS' order, eliminated by pose_constants' multipliers,
+    column 6's pivot between rows 6 and 7 (`swap6` False: never swapped, a
+    wrong mirror), and the back substitution with u for columns 0-5."""
+    order = [4 * v + k for v, k in pose_kernel.PIVOT_ROWS]
+    c6, c7, bb = A[order, 6].copy(), A[order, 7].copy(), b[order].copy()
+    f, u = consts[:27], consts[27:]
+    m = 0
+    for k in range(6):
+        for i in range(k + 1, 8):
+            c6[i] = c6[i] - f[m] * c6[k]
+            c7[i] = c7[i] - f[m] * c7[k]
+            bb[i] = bb[i] - f[m] * bb[k]
+            m += 1
+    if swap6 and abs(c6[7]) > abs(c6[6]):
+        c6[[6, 7]], c7[[6, 7]], bb[[6, 7]] = c6[[7, 6]], c7[[7, 6]], bb[[7, 6]]
+    g = c6[7] / c6[6]
+    c7[7] = c7[7] - g * c7[6]
+    bb[7] = bb[7] - g * bb[6]
+    x = np.zeros(8, np.float32)
+    x[7] = bb[7] / c7[7]
+    bb[:7] = bb[:7] - c7[:7] * x[7]
+    x[6] = bb[6] / c6[6]
+    bb[:6] = bb[:6] - c6[:6] * x[6]
+    for j in range(5, -1, -1):
+        x[j] = bb[j] / u[j * (13 - j) // 2]
+        for i in range(j):
+            bb[i] = bb[i] - u[i * (13 - i) // 2 + j - i] * x[j]
+    return x
+
+
+@pytest.mark.parametrize("half", HALF_SIZES)
+def test_fixed_elimination_equals_solve_pivoted(half):
+    """The pose kernels' elimination with the host's constants
+    (pose_constants: the tag's columns 0-5 reduced once, in float32) gives
+    solve_pivoted's solution bit for bit, NaN for NaN, on random quads, a
+    quad with NaN and infinite corners and a collinear one, and where the
+    size has no constants (0, a subnormal, 3e38, inf, NaN) it is None. A
+    mirror without column 6's pivot differs on some quad."""
+    consts = pose_kernel.pose_constants(half)
+    normal = np.isfinite(np.float32(half)) and np.finfo(np.float32).tiny <= abs(np.float32(half))
+    assert (consts is not None) == (pose_kernel.standard_pivots(half) and normal)
+    if consts is None:
+        return
+    assert consts.shape == (48,) and consts.dtype == np.float32
+    rng = np.random.default_rng(37)
+    quads = [(np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float32) * rng.uniform(4, 90)
+              + rng.normal(0, 9, (4, 2)) + rng.uniform(20, 900, 2)).astype(np.float32)
+             for _ in range(24)]
+    quads += [NAN_QUAD, COLLINEAR_QUAD, np.roll(quads[0], 1, 0), quads[1][::-1].copy()]
+    swapped = 0
+    for q in quads:
+        with np.errstate(all="ignore"):
+            A, b = _pose_system(q, half)
+            got = _fixed_mirror(A, b, consts)
+            wrong = _fixed_mirror(A, b, consts, swap6=False)
+        want = tgeo.solve_pivoted(torch.from_numpy(A)[None], torch.from_numpy(b)[None])[0]
+        np.testing.assert_array_equal(got, want.numpy())
+        swapped += not np.array_equal(wrong, want.numpy())
+    assert swapped > 0

@@ -393,8 +393,8 @@ def test_replay_counts_launches(cuda, backend):
     each resolve kernel (the contraction's and the final resolve's), the
     cluster kernels' (one of each, one radix scatter a pass), one
     each of the tail's kernels (the quad fit, the top-2T pick, refine,
-    decode, the dedupe and top-T pick, pose) for backend 'cuda', none for
-    the twins; the capture itself adds none."""
+    decode, the dedupe and top-T pick with the pose in one launch) for
+    backend 'cuda', none for the twins; the capture itself adds none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
     n = 1 if backend == "cuda" else 0
@@ -407,7 +407,8 @@ def test_replay_counts_launches(cuda, backend):
                                    **{k: n * m for k, m in CLUSTER_KERNELS.items()},
                                    **{k: 2 * n for k in RESOLVE_KERNELS},
                                    "quadfit_search": n, "tail_select": n, "refine": n,
-                                   "decode": n, "tail_finish": n, "pose": n}
+                                   "decode": n, "tail_finish": 0, "finish_pose": n,
+                                   "pose": 0}
 
 
 def test_streaming_over_captured_call_equals_eager(cuda):
@@ -794,7 +795,7 @@ _GLUE_CASES = {}
 @pytest.mark.parametrize("name", GLUE_CASE_NAMES + REFINE_CASE_NAMES + FINISH_CASE_NAMES)
 def test_glue_kernels_match_plain_versions(cuda, name):
     """chip_smoke.py phase 27's checks on one case: the refine, select and
-    finish kernels (refine alone on REFINE_CASE_NAMES: search ranges whose
+    finish kernels and the finish with the pose (refine alone on REFINE_CASE_NAMES: search ranges whose
     profiles span one or several staged chunks, quads across the frame's
     edges; the finish alone on FINISH_CASE_NAMES: margins at +-inf and NaN,
     a gate of -inf, one id on 128 valid candidates, N 100 and k 7, NaN

@@ -44,6 +44,7 @@ import isaac_ros_apriltag_tpu as J
 from chip_smoke import GLUE_CASE_NAMES, glue_synthetic, refine_synthetic, tail_frame
 from isaac_ros_apriltag_tpu import detector as jdet
 from isaac_ros_apriltag_tpu.ops import cluster_moments as jcm
+from isaac_ros_apriltag_tpu.ops import pose as jpose
 from isaac_ros_apriltag_tpu.ops import quadfit as jqf
 from isaac_ros_apriltag_tpu.ops import refine as jref
 from isaac_ros_apriltag_tpu.utils import geometry as jgeo
@@ -52,6 +53,7 @@ from isaac_ros_apriltag_tpu_torch.convert import camera_from_reference, config_f
 from isaac_ros_apriltag_tpu_torch.detector import _decimate, _detect_from_clusters, _pad_to_tiles
 from isaac_ros_apriltag_tpu_torch.models.families import get_family
 from isaac_ros_apriltag_tpu_torch.ops import cluster_moments as tcm
+from isaac_ros_apriltag_tpu_torch.ops import pose as tpose
 from isaac_ros_apriltag_tpu_torch.ops import quadfit as tqf
 from isaac_ros_apriltag_tpu_torch.ops import refine as tref
 from isaac_ros_apriltag_tpu_torch.ops import tail as ttail
@@ -615,3 +617,52 @@ def test_fit_wrapper_refuses_what_its_kernel_does_not_take():
     with pytest.raises(ValueError):
         quadfit_kernel.quad_fit(S[:5], m)
 
+
+@pytest.mark.parametrize("batched_k", [False, True])
+@pytest.mark.parametrize("name", FINISH_CASES)
+def test_finish_and_pose_matches_reference(name, batched_k):
+    """The detect path's finish and pose in one call (ops/cuda/tail.py::
+    finish_and_pose; on the card one launch of finish_pose_kernel) on CPU
+    tensors: finish_detections, then estimate_poses of its corners, bit for
+    bit, with K shared or one a frame; against the reference's finish
+    (detector.py:254-310) and estimate_poses on the valid tags with finite
+    corners (1e-4 as tests/test_torch_decode_pose.py's pose)."""
+    (dec, pre_valid, n_quads, overflow), kw = finish_case(name)
+    B = pre_valid.shape[0]
+    K1 = np.array(chip_smoke.TAIL_K, np.float32)
+    Ks = np.stack([K1 * np.array([[1 + 0.1 * b], [1 + 0.1 * b], [1]], np.float32)
+                   for b in range(B)])
+    Kt = torch.from_numpy(Ks if batched_k else K1)
+    before = launch_counts()
+    sel, poses = tail_kernels.finish_and_pose(dec, pre_valid, n_quads, overflow, Kt,
+                                              chip_smoke.TAIL_TAG_SIZE, **kw)
+    assert launch_counts() == before
+    want_sel = ttail.finish_detections(dec, pre_valid, n_quads, overflow, **kw)
+    want_pose = tpose.estimate_poses(want_sel.corners, Kt, chip_smoke.TAIL_TAG_SIZE)
+    for a, b in zip((*sel, *poses), (*want_sel, *want_pose)):
+        assert torch.equal(a, b) or (a.dtype.is_floating_point and torch.equal(a.isnan(), b.isnan())
+                                     and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    ref = jax.jit(jax.vmap(functools.partial(_jax_finish, **kw)))
+    jsel = ref(*(jnp.asarray(t.numpy()) for t in (
+        dec.valid, dec.id, dec.hamming, dec.margin, dec.corners, pre_valid, n_quads, overflow)))
+    jc = np.asarray(jsel[5])
+    jp = jax.vmap(lambda c, k: jpose.estimate_poses(c, k, chip_smoke.TAIL_TAG_SIZE),
+                  (0, 0 if batched_k else None))(jnp.asarray(jc), jnp.asarray(Kt.numpy()))
+    ok = np.asarray(jsel[0]) & np.isfinite(jc).all((-1, -2))
+    for f in ("translation", "quaternion", "rotation"):
+        np.testing.assert_allclose(getattr(poses, f).numpy()[ok], np.asarray(getattr(jp, f))[ok],
+                                   rtol=1e-5, atol=1e-4, err_msg=f"{name} {f}")
+
+
+
+def test_finish_and_pose_refuses_what_its_kernel_does_not_take():
+    """finish_and_pose checks K before it runs anything: float32, contiguous,
+    (3, 3) or one a frame, on the candidates' device."""
+    (dec, pre_valid, n_quads, overflow), kw = finish_case("a batch of 3 frames")
+    K = torch.from_numpy(np.array(chip_smoke.TAIL_K, np.float32))
+    B = pre_valid.shape[0]
+    for bad in (K.double(), K.t(), K[:2], K.expand(B + 1, 3, 3).contiguous(), K.reshape(9),
+                K.to("meta")):
+        with pytest.raises(ValueError):
+            tail_kernels.finish_and_pose(dec, pre_valid, n_quads, overflow, bad,
+                                         chip_smoke.TAIL_TAG_SIZE, **kw)

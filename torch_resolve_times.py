@@ -3,7 +3,8 @@
 trees on one card in one call.
 
     python3 torch_resolve_times.py [--root DIR]
-        [--stage resolve|sort|edge_count|moments|segment_top|quadfit|refine|decode|finish]
+        [--stage resolve|sort|edge_count|moments|segment_tiles|segment_top|quadfit|refine|
+                 decode|pose|finish]
 
 Builds the kernels of the package under DIR (default: this checkout) and
 prints one JSON line: the card's nvidia-smi name and power limit, DIR, and
@@ -21,15 +22,22 @@ output), given with the pixels; the moments call the moments kernel on
 the slots the stage's sort and segment kernels give it (slot_moments),
 given with the resident pairs; the segment_top call the top kernel
 (segment_top) on the tiles the stage's tiles kernel gives it, given with
-the tiles and candidates; the quadfit calls the quad fit's fitting
+the tiles and candidates; the segment_tiles calls the tiles kernel
+(segment_tiles, its histogram's zeroing included) and both segment
+kernels (top_segments) on the stage's sorted keys, given with the tiles
+and the valid keys; the quadfit calls the quad fit's fitting
 launch (quad_fit) and its search alone (quad_search) on the prefix tables
 of the cluster stage's moments, given with the clusters; the refine call
 the edge refinement (refine_edges) on the candidate quads a detect call
 gives it, given with the quads and the profile's samples; the decode
 call the decode kernel (decode_quads) on the refined candidates a detect
-call gives it, given with the quads; the finish call the dedupe and top-T
+call gives it, given with the quads; the pose call the pose kernel
+(estimate_poses) on the top-T tags' corners a detect call gives it,
+given with the tags; the finish calls the dedupe and top-T
 kernel (finish_detections) on the decoded candidates a detect call gives
-it, given with the candidates and the valid ones among them. Compare
+it, given with the candidates and the valid ones among them, and, where
+the detect path poses in the finish's launch, that launch
+(finish_and_pose) on the same candidates. Compare
 a parent and a change in turns: parent, change, change, parent. Without a
 CUDA device it exits 1 and prints nothing.
 """
@@ -71,8 +79,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     parser.add_argument("--stage", default="resolve",
-                        choices=("resolve", "sort", "edge_count", "moments", "segment_top",
-                                 "quadfit", "refine", "decode", "finish"))
+                        choices=("resolve", "sort", "edge_count", "moments", "segment_tiles",
+                                 "segment_top", "quadfit", "refine", "decode", "pose", "finish"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_resolve_times: no CUDA device; nothing was run", file=sys.stderr)
@@ -83,6 +91,7 @@ def main() -> int:
     from isaac_ros_apriltag_tpu_torch.ops.cuda import _lib
     from isaac_ros_apriltag_tpu_torch.ops.cuda import cluster_moments as cmk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import decode as dk
+    from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as qk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as fk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as rk
@@ -115,13 +124,21 @@ def main() -> int:
             gray, corners, family, kw = detect_tail_inputs(cfg, cam, inputs[0])["decode"]
             size = {"quads": corners.numel() // 8}
             calls = {"decode": lambda: dk.decode_quads(gray, corners, family, **kw)}
+        elif args.stage == "pose":
+            pc, K, tag_size = detect_tail_inputs(cfg, cam, inputs[0])["pose"]
+            size = {"tags": pc.numel() // 8}
+            calls = {"pose": lambda: pk.estimate_poses(pc, K, tag_size)}
         elif args.stage == "finish":
-            fargs, fkw = detect_glue_inputs(cfg, cam, inputs[0])["tail_finish"]
+            glue = detect_glue_inputs(cfg, cam, inputs[0])
+            fargs, fkw = glue["tail_finish"]
             dec, pre_valid = fargs[0], fargs[1]
             ok = pre_valid & dec.valid & (dec.margin >= fkw["min_decision_margin"])
             size = {"candidates": pre_valid.numel(), "valid": int(ok.sum())}
             calls = {"finish": lambda: tk.finish_detections(*fargs, **fkw)}
-        elif args.stage in ("sort", "edge_count", "moments", "segment_top"):
+            if "finish_pose" in glue:
+                calls["finish_pose"] = lambda: tk.finish_and_pose(*glue["finish_pose"][0],
+                                                                  **glue["finish_pose"][1])
+        elif args.stage in ("sort", "edge_count", "moments", "segment_tiles", "segment_top"):
             tri, dense, ovf, kw = cluster_inputs(cfg, inputs[0])
             B, H, W = tri.shape
             E = min(kw["max_edge_points"], 4 * H * W)
@@ -130,6 +147,15 @@ def main() -> int:
             if args.stage == "sort":
                 size = {"kept": int(kept.sum())}
                 calls = {"sort": lambda: cmk.sort_pairs(tri, dense, ne, E)}
+            elif args.stage == "segment_tiles":
+                E2 = min(cfg.max_clusters * cfg.max_cluster_points, E)
+                tkw = dict(E=E, min_cluster_pixels=cfg.min_cluster_pixels,
+                           max_perimeter=4 * (W + H))
+                tiles = cmk.segment_tiles(rows.key, ne, **tkw)
+                size = {"tiles": tiles.stats.shape[-1], "valid": int(tiles.nv.sum())}
+                calls = {"segment_tiles": lambda: cmk.segment_tiles(rows.key, ne, **tkw),
+                         "top_segments": lambda: cmk.top_segments(
+                             rows.key, ne, ovf, E2=E2, max_clusters=cfg.max_clusters, **tkw)}
             elif args.stage == "segment_top":
                 E2 = min(cfg.max_clusters * cfg.max_cluster_points, E)
                 tkw = dict(E=E, min_cluster_pixels=cfg.min_cluster_pixels,
