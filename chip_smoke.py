@@ -140,7 +140,9 @@ non-zero):
      of every kernel in phase 21's two replays, and in the same replays
      with the quad-fit epilogue, the picks, the dedupe and refine in the
      parent's torch form; in each replay only TAIL_BETWEEN's kernels run
-     between the quad fit's launch and the finish's, which poses the tags;
+     between the quad fit's launch and the finish's, which poses the tags
+     (the pick and refine in one launch, then decode), and the pick alone
+     does not run;
  23. cluster moments: the cluster-moment kernels (csrc/cluster_moments.cu:
      the pair count, the kept pairs' sort (the histogram pass, then
      SORT_PASSES launches of the scatter kernel, the first of which builds
@@ -229,19 +231,20 @@ non-zero):
      bit-exact with the plain version (ops/decode.py, ops/pose.py), one
      launch a call, two calls and a captured replay equal; device ms of
      each kernel, its plain version, its bound and the parent's torch form;
- 27. tail glue: the refine, top-2T pick and dedupe/top-T kernels
-     (csrc/tail.cu: refine_kernel, tail_select_kernel, tail_finish_kernel,
-     and finish_pose_kernel, the dedupe/top-T with the tags' pose, the
+ 27. tail glue: the top-2T pick and refine and the dedupe/top-T kernels
+     (csrc/tail.cu: refine_kernel, the top-2T pick and refine in one
+     launch; tail_finish_kernel, and finish_pose_kernel, the dedupe/top-T with the tags' pose, the
      detect path's launch, with TAIL_K, one a frame for a batch, where a
      case holds no K) on what a detect call of torch_bench.py's 720p b1 and
      1080p b8 inputs gives them and on glue_synthetic's cases (NaN and inf corners, no
      valid quad, tied scores and margins, duplicate ids at equal margins,
-     max_tags < C/2, quad_decimate 1 and 3, a batch of 3), refine also on
-     refine_synthetic's (search ranges 0.5 to 5 and 40: profiles of 7 to
-     165 samples, one to seven staged chunks; quads across the frame's
-     edges): every output
-     bit-exact with the plain version (ops/refine.py, ops/tail.py, then
-     ops/pose.py for the fused launch), one
+     max_tags < C/2, quad_decimate 1 and 3, a batch of 3), the pick and
+     refine also on refine_synthetic's (search ranges 0.5 to 5 and 40:
+     profiles of 7 to 165 samples, one to seven staged chunks; quads across
+     the frame's edges): every output
+     bit-exact with the plain version (ops/refine.py, ops/tail.py:
+     select_and_refine for the pick and refine, then ops/pose.py for the
+     finish with the pose), one
      launch a call, two calls and a captured replay equal, a batch equal to
      each frame alone; device ms of each kernel, its plain version, its
      bound and the parent's torch form.
@@ -249,10 +252,10 @@ Every path launches K1 once, K2 and K3 once a scan round, each resolve
 kernel once a resolve call (twice in the two-phase flow), each cluster
 kernel once a call but the radix scatter, once a pass (CLUSTER_KERNELS),
 and the tail's kernels once a call: the quad fit's fitting launch, the
-top-2T pick, refine, decode, and the dedupe and top-T pick with the pose
-in one launch (a rig whose cameras have their own K: the pick alone, and
-pose once a call outside its graph). A path
-counted on an eager
+top-2T pick and refine in one launch, decode, and the dedupe and top-T
+pick with the pose in one launch (a rig whose cameras have their own K:
+the dedupe and top-T pick alone, and pose once a call outside its
+graph). A path counted on an eager
 call reads the wrappers' counters, which each wrapper adds to where it
 launches its kernel; a replay adds the counts its capture recorded
 (capture.GraphedCall), which phase 22 holds against the profiler. The kernels line's `captured` path is phase 22's 720p b1 replay.
@@ -336,8 +339,7 @@ KERNEL_NAMES = {"threshold": "threshold_kernel", "row": "row_scan_kernel",
                 "resolve_scan": "resolve_scan_kernel", "resolve_chain": "resolve_chain_kernel",
                 "resolve_map": "resolve_map_kernel",
                 "quadfit_search": "qf_search_kernel",
-                "tail_select": "tail_select_kernel",
-                "refine": ("::refine_kernel(", "13refine_kernelE"),
+                "select_refine": ("::refine_kernel(", "13refine_kernelE"),
                 "decode": ("::decode_kernel(", "13decode_kernelE"),
                 "tail_finish": "tail_finish_kernel",
                 "finish_pose": ("::finish_pose_kernel<", "18finish_pose_kernelI"),
@@ -591,21 +593,24 @@ TAIL_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES
 # (its point on the normal, the clamps, floors and fractions, the four taps'
 # weights) and a gradient weight (the difference, its square, the two sums
 # and the offset); a pair of candidates in a frame's rank (a compare) and
-# in the dedupe (the center distance and the tests): the select ranks all
-# its pairs, the finish tests and ranks its valid candidates' pairs only.
+# in the dedupe (the center distance and the tests): a pick ranks the pairs
+# of the quads scored above -inf, the finish tests and ranks its valid
+# candidates' pairs only.
 # The finish with the pose (finish_pose_kernel, the detect path's launch)
 # also counts each top-T tag's pose: about POSE_FLOPS f32 operations a tag,
 # counted from csrc/tail.cu::pose_one (the 8x8 elimination and back
 # substitution 428, the rest of the homography ~90, K^-1 and M ~90, the
 # scale and axes ~50, the Newton steps ~250, the quaternion ~50).
-GLUE_KERNELS = ("refine", "tail_select", "tail_finish", "finish_pose")
-GLUE_REPLACES = {"refine": "isaac_ros_apriltag_tpu/ops/refine.py:61",
-                 "tail_select": "isaac_ros_apriltag_tpu/detector.py:234",
+# The detect path's pick and refine are one launch (select_refine:
+# refine_kernel).
+GLUE_KERNELS = ("select_refine", "tail_finish", "finish_pose")
+GLUE_NAMES = {"select_refine": "refine_kernel"}
+GLUE_REPLACES = {"select_refine": "isaac_ros_apriltag_tpu/detector.py:234",
                  "tail_finish": "isaac_ros_apriltag_tpu/detector.py:254",
                  "finish_pose": "isaac_ros_apriltag_tpu/detector.py:254"}
 GLUE_SAMPLE_FLOPS = 21
 GLUE_WEIGHT_FLOPS = 8
-GLUE_PAIR_FLOPS = {"tail_select": 1, "tail_finish": 12, "finish_pose": 12}
+GLUE_PAIR_FLOPS = {"select_refine": 1, "tail_finish": 12, "finish_pose": 12}
 POSE_FLOPS = 950
 GLUE_CASE_NAMES = (tuple(f"{config} b{batch}" for config, batch in CAPTURE_CASES)
                    + ("NaN and inf corners", "no valid quad", "tied scores and margins",
@@ -1505,14 +1510,15 @@ def _want(frames: int = 1, rounds: int = SCAN_ROUNDS, resolves: int = 2,
     K1 once, K2 and K3 once a round, the resolve kernels once a resolve call,
     the cluster kernels
     as CLUSTER_KERNELS counts them, and the tail's kernels once: the quad
-    fit's fitting launch, the top-2T pick, refine, decode, and the dedupe
-    and top-T pick with the tags' pose in one launch (finish_pose); with
+    fit's fitting launch, the top-2T pick and refine in one launch
+    (select_refine), decode, and the dedupe and top-T pick with the tags'
+    pose in one launch (finish_pose); with
     rig_k (a rig whose cameras have their own K), the dedupe and top-T pick
     alone (tail_finish) and pose once a call, outside its graph."""
     return {"threshold": frames, "row": rounds * frames, "col": rounds * frames,
             **{k: n * frames for k, n in CLUSTER_KERNELS.items()},
             **{k: resolves * frames for k in RESOLVE_KERNELS},
-            "quadfit_search": frames, "tail_select": frames, "refine": frames,
+            "quadfit_search": frames, "select_refine": frames,
             "decode": frames, "tail_finish": frames * rig_k, "finish_pose": frames * (not rig_k),
             "pose": frames * rig_k}
 
@@ -1553,7 +1559,7 @@ def _device_kernels(prof) -> list[str]:
 # The kernels that may run between the quad fit's launch and the finish's
 # (with the pose) in a detect call on backend 'cuda' (phase 22 checks that
 # nothing else does).
-TAIL_BETWEEN = ("tail_select", "refine", "decode")
+TAIL_BETWEEN = ("select_refine", "decode")
 
 
 def _kernel_key(name: str):
@@ -3822,8 +3828,8 @@ def tail_phase(gpu: str) -> dict:
 
 
 def parent_refine_form(gray, corners, dark_inside, *, search_range: float = 2.0):
-    """The parent's refine_edges, phase 27's yardstick of the stage before
-    its kernel: torch ops on (..., 4, 12, P) profiles (vector_norm, float
+    """The refine_edges of the tree before the refine kernel, half of
+    parent_select_refine_form: torch ops on (..., 4, 12, P) profiles (vector_norm, float
     sums over offsets and points), ~160 of them."""
     import torch
 
@@ -3912,8 +3918,8 @@ def parent_fit_form(m, *, max_line_fit_mse: float = 10.0, critical_cos: float = 
 
 def parent_select_form(corners, valid, dark_inside, fit_err, *, want_dark: bool, k: int,
                        decimate: int):
-    """The parent's top-2T pick, phase 27's yardstick of tail_select_kernel:
-    vector_norm and a float sum for the perimeter, torch.sort, gathers and
+    """The top-2T pick of the tree before its kernel, half of
+    parent_select_refine_form: vector_norm and a float sum for the perimeter, torch.sort, gathers and
     the upscale, ~17 torch ops."""
     import torch
 
@@ -3925,6 +3931,19 @@ def parent_select_form(corners, valid, dark_inside, fit_err, *, want_dark: bool,
     return Candidates(corners=upscale_coords(take(corners, top_i), decimate),
                       dark_inside=take(dark_inside, top_i), pre_valid=torch.isfinite(top_s),
                       num_quads=qvalid.sum(-1).to(torch.int32))
+
+
+def parent_select_refine_form(gray, corners, valid, dark_inside, fit_err, *, want_dark: bool,
+                              k: int, decimate: int, search_range: float):
+    """The parent's top-2T pick, then the parent's refine of the picked
+    quads: phase 27's yardstick of refine_kernel."""
+    from isaac_ros_apriltag_tpu_torch.ops.tail import RefinedCandidates
+
+    cand = parent_select_form(corners, valid, dark_inside, fit_err, want_dark=want_dark, k=k,
+                              decimate=decimate)
+    return RefinedCandidates(corners=parent_refine_form(gray, cand.corners, cand.dark_inside,
+                                                        search_range=search_range),
+                             pre_valid=cand.pre_valid, num_quads=cand.num_quads)
 
 
 def parent_finish_form(dec, pre_valid, num_quads, overflow, *, k: int,
@@ -3963,7 +3982,6 @@ def parent_finish_form(dec, pre_valid, num_quads, overflow, *, k: int,
 def _glue_stages() -> dict:
     """Phase 27's stages: name -> (kernel wrapper, plain version, the
     parent's form)."""
-    from isaac_ros_apriltag_tpu_torch.ops import refine as plain_refine
     from isaac_ros_apriltag_tpu_torch.ops import tail as plain_tail
     from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as rk
     from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tk
@@ -3980,9 +3998,8 @@ def _glue_stages() -> dict:
         sel = plain_tail.finish_detections(dec, pre_valid, num_quads, overflow, **kw)
         return fused(*sel, *plain_pose.estimate_poses(sel.corners, K, tag_size))
 
-    return {"refine": (rk.refine_edges, plain_refine.refine_edges, parent_refine_form),
-            "tail_select": (tk.select_candidates, plain_tail.select_candidates,
-                            parent_select_form),
+    return {"select_refine": (rk.select_and_refine, plain_tail.select_and_refine,
+                              parent_select_refine_form),
             "tail_finish": (tk.finish_detections, plain_tail.finish_detections,
                             parent_finish_form),
             "finish_pose": (lambda *a, **kw: fused(*(t for part in tk.finish_and_pose(*a, **kw)
@@ -4003,11 +4020,12 @@ def parent_finish_pose_form(dec, pre_valid, num_quads, overflow, K, tag_size: fl
 
 
 def detect_glue_inputs(cfg, cam, images) -> dict:
-    """The inputs of the refine, select and finish kernels in an eager
+    """The inputs of the pick and refine and the finish kernels in an eager
     detect call of a (B, H, W) uint8 batch on the card, backend 'cuda':
-    {stage: (args, keyword arguments)}; the detect path's fused finish and
-    pose (finish_and_pose) gives "finish_pose" and, its first four
-    arguments, "tail_finish"."""
+    {stage: (args, keyword arguments)}; the fused pick and refine
+    (select_and_refine) gives "select_refine", the fused finish and pose
+    (finish_and_pose) gives "finish_pose" and, its first four arguments,
+    "tail_finish"."""
     from unittest import mock
 
     from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as rk
@@ -4024,13 +4042,9 @@ def detect_glue_inputs(cfg, cam, images) -> dict:
             return fn(*args, **kw)
         return watched
 
-    with contextlib.ExitStack() as stack:
-        for stage, (module, name) in {"refine": (rk, "refine_edges"),
-                                      "tail_select": (tk, "select_candidates"),
-                                      "tail_finish": (tk, "finish_detections"),
-                                      "finish_pose": (tk, "finish_and_pose")}.items():
-            stack.enter_context(mock.patch.object(module, name,
-                                                  watch(stage, getattr(module, name))))
+    with mock.patch.object(rk, "select_and_refine",
+                           watch("select_refine", rk.select_and_refine)), \
+            mock.patch.object(tk, "finish_and_pose", watch("finish_pose", tk.finish_and_pose)):
         batched_detect_fn(cfg, cam, "mono8", capture=False)(images)
     return seen
 
@@ -4043,7 +4057,12 @@ def glue_synthetic(name: str, dev) -> dict:
     select the top k from, the decoded candidates (ids from a few, margins
     about the 10.0 gate, candidates valid before decode or not) to finish,
     and tail_frame's one-tag frames (the tag's quad moved ~0.7 px, the
-    other quads, a dark or light inside) to refine at search range d + 1."""
+    other quads, a dark or light inside) to refine at search range d + 1;
+    the pick and refine in one launch picks the 128 quads' top k and refines
+    them on the one-tag frames. Its two halves' inputs, "tail_select" (the
+    128 quads) and "refine" (the one-tag frames' quads), are the tests'
+    inputs of their plain versions (ops/tail.py::select_candidates,
+    ops/refine.py::refine_edges)."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.ops.decode import DecodeResult
@@ -4112,7 +4131,11 @@ def glue_synthetic(name: str, dev) -> dict:
     dark = rng.random(rq.shape[:2]) < 0.5
     dark[:, 0] = True
     refine = ((on(gray), on(rq), on(dark)), dict(search_range=d + 1.0))
-    return {"refine": refine, "tail_select": select, "tail_finish": finish}
+    # The pick and refine in one launch: the quads in the frames' decimated
+    # pixels, upscaled by d onto the one-tag frames.
+    select_refine = ((on(gray), *select[0]), dict(select[1], search_range=d + 1.0))
+    return {"select_refine": select_refine, "refine": refine, "tail_select": select,
+            "tail_finish": finish}
 
 
 def finish_synthetic(name: str, dev) -> dict:
@@ -4170,12 +4193,15 @@ def finish_synthetic(name: str, dev) -> dict:
 
 
 def refine_synthetic(name: str, dev) -> dict:
-    """One of phase 27's refine-only cases (REFINE_CASE_NAMES), {'refine':
+    """One of phase 27's refine-only cases (REFINE_CASE_NAMES), {stage:
     (args, keyword arguments)} on `dev`, made with seeded numpy: two of
     tail_frame's one-tag frames (the tag's quad moved ~0.7 px, the other
     quads, a dark or light inside) at the named search range, or, for
     'profiles leaving the frame', with 12 more quads of half sizes 6-40 px
-    centred within 8 px of the frame's edges, at search range 3."""
+    centred within 8 px of the frame's edges, at search range 3.
+    "select_refine" picks all C of them, valid and unfit, at decimate 1 (the
+    light ones scored -inf and ranked last) and refines them; "refine" holds
+    the quads for the plain version alone (ops/refine.py::refine_edges)."""
     import torch
 
     seed = REFINE_CASE_NAMES.index(name)
@@ -4204,7 +4230,12 @@ def refine_synthetic(name: str, dev) -> dict:
     def on(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return {"refine": ((on(gray), on(rq), on(dark)), dict(search_range=search_range))}
+    C = rq.shape[1]
+    select_refine = ((on(gray), on(rq), on(np.ones((2, C), bool)), on(dark),
+                      on(np.zeros((2, C), np.float32))),
+                     dict(want_dark=True, k=C, decimate=1, search_range=search_range))
+    return {"select_refine": select_refine,
+            "refine": ((on(gray), on(rq), on(dark)), dict(search_range=search_range))}
 
 
 def glue_cases(dev) -> dict:
@@ -4256,8 +4287,8 @@ def _frame_of(args, b: int):
 
 
 def check_glue_case(name: str, case: dict) -> dict:
-    """One of phase 27's cases: each of the refine, select and finish
-    kernels that the case holds inputs for against its plain version bit
+    """One of phase 27's cases: each of the pick and refine and the finish
+    kernels (_glue_stages) that the case holds inputs for against its plain version bit
     for bit on every output (NaN equal to NaN), one launch a call, two
     calls and a captured replay equal, and a batch equal to each frame
     alone. Raises on a difference; returns {stage: the kernel's result}."""
@@ -4302,11 +4333,10 @@ def check_glue_case(name: str, case: dict) -> dict:
     return out
 
 
-def refine_bytes(gray, corners, dark, search_range: float, got) -> int:
-    """The bytes refine_kernel must move: each distinct (frame, row, column)
-    that the four taps of its profile samples read (neighbouring samples,
-    0.5 px apart, share most of them), once, plus the corners, dark flags
-    and refined corners."""
+def tap_bytes(gray, corners, search_range: float) -> int:
+    """The bytes of gray that refining the (B, K, 4, 2) corners reads: each
+    distinct (frame, row, column) that the four taps of its profile samples
+    read (neighbouring samples, 0.5 px apart, share most of them), once."""
     import torch
 
     from isaac_ros_apriltag_tpu_torch.ops.refine import sample_points, tap_indices
@@ -4315,45 +4345,63 @@ def refine_bytes(gray, corners, dark, search_range: float, got) -> int:
     y0, x0, y1, x1, _, _ = tap_indices(H, W, *sample_points(corners, search_range))
     frame = torch.arange(B, device=gray.device).view(B, *[1] * (y0.dim() - 1)) * (H * W)
     taps = torch.stack([frame + y * W + x for y, x in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))])
-    return (torch.unique(taps).numel() * gray.element_size()
-            + sum(t.numel() * t.element_size() for t in (corners, dark, got)))
+    return torch.unique(taps).numel() * gray.element_size()
+
+
+def select_refine_bytes(args, kw, got) -> int:
+    """The bytes refine_kernel must move: the quads (corners, valid, dark,
+    fit_err), tap_bytes of the picked quads' profiles and the outputs."""
+    from isaac_ros_apriltag_tpu_torch.ops import tail as plain_tail
+
+    gray, *quads = args
+    skw = {k: v for k, v in kw.items() if k != "search_range"}
+    cand = plain_tail.select_candidates(*quads, **skw)
+    return (tap_bytes(gray, cand.corners, kw["search_range"])
+            + sum(t.numel() * t.element_size() for t in (*quads, *got)))
 
 
 def glue_bound(stage: str, args, kw, got) -> tuple[float, str]:
     """(bound ms, 'bytes' or 'operations') of one of phase 27's kernels on
-    its inputs: each input and output once (refine: refine_bytes), or its
-    f32 operations at F32_OPS_PER_S, whichever is larger."""
+    its inputs: each input and output once (the pick and refine in one
+    launch: select_refine_bytes), or its f32 operations at F32_OPS_PER_S,
+    whichever is larger. A pick compares each frame's quads scored above
+    -inf pairwise and places the others by counts."""
     import torch
 
+    from isaac_ros_apriltag_tpu_torch.ops import tail as plain_tail
     from isaac_ros_apriltag_tpu_torch.ops.refine import profile
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    gots = tuple(got) if isinstance(got, tuple) else (got,)
-    if stage == "refine":
-        gray, corners, dark = args
+    def refine_ops(n):
         P = profile(kw["search_range"])[1]
-        n = corners.numel() // 8
-        samples = n * 4 * 12 * P
-        by = refine_bytes(gray, corners, dark, kw["search_range"], got)
-        ops = samples * GLUE_SAMPLE_FLOPS + n * 4 * 12 * max(P - 4, 0) * GLUE_WEIGHT_FLOPS
+        return n * 4 * 12 * P * GLUE_SAMPLE_FLOPS + n * 4 * 12 * max(P - 4, 0) * GLUE_WEIGHT_FLOPS
+
+    def pick_ops(corners, valid, dark, fit_err):
+        N = corners.shape[1]
+        qvalid = valid & (dark == kw["want_dark"])
+        score = torch.where(qvalid, plain_tail._sum4(plain_tail._edge_lengths(corners))
+                            / (1.0 + fit_err), -torch.inf)
+        nr = (score > -torch.inf) | torch.isnan(score)
+        return (int((nr.sum(-1) ** 2).sum()) + corners.shape[0] * N) * GLUE_PAIR_FLOPS[stage]
+
+    if stage == "select_refine":
+        by = select_refine_bytes(args, kw, got)
+        ops = refine_ops(args[0].shape[0] * kw["k"]) + pick_ops(*args[1:])
     else:
         flat = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
                 if isinstance(t, torch.Tensor)]
-        B, N = (args[0].shape[:2] if stage == "tail_select" else args[1].shape)
-        by = nbytes(*flat, *gots)
-        if stage == "tail_select":
-            ops = B * N * N * GLUE_PAIR_FLOPS[stage]
-        else:
-            # The dedupe tests the frame's valid pairs; the rank compares
-            # the ones scored above -inf (at most the valid ones); the
-            # fused launch poses each top-T tag.
-            dec, pre_valid = args[0], args[1]
-            nv = (pre_valid & dec.valid & (dec.margin >= kw["min_decision_margin"])).sum(-1)
-            ops = int((nv * nv).sum()) * (GLUE_PAIR_FLOPS[stage] + 1)
-            if stage == "finish_pose":
-                ops += B * min(kw["k"], N) * POSE_FLOPS
+        B, N = args[1].shape
+        by = nbytes(*flat, *got)
+        # The dedupe tests the frame's valid pairs; the rank compares the
+        # ones scored above -inf (at most the valid ones); the fused launch
+        # poses each top-T tag.
+        dec, pre_valid = args[0], args[1]
+        nv = (pre_valid & dec.valid & (dec.margin >= kw["min_decision_margin"])).sum(-1)
+        ops = int((nv * nv).sum()) * (GLUE_PAIR_FLOPS[stage] + 1)
+        if stage == "finish_pose":
+            ops += B * min(kw["k"], N) * POSE_FLOPS
     by_ms, ops_ms = _bytes_ms(by), ops / F32_OPS_PER_S * 1e3
     return (by_ms, "bytes") if by_ms >= ops_ms else (ops_ms, "operations")
 
@@ -4361,8 +4409,8 @@ def glue_bound(stage: str, args, kw, got) -> tuple[float, str]:
 def glue_phase(gpu: str) -> dict:
     """Phase 27: check_glue_case on each of glue_cases, and device times at
     torch_bench.py's two shapes of each kernel, its plain version, its bound
-    (glue_bound) and the parent's form (parent_refine_form,
-    parent_select_form, parent_finish_form); the plain version and the
+    (glue_bound) and the parent's form (parent_select_refine_form,
+    parent_finish_form, parent_finish_pose_form); the plain version and the
     parent's form, tens to hundreds of small torch ops each, are timed as
     captured replays (_graph_ms). No library call computes any of the three.
     Returns {max_abs_err (0: any difference raises), and for 'b1' (720p)
@@ -4370,6 +4418,7 @@ def glue_phase(gpu: str) -> dict:
     library_ms, parent_ms}}."""
     import torch
 
+    from isaac_ros_apriltag_tpu_torch.ops import tail as plain_tail
     from isaac_ros_apriltag_tpu_torch.ops.refine import profile
 
     out = {"max_abs_err": 0.0}
@@ -4385,34 +4434,33 @@ def glue_phase(gpu: str) -> dict:
             lines.append(f"{name}: {int(nv.sum())} valid of {nv.numel()} candidates, "
                          f"{int(fin.num_detections.sum())} tags of {fin.valid.numel()}")
             continue
-        if name in REFINE_CASE_NAMES:
-            (_, corners, _), kw = case["refine"]
-            moved = (got["refine"] != corners).any(-1).any(-1)
-            lines.append(f"{name}: {int(moved.sum())} of {moved.numel()} quads refined, "
-                         f"{profile(kw['search_range'])[1]} samples a profile")
-            continue
-        sel, fin = got["tail_select"], got["tail_finish"]
-        lines.append(f"{name}: {sel.pre_valid.shape[-1]} of "
-                     f"{case['tail_select'][0][0].shape[1]} quads picked "
-                     f"({int(sel.pre_valid.sum())} valid), "
-                     f"{got['refine'].numel() // 8} refined, "
-                     f"{int(fin.num_detections.sum())} tags of {fin.valid.numel()}")
+        (_, *quads), kw = case["select_refine"]
+        sel = got["select_refine"]
+        picked = plain_tail.select_candidates(
+            *quads, **{k: v for k, v in kw.items() if k != "search_range"}).corners
+        moved = (sel.corners != picked).any(-1).any(-1)
+        line = (f"{name}: {' x '.join(map(str, sel.pre_valid.shape))} of "
+                f"{' x '.join(map(str, quads[1].shape))} quads picked "
+                f"({int(sel.pre_valid.sum())} valid) and refined in one launch "
+                f"({int(moved.sum())} moved, {profile(kw['search_range'])[1]} samples a profile)")
+        if "tail_finish" in got:
+            fin = got["tail_finish"]
+            line += f", {int(fin.num_detections.sum())} tags of {fin.valid.numel()}"
+        lines.append(line)
         if name not in bench:
             continue
         t = {}
         for stage, (kernel, plain, parent) in stages.items():
             args, kw = case[stage]
             bound, by = glue_bound(stage, args, kw, got[stage])
-            shape = args[1].shape if stage == "refine" else (
-                args[0].shape if stage == "tail_select" else args[1].shape)
-            t[stage] = dict(shape=list(shape), ms=_device_ms(lambda: kernel(*args, **kw), 20),
+            t[stage] = dict(shape=list(args[1].shape), ms=_device_ms(lambda: kernel(*args, **kw), 20),
                             plain_ms=_graph_ms(lambda: plain(*args, **kw), 20),
                             bound_ms=bound, bound_by=by, library_ms=None,
                             parent_ms=_graph_ms(lambda: parent(*args, **kw), 20))
         out["b1" if bench[name] == 1 else f"batch{bench[name]}"] = t
     torch.cuda.synchronize()
-    print(f"[27 tail glue] refine_kernel, tail_select_kernel, tail_finish_kernel and "
-          f"finish_pose_kernel (the finish with the pose; one launch a call each) against their "
+    print(f"[27 tail glue] refine_kernel (the top-2T pick and refine), tail_finish_kernel "
+          f"and finish_pose_kernel (the finish with the pose; one launch a call each) against their "
           f"plain versions bit for bit on every output, two calls "
           f"and a captured replay equal, a batch equal to each frame alone: "
           + "; ".join(lines) + f"; on {gpu}: device ms a call (kernel / plain / bound (by) / "
@@ -4510,8 +4558,8 @@ def profiled_replays() -> dict:
     counts by path, and under "kernels_a_replay" the count of every kernel
     in each bench replay and in the same replay with the quad-fit epilogue,
     the picks, the dedupe and refine in the parent's form (parent_fit_form,
-    parent_select_form, parent_refine_form, parent_finish_form, and the
-    finish and pose as parent_finish_pose_form), and the count of kernels
+    the pick and refine as parent_select_refine_form, the finish and pose
+    as parent_finish_pose_form), and the count of kernels
     between the quad fit's launch and the finish's (with the pose) in a
     bench replay, which must be TAIL_BETWEEN's, in order (tail_between)."""
     from unittest import mock
@@ -4569,8 +4617,7 @@ def profiled_replays() -> dict:
         # The same replay with the quad-fit epilogue, the picks, the dedupe
         # and refine in the parent's torch ops.
         with mock.patch.object(qk, "fit_quads_from_moments", parent_fit_form), \
-                mock.patch.object(tk, "select_candidates", parent_select_form), \
-                mock.patch.object(rk, "refine_edges", parent_refine_form), \
+                mock.patch.object(rk, "select_and_refine", parent_select_refine_form), \
                 mock.patch.object(tk, "finish_detections", parent_finish_form), \
                 mock.patch.object(tk, "finish_and_pose", parent_finish_pose_form):
             fn = batched_detect_fn(bcfg, bcam, "mono8")
@@ -5442,7 +5489,7 @@ def main() -> int:
          f"share_batch{BATCH}": (tail[f"batch{BATCH}"][k]["bound_ms"]
                                  / tail[f"batch{BATCH}"][k]["ms"])}
         for k in ("decode", "pose")] + [
-        {"name": f"{k}_kernel", "route": "cuda",
+        {"name": GLUE_NAMES.get(k, f"{k}_kernel"), "route": "cuda",
          "source": "isaac_ros_apriltag_tpu_torch/csrc/tail.cu", "replaces": GLUE_REPLACES[k],
          "launches": sum(c[k] for c in paths.values()),
          "launches_by_path": {p: c[k] for p, c in paths.items()},

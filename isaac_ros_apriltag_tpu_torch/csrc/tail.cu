@@ -12,15 +12,23 @@
 // PyTorch each of its steps on the (B, 2T) quads and (B, T) tags is a kernel
 // of its own that does almost no work (~160 for refine, ~350 for decode,
 // ~85 for the picks and ~320 for pose a call), so here each stage is one
-// launch that keeps every intermediate in registers or shared memory.
+// launch that keeps every intermediate in registers or shared memory, and
+// neighbouring stages share a launch where one feeds the other little: the
+// top-2T pick and refine, the finish and pose.
 //
-//   tail_select_kernel, one block a frame, thread i quad i (C <= 128): the
-//     quad's polarity gate and perimeter score (-inf where not valid), its
-//     rank by counting the quads that precede it in torch.sort(descending,
-//     stable)'s order (NaN first, ties to the lower index), and, in the top
-//     k, its corners upscaled to full resolution; the frame's valid count.
-//   refine_kernel, one block a quad, warp k edge k: the 12 points' profiles
-//     along the edge's normal, 12 x P samples (204 at P = 17), go to all 32
+//   refine_kernel, the top-2T pick and refine in one launch, one block a
+//     picked quad (B k blocks), thread i quad i of its frame's C <= 128:
+//     score_quad gives the quad's polarity gate and perimeter score (-inf
+//     where not valid), all loads in one round; select_rank its rank in
+//     torch.sort(descending, stable)'s order (NaN first, ties to the lower
+//     index) by compares over the set bits of the ballot masks of the
+//     quads scored above -inf only, a -inf quad's rank being their count
+//     plus its -inf predecessors. The thread of rank q % k puts its corners,
+//     upscaled to full resolution, and its dark side in shared memory and
+//     writes pre_valid, and the frame's block of rank 0 writes num_quads, so
+//     no launch and no global round trip lie between the pick and refine.
+//     Then warp k refines edge k: the 12 points'
+//     profiles along the edge's normal, 12 x P samples (204 at P = 17), go to all 32
 //     lanes (lane l sample l, l + 32, ... of the 12 points' samples taken
 //     a profile step at a time, each point's place on the edge shuffled
 //     from its lane), every sample's four taps issued before any is used,
@@ -57,7 +65,7 @@
 //     in shared memory; the dedupe against every better valid candidate of
 //     the same id within 0.75 of the larger mean edge (centers and edges in
 //     shared memory), walking the valid masks' set bits only; its rank by
-//     margin as tail_select_kernel ranks, by compares over the candidates
+//     margin as select_rank ranks, by compares over the candidates
 //     scored above -inf (a second ballot) only, a -inf candidate's rank
 //     being their count plus its -inf predecessors; and in the top k its
 //     fields and center; the frame's detection count and overflow.
@@ -97,10 +105,12 @@
 // sample's four taps (100 samples a tag36h11 quad), the corners and the
 // codebook (once a block) and writes ~60 bytes a quad: ~0.3 MB at 1024
 // quads; the picks read ~40 bytes a quad; pose reads 32 bytes of corners a
-// tag and writes 64. The select's rank is C^2 compares a frame, ~16 K,
-// latency again: a thread's 128 steps. The finish's dedupe and rank walk
-// only the set bits of its masks: a bench frame's handful of valid
-// candidates, not 2T steps each. Pose's bytes are ~0 against its latency,
+// tag and writes 64. The picks' ranks walk only the set bits of their
+// masks: the top-2T pick's the frame's quads scored above -inf, the
+// finish's dedupe and rank a bench frame's handful of valid candidates, not
+// C or 2T steps each; every block of refine_kernel repeats its frame's
+// pick, a few us of latency that the launch and the round trip it saves
+// outweigh. Pose's bytes are ~0 against its latency,
 // a thread's chain, which the host's constants shorten and the finish's
 // launch hosts.
 
@@ -125,6 +135,12 @@ constexpr int POSE_THREADS = 128;
 constexpr int CODE_BITS = 24;         // code index bits of a warp-min key
 constexpr int REFINE_POINTS = 12;     // points an edge (ops/refine.py::_NSAMPLES)
 constexpr int REFINE_THREADS = 4 * LANES;   // one warp an edge, one block a quad
+// refine_kernel's blocks an SM keeps resident (64 registers a thread at
+// most, where ptxas spills 24 bytes a thread): 1056 on an H100, one wave for
+// the 1024 picked quads of a batch of 8 frames, where its 69 registers
+// unbounded left 7 blocks an SM and a second wave (~6 us a call more).
+// Sized for that launch; a batch of 9 or more frames takes a second wave.
+constexpr int REFINE_BLOCKS_PER_SM = 8;
 constexpr int REFINE_CHUNK = 24;      // profile samples a point staged at once (P <= 21 on the path)
 constexpr int REFINE_ROUNDS = REFINE_POINTS * REFINE_CHUNK / LANES;   // samples a lane a chunk
 constexpr int TAIL_THREADS = 128;     // a frame's quads at most (max_clusters <= 128)
@@ -730,6 +746,113 @@ pose_kernel(const float* __restrict__ corners, const float* __restrict__ K,
     STAMP(7, n);
 }
 
+// Whether (u at i) comes before (v at j) in torch.sort(descending=True,
+// stable=True): NaN first, then the larger value, ties to the lower index.
+__device__ __forceinline__ bool precedes(float u, int i, float v, int j) {
+    const bool un = is_nan(u), vn = is_nan(v);
+    if (un || vn) return un && (!vn || i < j);
+    return u > v || (u == v && i < j);
+}
+
+// ops/tail.py::_edge_lengths and _sum4: the four edges' lengths (edge k
+// from corner k - 1 to corner k) of corners c, summed in index order.
+__device__ __forceinline__ float edge_sum(const float (&c)[8]) {
+    float n[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int j = (k + 3) & 3;
+        const float ex = c[2 * k] - c[2 * j], ey = c[2 * k + 1] - c[2 * j + 1];
+        n[k] = sqrtf(ex * ex + ey * ey);
+    }
+    return ((n[0] + n[1]) + n[2]) + n[3];
+}
+
+// The top-2T pick's inputs and outputs past the quads' corners and dark
+// sides: (B, C) valid and fit_err; (B, K) pre_valid and (B,) num_quads out.
+struct Pick {
+    const bool* __restrict__ valid;
+    const float* __restrict__ fit_err;
+    bool* __restrict__ pre_valid;
+    int* __restrict__ num_quads;
+    int K;
+    int want_dark;
+    int decimate;
+};
+
+// A frame's quads as one block of TAIL_THREADS takes them, thread i quad i
+// (i < C), for the top-2T pick: the corners, dark side, polarity gate and
+// perimeter score (-inf where not valid), all loads in one round; the
+// scores and the ballot masks of the quads scored above -inf (NaN among
+// them) in shared memory; the frame's count of valid quads.
+struct PickedQuad {
+    float c[8];
+    bool dark;
+    float score;
+    int n_valid;
+};
+
+__device__ __forceinline__ PickedQuad score_quad(const float* __restrict__ corners,
+                                                 const bool* __restrict__ dark, const Pick& pk,
+                                                 int b, int C, float* s_score,
+                                                 unsigned* s_ranked) {
+    const int i = threadIdx.x;
+    const bool in = i < C;
+    const size_t q = (size_t)b * C + i;
+    PickedQuad p;
+    bool qvalid = false;
+    p.dark = false;
+    p.score = -INFINITY;
+    if (in) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) p.c[k] = corners[q * 8 + k];
+        p.dark = dark[q];
+        const bool v = pk.valid[q];
+        const float fe = pk.fit_err[q];
+        qvalid = v && p.dark == (pk.want_dark != 0);
+        p.score = qvalid ? edge_sum(p.c) / (1.0f + fe) : -INFINITY;
+        s_score[i] = p.score;
+    }
+    const unsigned m = __ballot_sync(FULL, in && !(p.score == -INFINITY));
+    if ((i & 31) == 0) s_ranked[i >> 5] = m;
+    p.n_valid = __syncthreads_count(qvalid);
+    return p;
+}
+
+// Quad i's rank (score s, i < C) in precedes' order among its frame's
+// quads, from score_quad's shared scores and masks: a quad scored above
+// -inf compares with the set bits of the masks only (a bench frame's valid
+// quads, not C); a -inf quad's rank is their count plus the -inf quads
+// below it (they tie, and ties go to the lower index).
+__device__ __forceinline__ int select_rank(const float* s_score, const unsigned* s_ranked, int i,
+                                           float s) {
+    constexpr int MASKS = TAIL_THREADS / LANES;
+    const int lane = i & 31, w = i >> 5;
+    if (s == -INFINITY) {
+        int above = 0, below = 0;
+#pragma unroll
+        for (int u = 0; u < MASKS; ++u) {
+            const unsigned r = s_ranked[u];
+            above += __popc(r);
+            below += u < w ? __popc(r) : u == w ? __popc(r & ((1u << lane) - 1u)) : 0;
+        }
+        return above + i - below;
+    }
+    int rank = 0;
+    for (int u = 0; u < MASKS; ++u) {
+        for (unsigned bits = s_ranked[u]; bits; bits &= bits - 1) {
+            const int j = u * LANES + __ffs(bits) - 1;
+            rank += precedes(s_score[j], j, s, i);
+        }
+    }
+    return rank;
+}
+
+// The corners of quad p upscaled from the decimated image to full
+// resolution (ops/tail.py::upscale_coords).
+__device__ __forceinline__ float upscale(float x, int decimate) {
+    return decimate == 1 ? x : x * (float)decimate + 0.5f * (float)(decimate - 1);
+}
+
 // ops/refine.py::_point_sum of an edge's point terms, held by lanes 0-11 of
 // the half warp (0 in lanes 12-15): the halves added pairwise; every lane of
 // the half warp gets the sum.
@@ -739,17 +862,43 @@ __device__ __forceinline__ float point_sum(float v) {
     return v;
 }
 
-__global__ void __launch_bounds__(REFINE_THREADS)
+// One block a picked quad: block q refines its frame's candidate of rank
+// q % K in the top-2T pick, which the block makes first: thread i scores
+// quad i of the C (score_quad, all loads in one round) and ranks it
+// (select_rank); the thread of rank q % K publishes the quad's upscaled
+// corners and dark side in shared memory and writes its pre_valid, and the
+// frame's block of rank 0 writes num_quads.
+__global__ void __launch_bounds__(REFINE_THREADS, REFINE_BLOCKS_PER_SM)
 refine_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
               const bool* __restrict__ dark_inside, float* __restrict__ out, int C, int H, int W,
-              int P, float first, float limit) {
+              int P, float first, float limit, const Pick pk) {
+    static_assert(REFINE_THREADS == TAIL_THREADS, "a thread a quad of the frame");
     __shared__ float s_line[4][4];       // edge k: its point (x, y) and direction (x, y)
     // Edge k's staged samples, a point's row padded to an odd stride (no bank conflict).
     __shared__ float s_prof[4][REFINE_POINTS][REFINE_CHUNK + 1];
+    __shared__ float s_quad[8];          // the candidate's corners
+    __shared__ bool s_dark;              // its dark side
+    __shared__ float s_score[TAIL_THREADS];
+    __shared__ unsigned s_ranked[TAIL_THREADS / LANES];
     const int k = threadIdx.x / LANES, lane = threadIdx.x % LANES;
     const long long q = blockIdx.x;
-    const float* img = gray + (size_t)(q / C) * H * W;
-    const float* cq = corners + q * 8;
+    const long long frame = q / pk.K;
+    {
+        const int r = (int)(q - frame * pk.K), i = threadIdx.x;
+        const PickedQuad p = score_quad(corners, dark_inside, pk, (int)frame, C, s_score,
+                                        s_ranked);
+        if (r == 0 && i == 0) pk.num_quads[frame] = p.n_valid;
+        if (i < C && select_rank(s_score, s_ranked, i, p.score) == r) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s_quad[j] = upscale(p.c[j], pk.decimate);
+            s_dark = p.dark;
+            pk.pre_valid[q] = is_finite(p.score);
+        }
+        __syncthreads();
+    }
+    const float* cq = s_quad;
+    const bool dark = s_dark;
+    const float* img = gray + (size_t)frame * H * W;
     const float cx = (((cq[0] + cq[2]) + cq[4]) + cq[6]) * 0.25f;
     const float cy = (((cq[1] + cq[3]) + cq[5]) + cq[7]) * 0.25f;
     // Edge k, from corner k to corner k + 1, its unit direction and its
@@ -773,7 +922,6 @@ refine_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
     // through a ring of five (the gradient pairs samples j and j - 4 at the
     // offset of j - 2), in chunks of up to REFINE_CHUNK samples a point.
     const bool point = lane < REFINE_POINTS;
-    const bool dark = dark_inside[q];
     const float alpha = (float)(lane + 1) / (float)(REFINE_POINTS + 1);
     const float px = point ? x0 + alpha * ex : 0.0f, py = point ? y0 + alpha * ey : 0.0f;
     float wsum = 0.0f, num = 0.0f;
@@ -862,62 +1010,6 @@ refine_kernel(const float* __restrict__ gray, const float* __restrict__ corners,
         const bool keep = is_finite(x) && is_finite(y) && sqrtf(mvx * mvx + mvy * mvy) < limit;
         out[q * 8 + 2 * k] = keep ? x : x0;
         out[q * 8 + 2 * k + 1] = keep ? y : y0;
-    }
-}
-
-// Whether (u at i) comes before (v at j) in torch.sort(descending=True,
-// stable=True): NaN first, then the larger value, ties to the lower index.
-__device__ __forceinline__ bool precedes(float u, int i, float v, int j) {
-    const bool un = is_nan(u), vn = is_nan(v);
-    if (un || vn) return un && (!vn || i < j);
-    return u > v || (u == v && i < j);
-}
-
-// ops/tail.py::_edge_lengths and _sum4: the four edges' lengths (edge k
-// from corner k - 1 to corner k) of corners c, summed in index order.
-__device__ __forceinline__ float edge_sum(const float (&c)[8]) {
-    float n[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const int j = (k + 3) & 3;
-        const float ex = c[2 * k] - c[2 * j], ey = c[2 * k + 1] - c[2 * j + 1];
-        n[k] = sqrtf(ex * ex + ey * ey);
-    }
-    return ((n[0] + n[1]) + n[2]) + n[3];
-}
-
-__global__ void __launch_bounds__(TAIL_THREADS)
-tail_select_kernel(const float* __restrict__ corners, const bool* __restrict__ valid,
-                   const bool* __restrict__ dark, const float* __restrict__ fit_err,
-                   float* __restrict__ out_corners, bool* __restrict__ out_dark,
-                   bool* __restrict__ pre_valid, int* __restrict__ num_quads, int C, int K,
-                   int want_dark, int decimate) {
-    __shared__ float s_score[TAIL_THREADS];
-    const int b = blockIdx.x, i = threadIdx.x;
-    const bool in = i < C;
-    const size_t q = (size_t)b * C + i;
-    float c[8];
-    bool qvalid = false;
-    float score = -INFINITY;
-    if (in) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) c[k] = corners[q * 8 + k];
-        qvalid = valid[q] && dark[q] == (want_dark != 0);
-        score = qvalid ? edge_sum(c) / (1.0f + fit_err[q]) : -INFINITY;
-        s_score[i] = score;
-    }
-    const int n = __syncthreads_count(qvalid);
-    if (i == 0) num_quads[b] = n;
-    if (!in) return;
-    int rank = 0;
-    for (int j = 0; j < C; ++j) rank += precedes(s_score[j], j, score, i);
-    if (rank < K) {
-        const size_t o = (size_t)b * K + rank;
-        const float d = (float)decimate, half = 0.5f * (float)(decimate - 1);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) out_corners[o * 8 + k] = decimate == 1 ? c[k] : c[k] * d + half;
-        out_dark[o] = dark[q];
-        pre_valid[o] = is_finite(score);
     }
 }
 
@@ -1016,7 +1108,7 @@ __device__ __forceinline__ void finish_block(
     if (lane == 0) s_ranked[w] = rm;
     __syncthreads();
     STAMP(2, s_ranked[0]);
-    // The rank in tail_select_kernel's order (precedes), no score being NaN.
+    // The rank in select_rank's order (precedes), no score being NaN.
     int rank = N;
     if (in) {
         int above = 0, below = 0;                // ranked candidates in all, below j
@@ -1159,31 +1251,26 @@ extern "C" int apriltag_pose(const void* corners, const void* K, void* rotation,
     return (int)cudaGetLastError();
 }
 
-extern "C" int apriltag_refine(const void* gray, const void* corners, const void* dark_inside,
-                               void* out, int B, int C, int H, int W, int P, int first_bits,
-                               int limit_bits, void* stream) {
-    const long long quads = (long long)B * C;
-    if (quads < 1 || quads > 0x7fffffffLL || H < 1 || W < 1 || P < 0)
+// The top-2T pick and refine in one launch: (B, C) quads (corners, valid,
+// dark, fit_err) -> (B, K, 4, 2) refined corners of the top K, (B, K)
+// pre_valid and (B,) num_quads.
+extern "C" int apriltag_select_refine(const void* gray, const void* corners, const void* valid,
+                                      const void* dark, const void* fit_err, void* out,
+                                      void* pre_valid, void* num_quads, int B, int C, int K,
+                                      int H, int W, int P, int first_bits, int limit_bits,
+                                      int want_dark, int decimate, void* stream) {
+    const long long quads = (long long)B * K;
+    if (B < 1 || C < 1 || C > TAIL_THREADS || K < 1 || K > C || decimate < 1
+        || quads > 0x7fffffffLL || H < 1 || W < 1 || P < 0)
         return (int)cudaErrorInvalidValue;
     float first, limit;
     memcpy(&first, &first_bits, sizeof(float));
     memcpy(&limit, &limit_bits, sizeof(float));
+    const Pick pk{(const bool*)valid, (const float*)fit_err, (bool*)pre_valid, (int*)num_quads,
+                  K, want_dark, decimate};
     refine_kernel<<<(unsigned)quads, REFINE_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)gray, (const float*)corners, (const bool*)dark_inside, (float*)out, C, H,
-        W, P, first, limit);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int apriltag_tail_select(const void* corners, const void* valid, const void* dark,
-                                    const void* fit_err, void* out_corners, void* out_dark,
-                                    void* pre_valid, void* num_quads, int B, int C, int K,
-                                    int want_dark, int decimate, void* stream) {
-    if (B < 1 || C < 1 || C > TAIL_THREADS || K < 1 || K > C || decimate < 1)
-        return (int)cudaErrorInvalidValue;
-    tail_select_kernel<<<B, TAIL_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)corners, (const bool*)valid, (const bool*)dark, (const float*)fit_err,
-        (float*)out_corners, (bool*)out_dark, (bool*)pre_valid, (int*)num_quads, C, K,
-        want_dark, decimate);
+        (const float*)gray, (const float*)corners, (const bool*)dark, (float*)out, C, H, W, P,
+        first, limit, pk);
     return (int)cudaGetLastError();
 }
 

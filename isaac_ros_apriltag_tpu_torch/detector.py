@@ -16,13 +16,14 @@ tile sums, scan, the chain walk and map; the contraction and the final
 resolve), cluster moments (ops/cuda/cluster_moments.py, nine kernels: the
 pair count, the kept pairs' histogram pass and four radix passes, two
 segment kernels and the moments; no library sort), then the tail, one
-kernel a stage: quad fit (the prefix tables, then the search and its
-epilogue, ops/cuda/quadfit.py), top-2T by fit quality (ops/cuda/tail.py),
-edge refinement (ops/cuda/refine.py), decode (ops/cuda/decode.py), and the
-dedupe and top-T by decision margin with the center and the tags' pose in
-one launch (ops/cuda/tail.py::finish_and_pose; with_pose=False: the
-finish alone). Backend 'cuda' runs the kernels; 'torch' runs their
-plain versions. Everything else is plain PyTorch on the detector's device.
+kernel a stage or two: quad fit (the prefix tables, then the search and its
+epilogue, ops/cuda/quadfit.py), top-2T by fit quality and edge refinement
+in one launch (ops/cuda/refine.py::select_and_refine), decode
+(ops/cuda/decode.py), and the dedupe and top-T by decision margin with the
+center and the tags' pose in one launch (ops/cuda/tail.py::finish_and_pose;
+with_pose=False: the finish alone). Backend 'cuda' runs the kernels;
+'torch' runs their plain versions. Everything else is plain PyTorch on the
+detector's device.
 """
 
 from __future__ import annotations
@@ -47,9 +48,8 @@ from .ops.decode import decode_quads
 from .ops.grayscale import grayscale
 from .ops.pose import estimate_poses
 from .ops.quadfit import fit_quads_from_moments
-from .ops.refine import refine_edges
 from .ops.resolve import resolve_components, resolve_roots_rank
-from .ops.tail import finish_detections, select_candidates
+from .ops.tail import finish_detections, select_and_refine
 from .ops.tail import upscale_coords as _upscale_coords  # noqa: F401  (the reference's name)
 from .ops.threshold import adaptive_threshold
 from .types import Detections, FrameStats
@@ -124,14 +124,13 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
     """(B, ...) cluster moments -> Detections and FrameStats. Quad fit,
     refine, decode and pose work per quad; the top-k picks and the dedupe
     work within each frame. On backend 'cuda' each stage is one kernel
-    launch: the quad fit's search and epilogue, the top-2T pick, refine,
-    decode, the dedupe and top-T pick with pose. with_pose=False leaves
+    launch: the quad fit's search and epilogue, the top-2T pick with
+    refine, decode, the dedupe and top-T pick with pose. with_pose=False leaves
     translation, quaternion and rotation zero (rotation too, not the
     identity)."""
     cuda = cfg.backend == "cuda"
     fit = quadfit_kernel.fit_quads_from_moments if cuda else fit_quads_from_moments
-    select = tail_kernels.select_candidates if cuda else select_candidates
-    refine = refine_kernel.refine_edges if cuda else refine_edges
+    select_refine = refine_kernel.select_and_refine if cuda else select_and_refine
     decode = decode_kernel.decode_quads if cuda else decode_quads
     finish = tail_kernels.finish_detections if cuda else finish_detections
     d = cfg.quad_decimate
@@ -140,10 +139,10 @@ def _detect_from_clusters(cfg, camera, family, gray, clusters, ccl_converged, *,
     # Top-2T candidate quads by perimeter / (1 + fit error), refined and
     # decoded; then the top-T by decision margin.
     T2 = min(2 * cfg.max_tags, quads.valid.shape[1])
-    cand = select(quads.corners, quads.valid, quads.dark_inside, quads.fit_err,
-                  want_dark=not family.reversed_border, k=T2, decimate=d)
-    corners = refine(gray, cand.corners, cand.dark_inside, search_range=d + 1.0)
-    dec = decode(gray, corners, family, max_hamming=cfg.max_hamming,
+    cand = select_refine(gray, quads.corners, quads.valid, quads.dark_inside, quads.fit_err,
+                         want_dark=not family.reversed_border, k=T2, decimate=d,
+                         search_range=d + 1.0)
+    dec = decode(gray, cand.corners, family, max_hamming=cfg.max_hamming,
                  decode_sharpening=cfg.decode_sharpening)
     fkw = dict(k=cfg.max_tags, min_decision_margin=cfg.min_decision_margin)
     if with_pose and cuda:      # the finish and the pose in one launch

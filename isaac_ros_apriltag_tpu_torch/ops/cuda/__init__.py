@@ -24,7 +24,7 @@ LAUNCH_COUNTERS = {"threshold": (threshold, "launches"), "row": (ccl, "row_launc
                    "resolve_chain": (resolve, "chain_launches"),
                    "resolve_map": (resolve, "map_launches"),
                    "quadfit_search": (quadfit, "launches"),
-                   "tail_select": (tail, "select_launches"), "refine": (refine, "launches"),
+                   "select_refine": (refine, "launches"),
                    "decode": (decode, "launches"), "tail_finish": (tail, "finish_launches"),
                    "finish_pose": (tail, "finish_pose_launches"), "pose": (pose, "launches")}
 

@@ -57,8 +57,7 @@ _ENTRY_POINTS = (("apriltag_threshold", 2, 5),
                  ("apriltag_quadfit_fit", 9, 4),
                  ("apriltag_decode", 11, 12),
                  ("apriltag_pose", 6, 4),
-                 ("apriltag_refine", 4, 7),
-                 ("apriltag_tail_select", 8, 5),
+                 ("apriltag_select_refine", 8, 10),
                  ("apriltag_tail_finish", 16, 4),
                  ("apriltag_tail_finish_pose", 21, 6))
 

@@ -1,13 +1,12 @@
-"""Wrappers of the detector's per-frame picks (csrc/tail.cu:
-tail_select_kernel, tail_finish_kernel and finish_pose_kernel), one block a
-frame each.
+"""Wrappers of the detector's per-frame finish (csrc/tail.cu:
+tail_finish_kernel and finish_pose_kernel), one block a frame each. The top-2T
+pick runs inside refine's launch (ops/cuda/refine.py::select_and_refine).
 
-``select_candidates``, ``finish_detections`` and ``finish_and_pose`` (the
-finish, then the pose of its top-T tags, in one launch: the detect path's)
-check their input, then on CPU tensors run the plain versions
-(ops/tail.py, ops/pose.py); on CUDA tensors they launch their kernel or
-raise and add one to ``select_launches``, ``finish_launches`` or
-``finish_pose_launches``. Each launches on the current stream, into
+``finish_detections`` and ``finish_and_pose`` (the finish, then the pose of
+its top-T tags, in one launch: the detect path's) check their input, then
+on CPU tensors run the plain versions (ops/tail.py, ops/pose.py); on CUDA
+tensors they launch their kernel or raise and add one to
+``finish_launches`` or ``finish_pose_launches``. Each launches on the current stream, into
 outputs allocated here by torch.empty, with no host sync, so a detect call
 that runs them can be captured in a CUDA graph.
 """
@@ -20,11 +19,10 @@ from .. import pose as plain_pose
 from .. import tail as plain
 from ..decode import DecodeResult
 from ..pose import Poses
-from ..tail import Candidates, Selection
+from ..tail import Selection
 from . import _lib
 from .pose import _consts_ptr
 
-select_launches = 0    # tail_select_kernel launches made by select_candidates
 finish_launches = 0    # tail_finish_kernel launches made by finish_detections
 finish_pose_launches = 0   # finish_pose_kernel launches made by finish_and_pose
 
@@ -50,39 +48,6 @@ def _check(tensors: dict, B: int, N: int, what: str) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {dev}")
     return dev
-
-
-def select_candidates(corners: torch.Tensor, valid: torch.Tensor, dark_inside: torch.Tensor,
-                      fit_err: torch.Tensor, *, want_dark: bool, k: int,
-                      decimate: int) -> Candidates:
-    """The plain version's signature and results, bit for bit: (B, C, 4, 2)
-    float32 corners, (B, C) valid and dark_inside (bool) and fit_err
-    (float32); 1 <= k <= C, decimate >= 1."""
-    global select_launches
-    if corners.ndim != 4:
-        raise ValueError(f"corners must be (B, C, 4, 2), got {tuple(corners.shape)}")
-    B, C = corners.shape[:2]
-    dev = _check({"corners": (corners, torch.float32, (4, 2)),
-                  "valid": (valid, torch.bool, ()), "dark_inside": (dark_inside, torch.bool, ()),
-                  "fit_err": (fit_err, torch.float32, ())}, B, C, "select_candidates")
-    if not (1 <= k <= C and decimate >= 1):
-        raise ValueError(f"select_candidates: k must be in [1, {C}] and decimate >= 1, got "
-                         f"{k} and {decimate}")
-    kw = dict(want_dark=want_dark, k=k, decimate=decimate)
-    if dev.type == "cpu":
-        return plain.select_candidates(corners, valid, dark_inside, fit_err, **kw)
-    out = Candidates(corners=torch.empty((B, k, 4, 2), dtype=torch.float32, device=dev),
-                     dark_inside=torch.empty((B, k), dtype=torch.bool, device=dev),
-                     pre_valid=torch.empty((B, k), dtype=torch.bool, device=dev),
-                     num_quads=torch.empty(B, dtype=torch.int32, device=dev))
-    with torch.cuda.device(dev):
-        status = _lib.library().apriltag_tail_select(
-            corners.data_ptr(), valid.data_ptr(), dark_inside.data_ptr(), fit_err.data_ptr(),
-            *(t.data_ptr() for t in out), B, C, k, int(want_dark), decimate,
-            torch.cuda.current_stream().cuda_stream)
-    _lib.check(status, "apriltag_tail_select")
-    select_launches += 1
-    return out
 
 
 def _check_finish(dec: DecodeResult, pre_valid: torch.Tensor, num_quads: torch.Tensor,

@@ -9,8 +9,8 @@ Works on one frame's quads, (C, 4, 2) against an (H, W) image, or on a
 batch, (B, C, 4, 2) against (B, H, W): every image read is a gather within
 the quad's own frame.
 
-``refine_edges`` is the plain version of csrc/tail.cu's refine_kernel, bit
-for bit: every float step is elementwise and in the kernel's order. The
+``refine_edges`` is the plain version of csrc/tail.cu's refine_kernel past
+its top-2T pick, bit for bit: every float step is elementwise and in the kernel's order. The
 profiles are sampled at once, and only their sums are written out: a point's
 offset sums run over its profile in order (the kernel streams the profile
 through a ring of five samples); a sum over an edge's 12 points is

@@ -3,8 +3,9 @@ refinement and decode, and the dedupe and top tags after decode.
 
 Counterparts of the inline steps of ``isaac_ros_apriltag_tpu/detector.py``
 (`_detect_from_clusters`, and `_dedupe` at :80), on a batch (B, N, ...).
-``select_candidates`` and ``finish_detections`` are the plain versions of
-csrc/tail.cu's tail_select_kernel and tail_finish_kernel, bit for bit:
+``select_and_refine`` (``select_candidates``, then ops/refine.py::
+refine_edges) and ``finish_detections`` are the plain versions of
+csrc/tail.cu's refine_kernel and tail_finish_kernel, bit for bit:
 every float step is elementwise and in the kernels' order (sums over the
 four corners in index order, norms sqrt(x*x + y*y)), and a top-k is
 torch.sort(descending=True, stable=True): NaN first, ties to the lower
@@ -20,12 +21,20 @@ import torch
 
 from ..utils.geometry import line_intersection
 from .decode import DecodeResult
+from .refine import refine_edges
 
 
 class Candidates(NamedTuple):
     """The top quads of each frame by fit quality, best first."""
     corners: torch.Tensor      # (B, K, 4, 2) float32, full-resolution pixels
     dark_inside: torch.Tensor  # (B, K) bool
+    pre_valid: torch.Tensor    # (B, K) bool: a valid quad of the wanted polarity
+    num_quads: torch.Tensor    # (B,) int32: such quads in the frame
+
+
+class RefinedCandidates(NamedTuple):
+    """The top quads of each frame by fit quality, best first, refined."""
+    corners: torch.Tensor      # (B, K, 4, 2) float32: refined full-resolution corners
     pre_valid: torch.Tensor    # (B, K) bool: a valid quad of the wanted polarity
     num_quads: torch.Tensor    # (B,) int32: such quads in the frame
 
@@ -87,6 +96,19 @@ def select_candidates(corners: torch.Tensor, valid: torch.Tensor, dark_inside: t
     return Candidates(corners=upscale_coords(take(corners, top_i), decimate),
                       dark_inside=take(dark_inside, top_i), pre_valid=torch.isfinite(top_s),
                       num_quads=qvalid.sum(-1).to(torch.int32))
+
+
+def select_and_refine(gray: torch.Tensor, corners: torch.Tensor, valid: torch.Tensor,
+                      dark_inside: torch.Tensor, fit_err: torch.Tensor, *, want_dark: bool,
+                      k: int, decimate: int, search_range: float) -> RefinedCandidates:
+    """select_candidates, then refine_edges of the picked quads on the
+    (B, H, W) float32 gray frames: the plain version of csrc/tail.cu's
+    refine_kernel, which makes both in one launch."""
+    cand = select_candidates(corners, valid, dark_inside, fit_err, want_dark=want_dark, k=k,
+                             decimate=decimate)
+    return RefinedCandidates(corners=refine_edges(gray, cand.corners, cand.dark_inside,
+                                                  search_range=search_range),
+                             pre_valid=cand.pre_valid, num_quads=cand.num_quads)
 
 
 def finish_detections(dec: DecodeResult, pre_valid: torch.Tensor, num_quads: torch.Tensor,

@@ -8,9 +8,9 @@ counts, no host sync on the detect path, and detect_checked; the captured
 detect call (CUDA graph replay) against the eager call; the CCL flow
 with pointer jumps, bundle adjustment of a 10k-tag map against the CPU, and
 the rig over a world of one NCCL process; the cluster, resolve,
-quad-fit (search and fitting launch), decode, pose, refine, top-2T pick and
-dedupe kernels on chip_smoke.py's cases, the segment kernels on its
-synthetic sorted keys, the cluster sort's kernels on its synthetic rows
+quad-fit (search and fitting launch), decode, pose, top-2T pick and refine
+(one launch) and dedupe kernels on chip_smoke.py's cases, the segment
+kernels on its synthetic sorted keys, the cluster sort's kernels on its synthetic rows
 and frames, and the count and map kernels on its count cases. They skip
 without a card.
 
@@ -64,7 +64,6 @@ from isaac_ros_apriltag_tpu_torch.ops.cuda import pose as pose_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import quadfit as quadfit_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import refine as refine_kernel
 from isaac_ros_apriltag_tpu_torch.ops.cuda import resolve as resolve_kernels
-from isaac_ros_apriltag_tpu_torch.ops.cuda import tail as tail_kernels
 from isaac_ros_apriltag_tpu_torch.ops.cuda import threshold as thr_kernel
 from isaac_ros_apriltag_tpu_torch.ops.threshold import adaptive_threshold
 from isaac_ros_apriltag_tpu_torch.utils.render import distort_image, render_tags, upright_pose
@@ -392,9 +391,10 @@ def test_replay_counts_launches(cuda, backend):
     """A replay adds the launches its capture recorded: 1 / 14 / 14, two of
     each resolve kernel (the contraction's and the final resolve's), the
     cluster kernels' (one of each, one radix scatter a pass), one
-    each of the tail's kernels (the quad fit, the top-2T pick, refine,
-    decode, the dedupe and top-T pick with the pose in one launch) for
-    backend 'cuda', none for the twins; the capture itself adds none."""
+    each of the tail's kernels (the quad fit, the top-2T pick and refine in
+    one launch, decode, the dedupe and top-T pick with the pose in one
+    launch) for backend 'cuda', none for the twins; the capture itself adds
+    none."""
     cfg, cam, inputs = bench_inputs(*CAPTURE_CASES[0], cuda, calls=3)
     fn = batched_detect_fn(dataclasses.replace(cfg, backend=backend), cam, "mono8")
     n = 1 if backend == "cuda" else 0
@@ -406,8 +406,7 @@ def test_replay_counts_launches(cuda, backend):
         assert launch_counts() == {"threshold": n, "row": 14 * n, "col": 14 * n,
                                    **{k: n * m for k, m in CLUSTER_KERNELS.items()},
                                    **{k: 2 * n for k in RESOLVE_KERNELS},
-                                   "quadfit_search": n, "tail_select": n, "refine": n,
-                                   "decode": n, "tail_finish": 0, "finish_pose": n,
+                                   "quadfit_search": n, "select_refine": n, "decode": n, "tail_finish": 0, "finish_pose": n,
                                    "pose": 0}
 
 
@@ -794,10 +793,10 @@ _GLUE_CASES = {}
 
 @pytest.mark.parametrize("name", GLUE_CASE_NAMES + REFINE_CASE_NAMES + FINISH_CASE_NAMES)
 def test_glue_kernels_match_plain_versions(cuda, name):
-    """chip_smoke.py phase 27's checks on one case: the refine, select and
-    finish kernels and the finish with the pose (refine alone on REFINE_CASE_NAMES: search ranges whose
-    profiles span one or several staged chunks, quads across the frame's
-    edges; the finish alone on FINISH_CASE_NAMES: margins at +-inf and NaN,
+    """chip_smoke.py phase 27's checks on one case: the pick and refine in
+    one launch, the finish kernel and the finish with the pose (the pick
+    and refine alone on REFINE_CASE_NAMES: search ranges whose profiles span
+    one or several staged chunks, quads across the frame's edges; the finish alone on FINISH_CASE_NAMES: margins at +-inf and NaN,
     a gate of -inf, one id on 128 valid candidates, N 100 and k 7, NaN
     edges) against their plain versions bit for bit on every output, one
     launch a call, two calls and a captured replay equal, a batch equal to
@@ -811,19 +810,18 @@ def test_glue_kernels_refuse_what_they_do_not_take(cuda):
     g = torch.zeros((2, 40, 50), device=cuda)
     c = torch.zeros((2, 3, 4, 2), device=cuda)
     d = torch.zeros((2, 3), dtype=torch.bool, device=cuda)
-    for bad in ((g.double(), c, d), (g, c[..., :1], d), (g[0], c, d), (g.cpu(), c, d),
-                (g, c, d.cpu()), (g.transpose(1, 2), c, d), (g, c[:, :0], d[:, :0])):
-        with pytest.raises(ValueError):
-            refine_kernel.refine_edges(*bad)
     f = torch.zeros((2, 3), device=cuda)
-    for bad in ((c.double(), d, d, f), (c, d, d, f.cpu()), (c, d.int(), d, f),
-                (torch.zeros((2, 129, 4, 2), device=cuda), *(torch.zeros(
-                    (2, 129), dtype=torch.bool, device=cuda),) * 2,
-                 torch.zeros((2, 129), device=cuda))):
+    kw = dict(want_dark=True, k=2, decimate=2, search_range=3.0)
+    big = torch.zeros((2, 129), device=cuda)
+    for bad in ((g.double(), c, d, d, f), (g.cpu(), c, d, d, f), (g[:1], c, d, d, f),
+                (g[0], c, d, d, f), (g.transpose(1, 2), c, d, d, f), (g, c[..., :1], d, d, f),
+                (g, c.double(), d, d, f), (g, c, d, d.cpu(), f), (g, c, d, d, f.cpu()),
+                (g, c, d.int(), d, f), (g, c[:, :0], d[:, :0], d[:, :0], f[:, :0]),
+                (g, torch.zeros((2, 129, 4, 2), device=cuda), big.bool(), big.bool(), big)):
         with pytest.raises(ValueError):
-            tail_kernels.select_candidates(*bad, want_dark=True, k=2, decimate=2)
+            refine_kernel.select_and_refine(*bad, **kw)
     with pytest.raises(ValueError):
-        tail_kernels.select_candidates(c, d, d, f, want_dark=True, k=4, decimate=2)
+        refine_kernel.select_and_refine(g, c, d, d, f, **{**kw, "k": 4})
 
 
 _RESOLVE_CASES = {}

@@ -1,7 +1,8 @@
 """The detection tail's refinement, quad-fit epilogue and per-frame picks:
-the plain versions of csrc/tail.cu's refine_kernel, tail_select_kernel and
-tail_finish_kernel and of the epilogue of csrc/quadfit.cu's fitting launch,
-on the CPU.
+the plain versions of csrc/tail.cu's refine_kernel (the top-2T pick and
+refine in one launch, ops/tail.py::select_and_refine, and its two halves,
+select_candidates and ops/refine.py::refine_edges) and tail_finish_kernel
+and of the epilogue of csrc/quadfit.cu's fitting launch, on the CPU.
 
 Each plain version (ops/refine.py::refine_edges, ops/quadfit.py::
 fit_epilogue, ops/tail.py::select_candidates and finish_detections) is
@@ -23,9 +24,12 @@ tail_finish_kernel's mask formulation (the dedupe and rank over the
 valid candidates' set bits, a -inf candidate ranked by counts) equals
 finish_detections on those cases and on chip_smoke.FINISH_CASE_NAMES
 (+-inf and NaN margins, a gate of -inf, one id on 128 valid candidates,
-N 100 with k 7, NaN edges), which the plain version also holds to JAX.
-The wrappers run the plain versions on CPU tensors, launch nothing, and
-refuse what their kernels do not take."""
+N 100 with k 7, NaN edges), which the plain version also holds to JAX. A
+numpy mirror of select_rank (the pick's rank over the masks of the quads
+scored above -inf) equals select_candidates on the synthetic cases, and
+the pick and refine equals JAX's pick, then its refine. The wrappers run
+the plain versions on CPU tensors, launch nothing, and refuse what their
+kernels do not take."""
 
 import dataclasses
 import functools
@@ -70,8 +74,8 @@ torch.set_num_threads(2)
 
 SYNTHETIC = GLUE_CASE_NAMES[len(chip_smoke.CAPTURE_CASES):]
 PX_ATOL, PX_RTOL = 1e-5, 5e-7        # against the parent's form
-STAGES = {"refine": tref.refine_edges, "tail_select": ttail.select_candidates,
-          "tail_finish": ttail.finish_detections}
+STAGES = {"select_refine": ttail.select_and_refine, "refine": tref.refine_edges,
+          "tail_select": ttail.select_candidates, "tail_finish": ttail.finish_detections}
 
 
 @functools.lru_cache(maxsize=None)
@@ -373,6 +377,25 @@ def test_select_matches_reference(name):
                                    err_msg=f"{name} {got._fields[i]}")
 
 
+@pytest.mark.parametrize("name", SYNTHETIC)
+def test_select_and_refine_matches_reference(name):
+    """The detect path's pick and refine (ops/tail.py::select_and_refine,
+    the plain version of refine_kernel) against the JAX package's
+    pick, then its refine_edges, of the 128 quads on the one-tag frames:
+    the picks exact, the refined corners within 1e-3 px."""
+    (gray, corners, valid, dark, fit_err), kw = case(name)["select_refine"]
+    skw = {k: v for k, v in kw.items() if k != "search_range"}
+    jsel = jax.jit(jax.vmap(functools.partial(_jax_select, **skw)))
+    jc, jd, jpre, jn = jsel(*(jnp.asarray(t.numpy()) for t in (corners, valid, dark, fit_err)))
+    ref = jax.jit(jax.vmap(lambda g, c, d: jref.refine_edges(g, c, d,
+                                                             search_range=kw["search_range"])))
+    want = np.asarray(ref(jnp.asarray(gray.numpy()), jc, jd))
+    got = ttail.select_and_refine(gray, corners, valid, dark, fit_err, **kw)
+    np.testing.assert_array_equal(got.pre_valid.numpy(), np.asarray(jpre), err_msg=name)
+    np.testing.assert_array_equal(got.num_quads.numpy(), np.asarray(jn), err_msg=name)
+    np.testing.assert_allclose(got.corners.numpy(), want, atol=1e-3, err_msg=name)
+
+
 @pytest.mark.parametrize("name", FINISH_CASES)
 def test_finish_matches_reference(name):
     (dec, pre_valid, n_quads, overflow), kw = finish_case(name)
@@ -431,19 +454,22 @@ def test_tail_matches_reference_detect_from_clusters():
 
 @pytest.mark.parametrize("name", ["a batch of 3 frames", "quad_decimate 3"])
 def test_refine_bound_reads_each_pixel_once(name):
-    """chip_smoke.py's byte bound of refine_kernel counts each pixel its
-    samples' taps read once: the plain bilinear taps of an image that holds
-    each pixel's own index name the same pixels, and they are fewer than
-    four taps a sample."""
-    (gray, corners, dark), kw = case(name)["refine"]
-    got = tref.refine_edges(gray, corners, dark, **kw)
+    """chip_smoke.py's byte bound of refine_kernel (the pick and refine)
+    counts each pixel the picked quads' samples' taps read once: the plain
+    bilinear taps of an image that holds each pixel's own index name the
+    same pixels, and they are fewer than four taps a sample; the quads and
+    the outputs once each."""
+    args, kw = case(name)["select_refine"]
+    got = ttail.select_and_refine(*args, **kw)
+    gray, *quads = args
+    picked = ttail.select_candidates(
+        *quads, **{k: v for k, v in kw.items() if k != "search_range"}).corners
     B, H, W = gray.shape
     index = torch.arange(B * H * W, dtype=torch.float64).view(B, H, W)
-    taps = tref.bilinear_taps(index, *tref.sample_points(corners, kw["search_range"]))[:4]
+    taps = tref.bilinear_taps(index, *tref.sample_points(picked, kw["search_range"]))[:4]
     pixels = torch.unique(torch.stack(taps)).numel()
-    rest = corners.numel() * 4 + dark.numel() + got.numel() * 4
-    assert chip_smoke.refine_bytes(gray, corners, dark, kw["search_range"], got) == \
-        pixels * 4 + rest
+    rest = sum(t.numel() * t.element_size() for t in (*quads, *got))
+    assert chip_smoke.select_refine_bytes(args, kw, got) == pixels * 4 + rest
     assert pixels < taps[0].numel() * 4
 
 
@@ -537,13 +563,82 @@ def test_finish_kernel_mirror_is_held_by_the_cases():
     assert not chip_smoke._same(got.corners, want.corners)
 
 
+# --- the pick's rank over the masks of the quads scored above -inf, in numpy --
+
+def _precedes(u, i, v, j, nan_first=True):
+    """csrc/tail.cu::precedes: (u at i) before (v at j) in
+    torch.sort(descending=True, stable=True). Without `nan_first` (a wrong
+    mirror) a NaN is compared as a number: it precedes nothing and nothing
+    precedes it."""
+    if nan_first and (np.isnan(u) or np.isnan(v)):
+        return bool(np.isnan(u) and (not np.isnan(v) or i < j))
+    return bool(u > v or (u == v and i < j))
+
+
+def _select_mirror(corners, valid, dark, fit_err, *, want_dark, k, decimate, nan_first=True):
+    """csrc/tail.cu's select_rank frame by frame, as refine_kernel runs it: the quads scored above -inf (NaN among them)
+    as four 32-bit masks; such a quad's rank by precedes over the masks'
+    set bits only; a -inf quad's rank their count plus the -inf quads below
+    it; then the quads of rank < k, their corners upscaled, dark side and
+    pre_valid, and the frame's valid count."""
+    B, C = valid.shape
+    qvalid = valid & (dark == want_dark)
+    score = torch.where(qvalid, ttail._sum4(ttail._edge_lengths(corners)) / (1.0 + fit_err),
+                        -torch.inf).numpy()
+    pick = np.zeros((B, k), np.int64)
+    for b in range(B):
+        s = score[b]
+        ranked = ~(s == -np.inf)
+        masks = [sum(1 << L for L in range(32) if 32 * u + L < C and ranked[32 * u + L])
+                 for u in range(4)]
+        bits = [32 * u + L for u in range(4) for L in range(32) if masks[u] >> L & 1]
+        above = len(bits)
+        for i in range(C):
+            if ranked[i]:
+                r = sum(_precedes(s[j], j, s[i], i, nan_first) for j in bits)
+            else:
+                r = above + i - sum(j < i for j in bits)
+            if r < k:
+                pick[b, r] = i
+    idx = torch.from_numpy(pick)
+    return ttail.Candidates(
+        corners=ttail.upscale_coords(ttail.take(corners, idx), decimate),
+        dark_inside=ttail.take(dark, idx),
+        pre_valid=torch.isfinite(torch.gather(torch.from_numpy(score), 1, idx)),
+        num_quads=qvalid.sum(-1).to(torch.int32))
+
+
+@pytest.mark.parametrize("name", SYNTHETIC)
+def test_select_rank_mirror_equals_select_candidates(name):
+    """select_rank's formulation equals select_candidates bit for bit on
+    every Candidates field on phase 27's synthetic cases (NaN and inf
+    corners, no valid quad, tied scores, max_tags < C/2, quad_decimate 1 and
+    3, a batch of 3), and so does the pick that select_and_refine refines."""
+    args, kw = case(name)["tail_select"]
+    want = ttail.select_candidates(*args, **kw)
+    assert_same(_select_mirror(*args, **kw), want)
+    gargs, gkw = case(name)["select_refine"]
+    mirror = _select_mirror(*gargs[1:], **{k: v for k, v in gkw.items() if k != "search_range"})
+    assert_same(ttail.select_and_refine(*gargs, **gkw),
+                (tref.refine_edges(gargs[0], mirror.corners, mirror.dark_inside,
+                                   search_range=gkw["search_range"]),
+                 mirror.pre_valid, mirror.num_quads))
+
+
+def test_select_rank_mirror_is_held_by_the_cases():
+    """A mirror that compares NaN scores as numbers picks other quads than
+    select_candidates on the NaN case."""
+    args, kw = case("NaN and inf corners")["tail_select"]
+    got = _select_mirror(*args, nan_first=False, **kw)
+    assert not chip_smoke._same(got.corners, ttail.select_candidates(*args, **kw).corners)
+
+
 # --- the wrappers on the CPU ------------------------------------------------
 
 def test_wrappers_run_the_plain_versions_on_the_cpu():
     before = launch_counts()
     c = case("a batch of 3 frames")
-    for stage, wrapper in (("refine", refine_kernel.refine_edges),
-                           ("tail_select", tail_kernels.select_candidates),
+    for stage, wrapper in (("select_refine", refine_kernel.select_and_refine),
                            ("tail_finish", tail_kernels.finish_detections)):
         args, kw = c[stage]
         assert_same(wrapper(*args, **kw), STAGES[stage](*args, **kw))
@@ -572,29 +667,34 @@ def test_build_hash_tracks_the_shared_header(monkeypatch, tmp_path):
 
 
 def test_refine_wrapper_refuses_what_its_kernel_does_not_take():
-    (g, c, d), kw = case("a batch of 3 frames")["refine"]
-    for bad in ((g.double(), c, d), (g, c.double(), d), (g, c, d.int()), (g, c[..., :1], d),
-                (g[0], c, d), (g[:1], c, d), (g, c, d[:, :2]), (g.transpose(1, 2), c, d),
-                (g, c.transpose(1, 2), d), (g[:, :0], c, d), (g, c[:, :0], d[:, :0]),
-                (g, c, d.to("meta"))):
+    """The pick and refine's wrapper refuses a gray it cannot refine on."""
+    (g, c, v, d, f), kw = case("a batch of 3 frames")["select_refine"]
+    for bad in ((g.double(), c, v, d, f), (g[0], c, v, d, f), (g[:2], c, v, d, f),
+                (g.transpose(1, 2), c, v, d, f), (g[:, :0], c, v, d, f),
+                (g.to("meta"), c, v, d, f)):
         with pytest.raises(ValueError):
-            refine_kernel.refine_edges(*bad, **kw)
+            refine_kernel.select_and_refine(*bad, **kw)
+
+
+def test_select_and_refine_wrapper_refuses_what_its_kernel_does_not_take():
+    """The pick and refine's wrapper refuses quads it cannot pick from."""
+    (g, c, v, d, f), kw = case("a batch of 3 frames")["select_refine"]
+    for bad in ((g, c.double(), v, d, f), (g, c, v.int(), d, f), (g, c, v, d[:, :5], f),
+                (g, c[0], v, d, f), (g, c[..., :1], v, d, f),
+                (g, c, v, d, f.transpose(0, 1).contiguous().transpose(0, 1)),
+                (g, c, v, d, f[:2]), (g, c[:, :0], v[:, :0], d[:, :0], f[:, :0])):
+        with pytest.raises(ValueError):
+            refine_kernel.select_and_refine(*bad, **kw)
+    big = torch.zeros((3, 129, 4, 2))
+    with pytest.raises(ValueError, match="128"):
+        refine_kernel.select_and_refine(g, big, *(torch.zeros((3, 129), dtype=torch.bool),) * 2,
+                                        torch.zeros((3, 129)), **kw)
+    for k, d_ in ((0, 2), (c.shape[1] + 1, 2), (4, 0)):
+        with pytest.raises(ValueError):
+            refine_kernel.select_and_refine(g, c, v, d, f, **{**kw, "k": k, "decimate": d_})
 
 
 def test_pick_wrappers_refuse_what_their_kernels_do_not_take():
-    (c, v, d, f), kw = case("a batch of 3 frames")["tail_select"]
-    for bad in ((c.double(), v, d, f), (c, v.int(), d, f), (c, v, d[:, :5], f),
-                (c[0], v, d, f), (c, v, d, f.transpose(0, 1).contiguous().transpose(0, 1)),
-                (c, v, d, f[:2]), (c[:, :0], v[:, :0], d[:, :0], f[:, :0])):
-        with pytest.raises(ValueError):
-            tail_kernels.select_candidates(*bad, **kw)
-    big = torch.zeros((1, 129, 4, 2))
-    with pytest.raises(ValueError, match="128"):
-        tail_kernels.select_candidates(big, *(torch.zeros((1, 129), dtype=torch.bool),) * 2,
-                                       torch.zeros((1, 129)), **kw)
-    for k, d_ in ((0, 2), (c.shape[1] + 1, 2), (4, 0)):
-        with pytest.raises(ValueError):
-            tail_kernels.select_candidates(c, v, d, f, want_dark=True, k=k, decimate=d_)
     (dec, pre, nq, ovf), kw = case("a batch of 3 frames")["tail_finish"]
     for bad in ((dec._replace(id=dec.id.long()), pre, nq, ovf),
                 (dec._replace(margin=dec.margin[:, :3]), pre, nq, ovf),

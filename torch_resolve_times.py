@@ -15,7 +15,8 @@ call by name (torch.profiler over ITERS calls: kernels and memsets). The
 resolve stage's calls (the default) are those of a detect call: the
 contraction on the phase-1 labels and the rank-mode final resolve on the
 phase-2 labels, then the scan pass alone (ops/cuda/resolve.py::scan: its
-tile sums and scan launches) on the label counts of each of the two. The sort's call is the cluster stage's sort of the kept
+tile sums and scan launches) on the label counts of each of the two, and
+the count alone (with its memset) on each's labels. The sort's call is the cluster stage's sort of the kept
 pairs (sort_pairs, its memset included), given with the kept pairs; the
 edge_count call the stage's pair count (edge_count, with its zeroed
 output), given with the pixels; the moments call the moments kernel on
@@ -28,8 +29,9 @@ kernels (top_segments) on the stage's sorted keys, given with the tiles
 and the valid keys; the quadfit calls the quad fit's fitting
 launch (quad_fit) and its search alone (quad_search) on the prefix tables
 of the cluster stage's moments, given with the clusters; the refine call
-the edge refinement (refine_edges) on the candidate quads a detect call
-gives it, given with the quads and the profile's samples; the decode
+the top-2T pick and edge refinement in one launch (select_and_refine) on
+the quads a detect call gives it, given with the picked quads and the
+profile's samples; the decode
 call the decode kernel (decode_quads) on the refined candidates a detect
 call gives it, given with the quads; the pose call the pose kernel
 (estimate_poses) on the top-T tags' corners a detect call gives it,
@@ -117,9 +119,10 @@ def main() -> int:
             calls = {"quad_fit": lambda: qk.quad_fit(S, m, min_area=min_area),
                      "quad_search": lambda: qk.quad_search(S)}
         elif args.stage == "refine":
-            (gray, corners, dark), kw = detect_glue_inputs(cfg, cam, inputs[0])["refine"]
-            size = {"quads": corners.numel() // 8, "samples": profile(kw["search_range"])[1]}
-            calls = {"refine": lambda: fk.refine_edges(gray, corners, dark, **kw)}
+            sargs, skw = detect_glue_inputs(cfg, cam, inputs[0])["select_refine"]
+            size = {"quads": sargs[0].shape[0] * skw["k"],
+                    "samples": profile(skw["search_range"])[1]}
+            calls = {"select_refine": lambda: fk.select_and_refine(*sargs, **skw)}
         elif args.stage == "decode":
             gray, corners, family, kw = detect_tail_inputs(cfg, cam, inputs[0])["decode"]
             size = {"quads": corners.numel() // 8}
@@ -189,7 +192,9 @@ def main() -> int:
                          lab2, valid, min_component_pixels=cfg.min_component_pixels,
                          max_components=R, chain_steps=cfg.ccl_resolve_steps, rank_table=table),
                      "scan_contraction": lambda: rk.scan(cnt1, R),
-                     "scan_final": lambda: rk.scan(cnt2, R)}
+                     "scan_final": lambda: rk.scan(cnt2, R),
+                     "count_contraction": lambda: rk.count(flat[0], flat[2], N),
+                     "count_final": lambda: rk.count(flat[1], flat[2], R)}
         out[f"{config} b{batch}"] = {
             call: {**size, "call_ms": [_device_ms(fn, ITERS) for _ in range(READINGS)],
                    "ops_ms": [op_ms(fn, ITERS) for _ in range(READINGS)]}
